@@ -1,0 +1,72 @@
+"""Carry solver state between the JAX reference and the port.
+
+The ``*_from_numpy`` functions take the fields of the reference's
+``SVBuffer`` / ``BinarySVM`` / ``MapReduceSVM`` as numpy arrays (for
+example ``np.asarray`` of each JAX field) and build the port's
+structures on ``device``; :func:`to_numpy` goes back. A JAX round's
+SV_global can so seed the port's next round, and a model trained by
+the reference can be served by the port.
+
+bfloat16 numpy arrays (the ``ml_dtypes`` type JAX hands out) are read
+by their bits. :func:`to_numpy` widens bfloat16 to float32, which is
+exact.
+"""
+from __future__ import annotations
+
+from typing import Mapping, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.core.mapreduce_svm import MapReduceSVM, SVBuffer
+from repro_torch.core.svm import BinarySVM
+from repro_torch.device import DeviceLike
+
+
+def tensor_from_numpy(a, device: DeviceLike = "cpu") -> torch.Tensor:
+    """A tensor with ``a``'s values and dtype (bfloat16 included)."""
+    a = np.array(a)            # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def sv_buffer_from_numpy(x, y, alpha, ids, mask,
+                         device: DeviceLike = "cpu") -> SVBuffer:
+    return SVBuffer(*(tensor_from_numpy(a, device)
+                      for a in (x, y, alpha, ids, mask)))
+
+
+def binary_svm_from_numpy(alpha, b, w, epochs_run, max_violation,
+                          device: DeviceLike = "cpu") -> BinarySVM:
+    return BinarySVM(*(tensor_from_numpy(a, device)
+                       for a in (alpha, b, w, epochs_run, max_violation)))
+
+
+def mapreduce_model_from_numpy(w, b, sv: Sequence, final: Sequence, risk,
+                               rounds: int,
+                               history: Sequence[Mapping] = (),
+                               device: DeviceLike = "cpu") -> MapReduceSVM:
+    """``sv`` and ``final`` are the fields of the reference's SVBuffer
+    and BinarySVM, in their order."""
+    return MapReduceSVM(
+        w=tensor_from_numpy(w, device), b=tensor_from_numpy(b, device),
+        sv=sv_buffer_from_numpy(*sv, device=device),
+        final=binary_svm_from_numpy(*final, device=device),
+        risk=tensor_from_numpy(risk, device), rounds=int(rounds),
+        history=tuple(dict(h) for h in history))
+
+
+def to_numpy(obj):
+    """Tensors (also inside NamedTuples, tuples and lists) → numpy;
+    everything else unchanged."""
+    if isinstance(obj, torch.Tensor):
+        t = obj.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    if isinstance(obj, tuple) and hasattr(obj, "_fields"):
+        return type(obj)(*(to_numpy(v) for v in obj))
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_numpy(v) for v in obj)
+    return obj

@@ -1,0 +1,28 @@
+"""Core library: the paper's MapReduce SVM on PyTorch."""
+from repro_torch.core.kernel_fns import KernelConfig, apply_kernel
+from repro_torch.core.svm import (BinarySVM, SolverParams, SVMConfig,
+                                  decision_linear, fit_binary,
+                                  fit_binary_linear, predict_sign,
+                                  support_mask)
+from repro_torch.core.mapreduce_svm import (CONVERGE_IMPLS, SHUFFLE_IMPLS,
+                                            MapReduceSVM, MRSVMConfig,
+                                            RoundResult, SVBuffer,
+                                            decision_values, fit_mapreduce,
+                                            init_sv_buffer, mapreduce_round,
+                                            predict)
+from repro_torch.core.multiclass import (OneVsOneSVM, OneVsRestSVM,
+                                         confusion_matrix, fit_one_vs_one,
+                                         fit_one_vs_rest)
+from repro_torch.core.risk import (converged, empirical_risk, hinge_loss,
+                                   zero_one_loss)
+
+__all__ = [
+    "KernelConfig", "apply_kernel", "BinarySVM", "SolverParams", "SVMConfig",
+    "decision_linear", "fit_binary", "fit_binary_linear", "predict_sign",
+    "support_mask", "CONVERGE_IMPLS", "SHUFFLE_IMPLS", "MapReduceSVM",
+    "MRSVMConfig", "RoundResult", "SVBuffer", "decision_values",
+    "fit_mapreduce", "init_sv_buffer", "mapreduce_round", "predict",
+    "OneVsOneSVM", "OneVsRestSVM", "confusion_matrix", "fit_one_vs_one",
+    "fit_one_vs_rest", "converged", "empirical_risk", "hinge_loss",
+    "zero_one_loss",
+]

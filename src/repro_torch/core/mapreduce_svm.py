@@ -1,0 +1,287 @@
+"""The paper's contribution: iterative MapReduce SVM with global
+support-vector exchange (Çatak 2014, Tablo 1-2, eq. 6-9), functional
+mode on one card.
+
+Algorithm (one *round* = one MapReduce job):
+
+  map    : D_l^t ← D_l ∪ SV_global^t          (augment partitions)
+  reduce : (SV_l, h_l^t) ← binarySvm(D_l^t)   (local dual solve)
+  merge  : SV_global^{t+1} ← ∪_l SV_l          (the "shuffle")
+  driver : h^t = argmin_l R_emp(h_l^t);  stop when
+           |R_emp(h^{t-1}) − R_emp(h^t)| ≤ γ  (eq. 8)
+
+SV_global is a capacity-bounded, mask-padded buffer; each partition
+contributes its top ``capacity // L`` rows by α (a balanced union), and
+a row's evidence is the max of α over all its copies.
+
+On the card a round is two kernel launches: ``cd_solve`` solves all L
+partitions at once, reading each partition's home rows and the shared
+SV buffer through two pointers (the L augmented partitions are never
+copied), and ``hinge_scores`` scores the L hypotheses on the full data
+(eq. 7). The sharded mode, the sweep axis and the fault seams of the
+reference wait for later slices (ROADMAP Queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import risk as risk_lib
+from repro_torch.core.svm import (_GRAM_PATH, BinarySVM, SolverParams,
+                                  SVMConfig, decision_linear,
+                                  solve_linear_jobs)
+from repro_torch.device import DeviceLike, as_tensor, resolve_device
+from repro_torch.kernels import ops
+
+# The merge transports and eq. 8 readback collectives of the sharded
+# mode; the port validates against the same names as the reference.
+SHUFFLE_IMPLS = ("allgather", "ring", "hier")
+CONVERGE_IMPLS = ("psum", "tree")
+
+
+class SVBuffer(NamedTuple):
+    """Capacity-bounded global support-vector set SV_global^t."""
+    x: torch.Tensor      # (cap, d) feature rows
+    y: torch.Tensor      # (cap,)   labels in {-1, +1} (0 on padding)
+    alpha: torch.Tensor  # (cap,)   dual coefficient evidence (max over copies)
+    ids: torch.Tensor    # (cap,)   stable global row ids (int32, -1 padding)
+    mask: torch.Tensor   # (cap,)   1.0 where the slot holds a real SV
+
+
+class RoundResult(NamedTuple):
+    sv: SVBuffer
+    risks: torch.Tensor     # (L,) empirical risk of every reducer hypothesis
+    ws: torch.Tensor        # (L, d) reducer primal hypotheses
+    bs: torch.Tensor        # (L,)
+    sv_count: torch.Tensor  # () live slots in the new buffer
+
+
+def _float_dtype(name: str) -> torch.dtype:
+    dt = getattr(torch, str(name), None)
+    if not isinstance(dt, torch.dtype):
+        raise ValueError(f"unknown dtype {name!r}")
+    return dt
+
+
+@dataclasses.dataclass(frozen=True)
+class MRSVMConfig:
+    """Driver configuration for the iterative MapReduce SVM.
+
+    The transport fields (``shuffle_impl`` … ``shuffle_wire_check``)
+    configure the reference's sharded mode; they are validated here as
+    there and are not read by the functional mode.
+    """
+    sv_capacity: int = 256
+    svm: SVMConfig = SVMConfig()
+    gamma: float = 1e-3          # eq. 8 convergence tolerance on R_emp
+    max_rounds: int = 10
+    risk_loss: str = "hinge"     # 'hinge' (used in eq. 6) or 'zero_one'
+    shuffle_impl: str = "allgather"       # one of SHUFFLE_IMPLS
+    shuffle_wire_dtype: str = "bfloat16"  # packed: feature-row wire dtype
+    sweep_dedup: bool = True              # packed sweep: cross-config dedup
+    dedup_max_unique: Optional[int] = None  # unique slots/chunk; None=lossless
+    hier_num_hosts: Optional[int] = None  # hier: host groups; None=processes
+    converge_impl: str = "psum"           # one of CONVERGE_IMPLS
+    shuffle_wire_check: bool = False
+
+    def __post_init__(self):
+        if self.shuffle_impl not in SHUFFLE_IMPLS:
+            raise ValueError(
+                f"shuffle_impl must be one of {SHUFFLE_IMPLS}, "
+                f"got {self.shuffle_impl!r}")
+        if self.converge_impl not in CONVERGE_IMPLS:
+            raise ValueError(
+                f"converge_impl must be one of {CONVERGE_IMPLS}, "
+                f"got {self.converge_impl!r}")
+        if self.hier_num_hosts is not None and self.hier_num_hosts < 1:
+            raise ValueError(
+                f"hier_num_hosts must be >= 1, got {self.hier_num_hosts}")
+        wdt = _float_dtype(self.shuffle_wire_dtype)
+        if wdt.itemsize not in (2, 4) or not wdt.is_floating_point:
+            raise ValueError(
+                "shuffle_wire_dtype must be a 2- or 4-byte float "
+                f"(bf16/f16/f32), got {self.shuffle_wire_dtype!r}")
+
+
+def init_sv_buffer(capacity: int, d: int, dtype=torch.float32,
+                   device: DeviceLike = "cpu") -> SVBuffer:
+    """SV_global^0 = ∅ (empty, mask-padded buffer)."""
+    dev = torch.device(device)
+    zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)  # noqa: E731
+    return SVBuffer(x=zeros(capacity, d), y=zeros(capacity),
+                    alpha=zeros(capacity),
+                    ids=torch.full((capacity,), -1, dtype=torch.int32,
+                                   device=dev),
+                    mask=zeros(capacity))
+
+
+def _risks(Xflat, yflat, mflat, ws, bs, loss: str) -> torch.Tensor:
+    """Eq. 7: R_emp of every hypothesis on the full data."""
+    if loss == "hinge":
+        losses, count = ops.hinge_scores(Xflat, ws, bs, yflat.float(),
+                                         mflat.float())
+        return losses / torch.clamp(count, min=1.0)
+    scores = torch.stack([decision_linear(w, b, Xflat)
+                          for w, b in zip(ws, bs)], 1)        # (n, L)
+    return torch.stack([risk_lib.empirical_risk(scores[:, l], yflat, mflat,
+                                                loss)
+                        for l in range(scores.shape[1])])
+
+
+def mapreduce_round(Xp: torch.Tensor, yp: torch.Tensor, maskp: torch.Tensor,
+                    sv: SVBuffer, cfg: MRSVMConfig,
+                    params: Optional[SolverParams] = None) -> RoundResult:
+    """One full MapReduce round over stacked partitions.
+
+    Xp: (L, per, d); rows are ordered so global id of (l, i) = l*per + i.
+    """
+    if not cfg.svm.is_linear:
+        raise NotImplementedError(_GRAM_PATH)
+    L, per, d = Xp.shape
+    p = cfg.svm.params() if params is None else params
+    cap = sv.x.shape[0]
+    if cap % L != 0:
+        raise ValueError(f"sv_capacity {cap} must divide by partitions {L}")
+    k = cap // L
+
+    # --- map + reduce: all L partitions in one solve -----------------------
+    y_aug = torch.cat([yp, sv.y.expand(L, cap)], 1)
+    m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1)
+    res: BinarySVM = solve_linear_jobs(Xp, sv.x, y_aug, m_aug, cfg.svm, p)
+    alpha = res.alpha                                # (L, per + cap)
+    home_alpha = alpha[:, :per].reshape(-1)          # (L*per,) by global id
+    copy_alpha = alpha[:, per:]                      # (L, cap) appended copies
+
+    # --- union semantics: α_eff(row) = max over all copies ------------------
+    buf_alpha = copy_alpha.max(0).values * sv.mask               # (cap,)
+    live_id = sv.ids >= 0
+    safe_ids = torch.where(live_id, sv.ids, 0).long()
+    folded = torch.zeros_like(home_alpha).scatter_reduce_(
+        0, safe_ids, torch.where(live_id, buf_alpha, 0.0).to(home_alpha.dtype),
+        "amax", include_self=True)
+    home_alpha = torch.maximum(home_alpha, folded).reshape(L, per) * maskp
+
+    # --- merge: balanced top-k per partition, concatenated -------------------
+    # A stable descending sort puts the lower index first on ties, as
+    # lax.top_k does (torch.topk does not); bound SVs tie exactly at α = C.
+    topv, topi = torch.sort(home_alpha, dim=1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]                        # (L, k)
+    rows = torch.arange(L, device=Xp.device)[:, None]
+    new_x = Xp[rows, topi].reshape(cap, d)
+    new_y = yp[rows, topi].reshape(cap)
+    live = (topv > p.sv_threshold).to(Xp.dtype)
+    base_ids = (torch.arange(L, dtype=torch.int32, device=Xp.device)
+                * per)[:, None] + topi.to(torch.int32)
+    new_sv = SVBuffer(
+        x=new_x * live.reshape(cap, 1),
+        y=new_y * live.reshape(cap),
+        alpha=(topv * live).reshape(cap),
+        ids=torch.where(live.reshape(cap) > 0, base_ids.reshape(cap), -1)
+        .to(torch.int32),
+        mask=live.reshape(cap),
+    )
+
+    # --- driver: risk of every reducer hypothesis on the FULL data (eq. 7) --
+    risks = _risks(Xp.reshape(L * per, d), yp.reshape(L * per),
+                   maskp.reshape(L * per), res.w, res.b, cfg.risk_loss)
+    return RoundResult(sv=new_sv, risks=risks, ws=res.w, bs=res.b,
+                       sv_count=new_sv.mask.sum())
+
+
+class MapReduceSVM(NamedTuple):
+    """Driver output: best reducer hypothesis (eq. 7) + final SV model."""
+    w: torch.Tensor          # (d,) best linear hypothesis
+    b: torch.Tensor
+    sv: SVBuffer             # converged SV_global
+    final: BinarySVM         # model retrained on SV_global alone
+    risk: torch.Tensor       # R_emp(h^T) of the selected hypothesis
+    rounds: int
+    history: Tuple[dict, ...]
+
+
+def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
+                  mask=None, params: Optional[SolverParams] = None,
+                  verbose: bool = False,
+                  device: DeviceLike = None) -> MapReduceSVM:
+    """Iterative MapReduce SVM driver (functional mode).
+
+    Pads ``X`` to a multiple of ``num_partitions`` and loops rounds on
+    the host until eq. 8 fires or ``max_rounds`` is hit, then retrains
+    on SV_global. Numpy inputs go to ``device`` (default ``cuda``).
+    Each history entry also records the round's host-clock ``ms``
+    (the round ends at the eq. 8 risk readback, which waits for the
+    device).
+    """
+    dev = resolve_device(device, like=X)
+    X = as_tensor(X, dev)
+    n, d = X.shape
+    L = num_partitions
+    per = -(-n // L)
+    pad = L * per - n
+    Xp = (torch.nn.functional.pad(X, (0, 0, 0, pad)) if pad else X
+          ).reshape(L, per, d)
+    yp = torch.nn.functional.pad(as_tensor(y, dev, X.dtype), (0, pad)
+                                 ).reshape(L, per)
+    base_mask = torch.ones((n,), dtype=X.dtype, device=dev) if mask is None \
+        else as_tensor(mask, dev, X.dtype)
+    maskp = torch.nn.functional.pad(base_mask, (0, pad)).reshape(L, per)
+
+    sv = init_sv_buffer(cfg.sv_capacity, d, X.dtype, dev)
+    best = (np.inf, None, None)
+    prev_risk = np.inf
+    history = []
+    rounds_done = 0
+    for t in range(cfg.max_rounds):
+        t0 = time.perf_counter()
+        out = mapreduce_round(Xp, yp, maskp, sv, cfg, params=params)
+        sv = out.sv
+        risks = out.risks.cpu().numpy()          # eq. 8's sync point
+        ms = 1e3 * (time.perf_counter() - t0)
+        l_star = int(np.argmin(risks))
+        r_star = float(risks[l_star])
+        if r_star < best[0]:
+            best = (r_star, out.ws[l_star], out.bs[l_star])
+        history.append({"round": t, "risk": r_star, "reducer": l_star,
+                        "sv_count": int(out.sv_count), "ms": ms})
+        rounds_done = t + 1
+        if verbose:
+            print(f"[mapreduce-svm] round={t} R_emp={r_star:.5f} "
+                  f"|SV|={int(out.sv_count)} ms={ms:.1f}")
+        if t > 0 and abs(prev_risk - r_star) <= cfg.gamma:   # eq. 8
+            break
+        prev_risk = r_star
+
+    # Final consolidated model: retrain on SV_global alone (cascade-style).
+    res = solve_linear_jobs(sv.x[None], sv.x.new_zeros((0, d)), sv.y[None],
+                            sv.mask[None], cfg.svm, params)
+    final = BinarySVM(*(f[0] for f in res))
+    return MapReduceSVM(w=best[1], b=best[2], sv=sv, final=final,
+                        risk=torch.tensor(best[0], dtype=torch.float32),
+                        rounds=rounds_done, history=tuple(history))
+
+
+def predict(model: MapReduceSVM, X, cfg: MRSVMConfig, use_final: bool = True,
+            params: Optional[SolverParams] = None,
+            device: DeviceLike = None) -> torch.Tensor:
+    """±1 predictions from the converged model (float32)."""
+    if not cfg.svm.is_linear:
+        raise NotImplementedError(_GRAM_PATH)
+    dev = resolve_device(device, like=X)
+    X = as_tensor(X, dev)
+    w, b = (model.final.w, model.final.b) if use_final else (model.w, model.b)
+    return torch.where(decision_linear(w.to(dev), b.to(dev), X) >= 0,
+                       1.0, -1.0)
+
+
+def decision_values(model: MapReduceSVM, X, cfg: MRSVMConfig,
+                    params: Optional[SolverParams] = None,
+                    device: DeviceLike = None) -> torch.Tensor:
+    if not cfg.svm.is_linear:
+        raise NotImplementedError(_GRAM_PATH)
+    dev = resolve_device(device, like=X)
+    return decision_linear(model.final.w.to(dev), model.final.b.to(dev),
+                           as_tensor(X, dev))

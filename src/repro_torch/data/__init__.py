@@ -1,0 +1,7 @@
+"""Deterministic synthetic data for the MapReduce SVM."""
+from repro_torch.data.pipeline import (default_row_nnz, host_row_range,
+                                       svm_rows, svm_rows_device,
+                                       svm_rows_shard)
+
+__all__ = ["default_row_nnz", "host_row_range", "svm_rows",
+           "svm_rows_device", "svm_rows_shard"]

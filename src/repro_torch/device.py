@@ -1,0 +1,40 @@
+"""Where the port's entry points run.
+
+Numpy inputs go to ``cuda`` unless the caller names a device; tensors
+stay where they are. Without a card a ``cuda`` request raises — the
+port never falls back to the CPU on its own.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = None, like=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else the
+    device of tensor ``like``, else ``cuda``."""
+    if device is not None:
+        dev = torch.device(device)
+    elif isinstance(like, torch.Tensor):
+        return like.device
+    else:
+        dev = torch.device("cuda")
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels")
+    return dev
+
+
+def as_tensor(x, device: torch.device,
+              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x`` (numpy or tensor) on ``device``, optionally cast."""
+    if isinstance(x, np.ndarray):
+        x = torch.from_numpy(np.ascontiguousarray(x))
+    else:
+        x = torch.as_tensor(x)
+    return x.to(device=device, dtype=dtype or x.dtype)
