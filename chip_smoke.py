@@ -6,18 +6,36 @@
 Phases, one line or block each; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card, nvcc, the kernel build;
-2. each CUDA kernel against its plain PyTorch version on the card, at
-   small shapes and at the main path's shapes, with times and bounds;
+2. each CUDA kernel against its plain PyTorch version on the card at
+   small shapes: ``cd_solve``; ``gram``, ``sparse_gram`` and
+   ``cd_solve_gram`` in f32 and bf16, linear/rbf/poly, ragged edges,
+   padding slots, masked rows and (home, shared) job rows;
 3. the paper pipeline (corpus → TF×IDF → 2-class MapReduce SVM and OvR
-   3-class) at the golden test's settings, with accuracy floors;
-4. the main path at full width: svm-tfidf (d = 131072, sv_capacity
-   2048, 8 partitions, bf16 rows, C = 1, max_epochs = 10, γ = 1e-4, up
-   to 6 rounds) through ``fit_mapreduce``, with the kernel launch
-   counts of that run.
+   3-class) at the golden test's settings, with accuracy floors, on the
+   linear path;
+4. the golden pipeline on the Gram path (rbf, γ = 1): dense rows with
+   ``gram_impl="pallas"`` (2-class and OvR 3-class) and blocked-CSR rows
+   (``nnz_cap`` 32) with ``"pallas_sparse"`` (2-class), with floors
+   and each kernel's launch count;
+5. slice 1's main path at full width: svm-tfidf (d = 131072,
+   sv_capacity 2048, 8 partitions × 8192 rows, bf16 rows, C = 1,
+   max_epochs = 10, γ = 1e-4, up to 6 rounds), linear, through
+   ``fit_mapreduce``, with ``cd_solve`` and ``hinge_scores`` timed at its
+   shapes and the launch counts of that run;
+6. ``gram`` at one full-width reducer shape (10240 × 10240 × 131072
+   bf16), against its plain version and the bf16 matmul route;
+7. slice 2's main path at full width: the same svm-tfidf shapes as
+   blocked-CSR rows (``nnz_cap`` = row nnz = 256, f32 values), rbf
+   (γ = 1) on the Gram path with ``gram_impl="pallas_sparse"``, with the
+   launch counts of that run, then ``sparse_gram`` (the reducer Gram and
+   one eq. 7 chunk) and ``cd_solve_gram`` checked and timed at its
+   shapes and one round profiled; last, the same fit with the linear
+   kernel on the Gram path, whose eq. 7 pick must beat the majority
+   class (the rbf pick at γ = 1 only matches it).
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
-power limit as nvidia-smi gives them. ``--quick`` stops after phase 3
+power limit as nvidia-smi gives them. ``--quick`` stops after phase 4
 and prints no result.
 """
 from __future__ import annotations
@@ -33,15 +51,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate and the float32
-# rate outside the tensor cores — both kernels do float32 FMAs.
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 rate, the float32
+# rate outside the tensor cores and the bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
 
 CD_SRC = "src/repro_torch/kernels/csrc/cd_solve.cu"
 HINGE_SRC = "src/repro_torch/kernels/csrc/hinge_scores.cu"
 CD_TPU = "src/repro/kernels/svm_step.py:81"
 HINGE_TPU = "src/repro/kernels/hinge_score.py:52"
+GRAM_SRC = "src/repro_torch/kernels/csrc/gram.cu"
+GRAM_TPU = "src/repro/kernels/gram.py:83"
+SPARSE_SRC = "src/repro_torch/kernels/csrc/sparse_gram.cu"
+SPARSE_TPU = "src/repro/kernels/gram.py:201"
+CDG_SRC = "src/repro_torch/kernels/csrc/cd_solve_gram.cu"
+CDG_TPU = "src/repro/core/svm.py:279 (no TPU kernel: XLA loop)"
+KERNEL_PATH_LAUNCHES = ("gram", "sparse_gram", "cd_solve_gram")
 DEV = "cuda"
 
 
@@ -61,10 +87,10 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, flop_rate: float = F32_FLOP_PER_S):
     """Least time for the work on the card, and what sets it."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOP_PER_S * 1e3
+    t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -164,6 +190,103 @@ def phase_kernels_small(torch, ops, ref):
     check(err <= 1e-4, f"cd_solve bf16 risk differs from plain by {err:.2e}")
 
 
+def _rel(a, b) -> float:
+    """max |a − b| / (1 + |b|), in float32."""
+    a, b = a.float(), b.float()
+    return float(((a - b).abs() / (1.0 + b.abs())).max()) if b.numel() \
+        else 0.0
+
+
+GRAM_KINDS = (("linear", {}), ("rbf", dict(gamma=0.5)),
+              ("poly", dict(gamma=0.5, coef0=-0.3, degree=3)),
+              ("poly", dict(gamma=1.0, coef0=1.0, degree=2)))
+
+
+def phase_gram_small(torch, ops, ref, sp):
+    """gram, sparse_gram and cd_solve_gram against their plain versions:
+    f32 and bf16, linear/rbf/poly, ragged shapes, padding slots, dead
+    rows, masked rows and (home, shared) job rows."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def dense(n, d, dtype):
+        return (torch.randn((n, d), generator=gen, device=dev)
+                / math.sqrt(d)).to(dtype)
+
+    def sparse(n, d, cap, dtype, density=0.02):
+        X = torch.randn((n, d), generator=gen, device=dev)
+        X = X * (torch.rand((n, d), generator=gen, device=dev) < density)
+        X = X / X.norm(dim=1, keepdim=True).clamp(min=1e-9)
+        live = (torch.rand((n, 1), generator=gen, device=dev) > 0.1)
+        return sp.from_dense(X, cap) * live.float()  # dead rows keep ids
+
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        worst = 0.0
+        for n, m, d in ((64, 64, 32), (130, 70, 96), (300, 200, 260),
+                        (33, 129, 1001)):
+            X, Z = dense(n, d, dtype), dense(m, d, dtype)
+            for kind, kw in GRAM_KINDS:
+                worst = max(worst, _rel(ops.gram(X, Z, kind=kind, **kw),
+                                        ref.gram_ref(X, Z, kind=kind, **kw)))
+        H, S = dense(3 * 50, 40, dtype).reshape(3, 50, 40), dense(17, 40, dtype)
+        Q = dense(61, 40, dtype)
+        for X, Z in (((H, S), (H, S)), (Q, (H[:1], S)), ((H, S), Q)):
+            for kind, kw in GRAM_KINDS:
+                worst = max(worst, _rel(
+                    ops.gram(X, Z, kind=kind, **kw),
+                    ops.per_job(ref.gram_ref, X, Z, kind=kind, **kw)))
+        say(f"[kernels] gram {tag}: max |Δ|/(1+|K|) = {worst:.2e} over 4 "
+            "shapes × 4 transforms and (home, shared) jobs (tol 1e-4)")
+        check(worst <= 1e-4, f"gram {tag} differs from plain by {worst:.2e}")
+
+        worst = 0.0
+        for n, m, d, cap in ((64, 40, 300, 16), (130, 257, 2000, 33)):
+            X = sparse(n, d, cap, torch.float32).to(dtype=dtype)
+            Z = sparse(m, d, cap, torch.float32).to(dtype=dtype)
+            for kind, kw in GRAM_KINDS:
+                worst = max(worst, _rel(
+                    ops.sparse_gram(X, Z, kind=kind, **kw),
+                    ref.sparse_gram_ref(X, Z, kind=kind, **kw)))
+        H = sparse(3 * 50, 500, 12, torch.float32).to(dtype=dtype) \
+            .reshape(3, 50, 500)
+        S = sparse(17, 500, 12, torch.float32).to(dtype=dtype)
+        Q = sparse(61, 500, 12, torch.float32).to(dtype=dtype)
+        for X, Z in (((H, S), (H, S)), (Q, (H[:1], S))):
+            for kind, kw in GRAM_KINDS:
+                worst = max(worst, _rel(
+                    ops.sparse_gram(X, Z, kind=kind, **kw),
+                    ops.per_job(ref.sparse_gram_ref, X, Z, kind=kind,
+                               **kw)))
+        say(f"[kernels] sparse_gram {tag}: max |Δ|/(1+|K|) = {worst:.2e} "
+            "over 2 shapes × 4 transforms and (home, shared) jobs (tol 1e-5)")
+        check(worst <= 1e-5,
+              f"sparse_gram {tag} differs from plain by {worst:.2e}")
+
+        for L, n, kind, epochs, C in ((3, 200, "rbf", 15, 1.0),
+                                      (2, 37, "linear", 15, 0.5),
+                                      (2, 1100, "rbf", 2, 1.0)):
+            X = dense(L * n, 64, torch.float32).reshape(L, n, 64)
+            K = ops.gram((X, X[0, :0]), (X, X[0, :0]), kind=kind,
+                         gamma=1.0).to(dtype)
+            y = torch.where(torch.randn((L, n), generator=gen, device=dev)
+                            > 0, 1.0, -1.0)
+            m = (torch.rand((L, n), generator=gen, device=dev) > 0.1).float()
+            y = torch.where(m > 0, y, 0.0)          # padding: y = m = 0
+            y, m = y.to(dtype).contiguous(), m.to(dtype).contiguous()
+            kw = dict(C=C, tol=1e-3, max_epochs=epochs)
+            a_k, t_k, v_k = ops.cd_solve_gram(K, y, m, **kw)
+            a_p, t_p, v_p = ref.cd_solve_gram_ref(K, y, m, **kw)
+            torch.cuda.synchronize()
+            err = max(float((a_k.float() - a_p.float()).abs().max()),
+                      float((v_k.float() - v_p.float()).abs().max()))
+            say(f"[kernels] cd_solve_gram {tag} L={L} n={n} {kind} "
+                f"epochs≤{epochs}: epochs {t_k.tolist()} vs plain "
+                f"{t_p.tolist()}, max|Δ(α, viol)| = {err:.2e} (tol 1e-5)")
+            check(torch.equal(t_k, t_p), "cd_solve_gram epochs differ")
+            check(err <= 1e-5, f"cd_solve_gram differs by {err:.2e}")
+
+
 def phase_pipeline(torch, T, text):
     """The golden pipeline of tests/test_paper_pipeline.py on the card."""
     from repro_torch.kernels import ops
@@ -193,7 +316,59 @@ def phase_pipeline(torch, T, text):
         say("[pipeline] confusion matrix (% of all): "
             + json.dumps(cm.round(3).tolist()))
         check(acc > floor, f"{len(classes)}-class accuracy {acc:.4f}")
-        check(min(ops.LAUNCHES.values()) > 0, "pipeline bypassed a kernel")
+        check(ops.LAUNCHES["cd_solve"] > 0 and ops.LAUNCHES["hinge_scores"]
+              > 0, "pipeline bypassed a kernel")
+
+
+def phase_kernel_pipeline(torch, T, text):
+    """The golden pipeline on the Gram path (rbf, γ = 1). → the launch
+    counts of the dense 2-class run."""
+    from repro_torch.kernels import ops
+    kern = T.KernelConfig("rbf", gamma=1.0)
+    runs = (("dense", (-1, 1), 0.87), ("dense", (-1, 0, 1), 0.77),
+            ("sparse", (-1, 1), 0.87))
+    first = None
+    for fmt, classes, floor in runs:
+        corpus = text.generate(text.CorpusConfig(num_messages=1024,
+                                                 classes=classes, seed=0))
+        if fmt == "dense":
+            counts = text.vectorize(corpus.texts, 1024)
+            svm = T.SVMConfig(C=1.0, max_epochs=15, kernel=kern,
+                              use_gram=True, gram_impl="pallas")
+            want = ("gram", "cd_solve_gram")
+        else:
+            counts = text.vectorize_sparse(corpus.texts, 1024, nnz_cap=32)
+            svm = T.SVMConfig(C=1.0, max_epochs=15, kernel=kern,
+                              use_gram=True, gram_impl="pallas_sparse",
+                              row_format="sparse_csr", nnz_cap=32)
+            want = ("sparse_gram", "cd_solve_gram")
+        cfg = T.MRSVMConfig(sv_capacity=128, gamma=1e-4, max_rounds=4,
+                            svm=svm)
+        X, _ = text.fit_transform(counts, device=DEV)
+        y = torch.tensor(corpus.labels, dtype=torch.float32, device=DEV)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if len(classes) == 2:
+            model = T.fit_mapreduce(X[:768], y[:768], 8, cfg)
+            pred = T.predict(model, X[768:], cfg)
+            risks = [round(h["risk"], 5) for h in model.history]
+        else:
+            model = T.fit_one_vs_rest(X[:768], y[:768], list(classes), 8,
+                                      cfg)
+            pred = model.predict(X[768:])
+            risks = "-"
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = {k: ops.LAUNCHES[k] for k in KERNEL_PATH_LAUNCHES}
+        acc = float((pred == y[768:].to(pred.dtype)).float().mean())
+        say(f"[kernel-pipeline] {fmt} {len(classes)}-class rbf: held-out "
+            f"accuracy {acc:.4f} (floor {floor}), round risks {risks}, "
+            f"fit+predict {ms:.1f} ms, launches {launches}")
+        check(acc > floor, f"{fmt} {len(classes)}-class accuracy {acc:.4f}")
+        check(all(launches[k] > 0 for k in want),
+              f"{fmt} kernel pipeline bypassed one of {want}")
+        first = first or launches
+    return first
 
 
 def time_hinge(torch, ops, ref, Xflat, yflat, mflat, W, b):
@@ -353,6 +528,246 @@ def phase_full_width(torch, T, ops, ref):
     return [cd, hinge]
 
 
+def time_gram_full(torch, T, ops, ref):
+    """gram at one full-width reducer shape: n = m = 8192 + 2048 rows of
+    d = 131072, bf16, rbf γ = 1; kernel, plain and the bf16 matmul
+    route (``gram_impl="xla"``: ``apply_kernel`` on bf16 rows)."""
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import svm_rows_device
+    n, d = SVM_TFIDF.rows_per_device + SVM_TFIDF.sv_capacity, \
+        SVM_TFIDF.num_features
+    X, _ = svm_rows_device(n, d, seed=3, dtype=torch.bfloat16, device=DEV)
+    kw = dict(kind="rbf", gamma=1.0)
+    K = ops.gram(X, X, **kw)
+    P = ref.gram_ref(X, X, **kw)
+    torch.cuda.synchronize()
+    err = float((K - P).abs().max())
+    say(f"[kernels] gram {n}×{n}×{d} bf16 rbf: max|Δ| vs plain {err:.2e} "
+        "(atol 1e-4)")
+    check(err <= 1e-4, f"gram differs from plain by {err:.2e}")
+    del K, P
+    kc = T.KernelConfig("rbf", gamma=1.0)
+    ms = cuda_ms(torch, lambda: ops.gram(X, X, **kw), 2)
+    plain = cuda_ms(torch, lambda: ref.gram_ref(X, X, **kw), 1)
+    lib = cuda_ms(torch, lambda: T.apply_kernel(X, X, cfg=kc), 3)
+    # gram(X, X): X is read once, and the symmetric K needs the
+    # n(n + 1)/2 distinct dot products of d multiply-adds each
+    bms, by = bound_ms(n * d * 2 + n * n * 4, 1.0 * n * (n + 1) * d,
+                       BF16_FLOP_PER_S)
+    say(f"[kernels] gram: kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
+        f"(bf16 matmul route) {lib:.3f} ms, bound {bms:.3f} ms ({by}, bf16 "
+        "tensor-core rate)")
+    return dict(name="gram", route="cuda", source=GRAM_SRC,
+                replaces=GRAM_TPU, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+
+
+def _index_matches(torch, Xp, sv_x, d):
+    """Nonzero slot pairs with equal columns in one reducer Gram over
+    the L jobs: Σ over jobs and columns of (the job's rows holding the
+    column)²."""
+    L = Xp.shape[0]
+    jobs = torch.arange(L, device=Xp.indices.device)[:, None] * d
+    cols = torch.cat([Xp.indices.reshape(L, -1),
+                      sv_x.indices.reshape(1, -1).expand(L, -1)], 1)
+    live = torch.cat([Xp.values.reshape(L, -1),
+                      sv_x.values.reshape(1, -1).expand(L, -1)], 1) != 0
+    counts = torch.bincount((cols.long() + jobs)[live], minlength=L * d)
+    return int((counts.long() ** 2).sum())
+
+
+def time_sparse_kernels(torch, ops, ref, Xp, sv, yp, maskp, cfg):
+    """sparse_gram at the full-width fit's two shapes, from its
+    SV_global: one reducer Gram over the L jobs (checked, timed) and one
+    eq. 7 chunk of query rows against [Xflat; SV_global] (checked,
+    timed); then cd_solve_gram (one epoch) on that reducer Gram."""
+    L, per, d = Xp.shape
+    cap = sv.y.shape[0]
+    kc = cfg.svm.kernel
+    kw = dict(kind=kc.name, gamma=kc.gamma)
+    side = (Xp, sv.x)
+    K = ops.sparse_gram(side, side, **kw)
+    P = ops.per_job(ref.sparse_gram_ref, side, side, **kw)
+    torch.cuda.synchronize()
+    err = float((K - P).abs().max())
+    say(f"[kernels] sparse_gram {L} jobs × {per + cap}² nnz_cap "
+        f"{Xp.nnz_cap} f32 rbf: max|Δ| vs plain {err:.2e} (atol 1e-5)")
+    check(err <= 1e-5, f"sparse_gram differs from plain by {err:.2e}")
+    del P
+    ms = cuda_ms(torch, lambda: ops.sparse_gram(side, side, **kw), 3)
+    plain = cuda_ms(torch, lambda: ops.per_job(
+        ref.sparse_gram_ref, side, side, **kw), 1, warmup=0)
+    matches = _index_matches(torch, Xp, sv.x, d)
+    n = per + cap
+    # X and Z are the same rows here: their slots are read once
+    slot_bytes = (L * per + cap) * Xp.nnz_cap * 8
+    bms, by = bound_ms(slot_bytes + L * n * n * 4, 2.0 * matches)
+    say(f"[kernels] sparse_gram: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
+        f"bound {bms:.3f} ms ({by}); {matches} index matches")
+
+    # eq. 7: one chunk of query rows against the union of the jobs' rows
+    Xflat, home = Xp.reshape(L * per, d), (Xp.reshape(1, L * per, d), sv.x)
+    step = max(1, (1 << 28) // (L * per + cap))
+    Ke = ops.sparse_gram(Xflat[:step], home, **kw)
+    Pe = ops.per_job(ref.sparse_gram_ref, Xflat[:step], home, **kw)
+    torch.cuda.synchronize()
+    e_err = float((Ke - Pe).abs().max())
+    del Ke, Pe
+    e_ms = cuda_ms(torch, lambda: ops.sparse_gram(Xflat[:step], home, **kw),
+                   3)
+    say(f"[kernels] sparse_gram eq. 7 chunk {step} × {L * per + cap}: "
+        f"max|Δ| vs plain {e_err:.2e} (atol 1e-5), kernel {e_ms:.3f} ms")
+    check(e_err <= 1e-5,
+          f"sparse_gram eq. 7 chunk differs from plain by {e_err:.2e}")
+    sg = dict(name="sparse_gram", route="cuda", source=SPARSE_SRC,
+              replaces=SPARSE_TPU, max_abs_err=err, ms=ms, plain_ms=plain,
+              bound_ms=bms, bound_by=by, library_ms=None)
+
+    y_aug = torch.cat([yp, sv.y.expand(L, cap)], 1).contiguous()
+    m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1).contiguous()
+    kw = dict(C=cfg.svm.C, tol=cfg.svm.tol, max_epochs=1)
+    a_k, t_k, _ = ops.cd_solve_gram(K, y_aug, m_aug, **kw)
+    t0 = time.perf_counter()
+    a_p, t_p, _ = ref.cd_solve_gram_ref(K, y_aug, m_aug, **kw)
+    torch.cuda.synchronize()
+    cd_plain = 1e3 * (time.perf_counter() - t0)
+    cd_err = float((a_k - a_p).abs().max())
+    say(f"[kernels] cd_solve_gram one epoch L={L} n={n} f32: max|Δα| vs "
+        f"plain {cd_err:.2e} (atol 1e-5), epochs {t_k.tolist()}")
+    check(cd_err <= 1e-5 and torch.equal(t_k, t_p),
+          f"cd_solve_gram differs from plain by {cd_err:.2e}")
+    cd_ms = cuda_ms(torch, lambda: ops.cd_solve_gram(K, y_aug, m_aug, **kw),
+                    2)
+    moved = int((a_p != 0).sum())
+    nbytes = moved * n * 4 + L * n * 4 * 4 + L * 8
+    cbms, cby = bound_ms(nbytes, 8.0 * moved * n)
+    say(f"[kernels] cd_solve_gram: kernel {cd_ms:.3f} ms per epoch, plain "
+        f"{cd_plain:.3f} ms, bound {cbms:.3f} ms ({cby}); {moved} of "
+        f"{L * n} rows moved α")
+    cdg = dict(name="cd_solve_gram", route="cuda", source=CDG_SRC,
+               replaces=CDG_TPU, max_abs_err=cd_err, ms=cd_ms,
+               plain_ms=cd_plain, bound_ms=cbms, bound_by=cby,
+               library_ms=None)
+    return sg, cdg
+
+
+def pick_accuracy(torch, T, Xp, yp, maskp, cfg, model):
+    """Training accuracy and hinge risk of the hypothesis eq. 7 picked
+    (a kernel model keeps no weights of it): replay the rounds before
+    it, which the deterministic kernels reproduce bit for bit, and
+    solve and score its reducer again."""
+    h = min(model.history, key=lambda r: r["risk"])   # first minimum
+    L, per, d = Xp.shape
+    sv = T.init_sv_buffer(cfg.sv_capacity, d, Xp.dtype, DEV,
+                          nnz_cap=getattr(Xp, "nnz_cap", None))
+    for _ in range(h["round"]):
+        sv = T.mapreduce_round(Xp, yp, maskp, sv, cfg).sv
+    j = slice(h["reducer"], h["reducer"] + 1)
+    y_aug = torch.cat([yp[j], sv.y[None]], 1)
+    m_aug = torch.cat([maskp[j], sv.mask[None]], 1)
+    res = T.solve_kernel_jobs(Xp[j], sv.x, y_aug, m_aug, cfg.svm)
+    coef = (res.alpha * y_aug * m_aug)[0]
+    yflat = yp.reshape(-1)
+    s = T.decision_kernel((Xp[j], sv.x), coef, res.b[0],
+                          Xp.reshape(L * per, d), cfg.svm)
+    acc = float((torch.where(s >= 0, 1.0, -1.0) == yflat).float().mean())
+    risk = float(torch.clamp(1.0 - yflat * s, min=0.0).mean())
+    return acc, risk
+
+
+def _fit_full_gram(torch, T, ops, X, y, L, kernel, tag):
+    """One full-width fit_mapreduce on the Gram path with
+    gram_impl="pallas_sparse", counts from 0 before it and read after;
+    checks the launch counts, the risks and the replayed eq. 7 pick.
+    → (cfg, model, launches, eq. 7 pick accuracy, majority share)."""
+    from repro_torch.configs import SVM_TFIDF
+    svm = T.SVMConfig(C=SVM_TFIDF.C, max_epochs=SVM_TFIDF.max_epochs,
+                      kernel=kernel, use_gram=True,
+                      gram_impl="pallas_sparse", row_format="sparse_csr",
+                      nnz_cap=X.nnz_cap)
+    cfg = T.MRSVMConfig(sv_capacity=SVM_TFIDF.sv_capacity, gamma=1e-4,
+                        max_rounds=6, svm=svm)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = T.fit_mapreduce(X, y, L, cfg, verbose=True)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    for h in model.history:
+        say(f"[{tag}] round {h['round']}: R_emp={h['risk']:.6f} "
+            f"|SV|={h['sv_count']} reducer={h['reducer']} "
+            f"round_ms={h['ms']:.1f}")
+    n_all = X.shape[0]
+    chunks = -(-n_all // max(1, (1 << 28) // (n_all + cfg.sv_capacity)))
+    say(f"[{tag}] fit_mapreduce: {model.rounds} rounds in {fit_ms:.1f} ms, "
+        f"launches {launches} (cd_solve_gram = rounds + final fit; "
+        f"sparse_gram = rounds × (1 reducer Gram + {chunks} eq. 7 chunks) "
+        "+ final fit)")
+    check(launches["cd_solve_gram"] == model.rounds + 1,
+          f"{tag}: cd_solve_gram launched {launches['cd_solve_gram']} times")
+    check(launches["sparse_gram"] == model.rounds * (1 + chunks) + 1,
+          f"{tag}: sparse_gram launched {launches['sparse_gram']} times")
+    risks = [h["risk"] for h in model.history]
+    check(all(math.isfinite(r) for r in risks),
+          f"{tag}: risks not finite: {risks}")
+    check(float(model.risk) < 1.0, f"{tag}: selected risk {float(model.risk)}")
+    Xp = X.reshape(L, n_all // L, X.shape[1])
+    yp = y.reshape(L, -1)
+    acc = float((T.predict(model, X, cfg) == y).float().mean())
+    major = float(max((y > 0).float().mean(), (y < 0).float().mean()))
+    pick, pick_risk = pick_accuracy(torch, T, Xp, yp, torch.ones_like(yp),
+                                    cfg, model)
+    say(f"[{tag}] training accuracy: eq. 7 pick {pick:.4f} (replayed, "
+        f"R_emp {pick_risk:.6f} vs {float(model.risk):.6f} in the fit), "
+        f"final model {acc:.4f}, majority class {major:.4f}")
+    check(abs(pick_risk - float(model.risk)) <= 1e-4,
+          f"{tag}: replayed eq. 7 pick differs from the fit's")
+    return cfg, model, launches, pick, major
+
+
+def phase_full_kernel(torch, T, ops, ref):
+    """Slice 2's main path at svm-tfidf widths: blocked-CSR rows, rbf on
+    the Gram path with gram_impl="pallas_sparse"; then the same rows
+    with the linear kernel on the Gram path, whose eq. 7 pick must beat
+    the majority class."""
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import svm_rows_sparse_device
+    L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
+    cap = SVM_TFIDF.nnz_cap
+    t0 = time.perf_counter()
+    X, y = svm_rows_sparse_device(L * per, d, cap, seed=0, nnz=cap,
+                                  dtype=torch.float32, device=DEV)
+    torch.cuda.synchronize()
+    say(f"[full-kernel] data: {L * per} rows × {d} features, nnz_cap {cap}, "
+        f"f32 values ({(X.values.numel() * 8) / 1e6:.0f} MB on the card) in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # --- the main path: rbf, γ = 1 ---------------------------------------
+    cfg, model, launches, pick, major = _fit_full_gram(
+        torch, T, ops, X, y, L, T.KernelConfig("rbf", gamma=1.0),
+        "full-kernel")
+    # At γ = 1 on these rows k(x, z) ≈ e⁻² for nearly every pair: the
+    # rbf pick predicts the majority class, so "no worse than the
+    # majority" is all this run can ask (PERF.md §6, PR 12). The
+    # linear-kernel run below asks for better.
+    check(pick >= major, "selected rbf hypothesis worse than the majority")
+    Xp = X.reshape(L, per, d)
+    yp, maskp = y.reshape(L, per), torch.ones((L, per), device=DEV)
+    sg, cdg = time_sparse_kernels(torch, ops, ref, Xp, model.sv, yp, maskp,
+                                  cfg)
+    profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
+    sg["launches"] = launches["sparse_gram"]
+    cdg["launches"] = launches["cd_solve_gram"]
+    del model
+
+    # --- the same kernels with a kernel that sees the planted signal ----
+    _, _, _, pick, major = _fit_full_gram(
+        torch, T, ops, X, y, L, T.KernelConfig("linear"), "full-linear-gram")
+    check(pick > major,
+          "selected linear-Gram hypothesis no better than the majority")
+    return [sg, cdg]
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -361,6 +776,7 @@ def main() -> int:
 
     import torch
     import repro_torch.core as T
+    from repro_torch import sparse as sp
     from repro_torch import text
     from repro_torch.kernels import build, ops, ref
 
@@ -370,14 +786,23 @@ def main() -> int:
     t_all = time.perf_counter()
     phase_environment(torch, build)
     phase_kernels_small(torch, ops, ref)
+    phase_gram_small(torch, ops, ref, sp)
     torch.cuda.synchronize()
     phase_pipeline(torch, T, text)
+    gram_launches = phase_kernel_pipeline(torch, T, text)
     torch.cuda.synchronize()
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
-            "full-width phase skipped, no result")
+            "full-width phases skipped, no result")
         return 0
     kernels = phase_full_width(torch, T, ops, ref)
+    torch.cuda.synchronize()
+    gram = time_gram_full(torch, T, ops, ref)
+    # gram is not on the blocked-CSR main path: its count is the dense
+    # golden Gram-path run's (phase 4)
+    gram["launches"] = gram_launches["gram"]
+    kernels.append(gram)
+    kernels += phase_full_kernel(torch, T, ops, ref)
     torch.cuda.synchronize()
     say(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi())

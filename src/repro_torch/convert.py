@@ -5,7 +5,9 @@ The ``*_from_numpy`` functions take the fields of the reference's
 example ``np.asarray`` of each JAX field) and build the port's
 structures on ``device``; :func:`to_numpy` goes back. A JAX round's
 SV_global can so seed the port's next round, and a model trained by
-the reference can be served by the port.
+the reference — linear or Gram path, dense or blocked-CSR rows — can be
+served by the port. Blocked-CSR feature rows travel as the triple
+``(indices, values, d)`` of the reference's ``SparseRows``.
 
 bfloat16 numpy arrays (the ``ml_dtypes`` type JAX hands out) are read
 by their bits. :func:`to_numpy` widens bfloat16 to float32, which is
@@ -18,6 +20,7 @@ from typing import Mapping, Sequence
 import numpy as np
 import torch
 
+from repro_torch import sparse as sparse_rows
 from repro_torch.core.mapreduce_svm import MapReduceSVM, SVBuffer
 from repro_torch.core.svm import BinarySVM
 from repro_torch.device import DeviceLike
@@ -33,10 +36,23 @@ def tensor_from_numpy(a, device: DeviceLike = "cpu") -> torch.Tensor:
     return t.to(device)
 
 
+def rows_from_numpy(x, device: DeviceLike = "cpu"):
+    """Feature rows: an array, or ``(indices, values, d)`` of
+    blocked-CSR rows → ``SparseRows``."""
+    if isinstance(x, tuple):
+        indices, values, d = x
+        return sparse_rows.SparseRows(
+            tensor_from_numpy(np.asarray(indices, np.int32), device),
+            tensor_from_numpy(values, device), d)
+    return tensor_from_numpy(x, device)
+
+
 def sv_buffer_from_numpy(x, y, alpha, ids, mask,
                          device: DeviceLike = "cpu") -> SVBuffer:
-    return SVBuffer(*(tensor_from_numpy(a, device)
-                      for a in (x, y, alpha, ids, mask)))
+    """``x`` as for :func:`rows_from_numpy`."""
+    return SVBuffer(rows_from_numpy(x, device),
+                    *(tensor_from_numpy(a, device)
+                      for a in (y, alpha, ids, mask)))
 
 
 def binary_svm_from_numpy(alpha, b, w, epochs_run, max_violation,
@@ -61,7 +77,10 @@ def mapreduce_model_from_numpy(w, b, sv: Sequence, final: Sequence, risk,
 
 def to_numpy(obj):
     """Tensors (also inside NamedTuples, tuples and lists) → numpy;
-    everything else unchanged."""
+    ``SparseRows`` → ``(indices, values, d)``; everything else
+    unchanged."""
+    if sparse_rows.is_sparse(obj):
+        return (to_numpy(obj.indices), to_numpy(obj.values), obj.d)
     if isinstance(obj, torch.Tensor):
         t = obj.detach().cpu()
         return (t.float() if t.dtype == torch.bfloat16 else t).numpy()

@@ -1,8 +1,10 @@
 """Core library: the paper's MapReduce SVM on PyTorch."""
 from repro_torch.core.kernel_fns import KernelConfig, apply_kernel
 from repro_torch.core.svm import (BinarySVM, SolverParams, SVMConfig,
-                                  decision_linear, fit_binary,
-                                  fit_binary_linear, predict_sign,
+                                  decision_kernel, decision_linear,
+                                  fit_binary, fit_binary_kernel,
+                                  fit_binary_linear, kernel_matrix,
+                                  predict_sign, solve_kernel_jobs,
                                   support_mask)
 from repro_torch.core.mapreduce_svm import (CONVERGE_IMPLS, SHUFFLE_IMPLS,
                                             MapReduceSVM, MRSVMConfig,
@@ -18,7 +20,8 @@ from repro_torch.core.risk import (converged, empirical_risk, hinge_loss,
 
 __all__ = [
     "KernelConfig", "apply_kernel", "BinarySVM", "SolverParams", "SVMConfig",
-    "decision_linear", "fit_binary", "fit_binary_linear", "predict_sign",
+    "decision_kernel", "decision_linear", "fit_binary", "fit_binary_kernel",
+    "fit_binary_linear", "kernel_matrix", "predict_sign", "solve_kernel_jobs",
     "support_mask", "CONVERGE_IMPLS", "SHUFFLE_IMPLS", "MapReduceSVM",
     "MRSVMConfig", "RoundResult", "SVBuffer", "decision_values",
     "fit_mapreduce", "init_sv_buffer", "mapreduce_round", "predict",

@@ -1,7 +1,8 @@
-"""Kernel functions for the (soft-margin) SVM dual, dense rows.
+"""Kernel functions for the (soft-margin) SVM dual.
 
-All kernels take ``X (n, d)`` and ``Z (m, d)`` and return ``K (n, m)``.
-Sparse rows wait for a later slice of the port.
+All kernels take ``X (n, d)`` and ``Z (m, d)`` — dense tensors or
+blocked-CSR :class:`~repro_torch.sparse.SparseRows`, in any mix — and
+return ``K (n, m)``.
 """
 from __future__ import annotations
 
@@ -9,6 +10,8 @@ import dataclasses
 from typing import Literal
 
 import torch
+
+from repro_torch import sparse as sparse_rows
 
 KernelName = Literal["linear", "rbf", "poly"]
 
@@ -38,13 +41,24 @@ def poly_kernel(X: torch.Tensor, Z: torch.Tensor, gamma: float, degree: int,
     return (gamma * (X @ Z.T) + coef0) ** degree
 
 
-def apply_kernel(X: torch.Tensor, Z: torch.Tensor, *, cfg: KernelConfig,
-                 gamma=None, coef0=None) -> torch.Tensor:
+def apply_kernel(X, Z, *, cfg: KernelConfig, gamma=None,
+                 coef0=None) -> torch.Tensor:
     """k(X, Z) under ``cfg``; ``gamma``/``coef0`` override the config's."""
-    if X.is_sparse or Z.is_sparse:
-        raise NotImplementedError("sparse rows: ROADMAP Queue 1 #5")
     g = cfg.gamma if gamma is None else gamma
     c0 = cfg.coef0 if coef0 is None else coef0
+    if sparse_rows.is_sparse(X) or sparse_rows.is_sparse(Z):
+        # one gather/segment-sum dot-product build, then the same
+        # transforms as dense
+        dots = sparse_rows.cross_dots(X, Z)
+        if cfg.name == "linear":
+            return dots
+        if cfg.name == "rbf":
+            xx = sparse_rows.row_sq_norms(X)[:, None]
+            zz = sparse_rows.row_sq_norms(Z)[None, :]
+            return torch.exp(-g * torch.clamp(xx + zz - 2.0 * dots, min=0.0))
+        if cfg.name == "poly":
+            return (g * dots + c0) ** cfg.degree
+        raise ValueError(f"unknown kernel {cfg.name!r}")
     if cfg.name == "linear":
         return linear_kernel(X, Z)
     if cfg.name == "rbf":

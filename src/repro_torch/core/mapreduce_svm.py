@@ -14,12 +14,17 @@ SV_global is a capacity-bounded, mask-padded buffer; each partition
 contributes its top ``capacity // L`` rows by α (a balanced union), and
 a row's evidence is the max of α over all its copies.
 
-On the card a round is two kernel launches: ``cd_solve`` solves all L
-partitions at once, reading each partition's home rows and the shared
-SV buffer through two pointers (the L augmented partitions are never
-copied), and ``hinge_scores`` scores the L hypotheses on the full data
-(eq. 7). The sharded mode, the sweep axis and the fault seams of the
-reference wait for later slices (ROADMAP Queue 1).
+On the linear path a round is two kernel launches on the card:
+``cd_solve`` solves all L partitions at once, reading each partition's
+home rows and the shared SV buffer through two pointers (the L
+augmented partitions are never copied), and ``hinge_scores`` scores the
+L hypotheses on the full data (eq. 7). On the Gram path (rbf/poly or
+``use_gram``, dense or blocked-CSR rows) the reducers' Gram matrices
+come from one ``gram`` / ``sparse_gram`` launch over the L jobs, the
+solve is one ``cd_solve_gram`` launch, and eq. 7 scores every
+hypothesis through the same Gram kernel in chunks of query rows. The
+sharded mode, the sweep axis and the fault seams of the reference wait
+for later slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -30,9 +35,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import sparse as sparse_rows
 from repro_torch.core import risk as risk_lib
-from repro_torch.core.svm import (_GRAM_PATH, BinarySVM, SolverParams,
-                                  SVMConfig, decision_linear,
+from repro_torch.core.svm import (SPARSE_LINEAR, BinarySVM, SolverParams,
+                                  SVMConfig, decision_kernel,
+                                  decision_linear, solve_kernel_jobs,
                                   solve_linear_jobs)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
@@ -45,7 +52,7 @@ CONVERGE_IMPLS = ("psum", "tree")
 
 class SVBuffer(NamedTuple):
     """Capacity-bounded global support-vector set SV_global^t."""
-    x: torch.Tensor      # (cap, d) feature rows
+    x: object            # (cap, d) feature rows: tensor or SparseRows
     y: torch.Tensor      # (cap,)   labels in {-1, +1} (0 on padding)
     alpha: torch.Tensor  # (cap,)   dual coefficient evidence (max over copies)
     ids: torch.Tensor    # (cap,)   stable global row ids (int32, -1 padding)
@@ -55,7 +62,8 @@ class SVBuffer(NamedTuple):
 class RoundResult(NamedTuple):
     sv: SVBuffer
     risks: torch.Tensor     # (L,) empirical risk of every reducer hypothesis
-    ws: torch.Tensor        # (L, d) reducer primal hypotheses
+    ws: torch.Tensor        # (L, d) reducer primal hypotheses (Gram path:
+    #                         zeros unless the kernel is linear)
     bs: torch.Tensor        # (L,)
     sv_count: torch.Tensor  # () live slots in the new buffer
 
@@ -108,11 +116,17 @@ class MRSVMConfig:
 
 
 def init_sv_buffer(capacity: int, d: int, dtype=torch.float32,
-                   device: DeviceLike = "cpu") -> SVBuffer:
-    """SV_global^0 = ∅ (empty, mask-padded buffer)."""
+                   device: DeviceLike = "cpu",
+                   nnz_cap: Optional[int] = None) -> SVBuffer:
+    """SV_global^0 = ∅ (empty, mask-padded buffer). With ``nnz_cap``
+    the feature rows are blocked-CSR ``SparseRows`` (index 0 / value 0
+    padding ≡ the empty row)."""
     dev = torch.device(device)
     zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)  # noqa: E731
-    return SVBuffer(x=zeros(capacity, d), y=zeros(capacity),
+    x = zeros(capacity, d) if nnz_cap is None else sparse_rows.SparseRows(
+        torch.zeros((capacity, nnz_cap), dtype=torch.int32, device=dev),
+        zeros(capacity, nnz_cap), d)
+    return SVBuffer(x=x, y=zeros(capacity),
                     alpha=zeros(capacity),
                     ids=torch.full((capacity,), -1, dtype=torch.int32,
                                    device=dev),
@@ -120,7 +134,8 @@ def init_sv_buffer(capacity: int, d: int, dtype=torch.float32,
 
 
 def _risks(Xflat, yflat, mflat, ws, bs, loss: str) -> torch.Tensor:
-    """Eq. 7: R_emp of every hypothesis on the full data."""
+    """Eq. 7 on the linear path: R_emp of every hypothesis on the full
+    data."""
     if loss == "hinge":
         losses, count = ops.hinge_scores(Xflat, ws, bs, yflat.float(),
                                          mflat.float())
@@ -132,18 +147,43 @@ def _risks(Xflat, yflat, mflat, ws, bs, loss: str) -> torch.Tensor:
                         for l in range(scores.shape[1])])
 
 
-def mapreduce_round(Xp: torch.Tensor, yp: torch.Tensor, maskp: torch.Tensor,
+def _kernel_risks(Xp, sv: SVBuffer, yp, maskp, res: BinarySVM, y_aug,
+                  m_aug, cfg: MRSVMConfig, p: SolverParams) -> torch.Tensor:
+    """Eq. 7 on the Gram path: hypothesis l scores the full data with
+    ``K(Xflat, [X_l; SV_global]) @ (α·y·m)_l + b_l``. The union of the L
+    augmented partitions is ``[Xflat; SV_global]``, so one K per chunk
+    of query rows against those rows, times a coefficient matrix that
+    is zero off each job's own rows, scores all L hypotheses."""
+    L, per, d = Xp.shape
+    dt = res.alpha.dtype
+    coef = res.alpha * y_aug.to(dt) * m_aug.to(dt)              # (L, n)
+    Coef = torch.zeros((L * per + sv.y.shape[0], L), dtype=dt,
+                       device=coef.device)
+    jobs = torch.arange(L, device=coef.device)
+    Coef[:L * per].view(L, per, L)[jobs, :, jobs] = coef[:, :per]
+    Coef[L * per:] = coef[:, per:].T
+    Xflat = Xp.reshape(L * per, d)
+    scores = decision_kernel((Xp.reshape(1, L * per, d), sv.x), Coef,
+                             res.b, Xflat, cfg.svm, p)           # (N, L)
+    yflat, mflat = yp.reshape(L * per), maskp.reshape(L * per)
+    return torch.stack([risk_lib.empirical_risk(scores[:, l], yflat, mflat,
+                                                cfg.risk_loss)
+                        for l in range(L)])
+
+
+def mapreduce_round(Xp, yp: torch.Tensor, maskp: torch.Tensor,
                     sv: SVBuffer, cfg: MRSVMConfig,
                     params: Optional[SolverParams] = None) -> RoundResult:
     """One full MapReduce round over stacked partitions.
 
-    Xp: (L, per, d); rows are ordered so global id of (l, i) = l*per + i.
+    Xp: (L, per, d) dense or ``SparseRows``; rows are ordered so global
+    id of (l, i) = l*per + i.
     """
-    if not cfg.svm.is_linear:
-        raise NotImplementedError(_GRAM_PATH)
+    if sparse_rows.is_sparse(Xp) and cfg.svm.is_linear:
+        raise NotImplementedError(SPARSE_LINEAR)
     L, per, d = Xp.shape
     p = cfg.svm.params() if params is None else params
-    cap = sv.x.shape[0]
+    cap = sv.y.shape[0]
     if cap % L != 0:
         raise ValueError(f"sv_capacity {cap} must divide by partitions {L}")
     k = cap // L
@@ -151,7 +191,8 @@ def mapreduce_round(Xp: torch.Tensor, yp: torch.Tensor, maskp: torch.Tensor,
     # --- map + reduce: all L partitions in one solve -----------------------
     y_aug = torch.cat([yp, sv.y.expand(L, cap)], 1)
     m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1)
-    res: BinarySVM = solve_linear_jobs(Xp, sv.x, y_aug, m_aug, cfg.svm, p)
+    solve = solve_linear_jobs if cfg.svm.is_linear else solve_kernel_jobs
+    res: BinarySVM = solve(Xp, sv.x, y_aug, m_aug, cfg.svm, p)
     alpha = res.alpha                                # (L, per + cap)
     home_alpha = alpha[:, :per].reshape(-1)          # (L*per,) by global id
     copy_alpha = alpha[:, per:]                      # (L, cap) appended copies
@@ -170,11 +211,10 @@ def mapreduce_round(Xp: torch.Tensor, yp: torch.Tensor, maskp: torch.Tensor,
     # lax.top_k does (torch.topk does not); bound SVs tie exactly at α = C.
     topv, topi = torch.sort(home_alpha, dim=1, descending=True, stable=True)
     topv, topi = topv[:, :k], topi[:, :k]                        # (L, k)
-    rows = torch.arange(L, device=Xp.device)[:, None]
-    new_x = Xp[rows, topi].reshape(cap, d)
-    new_y = yp[rows, topi].reshape(cap)
+    new_x = sparse_rows.take_rows_along(Xp, topi).reshape(cap, d)
+    new_y = sparse_rows.take_rows_along(yp, topi).reshape(cap)
     live = (topv > p.sv_threshold).to(Xp.dtype)
-    base_ids = (torch.arange(L, dtype=torch.int32, device=Xp.device)
+    base_ids = (torch.arange(L, dtype=torch.int32, device=yp.device)
                 * per)[:, None] + topi.to(torch.int32)
     new_sv = SVBuffer(
         x=new_x * live.reshape(cap, 1),
@@ -186,8 +226,11 @@ def mapreduce_round(Xp: torch.Tensor, yp: torch.Tensor, maskp: torch.Tensor,
     )
 
     # --- driver: risk of every reducer hypothesis on the FULL data (eq. 7) --
-    risks = _risks(Xp.reshape(L * per, d), yp.reshape(L * per),
-                   maskp.reshape(L * per), res.w, res.b, cfg.risk_loss)
+    if cfg.svm.is_linear:
+        risks = _risks(Xp.reshape(L * per, d), yp.reshape(L * per),
+                       maskp.reshape(L * per), res.w, res.b, cfg.risk_loss)
+    else:
+        risks = _kernel_risks(Xp, sv, yp, maskp, res, y_aug, m_aug, cfg, p)
     return RoundResult(sv=new_sv, risks=risks, ws=res.w, bs=res.b,
                        sv_count=new_sv.mask.sum())
 
@@ -222,15 +265,16 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
     L = num_partitions
     per = -(-n // L)
     pad = L * per - n
-    Xp = (torch.nn.functional.pad(X, (0, 0, 0, pad)) if pad else X
-          ).reshape(L, per, d)
+    Xp = sparse_rows.pad_rows(X, pad).reshape(L, per, d)
     yp = torch.nn.functional.pad(as_tensor(y, dev, X.dtype), (0, pad)
                                  ).reshape(L, per)
     base_mask = torch.ones((n,), dtype=X.dtype, device=dev) if mask is None \
         else as_tensor(mask, dev, X.dtype)
     maskp = torch.nn.functional.pad(base_mask, (0, pad)).reshape(L, per)
 
-    sv = init_sv_buffer(cfg.sv_capacity, d, X.dtype, dev)
+    sv = init_sv_buffer(
+        cfg.sv_capacity, d, X.dtype, dev,
+        nnz_cap=X.nnz_cap if sparse_rows.is_sparse(X) else None)
     best = (np.inf, None, None)
     prev_risk = np.inf
     history = []
@@ -256,8 +300,9 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
         prev_risk = r_star
 
     # Final consolidated model: retrain on SV_global alone (cascade-style).
-    res = solve_linear_jobs(sv.x[None], sv.x.new_zeros((0, d)), sv.y[None],
-                            sv.mask[None], cfg.svm, params)
+    solve = solve_linear_jobs if cfg.svm.is_linear else solve_kernel_jobs
+    res = solve(sv.x[None], sv.x[:0], sv.y[None], sv.mask[None], cfg.svm,
+                params)
     final = BinarySVM(*(f[0] for f in res))
     return MapReduceSVM(w=best[1], b=best[2], sv=sv, final=final,
                         risk=torch.tensor(best[0], dtype=torch.float32),
@@ -267,21 +312,31 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
 def predict(model: MapReduceSVM, X, cfg: MRSVMConfig, use_final: bool = True,
             params: Optional[SolverParams] = None,
             device: DeviceLike = None) -> torch.Tensor:
-    """±1 predictions from the converged model (float32)."""
-    if not cfg.svm.is_linear:
-        raise NotImplementedError(_GRAM_PATH)
+    """±1 predictions from the converged model (float32). The Gram
+    path always scores with the final model, as the reference does;
+    pass the ``params`` the model was trained with, if any."""
     dev = resolve_device(device, like=X)
     X = as_tensor(X, dev)
-    w, b = (model.final.w, model.final.b) if use_final else (model.w, model.b)
-    return torch.where(decision_linear(w.to(dev), b.to(dev), X) >= 0,
-                       1.0, -1.0)
+    if not cfg.svm.is_linear:
+        s = decision_values(model, X, cfg, params=params)
+    else:
+        w, b = (model.final.w, model.final.b) if use_final \
+            else (model.w, model.b)
+        s = decision_linear(w.to(dev), b.to(dev), X)
+    return torch.where(s >= 0, 1.0, -1.0)
 
 
 def decision_values(model: MapReduceSVM, X, cfg: MRSVMConfig,
                     params: Optional[SolverParams] = None,
                     device: DeviceLike = None) -> torch.Tensor:
-    if not cfg.svm.is_linear:
-        raise NotImplementedError(_GRAM_PATH)
+    """Decision scores of the final model: ``X w + b`` on the linear
+    path, ``K(X, SV_global) @ (α·y·m) + b`` on the Gram path."""
     dev = resolve_device(device, like=X)
-    return decision_linear(model.final.w.to(dev), model.final.b.to(dev),
-                           as_tensor(X, dev))
+    X = as_tensor(X, dev)
+    final = model.final
+    if cfg.svm.is_linear:
+        return decision_linear(final.w.to(dev), final.b.to(dev), X)
+    sv = model.sv
+    coef = final.alpha.to(dev) * sv.y.to(dev) * sv.mask.to(dev)
+    return decision_kernel(as_tensor(sv.x, dev), coef, final.b.to(dev), X,
+                           cfg.svm, params)

@@ -1,17 +1,23 @@
 """Soft-margin binary SVM trained in the dual (paper eq. 1-2).
 
 The reducer's solver is dual coordinate descent (Hsieh et al. 2008,
-L1-loss) on the linear path: it keeps the primal ``w = Σ α_i y_i x_i``,
-O(n·d) per epoch, no Gram matrix. The solve runs in the hand-written
-kernel ``cd_solve`` (:mod:`repro_torch.kernels.ops`), one CTA per job,
-so a MapReduce round solves all its partitions in one launch.
+L1-loss), on two paths:
 
-The bias is LIBLINEAR's regularized bias: ``Q_ii = ||x_i||² + 1`` and
-``b = Σ α_i y_i``. Masked rows get ``Q_ii = 1`` and their updates are
-multiplied by 0, so their α stays exactly 0. α, w and b are float32
-even when the rows are bf16.
+* **linear** (dense rows): keeps the primal ``w = Σ α_i y_i x_i``,
+  O(n·d) per epoch, no Gram matrix, in the hand-written kernel
+  ``cd_solve``. α, w and b are float32 even when the rows are bf16.
+* **kernel** (rbf/poly, or ``use_gram``; dense or blocked-CSR rows):
+  builds the Gram matrix (``gram_impl``: ``"pallas"`` → the ``gram``
+  kernel, ``"pallas_sparse"`` → ``sparse_gram``, ``"xla"`` → plain
+  PyTorch :func:`apply_kernel`) and runs Gram dual CD in the kernel
+  ``cd_solve_gram``, O(n²) per epoch. As in the reference, K, y, the
+  mask, α and the gradient are kept in the rows' dtype.
 
-The kernel (rbf/poly, or ``use_gram``) path waits for ROADMAP Queue 1 #5.
+Both solve all partitions of a MapReduce round in one launch, one CTA
+per job. The bias is LIBLINEAR's regularized bias: ``K ← K + 1`` /
+``Q_ii = ||x_i||² + 1`` and ``b = Σ α_i y_i``. Masked rows get
+``Q_ii = 1`` and their updates are multiplied by 0, so their α stays
+exactly 0. Sparse rows on the linear path wait for ROADMAP Queue 1 #5a.
 """
 from __future__ import annotations
 
@@ -21,11 +27,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.kernel_fns import KernelConfig
+from repro_torch import sparse as sparse_rows
+from repro_torch.core.kernel_fns import KernelConfig, apply_kernel
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
 
-_GRAM_PATH = "kernel (Gram) path: ROADMAP Queue 1 #5"
+SPARSE_LINEAR = ("sparse rows on the linear (non-Gram) path: ROADMAP "
+                 "Queue 1 #5a")
+#: K entries one chunk of a decision may hold (~1 GB of float32)
+_CHUNK_ELEMS = 1 << 28
 
 
 class SolverParams(NamedTuple):
@@ -88,12 +98,14 @@ class SVMConfig:
 
     @property
     def is_linear(self) -> bool:
-        """True where the solve runs on the primal ``w`` (the port's path)."""
+        """True where the solve runs on the primal ``w``, False on the
+        Gram path."""
         return self.kernel.name == "linear" and not self.use_gram
 
 
 class BinarySVM(NamedTuple):
-    """Trained reducer output: dual coefs + primal view (linear path).
+    """Trained reducer output: dual coefs + primal view (zeros on the
+    Gram path unless the kernel is linear).
 
     Batched solves carry a leading job axis on every field.
     """
@@ -131,8 +143,8 @@ def fit_binary_linear(X: torch.Tensor, y: torch.Tensor,
                       mask: Optional[torch.Tensor], cfg: SVMConfig,
                       params: Optional[SolverParams] = None) -> BinarySVM:
     """Dual CD on the primal ``w`` for one job; X (n, d) dense."""
-    if X.is_sparse:
-        raise NotImplementedError("sparse rows: ROADMAP Queue 1 #5")
+    if sparse_rows.is_sparse(X):
+        raise NotImplementedError(SPARSE_LINEAR)
     n, d = X.shape
     m = torch.ones((n,), dtype=torch.float32, device=X.device) \
         if mask is None else mask
@@ -141,8 +153,75 @@ def fit_binary_linear(X: torch.Tensor, y: torch.Tensor,
     return BinarySVM(*(f[0] for f in res))
 
 
-def fit_binary_kernel(X, y, mask, cfg: SVMConfig, params=None) -> BinarySVM:
-    raise NotImplementedError(_GRAM_PATH)
+def _side_sparse(side) -> bool:
+    return sparse_rows.is_sparse(side[0] if isinstance(side, tuple)
+                                 else side)
+
+
+def kernel_matrix(X, Z, cfg: SVMConfig,
+                  params: Optional[SolverParams] = None) -> torch.Tensor:
+    """k(X, Zᵀ) routed by ``cfg.gram_impl``: ``"pallas"`` → the ``gram``
+    kernel (which refuses ``SparseRows``), ``"pallas_sparse"`` →
+    ``sparse_gram`` (which refuses two dense sides), and plain PyTorch
+    :func:`apply_kernel` for ``"xla"`` and for the mixed dense × sparse
+    pair under ``"pallas_sparse"``, which the reference also sends to
+    ``cross_dots`` (``gram.py:178``).
+
+    Sides are row batches or ``(home, shared)`` pairs (see
+    :func:`repro_torch.kernels.ops.gram`). → (n, m), or (jobs, n, m)
+    when a side is a pair; float32 from the kernels, the rows' dtype
+    from ``apply_kernel``.
+    """
+    p = cfg.params() if params is None else params
+    kc = cfg.kernel
+    kw = dict(kind=kc.name, gamma=p.gamma, coef0=p.coef0, degree=kc.degree)
+    if cfg.gram_impl == "pallas":
+        return ops.gram(X, Z, **kw)
+    if cfg.gram_impl == "pallas_sparse" and \
+            _side_sparse(X) == _side_sparse(Z):
+        return ops.sparse_gram(X, Z, **kw)
+    return ops.per_job(apply_kernel, X, Z, cfg=kc, gamma=p.gamma,
+                       coef0=p.coef0)
+
+
+def solve_kernel_jobs(xh, xs, y: torch.Tensor, m: torch.Tensor,
+                      cfg: SVMConfig,
+                      params: Optional[SolverParams] = None) -> BinarySVM:
+    """Solve L jobs on the Gram path: job l trains on rows
+    ``[xh[l]; xs]`` (dense or ``SparseRows``) with labels/mask ``y[l]``,
+    ``m[l]`` (L, per + S). One Gram build over the L jobs and one
+    ``cd_solve_gram`` launch on the card. The state is in the rows'
+    dtype (``K.astype(X.dtype)``, ``svm.py:248``). → :class:`BinarySVM`
+    with a leading (L,) axis."""
+    p = cfg.params() if params is None else params
+    dt = xh.dtype
+    L = y.shape[0]
+    K = kernel_matrix((xh, xs), (xh, xs), cfg, p).to(dt)
+    y, m = y.to(dt).contiguous(), m.to(dt).contiguous()
+    alpha, t, viol = ops.cd_solve_gram(K.contiguous(), y, m, C=p.C,
+                                       tol=p.tol,
+                                       max_epochs=epoch_cap(cfg, p))
+    coef = alpha * y * m
+    d = xh.shape[-1]
+    if cfg.kernel.name == "linear":
+        w = torch.stack([sparse_rows.weighted_row_sum(
+            sparse_rows.rows_concat(xh[j], xs), coef[j]).to(dt)
+            for j in range(L)])
+    else:
+        w = torch.zeros((L, d), dtype=dt, device=coef.device)
+    return BinarySVM(alpha=alpha, b=coef.sum(1), w=w, epochs_run=t,
+                     max_violation=viol)
+
+
+def fit_binary_kernel(X, y: torch.Tensor, mask: Optional[torch.Tensor],
+                      cfg: SVMConfig,
+                      params: Optional[SolverParams] = None) -> BinarySVM:
+    """Gram dual CD for one job; X (n, d) dense or ``SparseRows``."""
+    n = X.shape[0]
+    m = torch.ones((n,), dtype=X.dtype, device=X.device) if mask is None \
+        else mask
+    res = solve_kernel_jobs(X[None], X[:0], y[None], m[None], cfg, params)
+    return BinarySVM(*(f[0] for f in res))
 
 
 def fit_binary(X, y, mask=None, cfg: SVMConfig = SVMConfig(),
@@ -166,11 +245,31 @@ def decision_linear(w: torch.Tensor, b: torch.Tensor, X: torch.Tensor,
                     chunk_rows: int = 8192) -> torch.Tensor:
     """f(X) = X w + b in w's dtype; rows go through in chunks so a bf16
     X is never copied whole to float32."""
-    if X.is_sparse:
-        raise NotImplementedError("sparse rows: ROADMAP Queue 1 #5")
+    if sparse_rows.is_sparse(X):
+        raise NotImplementedError(SPARSE_LINEAR)
     out = torch.empty(X.shape[:-1], dtype=w.dtype, device=X.device)
     for i in range(0, X.shape[0], chunk_rows):
         out[i:i + chunk_rows] = X[i:i + chunk_rows].to(w.dtype) @ w
+    return out + b
+
+
+def decision_kernel(Z, coef: torch.Tensor, b, X, cfg: SVMConfig,
+                    params: Optional[SolverParams] = None) -> torch.Tensor:
+    """f(x) = Σ_j coef_j k(x, z_j) + b, coef = α·y (masked), with K built
+    by :func:`kernel_matrix` (the reducer's Gram kernel under
+    ``pallas*``). ``Z`` is a row batch or a ``(home (1, ·), shared)``
+    pair; ``coef`` (m,) or (m, L) with ``b`` () or (L,). Query rows go
+    through in chunks of at most ~1 GB of K. → (n,) or (n, L) in
+    ``coef``'s dtype."""
+    nz = Z[0].shape[1] + Z[1].shape[0] if isinstance(Z, tuple) \
+        else Z.shape[0]
+    n = X.shape[0]
+    step = max(1, _CHUNK_ELEMS // max(nz, 1))
+    out = torch.empty((n,) + tuple(coef.shape[1:]), dtype=coef.dtype,
+                      device=coef.device)
+    for q0 in range(0, n, step):
+        K = kernel_matrix(X[q0:q0 + step], Z, cfg, params)
+        out[q0:q0 + step] = K.reshape(-1, nz).to(coef.dtype) @ coef
     return out + b
 
 

@@ -7,7 +7,8 @@ byte for byte.
 
 :func:`svm_rows_device` makes rows of the same distribution straight
 on the device, where a full-width dataset takes seconds instead of
-minutes of host time.
+minutes of host time. :func:`svm_rows_sparse` and
+:func:`svm_rows_sparse_device` do the same for blocked-CSR rows.
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from repro_torch import sparse as sparse_rows
 
 _ROW_BLOCK = 1024     # rows per stateless block (host memory granule)
 
@@ -90,11 +93,73 @@ def svm_rows_shard(num_rows: int, num_features: int, seed: int = 0,
     return X, y
 
 
-def _block_generator(seed: int, block: int, device) -> torch.Generator:
+# -- sparse rows: blocked-CSR straight from the generator, on their own
+# stateless stream (seed, 2, block). Columns are drawn one per stratum
+# (stride = d // nnz), so in-row indices are DISTINCT — the SparseRows
+# contract under which Σv² row norms equal the densified rows' norms.
+
+def _svm_sparse_row_block(block: int, rows: int, num_features: int,
+                          nnz_cap: int, nnz: int, seed: int
+                          ) -> Tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng((seed, 2, block))
+    stride = num_features // nnz
+    offs = rng.integers(0, stride, (rows, nnz))
+    cols = (np.arange(nnz, dtype=np.int64) * stride)[None, :] + offs
+    vals = rng.random((rows, nnz), dtype=np.float32)
+    norm = np.linalg.norm(vals, axis=1, keepdims=True)
+    vals = vals / np.maximum(norm, 1e-9)
+    indices = np.zeros((rows, nnz_cap), np.int32)
+    values = np.zeros((rows, nnz_cap), np.float32)
+    indices[:, :nnz] = cols.astype(np.int32)
+    values[:, :nnz] = vals
+    return indices, values
+
+
+def _sparse_nnz(num_features: int, nnz_cap: int, nnz: Optional[int]) -> int:
+    nnz = default_row_nnz(num_features) if nnz is None \
+        else min(num_features, max(1, int(nnz)))
+    if nnz > nnz_cap:
+        raise ValueError(f"nnz={nnz} exceeds nnz_cap={nnz_cap}")
+    return nnz
+
+
+def svm_rows_sparse(num_rows: int, num_features: int, nnz_cap: int,
+                    seed: int = 0, signal_dims: int = 64,
+                    nnz: Optional[int] = None, *, process_index: int = 0,
+                    process_count: int = 1):
+    """THIS process's shard as blocked-CSR rows (``SparseRows`` with CPU
+    leaves) + labels, on the block-stateless contract of
+    :func:`svm_rows_shard`."""
+    nnz = _sparse_nnz(num_features, nnz_cap, nnz)
+    start, stop = host_row_range(num_rows, process_index, process_count)
+    w = _svm_signal(num_features, seed, signal_dims)
+    if stop == start:
+        indices = np.zeros((0, nnz_cap), np.int32)
+        values = np.zeros((0, nnz_cap), np.float32)
+    else:
+        iparts, vparts = [], []
+        for block in range(start // _ROW_BLOCK, (stop - 1) // _ROW_BLOCK + 1):
+            b0 = block * _ROW_BLOCK
+            rows = min(num_rows - b0, _ROW_BLOCK)
+            bi, bv = _svm_sparse_row_block(block, rows, num_features,
+                                           nnz_cap, nnz, seed)
+            lo = max(start - b0, 0)
+            iparts.append(bi[lo:stop - b0])
+            vparts.append(bv[lo:stop - b0])
+        indices = np.concatenate(iparts, axis=0)
+        values = np.concatenate(vparts, axis=0)
+    y = np.sign(np.sum(values * w[indices], axis=1) + 1e-3
+                ).astype(np.float32)
+    return sparse_rows.from_numpy_coo(indices, values, num_features), y
+
+
+def _block_generator(seed: int, block: int, device,
+                     stream: int = 1) -> torch.Generator:
     """The torch stream of stateless block ``block``, seeded from
-    ``(seed, 1, block)`` like the numpy generator's."""
+    ``(seed, stream, block)`` like the numpy generator's (stream 1:
+    dense rows, 2: sparse rows)."""
     g = torch.Generator(device=device)
-    g.manual_seed(int(np.random.SeedSequence((seed, 1, block))
+    g.manual_seed(int(np.random.SeedSequence((seed, stream, block))
                       .generate_state(1, np.uint64)[0]))
     return g
 
@@ -133,3 +198,37 @@ def svm_rows_device(num_rows: int, num_features: int, seed: int = 0,
         y[r0:r0 + rows] = torch.sign(Xb @ w + 1e-3)
         X[r0:r0 + rows] = Xb.to(dtype)
     return X, y
+
+
+def svm_rows_sparse_device(num_rows: int, num_features: int, nnz_cap: int,
+                           seed: int = 0, signal_dims: int = 64,
+                           nnz: Optional[int] = None, *,
+                           dtype: torch.dtype = torch.float32,
+                           device="cuda"):
+    """Blocked-CSR rows of the ``svm_rows_sparse`` distribution, made on
+    ``device``: per stateless block its own ``torch.Generator``, one
+    uniform column per stride-``d // nnz`` stratum, uniform values,
+    L2-normalized, labels ``sign(x·w + 1e-3)`` against the planted
+    separator of :func:`svm_rows_sparse`. The random stream is torch's,
+    so the values differ from the numpy generator's; the distribution
+    does not. → (``SparseRows`` with ``dtype`` values, labels f32)."""
+    dev = torch.device(device)
+    nnz = _sparse_nnz(num_features, nnz_cap, nnz)
+    stride = num_features // nnz
+    w = torch.from_numpy(_svm_signal(num_features, seed, signal_dims)).to(dev)
+    indices = torch.zeros((num_rows, nnz_cap), dtype=torch.int32, device=dev)
+    values = torch.zeros((num_rows, nnz_cap), dtype=dtype, device=dev)
+    y = torch.empty((num_rows,), dtype=torch.float32, device=dev)
+    base = torch.arange(nnz, device=dev) * stride
+    for block in range(-(-num_rows // _ROW_BLOCK)):
+        r0 = block * _ROW_BLOCK
+        rows = min(num_rows - r0, _ROW_BLOCK)
+        g = _block_generator(seed, block, dev, stream=2)
+        cols = base + torch.randint(0, stride, (rows, nnz), generator=g,
+                                    device=dev)
+        vals = torch.rand((rows, nnz), generator=g, device=dev)
+        vals /= vals.norm(dim=1, keepdim=True).clamp(min=1e-9)
+        indices[r0:r0 + rows, :nnz] = cols.to(torch.int32)
+        values[r0:r0 + rows, :nnz] = vals.to(dtype)
+        y[r0:r0 + rows] = torch.sign((vals * w[cols]).sum(1) + 1e-3)
+    return sparse_rows.SparseRows(indices, values, num_features), y

@@ -1,8 +1,9 @@
 """Where the port's entry points run.
 
 Numpy inputs go to ``cuda`` unless the caller names a device; tensors
-stay where they are. Without a card a ``cuda`` request raises — the
-port never falls back to the CPU on its own.
+and :class:`~repro_torch.sparse.SparseRows` stay where they are.
+Without a card a ``cuda`` request raises — the port never falls back to
+the CPU on its own.
 """
 from __future__ import annotations
 
@@ -11,15 +12,17 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
+from repro_torch.sparse import SparseRows
+
 DeviceLike = Union[str, torch.device, None]
 
 
 def resolve_device(device: DeviceLike = None, like=None) -> torch.device:
     """The device an entry point runs on: ``device`` if given, else the
-    device of tensor ``like``, else ``cuda``."""
+    device of tensor or ``SparseRows`` ``like``, else ``cuda``."""
     if device is not None:
         dev = torch.device(device)
-    elif isinstance(like, torch.Tensor):
+    elif isinstance(like, (torch.Tensor, SparseRows)):
         return like.device
     else:
         dev = torch.device("cuda")
@@ -31,8 +34,11 @@ def resolve_device(device: DeviceLike = None, like=None) -> torch.device:
 
 
 def as_tensor(x, device: torch.device,
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``x`` (numpy or tensor) on ``device``, optionally cast."""
+              dtype: Optional[torch.dtype] = None):
+    """``x`` (numpy, tensor or ``SparseRows``) on ``device``, optionally
+    cast (a ``SparseRows`` moves both leaves and casts its values)."""
+    if isinstance(x, SparseRows):
+        return x.to(device=device, dtype=dtype)
     if isinstance(x, np.ndarray):
         x = torch.from_numpy(np.ascontiguousarray(x))
     else:

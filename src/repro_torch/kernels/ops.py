@@ -14,9 +14,11 @@ from typing import Dict
 
 import torch
 
+from repro_torch import sparse as sparse_rows
 from repro_torch.kernels import ref
 
-LAUNCHES: Dict[str, int] = {"cd_solve": 0, "hinge_scores": 0}
+LAUNCHES: Dict[str, int] = {"cd_solve": 0, "hinge_scores": 0, "gram": 0,
+                            "sparse_gram": 0, "cd_solve_gram": 0}
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -107,3 +109,135 @@ def hinge_scores(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         LAUNCHES["hinge_scores"] += 1
         losses.append(loss)
     return (losses[0] if len(losses) == 1 else torch.cat(losses)), count
+
+
+def _job_rows(side):
+    """A side of a Gram: a (n, ·) row batch (one job, no shared rows) or
+    a ``(home (J, per, ·), shared (S, ·))`` pair, dense or sparse. →
+    (JobRows, was_plain)."""
+    from repro_torch.kernels.gram import JobRows
+    if isinstance(side, tuple):
+        home, shared = side
+        _check(len(home.shape) == 3 and len(shared.shape) == 2,
+               "a (home, shared) side must be (J, per, d) and (S, d), got "
+               f"{tuple(home.shape)} and {tuple(shared.shape)}")
+        return JobRows(home, shared), False
+    _check(len(side.shape) == 2, f"rows must be (n, d), got {side.shape}")
+    return JobRows(side[None], side[:0]), True
+
+
+def _gram_sides(X, Z, kind: str, degree: int):
+    _check(kind in ("linear", "poly", "rbf"), f"unknown kernel {kind!r}")
+    _check(int(degree) >= 0, f"degree must be >= 0, got {degree}")
+    (xr, xp), (zr, zp) = _job_rows(X), _job_rows(Z)
+    jobs = max(xr.jobs, zr.jobs)
+    _check(xr.jobs in (1, jobs) and zr.jobs in (1, jobs),
+           f"job counts {xr.jobs} and {zr.jobs} do not broadcast")
+    d = {r.home.shape[-1] for r in (xr, zr)} | \
+        {r.shared.shape[-1] for r in (xr, zr)}
+    _check(len(d) == 1, f"feature dims differ: {sorted(d)}")
+    return xr, zr, jobs, xp and zp
+
+
+def per_job(fn, X, Z, **kw) -> torch.Tensor:
+    """``fn(X_l, Z_l, **kw)`` on each job's concatenated rows
+    ``[home[l]; shared]`` (sides as in :func:`gram`), stacked; (n, m)
+    for two plain sides. The plain versions and the ``"xla"`` route run
+    job rows this way."""
+    (xr, xp), (zr, zp) = _job_rows(X), _job_rows(Z)
+    jobs = max(xr.jobs, zr.jobs)
+    K = torch.stack([fn(
+        sparse_rows.rows_concat(xr.home[j if xr.jobs > 1 else 0], xr.shared),
+        sparse_rows.rows_concat(zr.home[j if zr.jobs > 1 else 0], zr.shared),
+        **kw) for j in range(jobs)])
+    return K[0] if xp and zp else K
+
+
+def gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
+         coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+    """Dense Gram K = k(X, Zᵀ) in float32 (see :func:`ref.gram_ref`).
+
+    X and Z are (n, d) rows, or ``(home (J, per, d), shared (S, d))``
+    pairs whose job ``l`` has the rows ``[home[l]; shared]`` (a home
+    with J = 1 serves every job). Rows f32 or bf16, one dtype. → (n, m)
+    for two plain sides, else (jobs, n, m).
+    """
+    xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
+    leaves = (xr.home, xr.shared, zr.home, zr.shared)
+    _check(all(not sparse_rows.is_sparse(t) for t in leaves),
+           "gram takes dense rows; use sparse_gram for SparseRows")
+    _check(xr.home.dtype in _ROW_DTYPES
+           and all(t.dtype == xr.home.dtype for t in leaves),
+           f"rows must be one of {_ROW_DTYPES}, all of one dtype")
+    kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
+    if not _on_card(*leaves):
+        return per_job(ref.gram_ref, X, Z, **kw)
+    _check_cuda_layout(dict(zip(("X home", "X shared", "Z home",
+                                 "Z shared"), leaves)))
+    from repro_torch.kernels.gram import launch_gram
+    K = launch_gram(xr, zr, jobs, **kw)
+    LAUNCHES["gram"] += 1
+    return K[0] if plain else K
+
+
+def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
+                coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+    """Gram of blocked-CSR rows in float32 (see :func:`ref.sparse_gram_ref`).
+
+    X and Z are ``SparseRows`` of one nnz_cap and value dtype (f32 or
+    bf16), or ``(home, shared)`` pairs of them as in :func:`gram`. Both
+    sides must be sparse: the mixed dense × sparse Gram is not a kernel
+    (it is :func:`repro_torch.core.kernel_fns.apply_kernel`). → (n, m)
+    for two plain sides, else (jobs, n, m).
+    """
+    xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
+    parts = (xr.home, xr.shared, zr.home, zr.shared)
+    _check(all(sparse_rows.is_sparse(t) for t in parts),
+           "sparse_gram takes SparseRows on both sides")
+    _check(len({t.nnz_cap for t in parts}) == 1, "nnz_cap differs")
+    _check(xr.home.dtype in _ROW_DTYPES
+           and all(t.dtype == xr.home.dtype for t in parts),
+           f"values must be one of {_ROW_DTYPES}, all of one dtype")
+    _check(all(t.indices.dtype == torch.int32 for t in parts),
+           "indices must be int32")
+    kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
+    leaves = [leaf for t in parts for leaf in (t.indices, t.values)]
+    if not _on_card(*leaves):
+        return per_job(ref.sparse_gram_ref, X, Z, **kw)
+    _check_cuda_layout({f"leaf {i}": t for i, t in enumerate(leaves)})
+    d = xr.home.d
+    for t in parts:
+        if t.indices.numel():
+            _check(0 <= int(t.indices.min()) and int(t.indices.max()) < d,
+                   f"column ids outside [0, {d})")
+    from repro_torch.kernels.gram import launch_sparse_gram
+    K = launch_sparse_gram(xr, zr, jobs, **kw)
+    LAUNCHES["sparse_gram"] += 1
+    return K[0] if plain else K
+
+
+def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
+                  C: float, tol: float, max_epochs: int):
+    """Gram dual-CD solve of L jobs (see :func:`ref.cd_solve_gram_ref`).
+
+    K (L, n, n) symmetric, without the bias +1; y, m (L, n); all one
+    dtype, f32 or bf16 (the solver state's dtype). → alpha (L, n),
+    epochs (L,) int32, viol (L,).
+    """
+    _check(K.dim() == 3 and K.shape[1] == K.shape[2],
+           f"K must be (L, n, n), got {tuple(K.shape)}")
+    L, n, _ = K.shape
+    _check(tuple(y.shape) == (L, n) and tuple(m.shape) == (L, n),
+           f"y and m must be {(L, n)}, got {tuple(y.shape)}/{tuple(m.shape)}")
+    _check(K.dtype in _ROW_DTYPES and y.dtype == m.dtype == K.dtype,
+           f"K, y and m must share one dtype of {_ROW_DTYPES}")
+    if not _on_card(K, y, m):
+        return ref.cd_solve_gram_ref(K, y, m, C=C, tol=tol,
+                                     max_epochs=max_epochs)
+    _check_cuda_layout({"K": K, "y": y, "m": m})
+    from repro_torch.kernels.gram_solve import launch_cd_solve_gram, max_rows
+    _check(n <= max_rows(), f"cd_solve_gram holds at most {max_rows()} rows "
+           f"of solver state per job in shared memory, got {n}")
+    out = launch_cd_solve_gram(K, y, m, float(C), float(tol), int(max_epochs))
+    LAUNCHES["cd_solve_gram"] += 1
+    return out

@@ -2,13 +2,16 @@
 
 The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel
 against its plain version on the card. They compute exactly what the
-kernels compute, in float32, with the rows in the same order.
+kernels compute, with the rows in the same order: in float32, except
+that the Gram solve keeps its state in K's dtype as the reference does.
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from repro_torch import sparse as sparse_rows
 
 
 def _rows(xh: torch.Tensor, xs: torch.Tensor, i: int) -> torch.Tensor:
@@ -112,3 +115,93 @@ def hinge_scores_ref(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
                         min=0.0)
         losses += (h * mask[i:i + chunk_rows].float()[:, None]).sum(0)
     return losses, mask.float().sum()
+
+
+def _kernel_transform(dots, xx, zz, kind: str, gamma: float, coef0: float,
+                      degree: int) -> torch.Tensor:
+    """The fused epilogue of the Gram kernels on float32 dot products."""
+    if kind == "linear":
+        return dots
+    if kind == "poly":
+        return (gamma * dots + coef0) ** int(degree)
+    if kind == "rbf":
+        sq = xx[:, None] + zz[None, :] - 2.0 * dots
+        return torch.exp(-gamma * torch.clamp(sq, min=0.0))
+    raise ValueError(f"unknown kernel {kind!r}")
+
+
+def gram_ref(X: torch.Tensor, Z: torch.Tensor, kind: str = "linear",
+             gamma: float = 1.0, coef0: float = 0.0,
+             degree: int = 3) -> torch.Tensor:
+    """K = k(X, Z) (n, d) × (m, d) → (n, m) float32, from float32-cast
+    rows (products, sums and the rbf norms, as ``gram.py:40-77``)."""
+    Xf, Zf = X.float(), Z.float()
+    xx = zz = None
+    if kind == "rbf":
+        xx = (Xf * Xf).sum(-1)
+        zz = (Zf * Zf).sum(-1)
+    return _kernel_transform(Xf @ Zf.T, xx, zz, kind, gamma, coef0, degree)
+
+
+def sparse_gram_ref(X, Z, kind: str = "linear", gamma: float = 1.0,
+                    coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+    """K = k(X, Z) for blocked-CSR ``SparseRows`` (either may be dense)
+    → (n, m) float32, from float32-cast values: dots by the chunked
+    scatter-densify gather of :func:`repro_torch.sparse.cross_dots`,
+    norms Σ v² (distinct in-row indices assumed)."""
+    X = X.to(dtype=torch.float32) if sparse_rows.is_sparse(X) else X.float()
+    Z = Z.to(dtype=torch.float32) if sparse_rows.is_sparse(Z) else Z.float()
+    xx = zz = None
+    if kind == "rbf":
+        xx, zz = sparse_rows.row_sq_norms(X), sparse_rows.row_sq_norms(Z)
+    return _kernel_transform(sparse_rows.cross_dots(X, Z), xx, zz, kind,
+                             gamma, coef0, degree)
+
+
+def cd_solve_gram_ref(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
+                      C: float, tol: float, max_epochs: int):
+    """The Gram dual-CD solve of L jobs (the plain ``cd_solve_gram``).
+
+    K (L, n, n) without the bias ``+1``; y, m (L, n). Every operation
+    runs in K's dtype as in ``fit_binary_kernel`` (``svm.py:258-308``):
+    Q = (y yᵀ)·(K + 1)·(m mᵀ), Q_ii → 1 on masked rows, g = −m, and per
+    row i: α_i ← clip(α_i − g_i/Q_ii, 0, C), g += Δ·Q[:, i]. Each job
+    runs at least one epoch (when ``max_epochs`` > 0) and stops once its
+    own violation ≤ ``tol``; a stopped job is frozen while the others go
+    on, as ``vmap`` of the reference's ``while_loop`` behaves.
+
+    → alpha (L, n), epochs (L,) int32, viol (L,), in K's dtype.
+    """
+    L, n, _ = K.shape
+    dt, dev = K.dtype, K.device
+    y, m = y.to(dt), m.to(dt)
+    Cv = torch.tensor(C, dtype=dt, device=dev)
+    tolv = torch.tensor(tol, dtype=dt, device=dev)
+    Q = (y[:, :, None] * y[:, None, :]) * (K + 1.0)
+    Q = Q * (m[:, :, None] * m[:, None, :])
+    qdiag = torch.where(m > 0, torch.diagonal(Q, dim1=1, dim2=2),
+                        torch.ones((), dtype=dt, device=dev))
+    alpha = torch.zeros((L, n), dtype=dt, device=dev)
+    g = -torch.ones((L, n), dtype=dt, device=dev) * m
+    viol = torch.full((L,), math.inf, dtype=dt, device=dev)
+    t = torch.zeros((L,), dtype=torch.int32, device=dev)
+    zero = torch.zeros((), dtype=dt, device=dev)
+    while True:
+        active = (t < max_epochs) & ((t == 0) | (viol > tolv))
+        if not bool(active.any()):
+            break
+        act = active.to(dt)
+        ep = torch.zeros((L,), dtype=dt, device=dev)
+        for i in range(n):
+            gi, ao, mi = g[:, i], alpha[:, i], m[:, i]
+            pg = torch.where(ao <= 0.0, torch.minimum(gi, zero),
+                             torch.where(ao >= Cv, torch.maximum(gi, zero),
+                                         gi))
+            an = torch.clamp(ao - gi / qdiag[:, i], min=zero, max=Cv)
+            delta = (an - ao) * mi * act
+            alpha[:, i] = ao + delta
+            g = g + delta[:, None] * Q[:, :, i]
+            ep = torch.maximum(ep, pg.abs() * mi)
+        viol = torch.where(active, ep, viol)
+        t += active.int()
+    return alpha, t, viol

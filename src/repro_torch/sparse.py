@@ -1,0 +1,238 @@
+"""Blocked sparse rows: fixed-``nnz_cap`` padded CSR/ELL.
+
+``SparseRows`` stores each row as ``nnz_cap`` column-id / value pairs:
+
+    indices : (..., n, nnz_cap) int32   — column ids, 0 on padding slots
+    values  : (..., n, nnz_cap) float   — 0.0 on padding slots
+
+The feature dimension ``d`` rides along. Padding slots are index 0 with
+value 0.0; duplicate indices are legal and always mean *sum* (as
+:func:`to_dense`'s scatter-add does), so a padding slot adds nothing to
+any contraction. ``torch.sparse`` keeps neither the (0, 0) padding
+slots nor that rule, so the layout is two plain tensors.
+
+Rows with more than ``nnz_cap`` nonzeros are truncated by
+:func:`from_dense` to their ``nnz_cap`` largest-|value| entries.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+class SparseRows:
+    """Batch of sparse feature rows in padded-CSR (ELL) layout.
+
+    ``.shape``/``.dtype``/``.ndim`` report the DENSE ``(..., n, d)``
+    view; ``[]`` over batch dims, ``*`` by a trailing-1 row scale, ``@``
+    by a dense matrix and ``.reshape`` of batch dims work as on a dense
+    tensor, so format-blind call sites run on either.
+    """
+
+    __slots__ = ("indices", "values", "d")
+
+    def __init__(self, indices: torch.Tensor, values: torch.Tensor, d: int):
+        self.indices = indices
+        self.values = values
+        self.d = int(d)
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        """Shape of the DENSE row matrix this represents: (..., n, d)."""
+        return tuple(self.values.shape[:-1]) + (self.d,)
+
+    @property
+    def ndim(self) -> int:
+        return self.values.dim()
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    @property
+    def nnz_cap(self) -> int:
+        return int(self.values.shape[-1])
+
+    def to(self, device=None, dtype=None) -> "SparseRows":
+        """Both leaves to ``device``; ``dtype`` casts the values only."""
+        return SparseRows(self.indices.to(device=device),
+                          self.values.to(device=device,
+                                         dtype=dtype or self.values.dtype),
+                          self.d)
+
+    def __getitem__(self, idx) -> "SparseRows":
+        """Indexing over the batch dims; the slot axis is not addressable."""
+        return SparseRows(self.indices[idx], self.values[idx], self.d)
+
+    def __mul__(self, other) -> "SparseRows":
+        """Row-wise scale by ``other`` with a trailing axis of 1."""
+        o = torch.as_tensor(other, device=self.values.device)
+        if o.dim() and o.shape[-1] != 1:
+            raise ValueError(
+                "SparseRows * x requires x constant along the feature axis "
+                f"(trailing dim 1), got shape {tuple(o.shape)}")
+        return SparseRows(self.indices, self.values * o.to(self.values.dtype),
+                          self.d)
+
+    __rmul__ = __mul__
+
+    def __matmul__(self, other: torch.Tensor) -> torch.Tensor:
+        """``X @ W`` against a DENSE ``(d,)`` or ``(d, k)`` operand by
+        gather and accumulate."""
+        if other.shape[0] != self.d:
+            raise ValueError(f"matmul dim mismatch: d={self.d} vs "
+                             f"{tuple(other.shape)}")
+        g = other[self.indices.long()]                  # (..., n, cap[, k])
+        v = self.values.to(other.dtype)
+        if other.dim() == 1:
+            return (g * v).sum(-1)
+        return (g * v[..., None]).sum(-2)
+
+    def reshape(self, *shape) -> "SparseRows":
+        """Reshape the BATCH dims; the last entry must be ``d``."""
+        if len(shape) == 1 and isinstance(shape[0], (tuple, list)):
+            shape = tuple(shape[0])
+        if not shape or shape[-1] != self.d:
+            raise ValueError(
+                f"SparseRows.reshape last dim must be d={self.d}, "
+                f"got {shape}")
+        lead = tuple(int(s) for s in shape[:-1]) + (self.nnz_cap,)
+        return SparseRows(self.indices.reshape(lead),
+                          self.values.reshape(lead), self.d)
+
+    def __repr__(self):
+        return (f"SparseRows(shape={self.shape}, nnz_cap={self.nnz_cap}, "
+                f"dtype={self.values.dtype})")
+
+
+def is_sparse(x) -> bool:
+    return isinstance(x, SparseRows)
+
+
+# -- conversions ---------------------------------------------------------
+
+def from_dense(X: torch.Tensor, nnz_cap: int, d: int | None = None
+               ) -> SparseRows:
+    """Dense ``(..., n, d)`` → ``SparseRows`` keeping, per row, the
+    ``nnz_cap`` largest-|value| entries. A stable descending sort puts
+    the lower column first on ties, as ``lax.top_k`` does."""
+    d = X.shape[-1] if d is None else d
+    if nnz_cap > d:
+        raise ValueError(f"nnz_cap={nnz_cap} exceeds d={d}")
+    idx = torch.sort(X.abs(), dim=-1, descending=True,
+                     stable=True).indices[..., :nnz_cap]
+    vals = torch.gather(X, -1, idx)
+    idx = torch.where(vals != 0, idx, 0).to(torch.int32)
+    return SparseRows(idx, vals, d)
+
+
+def to_dense(sp: SparseRows) -> torch.Tensor:
+    """``SparseRows`` → dense ``(..., n, d)`` by scatter-ADD."""
+    out = torch.zeros(sp.values.shape[:-1] + (sp.d,), dtype=sp.dtype,
+                      device=sp.device)
+    return out.scatter_add_(-1, sp.indices.long(), sp.values)
+
+
+def from_numpy_coo(indices: np.ndarray, values: np.ndarray,
+                   d: int) -> SparseRows:
+    """From already-blocked numpy arrays (the tokenizer and generator
+    emit this layout directly); the leaves stay on the CPU."""
+    return SparseRows(torch.from_numpy(np.ascontiguousarray(indices,
+                                                            np.int32)),
+                      torch.from_numpy(np.ascontiguousarray(values)), d)
+
+
+# -- structural ops on batch dims -----------------------------------------
+
+def rows_concat(a, b, axis: int = 0):
+    """Concatenate two row batches of one format along a batch axis."""
+    sa, sb = is_sparse(a), is_sparse(b)
+    if sa != sb:
+        raise TypeError("cannot concatenate sparse rows with dense rows")
+    if not sa:
+        return torch.cat([a, b], dim=axis)
+    if a.d != b.d:
+        raise ValueError(f"feature-dim mismatch: {a.d} vs {b.d}")
+    if a.nnz_cap != b.nnz_cap:
+        raise ValueError(f"nnz_cap mismatch: {a.nnz_cap} vs {b.nnz_cap}")
+    return SparseRows(torch.cat([a.indices, b.indices], dim=axis),
+                      torch.cat([a.values, b.values.to(a.dtype)], dim=axis),
+                      a.d)
+
+
+def pad_rows(x, pad: int):
+    """Zero-pad ``pad`` rows at the end of the ROW axis (-2 of the dense
+    view), for either format."""
+    if not pad:
+        return x
+    if not is_sparse(x):
+        return torch.nn.functional.pad(x, (0, 0, 0, pad))
+    return SparseRows(torch.nn.functional.pad(x.indices, (0, 0, 0, pad)),
+                      torch.nn.functional.pad(x.values, (0, 0, 0, pad)), x.d)
+
+
+def take_rows_along(x, topi: torch.Tensor):
+    """Rows ``topi[l]`` of each leading batch entry ``l`` of a 3-D row
+    batch ``x`` (L, per, ·) → (L, k, ·), for either format."""
+    rows = torch.arange(topi.shape[0], device=topi.device)[:, None]
+    return x[rows, topi]
+
+
+# -- contractions ----------------------------------------------------------
+
+def row_sq_norms(x) -> torch.Tensor:
+    """Σ_j x_ij² per row (distinct in-row indices assumed when sparse)."""
+    if not is_sparse(x):
+        return (x * x).sum(-1)
+    return (x.values * x.values).sum(-1)
+
+
+def weighted_row_sum(x, coef: torch.Tensor) -> torch.Tensor:
+    """``X.T @ coef`` → dense ``(d,)``: w = Σ_i coef_i x_i."""
+    if not is_sparse(x):
+        return x.T @ coef
+    contrib = (x.values * coef[:, None]).reshape(-1)
+    w = torch.zeros((x.d,), dtype=contrib.dtype, device=contrib.device)
+    return w.index_add_(0, x.indices.reshape(-1).long(), contrib)
+
+
+def cross_dots(x, z, *, chunk: int = 64) -> torch.Tensor:
+    """Dot-product matrix ``<x_i, z_j>`` → ``(n, m)`` for any format mix.
+    Sparse × sparse densifies ``z`` in chunks of ``chunk`` rows by
+    scatter-add and gathers each chunk at ``x``'s column ids:
+    O(n·m·nnz + m·d), never an (n, d) dense copy."""
+    xs, zs = is_sparse(x), is_sparse(z)
+    if not xs and not zs:
+        return x @ z.T
+    if xs and not zs:
+        return x @ z.T
+    if not xs and zs:
+        return (z @ x.T).T
+    if x.d != z.d:
+        raise ValueError(f"feature-dim mismatch: {x.d} vs {z.d}")
+    ct = torch.promote_types(x.dtype, z.dtype)
+    n, m = x.values.shape[-2], z.values.shape[-2]
+    out = torch.empty((n, m), dtype=ct, device=x.device)
+    xi, xv = x.indices.long(), x.values.to(ct)
+    for j0 in range(0, m, chunk):
+        zi = z.indices[j0:j0 + chunk].long()
+        zv = z.values[j0:j0 + chunk].to(ct)
+        c = zi.shape[0]
+        zd = torch.zeros((x.d, c), dtype=ct, device=x.device)
+        cols = torch.arange(c, device=x.device)[:, None].expand_as(zi)
+        zd.index_put_((zi.reshape(-1), cols.reshape(-1)), zv.reshape(-1),
+                      accumulate=True)
+        out[:, j0:j0 + c] = (zd[xi] * xv[..., None]).sum(-2)
+    return out
+
+
+def score_rows(x, W: torch.Tensor, b=None) -> torch.Tensor:
+    """Decision scores ``X @ W.T (+ b)`` with dense ``W (L, d)``."""
+    s = x @ W.T
+    return s if b is None else s + b

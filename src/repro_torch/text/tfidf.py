@@ -1,10 +1,12 @@
-"""TF×IDF weighting (paper eq. 10-11) on dense count rows.
+"""TF×IDF weighting (paper eq. 10-11).
 
     idf_t     = log(N / df_t)                      (eq. 10)
     tfidf_t,d = tf_t,d × idf_t                     (eq. 11)
 
-Numpy counts go to ``device`` (default ``cuda``); tensors stay where
-they are. Sparse rows wait for a later slice of the port.
+Both entry points take dense ``(n, d)`` counts or blocked-CSR
+:class:`~repro_torch.sparse.SparseRows` counts; the sparse overloads
+never densify. Numpy counts go to ``device`` (default ``cuda``);
+tensors and ``SparseRows`` stay where they are.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import sparse as sparse_rows
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 
 
@@ -22,7 +25,7 @@ class TfidfModel(NamedTuple):
 
 def fit_idf(counts, smooth: bool = True,
             device: DeviceLike = None) -> TfidfModel:
-    """idf from a training count matrix (n, d).
+    """idf from a training count matrix (n, d), dense or ``SparseRows``.
 
     ``smooth`` uses log((1+N)/(1+df)) + 1 so unseen terms stay finite —
     the standard safe variant of eq. 10 (hashed spaces always contain
@@ -30,7 +33,15 @@ def fit_idf(counts, smooth: bool = True,
     """
     counts = as_tensor(counts, resolve_device(device, like=counts))
     n = counts.shape[0]
-    df = (counts > 0).to(counts.dtype).sum(0)
+    if sparse_rows.is_sparse(counts):
+        # df by scatter-add of the live slots; in-row indices are
+        # distinct by the featurizer contract.
+        live = (counts.values > 0).to(torch.float32).reshape(-1)
+        df = torch.zeros((counts.d,), dtype=torch.float32,
+                         device=counts.device).index_add_(
+            0, counts.indices.reshape(-1).long(), live)
+    else:
+        df = (counts > 0).to(counts.dtype).sum(0)
     if smooth:
         idf = torch.log((1.0 + n) / (1.0 + df)) + 1.0
     else:
@@ -39,10 +50,22 @@ def fit_idf(counts, smooth: bool = True,
 
 
 def transform(counts, model: TfidfModel, l2_normalize: bool = True,
-              device: DeviceLike = None) -> torch.Tensor:
-    """tf × idf, optionally L2-row-normalized (standard for linear SVM)."""
-    X = as_tensor(counts, resolve_device(device, like=counts)) \
-        * model.idf[None, :]
+              device: DeviceLike = None):
+    """tf × idf, optionally L2-row-normalized (standard for linear SVM).
+
+    ``SparseRows`` counts come back as ``SparseRows`` with the same
+    indices; a padding slot (value 0) stays exactly 0 although the
+    smoothed idf of its column 0 is not.
+    """
+    counts = as_tensor(counts, resolve_device(device, like=counts))
+    if sparse_rows.is_sparse(counts):
+        scale = model.idf[counts.indices.long()].to(counts.dtype)
+        vals = torch.where(counts.values != 0, counts.values * scale, 0.0)
+        if l2_normalize:
+            norm = torch.sqrt((vals * vals).sum(-1, keepdim=True))
+            vals = vals / torch.clamp(norm, min=1e-12)
+        return sparse_rows.SparseRows(counts.indices, vals, counts.d)
+    X = counts * model.idf[None, :]
     if l2_normalize:
         norm = torch.sqrt((X * X).sum(1, keepdim=True))
         X = X / torch.clamp(norm, min=1e-12)

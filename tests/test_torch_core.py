@@ -64,13 +64,22 @@ def test_apply_kernel_matches_reference(name):
 
 
 def test_sparse_operands_and_gram_path_wait_for_a_later_slice():
-    X = torch.eye(4).to_sparse()
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        T.apply_kernel(X, X, cfg=T.KernelConfig())
-    cfg = T.SVMConfig(kernel=T.KernelConfig("rbf"))
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        T.fit_binary(np.eye(4, dtype=np.float32), np.ones(4, np.float32),
-                     cfg=cfg, device="cpu")
+    """Sparse rows on the linear, non-Gram path wait for the next slice
+    (ROADMAP Queue 1 #5a); the Gram path takes them."""
+    from repro_torch import sparse as tsp
+    X = tsp.from_dense(torch.eye(4), 2)
+    y = torch.tensor([1.0, -1.0, 1.0, -1.0])
+    with pytest.raises(NotImplementedError, match="Queue 1 #5a"):
+        T.fit_binary(X, y, cfg=T.SVMConfig())
+    with pytest.raises(NotImplementedError, match="Queue 1 #5a"):
+        T.fit_mapreduce(X, y, 2, T.MRSVMConfig(sv_capacity=2))
+    with pytest.raises(NotImplementedError, match="Queue 1 #5a"):
+        T.decision_linear(torch.ones(4), torch.zeros(()), X)
+    K = T.apply_kernel(X, X, cfg=T.KernelConfig("rbf"))
+    torch.testing.assert_close(K, T.apply_kernel(torch.eye(4), torch.eye(4),
+                                                 cfg=T.KernelConfig("rbf")))
+    res = T.fit_binary(X, y, cfg=T.SVMConfig(kernel=T.KernelConfig("rbf")))
+    assert res.alpha.shape == (4,) and not res.w.any()
 
 
 SVM_BAD = [dict(row_format="csr"), dict(gram_impl="triton"),
