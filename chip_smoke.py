@@ -31,12 +31,23 @@ Phases, one line or block each; any failure exits non-zero:
    one eq. 7 chunk) and ``cd_solve_gram`` checked and timed at its
    shapes and one round profiled; last, the same fit with the linear
    kernel on the Gram path, whose eq. 7 pick must beat the majority
-   class (the rbf pick at γ = 1 only matches it).
+   class (the rbf pick at γ = 1 only matches it);
+8. slice 3, the LM serve path: ``flash_decode`` against its plain
+   version at small shapes (f32 and bf16, valid_len 0, 1, partial and
+   S, a ragged S = 1000, K/V past valid_len set to ±99, a rerun) with
+   phase 2; the smoke serve of tinyllama-1.1b through the port's CLI
+   code path (batch 4, cache 256, 16 tokens, the same tokens as the
+   plain versions on the CPU) after phase 4; last, tinyllama-1.1b at
+   full width in bf16 (batch 32, cache 32768 filled with seeded random
+   K/V, 16 greedy tokens through ``serve_lm``) with ``flash_decode``
+   timed at one layer's shape, one step under
+   ``torch.cuda.set_sync_debug_mode("error")``, the kernel route against
+   the plain route and one step profiled.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
 power limit as nvidia-smi gives them. ``--quick`` stops after phase 4
-and prints no result.
+and the smoke serve, and prints no result.
 """
 from __future__ import annotations
 
@@ -67,6 +78,8 @@ SPARSE_SRC = "src/repro_torch/kernels/csrc/sparse_gram.cu"
 SPARSE_TPU = "src/repro/kernels/gram.py:201"
 CDG_SRC = "src/repro_torch/kernels/csrc/cd_solve_gram.cu"
 CDG_TPU = "src/repro/core/svm.py:279 (no TPU kernel: XLA loop)"
+FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
+FD_TPU = "src/repro/kernels/decode_attention.py:70"
 KERNEL_PATH_LAUNCHES = ("gram", "sparse_gram", "cd_solve_gram")
 DEV = "cuda"
 
@@ -442,17 +455,16 @@ def time_cd_solve(torch, T, ops, ref, Xp, yp, maskp, cfg):
                 bound_ms=bms, bound_by=by, library_ms=None)
 
 
-def profile_round(torch, T, Xp, yp, maskp, sv, cfg):
-    """One more round from the converged SV_global under torch.profiler:
-    device time by kernel and the device's busy share of the round."""
+def profile(torch, fn, what: str) -> None:
+    """``fn()`` (which ends in a host readback) under torch.profiler:
+    device time by kernel and the device's busy share of the call."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if DEV == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        out = T.mapreduce_round(Xp, yp, maskp, sv, cfg)
-        out.risks.cpu()
+        fn()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # Kernel rows only: an operator's row repeats its kernels' time.
     rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
@@ -460,10 +472,17 @@ def profile_round(torch, T, Xp, yp, maskp, sv, cfg):
                    if evt.device_type == torch.autograd.DeviceType.CUDA),
                   reverse=True)
     busy = sum(r[0] for r in rows)
-    say(f"[profile] one round: {wall_ms:.1f} ms host clock (profiled), "
-        f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %)")
+    say(f"[profile] {what}: {wall_ms:.1f} ms host clock (profiled), "
+        f"device busy {busy:.1f} ms ({100 * busy / wall_ms:.1f} %), "
+        f"{sum(r[1] for r in rows)} kernel launches")
     for ms, count, key in rows[:8]:
         say(f"[profile]   {ms:10.3f} ms  {count:4d}×  {key[:90]}")
+
+
+def profile_round(torch, T, Xp, yp, maskp, sv, cfg):
+    """One more round from the converged SV_global, profiled."""
+    profile(torch, lambda: T.mapreduce_round(Xp, yp, maskp, sv, cfg
+                                             ).risks.cpu(), "one round")
 
 
 def phase_full_width(torch, T, ops, ref):
@@ -768,6 +787,347 @@ def phase_full_kernel(torch, T, ops, ref):
     return [sg, cdg]
 
 
+# --- slice 3: the LM serve path --------------------------------------------
+
+# flash_decode against its plain version: max |Δ| over max |plain|, the
+# largest output. In f32 the two differ only in summation order; in bf16
+# both round one f32 value to bf16, and 1e-6 apart can round one ulp
+# apart: at most 2⁻⁷ of the largest output.
+FD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
+FD_CHUNK = 512   # cache positions a CTA of flash_decode.cu reads (kChunk)
+# q's scale in the checks: 1 leaves the softmax over N(0, 1) keys nearly
+# flat (outputs a mean of many V rows, ~1/√S); 8 peaks it as a trained
+# model's attention is peaked, so that the outputs are O(1) and a chunk
+# dropped or mis-weighted moves them by as much.
+FD_Q_SCALES = (1.0, 8.0)
+
+
+def _rel_max(a, b) -> float:
+    """max |a − b| / max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_decode_small(torch, ops, ref):
+    """flash_decode against its plain version at small shapes: the three
+    of tests/test_kernels.py:46-50, G = 8 at hd = 64, a ragged S = 1000;
+    valid_len 0, 1, a partial chunk and S; a flat and a peaked softmax
+    (FD_Q_SCALES); K/V past valid_len set to ±99 (nothing may change)
+    and a rerun (bit-identical)."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    shapes = ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (2, 16, 4, 512, 128),
+              (2, 32, 4, 2048, 64), (3, 16, 2, 1000, 64))
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[1]
+        worst, cases = 0.0, 0
+        for B, H, KV, S, hd in shapes:
+            k, v = (torch.randn((B, KV, S, hd), generator=gen,
+                                device=dev).to(dtype) for _ in range(2))
+            for qs in FD_Q_SCALES:
+                q = (qs * torch.randn((B, H, hd), generator=gen,
+                                      device=dev)).to(dtype)
+                for vl in (0, 1, S // 2 + 3, S):
+                    valid = torch.tensor(vl, dtype=torch.int32, device=dev)
+                    out = ops.decode_attention(q, k, v, valid)
+                    worst = max(worst, _rel_max(out, ref.decode_attention_ref(
+                        q, k, v, valid)))
+                    check(torch.equal(ops.decode_attention(q, k, v, valid),
+                                      out), "flash_decode rerun not "
+                          f"bit-identical ({B, H, KV, S, hd})")
+                    if 1 <= vl < S:
+                        k2, v2 = k.clone(), v.clone()
+                        k2[:, :, vl:], v2[:, :, vl:] = 99.0, -99.0
+                        check(torch.equal(ops.decode_attention(
+                            q, k2, v2, valid), out),
+                            f"flash_decode read past valid_len {vl} of {S}")
+                    cases += 1
+        say(f"[kernels] flash_decode {tag}: max |Δ|/max|plain| = "
+            f"{worst:.2e} over {cases} cases (tol {FD_TOL[tag]:g}); past-"
+            "valid_len ±99 unchanged, reruns bit-identical")
+        check(worst <= FD_TOL[tag],
+              f"flash_decode {tag} differs from plain by {worst:.2e}")
+
+
+def phase_serve_smoke(torch, ops):
+    """The smoke serve through the port's CLI code path (batch 4, cache
+    256, 16 tokens): tokens in range, 2 layers × 16 flash_decode
+    launches, and the same tokens from the plain versions on the CPU
+    with the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models import build_model, smoke_variant
+    from repro_torch.models.layers import tree_map
+    cfg = smoke_variant(get_config("tinyllama-1.1b"))
+    ops.reset_launches()
+    res = serve.main(["--arch", "tinyllama-1.1b", "--smoke", "--batch", "4",
+                      "--cache-len", "256", "--tokens", "16"])
+    launches = ops.LAUNCHES["flash_decode"]
+    toks = res.tokens
+    say(f"[serve-smoke] {cfg.name}: {tuple(toks.shape)} tokens, "
+        f"{res.tok_per_s:.1f} tok/s, flash_decode launches {launches} "
+        f"(want {cfg.num_layers} × 16)")
+    check(tuple(toks.shape) == (16, 4), f"token shape {tuple(toks.shape)}")
+    check(0 <= int(toks.min()) and int(toks.max()) < cfg.vocab_size,
+          "smoke tokens out of range")
+    check(launches == cfg.num_layers * 16,
+          f"flash_decode launched {launches} times in the smoke serve")
+    params = build_model(cfg).init(
+        torch.Generator(device=DEV).manual_seed(0))
+    host = tree_map(lambda w: w.cpu(), params)
+    card = serve.serve_lm(cfg, batch=4, cache_len=256, tokens=16, device=DEV,
+                          params=params)
+    cpu = serve.serve_lm(cfg, batch=4, cache_len=256, tokens=16,
+                         device="cpu", params=host)
+    same = int((card.tokens == cpu.tokens).sum())
+    say(f"[serve-smoke] the same weights on the card and on the CPU (plain "
+        f"versions): {same} of {card.tokens.numel()} tokens equal")
+    check(torch.equal(card.tokens, cpu.tokens),
+          "smoke serve tokens differ from the plain versions on the CPU")
+
+
+# The cache's K rows are N(0, KEY_SCALE²) and its V rows N(0, 1). The
+# model's own q and k rows are about N(0, 1) a component (unit-rms x times
+# 1/√d-scaled weights), which would leave each softmax over 32768
+# positions nearly flat (effective sample S·e^(−σ²) ≈ 12000 rows at σ = 1)
+# and the attention outputs ~1/√S: too small to move the residual, and
+# the step checks below could not see attention. At σ = 4 the scores' std
+# is 4 and a handful of rows carry each softmax, as in a trained model.
+KEY_SCALE = 4.0
+
+
+def _fill_cache(torch, state, gen):
+    """Seeded random K/V in every slot, layer by layer."""
+    for i in range(state.caches.k.shape[0]):
+        state.caches.k[i].normal_(std=KEY_SCALE, generator=gen)
+        state.caches.v[i].normal_(generator=gen)
+
+
+def _unrescaled_combine(torch, q, k, v):
+    """flash-decoding over FD_CHUNK chunks with the combine pass's
+    exp(m_c − m) factors left out (every position valid): a control."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    n = S // FD_CHUNK
+    qg = q.float().reshape(B, KV, H // KV, hd) * (1.0 / hd ** 0.5)
+    s = torch.einsum("bkgh,bkth->bkgt", qg, k.float())
+    s = s.reshape(B, KV, H // KV, n, FD_CHUNK)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    acc = torch.einsum("bkgct,bkcth->bkgch", p,
+                       v.float().reshape(B, KV, n, FD_CHUNK, hd))
+    out = acc.sum(3) / p.sum((3, 4))[..., None]
+    return out.reshape(B, H, hd).to(q.dtype)
+
+
+def time_flash_decode(torch, ops, ref, H, k, v, valid, gen):
+    """flash_decode at one layer's full shape: checked with a flat and a
+    peaked q against its plain version, with two controls the check must
+    see (one chunk dropped; the combine pass unrescaled); rerun, timed,
+    bounded, and timed against plain and scaled_dot_product_attention
+    (the library yardstick)."""
+    F = torch.nn.functional
+    B, KV, S, hd = k.shape
+    tag = str(k.dtype).split(".")[1]
+    dev = k.device
+    mask = (torch.arange(S, device=dev) < valid)[None, None, None]
+    base = torch.randn((B, H, hd), generator=gen, device=dev)
+    for qs in FD_Q_SCALES:
+        # scores std qs: a key is N(0, KEY_SCALE²)
+        q = (base * (qs / KEY_SCALE)).to(k.dtype)
+        out = ops.decode_attention(q, k, v, valid)
+        plain = ref.decode_attention_ref(q, k, v, valid)
+        err = float((out.float() - plain.float()).abs().max())
+        rel = _rel_max(out, plain)
+        dropped = _rel_max(ref.decode_attention_ref(q, k, v, valid - FD_CHUNK),
+                           plain)
+        unres = _rel_max(_unrescaled_combine(torch, q, k, v), plain)
+        lib_out = F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)[:, :, 0]
+        say(f"[kernels] flash_decode B={B} H={H} KV={KV} S={S} hd={hd} {tag},"
+            f" scores std {qs:g}: max|plain| "
+            f"{float(plain.float().abs().max()):.3f}, max|Δ| {err:.2e} = "
+            f"{rel:.2e} of it (tol {FD_TOL[tag]:g}); controls: last chunk "
+            f"dropped {dropped:.2e}, combine unrescaled {unres:.2e}; library "
+            f"vs plain {_rel_max(lib_out, plain):.2e}")
+        check(rel <= FD_TOL[tag],
+              f"flash_decode differs from plain by {rel:.2e} of max|plain|")
+        if qs > 1:
+            check(min(dropped, unres) > FD_TOL[tag], "the full-width "
+                  "flash_decode check cannot see a dropped or unrescaled chunk")
+        check(torch.equal(ops.decode_attention(q, k, v, valid), out),
+              "flash_decode rerun not bit-identical at full width")
+    ms = cuda_ms(torch, lambda: ops.decode_attention(q, k, v, valid), 20)
+    plain_ms = cuda_ms(torch, lambda: ref.decode_attention_ref(q, k, v,
+                                                               valid), 3)
+    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), 20)
+    rows = min(int(valid), S) if int(valid) >= 1 else S
+    nbytes = 2 * B * KV * rows * hd * k.element_size() \
+        + 2 * B * H * hd * q.element_size() + 4
+    bms, by = bound_ms(nbytes, 4.0 * B * H * rows * hd, BF16_FLOP_PER_S)
+    say(f"[kernels] flash_decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+        f"ms, library (scaled_dot_product_attention, enable_gqa, mask) "
+        f"{lib:.3f} ms, bound {bms:.3f} ms ({by}; {nbytes / 1e9:.3f} GB, "
+        f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
+    return dict(name="flash_decode", route="cuda", source=FD_SRC,
+                replaces=FD_TPU, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, library_ms=lib)
+
+
+# One full-width bf16 step, the logits' max |Δ| over their largest
+# magnitude, against two references: the plain route (decode_kernel=False),
+# which rounds scores and probabilities to bf16 where the kernel keeps
+# f32; and the kernel route with the kernel's plain version in its place,
+# which differs from it only in summation order. 22 random bf16 layers
+# carry a one-ulp difference far: with keys at KEY_SCALE = 4, a CPU
+# rehearsal (d 1024, 16 heads / 2 KV, 22 layers, batch 4, cache 32768, a
+# chunked f32 flash-decode for the kernel) read 0.100 and 0.052, and the
+# weakest control 0.41. Each limit sits between, and every control of
+# _step_controls must exceed it, or the check could not see such a fault.
+ROUTE_TOL = 0.2
+SWAP_TOL = 0.15
+
+
+def _step_controls(torch, ops):
+    """Faults of the kernel or its wiring, as stand-ins for
+    ops.decode_attention: name → function of (q, k, v, valid_len)."""
+    fd = ops.decode_attention
+    return {
+        "attention zeroed": lambda q, k, v, n: torch.zeros_like(q),
+        "valid_len one chunk short": lambda q, k, v, n: fd(q, k, v,
+                                                           n - FD_CHUNK),
+        "KV heads rolled": lambda q, k, v, n: fd(q, k.roll(1, 1),
+                                                 v.roll(1, 1), n),
+    }
+
+
+def _step_logits(ops, model, params, state, tok, attend=None):
+    """Last logits (f32) of one decode step from ``state``; ``attend``
+    stands in for ops.decode_attention during the step when given."""
+    fd = ops.decode_attention
+    if attend is not None:
+        ops.decode_attention = attend
+    try:
+        return model.decode_step(params, state, tok)[0][:, -1].float()
+    finally:
+        ops.decode_attention = fd
+
+
+def phase_serve_full(torch, ops, ref, cfg, batch, cache_len, steps):
+    """The LM serve path at ``cfg``'s width: random weights from a seeded
+    generator on the card, a cache filled with seeded random K/V, 16
+    greedy tokens from position cache_len − steps through serve_lm."""
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import make_serve_step
+    from repro_torch.models import build_model
+    from repro_torch.models.layers import tree_map
+    model = build_model(cfg)
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    state = model.init_decode_state(batch, cache_len, dev)
+    _fill_cache(torch, state, gen)
+    start = torch.full((), cache_len - steps, dtype=torch.int32, device=dev)
+    state = state._replace(pos=start)
+    torch.cuda.synchronize()
+    leaves = []
+    tree_map(leaves.append, params)
+    w_bytes = sum(t.numel() * t.element_size() for t in leaves)
+    kv_bytes = 2 * state.caches.k.numel() * state.caches.k.element_size()
+    say(f"[serve-full] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size}, {cfg.dtype}; weights {w_bytes / 1e9:.3f} GB, "
+        f"KV cache {kv_bytes / 1e9:.3f} GB (batch {batch}, cache "
+        f"{cache_len}); set-up {time.perf_counter() - t0:.1f} s")
+
+    H, hd = cfg.num_heads, cfg.hd
+    full = torch.full((), cache_len, dtype=torch.int32, device=dev)
+    row = time_flash_decode(torch, ops, ref, H, state.caches.k[0],
+                            state.caches.v[0], full, gen)
+
+    # one step from `start`: the kernel route against the plain route and
+    # against itself with the kernel's plain version, each with controls
+    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+    logits_k = _step_logits(ops, model, params, state, tok)
+    check(bool(torch.isfinite(logits_k).all()), "kernel-route logits not finite")
+    logits_p = _step_logits(ops, build_model(cfg, decode_kernel=False),
+                            params, state, tok)
+    logits_r = _step_logits(ops, model, params, state, tok,
+                            ref.decode_attention_ref)
+    controls = {name: _step_logits(ops, model, params, state, tok, fn)
+                for name, fn in _step_controls(torch, ops).items()}
+    scale = float(logits_p.abs().max())
+    readings = []
+    for what, want, tol in (("plain route", logits_p, ROUTE_TOL),
+                            ("kernel's plain version", logits_r, SWAP_TOL)):
+        rel = float((logits_k - want).abs().max()) / scale
+        ctl = {n: float((c - want).abs().max()) / scale
+               for n, c in controls.items()}
+        say(f"[serve-full] kernel route vs {what}, one step: logits max|Δ| "
+            f"{rel:.2e} of max |logit| {scale:.3f} (tol {tol:g}); controls: "
+            + ", ".join(f"{n} {r:.2e}" for n, r in ctl.items()))
+        readings.append((what, rel, tol, min(ctl.values())))
+    for what, rel, tol, least in readings:
+        check(rel <= tol, f"kernel route and {what} differ by {rel:.2e}")
+        check(least > tol, f"the step check against the {what} cannot see "
+              "a control")
+    diff = float((logits_k - logits_p).abs().max())
+    top2 = logits_p.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > diff
+    agree = logits_k.argmax(-1) == logits_p.argmax(-1)
+    say(f"[serve-full] greedy tokens of the two routes equal in "
+        f"{int(agree.sum())} of {batch} rows, {int(clear.sum())} rows with a "
+        f"top-2 margin > max|Δ| {diff:.4f}")
+    check(bool(agree[clear].all()), "greedy tokens differ where the margin "
+          "exceeds the routes' difference")
+
+    # one step may not wait for the device
+    step = make_serve_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(params, state, tok)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    say("[serve-full] one decode step ran under "
+        "torch.cuda.set_sync_debug_mode('error')")
+
+    # --- the main path: counts from 0, one serve_lm, counts read ---------
+    ops.reset_launches()
+    res = serve_lm(cfg, batch=batch, cache_len=cache_len, tokens=steps,
+                   device=dev, params=params, state=state)
+    launches = ops.LAUNCHES["flash_decode"]
+    step_ms = 1e3 * res.seconds / steps
+    # a step reads every weight but the embedding table (B rows of it),
+    # and the K/V rows up to its position; bytes bound it
+    rows = sum(cache_len - steps + i + 1 for i in range(steps)) / steps
+    kv_read = 2 * cfg.num_layers * batch * cfg.num_kv_heads * rows * hd \
+        * state.caches.k.element_size()
+    emb = params["embed"]["embedding"]
+    step_bytes = w_bytes - emb.numel() * emb.element_size() \
+        + batch * cfg.d_model * emb.element_size() + kv_read
+    sbms, sby = bound_ms(step_bytes, 2.0 * batch * cfg.param_count(),
+                         BF16_FLOP_PER_S)
+    say(f"[serve-full] serve_lm: {steps} tokens × {batch} seqs from "
+        f"position {cache_len - steps} in {1e3 * res.seconds:.1f} ms: "
+        f"{step_ms:.3f} ms per step (bound {sbms:.3f} ms, {sby}: "
+        f"{step_bytes / 1e9:.2f} GB a step), {res.tok_per_s:.1f} tok/s; "
+        f"flash_decode launches {launches} (want {cfg.num_layers} × {steps})")
+    toks = res.tokens
+    check(launches == cfg.num_layers * steps,
+          f"flash_decode launched {launches} times in the serve")
+    check(tuple(toks.shape) == (steps, batch) and 0 <= int(toks.min())
+          and int(toks.max()) < cfg.vocab_size, "serve tokens out of range")
+    check(int(res.state.pos) == cache_len, f"pos {int(res.state.pos)}")
+
+    profile(torch, lambda: step(params, state, tok)[0].cpu(),
+            f"one decode step at position {cache_len - steps}")
+    row["launches"] = launches
+    return row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
@@ -787,9 +1147,11 @@ def main() -> int:
     phase_environment(torch, build)
     phase_kernels_small(torch, ops, ref)
     phase_gram_small(torch, ops, ref, sp)
+    phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()
     phase_pipeline(torch, T, text)
     gram_launches = phase_kernel_pipeline(torch, T, text)
+    phase_serve_smoke(torch, ops)
     torch.cuda.synchronize()
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
@@ -803,6 +1165,12 @@ def main() -> int:
     gram["launches"] = gram_launches["gram"]
     kernels.append(gram)
     kernels += phase_full_kernel(torch, T, ops, ref)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    kernels.append(phase_serve_full(torch, ops, ref,
+                                    get_config("tinyllama-1.1b"), batch=32,
+                                    cache_len=32768, steps=16))
     torch.cuda.synchronize()
     say(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi())

@@ -9,6 +9,11 @@ the reference — linear or Gram path, dense or blocked-CSR rows — can be
 served by the port. Blocked-CSR feature rows travel as the triple
 ``(indices, values, d)`` of the reference's ``SparseRows``.
 
+:func:`lm_params_from_jax` takes the parameters of the reference's
+``TransformerModel`` (a nested dict of arrays, stacked ``layers``) and
+gives the port's, under the same names and layout, so that both
+packages compute the same model.
+
 bfloat16 numpy arrays (the ``ml_dtypes`` type JAX hands out) are read
 by their bits. :func:`to_numpy` widens bfloat16 to float32, which is
 exact.
@@ -24,6 +29,7 @@ from repro_torch import sparse as sparse_rows
 from repro_torch.core.mapreduce_svm import MapReduceSVM, SVBuffer
 from repro_torch.core.svm import BinarySVM
 from repro_torch.device import DeviceLike
+from repro_torch.models.layers import tree_map
 
 
 def tensor_from_numpy(a, device: DeviceLike = "cpu") -> torch.Tensor:
@@ -73,6 +79,12 @@ def mapreduce_model_from_numpy(w, b, sv: Sequence, final: Sequence, risk,
         final=binary_svm_from_numpy(*final, device=device),
         risk=tensor_from_numpy(risk, device), rounds=int(rounds),
         history=tuple(dict(h) for h in history))
+
+
+def lm_params_from_jax(params: Mapping, device: DeviceLike = "cpu"):
+    """The reference LM's parameters (nested dict of arrays, e.g.
+    ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``."""
+    return tree_map(lambda a: tensor_from_numpy(a, device), dict(params))
 
 
 def to_numpy(obj):

@@ -2,12 +2,12 @@
 
 Each kernel ships: ``csrc/<name>.cu`` (CUDA C++ for sm_90a), a launch
 module (``svm_step.py``, ``hinge_score.py``, ``gram.py`` for the dense
-and sparse Gram, ``gram_solve.py``), a plain PyTorch version in
+and sparse Gram, ``gram_solve.py``, ``decode_attention.py``), a plain PyTorch version in
 ``ref.py`` and a checked, counted wrapper in ``ops.py``.
 """
-from repro_torch.kernels.ops import (LAUNCHES, cd_solve, cd_solve_gram, gram,
-                                     hinge_scores, reset_launches,
-                                     sparse_gram)
+from repro_torch.kernels.ops import (LAUNCHES, cd_solve, cd_solve_gram,
+                                     decode_attention, gram, hinge_scores,
+                                     reset_launches, sparse_gram)
 
-__all__ = ["LAUNCHES", "cd_solve", "cd_solve_gram", "gram", "hinge_scores",
-           "reset_launches", "sparse_gram"]
+__all__ = ["LAUNCHES", "cd_solve", "cd_solve_gram", "decode_attention",
+           "gram", "hinge_scores", "reset_launches", "sparse_gram"]

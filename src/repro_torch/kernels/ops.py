@@ -18,7 +18,8 @@ from repro_torch import sparse as sparse_rows
 from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"cd_solve": 0, "hinge_scores": 0, "gram": 0,
-                            "sparse_gram": 0, "cd_solve_gram": 0}
+                            "sparse_gram": 0, "cd_solve_gram": 0,
+                            "flash_decode": 0}
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -240,4 +241,38 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
            f"of solver state per job in shared memory, got {n}")
     out = launch_cd_solve_gram(K, y, m, float(C), float(tol), int(max_epochs))
     LAUNCHES["cd_solve_gram"] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA attention over the KV cache (see
+    :func:`ref.decode_attention_ref`): q (B, H, hd), k, v (B, KV, S, hd),
+    one dtype of f32/bf16; valid_len () int32 on q's device (read there:
+    no host round trip). → (B, H, hd) in q's dtype."""
+    _check(q.dim() == 3 and k.dim() == 4 and tuple(v.shape) == tuple(k.shape),
+           f"q must be (B, H, hd) and k, v (B, KV, S, hd), got "
+           f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    B, H, hd = q.shape
+    _check(k.shape[0] == B and k.shape[3] == hd and k.shape[2] >= 1,
+           f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
+    _check(H % k.shape[1] == 0, f"{H} query heads do not group over "
+           f"{k.shape[1]} KV heads")
+    _check(q.dtype in _ROW_DTYPES and k.dtype == v.dtype == q.dtype,
+           f"q, k and v must share one dtype of {_ROW_DTYPES}")
+    _check(valid_len.dim() == 0 and valid_len.dtype == torch.int32,
+           "valid_len must be an int32 scalar tensor")
+    if not _on_card(q, k, v, valid_len):
+        return ref.decode_attention_ref(q, k, v, valid_len)
+    _check_cuda_layout({"q": q, "k": k, "v": v})
+    _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+           "q, k and v must be 16-byte aligned")
+    from repro_torch.kernels.decode_attention import (launch_flash_decode,
+                                                      max_head_dim)
+    limit = max_head_dim(q.dtype)
+    _check(hd * q.element_size() % 16 == 0 and hd <= limit,
+           f"flash_decode takes head dims of whole 16-byte vectors up to "
+           f"{limit}, got {hd} in {q.dtype}")
+    out = launch_flash_decode(q, k, v, valid_len)
+    LAUNCHES["flash_decode"] += 1
     return out

@@ -205,3 +205,27 @@ def cd_solve_gram_ref(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
         viol = torch.where(active, ep, viol)
         t += active.int()
     return alpha, t, viol
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         valid_len: torch.Tensor) -> torch.Tensor:
+    """Single-token GQA decode attention (the plain ``flash_decode``).
+
+    q (B, H, hd); k, v (B, KV, S, hd); valid_len () int32 → (B, H, hd)
+    in q's dtype. Query head h = kv·G + g (G = H / KV) reads KV head kv.
+    As the Pallas kernel (``decode_attention.py:24-56``), everything runs
+    in float32: q·kᵀ/√hd, positions ≥ ``valid_len`` set to −1e30, the
+    softmax, the sum over V; then one cast to q's dtype. This is
+    ``repro.kernels.ref.decode_attention_ref`` on float32-cast inputs.
+    With ``valid_len`` = 0 every score is −1e30 and the result is the
+    mean of V over all S slots, as in the reference.
+    """
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    qg = q.float().reshape(B, KV, H // KV, hd) * (1.0 / hd ** 0.5)
+    scores = torch.einsum("bkgh,bkth->bkgt", qg, k.float())
+    pos = torch.arange(S, device=q.device)
+    scores = torch.where(pos < valid_len, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgt,bkth->bkgh", probs, v.float())
+    return out.reshape(B, H, hd).to(q.dtype)

@@ -1,0 +1,7 @@
+"""Model zoo of the port: the dense decoder's serve path."""
+from repro_torch.models.config import ModelConfig, smoke_variant
+from repro_torch.models.transformer import (DecodeState, TransformerModel,
+                                            build_model)
+
+__all__ = ["DecodeState", "ModelConfig", "smoke_variant", "TransformerModel",
+           "build_model"]

@@ -143,7 +143,8 @@ def test_wrappers_count_no_launch_on_cpu():
     ops.hinge_scores(torch.ones((4, 8)), torch.ones((2, 8)), torch.zeros(2),
                      torch.ones(4), torch.ones(4))
     assert set(ops.LAUNCHES) == {"cd_solve", "hinge_scores", "gram",
-                                 "sparse_gram", "cd_solve_gram"}
+                                 "sparse_gram", "cd_solve_gram",
+                                 "flash_decode"}
     assert not any(ops.LAUNCHES.values())
 
 
