@@ -9,7 +9,10 @@ Phases, one line or block each; any failure exits non-zero:
 2. each CUDA kernel against its plain PyTorch version on the card at
    small shapes: ``cd_solve``; ``gram``, ``sparse_gram`` and
    ``cd_solve_gram`` in f32 and bf16, linear/rbf/poly, ragged edges,
-   padding slots, masked rows and (home, shared) job rows;
+   padding slots, masked rows and (home, shared) job rows, with the bf16
+   tensor-core ``gram`` at its tile edges and on its symmetric route;
+   ``hinge_scores`` on both routes (f32 SIMT, bf16 tensor cores) over
+   ragged n, d and L, masks with zeros and W from 1e-30 to 1e3;
 3. the paper pipeline (corpus → TF×IDF → 2-class MapReduce SVM and OvR
    3-class) at the golden test's settings, with accuracy floors, on the
    linear path;
@@ -23,7 +26,10 @@ Phases, one line or block each; any failure exits non-zero:
    ``fit_mapreduce``, with ``cd_solve`` and ``hinge_scores`` timed at its
    shapes and the launch counts of that run;
 6. ``gram`` at one full-width reducer shape (10240 × 10240 × 131072
-   bf16), against its plain version and the bf16 matmul route;
+   bf16, rbf and linear) on the tensor-core route's upper triangle (K
+   must equal its transpose), against its plain version and the bf16
+   matmul route, one call profiled; the f32 SIMT route timed at the
+   golden Gram shape;
 7. slice 2's main path at full width: the same svm-tfidf shapes as
    blocked-CSR rows (``nnz_cap`` = row nnz = 256, f32 values), rbf
    (γ = 1) on the Gram path with ``gram_impl="pallas_sparse"``, with the
@@ -215,6 +221,102 @@ GRAM_KINDS = (("linear", {}), ("rbf", dict(gamma=0.5)),
               ("poly", dict(gamma=1.0, coef0=1.0, degree=2)))
 
 
+def _routes(ops, kernel: str) -> dict:
+    return {k.split("/")[1]: v for k, v in ops.ROUTE_LAUNCHES.items()
+            if k.startswith(kernel + "/")}
+
+
+def _gram_tile_edges(torch, ops, ref, dense) -> float:
+    """The bf16 tensor-core route at its tile edges (n, m around 128;
+    d % 64 ≠ 0, with whole 16-byte chunks and without), its symmetric
+    route as gram(X, X) and as ((H, S), (H, S)) with the home/shared
+    boundary inside a tile, and the general route on equal-valued
+    copies. A symmetric K must equal its transpose bit for bit. → the
+    worst max |Δ|/(1 + |K|) against plain."""
+    worst = 0.0
+    for d in (200, 1001):
+        for n, m in ((127, 129), (128, 257), (129, 128), (257, 127)):
+            X, Z = dense(n, d, torch.bfloat16), dense(m, d, torch.bfloat16)
+            for kind, kw in GRAM_KINDS:
+                worst = max(worst, _rel(ops.gram(X, Z, kind=kind, **kw),
+                                        ref.gram_ref(X, Z, kind=kind, **kw)))
+        for n in (127, 128, 129, 257):
+            X = dense(n, d, torch.bfloat16)
+            for kind, kw in GRAM_KINDS:
+                K = ops.gram(X, X, kind=kind, **kw)
+                check(torch.equal(K, K.T), f"gram(X, X) n={n} d={d} {kind} "
+                      "is not symmetric")
+                worst = max(worst, _rel(K, ref.gram_ref(X, X, kind=kind,
+                                                        **kw)))
+        H = dense(3 * 100, d, torch.bfloat16).reshape(3, 100, d)
+        S = dense(57, d, torch.bfloat16)          # rows 100..156: in a tile
+        Hc, Sc = H.clone(), S.clone()
+        for kind, kw in GRAM_KINDS:
+            plain = ops.per_job(ref.gram_ref, (H, S), (H, S), kind=kind, **kw)
+            K = ops.gram((H, S), (H, S), kind=kind, **kw)
+            check(torch.equal(K, K.transpose(1, 2)),
+                  f"gram((H, S), (H, S)) d={d} {kind} is not symmetric")
+            worst = max(worst, _rel(K, plain),
+                        _rel(ops.gram((H, S), (Hc, Sc), kind=kind, **kw),
+                             plain))
+    return worst
+
+
+def phase_hinge_small(torch, ops, ref):
+    """hinge_scores against its plain version at small shapes on both
+    routes (f32 rows: SIMT; bf16: tensor cores): n ∈ {1, 63, 65, 1000},
+    d ∈ {24, 1001, 4096}, L ∈ {1, 5, 8, 11} (11 is two launches), masks
+    with zeros, and W entries of magnitudes from 1e-30 to 1e3 (the three
+    bf16 planes of the tensor-core route); equal counts and
+    bit-identical reruns; the planes kernel ≡ ``split_planes``."""
+    from repro_torch.kernels import hinge_score as hs
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for dtype, route in ((torch.float32, "simt"),
+                         (torch.bfloat16, "tensor_core")):
+        tag = "f32" if dtype == torch.float32 else "bf16"
+        ops.reset_launches()
+        worst, cases = 0.0, 0
+        for n in (1, 63, 65, 1000):
+            y = torch.where(torch.rand((n,), generator=gen, device=dev) > 0.5,
+                            1.0, -1.0)
+            m = (torch.rand((n,), generator=gen, device=dev) > 0.25).float()
+            for d in (24, 1001, 4096):
+                X = torch.randn((n, d), generator=gen, device=dev).to(dtype)
+                for L in (1, 5, 8, 11):
+                    mag = torch.empty((L, d), device=dev).uniform_(
+                        -30.0, 3.0, generator=gen)
+                    W = torch.randn((L, d), generator=gen, device=dev) \
+                        * 10.0 ** mag
+                    b = torch.randn((L,), generator=gen, device=dev)
+                    if route == "tensor_core" and L <= hs.MAX_HYPOTHESES:
+                        P = hs.tc_planes(W)
+                        check(torch.equal(P[:, :L, :d], hs.split_planes(W))
+                              and not P[:, L:].any() and not P[..., d:].any(),
+                              f"hinge_tc_planes differs from split_planes "
+                              f"(d={d} L={L})")
+                    loss, cnt = ops.hinge_scores(X, W, b, y, m)
+                    lp, cp = ref.hinge_scores_ref(X, W, b, y, m)
+                    rel = float(((loss - lp).abs()
+                                 / lp.abs().clamp(min=1e-30)).max())
+                    worst = max(worst, rel)
+                    check(float(cnt) == float(cp), f"hinge_scores {tag} n={n} "
+                          f"d={d} L={L}: count {float(cnt)} vs {float(cp)}")
+                    check(torch.equal(ops.hinge_scores(X, W, b, y, m)[0],
+                                      loss), f"hinge_scores {tag} rerun not "
+                          f"bit-identical (n={n} d={d} L={L})")
+                    cases += 1
+        routes = _routes(ops, "hinge_scores")
+        say(f"[kernels] hinge_scores {tag}: max rel Δ = {worst:.2e} over "
+            f"{cases} cases (rtol 1e-4); counts equal, reruns bit-identical"
+            + ("; planes ≡ split_planes" if route == "tensor_core" else "")
+            + f"; routes {routes}")
+        check(worst <= 1e-4, f"hinge_scores {tag} differs from plain by "
+              f"{worst:.2e}")
+        check(routes[route] == ops.LAUNCHES["hinge_scores"] > 0,
+              f"hinge_scores {tag} did not take the {route} route")
+
+
 def phase_gram_small(torch, ops, ref, sp):
     """gram, sparse_gram and cd_solve_gram against their plain versions:
     f32 and bf16, linear/rbf/poly, ragged shapes, padding slots, dead
@@ -236,6 +338,7 @@ def phase_gram_small(torch, ops, ref, sp):
     for dtype in (torch.float32, torch.bfloat16):
         tag = "f32" if dtype == torch.float32 else "bf16"
         worst = 0.0
+        ops.reset_launches()
         for n, m, d in ((64, 64, 32), (130, 70, 96), (300, 200, 260),
                         (33, 129, 1001)):
             X, Z = dense(n, d, dtype), dense(m, d, dtype)
@@ -249,9 +352,19 @@ def phase_gram_small(torch, ops, ref, sp):
                 worst = max(worst, _rel(
                     ops.gram(X, Z, kind=kind, **kw),
                     ops.per_job(ref.gram_ref, X, Z, kind=kind, **kw)))
+        if dtype == torch.bfloat16:
+            worst = max(worst, _gram_tile_edges(torch, ops, ref, dense))
+        route = "tensor_core" if dtype == torch.bfloat16 else "simt"
+        other = "simt" if route == "tensor_core" else "tensor_core"
         say(f"[kernels] gram {tag}: max |Δ|/(1+|K|) = {worst:.2e} over 4 "
-            "shapes × 4 transforms and (home, shared) jobs (tol 1e-4)")
+            "shapes × 4 transforms and (home, shared) jobs"
+            + (", tile edges and the symmetric route" if route ==
+               "tensor_core" else "") + f" (tol 1e-4); routes "
+            f"{_routes(ops, 'gram')}")
         check(worst <= 1e-4, f"gram {tag} differs from plain by {worst:.2e}")
+        check(ops.ROUTE_LAUNCHES[f"gram/{route}"] > 0
+              and ops.ROUTE_LAUNCHES[f"gram/{other}"] == 0,
+              f"gram {tag} did not take the {route} route")
 
         worst = 0.0
         for n, m, d, cap in ((64, 40, 300, 16), (130, 257, 2000, 33)):
@@ -388,13 +501,17 @@ def time_hinge(torch, ops, ref, Xflat, yflat, mflat, W, b):
     """hinge_scores at the main path's shapes: check, time, bound."""
     n, d = Xflat.shape
     L = W.shape[0]
+    ops.reset_launches()
     loss_k, cnt_k = ops.hinge_scores(Xflat, W, b, yflat, mflat)
+    check(ops.ROUTE_LAUNCHES["hinge_scores/tensor_core"] == 1,
+          f"hinge_scores bf16 took the routes {_routes(ops, 'hinge_scores')}")
     loss_p, cnt_p = ref.hinge_scores_ref(Xflat, W, b, yflat, mflat)
     torch.cuda.synchronize()
     rel = float(((loss_k - loss_p).abs() / loss_p.abs().clamp(min=1e-30)).max())
     err = float((loss_k - loss_p).abs().max())
-    say(f"[kernels] hinge_scores n={n} d={d} L={L} bf16: max rel "
-        f"Δ={rel:.2e} (rtol 1e-4), count {float(cnt_k)} vs {float(cnt_p)}")
+    say(f"[kernels] hinge_scores n={n} d={d} L={L} bf16 (tensor-core "
+        f"route): max rel Δ={rel:.2e} (rtol 1e-4), count {float(cnt_k)} vs "
+        f"{float(cnt_p)}")
     check(rel <= 1e-4 and float(cnt_k) == float(cnt_p),
           "hinge_scores differs from plain")
     rerun = ops.hinge_scores(Xflat, W, b, yflat, mflat)[0]
@@ -557,14 +674,24 @@ def time_gram_full(torch, T, ops, ref):
         SVM_TFIDF.num_features
     X, _ = svm_rows_device(n, d, seed=3, dtype=torch.bfloat16, device=DEV)
     kw = dict(kind="rbf", gamma=1.0)
+    ops.reset_launches()
     K = ops.gram(X, X, **kw)
+    check(ops.ROUTE_LAUNCHES["gram/tensor_core"] == 1,
+          f"gram bf16 took the routes {_routes(ops, 'gram')}")
+    check(torch.equal(K, K.T), "the symmetric route's K is not symmetric")
     P = ref.gram_ref(X, X, **kw)
     torch.cuda.synchronize()
     err = float((K - P).abs().max())
-    say(f"[kernels] gram {n}×{n}×{d} bf16 rbf: max|Δ| vs plain {err:.2e} "
-        "(atol 1e-4)")
+    say(f"[kernels] gram {n}×{n}×{d} bf16 rbf (tensor-core route, upper "
+        f"triangle, K ≡ Kᵀ): max|Δ| vs plain {err:.2e} (atol 1e-4)")
     check(err <= 1e-4, f"gram differs from plain by {err:.2e}")
     del K, P
+    K = ops.gram(X, X, kind="linear")
+    lin = _rel(K, ref.gram_ref(X, X, kind="linear"))
+    say(f"[kernels] gram {n}×{n}×{d} bf16 linear: max |Δ|/(1+|K|) vs plain "
+        f"{lin:.2e} (tol 1e-4)")
+    check(lin <= 1e-4, f"linear gram differs from plain by {lin:.2e}")
+    del K
     kc = T.KernelConfig("rbf", gamma=1.0)
     ms = cuda_ms(torch, lambda: ops.gram(X, X, **kw), 2)
     plain = cuda_ms(torch, lambda: ref.gram_ref(X, X, **kw), 1)
@@ -576,6 +703,16 @@ def time_gram_full(torch, T, ops, ref):
     say(f"[kernels] gram: kernel {ms:.3f} ms, plain {plain:.3f} ms, library "
         f"(bf16 matmul route) {lib:.3f} ms, bound {bms:.3f} ms ({by}, bf16 "
         "tensor-core rate)")
+    # the rbf call's own kernels: the norms pass and the tensor-core tiles
+    profile(torch, lambda: float(ops.gram(X, X, **kw)[0, 0]), "one rbf gram")
+    # the f32 SIMT route at the golden Gram pipeline's reducer shape: 8
+    # jobs × (96 home + 128 SV rows) × 1024, rbf
+    gen = torch.Generator(device=DEV).manual_seed(4)
+    H = torch.rand((8, 96, 1024), generator=gen, device=DEV)
+    S = torch.rand((128, 1024), generator=gen, device=DEV)
+    simt = cuda_ms(torch, lambda: ops.gram((H, S), (H, S), **kw), 20)
+    say(f"[kernels] gram f32 (SIMT route) 8 jobs × 224² × 1024 rbf: "
+        f"{simt:.3f} ms")
     return dict(name="gram", route="cuda", source=GRAM_SRC,
                 replaces=GRAM_TPU, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=lib)
@@ -1147,6 +1284,7 @@ def main() -> int:
     phase_environment(torch, build)
     phase_kernels_small(torch, ops, ref)
     phase_gram_small(torch, ops, ref, sp)
+    phase_hinge_small(torch, ops, ref)
     phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()
     phase_pipeline(torch, T, text)

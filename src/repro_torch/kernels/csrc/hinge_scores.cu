@@ -1,24 +1,44 @@
-// Eq. 7 risk scoring: hinge losses of L linear hypotheses over n rows.
+// Eq. 7 risk scoring: hinge losses of L linear hypotheses over n rows,
+// two routes, chosen by the rows' dtype.
 //
 // Replaces the TPU kernel src/repro/kernels/hinge_score.py:
 // hinge_scores (_hinge_kernel, pl.pallas_call at line 52):
 //     losses[l] = Σ_i m_i · max(0, 1 − y_i (x_i·w_l + b_l)),  count = Σ_i m_i
 //
 // The Pallas kernel walks row tiles in order on one core and carries
-// the sums in its output block. Here the row tiles are CTAs that run in
-// parallel: pass 1 writes one partial (L losses + a count) per CTA,
-// pass 2 adds the partials in a fixed order with one thread per
-// hypothesis. No float atomics, so reruns are bit-identical.
+// the sums in its output block. Here tiles are CTAs that run in
+// parallel and write partials, and later passes add them in a fixed
+// order. No float atomics, so reruns are bit-identical.
 //
 // What bounds it on an H100: the bytes of X. Each row is read once
 // (n·d·2 bytes in bf16: 17.2 GB at n = 65536, d = 131072, 5.1 ms at
-// 3.35 TB/s); the 2·n·d·L FLOPs in f32 sit below that line. What the
-// design does about it: 64 rows per CTA (4 per warp, 16 warps), each
-// lane reading 16 bytes of a row at a time; W is staged chunk by chunk
-// (L × 1024 f32) in shared memory and shared by the CTA's 64 rows, so
-// W's re-reads from L2 cost 1/4 of X's bytes at L = 8 in bf16. The
-// (row, hypothesis) dot products stay in registers; the score matrix
-// never reaches device memory.
+// 3.35 TB/s); the 2·n·d·L flop sit far below that line.
+//
+// bf16 rows: the tensor cores (hinge_scores_tc), with L ≤ 8 as the n of
+// mma.sync.m16n8k16. W is float32 and is not rounded: a first kernel
+// (hinge_tc_planes) splits it into three bf16 planes, W = W_hi + W_mid +
+// W_lo exactly, and each 16-column step runs one MMA per plane, whose products are
+// exact in float32 and summed in float32. X never passes through shared
+// memory: lane (g, t) of a warp loads 16 bytes, columns 8t .. 8t + 7 of
+// a 32-column step, of rows g and g + 8 of a 16-row tile straight from
+// global memory, and those registers are the A fragments of the step's
+// two MMAs. Its B fragments are the same 8 columns of W's row g, so the
+// order of k inside a step is permuted alike on both sides and no
+// reordering of W is needed. Each warp keeps 4 steps × 2 rows of
+// 16-byte loads in flight (8 KB a warp, 16 warps an SM) and reads its W
+// fragments from shared memory: 1.5 bytes of shared memory per byte of
+// X, where the SIMT kernel read 16. Split-K: a CTA holds one 2048-column slab
+// of the three planes in shared memory (96 KB, read from L2 once) for
+// 1024 rows and writes the n × 8 partial scores of its slab (f32, 0.8 %
+// of X's bytes at d = 131072); a second pass sums each row's slabs in
+// order, adds the bias, applies the hinge (which is not linear, so the
+// slabs are summed first) and reduces the rows of a block in a fixed
+// order; a third adds the blocks in order.
+//
+// float32 rows: SIMT FMAs (hinge_scores), 64 rows per CTA (4 per warp,
+// 16 warps), each lane reading 16 bytes of a row at a time; W staged
+// chunk by chunk (L × 1024 f32) in shared memory and shared by the
+// CTA's 64 rows; one partial (L losses + a count) per CTA.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -33,17 +53,6 @@ constexpr int kChunk = 1024;                      // columns of W staged
 constexpr int kMaxL = 8;                          // hypotheses per launch
 constexpr int kVec = 8;
 
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* v) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float2 f = __bfloat1622float2(h[k]);
-    v[2 * k] = f.x;
-    v[2 * k + 1] = f.y;
-  }
-}
-
 __device__ __forceinline__ void load8(const float* p, float* v) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 c = *reinterpret_cast<const float4*>(p + 4);
@@ -52,9 +61,6 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
@@ -183,53 +189,288 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-template <typename T, bool kVectorized>
-void launch_partial(const void* x, const float* W, const float* b,
-                    const float* y, const float* m, int n, int d, int L,
-                    int tiles, float* part_loss, float* part_cnt,
-                    cudaStream_t stream) {
-  hinge_partial_kernel<T, kVectorized><<<tiles, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), W, b, y, m, n, d, L, part_loss, part_cnt);
+
+
+// ---------------------------------------------------------------------------
+// bf16 rows: mma.sync on the tensor cores, split-K over column slabs.
+namespace tc {
+
+constexpr int kSlab = 2048;               // columns of W a CTA holds
+constexpr int kWRow = kSlab + 8;          // bf16 a shared row (16-byte pad)
+constexpr int kPlanes = 3;
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerCta = 1024;
+constexpr int kTiles = 1;                 // 16-row tiles a warp carries
+constexpr int kUnroll = 4;                // 32-column steps in flight
+constexpr int kSmemBytes = kPlanes * kMaxL * kWRow * 2;
+constexpr int kFinishRows = 256;          // rows of a finishing block
+
+__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
+
+// 8 bf16 of row `r` (nullptr: a dead row) from column k of the slab;
+// columns at or past `live` read as 0.
+template <bool kVec>
+__device__ __forceinline__ uint4 load_x(const __nv_bfloat16* r, int k,
+                                        int live) {
+  uint4 v = make_uint4(0u, 0u, 0u, 0u);
+  if (r == nullptr || k >= live) return v;
+  if (kVec) return *reinterpret_cast<const uint4*>(r + k);
+  __align__(16) __nv_bfloat16 e[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    e[i] = k + i < live ? r[k + i] : __float2bfloat16(0.f);
+  return *reinterpret_cast<const uint4*>(e);
+}
+
+// part[slab][row][l]: x_row · w_l over the slab's columns (l < 8).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+hinge_tc_partial_kernel(const __nv_bfloat16* __restrict__ x,
+                        const __nv_bfloat16* __restrict__ planes, int n,
+                        int d, int dp, float* __restrict__ part) {
+  extern __shared__ uint4 smem[];
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int slab = blockIdx.y;
+  const int k0 = slab * kSlab;
+  const int live = min(kSlab, d - k0);
+  constexpr int kChunks = kSlab / 8;
+  for (int q = threadIdx.x; q < kPlanes * kMaxL * kChunks; q += kThreads) {
+    const int row = q / kChunks, c = q % kChunks;
+    *reinterpret_cast<uint4*>(ws + row * kWRow + 8 * c) =
+        *reinterpret_cast<const uint4*>(planes + (size_t)row * dp + k0 +
+                                        8 * c);
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_end = min(n, (blockIdx.x + 1) * kRowsPerCta);
+  const int steps = (live + 31) / 32;
+  const __nv_bfloat16* wrow = ws + g * kWRow + 8 * t;
+  for (int tile0 = blockIdx.x * kRowsPerCta + warp * 16 * kTiles;
+       tile0 < r_end; tile0 += kWarps * 16 * kTiles) {
+    const __nv_bfloat16* xr[kTiles][2];
+    float acc[kTiles][4];
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tile0 + 16 * i + 8 * h + g;
+        xr[i][h] = row < r_end ? x + (size_t)row * d + k0 : nullptr;
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+    }
+    for (int s0 = 0; s0 < steps; s0 += kUnroll) {
+      uint4 xv[kUnroll][kTiles][2];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u)
+#pragma unroll
+        for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            xv[u][i][h] = load_x<kVec>(xr[i][h], (s0 + u) * 32 + 8 * t, live);
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (s0 + u >= steps) break;
+#pragma unroll
+        for (int p = 0; p < kPlanes; ++p) {
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              wrow + p * kMaxL * kWRow + (s0 + u) * 32);
+#pragma unroll
+          for (int i = 0; i < kTiles; ++i) {
+            const uint4 lo = xv[u][i][0], hi = xv[u][i][1];
+            mma_bf16(acc[i], lo.x, hi.x, lo.y, hi.y, w.x, w.y);
+            mma_bf16(acc[i], lo.z, hi.z, lo.w, hi.w, w.z, w.w);
+          }
+        }
+      }
+    }
+    // acc[i][2h + e]: row tile0 + 16i + g + 8h, hypothesis 2t + e
+#pragma unroll
+    for (int i = 0; i < kTiles; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = tile0 + 16 * i + 8 * h + g;
+        if (row < r_end)
+          *reinterpret_cast<float2*>(part + ((size_t)slab * n + row) * kMaxL +
+                                     2 * t) =
+              make_float2(acc[i][2 * h], acc[i][2 * h + 1]);
+      }
+  }
+}
+
+// planes (3, 8, dp) bf16: W's hi, mid and lo planes, each the bf16
+// rounding of what the planes before it leave; zero past L rows and d
+// columns.
+__global__ void hinge_tc_planes_kernel(const float* __restrict__ W, int L,
+                                       int d, int dp,
+                                       __nv_bfloat16* __restrict__ planes) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long plane = (long long)kMaxL * dp;
+  if (i >= plane) return;
+  const int l = (int)(i / dp), k = (int)(i % dp);
+  float rest = l < L && k < d ? W[(size_t)l * d + k] : 0.f;
+#pragma unroll
+  for (int p = 0; p < kPlanes; ++p) {
+    const __nv_bfloat16 h = __float2bfloat16_rn(rest);
+    planes[p * plane + i] = h;
+    rest = __fsub_rn(rest, __bfloat162float(h));
+  }
+}
+
+// One thread a row: its slabs summed in order, the bias and the hinge;
+// then the block's rows reduced in a fixed order into one partial.
+__global__ void __launch_bounds__(kFinishRows)
+hinge_tc_finish_kernel(const float* __restrict__ part, int slabs, int n,
+                       int L, const float* __restrict__ bias,
+                       const float* __restrict__ y,
+                       const float* __restrict__ m,
+                       float* __restrict__ part_loss,
+                       float* __restrict__ part_cnt) {
+  __shared__ float s_loss[kFinishRows / 32][kMaxL];
+  __shared__ float s_cnt[kFinishRows / 32];
+  const int row = blockIdx.x * kFinishRows + threadIdx.x;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float loss[kMaxL], cnt = 0.f;
+#pragma unroll
+  for (int l = 0; l < kMaxL; ++l) loss[l] = 0.f;
+  if (row < n) {
+    float s[kMaxL];
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) s[l] = 0.f;
+    for (int k = 0; k < slabs; ++k) {
+      const float4* p =
+          reinterpret_cast<const float4*>(part + ((size_t)k * n + row) * kMaxL);
+      const float4 a = p[0], c = p[1];
+      s[0] += a.x; s[1] += a.y; s[2] += a.z; s[3] += a.w;
+      s[4] += c.x; s[5] += c.y; s[6] += c.z; s[7] += c.w;
+    }
+    const float yi = y[row], mi = m[row];
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l)
+      if (l < L) loss[l] = fmaxf(0.f, 1.f - yi * (s[l] + bias[l])) * mi;
+    cnt = mi;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l)
+      loss[l] += __shfl_xor_sync(0xffffffffu, loss[l], o);
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) s_loss[warp][l] = loss[l];
+    s_cnt[warp] = cnt;
+  }
+  __syncthreads();
+  if (threadIdx.x < L) {
+    float a = 0.f;
+    for (int w = 0; w < kFinishRows / 32; ++w) a += s_loss[w][threadIdx.x];
+    part_loss[(size_t)blockIdx.x * L + threadIdx.x] = a;
+  } else if (threadIdx.x == kMaxL) {
+    float a = 0.f;
+    for (int w = 0; w < kFinishRows / 32; ++w) a += s_cnt[w];
+    part_cnt[blockIdx.x] = a;
+  }
+}
+
+}  // namespace tc
 
 }  // namespace
 
+
 extern "C" int hinge_tile_rows() { return kTileRows; }
 extern "C" int hinge_max_hypotheses() { return kMaxL; }
+extern "C" int hinge_tc_slab_cols() { return tc::kSlab; }
+extern "C" int hinge_tc_finish_rows() { return tc::kFinishRows; }
 
-// x (n, d) bf16 if is_bf16 else f32; W (L, d), b (L,), y, m (n,) f32;
+// The bf16 planes of W (L, d) f32 for hinge_scores_tc: planes (3, 8, dp)
+// bf16 with dp = ceil(d / hinge_tc_slab_cols()) · hinge_tc_slab_cols().
+// Returns a cudaError_t (0 = ok).
+extern "C" int hinge_tc_planes(const float* W, int L, int d, int dp,
+                               void* planes, void* stream) {
+  if (L < 1 || L > kMaxL || d < 1 ||
+      dp != (d + tc::kSlab - 1) / tc::kSlab * tc::kSlab)
+    return cudaErrorInvalidValue;
+  const long long total = (long long)kMaxL * dp;
+  tc::hinge_tc_planes_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      W, L, d, dp, static_cast<__nv_bfloat16*>(planes));
+  return cudaGetLastError();
+}
+
+// The float32 route. x (n, d) f32; W (L, d), b (L,), y, m (n,) f32;
 // scratch part_loss (tiles, L), part_cnt (tiles,) with tiles =
 // ceil(n / hinge_tile_rows()); L ≤ hinge_max_hypotheses(). Outputs
 // loss (L,), cnt (). Returns a cudaError_t (0 = ok).
-extern "C" int hinge_scores(const void* x, int is_bf16, const float* W,
-                            const float* b, const float* y, const float* m,
-                            int n, int d, int L, int tiles, float* part_loss,
+extern "C" int hinge_scores(const float* x, const float* W, const float* b,
+                            const float* y, const float* m, int n, int d,
+                            int L, int tiles, float* part_loss,
                             float* part_cnt, float* loss, float* cnt,
                             void* stream) {
   if (L < 1 || L > kMaxL || tiles != (n + kTileRows - 1) / kTileRows)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tiles > 0) {
-    const bool vec = d % kVec == 0 && aligned16(x);
-    if (is_bf16) {
-      if (vec)
-        launch_partial<__nv_bfloat16, true>(x, W, b, y, m, n, d, L, tiles,
-                                            part_loss, part_cnt, s);
-      else
-        launch_partial<__nv_bfloat16, false>(x, W, b, y, m, n, d, L, tiles,
-                                             part_loss, part_cnt, s);
-    } else {
-      if (vec)
-        launch_partial<float, true>(x, W, b, y, m, n, d, L, tiles, part_loss,
-                                    part_cnt, s);
-      else
-        launch_partial<float, false>(x, W, b, y, m, n, d, L, tiles,
-                                     part_loss, part_cnt, s);
-    }
+    if (d % kVec == 0 && aligned16(x))
+      hinge_partial_kernel<float, true><<<tiles, kThreads, 0, s>>>(
+          x, W, b, y, m, n, d, L, part_loss, part_cnt);
+    else
+      hinge_partial_kernel<float, false><<<tiles, kThreads, 0, s>>>(
+          x, W, b, y, m, n, d, L, part_loss, part_cnt);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
-  hinge_reduce_kernel<<<1, 32, 0, s>>>(part_loss, part_cnt, tiles, L,
-                                            loss, cnt);
+  hinge_reduce_kernel<<<1, 32, 0, s>>>(part_loss, part_cnt, tiles, L, loss,
+                                       cnt);
+  return cudaGetLastError();
+}
+
+// The bf16 tensor-core route. x (n, d) bf16; planes (3, 8, dp) bf16 from
+// hinge_tc_planes; b (L,), y, m (n,) f32. Scratch: part
+// (slabs, n, 8) f32; part_loss (blocks, L), part_cnt (blocks,) with
+// blocks = ceil(n / hinge_tc_finish_rows()). Outputs loss (L,), cnt ().
+// Returns a cudaError_t (0 = ok).
+extern "C" int hinge_scores_tc(const void* x, const void* planes, int dp,
+                               const float* b, const float* y,
+                               const float* m, int n, int d, int L,
+                               float* part, int blocks, float* part_loss,
+                               float* part_cnt, float* loss, float* cnt,
+                               void* stream) {
+  const int slabs = (d + tc::kSlab - 1) / tc::kSlab;
+  if (L < 1 || L > kMaxL || d < 1 || dp != slabs * tc::kSlab ||
+      blocks != (n + tc::kFinishRows - 1) / tc::kFinishRows ||
+      !aligned16(planes) || !aligned16(part))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    const dim3 grid((n + tc::kRowsPerCta - 1) / tc::kRowsPerCta, slabs);
+    const auto* xb = static_cast<const __nv_bfloat16*>(x);
+    const auto* pb = static_cast<const __nv_bfloat16*>(planes);
+    auto kernel = d % 8 == 0 && aligned16(x)
+                      ? tc::hinge_tc_partial_kernel<true>
+                      : tc::hinge_tc_partial_kernel<false>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmemBytes);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, tc::kThreads, tc::kSmemBytes, s>>>(xb, pb, n, d, dp, part);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    tc::hinge_tc_finish_kernel<<<blocks, tc::kFinishRows, 0, s>>>(
+        part, slabs, n, L, b, y, m, part_loss, part_cnt);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  hinge_reduce_kernel<<<1, 32, 0, s>>>(part_loss, part_cnt, blocks, L, loss,
+                                       cnt);
   return cudaGetLastError();
 }

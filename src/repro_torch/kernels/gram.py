@@ -50,7 +50,7 @@ class JobRows(NamedTuple):
 def _gram_fn():
     fn = build.load("gram").gram
     fn.argtypes = [_P, _LL, _I, _LL, _P, _I, _P, _LL, _I, _LL, _P, _I, _I, _I,
-                   _I, _I, _F, _F, _I, _P, _P, _P, _P]
+                   _I, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P]
     fn.restype = _I
     return fn
 
@@ -65,25 +65,30 @@ def _norm_scratch(side: JobRows, dev) -> torch.Tensor:
 
 
 def launch_gram(X: JobRows, Z: JobRows, jobs: int, kind: str, gamma: float,
-                coef0: float, degree: int) -> torch.Tensor:
+                coef0: float, degree: int, symmetric: bool):
     """Launch on the current stream; inputs already checked (CUDA,
-    contiguous, one row dtype, job counts 1 or ``jobs``).
-    → K (jobs, X.n, Z.n) float32."""
+    contiguous, one row dtype, job counts 1 or ``jobs``). ``symmetric``:
+    Z's rows are X's (see ``ops.same_rows``), so the bf16 route computes
+    only the tiles holding a pair r ≤ c and mirrors them. → (K (jobs, X.n, Z.n) float32, route):
+    route "tensor_core" (bf16 rows) or "simt" (f32 rows), as the library
+    reports it."""
     dev = X.home.device
     d = X.home.shape[-1]
     K = torch.empty((jobs, X.n, Z.n), dtype=torch.float32, device=dev)
-    xn, zn = _norm_scratch(X, dev), _norm_scratch(Z, dev)
+    xn = _norm_scratch(X, dev)
+    zn = xn if symmetric else _norm_scratch(Z, dev)
+    route = ctypes.c_int(-1)
     err = _gram_fn()(
         X.home.data_ptr(), X.per if X.jobs > 1 else 0, X.per,
         X.jobs * X.per, X.shared.data_ptr(), X.shared.shape[0],
         Z.home.data_ptr(), Z.per if Z.jobs > 1 else 0, Z.per,
         Z.jobs * Z.per, Z.shared.data_ptr(), Z.shared.shape[0],
-        jobs, d, int(X.home.dtype == torch.bfloat16), KINDS[kind],
-        float(gamma), float(coef0), int(degree), xn.data_ptr(),
-        zn.data_ptr(), K.data_ptr(), _stream(dev))
+        jobs, d, int(X.home.dtype == torch.bfloat16), int(symmetric),
+        KINDS[kind], float(gamma), float(coef0), int(degree), xn.data_ptr(),
+        zn.data_ptr(), K.data_ptr(), ctypes.addressof(route), _stream(dev))
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: cudaError {err}")
-    return K
+    return K, ("tensor_core" if route.value == 1 else "simt")
 
 
 def _sparse_fn():

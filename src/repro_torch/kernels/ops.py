@@ -6,7 +6,9 @@ ref`); for CUDA tensors it launches the kernel, or raises. There is no
 fallback from one to the other.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so that a run
-can show that its main path went through the kernels.
+can show that its main path went through the kernels; ``ROUTE_LAUNCHES``
+splits the launches of ``gram`` and ``hinge_scores`` by route: the bf16
+tensor-core kernel or the f32 SIMT one.
 """
 from __future__ import annotations
 
@@ -20,13 +22,17 @@ from repro_torch.kernels import ref
 LAUNCHES: Dict[str, int] = {"cd_solve": 0, "hinge_scores": 0, "gram": 0,
                             "sparse_gram": 0, "cd_solve_gram": 0,
                             "flash_decode": 0}
+ROUTE_LAUNCHES: Dict[str, int] = {"gram/tensor_core": 0, "gram/simt": 0,
+                                  "hinge_scores/tensor_core": 0,
+                                  "hinge_scores/simt": 0}
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTE_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -100,14 +106,14 @@ def hinge_scores(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     _check(all(t.dtype == torch.float32 for t in (W, b, y, m)),
            "W, b, y and m must be float32")
     _check_cuda_layout({"X": X, "W": W, "b": b, "y": y, "m": m})
-    from repro_torch.kernels.hinge_score import (launch_hinge_scores,
-                                                 max_hypotheses)
-    step = max_hypotheses()
+    from repro_torch.kernels.hinge_score import (MAX_HYPOTHESES,
+                                                 launch_hinge_scores)
     losses, count = [], None
-    for l0 in range(0, L, step):
-        loss, count = launch_hinge_scores(X, W[l0:l0 + step],
-                                          b[l0:l0 + step], y, m)
+    for l0 in range(0, L, MAX_HYPOTHESES):
+        sl = slice(l0, l0 + MAX_HYPOTHESES)
+        loss, count, route = launch_hinge_scores(X, W[sl], b[sl], y, m)
         LAUNCHES["hinge_scores"] += 1
+        ROUTE_LAUNCHES[f"hinge_scores/{route}"] += 1
         losses.append(loss)
     return (losses[0] if len(losses) == 1 else torch.cat(losses)), count
 
@@ -125,6 +131,23 @@ def _job_rows(side):
         return JobRows(home, shared), False
     _check(len(side.shape) == 2, f"rows must be (n, d), got {side.shape}")
     return JobRows(side[None], side[:0]), True
+
+
+def _same_storage(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return (a.device, a.dtype, a.data_ptr(), tuple(a.shape), a.stride()) == \
+        (b.device, b.dtype, b.data_ptr(), tuple(b.shape), b.stride())
+
+
+def same_rows(X, Z) -> bool:
+    """Whether the two sides of a Gram are the same rows in memory: the
+    same tensors, or views of equal address, shape and strides (for
+    ``(home, shared)`` pairs, both parts). Equal values in other memory
+    do not count: the kernel's symmetric route computes the upper
+    triangle from X alone."""
+    if isinstance(X, tuple) != isinstance(Z, tuple):
+        return False
+    pairs = zip(X, Z) if isinstance(X, tuple) else ((X, Z),)
+    return all(_same_storage(a, b) for a, b in pairs)
 
 
 def _gram_sides(X, Z, kind: str, degree: int):
@@ -176,8 +199,9 @@ def gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     _check_cuda_layout(dict(zip(("X home", "X shared", "Z home",
                                  "Z shared"), leaves)))
     from repro_torch.kernels.gram import launch_gram
-    K = launch_gram(xr, zr, jobs, **kw)
+    K, route = launch_gram(xr, zr, jobs, symmetric=same_rows(X, Z), **kw)
     LAUNCHES["gram"] += 1
+    ROUTE_LAUNCHES[f"gram/{route}"] += 1
     return K[0] if plain else K
 
 
