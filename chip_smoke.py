@@ -2,12 +2,18 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the whole run, one card
+    python3 chip_smoke.py --variants      # build variants of flash_decode
+                                          # and cd_solve, timed; no result
 
 Phases, one line or block each; any failure exits non-zero:
 
 1. environment: torch/CUDA versions, the card, nvcc, the kernel build;
 2. each CUDA kernel against its plain PyTorch version on the card at
-   small shapes: ``cd_solve``; ``gram``, ``sparse_gram`` and
+   small shapes: ``cd_solve`` on both routes (one CTA a job; one
+   cluster of 8 or 16 CTAs a job, one row a job, and d = 131072 with a
+   few rows a job, with the clusters' occupancy and bit-identical
+   reruns);
+   ``gram``, ``sparse_gram`` and
    ``cd_solve_gram`` in f32 and bf16, linear/rbf/poly, ragged edges,
    padding slots, masked rows and (home, shared) job rows, with the bf16
    tensor-core ``gram`` at its tile edges and on its symmetric route;
@@ -23,8 +29,10 @@ Phases, one line or block each; any failure exits non-zero:
 5. slice 1's main path at full width: svm-tfidf (d = 131072,
    sv_capacity 2048, 8 partitions × 8192 rows, bf16 rows, C = 1,
    max_epochs = 10, γ = 1e-4, up to 6 rounds), linear, through
-   ``fit_mapreduce``, with ``cd_solve`` and ``hinge_scores`` timed at its
-   shapes and the launch counts of that run;
+   ``fit_mapreduce``, with ``cd_solve`` (the cluster route, checked,
+   rerun, timed against clusters of 16 and one CTA a job) and
+   ``hinge_scores`` timed at its shapes and the launch counts of that
+   run;
 6. ``gram`` at one full-width reducer shape (10240 × 10240 × 131072
    bf16, rbf and linear) on the tensor-core route's upper triangle (K
    must equal its transpose), against its plain version and the bf16
@@ -39,14 +47,16 @@ Phases, one line or block each; any failure exits non-zero:
    kernel on the Gram path, whose eq. 7 pick must beat the majority
    class (the rbf pick at γ = 1 only matches it);
 8. slice 3, the LM serve path: ``flash_decode`` against its plain
-   version at small shapes (f32 and bf16, valid_len 0, 1, partial and
-   S, a ragged S = 1000, K/V past valid_len set to ±99, a rerun) with
-   phase 2; the smoke serve of tinyllama-1.1b through the port's CLI
+   version at small shapes (f32 and bf16 — the SIMT and the
+   tensor-core route, each route's launches counted —, valid_len 0, 1,
+   partial and S, a ragged S = 1000, more than 8 heads a group, K/V
+   past valid_len set to ±99, a rerun) with phase 2; the smoke serve of tinyllama-1.1b through the port's CLI
    code path (batch 4, cache 256, 16 tokens, the same tokens as the
    plain versions on the CPU) after phase 4; last, tinyllama-1.1b at
    full width in bf16 (batch 32, cache 32768 filled with seeded random
-   K/V, 16 greedy tokens through ``serve_lm``) with ``flash_decode``
-   timed at one layer's shape, one step under
+   K/V, 16 greedy tokens through ``serve_lm``, every launch on the
+   tensor-core route) with ``flash_decode`` timed at one layer's shape
+   in turns with the library call and the SIMT route, one step under
    ``torch.cuda.set_sync_debug_mode("error")``, the kernel route against
    the plain route and one step profiled.
 
@@ -128,6 +138,18 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _demangle(name: str) -> str:
+    """A kernel's name and template arguments, without its parameters
+    (``c++filt`` where the toolkit's host has it)."""
+    try:
+        out = subprocess.run(["c++filt", name], capture_output=True,
+                             text=True).stdout.strip()
+    except OSError:
+        return name
+    out = (out or name).replace("(anonymous namespace)::", "")
+    return out.removeprefix("void ").split("(")[0]
+
+
 def phase_environment(torch, build):
     say(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -142,9 +164,12 @@ def phase_environment(torch, build):
     secs = build.build_all()
     say(f"[env] kernel build: {secs:.1f} s (nvcc per source, in parallel)")
     for name, report in build.PTXAS_REPORT.items():
+        entry = "?"
         for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                say(f"[env] ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line and "'" in line:
+                entry = _demangle(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                say(f"[env] ptxas {name} {entry}: {line.strip()}")
 
 
 def _rows(torch, gen, n, d, dtype, device, density=0.05):
@@ -160,32 +185,72 @@ def _labels(torch, gen, X):
     return torch.where(s >= s.median(), 1.0, -1.0)
 
 
+def _cd_run(ops, args, kw, c):
+    """cd_solve through ``ops.cd_solve`` (c None: the rule's size, the
+    launch counted) or forced onto c CTAs a job (1: the single route)
+    through its launcher, uncounted."""
+    if c is None:
+        return ops.cd_solve(*args, **kw)
+    from repro_torch.kernels.svm_step import launch_cd_solve
+    return launch_cd_solve(*args, float(kw["C"]), float(kw["tol"]),
+                           int(kw["max_epochs"]), c)
+
+
+def _cd_routes(torch, ops, ref, args, kw, tag, tol, sizes):
+    """cd_solve on each cluster size of ``sizes`` (None: the rule's)
+    against its plain version: the same epochs, max|Δ(α, w, b)| ≤ tol,
+    the rule's route counted, a bit-identical rerun."""
+    plain = ref.cd_solve_ref(*args, **kw)
+    L, per, d = args[0].shape
+    rule = ops.cd_solve_cluster_size(per + args[1].shape[0], d, args[0].dtype)
+    for c in sizes:
+        ops.reset_launches()
+        k = _cd_run(ops, args, kw, c)
+        torch.cuda.synchronize()
+        route = _routes(ops, "cd_solve")
+        err = max(float((a - b).abs().max()) for a, b in zip(k[:3], plain[:3]))
+        say(f"[kernels] cd_solve {tag} c={c or f'{rule} (the rule)'}: routes "
+            f"counted {route}, epochs {k[3].tolist()} vs plain "
+            f"{plain[3].tolist()}, max|Δ(α,w,b)|={err:.2e} (atol {tol:g})")
+        check(torch.equal(k[3], plain[3]), "cd_solve epochs differ from plain")
+        check(err <= tol, f"cd_solve differs from plain by {err:.2e}")
+        if c is None:
+            want = "cluster" if rule > 1 else "single"
+            check(route[want] == 1, f"cd_solve {tag} took {route}")
+        again = _cd_run(ops, args, kw, c)
+        check(all(torch.equal(a, b) for a, b in zip(k, again)),
+              f"cd_solve {tag} c={c}: rerun not bit-identical")
+    return plain
+
+
 def phase_kernels_small(torch, ops, ref):
-    """cd_solve at small f32 shapes (w in shared and in global memory,
-    vector and scalar loads) and in bf16 at d = 131072."""
+    """cd_solve at small f32 shapes on both routes (single: w in shared
+    and in global memory, vector and scalar loads; cluster: d = 65536,
+    8 (the rule's) and 16 CTAs a job, and one row a job), then in bf16
+    at d = 131072 with a few rows a job on clusters of 8 (the rule's)
+    and 16 and on one CTA (the full-width fit's route, cheaply), each
+    with a bit-identical rerun."""
+    from repro_torch.kernels import svm_step
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(0)
+    for c in (8, 16):
+        resident = svm_step.max_active_clusters(torch.bfloat16, 131072,
+                                                10240, c)
+        say(f"[kernels] cd_solve cluster route d=131072 bf16, 10240 rows, "
+            f"c={c}: {resident} clusters can be resident at once")
     for L, per, S, d in ((4, 200, 64, 256), (3, 96, 32, 1001),
-                         (2, 64, 16, 65536)):
+                         (2, 64, 16, 65536), (2, 1, 0, 65536)):
         xh = _rows(torch, gen, L * per, d, torch.float32, dev).reshape(L, per, d)
         xs = _rows(torch, gen, S, d, torch.float32, dev)
         y = _labels(torch, gen, torch.cat([xh.reshape(-1, d), xs]))
         y_aug = torch.cat([y[:L * per].reshape(L, per), y[L * per:].expand(L, S)], 1)
         m_aug = (torch.rand(y_aug.shape, generator=gen, device=dev) > 0.1).float()
+        sizes = (None, 16) if (d, per) == (65536, 64) else (None,)
         for epochs, tol in ((1, 1e-5), (20, 1e-4)):
             args = (xh, xs, y_aug.contiguous(), m_aug)
             kw = dict(C=1.0, tol=1e-3, max_epochs=epochs)
-            a_k, w_k, b_k, t_k, v_k = ops.cd_solve(*args, **kw)
-            a_p, w_p, b_p, t_p, v_p = ref.cd_solve_ref(*args, **kw)
-            torch.cuda.synchronize()
-            err = max(float((a_k - a_p).abs().max()),
-                      float((w_k - w_p).abs().max()),
-                      float((b_k - b_p).abs().max()))
-            say(f"[kernels] cd_solve f32 L={L} per={per} S={S} d={d} "
-                f"epochs≤{epochs}: epochs {t_k.tolist()} vs plain "
-                f"{t_p.tolist()}, max|Δ(α,w,b)|={err:.2e} (atol {tol:g})")
-            check(torch.equal(t_k, t_p), "cd_solve epochs differ from plain")
-            check(err <= tol, f"cd_solve differs from plain by {err:.2e}")
+            _cd_routes(torch, ops, ref, args, kw, f"f32 L={L} per={per} "
+                       f"S={S} d={d} epochs≤{epochs}", tol, sizes)
 
     L, per, S, d = 8, 32, 32, 131072
     xh = _rows(torch, gen, L * per, d, torch.bfloat16, dev, 512 / d
@@ -196,17 +261,22 @@ def phase_kernels_small(torch, ops, ref):
                       ).contiguous()
     m_aug = torch.ones_like(y_aug)
     kw = dict(C=1.0, tol=1e-3, max_epochs=10)
-    k = ops.cd_solve(xh, xs, y_aug, m_aug, **kw)
-    p = ref.cd_solve_ref(xh, xs, y_aug, m_aug, **kw)
     Xall = torch.cat([xh.reshape(-1, d), xs])
     ones = torch.ones(Xall.shape[0], device=dev)
-    r_k = ref.hinge_scores_ref(Xall, k[1], k[2], y, ones)[0] / Xall.shape[0]
+    args = (xh, xs, y_aug, m_aug)
+    p = _cd_routes(torch, ops, ref, args, kw,
+                   f"bf16 L={L} per={per} S={S} d={d}", 1e-3, (None, 16, 1))
     r_p = ref.hinge_scores_ref(Xall, p[1], p[2], y, ones)[0] / Xall.shape[0]
-    err = float((r_k - r_p).abs().max())
-    say(f"[kernels] cd_solve bf16 L={L} per={per} S={S} d={d}: hinge risk "
-        f"max|Δ|={err:.2e} (atol 1e-4), epochs {k[3].tolist()} vs "
-        f"{p[3].tolist()}")
-    check(err <= 1e-4, f"cd_solve bf16 risk differs from plain by {err:.2e}")
+    for c in (None, 16):
+        k = _cd_run(ops, args, kw, c)
+        r_k = ref.hinge_scores_ref(Xall, k[1], k[2], y, ones)[0] \
+            / Xall.shape[0]
+        err = float((r_k - r_p).abs().max())
+        say(f"[kernels] cd_solve bf16 L={L} per={per} S={S} d={d} "
+            f"c={c or 'the rule'}: hinge risk max|Δ|={err:.2e} (atol 1e-4), "
+            f"epochs {k[3].tolist()} vs {p[3].tolist()}")
+        check(err <= 1e-4,
+              f"cd_solve bf16 risk differs from plain by {err:.2e}")
 
 
 def _rel(a, b) -> float:
@@ -444,6 +514,10 @@ def phase_pipeline(torch, T, text):
         check(acc > floor, f"{len(classes)}-class accuracy {acc:.4f}")
         check(ops.LAUNCHES["cd_solve"] > 0 and ops.LAUNCHES["hinge_scores"]
               > 0, "pipeline bypassed a kernel")
+        # d = 1024: one CTA a job (the cluster route's rule gives c = 1)
+        check(ops.ROUTE_LAUNCHES["cd_solve/single"] == ops.LAUNCHES["cd_solve"]
+              and ops.ROUTE_LAUNCHES["cd_solve/cluster"] == 0,
+              f"golden cd_solve took the routes {_routes(ops, 'cd_solve')}")
 
 
 def phase_kernel_pipeline(torch, T, text):
@@ -545,7 +619,12 @@ def time_cd_solve(torch, T, ops, ref, Xp, yp, maskp, cfg):
     m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1).float().contiguous()
     kw = dict(C=cfg.svm.C, tol=cfg.svm.tol, max_epochs=1)
     args = (Xp, sv.x, y_aug, m_aug)
+    n = per + cap
+    c = ops.cd_solve_cluster_size(n, d, Xp.dtype)
+    ops.reset_launches()
     k = ops.cd_solve(*args, **kw)
+    check(ops.ROUTE_LAUNCHES["cd_solve/cluster"] == 1,
+          f"full-width cd_solve took the routes {_routes(ops, 'cd_solve')}")
     t0 = time.perf_counter()
     p = ref.cd_solve_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -553,14 +632,37 @@ def time_cd_solve(torch, T, ops, ref, Xp, yp, maskp, cfg):
     err = float((k[0] - p[0]).abs().max())
     Xflat, yflat = Xp.reshape(L * per, d), yp.reshape(L * per).float()
     mflat = maskp.reshape(L * per).float()
-    r_k = ref.hinge_scores_ref(Xflat, k[1], k[2], yflat, mflat)[0] / mflat.sum()
-    r_p = ref.hinge_scores_ref(Xflat, p[1], p[2], yflat, mflat)[0] / mflat.sum()
-    rerr = float((r_k - r_p).abs().max())
-    say(f"[kernels] cd_solve one epoch L={L} per={per} S={cap} d={d} bf16: "
-        f"max|Δα|={err:.2e}, hinge risk max|Δ|={rerr:.2e} (atol 1e-4)")
+
+    def risk(out):
+        return ref.hinge_scores_ref(Xflat, out[1], out[2], yflat,
+                                    mflat)[0] / mflat.sum()
+
+    r_p = risk(p)
+    rerr = float((risk(k) - r_p).abs().max())
+    say(f"[kernels] cd_solve one epoch L={L} per={per} S={cap} d={d} bf16, "
+        f"cluster route c={c}: max|Δα|={err:.2e}, hinge risk max|Δ|="
+        f"{rerr:.2e} (atol 1e-4)")
     check(rerr <= 1e-4, f"cd_solve risk differs from plain by {rerr:.2e}")
-    ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **kw), 2)
-    n = per + cap
+    again = ops.cd_solve(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(k, again)),
+          "cd_solve rerun not bit-identical at full width")
+    from repro_torch.kernels import svm_step
+    other = {}
+    for size in (8, 16, 1):      # clusters of 8 and 16, and one CTA
+        if size == c:
+            continue
+        o = _cd_run(ops, args, kw, size)
+        o_err = float((risk(o) - r_p).abs().max())
+        check(o_err <= 1e-4, f"cd_solve c={size} risk differs from plain "
+              f"by {o_err:.2e}")
+        other[size] = cuda_ms(torch, lambda: _cd_run(ops, args, kw, size), 1)
+    ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **kw), 3)
+    say(f"[kernels] cd_solve epoch: c={c} (the rule's) {ms:.3f} ms; "
+        + ", ".join(f"c={size} {t:.3f} ms" for size, t in other.items())
+        + "; resident clusters "
+        + ", ".join(f"c={size}: "
+                    f"{svm_step.max_active_clusters(Xp.dtype, d, n, size)}"
+                    for size in (8, 16)))
     moved = int((p[0] != 0).sum())          # rows whose α moved → an axpy
     nbytes = (L * per + cap) * d * Xp.element_size() + 2 * L * n * 4 \
         + L * n * 4 + L * d * 4 + 3 * L * 4
@@ -640,9 +742,13 @@ def phase_full_width(torch, T, ops, ref):
             f"round_ms={h['ms']:.1f}")
     say(f"[full] fit_mapreduce: {model.rounds} rounds in {fit_ms:.1f} ms, "
         f"launches {launches} (cd_solve = rounds + final fit, "
-        f"hinge_scores = rounds)")
+        f"hinge_scores = rounds), routes {_routes(ops, 'cd_solve')}, "
+        f"{ops.cd_solve_cluster_size(per + cfg.sv_capacity, d, X.dtype)}"
+        " CTAs a job")
     check(launches["cd_solve"] == model.rounds + 1,
           f"cd_solve launched {launches['cd_solve']} times")
+    check(ops.ROUTE_LAUNCHES["cd_solve/cluster"] == launches["cd_solve"],
+          f"the fit's cd_solve took the routes {_routes(ops, 'cd_solve')}")
     check(launches["hinge_scores"] == model.rounds,
           f"hinge_scores launched {launches['hinge_scores']} times")
     risks = [h["risk"] for h in model.history]
@@ -931,7 +1037,10 @@ def phase_full_kernel(torch, T, ops, ref):
 # both round one f32 value to bf16, and 1e-6 apart can round one ulp
 # apart: at most 2⁻⁷ of the largest output.
 FD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
-FD_CHUNK = 512   # cache positions a CTA of flash_decode.cu reads (kChunk)
+# The controls' chunk: one chunk of the SIMT route (kChunk), an eighth of
+# the tensor-core route's at full width; dropping 512 rows is no larger
+# a fault than dropping a whole chunk of either route.
+FD_CHUNK = 512
 # q's scale in the checks: 1 leaves the softmax over N(0, 1) keys nearly
 # flat (outputs a mean of many V rows, ~1/√S); 8 peaks it as a trained
 # model's attention is peaked, so that the outputs are O(1) and a chunk
@@ -954,10 +1063,13 @@ def phase_decode_small(torch, ops, ref):
     dev = torch.device(DEV)
     gen = torch.Generator(device=dev).manual_seed(5)
     shapes = ((1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (2, 16, 4, 512, 128),
-              (2, 32, 4, 2048, 64), (3, 16, 2, 1000, 64))
+              (2, 32, 4, 2048, 64), (3, 16, 2, 1000, 64), (2, 8, 2, 300, 72),
+              (1, 12, 1, 700, 32))
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
         worst, cases = 0.0, 0
+        ops.reset_launches()
+        want = {"tensor_core": 0, "simt": 0}
         for B, H, KV, S, hd in shapes:
             k, v = (torch.randn((B, KV, S, hd), generator=gen,
                                 device=dev).to(dtype) for _ in range(2))
@@ -967,6 +1079,7 @@ def phase_decode_small(torch, ops, ref):
                 for vl in (0, 1, S // 2 + 3, S):
                     valid = torch.tensor(vl, dtype=torch.int32, device=dev)
                     out = ops.decode_attention(q, k, v, valid)
+                    want[ops.decode_route(dtype, hd)] += 1
                     worst = max(worst, _rel_max(out, ref.decode_attention_ref(
                         q, k, v, valid)))
                     check(torch.equal(ops.decode_attention(q, k, v, valid),
@@ -979,11 +1092,16 @@ def phase_decode_small(torch, ops, ref):
                             q, k2, v2, valid), out),
                             f"flash_decode read past valid_len {vl} of {S}")
                     cases += 1
+        routes = _routes(ops, "flash_decode")
         say(f"[kernels] flash_decode {tag}: max |Δ|/max|plain| = "
             f"{worst:.2e} over {cases} cases (tol {FD_TOL[tag]:g}); past-"
-            "valid_len ±99 unchanged, reruns bit-identical")
+            f"valid_len ±99 unchanged, reruns bit-identical; first calls by "
+            f"route {want}, all launches {routes}")
         check(worst <= FD_TOL[tag],
               f"flash_decode {tag} differs from plain by {worst:.2e}")
+        check(all(routes[r] >= want[r] and (routes[r] > 0) == (want[r] > 0)
+                  for r in want), f"flash_decode {tag} took the routes "
+              f"{routes}, want {want} first calls")
 
 
 def phase_serve_smoke(torch, ops):
@@ -1068,10 +1186,14 @@ def time_flash_decode(torch, ops, ref, H, k, v, valid, gen):
     dev = k.device
     mask = (torch.arange(S, device=dev) < valid)[None, None, None]
     base = torch.randn((B, H, hd), generator=gen, device=dev)
+    route = ops.decode_route(k.dtype, hd)
     for qs in FD_Q_SCALES:
         # scores std qs: a key is N(0, KEY_SCALE²)
         q = (base * (qs / KEY_SCALE)).to(k.dtype)
+        ops.reset_launches()
         out = ops.decode_attention(q, k, v, valid)
+        check(ops.ROUTE_LAUNCHES[f"flash_decode/{route}"] == 1,
+              f"flash_decode took the routes {_routes(ops, 'flash_decode')}")
         plain = ref.decode_attention_ref(q, k, v, valid)
         err = float((out.float() - plain.float()).abs().max())
         rel = _rel_max(out, plain)
@@ -1093,18 +1215,34 @@ def time_flash_decode(torch, ops, ref, H, k, v, valid, gen):
                   "flash_decode check cannot see a dropped or unrescaled chunk")
         check(torch.equal(ops.decode_attention(q, k, v, valid), out),
               "flash_decode rerun not bit-identical at full width")
-    ms = cuda_ms(torch, lambda: ops.decode_attention(q, k, v, valid), 20)
+    from repro_torch.kernels.decode_attention import launch_flash_decode
+    simt = launch_flash_decode(q, k, v, valid, "simt")
+    simt_rel = _rel_max(simt, ref.decode_attention_ref(q, k, v, valid))
+    check(simt_rel <= FD_TOL[tag], f"flash_decode SIMT route differs from "
+          f"plain by {simt_rel:.2e}")
+    # in turns: kernel, library, SIMT route, SIMT route, library, kernel
+    kern = lambda: ops.decode_attention(q, k, v, valid)  # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    old = lambda: launch_flash_decode(q, k, v, valid, "simt")  # noqa: E731
+    turns = {"kernel": [], "library": [], "simt": []}
+    for name, fn in (("kernel", kern), ("library", library), ("simt", old),
+                     ("simt", old), ("library", library), ("kernel", kern)):
+        turns[name].append(cuda_ms(torch, fn, 20))
+    ms, lib, simt_ms = (sum(t) / len(t) for t in turns.values())
     plain_ms = cuda_ms(torch, lambda: ref.decode_attention_ref(q, k, v,
                                                                valid), 3)
-    lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True), 20)
+    say(f"[kernels] flash_decode {route} route in turns: kernel "
+        f"{turns['kernel']}, library {turns['library']}, SIMT route "
+        f"{turns['simt']} ms (SIMT vs plain {simt_rel:.2e})")
     rows = min(int(valid), S) if int(valid) >= 1 else S
     nbytes = 2 * B * KV * rows * hd * k.element_size() \
         + 2 * B * H * hd * q.element_size() + 4
     bms, by = bound_ms(nbytes, 4.0 * B * H * rows * hd, BF16_FLOP_PER_S)
-    say(f"[kernels] flash_decode: kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-        f"ms, library (scaled_dot_product_attention, enable_gqa, mask) "
-        f"{lib:.3f} ms, bound {bms:.3f} ms ({by}; {nbytes / 1e9:.3f} GB, "
+    say(f"[kernels] flash_decode: kernel {ms:.3f} ms ({route} route; the "
+        f"SIMT route {simt_ms:.3f} ms), plain {plain_ms:.3f} ms, library "
+        f"(scaled_dot_product_attention, enable_gqa, mask) {lib:.3f} ms, "
+        f"bound {bms:.3f} ms ({by}; {nbytes / 1e9:.3f} GB, "
         f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
     return dict(name="flash_decode", route="cuda", source=FD_SRC,
                 replaces=FD_TPU, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -1251,10 +1389,15 @@ def phase_serve_full(torch, ops, ref, cfg, batch, cache_len, steps):
         f"position {cache_len - steps} in {1e3 * res.seconds:.1f} ms: "
         f"{step_ms:.3f} ms per step (bound {sbms:.3f} ms, {sby}: "
         f"{step_bytes / 1e9:.2f} GB a step), {res.tok_per_s:.1f} tok/s; "
-        f"flash_decode launches {launches} (want {cfg.num_layers} × {steps})")
+        f"flash_decode launches {launches} (want {cfg.num_layers} × {steps}), "
+        f"routes {_routes(ops, 'flash_decode')}")
     toks = res.tokens
     check(launches == cfg.num_layers * steps,
           f"flash_decode launched {launches} times in the serve")
+    route = ops.decode_route(cfg.torch_dtype, hd)
+    check(ops.ROUTE_LAUNCHES[f"flash_decode/{route}"] == launches,
+          f"the serve's flash_decode took the routes "
+          f"{_routes(ops, 'flash_decode')}, want {route}")
     check(tuple(toks.shape) == (steps, batch) and 0 <= int(toks.min())
           and int(toks.max()) < cfg.vocab_size, "serve tokens out of range")
     check(int(res.state.pos) == cache_len, f"pos {int(res.state.pos)}")
@@ -1265,10 +1408,144 @@ def phase_serve_full(torch, ops, ref, cfg, batch, cache_len, steps):
     return row
 
 
+# --variants: build variants of the two kernels redesigned last, each a
+# copy of the shipped source with (old, new) text replacements, timed at
+# the main path's shapes through the shipped launchers.
+def _fd_variant(chunk, warps, stages, l2_hint=True):
+    edits = [(f"    FD_TC_CASE({hd})\n", "")      # hd 64 only: a quick build
+             for hd in (16, 32, 48, 80, 96, 112, 128)]
+    edits += [("kChunkTc = 4096;", f"kChunkTc = {chunk};"),
+              ("kWarps = 8;", f"kWarps = {warps};"),
+              ("kStages = 4;", f"kStages = {stages};")]
+    return edits + ([] if l2_hint else [(".L2::256B", "")])
+
+
+FD_VARIANTS = {
+    f"chunk {ch}, warps {wp}, stages {st}, L2 hint {hint}": _fd_variant(
+        ch, wp, st, hint)
+    for ch, wp, st in ((2048, 8, 4), (4096, 4, 4), (4096, 8, 3),
+                       (4096, 8, 4), (8192, 8, 4), (8192, 16, 3))
+    for hint in (True, False)}
+FD_VARIANTS["chunk 4096, warps 8, stages 4, combine not a dependent"] = \
+    _fd_variant(4096, 8, 4) + [(
+        "programmaticStreamSerializationAllowed = 1;",
+        "programmaticStreamSerializationAllowed = 0;")]
+CD_VARIANTS = {st: [("kStages = 4;", f"kStages = {st};")] for st in (2, 3, 4)}
+
+
+def _variant_libs(build, name, variants):
+    """A copy of ``csrc/<name>.cu`` per variant with its replacements
+    (each old text must occur once), one nvcc each, all started
+    together. → {key: loaded library}."""
+    import ctypes
+    src = (build.CSRC / f"{name}.cu").read_text()
+    out_dir = build.BUILD_DIR / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (key, edits) in enumerate(variants.items()):
+        text = src
+        for old, new in edits:
+            check(text.count(old) == 1, f"{name}.cu variant {key}: "
+                  f"{old!r} does not occur once")
+            text = text.replace(old, new)
+        cu = out_dir / f"{name}_{i}.cu"
+        cu.write_text(text)
+        procs[key] = (cu.with_suffix(".so"), subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o", str(cu.with_suffix(".so")),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    libs = {}
+    for key, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        check(proc.returncode == 0, f"{name}.cu variant {key} did not "
+              f"build:\n{log}")
+        libs[key] = ctypes.CDLL(str(so))
+    return libs
+
+
+def phase_variants(torch, build, ops, ref):
+    """flash_decode's tensor-core route at one layer's full shape (B 32,
+    H 32, KV 4, S = valid_len = 32768, hd 64 bf16) per variant, checked
+    against plain and timed in turns with scaled_dot_product_attention;
+    one epoch of cd_solve's round 0 at full width on clusters of 8 and
+    16 per ring depth, its hinge risk against the shipped build's."""
+    import importlib
+    from repro_torch.data.pipeline import svm_rows_device
+    fd = importlib.import_module("repro_torch.kernels.decode_attention")
+    dev = torch.device(DEV)
+    fd_libs = _variant_libs(build, "flash_decode", FD_VARIANTS)
+    cd_libs = _variant_libs(build, "cd_solve", CD_VARIANTS)
+    shipped, stages0 = dict(build._LIBS), ops.CLUSTER_STAGES
+    gen = torch.Generator(device=dev).manual_seed(0)
+    B, H, KV, S, hd = 32, 32, 4, 32768, 64
+    k = (KEY_SCALE * torch.randn((B, KV, S, hd), generator=gen, device=dev)
+         ).to(torch.bfloat16)
+    v = torch.randn((B, KV, S, hd), generator=gen, device=dev
+                    ).to(torch.bfloat16)
+    q = (torch.randn((B, H, hd), generator=gen, device=dev) / KEY_SCALE
+         ).to(torch.bfloat16)
+    valid = torch.tensor(S, dtype=torch.int32, device=dev)
+    plain = ref.decode_attention_ref(q, k, v, valid)
+    mask = torch.ones((1, 1, 1, S), dtype=torch.bool, device=dev)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+    kern = lambda: fd.launch_flash_decode(q, k, v, valid,  # noqa: E731
+                                          "tensor_core")
+    try:
+        for key, lib in fd_libs.items():
+            build._LIBS["flash_decode"] = lib
+            rel = _rel_max(kern(), plain)
+            check(rel <= FD_TOL["bfloat16"], f"flash_decode variant {key} "
+                  f"differs from plain by {rel:.2e}")
+            t = [cuda_ms(torch, f, 50) for f in (kern, sdpa, sdpa, kern) * 2]
+            say(f"[variants] flash_decode {key}: kernel "
+                f"{sum(t[0::4] + t[3::4]) / 4:.4f} ms, SDPA "
+                f"{sum(t[1::4] + t[2::4]) / 4:.4f} ms (turns "
+                f"{[round(x, 4) for x in t]}), max|Δ|/max|plain| {rel:.2e}")
+        del k, v
+        torch.cuda.empty_cache()
+        L, per, cap, d = 8, 8192, 2048, 131072
+        X, y = svm_rows_device(L * per, d, seed=0, dtype=torch.bfloat16,
+                               device=DEV)
+        y = y.float()
+        xs = torch.zeros((cap, d), dtype=torch.bfloat16, device=dev)
+        y_aug = torch.cat([y.reshape(L, per), torch.zeros((L, cap),
+                                                          device=dev)], 1)
+        m_aug = torch.cat([torch.ones((L, per), device=dev),
+                           torch.zeros((L, cap), device=dev)], 1)
+        args = (X.reshape(L, per, d), xs, y_aug.contiguous(),
+                m_aug.contiguous())
+        kw = dict(C=1.0, tol=1e-3, max_epochs=1)
+
+        def risk(out):        # each job's hinge risk over all rows
+            return ref.hinge_scores_ref(X, out[1], out[2], y,
+                                        torch.ones_like(y))[0] / len(y)
+
+        for c in (8, 16):
+            base = risk(_cd_run(ops, args, kw, c))
+            for stages, lib in cd_libs.items():
+                build._LIBS["cd_solve"] = lib
+                ops.CLUSTER_STAGES = stages
+                err = float((risk(_cd_run(ops, args, kw, c)) - base).abs()
+                            .max())
+                check(err <= 1e-4, f"cd_solve ring depth {stages} c={c}: "
+                      f"risk differs by {err:.2e}")
+                ms = cuda_ms(torch, lambda: _cd_run(ops, args, kw, c), 3)
+                say(f"[variants] cd_solve ring depth {stages}, c={c}: "
+                    f"{ms:.3f} ms an epoch, risk |Δ| {err:.2e}")
+    finally:
+        build._LIBS.clear()
+        build._LIBS.update(shipped)
+        ops.CLUSTER_STAGES = stages0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the pipeline phase; print no result")
+    ap.add_argument("--variants", action="store_true",
+                    help="time build variants of flash_decode and cd_solve "
+                    "after the kernel build; print no result")
     args = ap.parse_args()
 
     import torch
@@ -1282,6 +1559,11 @@ def main() -> int:
         return 2
     t_all = time.perf_counter()
     phase_environment(torch, build)
+    if args.variants:
+        phase_variants(torch, build, ops, ref)
+        say(f"[variants] done in {time.perf_counter() - t_all:.1f} s; "
+            f"{nvidia_smi()}; no result")
+        return 0
     phase_kernels_small(torch, ops, ref)
     phase_gram_small(torch, ops, ref, sp)
     phase_hinge_small(torch, ops, ref)

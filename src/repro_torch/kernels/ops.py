@@ -7,8 +7,11 @@ fallback from one to the other.
 
 ``LAUNCHES`` counts the kernel launches of each wrapper, so that a run
 can show that its main path went through the kernels; ``ROUTE_LAUNCHES``
-splits the launches of ``gram`` and ``hinge_scores`` by route: the bf16
-tensor-core kernel or the f32 SIMT one.
+splits the launches by route: for ``gram``, ``hinge_scores`` and
+``flash_decode`` the bf16 tensor-core kernel or the SIMT one, for
+``cd_solve`` one CTA or one thread-block cluster per job. The rules
+that pick a route (:func:`decode_route`, :func:`cd_solve_cluster_size`)
+are plain functions of shapes and dtypes.
 """
 from __future__ import annotations
 
@@ -24,7 +27,11 @@ LAUNCHES: Dict[str, int] = {"cd_solve": 0, "hinge_scores": 0, "gram": 0,
                             "flash_decode": 0}
 ROUTE_LAUNCHES: Dict[str, int] = {"gram/tensor_core": 0, "gram/simt": 0,
                                   "hinge_scores/tensor_core": 0,
-                                  "hinge_scores/simt": 0}
+                                  "hinge_scores/simt": 0,
+                                  "flash_decode/tensor_core": 0,
+                                  "flash_decode/simt": 0,
+                                  "cd_solve/cluster": 0,
+                                  "cd_solve/single": 0}
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -57,13 +64,68 @@ def _check_cuda_layout(named: Dict[str, torch.Tensor]) -> None:
         _check(t.is_contiguous(), f"{name} must be contiguous")
 
 
+#: the cluster route's limits (``csrc/cd_solve.cu``, namespace ``cl``):
+#: the largest cluster, threads a CTA, 16-byte column vectors a thread,
+#: rows in its ring, dynamic shared memory a CTA
+CLUSTER_MAX = 16
+CLUSTER_MAX_THREADS = 512
+CLUSTER_VECTORS = 4
+CLUSTER_STAGES = 4
+CLUSTER_SMEM = 232448
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cluster_threads(d: int, c: int, dtype: torch.dtype) -> int:
+    """Threads of a CTA of the cluster route: whole warps owning, with
+    ``CLUSTER_VECTORS`` 16-byte vectors each, a c-th of d's columns."""
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    vectors = _ceil_div(d // vec, c)
+    return _ceil_div(_ceil_div(vectors, CLUSTER_VECTORS), 32) * 32
+
+
+def cluster_smem(d: int, n: int, c: int, dtype: torch.dtype) -> int:
+    """Shared memory of a CTA of the cluster route: the ring of row
+    slices, the partials' slots and the CTA's copy of α."""
+    t = cluster_threads(d, c, dtype)
+    return CLUSTER_STAGES * CLUSTER_VECTORS * t * 16 + 2 * c * (t // 32) * 8 \
+        + 4 * n
+
+
+def cd_solve_cluster_size(n: int, d: int, dtype: torch.dtype) -> int:
+    """CTAs per job of ``cd_solve`` on the card for n rows of width d; 1
+    is the single route.
+
+    The smallest power of two whose CTAs hold w's slice in the registers
+    of at most ``CLUSTER_MAX_THREADS`` threads (``CLUSTER_VECTORS``
+    16-byte vectors each), doubled until a CTA's shared memory
+    (:func:`cluster_smem`, which grows with the n rows' α) fits. 1 when
+    rows are not whole 16-byte vectors, when there are no rows, or when
+    no cluster of up to ``CLUSTER_MAX`` CTAs fits (the single route
+    keeps w in global memory). At d = 131072 bf16 this gives 8, which
+    ran faster than 16 (PERF.md §6); at the golden d = 1024, 1.
+    """
+    vec = 16 // (2 if dtype == torch.bfloat16 else 4)
+    if n < 1 or d % vec:
+        return 1
+    c = 1
+    while c * CLUSTER_MAX_THREADS * CLUSTER_VECTORS * vec < d:
+        c *= 2
+    while 1 < c <= CLUSTER_MAX and cluster_smem(d, n, c, dtype) > CLUSTER_SMEM:
+        c *= 2
+    return c if c <= CLUSTER_MAX else 1
+
+
 def cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
              m: torch.Tensor, *, C: float, tol: float, max_epochs: int):
     """Dual-CD solve of L jobs (see :func:`ref.cd_solve_ref`).
 
     xh (L, per, d) and xs (S, d) rows (f32 or bf16, one dtype); y, m
     (L, per + S) f32. → alpha (L, n), w (L, d), b (L,), epochs (L,)
-    int32, viol (L,).
+    int32, viol (L,). On the card, :func:`cd_solve_cluster_size` CTAs
+    run each job; a size the card cannot schedule raises.
     """
     _check(xh.dim() == 3 and xs.dim() == 2,
            f"xh must be (L, per, d) and xs (S, d), got {tuple(xh.shape)} "
@@ -81,9 +143,12 @@ def cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
            "y and m must be float32")
     _check_cuda_layout({"xh": xh, "xs": xs, "y": y, "m": m})
+    c = cd_solve_cluster_size(n, d, xh.dtype)
     from repro_torch.kernels.svm_step import launch_cd_solve
-    out = launch_cd_solve(xh, xs, y, m, float(C), float(tol), int(max_epochs))
+    out = launch_cd_solve(xh, xs, y, m, float(C), float(tol), int(max_epochs),
+                          c)
     LAUNCHES["cd_solve"] += 1
+    ROUTE_LAUNCHES["cd_solve/" + ("cluster" if c > 1 else "single")] += 1
     return out
 
 
@@ -268,6 +333,21 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
     return out
 
 
+#: head dims the tensor-core flash_decode takes: multiples of 16 up to
+#: this (its output tile stays in registers)
+TC_DECODE_MAX_HEAD_DIM = 128
+
+
+def decode_route(dtype: torch.dtype, hd: int) -> str:
+    """``flash_decode``'s route on the card: "tensor_core" for bf16 rows
+    whose head dim is a multiple of 16 up to ``TC_DECODE_MAX_HEAD_DIM``,
+    else "simt"."""
+    if dtype == torch.bfloat16 and hd % 16 == 0 \
+            and 16 <= hd <= TC_DECODE_MAX_HEAD_DIM:
+        return "tensor_core"
+    return "simt"
+
+
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      valid_len: torch.Tensor) -> torch.Tensor:
     """Single-token GQA attention over the KV cache (see
@@ -297,6 +377,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(hd * q.element_size() % 16 == 0 and hd <= limit,
            f"flash_decode takes head dims of whole 16-byte vectors up to "
            f"{limit}, got {hd} in {q.dtype}")
-    out = launch_flash_decode(q, k, v, valid_len)
+    route = decode_route(q.dtype, hd)
+    out = launch_flash_decode(q, k, v, valid_len, route)
     LAUNCHES["flash_decode"] += 1
+    ROUTE_LAUNCHES[f"flash_decode/{route}"] += 1
     return out

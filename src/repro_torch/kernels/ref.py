@@ -22,18 +22,23 @@ def _rows(xh: torch.Tensor, xs: torch.Tensor, i: int) -> torch.Tensor:
     return x.float()
 
 
-def _cd_epoch(xh, xs, y, m, alpha, w, b, C: float, active):
+def _dots(w: torch.Tensor, x: torch.Tensor):
+    """(w·x, x·x) per job, each one float32 sum over all columns."""
+    return (w * x).sum(-1), (x * x).sum(-1)
+
+
+def _cd_epoch(xh, xs, y, m, alpha, w, b, C: float, active, dots=_dots):
     """One sequential dual-CD epoch over every job, in place.
 
-    Jobs whose ``active`` is 0 keep their state. → max projected-gradient
-    violation of the epoch per job (L,).
+    Jobs whose ``active`` is 0 keep their state; ``dots(w, x)`` gives
+    each row's (w·x, x·x). → max projected-gradient violation of the
+    epoch per job (L,).
     """
     n = y.shape[1]
     viol = torch.zeros_like(b)
     for i in range(n):
         x = _rows(xh, xs, i)
-        wx = (w * x).sum(-1)
-        xx = (x * x).sum(-1)
+        wx, xx = dots(w, x)
         yi, mi, ai = y[:, i], m[:, i], alpha[:, i]
         g = yi * (wx + b) - 1.0                       # ∂/∂α_i of dual obj
         pg = torch.where(ai <= 0.0, g.clamp(max=0.0),
@@ -63,6 +68,14 @@ def cd_solve_ref(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
     → alpha (L, n) f32, w (L, d) f32, b (L,) f32, epochs (L,) int32,
     viol (L,) f32.
     """
+    return solve_with(xh, xs, y, m, C=C, tol=tol, max_epochs=max_epochs)
+
+
+def solve_with(xh, xs, y, m, *, C: float, tol: float, max_epochs: int,
+               dots=_dots):
+    """:func:`cd_solve_ref` with the row dot products taken by
+    ``dots(w, x) → (w·x, x·x)`` (an emulation of a kernel's sum order
+    passes its own)."""
     L, per, d = xh.shape
     dev = xh.device
     y, m = y.float(), m.float()
@@ -75,7 +88,7 @@ def cd_solve_ref(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
         active = (t < max_epochs) & ((t == 0) | (viol > tol))
         if not bool(active.any()):
             break
-        ep = _cd_epoch(xh, xs, y, m, alpha, w, b, C, active.float())
+        ep = _cd_epoch(xh, xs, y, m, alpha, w, b, C, active.float(), dots)
         viol = torch.where(active, ep, viol)
         t += active.int()
     return alpha, w, b, t, viol

@@ -124,6 +124,7 @@ def test_routes_count_no_launch_on_cpu():
                      torch.zeros(2), torch.ones(4), torch.ones(4))
     assert set(ops.ROUTE_LAUNCHES) == {
         "gram/tensor_core", "gram/simt", "hinge_scores/tensor_core",
-        "hinge_scores/simt"}
+        "hinge_scores/simt", "flash_decode/tensor_core", "flash_decode/simt",
+        "cd_solve/cluster", "cd_solve/single"}
     assert not any(ops.ROUTE_LAUNCHES.values())
     assert not any(ops.LAUNCHES.values())
