@@ -19,6 +19,12 @@ Phases, one line or block each; any failure exits non-zero:
    tensor-core ``gram`` at its tile edges and on its symmetric route;
    ``hinge_scores`` on both routes (f32 SIMT, bf16 tensor cores) over
    ragged n, d and L, masks with zeros and W from 1e-30 to 1e3;
+   ``sparse_gram``'s fused scores route (per-job and shared Z, f32 and
+   bf16 coefficients); ``cd_solve_gram`` within 1e-5 of plain on K as
+   the Gram kernels return it, and bit for bit on K made exactly
+   symmetric, on the rule's cluster and on 1, 2 and 16 CTAs a job (one
+   row a job, a job that stops first), and one job of 11776 rows, above
+   the one-CTA cap of earlier versions;
 3. the paper pipeline (corpus → TF×IDF → 2-class MapReduce SVM and OvR
    3-class) at the golden test's settings, with accuracy floors, on the
    linear path;
@@ -41,10 +47,13 @@ Phases, one line or block each; any failure exits non-zero:
 7. slice 2's main path at full width: the same svm-tfidf shapes as
    blocked-CSR rows (``nnz_cap`` = row nnz = 256, f32 values), rbf
    (γ = 1) on the Gram path with ``gram_impl="pallas_sparse"``, with the
-   launch counts of that run, then ``sparse_gram`` (the reducer Gram and
-   one eq. 7 chunk) and ``cd_solve_gram`` checked and timed at its
-   shapes and one round profiled; last, the same fit with the linear
-   kernel on the Gram path, whose eq. 7 pick must beat the majority
+   launch counts and routes of that run (one fused eq. 7 launch a
+   round), then ``sparse_gram`` (the reducer Gram), ``cd_solve_gram``
+   on it (α bit for bit against plain, the rule's cluster against other
+   sizes) and eq. 7 through the fused scores route over all 65536 query
+   rows (its peak memory read) checked and timed, and one round
+   profiled; last, the same fit with rbf at γ = 8 and with the linear
+   kernel on the Gram path, whose eq. 7 picks must beat the majority
    class (the rbf pick at γ = 1 only matches it);
 8. slice 3, the LM serve path: ``flash_decode`` against its plain
    version at small shapes (f32 and bf16 — the SIMT and the
@@ -83,6 +92,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+# special-function results (exp) a second: 132 SMs × 16 a clock × the
+# 1980 MHz boost clock (NVIDIA Hopper architecture white paper)
+SFU_PER_S = 132 * 16 * 1.98e9
 
 CD_SRC = "src/repro_torch/kernels/csrc/cd_solve.cu"
 HINGE_SRC = "src/repro_torch/kernels/csrc/hinge_scores.cu"
@@ -458,29 +470,166 @@ def phase_gram_small(torch, ops, ref, sp):
             "over 2 shapes × 4 transforms and (home, shared) jobs (tol 1e-5)")
         check(worst <= 1e-5,
               f"sparse_gram {tag} differs from plain by {worst:.2e}")
+        _scores_small(torch, ops, ref, H, S, Q, dtype, tag)
 
         for L, n, kind, epochs, C in ((3, 200, "rbf", 15, 1.0),
                                       (2, 37, "linear", 15, 0.5),
-                                      (2, 1100, "rbf", 2, 1.0)):
+                                      (2, 1100, "rbf", 2, 1.0),
+                                      (2, 1, "rbf", 3, 1.0)):
             X = dense(L * n, 64, torch.float32).reshape(L, n, 64)
             K = ops.gram((X, X[0, :0]), (X, X[0, :0]), kind=kind,
                          gamma=1.0).to(dtype)
             y = torch.where(torch.randn((L, n), generator=gen, device=dev)
                             > 0, 1.0, -1.0)
             m = (torch.rand((L, n), generator=gen, device=dev) > 0.1).float()
+            if n == 200:
+                m[1] = 0.0                  # job 1 stops after one epoch
             y = torch.where(m > 0, y, 0.0)          # padding: y = m = 0
             y, m = y.to(dtype).contiguous(), m.to(dtype).contiguous()
             kw = dict(C=C, tol=1e-3, max_epochs=epochs)
-            a_k, t_k, v_k = ops.cd_solve_gram(K, y, m, **kw)
-            a_p, t_p, v_p = ref.cd_solve_gram_ref(K, y, m, **kw)
-            torch.cuda.synchronize()
-            err = max(float((a_k.float() - a_p.float()).abs().max()),
-                      float((v_k.float() - v_p.float()).abs().max()))
-            say(f"[kernels] cd_solve_gram {tag} L={L} n={n} {kind} "
-                f"epochs≤{epochs}: epochs {t_k.tolist()} vs plain "
-                f"{t_p.tolist()}, max|Δ(α, viol)| = {err:.2e} (tol 1e-5)")
-            check(torch.equal(t_k, t_p), "cd_solve_gram epochs differ")
-            check(err <= 1e-5, f"cd_solve_gram differs by {err:.2e}")
+            what = f"{tag} L={L} n={n} {kind} epochs≤{epochs}"
+            _cdg_as_given(torch, ops, ref, K, y, m, kw, what)
+            _cdg_sizes(torch, ops, ref, _symmetric(K), y, m, kw, what)
+
+
+# The scores route against its plain version K.to(coef.dtype) @ coefᵀ
+# + b, max |Δ| over (1 + max |plain|): f32 sums in another order; with
+# bf16 coefficients both round the sum and the bias add to bf16, which
+# may land one bf16 step (2⁻⁸ of the scale) apart.
+SCORES_TOL = {"float32": 1e-5, "bfloat16": 2 ** -7}
+
+
+def _scores_small(torch, ops, ref, H, S, Q, dtype, tag):
+    """sparse_gram_scores against its plain version: Z a (home, shared)
+    pair with eq. 7's coefficients (3 hypotheses, zero off each one's
+    block of home rows) and plain rows with 2 dense hypotheses, 4
+    transforms, f32 and bf16 coefficients, zero coefficients; a
+    bit-identical rerun and one launch of the scores route each."""
+    dev = Q.values.device
+    gen = torch.Generator(device=dev).manual_seed(9)
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    ops.reset_launches()
+    calls = 0
+    J, per = H.shape[0], H.shape[1]
+    home = H.reshape(1, J * per, H.shape[2])
+    block = torch.zeros((J, J * per + S.shape[0]), device=dev)
+    for l in range(J):
+        block[l, l * per:(l + 1) * per] = 1.0
+    block[:, J * per:] = 1.0
+    for Z, mask in (((home, S), block), (S, torch.ones((2, S.shape[0]),
+                                                      device=dev))):
+        coef = torch.randn(mask.shape, generator=gen, device=dev) * mask
+        coef[:, ::4] = 0.0
+        b = torch.randn((mask.shape[0],), generator=gen, device=dev)
+        for cdt in (torch.float32, torch.bfloat16):
+            c, bb = coef.to(cdt), b.to(cdt)
+            for kind, kw in GRAM_KINDS:
+                got = ops.sparse_gram_scores(Q, Z, c, bb, kind=kind, **kw)
+                want = ref.sparse_gram_scores_ref(Q, Z, c, bb, kind=kind,
+                                                  **kw)
+                name = str(cdt).split(".")[1]
+                err = float((got.float() - want.float()).abs().max()) / \
+                    (1.0 + float(want.float().abs().max()))
+                worst[name] = max(worst[name], err)
+                again = ops.sparse_gram_scores(Q, Z, c, bb, kind=kind, **kw)
+                calls += 2
+                check(torch.equal(got, again),
+                      "sparse_gram_scores rerun not bit-identical")
+    say(f"[kernels] sparse_gram_scores {tag} rows: max |Δ|/(1+max|S|) "
+        f"f32 coef {worst['float32']:.2e} (tol {SCORES_TOL['float32']:g}), "
+        f"bf16 coef {worst['bfloat16']:.2e} (tol "
+        f"{SCORES_TOL['bfloat16']:g}), routes {_routes(ops, 'sparse_gram')}")
+    for name, err in worst.items():
+        check(err <= SCORES_TOL[name],
+              f"sparse_gram_scores ({name} coef) differs by {err:.2e}")
+    check(ops.ROUTE_LAUNCHES["sparse_gram/scores"] == calls
+          and ops.ROUTE_LAUNCHES["sparse_gram/gram"] == 0,
+          f"sparse_gram_scores took {_routes(ops, 'sparse_gram')}")
+
+
+def _symmetric(K):
+    """K with its upper triangle mirrored: equal to Kᵀ bit for bit, as
+    the solve's kernel (which reads K's rows for Q's columns) and its
+    plain version (which reads the columns) need to agree exactly."""
+    return (K.triu() + K.triu(1).mT).contiguous()
+
+
+def _cdg_as_given(torch, ops, ref, K, y, m, kw, tag):
+    """cd_solve_gram on K as the Gram kernels return it, which the fit
+    passes on: the kernel reads K's rows where the plain version reads
+    its columns, so α and viol within 1e-5 of plain, epochs equal."""
+    sym = torch.equal(K, K.mT)
+    a_k, t_k, v_k = ops.cd_solve_gram(K, y, m, **kw)
+    a_p, t_p, v_p = ref.cd_solve_gram_ref(K, y, m, **kw)
+    torch.cuda.synchronize()
+    err = max(float((a_k.float() - a_p.float()).abs().max()),
+              float((v_k.float() - v_p.float()).abs().max()))
+    say(f"[kernels] cd_solve_gram {tag} on K as given (bit-symmetric "
+        f"{sym}): epochs {t_k.tolist()} vs plain {t_p.tolist()}, "
+        f"max|Δ(α, viol)| = {err:.2e} (tol 1e-5)")
+    check(torch.equal(t_k, t_p), f"cd_solve_gram {tag}: epochs differ")
+    check(err <= 1e-5, f"cd_solve_gram {tag} differs by {err:.2e}")
+
+
+def _cdg_sizes(torch, ops, ref, K, y, m, kw, tag, sizes=(None, 1, 2, 16)):
+    """cd_solve_gram on the rule's cluster size (counted) and on forced
+    sizes (uncounted) against its plain version: α, viol and epochs equal
+    bit for bit (K symmetric, so both read the same Q), the rule's route
+    counted, a bit-identical rerun. → the plain result."""
+    from repro_torch.kernels.gram_solve import launch_cd_solve_gram
+    L, n, _ = K.shape
+    rule = ops.cd_solve_gram_cluster_size(L, n)
+    plain = ref.cd_solve_gram_ref(K, y, m, **kw)
+    for c in sizes:
+        ops.reset_launches()
+        run = (lambda: ops.cd_solve_gram(K, y, m, **kw)) if c is None else \
+            (lambda: launch_cd_solve_gram(K, y, m, float(kw["C"]),
+                                          float(kw["tol"]),
+                                          int(kw["max_epochs"]), c))
+        a, t, v = run()
+        torch.cuda.synchronize()
+        route = _routes(ops, "cd_solve_gram")
+        err = max(float((a.float() - plain[0].float()).abs().max()),
+                  float((v.float() - plain[2].float()).abs().max()))
+        say(f"[kernels] cd_solve_gram {tag} c={c or f'{rule} (the rule)'}: "
+            f"epochs {t.tolist()} vs plain {plain[1].tolist()}, "
+            f"max|Δ(α, viol)| = {err:.2e} (expected 0), routes {route}")
+        check(torch.equal(t, plain[1]), "cd_solve_gram epochs differ")
+        check(torch.equal(a, plain[0]) and torch.equal(v, plain[2]),
+              f"cd_solve_gram differs from plain by {err:.2e}")
+        if c is None:
+            want = "cluster" if rule > 1 else "single"
+            check(route[want] == 1, f"cd_solve_gram {tag} took {route}")
+        again = run()
+        check(all(torch.equal(p, q) for p, q in zip((a, t, v), again)),
+              f"cd_solve_gram {tag} c={c}: rerun not bit-identical")
+    return plain
+
+
+def phase_gram_solve_rows(torch, ops, ref):
+    """cd_solve_gram just above what one CTA's shared memory holds (11622
+    rows, the cap of the one-CTA design):
+    one job of 11776 rows, f32, 2 epochs, on the rule's cluster; and the
+    clusters the full-width reducers can keep resident."""
+    from repro_torch.kernels.gram_solve import max_active_clusters
+    for c in (8, 16):
+        say(f"[kernels] cd_solve_gram 10240 rows, c={c}: "
+            f"{max_active_clusters(torch.float32, 10240, c)} clusters can "
+            "be resident at once")
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n = 11776
+    X = torch.randn((n, 64), generator=gen, device=dev) / 8.0
+    K = ops.gram(X, X, kind="rbf", gamma=1.0)[None]
+    y = torch.where(torch.randn((1, n), generator=gen, device=dev) > 0,
+                    1.0, -1.0)
+    m = torch.ones_like(y)
+    kw = dict(C=1.0, tol=1e-3, max_epochs=2)
+    what = f"f32 L=1 n={n} rbf epochs≤2"
+    _cdg_as_given(torch, ops, ref, K, y, m, kw, what)
+    _cdg_sizes(torch, ops, ref, _symmetric(K), y, m, kw, what, sizes=(None,))
+    check(ops.cd_solve_gram_cluster_size(1, n) > 1,
+          "11776 rows did not take the cluster route")
 
 
 def phase_pipeline(torch, T, text):
@@ -838,79 +987,189 @@ def _index_matches(torch, Xp, sv_x, d):
     return int((counts.long() ** 2).sum())
 
 
+def _eq7_matches(torch, Xflat, Z, d):
+    """Nonzero slot pairs with equal columns between the query rows and
+    the union rows Z: Σ over columns of (query rows holding it) × (rows
+    of Z holding it)."""
+    def counts(rows):
+        live = rows.values != 0
+        return torch.bincount(rows.indices[live].long(), minlength=d)
+    return int((counts(Xflat).long() * counts(Z).long()).sum())
+
+
 def time_sparse_kernels(torch, ops, ref, Xp, sv, yp, maskp, cfg):
-    """sparse_gram at the full-width fit's two shapes, from its
-    SV_global: one reducer Gram over the L jobs (checked, timed) and one
-    eq. 7 chunk of query rows against [Xflat; SV_global] (checked,
-    timed); then cd_solve_gram (one epoch) on that reducer Gram."""
+    """sparse_gram and cd_solve_gram at the full-width fit's shapes, from
+    its SV_global: the reducer Gram over the L jobs (checked against
+    plain, rerun, timed); cd_solve_gram on it (on K made exactly
+    symmetric, α must equal plain bit for bit; rerun; one epoch and one
+    launch timed on the rule's cluster, and other sizes); then eq. 7 of
+    that solve's hypotheses through the fused scores route over all
+    query rows (checked against plain, rerun, timed, its peak memory
+    read). → the three kernel rows."""
+    from repro_torch import sparse as sparse_rows
+    from repro_torch.kernels.gram_solve import launch_cd_solve_gram
     L, per, d = Xp.shape
     cap = sv.y.shape[0]
+    n = per + cap
     kc = cfg.svm.kernel
     kw = dict(kind=kc.name, gamma=kc.gamma)
     side = (Xp, sv.x)
+    ops.reset_launches()
     K = ops.sparse_gram(side, side, **kw)
+    check(ops.ROUTE_LAUNCHES["sparse_gram/gram"] == 1,
+          f"sparse_gram took {_routes(ops, 'sparse_gram')}")
     P = ops.per_job(ref.sparse_gram_ref, side, side, **kw)
     torch.cuda.synchronize()
     err = float((K - P).abs().max())
-    say(f"[kernels] sparse_gram {L} jobs × {per + cap}² nnz_cap "
-        f"{Xp.nnz_cap} f32 rbf: max|Δ| vs plain {err:.2e} (atol 1e-5)")
-    check(err <= 1e-5, f"sparse_gram differs from plain by {err:.2e}")
     del P
+    same = torch.equal(K, ops.sparse_gram(side, side, **kw))
+    say(f"[kernels] sparse_gram {L} jobs × {n}² nnz_cap {Xp.nnz_cap} f32 "
+        f"{kc.name}: max|Δ| vs plain {err:.2e} (atol 1e-5), rerun "
+        f"bit-identical {same}")
+    check(err <= 1e-5, f"sparse_gram differs from plain by {err:.2e}")
+    check(same, "sparse_gram rerun not bit-identical")
     ms = cuda_ms(torch, lambda: ops.sparse_gram(side, side, **kw), 3)
     plain = cuda_ms(torch, lambda: ops.per_job(
         ref.sparse_gram_ref, side, side, **kw), 1, warmup=0)
     matches = _index_matches(torch, Xp, sv.x, d)
-    n = per + cap
     # X and Z are the same rows here: their slots are read once
     slot_bytes = (L * per + cap) * Xp.nnz_cap * 8
     bms, by = bound_ms(slot_bytes + L * n * n * 4, 2.0 * matches)
-    say(f"[kernels] sparse_gram: kernel {ms:.3f} ms, plain {plain:.3f} ms, "
-        f"bound {bms:.3f} ms ({by}); {matches} index matches")
-
-    # eq. 7: one chunk of query rows against the union of the jobs' rows
-    Xflat, home = Xp.reshape(L * per, d), (Xp.reshape(1, L * per, d), sv.x)
-    step = max(1, (1 << 28) // (L * per + cap))
-    Ke = ops.sparse_gram(Xflat[:step], home, **kw)
-    Pe = ops.per_job(ref.sparse_gram_ref, Xflat[:step], home, **kw)
-    torch.cuda.synchronize()
-    e_err = float((Ke - Pe).abs().max())
-    del Ke, Pe
-    e_ms = cuda_ms(torch, lambda: ops.sparse_gram(Xflat[:step], home, **kw),
-                   3)
-    say(f"[kernels] sparse_gram eq. 7 chunk {step} × {L * per + cap}: "
-        f"max|Δ| vs plain {e_err:.2e} (atol 1e-5), kernel {e_ms:.3f} ms")
-    check(e_err <= 1e-5,
-          f"sparse_gram eq. 7 chunk differs from plain by {e_err:.2e}")
+    say(f"[kernels] sparse_gram: kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, bound {bms:.3f} ms ({by}); {matches} index "
+        "matches")
     sg = dict(name="sparse_gram", route="cuda", source=SPARSE_SRC,
               replaces=SPARSE_TPU, max_abs_err=err, ms=ms, plain_ms=plain,
               bound_ms=bms, bound_by=by, library_ms=None)
 
+    # --- cd_solve_gram on the reducer Gram ------------------------------
+    sym = torch.equal(K, K.mT)
+    Ks = K if sym else _symmetric(K)
     y_aug = torch.cat([yp, sv.y.expand(L, cap)], 1).contiguous()
     m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1).contiguous()
-    kw = dict(C=cfg.svm.C, tol=cfg.svm.tol, max_epochs=1)
-    a_k, t_k, _ = ops.cd_solve_gram(K, y_aug, m_aug, **kw)
+    kw1 = dict(C=cfg.svm.C, tol=cfg.svm.tol, max_epochs=1)
+    rule = ops.cd_solve_gram_cluster_size(L, n)
+    ops.reset_launches()
+    a_k, t_k, v_k = ops.cd_solve_gram(Ks, y_aug, m_aug, **kw1)
+    check(ops.ROUTE_LAUNCHES["cd_solve_gram/cluster"] == 1,
+          f"cd_solve_gram took {_routes(ops, 'cd_solve_gram')}")
     t0 = time.perf_counter()
-    a_p, t_p, _ = ref.cd_solve_gram_ref(K, y_aug, m_aug, **kw)
+    a_p, t_p, v_p = ref.cd_solve_gram_ref(Ks, y_aug, m_aug, **kw1)
     torch.cuda.synchronize()
     cd_plain = 1e3 * (time.perf_counter() - t0)
     cd_err = float((a_k - a_p).abs().max())
-    say(f"[kernels] cd_solve_gram one epoch L={L} n={n} f32: max|Δα| vs "
-        f"plain {cd_err:.2e} (atol 1e-5), epochs {t_k.tolist()}")
-    check(cd_err <= 1e-5 and torch.equal(t_k, t_p),
-          f"cd_solve_gram differs from plain by {cd_err:.2e}")
-    cd_ms = cuda_ms(torch, lambda: ops.cd_solve_gram(K, y_aug, m_aug, **kw),
-                    2)
+    again = ops.cd_solve_gram(Ks, y_aug, m_aug, **kw1)
+    rerun = all(torch.equal(p, q) for p, q in zip((a_k, t_k, v_k), again))
+    say(f"[kernels] cd_solve_gram one epoch L={L} n={n} f32, {rule} CTAs a "
+        f"job: max|Δα| vs plain {cd_err:.2e} (expected 0; K "
+        f"{'is' if sym else 'is not'} bit-symmetric, "
+        f"{'as given' if sym else 'its upper triangle mirrored'}), epochs "
+        f"{t_k.tolist()}, rerun bit-identical {rerun}")
+    check(torch.equal(a_k, a_p) and torch.equal(t_k, t_p)
+          and torch.equal(v_k, v_p), "cd_solve_gram differs from plain")
+    check(rerun, "cd_solve_gram rerun not bit-identical")
+    if not sym:
+        a_u = ops.cd_solve_gram(K, y_aug, m_aug, **kw1)[0]
+        a_up = ref.cd_solve_gram_ref(K, y_aug, m_aug, **kw1)[0]
+        u_err = float((a_u - a_up).abs().max())
+        say(f"[kernels] cd_solve_gram on the unsymmetrized K: max|Δα| "
+            f"{u_err:.2e} (atol 1e-5; rows vs columns of K)")
+        check(u_err <= 1e-5, f"cd_solve_gram differs by {u_err:.2e}")
+    cd_ms = cuda_ms(torch, lambda: ops.cd_solve_gram(Ks, y_aug, m_aug,
+                                                     **kw1), 3)
+    forced = {c: cuda_ms(torch, lambda: launch_cd_solve_gram(
+        Ks, y_aug, m_aug, float(kw1["C"]), float(kw1["tol"]), 1, c), 3)
+        for c in (1, 4, 16)}
+    kw_fit = dict(kw1, max_epochs=cfg.svm.max_epochs)
+    launch_ms = cuda_ms(torch, lambda: ops.cd_solve_gram(Ks, y_aug, m_aug,
+                                                         **kw_fit), 1)
+    alpha, epochs, _ = ops.cd_solve_gram(Ks, y_aug, m_aug, **kw_fit)
     moved = int((a_p != 0).sum())
     nbytes = moved * n * 4 + L * n * 4 * 4 + L * 8
     cbms, cby = bound_ms(nbytes, 8.0 * moved * n)
-    say(f"[kernels] cd_solve_gram: kernel {cd_ms:.3f} ms per epoch, plain "
-        f"{cd_plain:.3f} ms, bound {cbms:.3f} ms ({cby}); {moved} of "
-        f"{L * n} rows moved α")
+    say(f"[kernels] cd_solve_gram: kernel {cd_ms:.3f} ms per epoch on "
+        f"{rule} CTAs a job, forced "
+        + ", ".join(f"{c} CTAs {t:.3f}" for c, t in forced.items())
+        + f"; one launch of {epochs.tolist()} epochs {launch_ms:.3f} ms; "
+        f"plain {cd_plain:.3f} ms, bound {cbms:.3f} ms "
+        f"({cby}) an epoch; {moved} of {L * n} rows moved α")
     cdg = dict(name="cd_solve_gram", route="cuda", source=CDG_SRC,
                replaces=CDG_TPU, max_abs_err=cd_err, ms=cd_ms,
                plain_ms=cd_plain, bound_ms=cbms, bound_by=cby,
                library_ms=None)
-    return sg, cdg
+    del K, Ks
+
+    # --- eq. 7: the fused scores route over all query rows ---------------
+    # as _kernel_risks: the union [Xflat; SV_global], hypothesis l's
+    # coefficients zero off its job's rows
+    coef = alpha * y_aug * m_aug
+    b = coef.sum(1)
+    Xflat = Xp.reshape(L * per, d)
+    N = Xflat.shape[0]
+    union = (Xp.reshape(1, N, d), sv.x)
+    Coef = torch.zeros((L, N + cap), device=coef.device)
+    for l in range(L):
+        Coef[l, l * per:(l + 1) * per] = coef[l, :per]
+    Coef[:, N:] = coef[:, per:]
+    coef, side = Coef, union
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launches()
+    S = ops.sparse_gram_scores(Xflat, side, coef, b, **kw)
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
+    check(ops.ROUTE_LAUNCHES["sparse_gram/scores"] == 1,
+          f"eq. 7 took {_routes(ops, 'sparse_gram')}")
+    chunk = (1 << 28) * 4
+    say(f"[kernels] sparse_gram_scores eq. 7 ({N} × {N + cap}, {L} "
+        f"hypotheses): peak "
+        f"memory above its inputs {extra / 1e6:.1f} MB (a K chunk of the "
+        f"chunked route: {chunk / 1e6:.1f} MB; all of K: "
+        f"{N * (L * per + cap) * 4 / 1e9:.1f} GB)")
+    check(extra < chunk, "eq. 7 allocated as much as a K chunk")
+    same = torch.equal(S, ops.sparse_gram_scores(Xflat, side, coef, b, **kw))
+    t0 = time.perf_counter()
+    want = ref.sparse_gram_scores_ref(Xflat, side, coef, b, **kw)
+    torch.cuda.synchronize()
+    e_plain = 1e3 * (time.perf_counter() - t0)
+    e_err = float((S - want).abs().max())
+    e_rel = e_err / (1.0 + float(want.abs().max()))
+    say(f"[kernels] sparse_gram_scores eq. 7: max|Δ| vs plain {e_err:.2e}, "
+        f"/(1+max|S|) {e_rel:.2e} (tol {SCORES_TOL['float32']:g}), rerun "
+        f"bit-identical {same}")
+    check(e_rel <= SCORES_TOL["float32"],
+          f"eq. 7 scores differ from plain by {e_rel:.2e}")
+    check(same, "eq. 7 scores rerun not bit-identical")
+    del want
+    e_ms = cuda_ms(torch, lambda: ops.sparse_gram_scores(Xflat, side, coef,
+                                                         b, **kw), 3)
+    # the function's work: each query row against each union row whose
+    # coefficient is not 0 for some hypothesis (α = 0 rows add nothing,
+    # and the kernel skips them) — one exp a pair for rbf, at the SFU
+    # rate — their index matches and the coefficient products in f32
+    # (one hypothesis a pair off SV_global's rows); bytes: the query
+    # slots and those union rows' slots, coef, S
+    Z_all = sparse_rows.rows_concat(Xflat, sv.x)
+    used = (coef != 0).any(0)
+    Z_used = Z_all[used]
+    pairs = N * Z_used.shape[0]
+    e_matches = _eq7_matches(torch, Xflat, Z_used, d)
+    e_bytes = (N + Z_used.shape[0]) * Xp.nnz_cap * 8 + coef.numel() * 4 \
+        + N * L * 4
+    ebms, eby = bound_ms(e_bytes, 2.0 * e_matches + 2.0 * pairs)
+    t_exp = pairs / SFU_PER_S * 1e3 if kc.name == "rbf" else 0.0
+    if t_exp > ebms:
+        ebms, eby = t_exp, "operations"
+    say(f"[kernels] sparse_gram_scores eq. 7: kernel {e_ms:.3f} ms, plain "
+        f"{e_plain:.3f} ms, bound {ebms:.3f} ms ({eby}; {pairs} pairs "
+        f"over {Z_used.shape[0]} of {Z_all.shape[0]} union rows with a "
+        f"coefficient, {e_matches} index matches)")
+    sgs = dict(name="sparse_gram_scores", route="cuda", source=SPARSE_SRC,
+               replaces=SPARSE_TPU, max_abs_err=e_err, ms=e_ms,
+               plain_ms=e_plain, bound_ms=ebms, bound_by=eby,
+               library_ms=None)
+    return sg, sgs, cdg
 
 
 def pick_accuracy(torch, T, Xp, yp, maskp, cfg, model):
@@ -954,21 +1213,29 @@ def _fit_full_gram(torch, T, ops, X, y, L, kernel, tag):
     model = T.fit_mapreduce(X, y, L, cfg, verbose=True)
     torch.cuda.synchronize()
     fit_ms = 1e3 * (time.perf_counter() - t0)
-    launches = dict(ops.LAUNCHES)
+    launches = dict(ops.LAUNCHES, **ops.ROUTE_LAUNCHES)
     for h in model.history:
         say(f"[{tag}] round {h['round']}: R_emp={h['risk']:.6f} "
             f"|SV|={h['sv_count']} reducer={h['reducer']} "
             f"round_ms={h['ms']:.1f}")
     n_all = X.shape[0]
-    chunks = -(-n_all // max(1, (1 << 28) // (n_all + cfg.sv_capacity)))
+    routes = {k: v for k, v in ops.ROUTE_LAUNCHES.items()
+              if k.startswith(("sparse_gram/", "cd_solve_gram/"))}
     say(f"[{tag}] fit_mapreduce: {model.rounds} rounds in {fit_ms:.1f} ms, "
-        f"launches {launches} (cd_solve_gram = rounds + final fit; "
-        f"sparse_gram = rounds × (1 reducer Gram + {chunks} eq. 7 chunks) "
-        "+ final fit)")
+        f"launches {dict(ops.LAUNCHES)} (cd_solve_gram = rounds + final fit; "
+        "sparse_gram = rounds × (1 reducer Gram + 1 eq. 7 scores) + final "
+        f"fit), routes {routes}")
     check(launches["cd_solve_gram"] == model.rounds + 1,
           f"{tag}: cd_solve_gram launched {launches['cd_solve_gram']} times")
-    check(launches["sparse_gram"] == model.rounds * (1 + chunks) + 1,
+    check(launches["sparse_gram"] == model.rounds * 2 + 1,
           f"{tag}: sparse_gram launched {launches['sparse_gram']} times")
+    # the reducers (8 jobs × 10240 rows) on clusters, the final fit's
+    # 2048 rows on one CTA; one fused eq. 7 launch a round
+    check(routes == {"sparse_gram/gram": model.rounds + 1,
+                     "sparse_gram/scores": model.rounds,
+                     "cd_solve_gram/cluster": model.rounds,
+                     "cd_solve_gram/single": 1},
+          f"{tag}: the fit took the routes {routes}")
     risks = [h["risk"] for h in model.history]
     check(all(math.isfinite(r) for r in risks),
           f"{tag}: risks not finite: {risks}")
@@ -987,11 +1254,19 @@ def _fit_full_gram(torch, T, ops, X, y, L, kernel, tag):
     return cfg, model, launches, pick, major
 
 
+# On these unit-norm rows k(x, z) = e^(−2γ(1 − x·z)). On a CPU cut of
+# the full-width cell (8 × 256 rows, the plain versions) the eq. 7
+# pick did not beat the majority class at γ = 0.1–4 and did at 8, 16
+# and 64: k then nearly vanishes off the diagonal, and the pick gets
+# its own partition's rows right (PERF.md §6).
+RBF_PICK_GAMMA = 8.0
+
+
 def phase_full_kernel(torch, T, ops, ref):
     """Slice 2's main path at svm-tfidf widths: blocked-CSR rows, rbf on
     the Gram path with gram_impl="pallas_sparse"; then the same rows
-    with the linear kernel on the Gram path, whose eq. 7 pick must beat
-    the majority class."""
+    with rbf at γ = RBF_PICK_GAMMA and with the linear kernel on the
+    Gram path, whose eq. 7 picks must beat the majority class."""
     from repro_torch.configs import SVM_TFIDF
     from repro_torch.data.pipeline import svm_rows_sparse_device
     L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
@@ -1015,19 +1290,27 @@ def phase_full_kernel(torch, T, ops, ref):
     check(pick >= major, "selected rbf hypothesis worse than the majority")
     Xp = X.reshape(L, per, d)
     yp, maskp = y.reshape(L, per), torch.ones((L, per), device=DEV)
-    sg, cdg = time_sparse_kernels(torch, ops, ref, Xp, model.sv, yp, maskp,
-                                  cfg)
+    sg, sgs, cdg = time_sparse_kernels(torch, ops, ref, Xp, model.sv, yp,
+                                       maskp, cfg)
     profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
-    sg["launches"] = launches["sparse_gram"]
+    sg["launches"] = launches["sparse_gram/gram"]
+    sgs["launches"] = launches["sparse_gram/scores"]
     cdg["launches"] = launches["cd_solve_gram"]
     del model
+
+    # --- rbf at a γ whose pick must beat the majority -------------------
+    _, _, _, pick, major = _fit_full_gram(
+        torch, T, ops, X, y, L, T.KernelConfig("rbf", gamma=RBF_PICK_GAMMA),
+        f"full-rbf-gamma{RBF_PICK_GAMMA:g}")
+    check(pick > major, f"selected rbf (γ = {RBF_PICK_GAMMA:g}) hypothesis "
+          "no better than the majority")
 
     # --- the same kernels with a kernel that sees the planted signal ----
     _, _, _, pick, major = _fit_full_gram(
         torch, T, ops, X, y, L, T.KernelConfig("linear"), "full-linear-gram")
     check(pick > major,
           "selected linear-Gram hypothesis no better than the majority")
-    return [sg, cdg]
+    return [sg, sgs, cdg]
 
 
 # --- slice 3: the LM serve path --------------------------------------------
@@ -1566,6 +1849,7 @@ def main() -> int:
         return 0
     phase_kernels_small(torch, ops, ref)
     phase_gram_small(torch, ops, ref, sp)
+    phase_gram_solve_rows(torch, ops, ref)
     phase_hinge_small(torch, ops, ref)
     phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()

@@ -22,7 +22,9 @@ L hypotheses on the full data (eq. 7). On the Gram path (rbf/poly or
 ``use_gram``, dense or blocked-CSR rows) the reducers' Gram matrices
 come from one ``gram`` / ``sparse_gram`` launch over the L jobs, the
 solve is one ``cd_solve_gram`` launch, and eq. 7 scores every
-hypothesis through the same Gram kernel in chunks of query rows. The
+hypothesis through the same Gram kernel in chunks of query rows; on
+blocked-CSR rows, through one fused ``sparse_gram_scores`` launch that
+never forms K. The
 sharded mode, the sweep axis and the fault seams of the reference wait
 for later slices (ROADMAP Queue 1).
 """
@@ -151,9 +153,11 @@ def _kernel_risks(Xp, sv: SVBuffer, yp, maskp, res: BinarySVM, y_aug,
                   m_aug, cfg: MRSVMConfig, p: SolverParams) -> torch.Tensor:
     """Eq. 7 on the Gram path: hypothesis l scores the full data with
     ``K(Xflat, [X_l; SV_global]) @ (α·y·m)_l + b_l``. The union of the L
-    augmented partitions is ``[Xflat; SV_global]``, so one K per chunk
-    of query rows against those rows, times a coefficient matrix that
-    is zero off each job's own rows, scores all L hypotheses."""
+    augmented partitions is ``[Xflat; SV_global]``, so K against those
+    rows, times a coefficient matrix that is zero off each job's own
+    rows, scores all L hypotheses: through the fused
+    ``sparse_gram_scores`` (one launch, no K) on blocked-CSR rows under
+    ``gram_impl="pallas_sparse"``, else in chunks of query rows."""
     L, per, d = Xp.shape
     dt = res.alpha.dtype
     coef = res.alpha * y_aug.to(dt) * m_aug.to(dt)              # (L, n)

@@ -255,12 +255,25 @@ def decision_linear(w: torch.Tensor, b: torch.Tensor, X: torch.Tensor,
 
 def decision_kernel(Z, coef: torch.Tensor, b, X, cfg: SVMConfig,
                     params: Optional[SolverParams] = None) -> torch.Tensor:
-    """f(x) = Σ_j coef_j k(x, z_j) + b, coef = α·y (masked), with K built
-    by :func:`kernel_matrix` (the reducer's Gram kernel under
-    ``pallas*``). ``Z`` is a row batch or a ``(home (1, ·), shared)``
-    pair; ``coef`` (m,) or (m, L) with ``b`` () or (L,). Query rows go
-    through in chunks of at most ~1 GB of K. → (n,) or (n, L) in
-    ``coef``'s dtype."""
+    """f(x) = Σ_j coef_j k(x, z_j) + b, coef = α·y (masked). ``Z`` is a
+    row batch or a ``(home (1, ·), shared)`` pair; ``coef`` (m,) or
+    (m, L) with ``b`` () or (L,).
+
+    Under ``gram_impl="pallas_sparse"`` with blocked-CSR rows on both
+    sides, one ``sparse_gram_scores`` launch computes all query rows and
+    K never goes to memory. Otherwise K comes from :func:`kernel_matrix`
+    in chunks of query rows of at most ~1 GB of K.
+    → (n,) or (n, L) in ``coef``'s dtype."""
+    if cfg.gram_impl == "pallas_sparse" and _side_sparse(X) \
+            and _side_sparse(Z):
+        p = cfg.params() if params is None else params
+        C = (coef.T if coef.dim() == 2 else coef[None]).contiguous()
+        bL = torch.as_tensor(b, dtype=coef.dtype, device=coef.device) \
+            .reshape(-1).expand(C.shape[0]).contiguous()
+        out = ops.sparse_gram_scores(X, Z, C, bL, kind=cfg.kernel.name,
+                                     gamma=p.gamma, coef0=p.coef0,
+                                     degree=cfg.kernel.degree)
+        return out if coef.dim() == 2 else out[:, 0]
     nz = Z[0].shape[1] + Z[1].shape[0] if isinstance(Z, tuple) \
         else Z.shape[0]
     n = X.shape[0]

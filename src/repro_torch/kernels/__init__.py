@@ -7,7 +7,9 @@ and sparse Gram, ``gram_solve.py``, ``decode_attention.py``), a plain PyTorch ve
 """
 from repro_torch.kernels.ops import (LAUNCHES, cd_solve, cd_solve_gram,
                                      decode_attention, gram, hinge_scores,
-                                     reset_launches, sparse_gram)
+                                     reset_launches, sparse_gram,
+                                     sparse_gram_scores)
 
 __all__ = ["LAUNCHES", "cd_solve", "cd_solve_gram", "decode_attention",
-           "gram", "hinge_scores", "reset_launches", "sparse_gram"]
+           "gram", "hinge_scores", "reset_launches", "sparse_gram",
+           "sparse_gram_scores"]

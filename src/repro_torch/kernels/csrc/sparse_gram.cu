@@ -1,6 +1,7 @@
 // Gram matrix K = k(X, Zᵀ) of blocked-CSR rows (fixed nnz_cap slots of
 // column id / value, (0, 0) on padding), of one or more jobs, with the
-// fused linear / poly / rbf epilogue of gram.cu.
+// fused linear / poly / rbf epilogue of gram.cu; and the fused decision
+// scores S = k(X, Zᵀ)·coefᵀ + b of the same rows, which never writes K.
 //
 // Replaces the TPU kernel src/repro/kernels/gram.py: sparse_gram
 // (_sparse_gram_kernel, pl.pallas_call at line 201). It computes the
@@ -11,23 +12,43 @@
 // It does NOT carry over the TPU's index match, which spends px·pz
 // compare-selects on every pair (65536 at nnz_cap 256) to find the
 // ~0.5 column ids two TF×IDF rows share at d = 131072. Instead Z's
-// nonzero slots are handed in column-major order (a CSC view of Z,
-// built once per call by the wrapper with a stable sort): for column c,
-// the Z rows that hold it and their values. One warp owns one output
-// row K[i, :]: it zeroes the row, then for each nonzero slot (c, v) of
-// x_i walks Z's list of column c and adds v · z_v into K[i, z], then
-// applies the transform to the row. The work is the index matches that
-// exist plus one pass over K, not px·pz per pair. Slots are taken in a
-// fixed order with a warp barrier after each, so reruns are
-// bit-identical; the adds are atomics only so that a row that breaks
-// the distinct-index contract still sums correctly.
+// nonzero slots are handed in a CSC view keyed by (job, Z tile,
+// column), built once per call by the wrapper with a stable sort: for
+// Z tile T (up to kMaxTile consecutive Z rows) and column c, the Z rows
+// of the tile that hold c and their values, in row order.
 //
-// What bounds it on an H100: bytes — writing K (n·m·4 bytes) dominates
-// the slot arrays, and the matched multiply-adds are few. The row is
-// written, updated and transformed by one warp while it is hot in L2;
-// each lane prefetches one slot's column id, value and list bounds so a
-// warp waits for one list read per 32 slots, not three dependent reads
-// per slot.
+// One warp owns one (query row i, Z tile T, job): it accumulates row
+// i's dot products against the tile in its own segment of shared
+// memory. Each lane holds 8 of x_i's nonzero slots (c, v) and the
+// bounds of their columns' lists in the tile. For each 32 slots, their
+// lists in slot order form one flat sequence of entries (about 128 at
+// full width); its lanes take 32 consecutive entries a round (a list
+// marks where it starts, a prefix maximum over the lanes finds each
+// entry's list) and add v · z_v into the segment, the entries of 2
+// rounds loaded before their adds. So lanes stay busy whatever the
+// lists' lengths, and a warp waits for about one round trip per 64
+// entries. The adds go in a fixed order: rounds in sequence, and where
+// two lanes of a round hit the same Z row (a stamp byte a column finds
+// it), in lane order, a warp barrier apart; so reruns are
+// bit-identical. Then the transform runs on the segment, and:
+//   * the Gram route writes the tile's slice of K's row once,
+//     coalesced;
+//   * the scores route rounds each k to coef's dtype (as the plain
+//     K.to(coef.dtype) @ coef does), reduces the segment against each
+//     hypothesis's coefficients of the tile in float32 and writes one
+//     partial per (row, hypothesis, tile); a second kernel adds the
+//     tiles' partials in tile order and the bias. K never goes to
+//     memory. A hypothesis whose coefficients of a tile are all 0 skips
+//     the tile, and a tile that none reads is not computed: in eq. 7,
+//     where hypothesis l's coefficients are 0 off its job's rows, a
+//     partition's tiles feed one hypothesis and the SV tiles all.
+// What bounds it on an H100: by the count, bytes (the Gram route writes
+// K, n·m·4 bytes) and, for the scores route, the exps (one a pair for
+// rbf); as measured (PERF.md §6), the warp's work a (row, tile) — the
+// list bounds' loads, the rounds' shuffles, stamps and adds, then the
+// transform — of which the index matches take the most. The list
+// entries come from L2: the grid's fastest dimension is the query row,
+// so one (job, tile)'s lists stay hot.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -35,13 +56,31 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kWarps = 4;          // warps a CTA
+constexpr int kMaxTile = 2048;     // Z rows a tile
+constexpr int kChunk = 256;        // slots a lane's registers hold 8 of
+constexpr int kAhead = 2;          // rounds of 32 entries loaded at once
 
 enum Kind { kLinear = 0, kPoly = 1, kRbf = 2 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ float rt(float x);
+template <> __device__ __forceinline__ float rt<float>(float x) { return x; }
+template <> __device__ __forceinline__ float rt<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
 }
 
 // Σ float(v)² over the slots of `rows` rows; one thread per row.
@@ -70,71 +109,255 @@ struct XRows {
   long long home_total;   // norm index of the first shared row
 };
 
-template <typename T>
-__global__ void __launch_bounds__(32 * kWarpsPerBlock)
-sparse_gram_kernel(XRows x, int cap, int nz, const long long* __restrict__ off,
-                   long long off_job_stride, const int* __restrict__ zrow,
-                   const T* __restrict__ zval, int kind, float gamma,
-                   float coef0, int degree, const float* __restrict__ xnorm,
-                   const float* __restrict__ znorm, long long z_norm_job_rows,
-                   int z_per, long long z_home_total, float* __restrict__ K) {
-  const int job = blockIdx.y;
-  const int i = blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+struct ZView {
+  int n;                  // Z rows a job
+  int tile;               // Z rows a tile
+  int tiles;
+  const int* start;       // CSC list bounds by (job, tile, column)
+  const int* end;
+  long long off_job_stride;   // tiles · d, or 0 when Z has one job
+  const int2* ent;        // (Z row in its job, float bits of its value)
+  long long norm_job_rows;    // Z norms: home rows between two jobs
+  int per;
+  long long home_total;
+};
+
+struct Transform {
+  int kind;
+  float gamma, coef0;
+  int degree;
+  const float* xnorm;
+  const float* znorm;
+};
+
+// acc[zr] += pv for each lane with zr ≥ 0, in a fixed order. Each such
+// lane writes its id into stamp[zr]; where every lane reads its own id
+// back, the targets differ and all add at once. Otherwise (rare: two
+// slots of a row, one Z row) lanes that share a target add in lane
+// order, one warp barrier apart. So the order of the adds into each
+// entry is fixed, and reruns are bit-identical.
+__device__ __forceinline__ void add_round(float* acc, unsigned char* stamp,
+                                          int zr, float pv) {
+  const unsigned all = 0xffffffffu;
   const int lane = threadIdx.x & 31;
-  if (i >= x.n) return;
+  if (zr >= 0) stamp[zr] = (unsigned char)lane;
+  __syncwarp();
+  if (__all_sync(all, zr < 0 || stamp[zr] == lane)) {
+    if (zr >= 0) acc[zr] += pv;
+  } else {
+    const unsigned peers = __match_any_sync(all, zr >= 0 ? zr : -1 - lane);
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    const int last = __reduce_max_sync(all, (unsigned)rank);
+    for (int k = 0; k <= last; ++k) {
+      if (zr >= 0 && rank == k) acc[zr] += pv;
+      __syncwarp();
+    }
+  }
+  __syncwarp();
+}
+
+// Shared memory of a warp, in floats: the tile's sums, one stamp byte a
+// tile column, the list starts of kAhead rounds.
+__host__ __device__ constexpr int warp_floats(int tile) {
+  return tile + tile / 4 + 32 * kAhead;
+}
+
+// Row i of X (job `job`) against Z tile `tile` of job `job` into acc
+// (the warp's segment, warp_floats(tile) wide), untransformed.
+template <typename T>
+__device__ __forceinline__ void accumulate(const XRows& x, int cap, int d,
+                                           const ZView& z, int job, int tile,
+                                           int i, float* acc, int width) {
+  const int lane = threadIdx.x & 31;
   const long long xr = i < x.per ? (long long)job * x.job_rows + i
                                  : (long long)(i - x.per);
   const int* xi = (i < x.per ? x.hi : x.si) + (size_t)xr * cap;
   const T* xv = static_cast<const T*>(i < x.per ? x.hv : x.sv) +
                 (size_t)xr * cap;
-  const long long* offj = off + (long long)job * off_job_stride;
-  float* Krow = K + ((size_t)job * x.n + i) * nz;
+  const long long o0 = job * z.off_job_stride + (long long)tile * d;
+  const int* starts = z.start + o0;
+  const int* ends = z.end + o0;
+  const int c0 = tile * z.tile;
+  unsigned char* stamp = reinterpret_cast<unsigned char*>(acc + z.tile);
+  int* mark = reinterpret_cast<int*>(acc + z.tile + z.tile / 4);
 
-  for (int c = lane; c < nz; c += 32) Krow[c] = 0.f;
-  __syncwarp();
-
-  for (int p0 = 0; p0 < cap; p0 += 32) {
-    // lane q holds slot p0 + q: its value and Z's list [lo, hi)
-    float v = 0.f;
-    long long lo = 0, hi = 0;
-    if (p0 + lane < cap) {
-      v = to_float(xv[p0 + lane]);
-      if (v != 0.f) {
-        const int col = xi[p0 + lane];
-        lo = offj[col];
-        hi = offj[col + 1];
+  for (int c = lane; c < width; c += 32) acc[c] = 0.f;
+  constexpr int G = kChunk / 32;
+  for (int p00 = 0; p00 < cap; p00 += kChunk) {
+    // lane q of group g holds slot p00 + 32g + q: its value and the
+    // tile's list [lo, lo + len), all loaded before the first add
+    float v[G];
+    int col[G], lo[G], len[G];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const int p = p00 + 32 * g + lane;
+      v[g] = p < cap ? to_float(xv[p]) : 0.f;
+      col[g] = p < cap ? xi[p] : 0;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      lo[g] = v[g] != 0.f ? starts[col[g]] : 0;
+      len[g] = v[g] != 0.f ? ends[col[g]] - lo[g] : 0;
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      // the group's lists in slot order form one flat sequence; lane
+      // q's starts at `start`
+      int incl = len[g];
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int t = __shfl_up_sync(0xffffffffu, incl, o);
+        if (lane >= o) incl += t;
+      }
+      const int start = incl - len[g];
+      const int total = __shfl_sync(0xffffffffu, incl, 31);
+      int carry = 0;
+      for (int base = 0; base < total; base += 32 * kAhead) {
+        // each list starting in the window marks its position; a
+        // position's list is the last mark at or before it
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) mark[32 * a + lane] = -1;
+        __syncwarp();
+        if (len[g] > 0 && start >= base && start < base + 32 * kAhead)
+          mark[start - base] = lane;
+        __syncwarp();
+        int zr[kAhead];
+        float pv[kAhead];
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) {
+          int q = mark[32 * a + lane];
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) {
+            const int t = __shfl_up_sync(0xffffffffu, q, o);
+            if (lane >= o) q = max(q, t);
+          }
+          q = max(q, carry);
+          carry = __shfl_sync(0xffffffffu, q, 31);
+          const int f = base + 32 * a + lane;
+          const int e = __shfl_sync(0xffffffffu, lo[g], q) + f -
+                        __shfl_sync(0xffffffffu, start, q);
+          const float vq = __shfl_sync(0xffffffffu, v[g], q);
+          zr[a] = -1;
+          pv[a] = 0.f;
+          if (f < total) {
+            const int2 en = z.ent[e];
+            zr[a] = en.x - c0;
+            pv[a] = __fmul_rn(vq, __int_as_float(en.y));
+          }
+        }
+#pragma unroll
+        for (int a = 0; a < kAhead; ++a) add_round(acc, stamp, zr[a], pv[a]);
       }
     }
-    const int slots = min(32, cap - p0);
-    for (int q = 0; q < slots; ++q) {
-      const float vq = __shfl_sync(0xffffffffu, v, q);
-      const long long lq = __shfl_sync(0xffffffffu, lo, q);
-      const long long hq = __shfl_sync(0xffffffffu, hi, q);
-      for (long long e = lq + lane; e < hq; e += 32)
-        atomicAdd(Krow + zrow[e], __fmul_rn(vq, to_float(zval[e])));
-      __syncwarp();
-    }
   }
+}
 
-  if (kind == kLinear) return;
-  const float xn = kind == kRbf
-      ? xnorm[i < x.per ? xr : x.home_total + xr] : 0.f;
-  for (int c = lane; c < nz; c += 32) {
-    const float acc = __ldcg(Krow + c);
-    float out;
-    if (kind == kPoly) {
-      const float base = __fadd_rn(__fmul_rn(gamma, acc), coef0);
-      out = 1.f;
-      for (int e = 0; e < degree; ++e) out = __fmul_rn(out, base);
-    } else {
-      const long long zr = c < z_per ? (long long)job * z_norm_job_rows + c
-                                     : z_home_total + (c - z_per);
-      const float sq = __fsub_rn(__fadd_rn(xn, znorm[zr]),
-                                 __fmul_rn(2.f, acc));
-      out = expf(__fmul_rn(-gamma, fmaxf(sq, 0.f)));
-    }
-    Krow[c] = out;
+// k(x_i, z_c) from the dot product `acc` of tile column c.
+__device__ __forceinline__ float transform(const Transform& f, float xn,
+                                           const ZView& z, int job, int zc,
+                                           float acc) {
+  if (f.kind == kPoly) {
+    const float base = __fadd_rn(__fmul_rn(f.gamma, acc), f.coef0);
+    float out = 1.f;
+    for (int e = 0; e < f.degree; ++e) out = __fmul_rn(out, base);
+    return out;
   }
+  if (f.kind == kRbf) {
+    const long long zr = zc < z.per ? (long long)job * z.norm_job_rows + zc
+                                    : z.home_total + (zc - z.per);
+    const float sq = __fsub_rn(__fadd_rn(xn, f.znorm[zr]),
+                               __fmul_rn(2.f, acc));
+    return expf(__fmul_rn(-f.gamma, fmaxf(sq, 0.f)));
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float x_norm(const XRows& x, const Transform& f,
+                                        int job, int i) {
+  if (f.kind != kRbf) return 0.f;
+  return f.xnorm[i < x.per ? (long long)job * x.job_rows + i
+                           : x.home_total + (i - x.per)];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(32 * kWarps)
+sparse_gram_kernel(XRows x, int cap, int d, ZView z, Transform f,
+                   float* __restrict__ K) {
+  extern __shared__ float seg[];
+  const int job = blockIdx.z;
+  const int tile = blockIdx.y;
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (i >= x.n) return;
+  float* acc = seg + (threadIdx.x / 32) * warp_floats(z.tile);
+  const int c0 = tile * z.tile;
+  const int width = min(z.tile, z.n - c0);
+  accumulate<T>(x, cap, d, z, job, tile, i, acc, width);
+  __syncwarp();
+  const float xn = x_norm(x, f, job, i);
+  float* Krow = K + ((size_t)job * x.n + i) * z.n + c0;
+  for (int c = lane; c < width; c += 32)
+    Krow[c] = transform(f, xn, z, job, c0 + c, acc[c]);
+}
+
+// X and Z are one job each. live[h·tiles + T] is 0 where hypothesis
+// h's coefficients of tile T are all 0: its partial is 0, which is
+// what those products add (k is finite), and a tile that no hypothesis
+// reads is not computed.
+template <typename T, typename TC>
+__global__ void __launch_bounds__(32 * kWarps)
+sparse_scores_kernel(XRows x, int cap, int d, ZView z, Transform f,
+                     const TC* __restrict__ coef,
+                     const unsigned char* __restrict__ live, int hyps,
+                     float* __restrict__ partial) {
+  extern __shared__ float seg[];
+  const int tile = blockIdx.y;
+  const int i = blockIdx.x * kWarps + threadIdx.x / 32;
+  const int lane = threadIdx.x & 31;
+  if (i >= x.n) return;
+  float* out = partial + (size_t)i * hyps * z.tiles + tile;
+  bool any = false;
+  for (int h = 0; h < hyps; ++h) any |= live[h * z.tiles + tile] != 0;
+  if (!any) {
+    for (int h = lane; h < hyps; h += 32) out[h * z.tiles] = 0.f;
+    return;
+  }
+  float* acc = seg + (threadIdx.x / 32) * warp_floats(z.tile);
+  const int c0 = tile * z.tile;
+  const int width = min(z.tile, z.n - c0);
+  accumulate<T>(x, cap, d, z, 0, tile, i, acc, width);
+  __syncwarp();
+  const float xn = x_norm(x, f, 0, i);
+  for (int c = lane; c < width; c += 32)
+    acc[c] = rt<TC>(transform(f, xn, z, 0, c0 + c, acc[c]));
+  __syncwarp();
+  for (int h = 0; h < hyps; ++h) {
+    float s = 0.f;
+    if (live[h * z.tiles + tile]) {
+      const TC* ch = coef + (size_t)h * z.n + c0;
+      for (int c = lane; c < width; c += 32)
+        s = fmaf(acc[c], to_float(ch[c]), s);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+    }
+    if (lane == 0) out[h * z.tiles] = s;
+  }
+}
+
+// out[i, h] = rt(rt(Σ_T partial[i, h, T]) + b_h), tiles in order.
+template <typename TC>
+__global__ void combine_kernel(const float* __restrict__ partial,
+                               long long outputs, int tiles,
+                               const TC* __restrict__ b, int hyps,
+                               TC* __restrict__ out) {
+  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (o >= outputs) return;
+  const float* p = partial + o * tiles;
+  float s = 0.f;
+  for (int t = 0; t < tiles; ++t) s = __fadd_rn(s, p[t]);
+  out[o] = from_float<TC>(
+      rt<TC>(__fadd_rn(rt<TC>(s), to_float(b[o % hyps]))));
 }
 
 template <typename T>
@@ -148,63 +371,143 @@ cudaError_t norms(const void* v, long long rows, int cap, float* out,
   return cudaGetLastError();
 }
 
+struct ZSlots {   // Z's slot values, read only for the rbf norms
+  const void* hv;
+  long long home_total;
+  const void* sv;
+  long long shared;
+};
+
 template <typename T>
-cudaError_t launch(const XRows& x, long long x_shared, int cap, int jobs,
-                   int nz, const long long* off, long long off_job_stride,
-                   const int* zrow, const void* zval, int kind, float gamma,
-                   float coef0, int degree, const void* zh_values,
-                   long long z_job_rows, int z_per, long long z_home_total,
-                   const void* zs_values, long long z_shared, float* xnorm,
-                   float* znorm, float* K, cudaStream_t stream) {
-  cudaError_t err;
-  if (kind == kRbf) {
-    if ((err = norms<T>(x.hv, x.home_total, cap, xnorm, stream))) return err;
-    if ((err = norms<T>(x.sv, x_shared, cap, xnorm + x.home_total, stream)))
-      return err;
-    if ((err = norms<T>(zh_values, z_home_total, cap, znorm, stream)))
-      return err;
-    if ((err = norms<T>(zs_values, z_shared, cap, znorm + z_home_total,
-                        stream)))
-      return err;
-  }
-  const dim3 grid((x.n + kWarpsPerBlock - 1) / kWarpsPerBlock, jobs);
-  sparse_gram_kernel<T><<<grid, 32 * kWarpsPerBlock, 0, stream>>>(
-      x, cap, nz, off, off_job_stride, zrow, static_cast<const T*>(zval),
-      kind, gamma, coef0, degree, xnorm, znorm, z_job_rows, z_per,
-      z_home_total, K);
+cudaError_t prepare(const XRows& x, long long x_shared, int cap,
+                    const ZSlots& zs, const Transform& f,
+                    cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (f.kind != kRbf) return err;
+  float* xn = const_cast<float*>(f.xnorm);
+  float* zn = const_cast<float*>(f.znorm);
+  if ((err = norms<T>(x.hv, x.home_total, cap, xn, stream))) return err;
+  if ((err = norms<T>(x.sv, x_shared, cap, xn + x.home_total, stream)))
+    return err;
+  if ((err = norms<T>(zs.hv, zs.home_total, cap, zn, stream))) return err;
+  return norms<T>(zs.sv, zs.shared, cap, zn + zs.home_total, stream);
+}
+
+size_t seg_bytes(int tile) {
+  return (size_t)kWarps * warp_floats(tile) * sizeof(float);
+}
+
+template <typename T>
+cudaError_t launch_gram(const XRows& x, long long x_shared, int cap, int d,
+                        int jobs, const ZView& z, const ZSlots& zs,
+                        const Transform& f, float* K, cudaStream_t stream) {
+  cudaError_t err = prepare<T>(x, x_shared, cap, zs, f, stream);
+  if (err) return err;
+  auto kernel = sparse_gram_kernel<T>;
+  const size_t smem = seg_bytes(z.tile);
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  const dim3 grid((x.n + kWarps - 1) / kWarps, z.tiles, jobs);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(x, cap, d, z, f, K);
+  return cudaGetLastError();
+}
+
+template <typename T, typename TC>
+cudaError_t launch_scores(const XRows& x, long long x_shared, int cap, int d,
+                          const ZView& z, const ZSlots& zs,
+                          const Transform& f, const void* coef,
+                          const unsigned char* live, const void* b, int hyps,
+                          float* partial, void* out, cudaStream_t stream) {
+  cudaError_t err = prepare<T>(x, x_shared, cap, zs, f, stream);
+  if (err) return err;
+  auto kernel = sparse_scores_kernel<T, TC>;
+  const size_t smem = seg_bytes(z.tile);
+  if ((err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)))
+    return err;
+  const dim3 grid((x.n + kWarps - 1) / kWarps, z.tiles);
+  kernel<<<grid, 32 * kWarps, smem, stream>>>(
+      x, cap, d, z, f, static_cast<const TC*>(coef), live, hyps, partial);
+  if ((err = cudaGetLastError())) return err;
+  const long long outputs = (long long)x.n * hyps;
+  const int threads = 256;
+  combine_kernel<TC><<<(unsigned)((outputs + threads - 1) / threads), threads,
+                       0, stream>>>(partial, outputs, z.tiles,
+                                    static_cast<const TC*>(b), hyps,
+                                    static_cast<TC*>(out));
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// K (jobs, nx, nz) f32. X rows of job l: home row l·x_job_rows + i for
-// i < x_per, else shared row i − x_per; each row is `cap` slots of
-// int32 column id and value (bf16 if is_bf16 else f32). Z comes as its
-// CSC view: for job l (offsets at l·off_job_stride) and column c, the
-// entries [off[c], off[c+1]) of zrow (Z row in 0..nz) and zval. Z's
-// slot values (zh_values, zs_values, laid out like X's) are read only
-// for the rbf norms. xnorm and znorm are scratch. kind: 0 linear,
-// 1 poly, 2 rbf. Returns a cudaError_t (0 = ok).
-extern "C" int sparse_gram(
-    const int* xh_idx, const void* xh_val, long long x_job_rows, int x_per,
-    long long x_home_total, const int* xs_idx, const void* xs_val,
-    int x_shared, int cap, int jobs, int nz, const long long* off,
-    long long off_job_stride, const int* zrow, const void* zval,
-    const void* zh_val, long long z_job_rows, int z_per,
-    long long z_home_total, const void* zs_val, int z_shared, int is_bf16,
-    int kind, float gamma, float coef0, int degree, float* xnorm,
-    float* znorm, float* K, void* stream) {
-  const XRows x{xh_idx, xh_val, x_job_rows, x_per, xs_idx, xs_val,
-                x_per + x_shared, x_home_total};
-  if (jobs <= 0 || x.n <= 0 || nz <= 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// Z rows a tile at most (the wrapper's tile must not exceed it).
+extern "C" int sparse_gram_max_tile() { return kMaxTile; }
+
+// X rows of job l: home row l·x_job_rows + i for i < x_per, else shared
+// row i − x_per; each row is `cap` slots of int32 column id and value
+// (bf16 if is_bf16 else f32). Z comes as its CSC view by (job, tile,
+// column): for Z job l (bounds at l·off_job_stride), tile T (z_tile
+// rows) and column c, with k = (l·z_tiles + T)·d + c, the entries
+// [start[k], end[k]) of ent, each (Z row in 0..z_n, float32 bits of
+// its value). Z's slot
+// values (zh_val, zs_val, laid out like X's) are read only for the rbf
+// norms. xnorm and znorm are scratch. kind: 0 linear, 1 poly, 2 rbf.
+#define SPARSE_ARGS                                                          \
+  const int *xh_idx, const void *xh_val, long long x_job_rows, int x_per,    \
+      long long x_home_total, const int *xs_idx, const void *xs_val,         \
+      int x_shared, int cap, int d, int z_n, int z_tile, const int *start,   \
+      const int *end, long long off_job_stride, const int2 *ent,             \
+      const void *zh_val, long long z_job_rows, int z_per,                   \
+      long long z_home_total, const void *zs_val, int z_shared, int is_bf16, \
+      int kind, float gamma, float coef0, int degree, float *xnorm,          \
+      float *znorm
+
+#define SPARSE_SETUP                                                         \
+  const XRows x{xh_idx, xh_val, x_job_rows, x_per, xs_idx, xs_val,           \
+                x_per + x_shared, x_home_total};                             \
+  const int z_tiles = z_tile > 0 ? (z_n + z_tile - 1) / z_tile : 0;          \
+  const ZView z{z_n,           z_tile, z_tiles, start, end, off_job_stride, \
+                ent,           z_job_rows, z_per, z_home_total};             \
+  const ZSlots zs{zh_val, z_home_total, zs_val, z_shared};                   \
+  const Transform f{kind, gamma, coef0, degree, xnorm, znorm};               \
+  cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
+  if (z_tile < 1 || z_tile > kMaxTile) return cudaErrorInvalidValue;
+
+// The Gram route: K (jobs, nx, z_n) f32. Returns a cudaError_t (0 = ok).
+extern "C" int sparse_gram(SPARSE_ARGS, int jobs, float* K, void* stream) {
+  if (jobs <= 0 || x_per + x_shared <= 0 || z_n <= 0) return cudaSuccess;
+  SPARSE_SETUP
   if (is_bf16)
-    return launch<__nv_bfloat16>(
-        x, x_shared, cap, jobs, nz, off, off_job_stride, zrow, zval, kind,
-        gamma, coef0, degree, zh_val, z_job_rows, z_per, z_home_total,
-        zs_val, z_shared, xnorm, znorm, K, s);
-  return launch<float>(x, x_shared, cap, jobs, nz, off, off_job_stride, zrow,
-                       zval, kind, gamma, coef0, degree, zh_val, z_job_rows,
-                       z_per, z_home_total, zs_val, z_shared, xnorm, znorm,
-                       K, s);
+    return launch_gram<__nv_bfloat16>(x, x_shared, cap, d, jobs, z, zs, f, K,
+                                      s);
+  return launch_gram<float>(x, x_shared, cap, d, jobs, z, zs, f, K, s);
+}
+
+// The scores route: X and Z one job each; coef (hyps, z_n) and b
+// (hyps,) bf16 if coef_bf16 else f32; live (hyps, tiles) bytes, 0
+// where a hypothesis's coefficients of a tile are all 0; partial (nx,
+// hyps, tiles) f32 scratch; out (nx, hyps) in coef's dtype. Returns a
+// cudaError_t.
+extern "C" int sparse_gram_scores(SPARSE_ARGS, const void* coef,
+                                  const unsigned char* live, const void* b,
+                                  int coef_bf16, int hyps, float* partial,
+                                  void* out, void* stream) {
+  if (hyps <= 0 || x_per + x_shared <= 0) return cudaSuccess;
+  SPARSE_SETUP
+  if (z_n <= 0) return cudaErrorInvalidValue;
+  if (is_bf16)
+    return coef_bf16
+        ? launch_scores<__nv_bfloat16, __nv_bfloat16>(
+              x, x_shared, cap, d, z, zs, f, coef, live, b, hyps, partial,
+              out, s)
+        : launch_scores<__nv_bfloat16, float>(x, x_shared, cap, d, z, zs, f,
+                                              coef, live, b, hyps, partial,
+                                              out, s);
+  return coef_bf16
+      ? launch_scores<float, __nv_bfloat16>(x, x_shared, cap, d, z, zs, f,
+                                            coef, live, b, hyps, partial, out,
+                                            s)
+      : launch_scores<float, float>(x, x_shared, cap, d, z, zs, f, coef, live,
+                                    b, hyps, partial, out, s);
 }

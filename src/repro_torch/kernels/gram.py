@@ -2,9 +2,11 @@
 ``csrc/sparse_gram.cu`` (blocked-CSR rows).
 
 The counterparts of ``repro/kernels/gram.py: gram`` and ``sparse_gram``.
-Callers go through :func:`repro_torch.kernels.ops.gram` and
-:func:`~repro_torch.kernels.ops.sparse_gram`, which check the inputs,
-count launches and take the plain versions for CPU tensors.
+Callers go through :func:`repro_torch.kernels.ops.gram`,
+:func:`~repro_torch.kernels.ops.sparse_gram` and
+:func:`~repro_torch.kernels.ops.sparse_gram_scores` (the fused decision
+scores of blocked-CSR rows, which never form K), which check the
+inputs, count launches and take the plain versions for CPU tensors.
 
 Both take each side as :class:`JobRows`: job ``l``'s rows are its home
 block ``home[l]`` followed by the ``shared`` rows, so a MapReduce
@@ -91,63 +93,168 @@ def launch_gram(X: JobRows, Z: JobRows, jobs: int, kind: str, gamma: float,
     return K, ("tensor_core" if route.value == 1 else "simt")
 
 
-def _sparse_fn():
-    fn = build.load("sparse_gram").sparse_gram
-    fn.argtypes = [_P, _P, _LL, _I, _LL, _P, _P, _I, _I, _I, _I, _P, _LL, _P,
-                   _P, _P, _LL, _I, _LL, _P, _I, _I, _I, _F, _F, _I, _P, _P,
-                   _P, _P]
-    fn.restype = _I
-    return fn
+#: Z rows a tile of the sparse kernel (a warp's shared-memory segment);
+#: must not exceed ``sparse_gram.cu``'s kMaxTile
+SPARSE_TILE = 2048
 
 
-def csc_view(Z: JobRows, d: int):
-    """Z's nonzero slots in column-major order, per job: ``off``
-    (Jz·d + 1,) int64 list bounds by (job, column), ``zrow`` int32 (the
-    Z row of each entry) and ``zval``. A stable sort keeps each
-    column's entries in row order; zero-valued (padding) slots drop,
-    which changes no sum."""
+def sparse_tile(nz: int) -> int:
+    """Z rows a tile of ``sparse_gram`` for Z jobs of nz rows: nz rounded
+    up to whole warps, at most :data:`SPARSE_TILE`."""
+    return min(SPARSE_TILE, -(-max(nz, 1) // 32) * 32)
+
+
+def _sparse_lib():
+    lib = build.load("sparse_gram")
+    head = [_P, _P, _LL, _I, _LL, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _P,
+            _P, _LL, _I, _LL, _P, _I, _I, _I, _F, _F, _I, _P, _P]
+    lib.sparse_gram.argtypes = head + [_I, _P, _P]
+    lib.sparse_gram_scores.argtypes = head + [_P, _P, _P, _I, _I, _P, _P, _P]
+    for fn in (lib.sparse_gram, lib.sparse_gram_scores,
+               lib.sparse_gram_max_tile):
+        fn.restype = _I
+    if lib.sparse_gram_max_tile() < SPARSE_TILE:
+        raise RuntimeError("sparse_gram.cu takes tiles of at most "
+                           f"{lib.sparse_gram_max_tile()} rows, "
+                           f"SPARSE_TILE is {SPARSE_TILE}")
+    return lib
+
+
+def csc_view(Z: JobRows, d: int, tile: int, chunk_slots: int = 1 << 22):
+    """Z's nonzero slots in column-major order by (job, Z tile, column):
+    list bounds ``start`` and ``end`` (Jz · tiles · d,) int32 and ``ent``
+    (E, 2) int32, each entry the Z row (in its job) and the float32 bits
+    of its value, where a tile is ``tile`` consecutive rows of a job. A
+    stable sort keeps each list in row order, so with ``tile`` ≥ Z.n
+    this is the untiled view by (job, column), and the tiles of a column
+    are consecutive pieces of its list. Zero-valued (padding) slots sort
+    past every list, which changes no sum. The rows go through in
+    chunks of whole tiles of about ``chunk_slots`` slots, each sorted on
+    its own, so the scratch beside the view stays that small; no step
+    waits for the device."""
     Jz, per, cap = Z.home.indices.shape
     S = Z.shared.indices.shape[0]
     dev = Z.home.indices.device
-    idx = torch.cat([Z.home.indices,
-                     Z.shared.indices.expand(Jz, S, cap)], 1)
-    val = torch.cat([Z.home.values, Z.shared.values.expand(Jz, S, cap)], 1)
     n = per + S
-    key = (torch.arange(Jz, device=dev)[:, None, None] * d
-           + idx.long()).reshape(-1)
-    row = torch.arange(n, dtype=torch.int32, device=dev)[None, :, None] \
-        .expand(Jz, n, cap).reshape(-1)
-    live = val.reshape(-1) != 0
-    key, row, val = key[live], row[live], val.reshape(-1)[live]
-    order = torch.sort(key, stable=True).indices
-    off = torch.zeros((Jz * d + 1,), dtype=torch.int64, device=dev)
-    off[1:] = torch.cumsum(torch.bincount(key, minlength=Jz * d), 0)
-    return off, row[order].contiguous(), val[order].contiguous()
+    _check_int32(Jz * n * cap, "slots")
+    step = max(1, chunk_slots // (cap * tile)) * tile
+    starts, ends, ents = [], [], []
+    base = 0
+    for j in range(Jz):
+        for r0 in range(0, n, step):
+            r1 = min(n, r0 + step)
+            h0, h1 = min(r0, per), min(r1, per)
+            s0, s1 = max(r0 - per, 0), max(r1 - per, 0)
+            idx = torch.cat([Z.home.indices[j, h0:h1],
+                             Z.shared.indices[s0:s1]]).long()
+            val = torch.cat([Z.home.values[j, h0:h1],
+                             Z.shared.values[s0:s1]]).reshape(-1)
+            bins = -(-(r1 - r0) // tile) * d
+            tile_of = (torch.arange(r1 - r0, device=dev) // tile * d)[:, None]
+            key = torch.where(val != 0, (tile_of + idx).reshape(-1), bins)
+            key, order = torch.sort(key, stable=True)
+            bounds = torch.searchsorted(
+                key, torch.arange(bins + 1, device=dev)).int() + base
+            starts.append(bounds[:-1])
+            ends.append(bounds[1:])
+            ents.append(torch.stack([(order // cap + r0).int(),
+                                     val[order].float().view(torch.int32)],
+                                    1))
+            base += key.numel()
+    return torch.cat(starts), torch.cat(ends), torch.cat(ents)
+
+
+def _check_int32(count: int, what: str) -> None:
+    if count >= 2 ** 31:
+        raise ValueError(f"sparse_gram indexes its {what} with int32; "
+                         f"{count} is too many")
+
+
+def _sparse_args(X: JobRows, Z: JobRows, tile: int, kind: str, gamma: float,
+                 coef0: float, degree: int):
+    """The arguments the two routes share, and the buffers they keep
+    alive (the CSC view, the norms' scratch)."""
+    dev = X.home.values.device
+    d = X.home.d
+    start, end, ent = csc_view(Z, d, tile)
+    xn, zn = _norm_scratch(X, dev), _norm_scratch(Z, dev)
+    args = (
+        X.home.indices.data_ptr(), X.home.values.data_ptr(),
+        X.per if X.jobs > 1 else 0, X.per, X.jobs * X.per,
+        X.shared.indices.data_ptr(), X.shared.values.data_ptr(),
+        X.shared.shape[0], X.home.nnz_cap, d, Z.n, tile, start.data_ptr(),
+        end.data_ptr(), (-(-Z.n // tile)) * d if Z.jobs > 1 else 0,
+        ent.data_ptr(), Z.home.values.data_ptr(),
+        Z.per if Z.jobs > 1 else 0, Z.per, Z.jobs * Z.per,
+        Z.shared.values.data_ptr(), Z.shared.shape[0],
+        int(X.home.dtype == torch.bfloat16), KINDS[kind], float(gamma),
+        float(coef0), int(degree), xn.data_ptr(), zn.data_ptr())
+    return args, (start, end, ent, xn, zn)
 
 
 def launch_sparse_gram(X: JobRows, Z: JobRows, jobs: int, kind: str,
                        gamma: float, coef0: float, degree: int):
-    """Launch on the current stream; inputs already checked (CUDA,
-    ``SparseRows`` of one nnz_cap and value dtype, indices in [0, d),
-    job counts 1 or ``jobs``). → K (jobs, X.n, Z.n) float32."""
+    """The Gram route on the current stream; inputs already checked
+    (CUDA, ``SparseRows`` of one nnz_cap and value dtype, indices in
+    [0, d), job counts 1 or ``jobs``). → K (jobs, X.n, Z.n) float32."""
     dev = X.home.values.device
-    d = X.home.d
-    cap = X.home.nnz_cap
-    off, zrow, zval = csc_view(Z, d)
+    args, _bufs = _sparse_args(X, Z, sparse_tile(Z.n), kind, gamma, coef0,
+                               degree)
     K = torch.empty((jobs, X.n, Z.n), dtype=torch.float32, device=dev)
-    xn, zn = _norm_scratch(X, dev), _norm_scratch(Z, dev)
-    err = _sparse_fn()(
-        X.home.indices.data_ptr(), X.home.values.data_ptr(),
-        X.per if X.jobs > 1 else 0, X.per, X.jobs * X.per,
-        X.shared.indices.data_ptr(), X.shared.values.data_ptr(),
-        X.shared.shape[0], cap, jobs, Z.n, off.data_ptr(),
-        d if Z.jobs > 1 else 0, zrow.data_ptr(), zval.data_ptr(),
-        Z.home.values.data_ptr(), Z.per if Z.jobs > 1 else 0, Z.per,
-        Z.jobs * Z.per, Z.shared.values.data_ptr(), Z.shared.shape[0],
-        int(X.home.dtype == torch.bfloat16), KINDS[kind], float(gamma),
-        float(coef0), int(degree), xn.data_ptr(), zn.data_ptr(),
-        K.data_ptr(), _stream(dev))
+    err = _sparse_lib().sparse_gram(*args, jobs, K.data_ptr(), _stream(dev))
     if err != 0:
         raise RuntimeError(
             f"sparse_gram kernel launch failed: cudaError {err}")
     return K
+
+
+def launch_sparse_scores(X: JobRows, Z: JobRows, coef: torch.Tensor,
+                         b: torch.Tensor, kind: str, gamma: float,
+                         coef0: float, degree: int):
+    """The scores route on the current stream; inputs already checked
+    (as :func:`launch_sparse_gram`; X and Z one job each; coef (L, Z.n)
+    and b (L,) contiguous, f32 or bf16). → (X.n, L) in coef's dtype; K
+    is never formed."""
+    dev = X.home.values.device
+    L = coef.shape[0]
+    tile = sparse_tile(Z.n)
+    tiles = -(-Z.n // tile)
+    args, _bufs = _sparse_args(X, Z, tile, kind, gamma, coef0, degree)
+    live = torch.nn.functional.pad(coef != 0, (0, tiles * tile - Z.n)) \
+        .view(L, tiles, tile).any(-1).to(torch.uint8)
+    partial = torch.empty((X.n, L, tiles), dtype=torch.float32, device=dev)
+    out = torch.empty((X.n, L), dtype=coef.dtype, device=dev)
+    err = _sparse_lib().sparse_gram_scores(
+        *args, coef.data_ptr(), live.data_ptr(), b.data_ptr(),
+        int(coef.dtype == torch.bfloat16), L, partial.data_ptr(),
+        out.data_ptr(), _stream(dev))
+    if err != 0:
+        raise RuntimeError(
+            f"sparse_gram scores kernel launch failed: cudaError {err}")
+    return out
+
+
+def emulate_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
+                   kind: str = "linear", gamma: float = 1.0,
+                   coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+    """The scores route's arithmetic in plain PyTorch (arguments as
+    ``ops.sparse_gram_scores``): k(X, Z) from :func:`ref.sparse_gram_ref`
+    cut into :func:`sparse_tile` column tiles; each k rounded to coef's
+    dtype; per tile and hypothesis a float32 sum of k·coef, 0 where the
+    hypothesis's coefficients of the tile are all 0; the tiles' sums
+    added in tile order, rounded to coef's dtype, plus b. → (n, L) in
+    coef's dtype."""
+    from repro_torch import sparse as sparse_rows
+    from repro_torch.kernels import ref
+    Zr = sparse_rows.rows_concat(Z[0][0], Z[1]) if isinstance(Z, tuple) \
+        else Z
+    nz = Zr.shape[0]
+    tile = sparse_tile(nz)
+    k = ref.sparse_gram_ref(X, Zr, kind, gamma, coef0, degree) \
+        .to(coef.dtype).float()
+    c = coef.float()
+    s = torch.zeros((X.shape[0], coef.shape[0]))
+    for c0 in range(0, nz, tile):
+        part = k[:, c0:c0 + tile] @ c[:, c0:c0 + tile].T
+        s = s + torch.where(c[:, c0:c0 + tile].ne(0).any(1), part, 0.0)
+    return s.to(coef.dtype) + b

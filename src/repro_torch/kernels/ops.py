@@ -9,9 +9,12 @@ fallback from one to the other.
 can show that its main path went through the kernels; ``ROUTE_LAUNCHES``
 splits the launches by route: for ``gram``, ``hinge_scores`` and
 ``flash_decode`` the bf16 tensor-core kernel or the SIMT one, for
-``cd_solve`` one CTA or one thread-block cluster per job. The rules
-that pick a route (:func:`decode_route`, :func:`cd_solve_cluster_size`)
-are plain functions of shapes and dtypes.
+``cd_solve`` and ``cd_solve_gram`` one CTA or one thread-block cluster
+per job, for ``sparse_gram`` the Gram or the fused decision scores
+(:func:`sparse_gram_scores`). The rules that pick a route
+(:func:`decode_route`, :func:`cd_solve_cluster_size`,
+:func:`cd_solve_gram_cluster_size`) are plain functions of shapes and
+dtypes.
 """
 from __future__ import annotations
 
@@ -31,7 +34,11 @@ ROUTE_LAUNCHES: Dict[str, int] = {"gram/tensor_core": 0, "gram/simt": 0,
                                   "flash_decode/tensor_core": 0,
                                   "flash_decode/simt": 0,
                                   "cd_solve/cluster": 0,
-                                  "cd_solve/single": 0}
+                                  "cd_solve/single": 0,
+                                  "cd_solve_gram/cluster": 0,
+                                  "cd_solve_gram/single": 0,
+                                  "sparse_gram/gram": 0,
+                                  "sparse_gram/scores": 0}
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -270,6 +277,33 @@ def gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     return K[0] if plain else K
 
 
+def _sparse_parts(xr, zr, what: str):
+    """The ``SparseRows`` parts of both sides, checked: one nnz_cap, one
+    value dtype of ``_ROW_DTYPES``, int32 ids. → (parts, their index and
+    value tensors)."""
+    parts = (xr.home, xr.shared, zr.home, zr.shared)
+    _check(all(sparse_rows.is_sparse(t) for t in parts),
+           f"{what} takes SparseRows on both sides")
+    _check(len({t.nnz_cap for t in parts}) == 1, "nnz_cap differs")
+    _check(xr.home.dtype in _ROW_DTYPES
+           and all(t.dtype == xr.home.dtype for t in parts),
+           f"values must be one of {_ROW_DTYPES}, all of one dtype")
+    _check(all(t.indices.dtype == torch.int32 for t in parts),
+           "indices must be int32")
+    return parts, [leaf for t in parts for leaf in (t.indices, t.values)]
+
+
+def _check_column_ids(parts, d: int) -> None:
+    """Every column id of the ``SparseRows`` parts in [0, d), read back in
+    one device round trip."""
+    ids = [t.indices for t in parts if t.indices.numel()]
+    if ids:
+        lo, hi = torch.stack([torch.stack([i.min() for i in ids]).min(),
+                              torch.stack([i.max() for i in ids]).max()]
+                             ).tolist()
+        _check(0 <= lo and hi < d, f"column ids outside [0, {d})")
+
+
 def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
                 coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
     """Gram of blocked-CSR rows in float32 (see :func:`ref.sparse_gram_ref`).
@@ -281,29 +315,95 @@ def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     for two plain sides, else (jobs, n, m).
     """
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
-    parts = (xr.home, xr.shared, zr.home, zr.shared)
-    _check(all(sparse_rows.is_sparse(t) for t in parts),
-           "sparse_gram takes SparseRows on both sides")
-    _check(len({t.nnz_cap for t in parts}) == 1, "nnz_cap differs")
-    _check(xr.home.dtype in _ROW_DTYPES
-           and all(t.dtype == xr.home.dtype for t in parts),
-           f"values must be one of {_ROW_DTYPES}, all of one dtype")
-    _check(all(t.indices.dtype == torch.int32 for t in parts),
-           "indices must be int32")
+    parts, leaves = _sparse_parts(xr, zr, "sparse_gram")
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
-    leaves = [leaf for t in parts for leaf in (t.indices, t.values)]
     if not _on_card(*leaves):
         return per_job(ref.sparse_gram_ref, X, Z, **kw)
     _check_cuda_layout({f"leaf {i}": t for i, t in enumerate(leaves)})
-    d = xr.home.d
-    for t in parts:
-        if t.indices.numel():
-            _check(0 <= int(t.indices.min()) and int(t.indices.max()) < d,
-                   f"column ids outside [0, {d})")
+    _check_column_ids(parts, xr.home.d)
     from repro_torch.kernels.gram import launch_sparse_gram
     K = launch_sparse_gram(xr, zr, jobs, **kw)
     LAUNCHES["sparse_gram"] += 1
+    ROUTE_LAUNCHES["sparse_gram/gram"] += 1
     return K[0] if plain else K
+
+
+def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
+                       kind: str = "linear", gamma: float = 1.0,
+                       coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+    """Decision scores of blocked-CSR query rows against blocked-CSR
+    rows, S = k(X, Zᵀ)·coefᵀ + b, without forming K (see
+    :func:`ref.sparse_gram_scores_ref`).
+
+    X is ``SparseRows`` (n, d) of query rows. Z is ``SparseRows`` or a
+    ``(home (1, per, d), shared)`` pair of rows ``[home[0]; shared]``,
+    of X's nnz_cap and value dtype. coef (L, Z's rows) and b (L,) of one
+    dtype, f32 or bf16. A hypothesis skips the tiles of Z where its
+    coefficients are all 0 (eq. 7's are 0 off their job's rows).
+    → (n, L) in coef's dtype.
+    """
+    _check(sparse_rows.is_sparse(X) and len(X.shape) == 2,
+           "sparse_gram_scores takes (n, d) SparseRows query rows")
+    xr, zr, _, _ = _gram_sides(X, Z, kind, degree)
+    parts, leaves = _sparse_parts(xr, zr, "sparse_gram_scores")
+    _check(coef.dim() == 2 and coef.shape[1] == zr.n and zr.n > 0,
+           f"coef must be (L, {zr.n}), got {tuple(coef.shape)}")
+    L = coef.shape[0]
+    _check(zr.jobs == 1, f"Z must be one job of rows, got {zr.jobs}")
+    _check(tuple(b.shape) == (L,) and coef.dtype in _ROW_DTYPES
+           and b.dtype == coef.dtype,
+           f"b must be ({L},) and coef, b one dtype of {_ROW_DTYPES}")
+    kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
+    if not _on_card(*leaves, coef, b):
+        return ref.sparse_gram_scores_ref(X, Z, coef, b, **kw)
+    _check_cuda_layout({"coef": coef, "b": b,
+                        **{f"leaf {i}": t for i, t in enumerate(leaves)}})
+    _check_column_ids(parts, xr.home.d)
+    from repro_torch.kernels.gram import launch_sparse_scores
+    out = launch_sparse_scores(xr, zr, coef, b, **kw)
+    LAUNCHES["sparse_gram"] += 1
+    ROUTE_LAUNCHES["sparse_gram/scores"] += 1
+    return out
+
+
+#: the Gram solve's limits (``csrc/cd_solve_gram.cu``): rows a tile,
+#: the largest cluster, rows of state a CTA's shared memory holds; and
+#: the rule's target of rows a CTA, so that a tile's rank update spreads
+#: its K rows over the cluster's SMs
+GRAM_SOLVE_TILE = 32
+GRAM_SOLVE_MAX_CLUSTER = 16
+GRAM_SOLVE_MAX_ROWS_PER_CTA = 11552
+GRAM_SOLVE_ROWS_PER_CTA = 2048
+
+
+def gram_solve_rows_per_cta(n: int, c: int, tile: int = GRAM_SOLVE_TILE) \
+        -> int:
+    """Rows each CTA of a c-CTA cluster owns for n rows: whole tiles."""
+    return _ceil_div(_ceil_div(n, c), tile) * tile
+
+
+def cd_solve_gram_cluster_size(L: int, n: int) -> int:
+    """CTAs per job of ``cd_solve_gram`` on the card for L jobs of n rows;
+    1 is the single route.
+
+    The smallest power of two up to 16 whose CTAs own at most
+    ``GRAM_SOLVE_ROWS_PER_CTA`` rows each: 8 at the full-width reducers
+    (8 jobs × 10240 rows), 1 at the golden 224 rows and the final fit's
+    2048. Raises where 16 CTAs' shared memory cannot hold the rows' state
+    (20 bytes a row): past 16 × ``GRAM_SOLVE_MAX_ROWS_PER_CTA`` rows. The
+    state is float32 in shared memory whatever K's dtype, and the jobs
+    run in as many waves of clusters as the card needs, so neither the
+    dtype nor L enters.
+    """
+    c = 1
+    while gram_solve_rows_per_cta(n, c) > GRAM_SOLVE_ROWS_PER_CTA \
+            and c < GRAM_SOLVE_MAX_CLUSTER:
+        c *= 2
+    _check(gram_solve_rows_per_cta(n, c) <= GRAM_SOLVE_MAX_ROWS_PER_CTA,
+           f"cd_solve_gram holds at most {GRAM_SOLVE_MAX_CLUSTER} × "
+           f"{GRAM_SOLVE_MAX_ROWS_PER_CTA} rows of solver state per job, "
+           f"got {n}")
+    return c
 
 
 def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
@@ -312,7 +412,9 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
 
     K (L, n, n) symmetric, without the bias +1; y, m (L, n); all one
     dtype, f32 or bf16 (the solver state's dtype). → alpha (L, n),
-    epochs (L,) int32, viol (L,).
+    epochs (L,) int32, viol (L,). On the card,
+    :func:`cd_solve_gram_cluster_size` CTAs run each job; a size the
+    card cannot schedule raises.
     """
     _check(K.dim() == 3 and K.shape[1] == K.shape[2],
            f"K must be (L, n, n), got {tuple(K.shape)}")
@@ -325,11 +427,13 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
         return ref.cd_solve_gram_ref(K, y, m, C=C, tol=tol,
                                      max_epochs=max_epochs)
     _check_cuda_layout({"K": K, "y": y, "m": m})
-    from repro_torch.kernels.gram_solve import launch_cd_solve_gram, max_rows
-    _check(n <= max_rows(), f"cd_solve_gram holds at most {max_rows()} rows "
-           f"of solver state per job in shared memory, got {n}")
-    out = launch_cd_solve_gram(K, y, m, float(C), float(tol), int(max_epochs))
+    c = cd_solve_gram_cluster_size(L, n)
+    from repro_torch.kernels.gram_solve import launch_cd_solve_gram
+    out = launch_cd_solve_gram(K, y, m, float(C), float(tol),
+                               int(max_epochs), c)
     LAUNCHES["cd_solve_gram"] += 1
+    ROUTE_LAUNCHES["cd_solve_gram/" + ("cluster" if c > 1 else "single")] \
+        += 1
     return out
 
 

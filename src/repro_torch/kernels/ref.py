@@ -171,6 +171,27 @@ def sparse_gram_ref(X, Z, kind: str = "linear", gamma: float = 1.0,
                              gamma, coef0, degree)
 
 
+def sparse_gram_scores_ref(X, Z, coef: torch.Tensor, b: torch.Tensor,
+                           kind: str = "linear", gamma: float = 1.0,
+                           coef0: float = 0.0,
+                           degree: int = 3) -> torch.Tensor:
+    """S = k(X, Zᵀ)·coefᵀ + b (the plain ``sparse_gram_scores``): X (n, d)
+    query rows; Z rows or a ``(home (1, per, d), shared)`` pair; coef
+    (L, Z's rows), b (L,), one dtype. :func:`sparse_gram_ref` over
+    chunks of query rows of at most 2²⁸ K entries (~1 GB), then
+    ``K.to(coef.dtype) @ coefᵀ + b``. → (n, L) in coef's dtype."""
+    if isinstance(Z, tuple):
+        Z = sparse_rows.rows_concat(Z[0][0], Z[1])
+    n = X.shape[0]
+    out = torch.empty((n, coef.shape[0]), dtype=coef.dtype,
+                      device=coef.device)
+    step = max(1, (1 << 28) // max(Z.shape[0], 1))
+    for q0 in range(0, n, step):
+        K = sparse_gram_ref(X[q0:q0 + step], Z, kind, gamma, coef0, degree)
+        out[q0:q0 + step] = K.to(coef.dtype) @ coef.T
+    return out + b
+
+
 def cd_solve_gram_ref(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
                       C: float, tol: float, max_epochs: int):
     """The Gram dual-CD solve of L jobs (the plain ``cd_solve_gram``).

@@ -125,6 +125,7 @@ def test_routes_count_no_launch_on_cpu():
     assert set(ops.ROUTE_LAUNCHES) == {
         "gram/tensor_core", "gram/simt", "hinge_scores/tensor_core",
         "hinge_scores/simt", "flash_decode/tensor_core", "flash_decode/simt",
-        "cd_solve/cluster", "cd_solve/single"}
+        "cd_solve/cluster", "cd_solve/single", "cd_solve_gram/cluster",
+        "cd_solve_gram/single", "sparse_gram/gram", "sparse_gram/scores"}
     assert not any(ops.ROUTE_LAUNCHES.values())
     assert not any(ops.LAUNCHES.values())
