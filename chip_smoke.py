@@ -24,10 +24,18 @@ Phases, one line or block each; any failure exits non-zero:
    the Gram kernels return it, and bit for bit on K made exactly
    symmetric, on the rule's cluster and on 1, 2 and 16 CTAs a job (one
    row a job, a job that stops first), and one job of 11776 rows, above
-   the one-CTA cap of earlier versions;
+   the one-CTA cap of earlier versions; ``cd_solve/sparse`` and
+   ``hinge_scores/sparse`` (blocked-CSR rows on the linear path) in f32
+   and bf16 values, ``nnz_cap`` 1, 7, 32, 256 and 300, padding slots
+   beside a real column 0, masked rows, dead SV slots, S = 0, per = 1,
+   a job that stops first, L 1, 8 and 9, W from 1e-30 to 1e3;
 3. the paper pipeline (corpus → TF×IDF → 2-class MapReduce SVM and OvR
    3-class) at the golden test's settings, with accuracy floors, on the
-   linear path;
+   linear path; then on ``vectorize_sparse(…, nnz_cap=32)`` rows through
+   the two sparse routes only, with R_emp per round within 1e-4 of the
+   dense fit on the same rows, and ``update_mapreduce`` of that 2-class
+   model on the held-out rows and χ² ``select_top_k`` each on the card
+   and on the CPU with the same inputs;
 4. the golden pipeline on the Gram path (rbf, γ = 1): dense rows with
    ``gram_impl="pallas"`` (2-class and OvR 3-class) and blocked-CSR rows
    (``nnz_cap`` 32) with ``"pallas_sparse"`` (2-class), with floors
@@ -55,6 +63,16 @@ Phases, one line or block each; any failure exits non-zero:
    profiled; last, the same fit with rbf at γ = 8 and with the linear
    kernel on the Gram path, whose eq. 7 picks must beat the majority
    class (the rbf pick at γ = 1 only matches it);
+7b. slice 7's main path at full width (``[full-sparse]``): the same
+   svm-tfidf shapes as blocked-CSR rows with bf16 values on the linear
+   path, every solve on ``cd_solve/sparse`` and every eq. 7 on
+   ``hinge_scores/sparse`` (counted), the eq. 7 pick above the majority
+   share; one epoch of ``cd_solve/sparse`` and ``hinge_scores/sparse``
+   checked and timed against plain, the bound and (for the hinge)
+   ``torch.sparse.mm``; one round profiled; last, the rows densified
+   (17.2 GB) and fit on the dense linear path, which must pick the same
+   reducers with R_emp per round within 1e-4 (the paths differ only in
+   Q_ii, whose Σ v² the reference rounds to bf16 on blocked-CSR rows);
 8. slice 3, the LM serve path: ``flash_decode`` against its plain
    version at small shapes (f32 and bf16 — the SIMT and the
    tensor-core route, each route's launches counted —, valid_len 0, 1,
@@ -108,6 +126,10 @@ CDG_SRC = "src/repro_torch/kernels/csrc/cd_solve_gram.cu"
 CDG_TPU = "src/repro/core/svm.py:279 (no TPU kernel: XLA loop)"
 FD_SRC = "src/repro_torch/kernels/csrc/flash_decode.cu"
 FD_TPU = "src/repro/kernels/decode_attention.py:70"
+CDS_SRC = "src/repro_torch/kernels/csrc/cd_solve_sparse.cu"
+CDS_TPU = "src/repro/core/svm.py:154 (no TPU kernel: XLA loop)"
+HS_SPARSE_TPU = "src/repro/core/mapreduce_svm.py:243 (no TPU kernel: XLA " \
+    "gathers)"
 KERNEL_PATH_LAUNCHES = ("gram", "sparse_gram", "cd_solve_gram")
 DEV = "cuda"
 
@@ -1313,6 +1335,476 @@ def phase_full_kernel(torch, T, ops, ref):
     return [sg, sgs, cdg]
 
 
+# --- slice 7: blocked-CSR rows on the linear path ---------------------------
+
+SPARSE_CAPS = (1, 7, 32, 256, 300)
+
+
+def _sparse_rows(torch, sp, gen, n, d, cap, dtype):
+    """Blocked-CSR rows of about 0.8·cap nonzeros in ``cap`` slots, so
+    most rows hold padding slots (index 0, value 0) and some are full;
+    every third row also holds a real column 0 (its largest entry, so
+    ``from_dense`` keeps it) beside its padding."""
+    dev = torch.device(DEV)
+    X = torch.rand((n, d), generator=gen, device=dev)
+    X = X * (torch.rand((n, d), generator=gen, device=dev)
+             < min(1.0, 0.8 * cap / d))
+    X[::3, 0] = 2.0
+    X = X / X.norm(dim=1, keepdim=True).clamp(min=1e-9)
+    return sp.from_dense(X, cap).to(dtype=dtype)
+
+
+def _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap, dtype):
+    """cd_solve/sparse against its plain version on L jobs of per home
+    rows and S shared rows (every tenth shared row dead: value 0, ids
+    kept, as SV_global's dead slots), masked rows, and job 0 all masked,
+    so that it stops after one epoch while the others go on. → whether
+    the jobs ran different epoch counts."""
+    dev = torch.device(DEV)
+    rows = _sparse_rows(torch, sp, gen, L * per + S, d, cap, dtype)
+    xh = rows[:L * per].reshape(L, per, d)
+    live = (torch.arange(S, device=dev) % 10 != 3).float()[:, None]
+    xs = rows[L * per:] * live
+    y = _labels(torch, gen, sp.to_dense(rows).float())
+    y_aug = torch.cat([y[:L * per].reshape(L, per),
+                       y[L * per:].expand(L, S)], 1).contiguous()
+    m_aug = (torch.rand(y_aug.shape, generator=gen, device=dev) > 0.1
+             ).float()
+    m_aug[0] = 0.0
+    staggered = False
+    tag = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'} L={L} per={per} "
+           f"S={S} d={d} nnz_cap={cap}")
+    for epochs, tol in ((1, 1e-5), (20, 1e-4)):
+        args = (xh, xs, y_aug, m_aug)
+        kw = dict(C=1.0, tol=1e-3, max_epochs=epochs)
+        ops.reset_launches()
+        k = ops.cd_solve(*args, **kw)
+        torch.cuda.synchronize()
+        route = _routes(ops, "cd_solve")
+        p = ref.cd_solve_sparse_ref(*args, **kw)
+        err = max(float((a - b).abs().max()) for a, b in zip(k[:3], p[:3]))
+        say(f"[kernels] cd_solve/sparse {tag} epochs≤{epochs}: epochs "
+            f"{k[3].tolist()} vs plain {p[3].tolist()}, max|Δ(α,w,b)|="
+            f"{err:.2e} (atol {tol:g}), routes {route}")
+        check(route["sparse"] == 1 == ops.LAUNCHES["cd_solve"],
+              f"cd_solve {tag} took the routes {route}")
+        check(torch.equal(k[3], p[3]), "cd_solve/sparse epochs differ")
+        check(err <= tol, f"cd_solve/sparse differs from plain by {err:.2e}")
+        check(not k[0][m_aug == 0].any(), "a masked row's α moved")
+        again = ops.cd_solve(*args, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(k, again)),
+              f"cd_solve/sparse {tag}: rerun not bit-identical")
+        staggered |= len(set(k[3].tolist())) > 1
+    return staggered
+
+
+def phase_sparse_linear_small(torch, ops, ref, sp):
+    """cd_solve/sparse and hinge_scores/sparse against their plain
+    versions at small shapes: f32 and bf16 values, nnz_cap 1, 7, 32,
+    256 and 300, ragged n, padding slots, a real column 0 beside them,
+    masked rows, dead SV slots, S = 0, per = 1, a job that stops first;
+    for the hinge L = 1, 8 and 9 (two launches) and W from 1e-30 to 1e3.
+    Tolerances: the kernels sum in another order than the plain
+    versions' slot order, so values agree to float32 rounding (the
+    solve's α, w, b within 1e-5 after one epoch, 1e-4 after 20; the
+    hinge losses within 1e-4 relative); epochs and counts are equal and
+    reruns bit-identical."""
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    staggered = False
+    for L, per, S, d, cap, dtype in (
+            (4, 200, 64, 4096, 32, torch.float32),
+            (3, 97, 31, 4096, 7, torch.bfloat16),
+            (2, 50, 0, 4096, 256, torch.bfloat16),
+            (5, 1, 16, 4096, 300, torch.float32),
+            (8, 33, 20, 8192, 1, torch.float32),
+            (3, 40, 24, 2048, 256, torch.float32)):
+        staggered |= _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap,
+                               dtype)
+    check(staggered, "no job stopped before the others")
+
+    ops.reset_launches()
+    worst, cases = 0.0, 0
+    d = 4096
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in (1, 65, 1000):
+            y = torch.where(torch.rand((n,), generator=gen, device=dev) > 0.5,
+                            1.0, -1.0)
+            m = (torch.rand((n,), generator=gen, device=dev) > 0.25).float()
+            for cap in SPARSE_CAPS:
+                X = _sparse_rows(torch, sp, gen, n, d, cap, dtype)
+                for L in (1, 8, 9):
+                    mag = torch.empty((L, d), device=dev).uniform_(
+                        -30.0, 3.0, generator=gen)
+                    W = torch.randn((L, d), generator=gen, device=dev) \
+                        * 10.0 ** mag
+                    b = torch.randn((L,), generator=gen, device=dev)
+                    loss, cnt = ops.hinge_scores(X, W, b, y, m)
+                    lp, cp = ref.hinge_scores_ref(X, W, b, y, m)
+                    rel = float(((loss - lp).abs()
+                                 / lp.abs().clamp(min=1e-30)).max())
+                    worst = max(worst, rel)
+                    check(float(cnt) == float(cp), f"hinge_scores/sparse "
+                          f"n={n} cap={cap} L={L}: count {float(cnt)} vs "
+                          f"{float(cp)}")
+                    check(torch.equal(ops.hinge_scores(X, W, b, y, m)[0],
+                                      loss), "hinge_scores/sparse rerun not "
+                          f"bit-identical (n={n} cap={cap} L={L})")
+                    cases += 1
+    routes = _routes(ops, "hinge_scores")
+    say(f"[kernels] hinge_scores/sparse: max rel Δ = {worst:.2e} over "
+        f"{cases} cases (rtol 1e-4); counts equal, reruns bit-identical; "
+        f"routes {routes}")
+    check(worst <= 1e-4, f"hinge_scores/sparse differs from plain by "
+          f"{worst:.2e}")
+    check(routes["sparse"] == ops.LAUNCHES["hinge_scores"] > 0,
+          "hinge_scores on SparseRows did not take the sparse route")
+
+
+def _linear_route_counts(ops):
+    return {k: v for k, v in ops.ROUTE_LAUNCHES.items()
+            if k.startswith(("cd_solve/", "hinge_scores/")) and v}
+
+
+def _same_rounds(hist_a, hist_b, what, picks=False):
+    """Rounds, R_emp per round within 1e-4 (and reducer picks, if
+    asked) of two fits' histories; → max |ΔR_emp|."""
+    check(len(hist_a) == len(hist_b),
+          f"{what}: {len(hist_a)} rounds vs {len(hist_b)}")
+    diff = max(abs(a["risk"] - b["risk"]) for a, b in zip(hist_a, hist_b))
+    check(diff <= 1e-4, f"{what}: R_emp per round differs by {diff:.2e}")
+    if picks:
+        check([a["reducer"] for a in hist_a] == [b["reducer"]
+                                                 for b in hist_b],
+              f"{what}: reducer picks differ")
+    return diff
+
+
+def phase_sparse_pipeline(torch, T, text, sp):
+    """The golden pipeline of phase 3 on ``vectorize_sparse(…,
+    nnz_cap=32)`` rows through the sparse TF×IDF linear path, with the
+    reference's golden floors; every launch on the two sparse routes;
+    R_emp per round within 1e-4 of the dense fit on the same rows."""
+    from repro_torch.kernels import ops
+    svm = dict(C=1.0, max_epochs=15)
+    cfg = T.MRSVMConfig(sv_capacity=128, gamma=1e-4, max_rounds=4,
+                        svm=T.SVMConfig(**svm, row_format="sparse_csr",
+                                        nnz_cap=32))
+    dcfg = T.MRSVMConfig(sv_capacity=128, gamma=1e-4, max_rounds=4,
+                         svm=T.SVMConfig(**svm))
+    for classes, floor in (((-1, 1), 0.85), ((-1, 0, 1), 0.75)):
+        corpus = text.generate(text.CorpusConfig(num_messages=1024,
+                                                 classes=classes, seed=0))
+        X, _ = text.fit_transform(
+            text.vectorize_sparse(corpus.texts, 1024, nnz_cap=32),
+            device=DEV)
+        y = torch.tensor(corpus.labels, dtype=torch.float32, device=DEV)
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        if len(classes) == 2:
+            model = T.fit_mapreduce(X[:768], y[:768], 8, cfg)
+            pred = T.predict(model, X[768:], cfg)
+            hists = [model.history]
+        else:
+            model = T.fit_one_vs_rest(X[:768], y[:768], list(classes), 8, cfg)
+            pred = model.predict(X[768:])
+            hists = [model.models[c].history for c in classes]
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        routes = _linear_route_counts(ops)
+        launches = {k: v for k, v in ops.LAUNCHES.items() if v}
+        acc = float((pred == y[768:].to(pred.dtype)).float().mean())
+        Xd = sp.to_dense(X)
+        if len(classes) == 2:
+            dense = [T.fit_mapreduce(Xd[:768], y[:768], 8, dcfg).history]
+        else:
+            dm = T.fit_one_vs_rest(Xd[:768], y[:768], list(classes), 8, dcfg)
+            dense = [dm.models[c].history for c in classes]
+        diff = max(_same_rounds(a, b, f"sparse golden {len(classes)}-class")
+                   for a, b in zip(hists, dense))
+        say(f"[sparse-pipeline] {len(classes)}-class: held-out accuracy "
+            f"{acc:.4f} (floor {floor}), fit+predict {ms:.1f} ms, round "
+            f"risks {[round(h['risk'], 6) for h in hists[0]]}, max |ΔR_emp| "
+            f"vs dense rows {diff:.2e} (atol 1e-4), launches {launches}, "
+            f"routes {routes}")
+        check(acc > floor, f"sparse {len(classes)}-class accuracy {acc:.4f}")
+        check(set(launches) == {"cd_solve", "hinge_scores"}
+              and routes == {"cd_solve/sparse": launches["cd_solve"],
+                             "hinge_scores/sparse": launches["hinge_scores"]},
+              f"the sparse golden run took the routes {routes}")
+        if len(classes) == 2:
+            _card_vs_cpu_entry_points(torch, T, text, sp, model, X, y, cfg)
+
+
+def _card_vs_cpu_entry_points(torch, T, text, sp, model, X, y, cfg):
+    """Slice 7's two other entry points, once on the card and once on the
+    CPU (the plain versions) with the same inputs: ``update_mapreduce``
+    of the golden 2-class model on the 256 held-out blocked-CSR rows
+    (new rows ∪ the carried SVs; the same rounds and reducer picks, R_emp
+    within 1e-4, as kernel and plain sum in other orders), and χ²
+    ``select_top_k`` on the rows densified (scores within 1e-5 of the
+    largest, 0 where the CPU's are, the same 256 features, ties at zero
+    mass by the lower index)."""
+    from repro_torch.kernels import ops
+    ops.reset_launches()
+    card = T.update_mapreduce(model, X[768:], y[768:], 8, cfg)
+    torch.cuda.synchronize()
+    routes = _linear_route_counts(ops)
+    cpu = T.update_mapreduce(model, X[768:].to(device="cpu"),
+                             y[768:].cpu(), 8, cfg, device="cpu")
+    diff = _same_rounds(card.history, cpu.history,
+                        "update_mapreduce card vs CPU", picks=True)
+    ids_c, ids_p = card.sv.ids.cpu(), cpu.sv.ids
+    say(f"[sparse-pipeline] update_mapreduce on 256 new rows ∪ "
+        f"{int(model.sv.mask.sum())} carried SVs: {card.rounds} rounds, "
+        f"R_emp {[round(h['risk'], 6) for h in card.history]}, max "
+        f"|ΔR_emp| vs the CPU {diff:.2e} (atol 1e-4), SV ids equal "
+        f"{int((ids_c == ids_p).sum())} of {ids_c.numel()}, routes {routes}")
+    check(sp.is_sparse(card.sv.x) and routes and set(routes) ==
+          {"cd_solve/sparse", "hinge_scores/sparse"},
+          f"update_mapreduce took the routes {routes}")
+    Xd = sp.to_dense(X)
+    classes = (-1, 1)
+    s_card = text.chi2_scores(Xd, y, classes)
+    s_cpu = text.chi2_scores(Xd.cpu(), y.cpu(), classes)
+    Xk_card, idx_card = text.select_top_k(Xd, y, classes, 256)
+    Xk_cpu, idx_cpu = text.select_top_k(Xd.cpu(), y.cpu(), classes, 256)
+    # Scale: the largest score. A feature whose mass splits as the classes
+    # do scores Σ (O − E)² / E with O ≈ E, and its f32 rounding of O and E
+    # (other sum orders on the card) is large against that score itself.
+    err = (s_card.cpu() - s_cpu).abs()
+    rel = float(err.max() / s_cpu.abs().max())
+    zero = int((s_cpu == 0).sum())
+    say(f"[sparse-pipeline] chi2 on the card vs the CPU: scores max |Δ| "
+        f"{rel:.2e} of the largest (tol 1e-5; per score at most "
+        f"{float((err / s_cpu.abs().clamp(min=1e-12)).max()):.2e}), {zero} "
+        f"of {s_cpu.numel()} features of zero mass (score 0 on both: "
+        f"{bool((s_card.cpu()[s_cpu == 0] == 0).all())}), top-256 equal "
+        f"{bool(torch.equal(idx_card.cpu(), idx_cpu))}")
+    check(rel <= 1e-5 and bool((s_card.cpu()[s_cpu == 0] == 0).all()),
+          f"chi2_scores card vs CPU differ by {rel:.2e} of the largest")
+    check(torch.equal(idx_card.cpu(), idx_cpu)
+          and torch.equal(Xk_card.cpu(), Xk_cpu),
+          "select_top_k picks other features on the card")
+
+
+def time_cd_solve_sparse(torch, T, ops, ref, Xp, yp, maskp, cfg):
+    """cd_solve/sparse at the main path's shapes: one epoch of round 0
+    (home rows + the empty SV buffer) against plain, rerun, timed; one
+    launch of the fit's epochs timed."""
+    L, per, d = Xp.shape
+    cap = cfg.sv_capacity
+    sv = T.init_sv_buffer(cap, d, Xp.dtype, DEV, nnz_cap=Xp.nnz_cap)
+    y_aug = torch.cat([yp, sv.y.expand(L, cap)], 1).float().contiguous()
+    m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1).float().contiguous()
+    kw = dict(C=cfg.svm.C, tol=cfg.svm.tol, max_epochs=1)
+    args = (Xp, sv.x, y_aug, m_aug)
+    ops.reset_launches()
+    k = ops.cd_solve(*args, **kw)
+    check(ops.ROUTE_LAUNCHES["cd_solve/sparse"] == 1,
+          f"full-width cd_solve took the routes {_routes(ops, 'cd_solve')}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = ref.cd_solve_sparse_ref(*args, **kw)
+    torch.cuda.synchronize()
+    plain = 1e3 * (time.perf_counter() - t0)
+    err = max(float((a - b).abs().max()) for a, b in zip(k[:3], p[:3]))
+    Xflat = Xp.reshape(L * per, d)
+    yflat, mflat = yp.reshape(-1).float(), maskp.reshape(-1).float()
+
+    def risk(out):
+        return ref.hinge_scores_ref(Xflat, out[1], out[2], yflat,
+                                           mflat)[0] / mflat.sum()
+
+    rerr = float((risk(k) - risk(p)).abs().max())
+    again = ops.cd_solve(*args, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(k, again))
+    say(f"[kernels] cd_solve/sparse one epoch L={L} per={per} S={cap} d={d} "
+        f"nnz_cap {Xp.nnz_cap} {str(Xp.dtype).split('.')[-1]}: max|Δ(α,w,b)| "
+        f"{err:.2e} (atol 1e-4), hinge risk max|Δ| {rerr:.2e} (atol 1e-5), "
+        f"epochs {k[3].tolist()} vs {p[3].tolist()}, rerun bit-identical "
+        f"{same}")
+    check(err <= 1e-4 and rerr <= 1e-5 and torch.equal(k[3], p[3]),
+          "cd_solve/sparse differs from plain at full width")
+    check(same, "cd_solve/sparse rerun not bit-identical at full width")
+    ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **kw), 5)
+    kw_fit = dict(kw, max_epochs=cfg.svm.max_epochs)
+    launch_ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **kw_fit), 2)
+    epochs = ops.cd_solve(*args, **kw_fit)[3]
+    # the function's work in one epoch: every slot of the home rows and
+    # the shared rows read once, y, m in, α, w, b out; 2 flop a live slot
+    # for w·x and 2 more a live slot of each row whose α moved
+    n = per + cap
+    live_h = (Xp.values != 0).sum(-1).reshape(L, per)
+    live_s = (sv.x.values != 0).sum(-1)
+    live = torch.cat([live_h, live_s.expand(L, cap)], 1).float()
+    moved = p[0] != 0
+    flops = 2.0 * float(live.sum()) + 2.0 * float(live[moved].sum())
+    slot_bytes = (L * per + cap) * Xp.nnz_cap * (4 + Xp.values.element_size())
+    nbytes = slot_bytes + 2 * L * n * 4 + L * n * 4 + L * d * 4 + 3 * L * 4
+    bms, by = bound_ms(nbytes, flops)
+    say(f"[kernels] cd_solve/sparse: kernel {ms:.3f} ms an epoch "
+        f"({1e3 * ms / n:.3f} µs a row step), one launch of "
+        f"{epochs.tolist()} epochs {launch_ms:.3f} ms; plain {plain:.3f} ms "
+        f"an epoch; bound {bms:.4f} ms ({by}); {int(moved.sum())} of {L * n} "
+        "rows moved α")
+    return dict(name="cd_solve/sparse", route="cuda", source=CDS_SRC,
+                replaces=CDS_TPU, max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=bms, bound_by=by, library_ms=None)
+
+
+def time_hinge_sparse(torch, ops, ref, X, y, m, W, b):
+    """hinge_scores/sparse at the main path's shapes against plain,
+    rerun, timed, with the library call ``torch.sparse.mm`` of the rows
+    as a CSR tensor by Wᵀ plus the hinge in torch as the yardstick."""
+    n, d = X.shape
+    L = W.shape[0]
+    ops.reset_launches()
+    loss_k, cnt_k = ops.hinge_scores(X, W, b, y, m)
+    check(ops.ROUTE_LAUNCHES["hinge_scores/sparse"] == 1,
+          f"hinge_scores took the routes {_routes(ops, 'hinge_scores')}")
+    loss_p, cnt_p = ref.hinge_scores_ref(X, W, b, y, m)
+    torch.cuda.synchronize()
+    rel = float(((loss_k - loss_p).abs() / loss_p.abs().clamp(min=1e-30))
+                .max())
+    err = float((loss_k - loss_p).abs().max())
+    same = torch.equal(ops.hinge_scores(X, W, b, y, m)[0], loss_k)
+    cap = X.nnz_cap
+    crow = torch.arange(0, n * cap + 1, cap, device=DEV)
+    Xcsr = torch.sparse_csr_tensor(crow, X.indices.reshape(-1).long(),
+                                   X.values.reshape(-1).float(), (n, d),
+                                   check_invariants=False)
+    Wt = W.T.contiguous()
+
+    def library():
+        s = torch.sparse.mm(Xcsr, Wt) + b
+        return (torch.clamp(1 - y[:, None] * s, min=0) * m[:, None]).sum(0)
+
+    lib_rel = float(((library() - loss_p).abs()
+                     / loss_p.abs().clamp(min=1e-30)).max())
+    say(f"[kernels] hinge_scores/sparse n={n} d={d} nnz_cap {cap} L={L} "
+        f"{str(X.dtype).split('.')[-1]} values: max rel Δ {rel:.2e} (rtol "
+        f"1e-4), count {float(cnt_k)} vs {float(cnt_p)}, rerun "
+        f"bit-identical {same}; the library call's rel Δ {lib_rel:.2e}")
+    check(rel <= 1e-4 and float(cnt_k) == float(cnt_p),
+          "hinge_scores/sparse differs from plain")
+    check(same, "hinge_scores/sparse rerun not bit-identical")
+    ms = cuda_ms(torch, lambda: ops.hinge_scores(X, W, b, y, m), 20)
+    plain = cuda_ms(torch, lambda: ref.hinge_scores_ref(X, W, b, y, m), 2)
+    lib = cuda_ms(torch, library, 20)
+    live = int((X.values != 0).sum())
+    nbytes = n * cap * (4 + X.values.element_size()) + L * d * 4 + L * 4 \
+        + 2 * n * 4 + L * 4 + 4
+    bms, by = bound_ms(nbytes, 2.0 * live * L)
+    say(f"[kernels] hinge_scores/sparse: kernel {ms:.3f} ms, plain "
+        f"{plain:.3f} ms, library (torch.sparse.mm of CSR rows by Wᵀ + "
+        f"hinge) {lib:.3f} ms, bound {bms:.4f} ms ({by})")
+    return dict(name="hinge_scores/sparse", route="cuda", source=HINGE_SRC,
+                replaces=HS_SPARSE_TPU, max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
+
+
+def phase_full_sparse(torch, T, ops, ref, sp):
+    """Slice 7's main path at svm-tfidf widths: blocked-CSR rows
+    (``nnz_cap`` = row nnz = 256, bf16 values, the config's dtype) on
+    the linear path, no cut; the two kernels timed at its shapes; one
+    round profiled; last, the same rows densified and fit on the dense
+    linear path, which must pick the same reducers with R_emp per round
+    within 1e-4. The two paths differ as the reference's do: blocked-CSR
+    bf16 rows round Σ v² of Q_ii to bf16 (``svm.py:165``), dense rows
+    keep it in float32."""
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import svm_rows_sparse_device
+    L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
+    cap = SVM_TFIDF.nnz_cap
+    t0 = time.perf_counter()
+    X, y = svm_rows_sparse_device(L * per, d, cap, seed=0, nnz=cap,
+                                  dtype=torch.bfloat16, device=DEV)
+    torch.cuda.synchronize()
+    say(f"[full-sparse] data: {L * per} rows × {d} features, nnz_cap {cap}, "
+        f"bf16 values ({X.values.numel() * 6 / 1e6:.0f} MB on the card) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    svm = dict(C=SVM_TFIDF.C, max_epochs=SVM_TFIDF.max_epochs)
+    mr = dict(sv_capacity=SVM_TFIDF.sv_capacity, gamma=1e-4, max_rounds=6)
+    cfg = T.MRSVMConfig(svm=T.SVMConfig(**svm, row_format="sparse_csr",
+                                        nnz_cap=cap), **mr)
+    Xp, yp = X.reshape(L, per, d), y.to(X.dtype).reshape(L, per)
+    maskp = torch.ones_like(yp)
+
+    cds = time_cd_solve_sparse(torch, T, ops, ref, Xp, yp, maskp, cfg)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    W = torch.randn((L, d), generator=gen, device=DEV) * 0.05
+    b = torch.randn((L,), generator=gen, device=DEV) * 0.1
+    hs = time_hinge_sparse(torch, ops, ref, X, y, torch.ones_like(y), W, b)
+    torch.cuda.synchronize()
+
+    # --- the main path: counts from 0, one fit_mapreduce, counts read --
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    model = T.fit_mapreduce(X, y, L, cfg, verbose=True)
+    torch.cuda.synchronize()
+    fit_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(ops.LAUNCHES)
+    routes = _linear_route_counts(ops)
+    for h in model.history:
+        say(f"[full-sparse] round {h['round']}: R_emp={h['risk']:.6f} "
+            f"|SV|={h['sv_count']} reducer={h['reducer']} "
+            f"round_ms={h['ms']:.1f}")
+    say(f"[full-sparse] fit_mapreduce: {model.rounds} rounds in "
+        f"{fit_ms:.1f} ms, launches {launches} (cd_solve = rounds + final "
+        f"fit, hinge_scores = rounds), routes {routes}")
+    check(routes == {"cd_solve/sparse": model.rounds + 1,
+                     "hinge_scores/sparse": model.rounds}
+          and launches["cd_solve"] == model.rounds + 1
+          and launches["hinge_scores"] == model.rounds,
+          f"the sparse fit took the routes {routes}")
+    risks = [h["risk"] for h in model.history]
+    check(all(math.isfinite(r) for r in risks), f"risks not finite: {risks}")
+    check(bool(torch.isfinite(model.final.w).all()), "final w not finite")
+    acc = float((T.predict(model, X, cfg) == y).float().mean())
+    pick = float((T.predict(model, X, cfg, use_final=False) == y).float()
+                 .mean())
+    major = float(max((y > 0).float().mean(), (y < 0).float().mean()))
+    say(f"[full-sparse] training accuracy: eq. 7 pick {pick:.4f}, final "
+        f"model {acc:.4f}, majority class {major:.4f}")
+    check(float(model.risk) < 1.0, f"selected risk {float(model.risk)}")
+    check(pick > major, "selected hypothesis no better than the majority")
+    profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
+    cds["launches"] = launches["cd_solve"]
+    hs["launches"] = launches["hinge_scores"]
+
+    # --- the same rows, dense ---------------------------------------------
+    hist, ids = model.history, model.sv.ids
+    del model, Xp, yp, maskp, W
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    Xd = sp.to_dense(X)
+    torch.cuda.synchronize()
+    say(f"[full-sparse] densified: {Xd.numel() * 2 / 1e9:.1f} GB bf16 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dcfg = T.MRSVMConfig(svm=T.SVMConfig(**svm), **mr)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    dm = T.fit_mapreduce(Xd, y, L, dcfg)
+    torch.cuda.synchronize()
+    dense_ms = 1e3 * (time.perf_counter() - t0)
+    diff = _same_rounds(hist, dm.history, "sparse vs dense at full width",
+                        picks=True)
+    live_s, live_d = set(ids[ids >= 0].tolist()), \
+        set(dm.sv.ids[dm.sv.ids >= 0].tolist())
+    overlap = len(live_s & live_d) / max(1, len(live_s | live_d))
+    say(f"[full-sparse] dense fit on the same rows: {dm.rounds} rounds in "
+        f"{dense_ms:.1f} ms (routes {_linear_route_counts(ops)}), reducers "
+        f"{[h['reducer'] for h in dm.history]} (sparse "
+        f"{[h['reducer'] for h in hist]}), max |ΔR_emp| per round "
+        f"{diff:.2e} (atol 1e-4), SV ids shared {len(live_s & live_d)} of "
+        f"{len(live_s)} / {len(live_d)} (Jaccard {overlap:.4f})")
+    del Xd, dm
+    torch.cuda.empty_cache()
+    return [cds, hs]
+
+
 # --- slice 3: the LM serve path --------------------------------------------
 
 # flash_decode against its plain version: max |Δ| over max |plain|, the
@@ -1851,9 +2343,11 @@ def main() -> int:
     phase_gram_small(torch, ops, ref, sp)
     phase_gram_solve_rows(torch, ops, ref)
     phase_hinge_small(torch, ops, ref)
+    phase_sparse_linear_small(torch, ops, ref, sp)
     phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()
     phase_pipeline(torch, T, text)
+    phase_sparse_pipeline(torch, T, text, sp)
     gram_launches = phase_kernel_pipeline(torch, T, text)
     phase_serve_smoke(torch, ops)
     torch.cuda.synchronize()
@@ -1869,6 +2363,8 @@ def main() -> int:
     gram["launches"] = gram_launches["gram"]
     kernels.append(gram)
     kernels += phase_full_kernel(torch, T, ops, ref)
+    torch.cuda.synchronize()
+    kernels += phase_full_sparse(torch, T, ops, ref, sp)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config

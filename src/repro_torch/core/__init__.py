@@ -11,7 +11,7 @@ from repro_torch.core.mapreduce_svm import (CONVERGE_IMPLS, SHUFFLE_IMPLS,
                                             RoundResult, SVBuffer,
                                             decision_values, fit_mapreduce,
                                             init_sv_buffer, mapreduce_round,
-                                            predict)
+                                            predict, update_mapreduce)
 from repro_torch.core.multiclass import (OneVsOneSVM, OneVsRestSVM,
                                          confusion_matrix, fit_one_vs_one,
                                          fit_one_vs_rest)
@@ -25,6 +25,7 @@ __all__ = [
     "support_mask", "CONVERGE_IMPLS", "SHUFFLE_IMPLS", "MapReduceSVM",
     "MRSVMConfig", "RoundResult", "SVBuffer", "decision_values",
     "fit_mapreduce", "init_sv_buffer", "mapreduce_round", "predict",
+    "update_mapreduce",
     "OneVsOneSVM", "OneVsRestSVM", "confusion_matrix", "fit_one_vs_one",
     "fit_one_vs_rest", "converged", "empirical_risk", "hinge_loss",
     "zero_one_loss",

@@ -18,15 +18,17 @@ On the linear path a round is two kernel launches on the card:
 ``cd_solve`` solves all L partitions at once, reading each partition's
 home rows and the shared SV buffer through two pointers (the L
 augmented partitions are never copied), and ``hinge_scores`` scores the
-L hypotheses on the full data (eq. 7). On the Gram path (rbf/poly or
+L hypotheses on the full data (eq. 7); dense rows and blocked-CSR rows
+each have their own route of both kernels. On the Gram path (rbf/poly or
 ``use_gram``, dense or blocked-CSR rows) the reducers' Gram matrices
 come from one ``gram`` / ``sparse_gram`` launch over the L jobs, the
 solve is one ``cd_solve_gram`` launch, and eq. 7 scores every
 hypothesis through the same Gram kernel in chunks of query rows; on
 blocked-CSR rows, through one fused ``sparse_gram_scores`` launch that
 never forms K. The
-sharded mode, the sweep axis and the fault seams of the reference wait
-for later slices (ROADMAP Queue 1).
+incremental :func:`update_mapreduce` retrains on new rows ∪ the carried
+SV_global. The sharded mode, the sweep axis and the fault seams of the
+reference wait for later slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -39,10 +41,9 @@ import torch
 
 from repro_torch import sparse as sparse_rows
 from repro_torch.core import risk as risk_lib
-from repro_torch.core.svm import (SPARSE_LINEAR, BinarySVM, SolverParams,
-                                  SVMConfig, decision_kernel,
-                                  decision_linear, solve_kernel_jobs,
-                                  solve_linear_jobs)
+from repro_torch.core.svm import (BinarySVM, SolverParams, SVMConfig,
+                                  decision_kernel, decision_linear,
+                                  solve_kernel_jobs, solve_linear_jobs)
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
 
@@ -137,7 +138,8 @@ def init_sv_buffer(capacity: int, d: int, dtype=torch.float32,
 
 def _risks(Xflat, yflat, mflat, ws, bs, loss: str) -> torch.Tensor:
     """Eq. 7 on the linear path: R_emp of every hypothesis on the full
-    data."""
+    data, dense or ``SparseRows`` rows (``hinge_scores`` for the hinge,
+    :func:`decision_linear` for the 0-1 loss)."""
     if loss == "hinge":
         losses, count = ops.hinge_scores(Xflat, ws, bs, yflat.float(),
                                          mflat.float())
@@ -183,8 +185,6 @@ def mapreduce_round(Xp, yp: torch.Tensor, maskp: torch.Tensor,
     Xp: (L, per, d) dense or ``SparseRows``; rows are ordered so global
     id of (l, i) = l*per + i.
     """
-    if sparse_rows.is_sparse(Xp) and cfg.svm.is_linear:
-        raise NotImplementedError(SPARSE_LINEAR)
     L, per, d = Xp.shape
     p = cfg.svm.params() if params is None else params
     cap = sv.y.shape[0]
@@ -344,3 +344,37 @@ def decision_values(model: MapReduceSVM, X, cfg: MRSVMConfig,
     coef = final.alpha.to(dev) * sv.y.to(dev) * sv.mask.to(dev)
     return decision_kernel(as_tensor(sv.x, dev), coef, final.b.to(dev), X,
                            cfg.svm, params)
+
+
+def update_mapreduce(model: MapReduceSVM, X_new, y_new, num_partitions: int,
+                     cfg: MRSVMConfig,
+                     params: Optional[SolverParams] = None,
+                     verbose: bool = False,
+                     device: DeviceLike = None) -> MapReduceSVM:
+    """Incremental model update (the paper's stated future work): a new
+    :func:`fit_mapreduce` on the new rows ∪ the model's SV_global, mask
+    1 on the new rows and ``sv.mask`` on the carried ones. The converged
+    SV set is the model's sufficient statistic, so old non-support rows
+    never travel. Dense or ``SparseRows`` rows, of the model's format.
+
+    Pass the ``params`` the model was trained with, if any: the carried
+    α were solved at that scale. Numpy inputs go to ``device`` (default
+    ``cuda``).
+    """
+    dev = resolve_device(device, like=X_new)
+    X_new = as_tensor(X_new, dev)
+    d_model = model.sv.x.shape[1]
+    if X_new.shape[1] != d_model:
+        raise ValueError(
+            f"update batch has {X_new.shape[1]} features but the model's "
+            f"SV buffer holds {d_model}-dim rows — vectorize new messages "
+            "with the SAME featurizer (hash space / idf) as training")
+    sv = model.sv
+    X = sparse_rows.rows_concat(X_new, as_tensor(sv.x, dev), axis=0)
+    n_new = X_new.shape[0]
+    y = torch.cat([as_tensor(y_new, dev, X_new.dtype),
+                   as_tensor(sv.y, dev, X_new.dtype)])
+    mask = torch.cat([torch.ones((n_new,), dtype=X_new.dtype, device=dev),
+                      as_tensor(sv.mask, dev, X_new.dtype)])
+    return fit_mapreduce(X, y, num_partitions, cfg, mask=mask,
+                         params=params, verbose=verbose, device=dev)

@@ -3,9 +3,12 @@
 The reducer's solver is dual coordinate descent (Hsieh et al. 2008,
 L1-loss), on two paths:
 
-* **linear** (dense rows): keeps the primal ``w = Σ α_i y_i x_i``,
-  O(n·d) per epoch, no Gram matrix, in the hand-written kernel
-  ``cd_solve``. α, w and b are float32 even when the rows are bf16.
+* **linear** (dense or blocked-CSR rows): keeps the primal
+  ``w = Σ α_i y_i x_i``, no Gram matrix, in the hand-written kernel
+  ``cd_solve``: O(n·d) per epoch on dense rows, O(n·nnz_cap) on
+  ``SparseRows`` (its ``cd_solve/sparse`` route gathers w at a row's
+  column ids and scatter-adds the update). α, w and b are float32 even
+  when the rows are bf16.
 * **kernel** (rbf/poly, or ``use_gram``; dense or blocked-CSR rows):
   builds the Gram matrix (``gram_impl``: ``"pallas"`` → the ``gram``
   kernel, ``"pallas_sparse"`` → ``sparse_gram``, ``"xla"`` → plain
@@ -13,11 +16,11 @@ L1-loss), on two paths:
   ``cd_solve_gram``, O(n²) per epoch. As in the reference, K, y, the
   mask, α and the gradient are kept in the rows' dtype.
 
-Both solve all partitions of a MapReduce round in one launch, one CTA
-per job. The bias is LIBLINEAR's regularized bias: ``K ← K + 1`` /
+Both solve all partitions of a MapReduce round in one launch. The
+bias is LIBLINEAR's regularized bias: ``K ← K + 1`` /
 ``Q_ii = ||x_i||² + 1`` and ``b = Σ α_i y_i``. Masked rows get
 ``Q_ii = 1`` and their updates are multiplied by 0, so their α stays
-exactly 0. Sparse rows on the linear path wait for ROADMAP Queue 1 #5a.
+exactly 0.
 """
 from __future__ import annotations
 
@@ -32,8 +35,6 @@ from repro_torch.core.kernel_fns import KernelConfig, apply_kernel
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
 
-SPARSE_LINEAR = ("sparse rows on the linear (non-Gram) path: ROADMAP "
-                 "Queue 1 #5a")
 #: K entries one chunk of a decision may hold (~1 GB of float32)
 _CHUNK_ELEMS = 1 << 28
 
@@ -126,12 +127,13 @@ def epoch_cap(cfg: SVMConfig, p: SolverParams) -> int:
     return max(0, math.ceil(min(float(cfg.max_epochs), float(p.max_epochs))))
 
 
-def solve_linear_jobs(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
-                      m: torch.Tensor, cfg: SVMConfig,
+def solve_linear_jobs(xh, xs, y: torch.Tensor, m: torch.Tensor,
+                      cfg: SVMConfig,
                       params: Optional[SolverParams] = None) -> BinarySVM:
-    """Solve L jobs at once: job l trains on rows ``[xh[l]; xs]`` with
-    labels/mask ``y[l]``, ``m[l]`` (L, per + S). One ``cd_solve``
-    launch on the card. → :class:`BinarySVM` with a leading (L,) axis."""
+    """Solve L jobs at once: job l trains on rows ``[xh[l]; xs]`` (dense
+    or ``SparseRows``) with labels/mask ``y[l]``, ``m[l]`` (L, per + S).
+    One ``cd_solve`` launch on the card. → :class:`BinarySVM` with a
+    leading (L,) axis."""
     p = cfg.params() if params is None else params
     alpha, w, b, t, viol = ops.cd_solve(
         xh, xs, y.float().contiguous(), m.float().contiguous(),
@@ -139,17 +141,15 @@ def solve_linear_jobs(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
     return BinarySVM(alpha=alpha, b=b, w=w, epochs_run=t, max_violation=viol)
 
 
-def fit_binary_linear(X: torch.Tensor, y: torch.Tensor,
-                      mask: Optional[torch.Tensor], cfg: SVMConfig,
+def fit_binary_linear(X, y: torch.Tensor, mask: Optional[torch.Tensor],
+                      cfg: SVMConfig,
                       params: Optional[SolverParams] = None) -> BinarySVM:
-    """Dual CD on the primal ``w`` for one job; X (n, d) dense."""
-    if sparse_rows.is_sparse(X):
-        raise NotImplementedError(SPARSE_LINEAR)
-    n, d = X.shape
+    """Dual CD on the primal ``w`` for one job; X (n, d) dense or
+    ``SparseRows``."""
+    n = X.shape[0]
     m = torch.ones((n,), dtype=torch.float32, device=X.device) \
         if mask is None else mask
-    res = solve_linear_jobs(X[None], X.new_zeros((0, d)), y[None], m[None],
-                            cfg, params)
+    res = solve_linear_jobs(X[None], X[:0], y[None], m[None], cfg, params)
     return BinarySVM(*(f[0] for f in res))
 
 
@@ -241,15 +241,17 @@ def fit_binary(X, y, mask=None, cfg: SVMConfig = SVMConfig(),
     return fit_binary_kernel(X, y, mask, cfg, params=params)
 
 
-def decision_linear(w: torch.Tensor, b: torch.Tensor, X: torch.Tensor,
+def decision_linear(w: torch.Tensor, b: torch.Tensor, X,
                     chunk_rows: int = 8192) -> torch.Tensor:
     """f(X) = X w + b in w's dtype; rows go through in chunks so a bf16
-    X is never copied whole to float32."""
-    if sparse_rows.is_sparse(X):
-        raise NotImplementedError(SPARSE_LINEAR)
+    X is never copied whole to float32. ``SparseRows`` rows gather w at
+    their column ids (``SparseRows.__matmul__``), as the reference's
+    ``X @ w``."""
+    sparse = sparse_rows.is_sparse(X)
     out = torch.empty(X.shape[:-1], dtype=w.dtype, device=X.device)
     for i in range(0, X.shape[0], chunk_rows):
-        out[i:i + chunk_rows] = X[i:i + chunk_rows].to(w.dtype) @ w
+        rows = X[i:i + chunk_rows]
+        out[i:i + chunk_rows] = (rows if sparse else rows.to(w.dtype)) @ w
     return out + b
 
 

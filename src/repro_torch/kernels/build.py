@@ -20,7 +20,7 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("cd_solve", "hinge_scores", "gram", "sparse_gram",
-           "cd_solve_gram", "flash_decode")
+           "cd_solve_gram", "flash_decode", "cd_solve_sparse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

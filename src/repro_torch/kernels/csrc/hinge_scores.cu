@@ -1,5 +1,6 @@
 // Eq. 7 risk scoring: hinge losses of L linear hypotheses over n rows,
-// two routes, chosen by the rows' dtype.
+// three routes: dense rows by their dtype (bf16, f32), and blocked-CSR
+// rows.
 //
 // Replaces the TPU kernel src/repro/kernels/hinge_score.py:
 // hinge_scores (_hinge_kernel, pl.pallas_call at line 52):
@@ -39,6 +40,24 @@
 // 16 warps), each lane reading 16 bytes of a row at a time; W staged
 // chunk by chunk (L × 1024 f32) in shared memory and shared by the
 // CTA's 64 rows; one partial (L losses + a count) per CTA.
+//
+// Blocked-CSR rows (hinge_scores_sparse, the hinge_scores/sparse route).
+// The reference has no Pallas kernel for these: its eq. 7 on SparseRows
+// is `Xflat @ res.w.T + res.b` through SparseRows.__matmul__, XLA
+// gathers (src/repro/core/mapreduce_svm.py:243-247,
+// src/repro/sparse.py:104-114); this computes the same function, with
+// x_i·w_l = Σ_s v_s W[l, id_s] over the row's nnz_cap slots (values f32
+// or bf16, computed in f32). Bound: the rows' slots read once (65536
+// rows × 256 slots × 6 bytes in bf16 = 100 MB) and W (L × d f32, 4 MB
+// at d = 131072, which stays in L2): 0.031 ms at 3.35 TB/s; the
+// gathers of W are random 32-byte reads from L2. W comes in as Wᵀ
+// padded to 8 hypotheses, (d, 8) f32, so that a slot's 8 weights are
+// one 32-byte sector, two 16-byte loads. One warp a row: lane k takes
+// the slots k, k + 32, ..., skips padding slots (value 0), and keeps 8
+// partial dots; the warp adds them with xor shuffles, and lane 0 adds
+// the bias, applies the hinge and the mask, and keeps the warp's
+// running sums. A CTA of 8 warps takes 64 rows and writes one partial,
+// warps added in order; hinge_reduce_kernel adds the CTAs' partials.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -61,6 +80,9 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
 }
 
 __device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
 
 template <typename T, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
@@ -188,6 +210,94 @@ __global__ void hinge_reduce_kernel(const float* __restrict__ part_loss,
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
+
+// ---------------------------------------------------------------------------
+// Blocked-CSR rows: a warp a row, gathering Wᵀ at the row's ids.
+namespace sp {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerWarp = 8;
+constexpr int kTileRows = kWarps * kRowsPerWarp;  // 64 rows per CTA
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+hinge_sparse_partial_kernel(const int* __restrict__ idx,
+                            const T* __restrict__ val, int cap,
+                            const float* __restrict__ wt,
+                            const float* __restrict__ b,
+                            const float* __restrict__ y,
+                            const float* __restrict__ m, int n, int L,
+                            float* __restrict__ part_loss,
+                            float* __restrict__ part_cnt) {
+  __shared__ float s_loss[kWarps][kMaxL];
+  __shared__ float s_cnt[kWarps];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float loss[kMaxL];
+#pragma unroll
+  for (int l = 0; l < kMaxL; ++l) loss[l] = 0.f;
+  float cnt = 0.f;
+  for (int r = 0; r < kRowsPerWarp; ++r) {
+    const int row = blockIdx.x * kTileRows + r * kWarps + warp;
+    if (row >= n) break;
+    const int* ri = idx + (size_t)row * cap;
+    const T* rv = val + (size_t)row * cap;
+    float acc[kMaxL];
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) acc[l] = 0.f;
+#pragma unroll 4
+    for (int k = lane; k < cap; k += 32) {
+      const float v = to_float(rv[k]);
+      if (v != 0.f) {
+        const float4* wr =
+            reinterpret_cast<const float4*>(wt + (size_t)ri[k] * kMaxL);
+        const float4 w0 = __ldg(wr);
+        const float4 w1 = __ldg(wr + 1);
+        acc[0] += v * w0.x;
+        acc[1] += v * w0.y;
+        acc[2] += v * w0.z;
+        acc[3] += v * w0.w;
+        acc[4] += v * w1.x;
+        acc[5] += v * w1.y;
+        acc[6] += v * w1.z;
+        acc[7] += v * w1.w;
+      }
+    }
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc[l] += __shfl_xor_sync(0xffffffffu, acc[l], o);
+    }
+    if (lane == 0) {
+      const float yi = y[row];
+      const float mi = m[row];
+#pragma unroll
+      for (int l = 0; l < kMaxL; ++l)
+        if (l < L) loss[l] += fmaxf(0.f, 1.f - yi * (acc[l] + b[l])) * mi;
+      cnt += mi;
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxL; ++l) s_loss[warp][l] = loss[l];
+    s_cnt[warp] = cnt;
+  }
+  __syncthreads();
+  if (tid < L) {
+    float s = 0.f;
+    for (int k = 0; k < kWarps; ++k) s += s_loss[k][tid];
+    part_loss[(size_t)blockIdx.x * L + tid] = s;
+  } else if (tid == kMaxL) {
+    float s = 0.f;
+    for (int k = 0; k < kWarps; ++k) s += s_cnt[k];
+    part_cnt[blockIdx.x] = s;
+  }
+}
+
+}  // namespace sp
 
 
 
@@ -471,6 +581,42 @@ extern "C" int hinge_scores_tc(const void* x, const void* planes, int dp,
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   hinge_reduce_kernel<<<1, 32, 0, s>>>(part_loss, part_cnt, blocks, L, loss,
+                                       cnt);
+  return cudaGetLastError();
+}
+
+extern "C" int hinge_sparse_tile_rows() { return sp::kTileRows; }
+
+// idx (n, cap) int32, val (n, cap) f32 (bf16 = 0) or bf16 (bf16 = 1);
+// wt (d, 8) f32: Wᵀ with columns L..7 zero, 16-byte aligned; b (L,),
+// y, m (n,) f32; scratch part_loss (tiles, L), part_cnt (tiles,) with
+// tiles = ceil(n / hinge_sparse_tile_rows()); L ≤ 8. Outputs loss (L,),
+// cnt (). Returns a cudaError_t (0 = ok).
+extern "C" int hinge_scores_sparse(const void* idx, const void* val, int bf16,
+                                   int cap, const float* wt, const float* b,
+                                   const float* y, const float* m, int n,
+                                   int L, int tiles, float* part_loss,
+                                   float* part_cnt, float* loss, float* cnt,
+                                   void* stream) {
+  if (L < 1 || L > kMaxL || cap < 1 ||
+      tiles != (n + sp::kTileRows - 1) / sp::kTileRows ||
+      !aligned16(wt))
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tiles > 0) {
+    const auto* ii = static_cast<const int*>(idx);
+    if (bf16)
+      sp::hinge_sparse_partial_kernel<__nv_bfloat16><<<tiles, sp::kThreads, 0, s>>>(
+          ii, static_cast<const __nv_bfloat16*>(val), cap, wt, b, y, m, n, L,
+          part_loss, part_cnt);
+    else
+      sp::hinge_sparse_partial_kernel<float><<<tiles, sp::kThreads, 0, s>>>(
+          ii, static_cast<const float*>(val), cap, wt, b, y, m, n, L,
+          part_loss, part_cnt);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  hinge_reduce_kernel<<<1, 32, 0, s>>>(part_loss, part_cnt, tiles, L, loss,
                                        cnt);
   return cudaGetLastError();
 }

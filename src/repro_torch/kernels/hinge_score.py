@@ -9,7 +9,9 @@ Two routes: bf16 rows go to the tensor-core kernel, which takes W as
 three bf16 planes (made on the card by :func:`tc_planes`; the plain
 version is :func:`split_planes`) and sums its products slab by slab
 (:func:`emulate_tc` repeats that arithmetic in plain PyTorch); float32
-rows go to the SIMT kernel.
+rows go to the SIMT kernel. Blocked-CSR rows go to a third kernel of
+the same library (:func:`launch_hinge_scores_sparse`), a warp a row
+gathering Wᵀ at the row's ids.
 """
 from __future__ import annotations
 
@@ -85,8 +87,11 @@ def _lib():
     lib.hinge_scores_tc.argtypes = [_P, _P, _I, _P, _P, _P, _I, _I, _I, _P,
                                     _I, _P, _P, _P, _P, _P]
     lib.hinge_tc_planes.argtypes = [_P, _I, _I, _I, _P, _P]
+    lib.hinge_scores_sparse.argtypes = [_P, _P, _I, _I, _P, _P, _P, _P, _I,
+                                        _I, _I, _P, _P, _P, _P, _P]
     for fn in (lib.hinge_scores, lib.hinge_scores_tc, lib.hinge_tc_planes,
-               lib.hinge_tile_rows, lib.hinge_max_hypotheses,
+               lib.hinge_scores_sparse, lib.hinge_tile_rows,
+               lib.hinge_sparse_tile_rows, lib.hinge_max_hypotheses,
                lib.hinge_tc_slab_cols, lib.hinge_tc_finish_rows):
         fn.restype = _I
     if (lib.hinge_max_hypotheses(), lib.hinge_tc_slab_cols()) != \
@@ -153,3 +158,34 @@ def launch_hinge_scores(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(
             f"hinge_scores kernel launch failed: cudaError {err}")
     return loss, cnt, route
+
+
+def launch_hinge_scores_sparse(X, W: torch.Tensor, b: torch.Tensor,
+                               y: torch.Tensor, m: torch.Tensor):
+    """Launch the blocked-CSR route on the current stream; inputs
+    already checked (CUDA, contiguous leaves, int32 ids in [0, d),
+    values bf16/f32, the rest f32, 1 ≤ L ≤ ``MAX_HYPOTHESES``).
+    → (losses (L,), count (), route "sparse")."""
+    lib = _lib()
+    n = X.shape[0]
+    L = W.shape[0]
+    dev = W.device
+    # Wᵀ padded to 8 hypotheses: a column id's weights are one 32-byte row
+    wt = torch.zeros((W.shape[1], MAX_HYPOTHESES), dtype=torch.float32,
+                     device=dev)
+    wt[:, :L] = W.T
+    tiles = -(-n // lib.hinge_sparse_tile_rows())
+    loss = torch.empty((L,), dtype=torch.float32, device=dev)
+    cnt = torch.empty((), dtype=torch.float32, device=dev)
+    part_loss = torch.empty((tiles, L), dtype=torch.float32, device=dev)
+    part_cnt = torch.empty((tiles,), dtype=torch.float32, device=dev)
+    err = lib.hinge_scores_sparse(
+        X.indices.data_ptr(), X.values.data_ptr(),
+        int(X.dtype == torch.bfloat16), X.nnz_cap, wt.data_ptr(),
+        b.data_ptr(), y.data_ptr(), m.data_ptr(), n, L, tiles,
+        part_loss.data_ptr(), part_cnt.data_ptr(), loss.data_ptr(),
+        cnt.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"hinge_scores_sparse kernel launch failed: cudaError {err}")
+    return loss, cnt, "sparse"

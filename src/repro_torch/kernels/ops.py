@@ -11,7 +11,9 @@ splits the launches by route: for ``gram``, ``hinge_scores`` and
 ``flash_decode`` the bf16 tensor-core kernel or the SIMT one, for
 ``cd_solve`` and ``cd_solve_gram`` one CTA or one thread-block cluster
 per job, for ``sparse_gram`` the Gram or the fused decision scores
-(:func:`sparse_gram_scores`). The rules that pick a route
+(:func:`sparse_gram_scores`); ``cd_solve/sparse`` and
+``hinge_scores/sparse`` are the blocked-CSR kernels of the linear
+path. The rules that pick a route
 (:func:`decode_route`, :func:`cd_solve_cluster_size`,
 :func:`cd_solve_gram_cluster_size`) are plain functions of shapes and
 dtypes.
@@ -37,8 +39,10 @@ ROUTE_LAUNCHES: Dict[str, int] = {"gram/tensor_core": 0, "gram/simt": 0,
                                   "cd_solve/single": 0,
                                   "cd_solve_gram/cluster": 0,
                                   "cd_solve_gram/single": 0,
+                                  "cd_solve/sparse": 0,
                                   "sparse_gram/gram": 0,
-                                  "sparse_gram/scores": 0}
+                                  "sparse_gram/scores": 0,
+                                  "hinge_scores/sparse": 0}
 
 _ROW_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -125,25 +129,30 @@ def cd_solve_cluster_size(n: int, d: int, dtype: torch.dtype) -> int:
     return c if c <= CLUSTER_MAX else 1
 
 
-def cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
-             m: torch.Tensor, *, C: float, tol: float, max_epochs: int):
+def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C: float,
+             tol: float, max_epochs: int):
     """Dual-CD solve of L jobs (see :func:`ref.cd_solve_ref`).
 
-    xh (L, per, d) and xs (S, d) rows (f32 or bf16, one dtype); y, m
-    (L, per + S) f32. → alpha (L, n), w (L, d), b (L,), epochs (L,)
-    int32, viol (L,). On the card, :func:`cd_solve_cluster_size` CTAs
-    run each job; a size the card cannot schedule raises.
+    xh (L, per, d) and xs (S, d) rows (f32 or bf16, one dtype), dense or
+    both ``SparseRows`` of one nnz_cap (the ``cd_solve/sparse`` route);
+    y, m (L, per + S) f32. → alpha (L, n), w (L, d), b (L,), epochs (L,)
+    int32, viol (L,). On the card, dense rows run on
+    :func:`cd_solve_cluster_size` CTAs a job; a size the card cannot
+    schedule raises.
     """
-    _check(xh.dim() == 3 and xs.dim() == 2,
+    _check(len(xh.shape) == 3 and len(xs.shape) == 2,
            f"xh must be (L, per, d) and xs (S, d), got {tuple(xh.shape)} "
            f"and {tuple(xs.shape)}")
     L, per, d = xh.shape
     n = per + xs.shape[0]
     _check(xs.shape[1] == d, f"xs has {xs.shape[1]} features, xh {d}")
-    _check(xh.dtype in _ROW_DTYPES and xs.dtype == xh.dtype,
-           f"rows must be one of {_ROW_DTYPES}, got {xh.dtype}/{xs.dtype}")
     _check(tuple(y.shape) == (L, n) and tuple(m.shape) == (L, n),
            f"y and m must be {(L, n)}, got {tuple(y.shape)}/{tuple(m.shape)}")
+    if sparse_rows.is_sparse(xh) or sparse_rows.is_sparse(xs):
+        return _cd_solve_sparse(xh, xs, y, m, C=C, tol=tol,
+                                max_epochs=max_epochs)
+    _check(xh.dtype in _ROW_DTYPES and xs.dtype == xh.dtype,
+           f"rows must be one of {_ROW_DTYPES}, got {xh.dtype}/{xs.dtype}")
     if not _on_card(xh, xs, y, m):
         return ref.cd_solve_ref(xh, xs, y, m, C=C, tol=tol,
                                 max_epochs=max_epochs)
@@ -159,12 +168,34 @@ def cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
     return out
 
 
-def hinge_scores(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
-                 y: torch.Tensor, m: torch.Tensor):
+def _cd_solve_sparse(xh, xs, y, m, *, C: float, tol: float,
+                     max_epochs: int):
+    """:func:`cd_solve` on blocked-CSR rows (see
+    :func:`ref.cd_solve_sparse_ref`)."""
+    parts, leaves = _sparse_parts((xh, xs), "cd_solve on SparseRows")
+    if not _on_card(*leaves, y, m):
+        return ref.cd_solve_sparse_ref(xh, xs, y, m, C=C, tol=tol,
+                                       max_epochs=max_epochs)
+    _check(y.dtype == torch.float32 and m.dtype == torch.float32,
+           "y and m must be float32")
+    _check_cuda_layout({"y": y, "m": m,
+                        **{f"leaf {i}": t for i, t in enumerate(leaves)}})
+    _check_column_ids(parts, xh.d)
+    from repro_torch.kernels.svm_step import launch_cd_solve_sparse
+    out = launch_cd_solve_sparse(xh, xs, y, m, float(C), float(tol),
+                                 int(max_epochs))
+    LAUNCHES["cd_solve"] += 1
+    ROUTE_LAUNCHES["cd_solve/sparse"] += 1
+    return out
+
+
+def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
+                 m: torch.Tensor):
     """Eq. 7 hinge-loss sums of L hypotheses (see
-    :func:`ref.hinge_scores_ref`). X (n, d) f32/bf16, W (L, d), b (L,),
-    y, m (n,) f32. → (losses (L,), count ())."""
-    _check(X.dim() == 2 and W.dim() == 2 and W.shape[1] == X.shape[1],
+    :func:`ref.hinge_scores_ref`). X (n, d) f32/bf16 rows, dense or
+    ``SparseRows`` (the ``hinge_scores/sparse`` route), W (L, d), b
+    (L,), y, m (n,) f32. → (losses (L,), count ())."""
+    _check(len(X.shape) == 2 and W.dim() == 2 and W.shape[1] == X.shape[1],
            f"X must be (n, d) and W (L, d), got {tuple(X.shape)} and "
            f"{tuple(W.shape)}")
     n = X.shape[0]
@@ -172,18 +203,28 @@ def hinge_scores(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     _check(tuple(b.shape) == (L,) and tuple(y.shape) == (n,)
            and tuple(m.shape) == (n,),
            "b must be (L,) and y, m (n,)")
-    _check(X.dtype in _ROW_DTYPES, f"X must be one of {_ROW_DTYPES}")
-    if not _on_card(X, W, b, y, m):
+    sparse = sparse_rows.is_sparse(X)
+    if sparse:
+        parts, rows = _sparse_parts((X,), "hinge_scores on SparseRows")
+    else:
+        _check(X.dtype in _ROW_DTYPES, f"X must be one of {_ROW_DTYPES}")
+        rows = [X]
+    if not _on_card(*rows, W, b, y, m):
         return ref.hinge_scores_ref(X, W, b, y, m)
     _check(all(t.dtype == torch.float32 for t in (W, b, y, m)),
            "W, b, y and m must be float32")
-    _check_cuda_layout({"X": X, "W": W, "b": b, "y": y, "m": m})
+    _check_cuda_layout({"W": W, "b": b, "y": y, "m": m,
+                        **{f"X leaf {i}": t for i, t in enumerate(rows)}})
     from repro_torch.kernels.hinge_score import (MAX_HYPOTHESES,
-                                                 launch_hinge_scores)
+                                                 launch_hinge_scores,
+                                                 launch_hinge_scores_sparse)
+    if sparse:
+        _check_column_ids(parts, X.d)
+    launch = launch_hinge_scores_sparse if sparse else launch_hinge_scores
     losses, count = [], None
     for l0 in range(0, L, MAX_HYPOTHESES):
         sl = slice(l0, l0 + MAX_HYPOTHESES)
-        loss, count, route = launch_hinge_scores(X, W[sl], b[sl], y, m)
+        loss, count, route = launch(X, W[sl], b[sl], y, m)
         LAUNCHES["hinge_scores"] += 1
         ROUTE_LAUNCHES[f"hinge_scores/{route}"] += 1
         losses.append(loss)
@@ -277,16 +318,15 @@ def gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     return K[0] if plain else K
 
 
-def _sparse_parts(xr, zr, what: str):
-    """The ``SparseRows`` parts of both sides, checked: one nnz_cap, one
-    value dtype of ``_ROW_DTYPES``, int32 ids. → (parts, their index and
-    value tensors)."""
-    parts = (xr.home, xr.shared, zr.home, zr.shared)
+def _sparse_parts(parts, what: str):
+    """``SparseRows`` parts, checked: one nnz_cap, one value dtype of
+    ``_ROW_DTYPES``, int32 ids. → (parts, their index and value
+    tensors)."""
     _check(all(sparse_rows.is_sparse(t) for t in parts),
            f"{what} takes SparseRows on both sides")
     _check(len({t.nnz_cap for t in parts}) == 1, "nnz_cap differs")
-    _check(xr.home.dtype in _ROW_DTYPES
-           and all(t.dtype == xr.home.dtype for t in parts),
+    _check(parts[0].dtype in _ROW_DTYPES
+           and all(t.dtype == parts[0].dtype for t in parts),
            f"values must be one of {_ROW_DTYPES}, all of one dtype")
     _check(all(t.indices.dtype == torch.int32 for t in parts),
            "indices must be int32")
@@ -315,7 +355,8 @@ def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     for two plain sides, else (jobs, n, m).
     """
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
-    parts, leaves = _sparse_parts(xr, zr, "sparse_gram")
+    parts, leaves = _sparse_parts((xr.home, xr.shared, zr.home, zr.shared),
+                                  "sparse_gram")
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves):
         return per_job(ref.sparse_gram_ref, X, Z, **kw)
@@ -345,7 +386,8 @@ def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
     _check(sparse_rows.is_sparse(X) and len(X.shape) == 2,
            "sparse_gram_scores takes (n, d) SparseRows query rows")
     xr, zr, _, _ = _gram_sides(X, Z, kind, degree)
-    parts, leaves = _sparse_parts(xr, zr, "sparse_gram_scores")
+    parts, leaves = _sparse_parts((xr.home, xr.shared, zr.home, zr.shared),
+                                  "sparse_gram_scores")
     _check(coef.dim() == 2 and coef.shape[1] == zr.n and zr.n > 0,
            f"coef must be (L, {zr.n}), got {tuple(coef.shape)}")
     L = coef.shape[0]

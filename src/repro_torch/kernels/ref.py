@@ -27,6 +27,21 @@ def _dots(w: torch.Tensor, x: torch.Tensor):
     return (w * x).sum(-1), (x * x).sum(-1)
 
 
+def _cd_step(wx, q, y, m, alpha, i: int, b, C: float, active):
+    """Row ``i``'s dual-CD update of every job, in place on α and b, from
+    its w·x and Q_ii (L,). → (Δ·y (L,), |pg|·m (L,))."""
+    yi, mi, ai = y[:, i], m[:, i], alpha[:, i]
+    g = yi * (wx + b) - 1.0                           # ∂/∂α_i of dual obj
+    pg = torch.where(ai <= 0.0, g.clamp(max=0.0),
+                     torch.where(ai >= C, g.clamp(min=0.0), g))
+    a_new = (ai - g / q).clamp(0.0, C)
+    delta = (a_new - ai) * mi * active
+    alpha[:, i] = ai + delta
+    coef = delta * yi
+    b += coef
+    return coef, pg.abs() * mi
+
+
 def _cd_epoch(xh, xs, y, m, alpha, w, b, C: float, active, dots=_dots):
     """One sequential dual-CD epoch over every job, in place.
 
@@ -39,18 +54,36 @@ def _cd_epoch(xh, xs, y, m, alpha, w, b, C: float, active, dots=_dots):
     for i in range(n):
         x = _rows(xh, xs, i)
         wx, xx = dots(w, x)
-        yi, mi, ai = y[:, i], m[:, i], alpha[:, i]
-        g = yi * (wx + b) - 1.0                       # ∂/∂α_i of dual obj
-        pg = torch.where(ai <= 0.0, g.clamp(max=0.0),
-                         torch.where(ai >= C, g.clamp(min=0.0), g))
-        q = torch.where(mi > 0, xx + 1.0, 1.0)        # Q_ii, bias augment
-        a_new = (ai - g / q).clamp(0.0, C)
-        delta = (a_new - ai) * mi * active
-        alpha[:, i] = ai + delta
-        coef = delta * yi
+        q = torch.where(m[:, i] > 0, xx + 1.0, 1.0)   # Q_ii, bias augment
+        coef, v = _cd_step(wx, q, y, m, alpha, i, b, C, active)
         w += coef[:, None] * x
-        b += coef
-        viol = torch.maximum(viol, pg.abs() * mi)
+        viol = torch.maximum(viol, v)
+    return viol
+
+
+def _sparse_row(xh, xs, i: int):
+    """Row ``i`` of every job's augmented partition of blocked-CSR rows:
+    its column ids (L, cap) int64 and values (L, cap) float32."""
+    L, per = xh.values.shape[:2]
+    if i < per:
+        return xh.indices[:, i].long(), xh.values[:, i].float()
+    j = i - per
+    return (xs.indices[j].long().expand(L, -1),
+            xs.values[j].float().expand(L, -1))
+
+
+def _cd_epoch_sparse(xh, xs, y, m, q, alpha, w, b, C: float, active):
+    """:func:`_cd_epoch` on blocked-CSR rows: w·x is the gather of w at
+    the row's ids times its values, one float32 sum over the slots; the
+    update scatter-adds Δ·y·v at the ids (padding slots add 0). ``q``
+    (L, n) holds Q_ii."""
+    viol = torch.zeros_like(b)
+    for i in range(y.shape[1]):
+        idx, val = _sparse_row(xh, xs, i)
+        wx = (w.gather(1, idx) * val).sum(-1)
+        coef, v = _cd_step(wx, q[:, i], y, m, alpha, i, b, C, active)
+        w.scatter_add_(1, idx, coef[:, None] * val)
+        viol = torch.maximum(viol, v)
     return viol
 
 
@@ -76,8 +109,57 @@ def solve_with(xh, xs, y, m, *, C: float, tol: float, max_epochs: int,
     """:func:`cd_solve_ref` with the row dot products taken by
     ``dots(w, x) → (w·x, x·x)`` (an emulation of a kernel's sum order
     passes its own)."""
-    L, per, d = xh.shape
-    dev = xh.device
+    return _solve(xh.shape, y, m, tol, max_epochs,
+                  lambda a, w, b, y, m, act: _cd_epoch(xh, xs, y, m, a, w, b,
+                                                       C, act, dots))
+
+
+def sparse_sq_norms(values: torch.Tensor) -> torch.Tensor:
+    """Σ v² over the last axis of blocked-CSR values, as the reference's
+    jitted ``sparse.row_sq_norms`` rounds it: the sum in the values' dtype
+    (a bf16 Σ v² is bf16), taken in float32 over float32 products (XLA
+    keeps the bf16 v² unrounded inside the fused reduction; a bf16 v² is
+    exact in float32). The sum goes in the fixed order of
+    ``cd_solve_sparse.cu`` (lane k of a warp adds the slots k, k + 32, …
+    in turn, then the lanes pair up by xor 16, 8, 4, 2, 1), so that the
+    kernel and this version round to the same bf16. → float32 (…,)."""
+    dt = values.dtype
+    p = values.float() * values.float()
+    cap = p.shape[-1]
+    p = torch.nn.functional.pad(p, (0, -cap % 32)).unflatten(-1, (-1, 32))
+    s = p[..., 0, :]
+    for k in range(1, p.shape[-2]):
+        s = s + p[..., k, :]
+    while s.shape[-1] > 1:
+        s = s[..., :s.shape[-1] // 2] + s[..., s.shape[-1] // 2:]
+    return s[..., 0].to(dt).float()
+
+
+def cd_solve_sparse_ref(xh, xs, y: torch.Tensor, m: torch.Tensor, *,
+                        C: float, tol: float, max_epochs: int):
+    """:func:`cd_solve_ref` on blocked-CSR rows (the plain
+    ``cd_solve/sparse``): xh ``SparseRows`` (L, per, d), xs
+    ``SparseRows`` (S, d) of one nnz_cap. Values are cast to float32 for
+    w·x and the update, as the reference does (``svm.py:183-185``);
+    Q_ii = Σ v² + 1 with Σ v² in the values' dtype
+    (:func:`sparse_sq_norms`, ``svm.py:165``), 1 on masked rows. The
+    same outputs, stop rule and frozen jobs."""
+    L = xh.shape[0]
+    qh = sparse_sq_norms(xh.values)
+    qs = sparse_sq_norms(xs.values)
+    q = torch.cat([qh, qs.expand(L, -1)], 1)
+    q = torch.where(m.float() > 0, q + 1.0, 1.0)
+    return _solve(xh.shape, y, m, tol, max_epochs,
+                  lambda a, w, b, y, m, act: _cd_epoch_sparse(
+                      xh, xs, y, m, q, a, w, b, C, act))
+
+
+def _solve(shape, y, m, tol: float, max_epochs: int, epoch):
+    """The epoch loop with the reference's stop rule over L jobs of rows
+    of ``shape`` (L, per, d); ``epoch(α, w, b, y, m, active)`` runs one
+    epoch in place and returns its violation per job."""
+    L, _, d = shape
+    dev = y.device
     y, m = y.float(), m.float()
     alpha = torch.zeros(y.shape, dtype=torch.float32, device=dev)
     w = torch.zeros((L, d), dtype=torch.float32, device=dev)
@@ -88,7 +170,7 @@ def solve_with(xh, xs, y, m, *, C: float, tol: float, max_epochs: int,
         active = (t < max_epochs) & ((t == 0) | (viol > tol))
         if not bool(active.any()):
             break
-        ep = _cd_epoch(xh, xs, y, m, alpha, w, b, C, active.float(), dots)
+        ep = epoch(alpha, w, b, y, m, active.float())
         viol = torch.where(active, ep, viol)
         t += active.int()
     return alpha, w, b, t, viol
@@ -109,12 +191,15 @@ def cd_epoch_ref(X: torch.Tensor, *, alpha, w, b, y, mask, C: float = 1.0):
     return a[0], wv[0], bv[0]
 
 
-def hinge_scores_ref(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
+def hinge_scores_ref(X, W: torch.Tensor, b: torch.Tensor,
                      y: torch.Tensor, mask: torch.Tensor,
                      chunk_rows: int = 4096):
-    """Fused risk evaluation (paper eq. 6/7).
+    """Fused risk evaluation (paper eq. 6/7), the plain ``hinge_scores``
+    of both formats.
 
-    X (n, d), W (L, d), b (L,), y (n,), mask (n,) →
+    X (n, d) rows or ``SparseRows`` (whose product gathers Wᵀ at a row's
+    ids and sums over its slots, ``SparseRows.__matmul__``), W (L, d),
+    b (L,), y (n,), mask (n,) →
       losses (L,): Σ_i mask_i · max(0, 1 − y_i·(x_i·w_l + b_l))
       count (): Σ mask
     Rows go through in chunks so a bf16 X is never copied whole to f32.
@@ -123,7 +208,7 @@ def hinge_scores_ref(X: torch.Tensor, W: torch.Tensor, b: torch.Tensor,
     bf = b.float()
     losses = torch.zeros(W.shape[0], dtype=torch.float32, device=X.device)
     for i in range(0, X.shape[0], chunk_rows):
-        s = X[i:i + chunk_rows].float() @ Wf.T + bf[None, :]
+        s = X[i:i + chunk_rows].to(dtype=torch.float32) @ Wf.T + bf[None, :]
         h = torch.clamp(1.0 - y[i:i + chunk_rows].float()[:, None] * s,
                         min=0.0)
         losses += (h * mask[i:i + chunk_rows].float()[:, None]).sum(0)

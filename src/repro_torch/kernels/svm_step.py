@@ -1,13 +1,15 @@
-"""Launch of the dual-CD solve kernel ``csrc/cd_solve.cu``.
+"""Launch of the dual-CD solve kernels ``csrc/cd_solve.cu`` and
+``csrc/cd_solve_sparse.cu``.
 
 The counterpart of ``repro/kernels/svm_step.py: cd_epoch``: each job's
 whole solve, every epoch with the reference's stop rule, runs on one
 CTA (the single route) or on one thread-block cluster of c CTAs that
 split the columns (the cluster route; c from
-:func:`repro_torch.kernels.ops.cd_solve_cluster_size`). Callers go
-through :func:`repro_torch.kernels.ops.cd_solve`, which checks the
-inputs, counts launches by route and takes the plain version for CPU
-tensors.
+:func:`repro_torch.kernels.ops.cd_solve_cluster_size`); blocked-CSR
+rows run on one CTA a job of ``cd_solve_sparse.cu`` (the sparse
+route). Callers go through :func:`repro_torch.kernels.ops.cd_solve`,
+which checks the inputs, counts launches by route and takes the plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -119,4 +121,47 @@ def launch_cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
             else ""
         raise RuntimeError(f"cd_solve kernel launch ({cluster} CTAs a job) "
                            f"failed: cudaError {err}{what}")
+    return alpha, w, b, epochs, viol
+
+
+def _sparse_lib():
+    lib = build.load("cd_solve_sparse")
+    lib.cd_solve_sparse.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
+                                    _I, _I, _F, _F, _I, _P, _P, _P, _P, _P,
+                                    _P, _P]
+    for fn in (lib.cd_solve_sparse, lib.cd_solve_sparse_max_cap):
+        fn.restype = _I
+    return lib
+
+
+def launch_cd_solve_sparse(xh, xs, y: torch.Tensor, m: torch.Tensor,
+                           C: float, tol: float, max_epochs: int):
+    """Launch the sparse route on the current stream; inputs already
+    checked (CUDA, contiguous leaves, one nnz_cap, int32 ids in [0, d),
+    values bf16/f32 of one dtype, y/m f32). An nnz_cap above the
+    kernel's limit raises. → alpha, w, b, epochs, viol."""
+    lib = _sparse_lib()
+    L, per, d = xh.shape
+    S = xs.shape[0]
+    cap = xh.nnz_cap
+    limit = lib.cd_solve_sparse_max_cap()
+    if cap > limit:
+        raise ValueError(f"cd_solve on SparseRows takes nnz_cap up to "
+                         f"{limit}, got {cap}")
+    dev = y.device
+    alpha = torch.empty((L, per + S), dtype=torch.float32, device=dev)
+    q = torch.empty((L, per + S), dtype=torch.float32, device=dev)
+    w = torch.zeros((L, d), dtype=torch.float32, device=dev)
+    b = torch.empty((L,), dtype=torch.float32, device=dev)
+    epochs = torch.empty((L,), dtype=torch.int32, device=dev)
+    viol = torch.empty((L,), dtype=torch.float32, device=dev)
+    err = lib.cd_solve_sparse(
+        xh.indices.data_ptr(), xh.values.data_ptr(), xs.indices.data_ptr(),
+        xs.values.data_ptr(), int(xh.dtype == torch.bfloat16), y.data_ptr(),
+        m.data_ptr(), L, per, S, cap, d, C, tol, max_epochs, q.data_ptr(),
+        alpha.data_ptr(), w.data_ptr(), b.data_ptr(), epochs.data_ptr(),
+        viol.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cd_solve_sparse kernel launch failed: "
+                           f"cudaError {err}")
     return alpha, w, b, epochs, viol

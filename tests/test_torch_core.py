@@ -64,17 +64,26 @@ def test_apply_kernel_matches_reference(name):
 
 
 def test_sparse_operands_and_gram_path_wait_for_a_later_slice():
-    """Sparse rows on the linear, non-Gram path wait for the next slice
-    (ROADMAP Queue 1 #5a); the Gram path takes them."""
+    """Sparse rows run on the linear, non-Gram path (the
+    ``cd_solve/sparse`` and ``hinge_scores/sparse`` routes) and equal
+    the dense result on the same rows; the Gram path takes them too.
+    (The name is from when the linear path refused sparse rows; it is
+    kept so that the test's record carries across that change.)"""
     from repro_torch import sparse as tsp
     X = tsp.from_dense(torch.eye(4), 2)
     y = torch.tensor([1.0, -1.0, 1.0, -1.0])
-    with pytest.raises(NotImplementedError, match="Queue 1 #5a"):
-        T.fit_binary(X, y, cfg=T.SVMConfig())
-    with pytest.raises(NotImplementedError, match="Queue 1 #5a"):
-        T.fit_mapreduce(X, y, 2, T.MRSVMConfig(sv_capacity=2))
-    with pytest.raises(NotImplementedError, match="Queue 1 #5a"):
-        T.decision_linear(torch.ones(4), torch.zeros(()), X)
+    sp = T.fit_binary(X, y, cfg=T.SVMConfig())
+    de = T.fit_binary(torch.eye(4), y, cfg=T.SVMConfig())
+    for a, b in zip(sp, de):
+        torch.testing.assert_close(a, b, atol=1e-6, rtol=0)
+    cfg = T.MRSVMConfig(sv_capacity=2)
+    ms, md = (T.fit_mapreduce(rows, y, 2, cfg) for rows in (X, torch.eye(4)))
+    assert float(ms.risk) == pytest.approx(float(md.risk), abs=1e-6)
+    assert torch.equal(ms.sv.ids, md.sv.ids)
+    torch.testing.assert_close(tsp.to_dense(ms.sv.x), md.sv.x)
+    torch.testing.assert_close(
+        T.decision_linear(torch.arange(4.0), torch.ones(()), X),
+        T.decision_linear(torch.arange(4.0), torch.ones(()), torch.eye(4)))
     K = T.apply_kernel(X, X, cfg=T.KernelConfig("rbf"))
     torch.testing.assert_close(K, T.apply_kernel(torch.eye(4), torch.eye(4),
                                                  cfg=T.KernelConfig("rbf")))

@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from repro.kernels import risk_eval
+from repro_torch import sparse
 from repro_torch.kernels import hinge_score, ops, ref
 
 
@@ -122,10 +123,16 @@ def test_routes_count_no_launch_on_cpu():
     ops.gram(X, X, kind="rbf")
     ops.hinge_scores(X.to(torch.bfloat16), torch.ones((2, 8)),
                      torch.zeros(2), torch.ones(4), torch.ones(4))
+    Xs = sparse.from_dense(X, 3)
+    ops.hinge_scores(Xs, torch.ones((2, 8)), torch.zeros(2), torch.ones(4),
+                     torch.ones(4))
+    ops.cd_solve(Xs[None], Xs[:0], torch.ones((1, 4)), torch.ones((1, 4)),
+                 C=1.0, tol=1e-3, max_epochs=2)
     assert set(ops.ROUTE_LAUNCHES) == {
         "gram/tensor_core", "gram/simt", "hinge_scores/tensor_core",
         "hinge_scores/simt", "flash_decode/tensor_core", "flash_decode/simt",
         "cd_solve/cluster", "cd_solve/single", "cd_solve_gram/cluster",
-        "cd_solve_gram/single", "sparse_gram/gram", "sparse_gram/scores"}
+        "cd_solve_gram/single", "sparse_gram/gram", "sparse_gram/scores",
+        "cd_solve/sparse", "hinge_scores/sparse"}
     assert not any(ops.ROUTE_LAUNCHES.values())
     assert not any(ops.LAUNCHES.values())
