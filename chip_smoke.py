@@ -2,8 +2,10 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py                 # the whole run, one card
-    python3 chip_smoke.py --variants      # build variants of flash_decode
-                                          # and cd_solve, timed; no result
+    python3 chip_smoke.py --variants [flash_decode] [cd_solve]
+                          [cd_solve_sparse]   # build variants, timed (all
+                                              # three when none is named);
+                                              # no result
 
 Phases, one line or block each; any failure exits non-zero:
 
@@ -28,7 +30,12 @@ Phases, one line or block each; any failure exits non-zero:
    ``hinge_scores/sparse`` (blocked-CSR rows on the linear path) in f32
    and bf16 values, ``nnz_cap`` 1, 7, 32, 256 and 300, padding slots
    beside a real column 0, masked rows, dead SV slots, S = 0, per = 1,
-   a job that stops first, L 1, 8 and 9, W from 1e-30 to 1e3;
+   a job that stops first, heavy overlap (every row on the same
+   columns; the golden text rows), L 1, 8 and 9, W from 1e-30 to 1e3 and
+   W as the sparse solve returns it; each bit for bit against its
+   emulation (``svm_step.emulate_sparse_lookahead``,
+   ``hinge_score.emulate_sparse``, run on the CPU); a column id ≥ d
+   refused before any launch, fresh or changed in place after a check;
 3. the paper pipeline (corpus → TF×IDF → 2-class MapReduce SVM and OvR
    3-class) at the golden test's settings, with accuracy floors, on the
    linear path; then on ``vectorize_sparse(…, nnz_cap=32)`` rows through
@@ -67,12 +74,15 @@ Phases, one line or block each; any failure exits non-zero:
    svm-tfidf shapes as blocked-CSR rows with bf16 values on the linear
    path, every solve on ``cd_solve/sparse`` and every eq. 7 on
    ``hinge_scores/sparse`` (counted), the eq. 7 pick above the majority
-   share; one epoch of ``cd_solve/sparse`` and ``hinge_scores/sparse``
-   checked and timed against plain, the bound and (for the hinge)
-   ``torch.sparse.mm``; one round profiled; last, the rows densified
-   (17.2 GB) and fit on the dense linear path, which must pick the same
-   reducers with R_emp per round within 1e-4 (the paths differ only in
-   Q_ii, whose Σ v² the reference rounds to bf16 on blocked-CSR rows);
+   share; one epoch of ``cd_solve/sparse`` (and its prep kernel alone)
+   and ``hinge_scores/sparse`` (W as the solve returns it, and as rows
+   the wrapper packs first) checked and timed against plain, the bound and (for the hinge)
+   ``torch.sparse.mm``; one round under
+   ``torch.cuda.set_sync_debug_mode("error")`` and one profiled; last,
+   the rows densified (17.2 GB) and fit on the dense linear path, which
+   must pick the same reducers and keep the same SV ids, with R_emp per
+   round within 1e-4 (the paths differ only in Q_ii, whose Σ v² the
+   reference rounds to bf16 on blocked-CSR rows);
 8. slice 3, the LM serve path: ``flash_decode`` against its plain
    version at small shapes (f32 and bf16 — the SIMT and the
    tensor-core route, each route's launches counted —, valid_len 0, 1,
@@ -1354,14 +1364,36 @@ def _sparse_rows(torch, sp, gen, n, d, cap, dtype):
     return sp.from_dense(X, cap).to(dtype=dtype)
 
 
-def _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap, dtype):
+def _same_ids_rows(torch, sp, gen, n, d, cap, dtype):
+    """Heavy overlap: every row holds the same 3/4·cap columns (each row
+    in its own slot order, a real column 0 among them) and padding."""
+    dev = torch.device(DEV)
+    k = max(1, 3 * cap // 4)
+    cols = torch.randperm(d - 1, generator=gen, device=dev)[:k - 1] + 1
+    cols = torch.cat([torch.zeros(1, dtype=cols.dtype, device=dev), cols])
+    order = torch.rand((n, k), generator=gen, device=dev).argsort(1)
+    idx = torch.zeros((n, cap), dtype=torch.int32, device=dev)
+    val = torch.zeros((n, cap), dtype=torch.float32, device=dev)
+    idx[:, :k] = cols[order].int()
+    val[:, :k] = torch.rand((n, k), generator=gen, device=dev) + 0.05
+    val = val / val.norm(dim=1, keepdim=True)
+    return sp.SparseRows(idx, val.to(dtype), d)
+
+
+def _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap, dtype,
+              rows=None, tag=None):
     """cd_solve/sparse against its plain version on L jobs of per home
     rows and S shared rows (every tenth shared row dead: value 0, ids
     kept, as SV_global's dead slots), masked rows, and job 0 all masked,
-    so that it stops after one epoch while the others go on. → whether
-    the jobs ran different epoch counts."""
+    so that it stops after one epoch while the others go on; rows from
+    :func:`_sparse_rows` unless given (L · per + S of them). Then, over
+    3 epochs, the kernel against ``svm_step.emulate_sparse_lookahead``
+    (its look-ahead, corrections and sum order, run on the CPU) bit for
+    bit. → whether the jobs ran different epoch counts."""
+    from repro_torch.kernels import svm_step
     dev = torch.device(DEV)
-    rows = _sparse_rows(torch, sp, gen, L * per + S, d, cap, dtype)
+    if rows is None:
+        rows = _sparse_rows(torch, sp, gen, L * per + S, d, cap, dtype)
     xh = rows[:L * per].reshape(L, per, d)
     live = (torch.arange(S, device=dev) % 10 != 3).float()[:, None]
     xs = rows[L * per:] * live
@@ -1372,10 +1404,10 @@ def _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap, dtype):
              ).float()
     m_aug[0] = 0.0
     staggered = False
-    tag = (f"{'bf16' if dtype == torch.bfloat16 else 'f32'} L={L} per={per} "
-           f"S={S} d={d} nnz_cap={cap}")
+    tag = (f"{tag or ''}{'bf16' if dtype == torch.bfloat16 else 'f32'} "
+           f"L={L} per={per} S={S} d={d} nnz_cap={cap}")
+    args = (xh, xs, y_aug, m_aug)
     for epochs, tol in ((1, 1e-5), (20, 1e-4)):
-        args = (xh, xs, y_aug, m_aug)
         kw = dict(C=1.0, tol=1e-3, max_epochs=epochs)
         ops.reset_launches()
         k = ops.cd_solve(*args, **kw)
@@ -1395,6 +1427,16 @@ def _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap, dtype):
         check(all(torch.equal(a, b) for a, b in zip(k, again)),
               f"cd_solve/sparse {tag}: rerun not bit-identical")
         staggered |= len(set(k[3].tolist())) > 1
+    kw = dict(C=1.0, tol=1e-3, max_epochs=3)
+    k = ops.cd_solve(*args, **kw)
+    cpu = [a.cpu() if torch.is_tensor(a) else a.to(device="cpu")
+           for a in args]
+    e = svm_step.emulate_sparse_lookahead(*cpu, **kw)
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(k, e))
+    say(f"[kernels] cd_solve/sparse {tag} epochs≤3 vs its emulation "
+        f"(look-ahead {svm_step.sparse_lookahead(per + S)}): bit-identical "
+        f"{same}")
+    check(same, f"cd_solve/sparse {tag} differs from its emulation")
     return staggered
 
 
@@ -1422,9 +1464,24 @@ def phase_sparse_linear_small(torch, ops, ref, sp):
         staggered |= _cds_case(torch, ops, ref, sp, gen, L, per, S, d, cap,
                                dtype)
     check(staggered, "no job stopped before the others")
+    # heavy overlap: every row on the same columns; the golden text rows
+    for L, per, S, cap, dtype in ((3, 60, 20, 32, torch.float32),
+                                  (2, 40, 10, 256, torch.bfloat16)):
+        rows = _same_ids_rows(torch, sp, gen, L * per + S, 4096, cap, dtype)
+        _cds_case(torch, ops, ref, sp, gen, L, per, S, 4096, cap, dtype,
+                  rows=rows, tag="same ids on every row, ")
+    from repro_torch import text
+    corpus = text.generate(text.CorpusConfig(num_messages=1024,
+                                             classes=(-1, 1), seed=0))
+    rows, _ = text.fit_transform(
+        text.vectorize_sparse(corpus.texts, 1024, nnz_cap=32), device=DEV)
+    _cds_case(torch, ops, ref, sp, gen, 8, 96, 128, 1024, 32, torch.float32,
+              rows=rows[:8 * 96 + 128], tag="golden text rows, ")
+    _sparse_id_check(torch, ops, sp, gen)
 
+    from repro_torch.kernels import hinge_score
     ops.reset_launches()
-    worst, cases = 0.0, 0
+    worst, cases, emu_ok = 0.0, 0, True
     d = 4096
     for dtype in (torch.float32, torch.bfloat16):
         for n in (1, 65, 1000):
@@ -1450,15 +1507,77 @@ def phase_sparse_linear_small(torch, ops, ref, sp):
                     check(torch.equal(ops.hinge_scores(X, W, b, y, m)[0],
                                       loss), "hinge_scores/sparse rerun not "
                           f"bit-identical (n={n} cap={cap} L={L})")
+                    # W as cd_solve/sparse returns it: read packed, the
+                    # same arithmetic; and the emulation, on the CPU
+                    Wp = torch.zeros((d, -(-L // 8) * 8), device=dev)
+                    Wp[:, :L] = W.T
+                    check(torch.equal(ops.hinge_scores(X, Wp[:, :L].T, b, y,
+                                                       m)[0], loss),
+                          f"hinge_scores/sparse n={n} cap={cap} L={L}: "
+                          "packed W differs")
+                    Xc = X.to(device="cpu")
+                    emu = [hinge_score.emulate_sparse(
+                        Xc, W[l0:l0 + 8].cpu(), b[l0:l0 + 8].cpu(), y.cpu(),
+                        m.cpu()) for l0 in range(0, L, 8)]
+                    emu_ok &= torch.equal(loss.cpu(), torch.cat(
+                        [e[0] for e in emu])) and torch.equal(
+                        cnt.cpu(), emu[-1][1])
                     cases += 1
     routes = _routes(ops, "hinge_scores")
     say(f"[kernels] hinge_scores/sparse: max rel Δ = {worst:.2e} over "
-        f"{cases} cases (rtol 1e-4); counts equal, reruns bit-identical; "
+        f"{cases} cases (rtol 1e-4); counts equal, reruns bit-identical, "
+        f"W read packed equal; bit-identical to its emulation {emu_ok}; "
         f"routes {routes}")
     check(worst <= 1e-4, f"hinge_scores/sparse differs from plain by "
           f"{worst:.2e}")
+    check(emu_ok, "hinge_scores/sparse differs from its emulation")
     check(routes["sparse"] == ops.LAUNCHES["hinge_scores"] > 0,
           "hinge_scores on SparseRows did not take the sparse route")
+
+
+def _sparse_id_check(torch, ops, sp, gen):
+    """A column id ≥ d raises ValueError on the card before any launch, in
+    cd_solve and hinge_scores, for fresh rows and for checked rows whose
+    ids were then changed in place; checked rows pass without a device
+    round trip."""
+    dev = torch.device(DEV)
+    L, per, S, d, cap = 2, 30, 8, 4096, 32
+    rows = _sparse_rows(torch, sp, gen, L * per + S, d, cap, torch.float32)
+    y = torch.ones((L, per + S), device=dev)
+    kw = dict(C=1.0, tol=1e-3, max_epochs=1)
+    W = torch.zeros((1, d), device=dev)
+    b = torch.zeros((1,), device=dev)
+
+    def calls(x):
+        xh, xs = x[:L * per].reshape(L, per, d), x[L * per:]
+        return (lambda: ops.cd_solve(xh, xs, y, y, **kw),
+                lambda: ops.hinge_scores(x[:per], W, b, y[0, :per],
+                                         y[0, :per]))
+
+    def refused(call) -> bool:
+        ops.reset_launches()
+        try:
+            call()
+        except ValueError:
+            return sum(ops.LAUNCHES.values()) == 0
+        return False
+
+    bad = sp.SparseRows(rows.indices.clone(), rows.values.clone(), d)
+    bad.indices[1, 0] = d
+    fresh = all(refused(c) for c in calls(bad))
+    ops.check_column_ids(rows)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for c in calls(rows):
+            c()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows.indices[0, 0] = d + 5
+    changed = all(refused(c) for c in calls(rows))
+    say(f"[kernels] column id ≥ d: refused before any launch for fresh rows "
+        f"{fresh} and for checked rows changed in place {changed}; checked "
+        "rows ran under set_sync_debug_mode('error')")
+    check(fresh and changed, "an out-of-range column id was not refused")
 
 
 def _linear_route_counts(ops):
@@ -1628,6 +1747,8 @@ def time_cd_solve_sparse(torch, T, ops, ref, Xp, yp, maskp, cfg):
           "cd_solve/sparse differs from plain at full width")
     check(same, "cd_solve/sparse rerun not bit-identical at full width")
     ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **kw), 5)
+    prep_ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **dict(
+        kw, max_epochs=0)), 5)
     kw_fit = dict(kw, max_epochs=cfg.svm.max_epochs)
     launch_ms = cuda_ms(torch, lambda: ops.cd_solve(*args, **kw_fit), 2)
     epochs = ops.cd_solve(*args, **kw_fit)[3]
@@ -1643,11 +1764,14 @@ def time_cd_solve_sparse(torch, T, ops, ref, Xp, yp, maskp, cfg):
     slot_bytes = (L * per + cap) * Xp.nnz_cap * (4 + Xp.values.element_size())
     nbytes = slot_bytes + 2 * L * n * 4 + L * n * 4 + L * d * 4 + 3 * L * 4
     bms, by = bound_ms(nbytes, flops)
-    say(f"[kernels] cd_solve/sparse: kernel {ms:.3f} ms an epoch "
-        f"({1e3 * ms / n:.3f} µs a row step), one launch of "
-        f"{epochs.tolist()} epochs {launch_ms:.3f} ms; plain {plain:.3f} ms "
-        f"an epoch; bound {bms:.4f} ms ({by}); {int(moved.sum())} of {L * n} "
-        "rows moved α")
+    step_us = 1e3 * (ms - prep_ms) / n
+    say(f"[kernels] cd_solve/sparse: {ms:.3f} ms a one-epoch call through "
+        f"the wrapper, of which the prep kernel (row blocks, Q, look-ahead "
+        f"table) and the wrapper {prep_ms:.3f} ms (a 0-epoch call); "
+        f"{step_us:.3f} µs a row step; one launch of {epochs.tolist()} "
+        f"epochs {launch_ms:.3f} ms; plain {plain:.3f} ms an epoch; bound "
+        f"{bms:.4f} ms ({by}), chain at the no-gather floor: see "
+        f"--variants; {int(moved.sum())} of {L * n} rows moved α")
     return dict(name="cd_solve/sparse", route="cuda", source=CDS_SRC,
                 replaces=CDS_TPU, max_abs_err=err, ms=ms, plain_ms=plain,
                 bound_ms=bms, bound_by=by, library_ms=None)
@@ -1682,6 +1806,12 @@ def time_hinge_sparse(torch, ops, ref, X, y, m, W, b):
 
     lib_rel = float(((library() - loss_p).abs()
                      / loss_p.abs().clamp(min=1e-30)).max())
+    # W as the main path hands it over: cd_solve/sparse's (d, 8) array
+    Wp = torch.zeros((d, 8), device=DEV)
+    Wp[:, :L] = W.T
+    Wv = Wp[:, :L].T
+    check(torch.equal(ops.hinge_scores(X, Wv, b, y, m)[0], loss_k),
+          "hinge_scores/sparse: packed W differs")
     say(f"[kernels] hinge_scores/sparse n={n} d={d} nnz_cap {cap} L={L} "
         f"{str(X.dtype).split('.')[-1]} values: max rel Δ {rel:.2e} (rtol "
         f"1e-4), count {float(cnt_k)} vs {float(cnt_p)}, rerun "
@@ -1689,16 +1819,19 @@ def time_hinge_sparse(torch, ops, ref, X, y, m, W, b):
     check(rel <= 1e-4 and float(cnt_k) == float(cnt_p),
           "hinge_scores/sparse differs from plain")
     check(same, "hinge_scores/sparse rerun not bit-identical")
-    ms = cuda_ms(torch, lambda: ops.hinge_scores(X, W, b, y, m), 20)
+    ms = cuda_ms(torch, lambda: ops.hinge_scores(X, Wv, b, y, m), 20)
+    rows_ms = cuda_ms(torch, lambda: ops.hinge_scores(X, W, b, y, m), 20)
     plain = cuda_ms(torch, lambda: ref.hinge_scores_ref(X, W, b, y, m), 2)
     lib = cuda_ms(torch, library, 20)
     live = int((X.values != 0).sum())
     nbytes = n * cap * (4 + X.values.element_size()) + L * d * 4 + L * 4 \
         + 2 * n * 4 + L * 4 + 4
     bms, by = bound_ms(nbytes, 2.0 * live * L)
-    say(f"[kernels] hinge_scores/sparse: kernel {ms:.3f} ms, plain "
-        f"{plain:.3f} ms, library (torch.sparse.mm of CSR rows by Wᵀ + "
-        f"hinge) {lib:.3f} ms, bound {bms:.4f} ms ({by})")
+    say(f"[kernels] hinge_scores/sparse: {ms:.3f} ms a call through the "
+        f"wrapper with W as cd_solve/sparse returns it (read packed), "
+        f"{rows_ms:.3f} ms with W as (L, d) rows (packed by the wrapper); "
+        f"plain {plain:.3f} ms, library (torch.sparse.mm of CSR rows by Wᵀ "
+        f"+ hinge) {lib:.3f} ms, bound {bms:.4f} ms ({by})")
     return dict(name="hinge_scores/sparse", route="cuda", source=HINGE_SRC,
                 replaces=HS_SPARSE_TPU, max_abs_err=err, ms=ms,
                 plain_ms=plain, bound_ms=bms, bound_by=by, library_ms=lib)
@@ -1708,11 +1841,12 @@ def phase_full_sparse(torch, T, ops, ref, sp):
     """Slice 7's main path at svm-tfidf widths: blocked-CSR rows
     (``nnz_cap`` = row nnz = 256, bf16 values, the config's dtype) on
     the linear path, no cut; the two kernels timed at its shapes; one
-    round profiled; last, the same rows densified and fit on the dense
-    linear path, which must pick the same reducers with R_emp per round
-    within 1e-4. The two paths differ as the reference's do: blocked-CSR
-    bf16 rows round Σ v² of Q_ii to bf16 (``svm.py:165``), dense rows
-    keep it in float32."""
+    round under ``set_sync_debug_mode("error")`` and one profiled; last,
+    the same rows densified and fit on the dense linear path, which must
+    pick the same reducers and keep the same SV ids, with R_emp per
+    round within 1e-4. The two paths differ as the reference's do:
+    blocked-CSR bf16 rows round Σ v² of Q_ii to bf16 (``svm.py:165``),
+    dense rows keep it in float32."""
     from repro_torch.configs import SVM_TFIDF
     from repro_torch.data.pipeline import svm_rows_sparse_device
     L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
@@ -1752,7 +1886,8 @@ def phase_full_sparse(torch, T, ops, ref, sp):
             f"round_ms={h['ms']:.1f}")
     say(f"[full-sparse] fit_mapreduce: {model.rounds} rounds in "
         f"{fit_ms:.1f} ms, launches {launches} (cd_solve = rounds + final "
-        f"fit, hinge_scores = rounds), routes {routes}")
+        f"fit, one count a call of its prep and solve kernels; hinge_scores "
+        f"= rounds), routes {routes}")
     check(routes == {"cd_solve/sparse": model.rounds + 1,
                      "hinge_scores/sparse": model.rounds}
           and launches["cd_solve"] == model.rounds + 1
@@ -1769,6 +1904,22 @@ def phase_full_sparse(torch, T, ops, ref, sp):
         f"model {acc:.4f}, majority class {major:.4f}")
     check(float(model.risk) < 1.0, f"selected risk {float(model.risk)}")
     check(pick > major, "selected hypothesis no better than the majority")
+    # one round from the converged SV_global with no host sync in it: the
+    # rows' ids checked once before it, then every check passes on the mark
+    ops.check_column_ids(Xp)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = T.mapreduce_round(Xp, yp, maskp, model.sv, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    risks_sync = out.risks.cpu()
+    say(f"[full-sparse] one mapreduce_round under set_sync_debug_mode"
+        f"('error'): no host sync, enqueued in {enqueue_ms:.1f} ms, risks "
+        f"finite {bool(torch.isfinite(risks_sync).all())}")
+    check(bool(torch.isfinite(risks_sync).all()), "round risks not finite")
     profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
     cds["launches"] = launches["cd_solve"]
     hs["launches"] = launches["hinge_scores"]
@@ -1800,6 +1951,7 @@ def phase_full_sparse(torch, T, ops, ref, sp):
         f"{[h['reducer'] for h in hist]}), max |ΔR_emp| per round "
         f"{diff:.2e} (atol 1e-4), SV ids shared {len(live_s & live_d)} of "
         f"{len(live_s)} / {len(live_d)} (Jaccard {overlap:.4f})")
+    check(live_s == live_d, "the sparse and the dense fit keep other SV ids")
     del Xd, dm
     torch.cuda.empty_cache()
     return [cds, hs]
@@ -2183,9 +2335,9 @@ def phase_serve_full(torch, ops, ref, cfg, batch, cache_len, steps):
     return row
 
 
-# --variants: build variants of the two kernels redesigned last, each a
-# copy of the shipped source with (old, new) text replacements, timed at
-# the main path's shapes through the shipped launchers.
+# --variants: build variants of flash_decode, cd_solve and cd_solve/sparse,
+# each a copy of the shipped source with (old, new) text replacements,
+# timed at the main path's shapes through the shipped launchers.
 def _fd_variant(chunk, warps, stages, l2_hint=True):
     edits = [(f"    FD_TC_CASE({hd})\n", "")      # hd 64 only: a quick build
              for hd in (16, 32, 48, 80, 96, 112, 128)]
@@ -2206,6 +2358,71 @@ FD_VARIANTS["chunk 4096, warps 8, stages 4, combine not a dependent"] = \
         "programmaticStreamSerializationAllowed = 1;",
         "programmaticStreamSerializationAllowed = 0;")]
 CD_VARIANTS = {st: [("kStages = 4;", f"kStages = {st};")] for st in (2, 3, 4)}
+# cd_solve/sparse: the look-ahead depth k (gathers issued k row steps
+# early), the producer's slack (rows staged k + slack steps early) and the
+# prep kernel's warps a CTA; then a step with one part taken out, for
+# timing only (each computes another function, so Δ, and with it the
+# stores, can differ): no gather of w (the chain's floor: every w read
+# is 0), no α gather (α read as 0), no stores of w, no corrections
+CDS_VARIANTS = {f"look-ahead {k}": [("kAhead = 2;", f"kAhead = {k};")]
+                for k in (1, 2, 3, 4, 6)}
+CDS_VARIANTS.update({
+    f"staging slack {st}": [("kStageAhead = 6;", f"kStageAhead = {st};")]
+    for st in (2, 10)})
+CDS_VARIANTS.update({
+    f"prep: {pw} warps a CTA": [("kPrepWarps = 8;", f"kPrepWarps = {pw};")]
+    for pw in (4, 16)})
+CDS_VARIANTS.update({
+    "no gather (chain floor)": [
+        ("              __int_as_float(e.y) != 0.f);\n",
+         "              false);\n")],
+    "no α gather (α read as 0)": [("cp4(agath + ring, aj + row, true);",
+                                   "cp4(agath + ring, aj + row, false);")],
+    "no stores of w": [("        if (delta != 0.f) {\n",
+                        "        if (false) {\n")],
+    "no corrections": [
+        ("      x[j] = back != 0 && back <= h ? fixed : x[j];\n", "")],
+})
+# timing only: no scattered global access in the step (no gather issued,
+# so the reads are stale shared memory; no stores of w)
+_CDS_NO_SCATTER = [
+    ("        cp16z(gathered + ring * kSpt * T + s, wq + (size_t)e.x * ldw,\n"
+     "              __int_as_float(e.y) != 0.f);\n", "        ;\n"),
+    ("        if (delta != 0.f) {\n", "        if (false) {\n")]
+# clock64() around the step's parts, averaged over the steps and written
+# over α[0:8] of each job: thread 0 (a consumer) and the producer's
+# copier, each [barrier wait, update, next step's part before its
+# barrier, stores + gathers (copier: staging)]
+_CDS_CYCLES = [
+    ("  const bool run = n > 0 && max_epochs > 0;\n",
+     "  const bool run = n > 0 && max_epochs > 0;\n"
+     "  long long cyc[4] = {0, 0, 0, 0};\n"),
+    ("    for (int i = 0; i < n; ++i, ++g) {\n      __syncthreads();\n",
+     "    for (int i = 0; i < n; ++i, ++g) {\n"
+     "      const long long c0 = clock64();\n      __syncthreads();\n"
+     "      const long long c1 = clock64();\n"),
+    ("      coef_back[1] = coef;\n",
+     "      coef_back[1] = coef;\n      const long long c2 = clock64();\n"
+     "      long long c3 = c2;\n"),
+    ("        pre(g + 1, st_n, rg_n, k == 1 ? 0 : k - 2);\n",
+     "        pre(g + 1, st_n, rg_n, k == 1 ? 0 : k - 2);\n"
+     "        c3 = clock64();\n"),
+    ("      row_s = ring_next(row_s, n);\n",
+     "      const long long c4 = clock64();\n      cyc[0] += c1 - c0;\n"
+     "      cyc[1] += c2 - c1;\n      cyc[2] += c3 - c2;\n"
+     "      cyc[3] += c4 - c3;\n      row_s = ring_next(row_s, n);\n"),
+    ("  if (tid == 0) {\n    b_out[job] = b;",
+     "  if (tid == 0 || copier)\n    for (int q = 0; q < 4; ++q)\n"
+     "      aj[q + (copier ? 4 : 0)] = (float)cyc[q] / (float)g;\n"
+     "  if (tid == 0) {\n    b_out[job] = b;")]
+CDS_VARIANTS.update({
+    f"{w} consumer warps": [("kMaxWarps = 8;", f"kMaxWarps = {w};"),
+                            ("kMaxSpt = 2;", f"kMaxSpt = {512 // (32 * w)};")]
+    for w in (2, 4)})
+CDS_VARIANTS["no gathers and no stores (timing only)"] = _CDS_NO_SCATTER
+CDS_VARIANTS["cycle breakdown (α overwritten)"] = _CDS_CYCLES
+CDS_VARIANTS["cycle breakdown, no gathers and no stores"] = \
+    _CDS_NO_SCATTER + _CDS_CYCLES
 
 
 def _variant_libs(build, name, variants):
@@ -2238,18 +2455,21 @@ def _variant_libs(build, name, variants):
     return libs
 
 
-def phase_variants(torch, build, ops, ref):
+def phase_variants(torch, build, ops, ref, chosen):
     """flash_decode's tensor-core route at one layer's full shape (B 32,
     H 32, KV 4, S = valid_len = 32768, hd 64 bf16) per variant, checked
     against plain and timed in turns with scaled_dot_product_attention;
     one epoch of cd_solve's round 0 at full width on clusters of 8 and
-    16 per ring depth, its hinge risk against the shipped build's."""
+    16 per ring depth, its hinge risk against the shipped build's; each
+    when ``chosen`` names it."""
     import importlib
     from repro_torch.data.pipeline import svm_rows_device
     fd = importlib.import_module("repro_torch.kernels.decode_attention")
     dev = torch.device(DEV)
-    fd_libs = _variant_libs(build, "flash_decode", FD_VARIANTS)
-    cd_libs = _variant_libs(build, "cd_solve", CD_VARIANTS)
+    fd_libs = _variant_libs(build, "flash_decode", FD_VARIANTS) \
+        if "flash_decode" in chosen else {}
+    cd_libs = _variant_libs(build, "cd_solve", CD_VARIANTS) \
+        if "cd_solve" in chosen else {}
     shipped, stages0 = dict(build._LIBS), ops.CLUSTER_STAGES
     gen = torch.Generator(device=dev).manual_seed(0)
     B, H, KV, S, hd = 32, 32, 4, 32768, 64
@@ -2296,7 +2516,7 @@ def phase_variants(torch, build, ops, ref):
             return ref.hinge_scores_ref(X, out[1], out[2], y,
                                         torch.ones_like(y))[0] / len(y)
 
-        for c in (8, 16):
+        for c in (8, 16) if cd_libs else ():
             base = risk(_cd_run(ops, args, kw, c))
             for stages, lib in cd_libs.items():
                 build._LIBS["cd_solve"] = lib
@@ -2314,13 +2534,90 @@ def phase_variants(torch, build, ops, ref):
         ops.CLUSTER_STAGES = stages0
 
 
+def phase_sparse_variants(torch, T, build, ops, ref):
+    """One epoch of cd_solve/sparse's round 0 at full width ([full-sparse]
+    rows: 8 jobs × (8192 + 2048) slots of nnz_cap 256, bf16) per
+    CDS_VARIANTS entry through the shipped launcher, in turns with the
+    shipped build; each variant's hinge risk against the shipped build's
+    (the no-gather floor excepted: it computes another function)."""
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import svm_rows_sparse_device
+    from repro_torch.kernels import svm_step
+    libs = _variant_libs(build, "cd_solve_sparse", CDS_VARIANTS)
+    svm_step._sparse_lib()                       # the shipped build, loaded
+    shipped = dict(build._LIBS)
+    ahead0 = svm_step.SPARSE_AHEAD, svm_step.SPARSE_MAX_WARPS
+    L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
+    cap, S = SVM_TFIDF.nnz_cap, SVM_TFIDF.sv_capacity
+    X, y = svm_rows_sparse_device(L * per, d, cap, seed=0, nnz=cap,
+                                  dtype=torch.bfloat16, device=DEV)
+    xs = T.init_sv_buffer(S, d, X.dtype, DEV, nnz_cap=cap).x   # round 0
+    y = y.float()
+    y_aug = torch.cat([y.reshape(L, per), torch.zeros((L, S), device=DEV)],
+                      1).contiguous()
+    m_aug = torch.cat([torch.ones((L, per), device=DEV),
+                       torch.zeros((L, S), device=DEV)], 1).contiguous()
+    args = (X.reshape(L, per, d), xs, y_aug, m_aug)
+    kw = dict(C=1.0, tol=1e-3, max_epochs=1)
+    n = per + S
+
+    def risk(out):
+        return ref.hinge_scores_ref(X, out[1], out[2], y,
+                                    torch.ones_like(y))[0] / len(y)
+
+    def run():
+        return ops.cd_solve(*args, **kw)
+
+    try:
+        base = risk(run())
+        prep = cuda_ms(torch, lambda: ops.cd_solve(*args, **dict(
+            kw, max_epochs=0)), 5)
+        for key, lib in libs.items():
+            build._LIBS["cd_solve_sparse"] = lib
+            svm_step.SPARSE_AHEAD = lib.cd_solve_sparse_ahead()
+            svm_step.SPARSE_MAX_WARPS = lib.cd_solve_sparse_max_warps()
+            out = run()
+            err = float((risk(out) - base).abs().max())
+            if "cycle" in key:
+                cyc = [round(c, 1) for c in out[0][0, :8].tolist()]
+                say(f"[variants] cd_solve/sparse {key}, cycles a step, job 0:"
+                    f" thread 0 {cyc[:4]}, copier {cyc[4:]}")
+            prep_v = cuda_ms(torch, lambda: ops.cd_solve(*args, **dict(
+                kw, max_epochs=0)), 3)
+            if key.startswith(("look-ahead", "prep:", "staging")) or \
+                    key.endswith("consumer warps"):
+                check(err <= 1e-4, f"cd_solve/sparse variant {key}: risk "
+                      f"differs by {err:.2e}")
+            t = []
+            for which in (lib, shipped["cd_solve_sparse"]) * 2:
+                build._LIBS["cd_solve_sparse"] = which
+                svm_step.SPARSE_AHEAD = which.cd_solve_sparse_ahead()
+                svm_step.SPARSE_MAX_WARPS = which.cd_solve_sparse_max_warps()
+                t.append(cuda_ms(torch, run, 3))
+            build._LIBS["cd_solve_sparse"] = shipped["cd_solve_sparse"]
+            svm_step.SPARSE_AHEAD, svm_step.SPARSE_MAX_WARPS = ahead0
+            ms = (t[0] + t[2]) / 2
+            say(f"[variants] cd_solve/sparse {key}: {ms:.3f} ms a one-epoch "
+                f"call, {1e3 * (ms - prep) / n:.3f} µs a row step (shipped "
+                f"{(t[1] + t[3]) / 2:.3f} ms in turns; the 0-epoch call "
+                f"{prep_v:.3f} ms, shipped {prep:.3f}), risk |Δ| {err:.2e}")
+    finally:
+        build._LIBS.clear()
+        build._LIBS.update(shipped)
+        svm_step.SPARSE_AHEAD, svm_step.SPARSE_MAX_WARPS = ahead0
+
+
+VARIANT_PHASES = ("flash_decode", "cd_solve", "cd_solve_sparse")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--quick", action="store_true",
                     help="stop after the pipeline phase; print no result")
-    ap.add_argument("--variants", action="store_true",
-                    help="time build variants of flash_decode and cd_solve "
-                    "after the kernel build; print no result")
+    ap.add_argument("--variants", nargs="*", choices=VARIANT_PHASES,
+                    help="time build variants of these kernels (all three "
+                    "when none is named) after the kernel build; print no "
+                    "result")
     args = ap.parse_args()
 
     import torch
@@ -2334,8 +2631,12 @@ def main() -> int:
         return 2
     t_all = time.perf_counter()
     phase_environment(torch, build)
-    if args.variants:
-        phase_variants(torch, build, ops, ref)
+    if args.variants is not None:
+        chosen = args.variants or VARIANT_PHASES
+        if {"flash_decode", "cd_solve"} & set(chosen):
+            phase_variants(torch, build, ops, ref, chosen)
+        if "cd_solve_sparse" in chosen:
+            phase_sparse_variants(torch, T, build, ops, ref)
         say(f"[variants] done in {time.perf_counter() - t_all:.1f} s; "
             f"{nvidia_smi()}; no result")
         return 0

@@ -119,16 +119,17 @@ class MRSVMConfig:
 
 
 def init_sv_buffer(capacity: int, d: int, dtype=torch.float32,
-                   device: DeviceLike = "cpu",
+                   device: DeviceLike = None,
                    nnz_cap: Optional[int] = None) -> SVBuffer:
-    """SV_global^0 = ∅ (empty, mask-padded buffer). With ``nnz_cap``
-    the feature rows are blocked-CSR ``SparseRows`` (index 0 / value 0
-    padding ≡ the empty row)."""
-    dev = torch.device(device)
+    """SV_global^0 = ∅ (empty, mask-padded buffer) on ``device``
+    (default ``cuda``, as every entry point). With ``nnz_cap`` the
+    feature rows are blocked-CSR ``SparseRows`` (index 0 / value 0
+    padding ≡ the empty row; ids in range by construction)."""
+    dev = resolve_device(device)
     zeros = lambda *s: torch.zeros(s, dtype=dtype, device=dev)  # noqa: E731
     x = zeros(capacity, d) if nnz_cap is None else sparse_rows.SparseRows(
         torch.zeros((capacity, nnz_cap), dtype=torch.int32, device=dev),
-        zeros(capacity, nnz_cap), d)
+        zeros(capacity, nnz_cap), d, ids_in_range=True)
     return SVBuffer(x=x, y=zeros(capacity),
                     alpha=zeros(capacity),
                     ids=torch.full((capacity,), -1, dtype=torch.int32,
@@ -265,6 +266,8 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
     """
     dev = resolve_device(device, like=X)
     X = as_tensor(X, dev)
+    if sparse_rows.is_sparse(X):
+        ops.check_column_ids(X)      # once, so that no round waits on it
     n, d = X.shape
     L = num_partitions
     per = -(-n // L)

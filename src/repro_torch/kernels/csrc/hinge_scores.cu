@@ -49,15 +49,26 @@
 // x_i·w_l = Σ_s v_s W[l, id_s] over the row's nnz_cap slots (values f32
 // or bf16, computed in f32). Bound: the rows' slots read once (65536
 // rows × 256 slots × 6 bytes in bf16 = 100 MB) and W (L × d f32, 4 MB
-// at d = 131072, which stays in L2): 0.031 ms at 3.35 TB/s; the
-// gathers of W are random 32-byte reads from L2. W comes in as Wᵀ
-// padded to 8 hypotheses, (d, 8) f32, so that a slot's 8 weights are
-// one 32-byte sector, two 16-byte loads. One warp a row: lane k takes
-// the slots k, k + 32, ..., skips padding slots (value 0), and keeps 8
-// partial dots; the warp adds them with xor shuffles, and lane 0 adds
-// the bias, applies the hinge and the mask, and keeps the warp's
-// running sums. A CTA of 8 warps takes 64 rows and writes one partial,
-// warps added in order; hinge_reduce_kernel adds the CTAs' partials.
+// at d = 131072, which stays in L2): 0.031 ms at 3.35 TB/s. Each live
+// slot also gathers its column's 8 weights from L2, 32 bytes, which no
+// bound of HBM bytes counts. W comes packed, its hypotheses adjacent
+// and its columns 16-byte aligned (the cd_solve/sparse kernel's output,
+// a (d, 8k) array seen as (L, d); hinge_score.py packs any other W once
+// a call), so a column's 8 weights are one 32-byte sector read as two
+// 16-byte loads. One warp a row: lane l takes the slots c + 8l .. c + 8l + 7 of
+// each 256-slot chunk c, loaded as 16-byte vectors of ids and values
+// (scalar loads when nnz_cap % 8 ≠ 0), issues every gather of W for them
+// before its first product, and keeps 8 partial dots; value-0 slots are
+// skipped. A reduce-scatter over the warp (xor 16: 4 values, 8: 2, 4: 1,
+// then xor 2 and 1: 9 shuffles) leaves lane 4h with hypothesis h's dot,
+// the same pairwise tree as a full xor butterfly; it adds the bias,
+// applies the hinge and the mask and keeps its running sum. A CTA of 8
+// warps takes 64 rows and writes one partial (warps added in order);
+// the last CTA to finish (a counter the launcher zeroes, with fences)
+// adds the partials in a fixed order (lane j of warp h sums tiles j,
+// j + 32, ..., then xor shuffles), in the same launch. Products and
+// sums are rounded as written (no fma): hinge_score.emulate_sparse
+// repeats the arithmetic bit for bit, and reruns are bit-identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -212,33 +223,78 @@ bool aligned16(const void* p) {
 }
 
 // ---------------------------------------------------------------------------
-// Blocked-CSR rows: a warp a row, gathering Wᵀ at the row's ids.
+// Blocked-CSR rows: a warp a row, gathering W at the row's ids.
 namespace sp {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 8;
 constexpr int kTileRows = kWarps * kRowsPerWarp;  // 64 rows per CTA
+constexpr int kSlots = 8;                          // slots a lane a chunk
+constexpr int kChunkSlots = 32 * kSlots;           // 256
+constexpr int kCols = kMaxL + 1;                   // a partial: losses, count
 
-template <typename T>
+// Lane's 8 slots (ids, values as f32) at slot `base` of a row; slots at
+// or past cap read as padding (id 0, value 0).
+template <typename T, bool kVec>
+__device__ __forceinline__ void load_slots(const int* ri, const T* rv,
+                                           int base, int cap, int* id,
+                                           float* v) {
+  if (kVec) {
+    if (base < cap) {
+      const int4 i0 = *reinterpret_cast<const int4*>(ri + base);
+      const int4 i1 = *reinterpret_cast<const int4*>(ri + base + 4);
+      id[0] = i0.x; id[1] = i0.y; id[2] = i0.z; id[3] = i0.w;
+      id[4] = i1.x; id[5] = i1.y; id[6] = i1.z; id[7] = i1.w;
+      if (sizeof(T) == 2) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(rv + base);
+        const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
+#pragma unroll
+        for (int j = 0; j < kSlots; ++j) v[j] = __bfloat162float(e[j]);
+      } else {
+        const float4 a = *reinterpret_cast<const float4*>(rv + base);
+        const float4 c = *reinterpret_cast<const float4*>(rv + base + 4);
+        v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+        v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
+      }
+      return;
+    }
+#pragma unroll
+    for (int j = 0; j < kSlots; ++j) { id[j] = 0; v[j] = 0.f; }
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < kSlots; ++j) {
+    const int s = base + j;
+    id[j] = s < cap ? ri[s] : 0;
+    v[j] = s < cap ? to_float(rv[s]) : 0.f;
+  }
+}
+
+// x with lanes l and l ^ o exchanged: the lane keeps `keep`, sends
+// `send`, and gets back its partner's `send` for the value it keeps.
+__device__ __forceinline__ float swap_add(float keep, float send, int o) {
+  return __fadd_rn(keep, __shfl_xor_sync(0xffffffffu, send, o));
+}
+
+template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-hinge_sparse_partial_kernel(const int* __restrict__ idx,
-                            const T* __restrict__ val, int cap,
-                            const float* __restrict__ wt,
-                            const float* __restrict__ b,
-                            const float* __restrict__ y,
-                            const float* __restrict__ m, int n, int L,
-                            float* __restrict__ part_loss,
-                            float* __restrict__ part_cnt) {
-  __shared__ float s_loss[kWarps][kMaxL];
-  __shared__ float s_cnt[kWarps];
+hinge_sparse_kernel(const int* __restrict__ idx, const T* __restrict__ val,
+                    int cap, const float* __restrict__ W, long long sd,
+                    const float* __restrict__ bias,
+                    const float* __restrict__ y,
+                    const float* __restrict__ m, int n, int L,
+                    float* __restrict__ part, unsigned* counter,
+                    float* __restrict__ loss_out,
+                    float* __restrict__ cnt_out) {
+  __shared__ float s_part[kWarps][kCols];
+  __shared__ bool s_last;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  float loss[kMaxL];
-#pragma unroll
-  for (int l = 0; l < kMaxL; ++l) loss[l] = 0.f;
-  float cnt = 0.f;
+  const int mine = lane >> 2;           // the hypothesis this lane finishes
+  float loss = 0.f, cnt = 0.f;
+  const float bh = mine < L ? bias[mine] : 0.f;
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const int row = blockIdx.x * kTileRows + r * kWarps + warp;
     if (row >= n) break;
@@ -246,54 +302,82 @@ hinge_sparse_partial_kernel(const int* __restrict__ idx,
     const T* rv = val + (size_t)row * cap;
     float acc[kMaxL];
 #pragma unroll
-    for (int l = 0; l < kMaxL; ++l) acc[l] = 0.f;
-#pragma unroll 4
-    for (int k = lane; k < cap; k += 32) {
-      const float v = to_float(rv[k]);
-      if (v != 0.f) {
-        const float4* wr =
-            reinterpret_cast<const float4*>(wt + (size_t)ri[k] * kMaxL);
-        const float4 w0 = __ldg(wr);
-        const float4 w1 = __ldg(wr + 1);
-        acc[0] += v * w0.x;
-        acc[1] += v * w0.y;
-        acc[2] += v * w0.z;
-        acc[3] += v * w0.w;
-        acc[4] += v * w1.x;
-        acc[5] += v * w1.y;
-        acc[6] += v * w1.z;
-        acc[7] += v * w1.w;
+    for (int h = 0; h < kMaxL; ++h) acc[h] = 0.f;
+    for (int c = 0; c < cap; c += kChunkSlots) {
+      int id[kSlots];
+      float v[kSlots];
+      load_slots<T, kVec>(ri, rv, c + kSlots * lane, cap, id, v);
+      float wv[kSlots][kMaxL];
+#pragma unroll
+      for (int j = 0; j < kSlots; ++j) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), e = a;
+        if (v[j] != 0.f) {
+          const float4* p =
+              reinterpret_cast<const float4*>(W + (size_t)id[j] * sd);
+          a = __ldg(p);
+          e = __ldg(p + 1);
+        }
+        wv[j][0] = a.x; wv[j][1] = a.y; wv[j][2] = a.z; wv[j][3] = a.w;
+        wv[j][4] = e.x; wv[j][5] = e.y; wv[j][6] = e.z; wv[j][7] = e.w;
       }
-    }
 #pragma unroll
-    for (int l = 0; l < kMaxL; ++l) {
+      for (int j = 0; j < kSlots; ++j)
+        if (v[j] != 0.f) {
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[l] += __shfl_xor_sync(0xffffffffu, acc[l], o);
+          for (int h = 0; h < kMaxL; ++h)
+            acc[h] = __fadd_rn(acc[h], __fmul_rn(v[j], wv[j][h]));
+        }
     }
-    if (lane == 0) {
-      const float yi = y[row];
-      const float mi = m[row];
+    // reduce-scatter: after xor 16, 8 and 4 lane l holds hypothesis
+    // (l >> 2)'s sum over the 8 lanes that share its bits 1 and 0
+    const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+    float k4[4];
 #pragma unroll
-      for (int l = 0; l < kMaxL; ++l)
-        if (l < L) loss[l] += fmaxf(0.f, 1.f - yi * (acc[l] + b[l])) * mi;
-      cnt += mi;
-    }
+    for (int q = 0; q < 4; ++q)
+      k4[q] = swap_add(b4 ? acc[q + 4] : acc[q], b4 ? acc[q] : acc[q + 4], 16);
+    float k2[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q)
+      k2[q] = swap_add(b3 ? k4[q + 2] : k4[q], b3 ? k4[q] : k4[q + 2], 8);
+    float dot = swap_add(b2 ? k2[1] : k2[0], b2 ? k2[0] : k2[1], 4);
+    dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, 2));
+    dot = __fadd_rn(dot, __shfl_xor_sync(0xffffffffu, dot, 1));
+    const float yi = y[row];
+    const float mi = m[row];
+    const float hinge =
+        fmaxf(0.f, __fsub_rn(1.f, __fmul_rn(yi, __fadd_rn(dot, bh))));
+    loss = __fadd_rn(loss, __fmul_rn(hinge, mi));
+    cnt = __fadd_rn(cnt, mi);
   }
-  if (lane == 0) {
-#pragma unroll
-    for (int l = 0; l < kMaxL; ++l) s_loss[warp][l] = loss[l];
-    s_cnt[warp] = cnt;
-  }
+  if ((lane & 3) == 0) s_part[warp][mine] = loss;
+  if (lane == 0) s_part[warp][kMaxL] = cnt;
   __syncthreads();
-  if (tid < L) {
+  if (tid < kCols) {
     float s = 0.f;
-    for (int k = 0; k < kWarps; ++k) s += s_loss[k][tid];
-    part_loss[(size_t)blockIdx.x * L + tid] = s;
-  } else if (tid == kMaxL) {
+    for (int k = 0; k < kWarps; ++k) s = __fadd_rn(s, s_part[k][tid]);
+    part[(size_t)blockIdx.x * kCols + tid] = s;
+  }
+  // The last CTA to finish adds every CTA's partial.
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int col = warp; col < kCols; col += kWarps) {
+    if (col < kMaxL && col >= L) continue;
     float s = 0.f;
-    for (int k = 0; k < kWarps; ++k) s += s_cnt[k];
-    part_cnt[blockIdx.x] = s;
+    for (int t = lane; t < (int)gridDim.x; t += 32)
+      s = __fadd_rn(s, __ldcg(part + (size_t)t * kCols + col));
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, o));
+    if (lane == 0) {
+      if (col < kMaxL)
+        loss_out[col] = s;
+      else
+        *cnt_out = s;
+    }
   }
 }
 
@@ -586,37 +670,48 @@ extern "C" int hinge_scores_tc(const void* x, const void* planes, int dp,
 }
 
 extern "C" int hinge_sparse_tile_rows() { return sp::kTileRows; }
+extern "C" int hinge_sparse_partial_cols() { return sp::kCols; }
 
 // idx (n, cap) int32, val (n, cap) f32 (bf16 = 0) or bf16 (bf16 = 1);
-// wt (d, 8) f32: Wᵀ with columns L..7 zero, 16-byte aligned; b (L,),
-// y, m (n,) f32; scratch part_loss (tiles, L), part_cnt (tiles,) with
-// tiles = ceil(n / hinge_sparse_tile_rows()); L ≤ 8. Outputs loss (L,),
-// cnt (). Returns a cudaError_t (0 = ok).
+// W: L hypotheses of d f32 packed, W[l, j] at W + l + j·sd (elements),
+// read as two 16-byte loads a column: sd % 4 = 0, W 16-byte aligned and
+// 8 readable floats at every column (cd_solve_sparse's w); b (L,), y, m
+// (n,) f32; scratch part
+// (tiles, hinge_sparse_partial_cols()) f32 with tiles = max(1,
+// ceil(n / hinge_sparse_tile_rows())) and a 4-byte counter (set to 0
+// here, before the launch); L ≤ 8. Outputs loss (L,), cnt ().
+// Returns a cudaError_t (0 = ok).
 extern "C" int hinge_scores_sparse(const void* idx, const void* val, int bf16,
-                                   int cap, const float* wt, const float* b,
+                                   int cap, const float* W, long long sd,
+                                   const float* b,
                                    const float* y, const float* m, int n,
-                                   int L, int tiles, float* part_loss,
-                                   float* part_cnt, float* loss, float* cnt,
+                                   int L, int tiles, float* part,
+                                   unsigned* counter, float* loss, float* cnt,
                                    void* stream) {
-  if (L < 1 || L > kMaxL || cap < 1 ||
-      tiles != (n + sp::kTileRows - 1) / sp::kTileRows ||
-      !aligned16(wt))
+  const int want = n > 0 ? (n + sp::kTileRows - 1) / sp::kTileRows : 1;
+  if (L < 1 || L > kMaxL || cap < 1 || tiles != want || sd % 4 != 0 ||
+      !aligned16(W))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tiles > 0) {
-    const auto* ii = static_cast<const int*>(idx);
-    if (bf16)
-      sp::hinge_sparse_partial_kernel<__nv_bfloat16><<<tiles, sp::kThreads, 0, s>>>(
-          ii, static_cast<const __nv_bfloat16*>(val), cap, wt, b, y, m, n, L,
-          part_loss, part_cnt);
-    else
-      sp::hinge_sparse_partial_kernel<float><<<tiles, sp::kThreads, 0, s>>>(
-          ii, static_cast<const float*>(val), cap, wt, b, y, m, n, L,
-          part_loss, part_cnt);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
+  cudaError_t err = cudaMemsetAsync(counter, 0, sizeof(unsigned), s);
+  if (err != cudaSuccess) return err;
+  const auto* ii = static_cast<const int*>(idx);
+  const bool vec = cap % 8 == 0 && aligned16(idx) && aligned16(val);
+#define HS_LAUNCH(T, VEC)                                                    \
+  sp::hinge_sparse_kernel<T, VEC><<<tiles, sp::kThreads, 0, s>>>(           \
+      ii, static_cast<const T*>(val), cap, W, sd, b, y, m, n, L, part,      \
+      counter, loss, cnt)
+#define HS_LAUNCH_T(T)                                                       \
+  if (vec)                                                                   \
+    HS_LAUNCH(T, true);                                                      \
+  else                                                                       \
+    HS_LAUNCH(T, false)
+  if (bf16) {
+    HS_LAUNCH_T(__nv_bfloat16);
+  } else {
+    HS_LAUNCH_T(float);
   }
-  hinge_reduce_kernel<<<1, 32, 0, s>>>(part_loss, part_cnt, tiles, L, loss,
-                                       cnt);
+#undef HS_LAUNCH_T
+#undef HS_LAUNCH
   return cudaGetLastError();
 }

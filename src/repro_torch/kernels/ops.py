@@ -171,8 +171,10 @@ def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C: float,
 def _cd_solve_sparse(xh, xs, y, m, *, C: float, tol: float,
                      max_epochs: int):
     """:func:`cd_solve` on blocked-CSR rows (see
-    :func:`ref.cd_solve_sparse_ref`)."""
+    :func:`ref.cd_solve_sparse_ref`). A call of the route launches two
+    kernels, the prep of the row blocks and the solve, and counts one."""
     parts, leaves = _sparse_parts((xh, xs), "cd_solve on SparseRows")
+    check_column_ids(*parts)
     if not _on_card(*leaves, y, m):
         return ref.cd_solve_sparse_ref(xh, xs, y, m, C=C, tol=tol,
                                        max_epochs=max_epochs)
@@ -180,7 +182,6 @@ def _cd_solve_sparse(xh, xs, y, m, *, C: float, tol: float,
            "y and m must be float32")
     _check_cuda_layout({"y": y, "m": m,
                         **{f"leaf {i}": t for i, t in enumerate(leaves)}})
-    _check_column_ids(parts, xh.d)
     from repro_torch.kernels.svm_step import launch_cd_solve_sparse
     out = launch_cd_solve_sparse(xh, xs, y, m, float(C), float(tol),
                                  int(max_epochs))
@@ -193,8 +194,9 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
                  m: torch.Tensor):
     """Eq. 7 hinge-loss sums of L hypotheses (see
     :func:`ref.hinge_scores_ref`). X (n, d) f32/bf16 rows, dense or
-    ``SparseRows`` (the ``hinge_scores/sparse`` route), W (L, d), b
-    (L,), y, m (n,) f32. → (losses (L,), count ())."""
+    ``SparseRows`` (the ``hinge_scores/sparse`` route, which also takes W
+    as the packed view ``cd_solve/sparse`` returns), W (L, d), b (L,), y,
+    m (n,) f32. → (losses (L,), count ())."""
     _check(len(X.shape) == 2 and W.dim() == 2 and W.shape[1] == X.shape[1],
            f"X must be (n, d) and W (L, d), got {tuple(X.shape)} and "
            f"{tuple(W.shape)}")
@@ -206,6 +208,7 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
     sparse = sparse_rows.is_sparse(X)
     if sparse:
         parts, rows = _sparse_parts((X,), "hinge_scores on SparseRows")
+        check_column_ids(*parts)
     else:
         _check(X.dtype in _ROW_DTYPES, f"X must be one of {_ROW_DTYPES}")
         rows = [X]
@@ -213,13 +216,14 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
         return ref.hinge_scores_ref(X, W, b, y, m)
     _check(all(t.dtype == torch.float32 for t in (W, b, y, m)),
            "W, b, y and m must be float32")
-    _check_cuda_layout({"W": W, "b": b, "y": y, "m": m,
-                        **{f"X leaf {i}": t for i, t in enumerate(rows)}})
-    from repro_torch.kernels.hinge_score import (MAX_HYPOTHESES,
+    from repro_torch.kernels.hinge_score import (MAX_HYPOTHESES, is_packed,
                                                  launch_hinge_scores,
                                                  launch_hinge_scores_sparse)
-    if sparse:
-        _check_column_ids(parts, X.d)
+    # the sparse route reads W packed as it is (cd_solve/sparse returns W
+    # as a view of its (d, 8k) array) and packs a contiguous W
+    _check_cuda_layout({"b": b, "y": y, "m": m,
+                        **({} if sparse and is_packed(W) else {"W": W}),
+                        **{f"X leaf {i}": t for i, t in enumerate(rows)}})
     launch = launch_hinge_scores_sparse if sparse else launch_hinge_scores
     losses, count = [], None
     for l0 in range(0, L, MAX_HYPOTHESES):
@@ -333,15 +337,21 @@ def _sparse_parts(parts, what: str):
     return parts, [leaf for t in parts for leaf in (t.indices, t.values)]
 
 
-def _check_column_ids(parts, d: int) -> None:
-    """Every column id of the ``SparseRows`` parts in [0, d), read back in
-    one device round trip."""
-    ids = [t.indices for t in parts if t.indices.numel()]
-    if ids:
-        lo, hi = torch.stack([torch.stack([i.min() for i in ids]).min(),
-                              torch.stack([i.max() for i in ids]).max()]
-                             ).tolist()
-        _check(0 <= lo and hi < d, f"column ids outside [0, {d})")
+def check_column_ids(*parts) -> None:
+    """Refuse ``SparseRows`` parts with a column id outside [0, d) with
+    ``ValueError``. Parts marked as checked (``SparseRows.ids_in_range``:
+    checked before, or derived from checked rows) pass at no cost; the
+    others are checked together in one device round trip and marked, so
+    a batch of rows costs one round trip however many kernels it meets."""
+    todo = [t for t in parts if not t.ids_in_range]
+    live = [t for t in todo if t.indices.numel()]
+    if live:
+        lo_hi = torch.stack([torch.stack([t.indices.min(), t.indices.max()])
+                             for t in live]).tolist()
+        for t, (lo, hi) in zip(live, lo_hi):
+            _check(0 <= lo and hi < t.d, f"column ids outside [0, {t.d})")
+    for t in todo:
+        t.mark_ids_in_range()
 
 
 def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
@@ -357,11 +367,11 @@ def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
     parts, leaves = _sparse_parts((xr.home, xr.shared, zr.home, zr.shared),
                                   "sparse_gram")
+    check_column_ids(*parts)
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves):
         return per_job(ref.sparse_gram_ref, X, Z, **kw)
     _check_cuda_layout({f"leaf {i}": t for i, t in enumerate(leaves)})
-    _check_column_ids(parts, xr.home.d)
     from repro_torch.kernels.gram import launch_sparse_gram
     K = launch_sparse_gram(xr, zr, jobs, **kw)
     LAUNCHES["sparse_gram"] += 1
@@ -395,12 +405,12 @@ def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
     _check(tuple(b.shape) == (L,) and coef.dtype in _ROW_DTYPES
            and b.dtype == coef.dtype,
            f"b must be ({L},) and coef, b one dtype of {_ROW_DTYPES}")
+    check_column_ids(*parts)
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves, coef, b):
         return ref.sparse_gram_scores_ref(X, Z, coef, b, **kw)
     _check_cuda_layout({"coef": coef, "b": b,
                         **{f"leaf {i}": t for i, t in enumerate(leaves)}})
-    _check_column_ids(parts, xr.home.d)
     from repro_torch.kernels.gram import launch_sparse_scores
     out = launch_sparse_scores(xr, zr, coef, b, **kw)
     LAUNCHES["sparse_gram"] += 1

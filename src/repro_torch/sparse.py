@@ -13,6 +13,18 @@ slots nor that rule, so the layout is two plain tensors.
 
 Rows with more than ``nnz_cap`` nonzeros are truncated by
 :func:`from_dense` to their ``nnz_cap`` largest-|value| entries.
+
+The kernels take only column ids in [0, d). A ``SparseRows`` carries a
+mark that its ids were found in range (:meth:`SparseRows.mark_ids_in_range`,
+set by ``kernels.ops.check_column_ids`` after one check); rows derived
+from marked rows (``[]``, ``*``, ``reshape``, ``to``, :func:`pad_rows`,
+:func:`take_rows_along`, :func:`rows_concat` of two marked batches) keep
+it, so a kernel wrapper checks a batch once and not at every call. The
+mark holds the ids tensor it was given for and that tensor's version
+counter, so giving the rows other ids, or changing the ids in place,
+clears it. A write that bypasses the version counter (through ``.data``,
+DLPack or a raw pointer) is not seen: rows changed that way must be made
+anew.
 """
 from __future__ import annotations
 
@@ -31,12 +43,30 @@ class SparseRows:
     tensor, so format-blind call sites run on either.
     """
 
-    __slots__ = ("indices", "values", "d")
+    __slots__ = ("indices", "values", "d", "_ids_checked")
 
-    def __init__(self, indices: torch.Tensor, values: torch.Tensor, d: int):
+    def __init__(self, indices: torch.Tensor, values: torch.Tensor, d: int,
+                 ids_in_range: bool = False):
         self.indices = indices
         self.values = values
         self.d = int(d)
+        self._ids_checked = None
+        if ids_in_range:
+            self.mark_ids_in_range()
+
+    @property
+    def ids_in_range(self) -> bool:
+        """Whether every column id is known to lie in [0, d): checked, or
+        derived from checked rows, and neither replaced nor changed in
+        place since."""
+        mark = self._ids_checked
+        return (mark is not None and mark[0] is self.indices
+                and mark[1] == self.indices._version)
+
+    def mark_ids_in_range(self) -> None:
+        """Record that the ids were checked to lie in [0, d): the ids
+        tensor itself and its version."""
+        self._ids_checked = (self.indices, self.indices._version)
 
     @property
     def shape(self) -> Tuple[int, ...]:
@@ -64,11 +94,12 @@ class SparseRows:
         return SparseRows(self.indices.to(device=device),
                           self.values.to(device=device,
                                          dtype=dtype or self.values.dtype),
-                          self.d)
+                          self.d, self.ids_in_range)
 
     def __getitem__(self, idx) -> "SparseRows":
         """Indexing over the batch dims; the slot axis is not addressable."""
-        return SparseRows(self.indices[idx], self.values[idx], self.d)
+        return SparseRows(self.indices[idx], self.values[idx], self.d,
+                          self.ids_in_range)
 
     def __mul__(self, other) -> "SparseRows":
         """Row-wise scale by ``other`` with a trailing axis of 1."""
@@ -78,7 +109,7 @@ class SparseRows:
                 "SparseRows * x requires x constant along the feature axis "
                 f"(trailing dim 1), got shape {tuple(o.shape)}")
         return SparseRows(self.indices, self.values * o.to(self.values.dtype),
-                          self.d)
+                          self.d, self.ids_in_range)
 
     __rmul__ = __mul__
 
@@ -104,7 +135,8 @@ class SparseRows:
                 f"got {shape}")
         lead = tuple(int(s) for s in shape[:-1]) + (self.nnz_cap,)
         return SparseRows(self.indices.reshape(lead),
-                          self.values.reshape(lead), self.d)
+                          self.values.reshape(lead), self.d,
+                          self.ids_in_range)
 
     def __repr__(self):
         return (f"SparseRows(shape={self.shape}, nnz_cap={self.nnz_cap}, "
@@ -163,7 +195,7 @@ def rows_concat(a, b, axis: int = 0):
         raise ValueError(f"nnz_cap mismatch: {a.nnz_cap} vs {b.nnz_cap}")
     return SparseRows(torch.cat([a.indices, b.indices], dim=axis),
                       torch.cat([a.values, b.values.to(a.dtype)], dim=axis),
-                      a.d)
+                      a.d, a.ids_in_range and b.ids_in_range)
 
 
 def pad_rows(x, pad: int):
@@ -174,7 +206,8 @@ def pad_rows(x, pad: int):
     if not is_sparse(x):
         return torch.nn.functional.pad(x, (0, 0, 0, pad))
     return SparseRows(torch.nn.functional.pad(x.indices, (0, 0, 0, pad)),
-                      torch.nn.functional.pad(x.values, (0, 0, 0, pad)), x.d)
+                      torch.nn.functional.pad(x.values, (0, 0, 0, pad)), x.d,
+                      x.ids_in_range)
 
 
 def take_rows_along(x, topi: torch.Tensor):

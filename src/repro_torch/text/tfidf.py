@@ -64,7 +64,8 @@ def transform(counts, model: TfidfModel, l2_normalize: bool = True,
         if l2_normalize:
             norm = torch.sqrt((vals * vals).sum(-1, keepdim=True))
             vals = vals / torch.clamp(norm, min=1e-12)
-        return sparse_rows.SparseRows(counts.indices, vals, counts.d)
+        return sparse_rows.SparseRows(counts.indices, vals, counts.d,
+                                      counts.ids_in_range)
     X = counts * model.idf[None, :]
     if l2_normalize:
         norm = torch.sqrt((X * X).sum(1, keepdim=True))
