@@ -36,6 +36,11 @@ Phases, one line or block each; any failure exits non-zero:
    emulation (``svm_step.emulate_sparse_lookahead``,
    ``hinge_score.emulate_sparse``, run on the CPU); a column id ≥ d
    refused before any launch, fresh or changed in place after a check;
+   the sweep axis's per-job C, tol and epoch cutoffs (one at 0) of
+   ``cd_solve`` (both dense routes and ``cd_solve/sparse``) and
+   ``cd_solve_gram``, and per-job γ and coef0 of ``gram`` and
+   ``sparse_gram`` over a stack of shared blocks: one launch of all jobs
+   against one launch a job on its own rows, and against plain;
 3. the paper pipeline (corpus → TF×IDF → 2-class MapReduce SVM and OvR
    3-class) at the golden test's settings, with accuracy floors, on the
    linear path; then on ``vectorize_sparse(…, nnz_cap=32)`` rows through
@@ -46,14 +51,26 @@ Phases, one line or block each; any failure exits non-zero:
 4. the golden pipeline on the Gram path (rbf, γ = 1): dense rows with
    ``gram_impl="pallas"`` (2-class and OvR 3-class) and blocked-CSR rows
    (``nnz_cap`` 32) with ``"pallas_sparse"`` (2-class), with floors
-   and each kernel's launch count;
+   and each kernel's launch count; then ``[sweep]``, the sweep axis at
+   the golden settings: linear dense and ``nnz_cap`` 32 rows over C ×
+   tol, an epoch-cutoff grid with one config at 0, the rbf C × γ grid on
+   ``gram`` and on ``sparse_gram``, OvR 3-class and per-job rows, each
+   one solve launch a round for all its jobs (counted), each config
+   against its sequential fit on the card (rounds, picks, SV ids, R_emp
+   per round within 1e-6, w and b or the final α bit for bit) and each
+   sweep against the plain versions on the CPU;
 5. slice 1's main path at full width: svm-tfidf (d = 131072,
    sv_capacity 2048, 8 partitions × 8192 rows, bf16 rows, C = 1,
    max_epochs = 10, γ = 1e-4, up to 6 rounds), linear, through
    ``fit_mapreduce``, with ``cd_solve`` (the cluster route, checked,
    rerun, timed against clusters of 16 and one CTA a job) and
    ``hinge_scores`` timed at its shapes and the launch counts of that
-   run;
+   run; then ``[full-sweep]``: the same rows over C = logspace(-2, 1, 4)
+   (the reference launcher's ``--sweep 4``) through
+   ``fit_mapreduce_sweep``, one ``cd_solve/cluster`` launch of 32 jobs a
+   round (the waves a round printed), C = 1 ≡ the fit above, its time
+   beside 4 × the fit's, one sweep round under
+   ``set_sync_debug_mode("error")``;
 6. ``gram`` at one full-width reducer shape (10240 × 10240 × 131072
    bf16, rbf and linear) on the tensor-core route's upper triangle (K
    must equal its transpose), against its plain version and the bf16
@@ -69,7 +86,9 @@ Phases, one line or block each; any failure exits non-zero:
    rows (its peak memory read) checked and timed, and one round
    profiled; last, the same fit with rbf at γ = 8 and with the linear
    kernel on the Gram path, whose eq. 7 picks must beat the majority
-   class (the rbf pick at γ = 1 only matches it);
+   class (the rbf pick at γ = 1 only matches it); and
+   ``[full-kernel-sweep]``, γ ∈ {1, 8} as one S = 2 sweep (16 jobs a
+   solve and a Gram launch), each config ≡ its fit above;
 7b. slice 7's main path at full width (``[full-sparse]``): the same
    svm-tfidf shapes as blocked-CSR rows with bf16 values on the linear
    path, every solve on ``cd_solve/sparse`` and every eq. 7 on
@@ -82,7 +101,10 @@ Phases, one line or block each; any failure exits non-zero:
    the rows densified (17.2 GB) and fit on the dense linear path, which
    must pick the same reducers and keep the same SV ids, with R_emp per
    round within 1e-4 (the paths differ only in Q_ii, whose Σ v² the
-   reference rounds to bf16 on blocked-CSR rows);
+   reference rounds to bf16 on blocked-CSR rows); before that,
+   ``[full-sparse-sweep]``: the S = 4 grid of phase 5 on these rows, one
+   ``cd_solve/sparse`` call of 32 jobs a round, C = 1 ≡ the fit above,
+   one sweep round under ``set_sync_debug_mode("error")``;
 8. slice 3, the LM serve path: ``flash_decode`` against its plain
    version at small shapes (f32 and bf16 — the SIMT and the
    tensor-core route, each route's launches counted —, valid_len 0, 1,
@@ -229,15 +251,24 @@ def _labels(torch, gen, X):
     return torch.where(s >= s.median(), 1.0, -1.0)
 
 
+def _launch_kw(torch, ops, kw, jobs, device):
+    """``kw``'s C, tol and max_epochs as the launchers take them: (jobs,)
+    tensors on the card."""
+    return (ops.job_values(kw["C"], jobs, device),
+            ops.job_values(kw["tol"], jobs, device),
+            ops.job_values(int(kw["max_epochs"]), jobs, device, torch.int32))
+
+
 def _cd_run(ops, args, kw, c):
     """cd_solve through ``ops.cd_solve`` (c None: the rule's size, the
     launch counted) or forced onto c CTAs a job (1: the single route)
     through its launcher, uncounted."""
     if c is None:
         return ops.cd_solve(*args, **kw)
+    import torch
     from repro_torch.kernels.svm_step import launch_cd_solve
-    return launch_cd_solve(*args, float(kw["C"]), float(kw["tol"]),
-                           int(kw["max_epochs"]), c)
+    return launch_cd_solve(*args, *_launch_kw(torch, ops, kw, args[2].shape[0],
+                                              args[2].device), c)
 
 
 def _cd_routes(torch, ops, ref, args, kw, tag, tol, sizes):
@@ -615,9 +646,8 @@ def _cdg_sizes(torch, ops, ref, K, y, m, kw, tag, sizes=(None, 1, 2, 16)):
     for c in sizes:
         ops.reset_launches()
         run = (lambda: ops.cd_solve_gram(K, y, m, **kw)) if c is None else \
-            (lambda: launch_cd_solve_gram(K, y, m, float(kw["C"]),
-                                          float(kw["tol"]),
-                                          int(kw["max_epochs"]), c))
+            (lambda: launch_cd_solve_gram(
+                K, y, m, *_launch_kw(torch, ops, kw, L, K.device), c))
         a, t, v = run()
         torch.cuda.synchronize()
         route = _routes(ops, "cd_solve_gram")
@@ -948,6 +978,20 @@ def phase_full_width(torch, T, ops, ref):
     profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
     cd["launches"] = launches["cd_solve"]
     hinge["launches"] = launches["hinge_scores"]
+
+    # --- the sweep axis: S = 4 configs, C = logspace(-2, 1, 4) ----------
+    from repro_torch.kernels import svm_step
+    params = T.sweep_grid(cfg.svm, C=SWEEP_C)
+    S, n = len(params.C), per + cfg.sv_capacity
+    resident = svm_step.max_active_clusters(X.dtype, d, n, 8)
+    say(f"[full-sweep] dense: {S * L} jobs of {n} rows on clusters of 8 "
+        f"CTAs, {resident} resident at once: {-(-S * L // resident)} waves "
+        "a round")
+    full_sweep(torch, T, ops, X, y, L, cfg, params, {SWEEP_C_ONE: model},
+               "full-sweep", fit_ms,
+               {"cd_solve/cluster": lambda r: len(r.history) + 1,
+                "hinge_scores/tensor_core":
+                    lambda r: len(r.history) * -(-S * L // 8)})
     return [cd, hinge]
 
 
@@ -1110,7 +1154,8 @@ def time_sparse_kernels(torch, ops, ref, Xp, sv, yp, maskp, cfg):
     cd_ms = cuda_ms(torch, lambda: ops.cd_solve_gram(Ks, y_aug, m_aug,
                                                      **kw1), 3)
     forced = {c: cuda_ms(torch, lambda: launch_cd_solve_gram(
-        Ks, y_aug, m_aug, float(kw1["C"]), float(kw1["tol"]), 1, c), 3)
+        Ks, y_aug, m_aug, *_launch_kw(torch, ops, kw1, Ks.shape[0],
+                                      Ks.device), c), 3)
         for c in (1, 4, 16)}
     kw_fit = dict(kw1, max_epochs=cfg.svm.max_epochs)
     launch_ms = cuda_ms(torch, lambda: ops.cd_solve_gram(Ks, y_aug, m_aug,
@@ -1232,7 +1277,8 @@ def _fit_full_gram(torch, T, ops, X, y, L, kernel, tag):
     """One full-width fit_mapreduce on the Gram path with
     gram_impl="pallas_sparse", counts from 0 before it and read after;
     checks the launch counts, the risks and the replayed eq. 7 pick.
-    → (cfg, model, launches, eq. 7 pick accuracy, majority share)."""
+    → (cfg, model, launches, eq. 7 pick accuracy, majority share, the
+    fit's ms)."""
     from repro_torch.configs import SVM_TFIDF
     svm = T.SVMConfig(C=SVM_TFIDF.C, max_epochs=SVM_TFIDF.max_epochs,
                       kernel=kernel, use_gram=True,
@@ -1283,7 +1329,7 @@ def _fit_full_gram(torch, T, ops, X, y, L, kernel, tag):
         f"final model {acc:.4f}, majority class {major:.4f}")
     check(abs(pick_risk - float(model.risk)) <= 1e-4,
           f"{tag}: replayed eq. 7 pick differs from the fit's")
-    return cfg, model, launches, pick, major
+    return cfg, model, launches, pick, major, fit_ms
 
 
 # On these unit-norm rows k(x, z) = e^(−2γ(1 − x·z)). On a CPU cut of
@@ -1312,7 +1358,7 @@ def phase_full_kernel(torch, T, ops, ref):
         f"{time.perf_counter() - t0:.1f} s")
 
     # --- the main path: rbf, γ = 1 ---------------------------------------
-    cfg, model, launches, pick, major = _fit_full_gram(
+    cfg, model, launches, pick, major, ms_g1 = _fit_full_gram(
         torch, T, ops, X, y, L, T.KernelConfig("rbf", gamma=1.0),
         "full-kernel")
     # At γ = 1 on these rows k(x, z) ≈ e⁻² for nearly every pair: the
@@ -1328,17 +1374,27 @@ def phase_full_kernel(torch, T, ops, ref):
     sg["launches"] = launches["sparse_gram/gram"]
     sgs["launches"] = launches["sparse_gram/scores"]
     cdg["launches"] = launches["cd_solve_gram"]
-    del model
 
     # --- rbf at a γ whose pick must beat the majority -------------------
-    _, _, _, pick, major = _fit_full_gram(
+    _, model_g8, _, pick, major, ms_g8 = _fit_full_gram(
         torch, T, ops, X, y, L, T.KernelConfig("rbf", gamma=RBF_PICK_GAMMA),
         f"full-rbf-gamma{RBF_PICK_GAMMA:g}")
     check(pick > major, f"selected rbf (γ = {RBF_PICK_GAMMA:g}) hypothesis "
           "no better than the majority")
 
+    # --- the sweep axis: the two fits above as one S = 2 sweep ------------
+    params = T.sweep_grid(cfg.svm, gamma=[1.0, RBF_PICK_GAMMA])
+    full_sweep(torch, T, ops, X, y, L, cfg, params, {0: model, 1: model_g8},
+               "full-kernel-sweep", (ms_g1 + ms_g8) / 2,
+               {"cd_solve_gram/cluster": lambda r: len(r.history),
+                "cd_solve_gram/single": lambda r: 1,
+                "sparse_gram/gram": lambda r: len(r.history) + 1,
+                "sparse_gram/scores": lambda r: 2 * len(r.history)},
+               solve="cd_solve_gram", bits=False, sync_round=False)
+    del model, model_g8
+
     # --- the same kernels with a kernel that sees the planted signal ----
-    _, _, _, pick, major = _fit_full_gram(
+    _, _, _, pick, major, _ = _fit_full_gram(
         torch, T, ops, X, y, L, T.KernelConfig("linear"), "full-linear-gram")
     check(pick > major,
           "selected linear-Gram hypothesis no better than the majority")
@@ -1923,6 +1979,13 @@ def phase_full_sparse(torch, T, ops, ref, sp):
     profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
     cds["launches"] = launches["cd_solve"]
     hs["launches"] = launches["hinge_scores"]
+    params = T.sweep_grid(cfg.svm, C=SWEEP_C)
+    S = len(params.C)
+    full_sweep(torch, T, ops, X, y, L, cfg, params, {SWEEP_C_ONE: model},
+               "full-sparse-sweep", fit_ms,
+               {"cd_solve/sparse": lambda r: len(r.history) + 1,
+                "hinge_scores/sparse":
+                    lambda r: len(r.history) * -(-S * L // 8)})
 
     # --- the same rows, dense ---------------------------------------------
     hist, ids = model.history, model.sv.ids
@@ -1955,6 +2018,402 @@ def phase_full_sparse(torch, T, ops, ref, sp):
     del Xd, dm
     torch.cuda.empty_cache()
     return [cds, hs]
+
+
+# --- slice 9: the sweep axis ------------------------------------------------
+
+# The reference launcher's ``--sweep 4`` grid (``launch/train.py:98-100``):
+# C = logspace(-2, 1, 4); its config 2 (C = 1) is the full-width fits'
+SWEEP_C = [0.01, 0.1, 1.0, 10.0]
+SWEEP_C_ONE = 2
+
+
+def _sweep_jobs(torch, sp, gen, rows, L, per, S):
+    """Home blocks (L, per, ·) and 2 shared blocks (2, S, ·) of ``rows``
+    (L·per + 2S of them), labels and masks of 2·L jobs, config-major."""
+    dev = torch.device(DEV)
+    xh = rows[:L * per].reshape(L, per, rows.shape[-1])
+    xs = rows[L * per:].reshape(2, S, rows.shape[-1])
+    dense = rows if torch.is_tensor(rows) else sp.to_dense(rows)
+    yr = _labels(torch, gen, dense.float())
+    jobs = torch.arange(2 * L, device=dev)
+    y = torch.cat([yr[:L * per].reshape(L, per)[jobs % L],
+                   yr[L * per:].reshape(2, S)[jobs // L]], 1).contiguous()
+    m = (torch.rand(y.shape, generator=gen, device=dev) > 0.1).float()
+    return xh, xs, y, m
+
+
+def _per_job_vs_one_a_job(torch, run, jobs, tag, bits=True):
+    """``run(None)`` (all jobs, one launch) against ``run(j)`` (job j
+    alone, its rows materialised, scalars): bit for bit, or within 1e-6
+    relative where ``bits`` is False. → the batched output."""
+    out = run(None)
+    worst = 0.0
+    for j in range(jobs):
+        one = run(j)
+        for a, b in zip(out, one):
+            if bits:
+                check(torch.equal(a[j], b[0]), f"{tag}: job {j} differs "
+                      "from its own launch")
+            else:
+                worst = max(worst, float(((a[j] - b[0]).abs()
+                                          / b[0].abs().clamp(min=1e-6)).max()))
+    check(worst <= 1e-6, f"{tag}: a job differs from its own launch by "
+          f"{worst:.2e}")
+    return out
+
+
+def phase_sweep_kernels_small(torch, ops, ref, sp):
+    """Per-job hyper-parameters and the job → (home block, shared block)
+    mapping of every solve and Gram kernel on the card: one launch of
+    2·L jobs (two configs, C, tol and cutoffs per job, one cutoff 0)
+    against one launch a job with scalars on the job's own rows, and
+    against the plain version."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    dev = torch.device(DEV)
+    C = torch.tensor([0.5, 1.0, 2.0, 0.1, 1.0, 4.0], device=dev)
+    tol = torch.tensor([1e-3, 1e-2, 1e-3, 1e-4, 1e-3, 1e-3], device=dev)
+    cut = torch.tensor([3, 0, 8, 5, 1, 8], dtype=torch.int32, device=dev)
+    L, per, S = 3, 40, 24
+    cases = [("single", 1024, torch.float32, None),
+             ("cluster", 32768, torch.bfloat16, None),
+             ("sparse", 4096, torch.bfloat16, 48)]
+    for route, d, dtype, cap in cases:
+        if cap is None:
+            rows = _rows(torch, gen, L * per + 2 * S, d, dtype, DEV)
+        else:
+            rows = _sparse_rows(torch, sp, gen, L * per + 2 * S, d, cap,
+                                dtype)
+        xh, xs, y, m = _sweep_jobs(torch, sp, gen, rows, L, per, S)
+
+        def run(j):
+            if j is None:
+                return ops.cd_solve(xh, xs, y, m, C=C, tol=tol,
+                                    max_epochs=cut)
+            return ops.cd_solve(xh[j % L][None], xs[j // L], y[j:j + 1],
+                                m[j:j + 1], C=float(C[j]), tol=float(tol[j]),
+                                max_epochs=int(cut[j]))
+        ops.reset_launches()
+        out = _per_job_vs_one_a_job(torch, run, 2 * L, f"cd_solve/{route}")
+        check(ops.ROUTE_LAUNCHES[f"cd_solve/{route}"] == 1 + 2 * L,
+              f"per-job cd_solve took {_routes(ops, 'cd_solve')}")
+        plain_fn = ref.cd_solve_sparse_ref if cap else ref.cd_solve_ref
+        cpu = [a.to(device="cpu") for a in (xh, xs, y, m)]
+        p = plain_fn(*cpu, C=C.cpu(), tol=tol.cpu(), max_epochs=cut.cpu())
+        err = max(float((a.cpu() - b).abs().max())
+                  for a, b in zip(out[:3], p[:3]))
+        zero = not (out[0][1].any() or out[1][1].any() or out[2][1] != 0)
+        say(f"[sweep-kernels] cd_solve/{route} {2 * L} jobs (2 shared "
+            f"blocks, d={d}, {dtype}): one launch ≡ one launch a job bit "
+            f"for bit; epochs {out[3].tolist()} (plain {p[3].tolist()}), "
+            f"max|Δ(α,w,b)| vs plain {err:.2e} (atol 1e-4); the cutoff-0 "
+            f"job all zero {zero}")
+        check(torch.equal(out[3].cpu(), p[3]) and err <= 1e-4 and zero,
+              f"per-job cd_solve/{route} against plain")
+    # cd_solve_gram: per-job C, tol and cutoffs, f32 and bf16 state, on
+    # K made exactly symmetric (the kernel reads Q[:, i] as K's row i)
+    Xg = torch.randn((6, 300, 8), generator=gen, device=dev)
+    K = torch.exp(-0.25 * torch.cdist(Xg, Xg) ** 2)
+    K = 0.5 * (K + K.transpose(1, 2))
+    yg = torch.where(torch.randn((6, 300), generator=gen, device=dev) > 0,
+                     1.0, -1.0)
+    mg = (torch.rand((6, 300), generator=gen, device=dev) > 0.1).float()
+    for dt in (torch.float32, torch.bfloat16):
+        Kd, yd, md = K.to(dt), yg.to(dt), mg.to(dt)
+
+        def run(j):
+            if j is None:
+                return ops.cd_solve_gram(Kd, yd, md, C=C, tol=tol,
+                                         max_epochs=cut)
+            return ops.cd_solve_gram(Kd[j:j + 1], yd[j:j + 1], md[j:j + 1],
+                                     C=float(C[j]), tol=float(tol[j]),
+                                     max_epochs=int(cut[j]))
+        out = _per_job_vs_one_a_job(torch, run, 6, f"cd_solve_gram {dt}")
+        p = ref.cd_solve_gram_ref(Kd, yd, md, C=C, tol=tol, max_epochs=cut)
+        same = all(torch.equal(a, b) for a, b in zip(out, p))
+        say(f"[sweep-kernels] cd_solve_gram 6 jobs {dt}: one launch ≡ one "
+            f"launch a job bit for bit; epochs {out[1].tolist()}; α, epochs "
+            f"and violations bit for bit with plain {same}")
+        check(same, f"per-job cd_solve_gram {dt} against plain")
+    # gram / sparse_gram: per-job γ and coef0 over a stack of shared blocks
+    g = torch.linspace(0.2, 2.0, 2 * L, device=dev)
+    c0 = torch.linspace(-0.5, 0.5, 2 * L, device=dev)
+    for fn, dtype, make in (
+            (ops.gram, torch.bfloat16, lambda n: _rows(torch, gen, n, 1024,
+                                                       torch.bfloat16, DEV)),
+            (ops.gram, torch.float32, lambda n: _rows(torch, gen, n, 1024,
+                                                      torch.float32, DEV)),
+            (ops.sparse_gram, torch.float32, lambda n: _sparse_rows(
+                torch, sp, gen, n, 4096, 32, torch.float32))):
+        rows = make(L * per + 2 * S)
+        xh, xs, _, _ = _sweep_jobs(torch, sp, gen, rows, L, per, S)
+        side = (xh, xs, L)
+        for kind in ("rbf", "poly"):
+            def run(j):
+                if j is None:
+                    return (fn(side, side, kind=kind, gamma=g, coef0=c0,
+                               degree=2),)
+                r = sp.rows_concat(xh[j % L], xs[j // L])
+                return (fn(r, r, kind=kind, gamma=float(g[j]),
+                           coef0=float(c0[j]), degree=2)[None],)
+            ops.reset_launches()
+            (Kb,) = _per_job_vs_one_a_job(torch, run, 2 * L,
+                                          f"{fn.__name__} {kind}", bits=False)
+            check(sum(ops.LAUNCHES.values()) == 1 + 2 * L,
+                  f"{fn.__name__} launches {dict(ops.LAUNCHES)}")
+            cpu = (xh.to(device="cpu"), xs.to(device="cpu"), L)
+            Kp = fn(cpu, cpu, kind=kind, gamma=g.cpu(), coef0=c0.cpu(),
+                    degree=2)
+            err = _rel(Kb.cpu(), Kp)
+            say(f"[sweep-kernels] {fn.__name__} {kind} {dtype} {2 * L} jobs "
+                f"(γ, coef0 per job, 2 shared blocks): one launch ≡ one "
+                f"launch a job (rel 1e-6), vs plain rel {err:.2e} (1e-5)")
+            check(err <= 1e-5, f"{fn.__name__} per-job vs plain {err:.2e}")
+
+
+def _sweep_vs_fits(torch, res, fits, tag, bits=True):
+    """Each config of a sweep against its sequential fit on the card
+    (``fits``: config → MapReduceSVM): the same rounds, eq. 7 picks and
+    SV ids, R_emp per round within 1e-6, and (``bits``) the best and
+    final hypotheses bit for bit. → max |ΔR_emp|."""
+    worst = 0.0
+    for s, m in fits.items():
+        hist = [h for h in res.history if h["reducers"][s] >= 0]
+        check(len(hist) == m.rounds == int(res.rounds[s]),
+              f"{tag} config {s}: {len(hist)} rounds vs {m.rounds}")
+        check([int(h["reducers"][s]) for h in hist]
+              == [h["reducer"] for h in m.history],
+              f"{tag} config {s}: eq. 7 picks differ")
+        worst = max([worst] + [abs(float(h["risks"][s]) - hm["risk"])
+                               for h, hm in zip(hist, m.history)])
+        check(torch.equal(res.sv.ids[s], m.sv.ids),
+              f"{tag} config {s}: other SV ids")
+        if bits:
+            check(torch.equal(res.ws[s], m.w.float())
+                  and torch.equal(res.final.w[s], m.final.w)
+                  and torch.equal(res.final.b[s], m.final.b),
+                  f"{tag} config {s}: hypotheses not bit-identical")
+        else:
+            check(torch.equal(res.final.alpha[s], m.final.alpha),
+                  f"{tag} config {s}: final α not bit-identical")
+    check(worst <= 1e-6, f"{tag}: R_emp per round differs by {worst:.2e}")
+    return worst
+
+
+def _sweep_run(torch, T, ops, X, y, L, cfg, params, tag, **kw):
+    """One ``fit_mapreduce_sweep`` with the counts set to 0 before it and
+    read after. → (result, ms, launches by kernel and route)."""
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = T.fit_mapreduce_sweep(X, y, L, cfg, params, **kw)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {k: v for k, v in {**ops.LAUNCHES, **ops.ROUTE_LAUNCHES}
+                .items() if v}
+    S = len(res.rounds)
+    say(f"[{tag}] S={S}: {len(res.history)} rounds (per config "
+        f"{res.rounds.tolist()}) in {ms:.1f} ms, round ms "
+        f"{[round(h['ms'], 1) for h in res.history]}, launches {launches}")
+    for h in res.history:
+        say(f"[{tag}] round {h['round']}: active {h['active']}, R_emp "
+            f"{[round(float(r), 6) for r in h['risks']]}, picks "
+            f"{h['reducers'].tolist()}")
+    check(bool(torch.isfinite(res.risks).all()), f"{tag}: risks not finite")
+    return res, ms, launches
+
+
+def _check_solve_launches(launches, res, tag, solve="cd_solve"):
+    """One solve launch a round for all S·L jobs, one for the final
+    retrain of the S configs."""
+    check(launches.get(solve, 0) == len(res.history) + 1,
+          f"{tag}: {solve} launched {launches.get(solve, 0)} times for "
+          f"{len(res.history)} rounds")
+
+
+def phase_sweep_golden(torch, T, text, sp):
+    """The sweep axis at the golden test's settings on the card: linear
+    dense and ``vectorize_sparse(…, nnz_cap=32)`` rows over C × tol, OvR
+    3-class, per-job rows, an epoch-cutoff grid with one config at 0,
+    and the rbf C × γ grid on ``gram`` and on ``sparse_gram``; each
+    sweep's launches counted, each config against its sequential fit on
+    the card, each sweep against the plain versions on the CPU (risks
+    within 1e-4, the same rounds)."""
+    from repro_torch.kernels import ops
+    corpus = text.generate(text.CorpusConfig(num_messages=1024,
+                                             classes=(-1, 1), seed=0))
+    Xd, _ = text.fit_transform(text.vectorize(corpus.texts, 1024),
+                               device=DEV)
+    Xs, _ = text.fit_transform(
+        text.vectorize_sparse(corpus.texts, 1024, nnz_cap=32), device=DEV)
+    y = torch.tensor(corpus.labels, dtype=torch.float32, device=DEV)
+    tr = slice(0, 768)
+    mr = dict(sv_capacity=128, gamma=1e-4, max_rounds=4)
+    svm = dict(C=1.0, max_epochs=15)
+    rbf = T.KernelConfig("rbf", gamma=1.0)
+    runs = [
+        ("linear dense C×tol", Xd, T.SVMConfig(**svm),
+         dict(C=[0.1, 1.0, 10.0], tol=[1e-3, 1e-2]), True),
+        ("linear sparse C×tol", Xs,
+         T.SVMConfig(**svm, row_format="sparse_csr", nnz_cap=32),
+         dict(C=[0.1, 1.0, 10.0], tol=[1e-3, 1e-2]), True),
+        ("epoch cutoffs", Xd, T.SVMConfig(**svm),
+         dict(max_epochs=[0, 2, 15]), True),
+        ("rbf C×γ gram", Xd,
+         T.SVMConfig(**svm, kernel=rbf, use_gram=True, gram_impl="pallas"),
+         dict(C=[1.0, 10.0], gamma=[0.5, 2.0]), False),
+        ("rbf C×γ sparse_gram", Xs,
+         T.SVMConfig(**svm, kernel=rbf, use_gram=True,
+                     gram_impl="pallas_sparse", row_format="sparse_csr",
+                     nnz_cap=32),
+         dict(C=[1.0, 10.0], gamma=[0.5, 2.0]), False)]
+    for tag, X, svm_cfg, axes, linear in runs:
+        cfg = T.MRSVMConfig(svm=svm_cfg, **mr)
+        params = T.sweep_grid(svm_cfg, **axes)
+        res, ms, launches = _sweep_run(torch, T, ops, X[tr], y[tr], 8, cfg,
+                                       params, f"sweep] [{tag}")
+        _check_solve_launches(launches, res, tag,
+                              "cd_solve" if linear else "cd_solve_gram")
+        if "sparse" in tag:
+            want = ("cd_solve/sparse", "hinge_scores/sparse") if linear \
+                else ("sparse_gram/gram", "sparse_gram/scores")
+        else:
+            want = ("cd_solve/single", "hinge_scores/simt") if linear \
+                else ("gram/simt", "cd_solve_gram/single")
+        check(all(launches.get(k, 0) > 0 for k in want),
+              f"{tag}: routes {launches}")
+        t0 = time.perf_counter()
+        fits = {s: T.fit_mapreduce(X[tr], y[tr], 8, cfg, params=T.SolverParams(
+            *(float(f[s]) for f in params))) for s in range(len(res.rounds))}
+        torch.cuda.synchronize()
+        seq_ms = 1e3 * (time.perf_counter() - t0)
+        diff = _sweep_vs_fits(torch, res, fits, tag, bits=linear)
+        cpu = T.fit_mapreduce_sweep(X[tr].to(device="cpu"), y[tr].cpu(), 8,
+                                    cfg, params, device="cpu")
+        cerr = float((cpu.risks - res.risks).abs().max())
+        acc = (T.predict_sweep(res, X[768:], cfg) == y[768:]).float() \
+            .mean(1)
+        say(f"[sweep] [{tag}] ≡ {len(fits)} sequential fits on the card "
+            f"(picks, SV ids, max|ΔR_emp| {diff:.2e}"
+            f"{', w and b bit for bit' if linear else ', final α bit for bit'}"
+            f"; the fits {seq_ms:.1f} ms against the sweep's {ms:.1f}); vs "
+            f"plain on the CPU max|Δrisk| {cerr:.2e} (1e-4), rounds "
+            f"{cpu.rounds.tolist()}; held-out accuracy per config "
+            f"{[round(float(a), 4) for a in acc]}, best config {res.best}")
+        check(cerr <= 1e-4 and (cpu.rounds == res.rounds).all(),
+              f"{tag}: the sweep differs from plain")
+        if tag == "epoch cutoffs":
+            check(not res.final.w[0].any() and float(res.final.b[0]) == 0.0
+                  and int(res.final.epochs_run[0]) == 0,
+                  "the cutoff-0 config's final model is not 0")
+        if tag == "rbf C×γ gram":
+            check(float(acc[res.best]) > 0.85, "golden rbf sweep best config")
+    _golden_sweep_ovr_and_per_job(torch, T, text, Xd, y)
+
+
+def _golden_sweep_ovr_and_per_job(torch, T, text, Xd, y):
+    """The golden OvR 3-class sweep (job j = config j // 3, class j % 3;
+    config 1 against ``fit_one_vs_rest`` at C = 1) and a sweep of two
+    configs on two row sets of ``Xd`` (per-job rows)."""
+    from repro_torch.kernels import ops
+    tr = slice(0, 768)
+    mr = dict(sv_capacity=128, gamma=1e-4, max_rounds=4)
+    svm = dict(C=1.0, max_epochs=15)
+    corpus3 = text.generate(text.CorpusConfig(num_messages=1024,
+                                              classes=(-1, 0, 1), seed=0))
+    X3, _ = text.fit_transform(text.vectorize(corpus3.texts, 1024),
+                               device=DEV)
+    y3 = torch.tensor(corpus3.labels, dtype=torch.float32, device=DEV)
+    cfg = T.MRSVMConfig(svm=T.SVMConfig(**svm), **mr)
+    params = T.sweep_grid(cfg.svm, C=[0.1, 1.0])
+    ops.reset_launches()
+    ovr = T.fit_one_vs_rest_sweep(X3[tr], y3[tr], [-1, 0, 1], 8, cfg, params)
+    launches = dict(ops.LAUNCHES)
+    _check_solve_launches(launches, ovr.result, "OvR sweep")
+    seq = T.fit_one_vs_rest(X3[tr], y3[tr], [-1, 0, 1], 8, cfg)
+    fits = {3 + k: seq.models[c] for k, c in enumerate((-1, 0, 1))}
+    diff = _sweep_vs_fits(torch, ovr.result, fits, "OvR sweep")
+    acc = (ovr.predict(X3[768:]) == y3[768:]).float().mean(1)
+    say(f"[sweep] [OvR 3-class] 6 jobs: launches {launches}; config 1's "
+        f"three classes ≡ fit_one_vs_rest at C = 1 (max|ΔR_emp| "
+        f"{diff:.2e}); held-out accuracy {acc.tolist()}, best {ovr.best}")
+    check(float(acc[1]) > 0.75, "OvR sweep accuracy at C = 1")
+    # per-job rows: two configs on two row sets
+    Xj = torch.stack([Xd[:768], Xd[256:]])
+    yj = torch.stack([y[:768], y[256:]])
+    cfg = T.MRSVMConfig(svm=T.SVMConfig(**svm), **mr)
+    params = T.sweep_grid(cfg.svm, C=[1.0, 10.0])
+    res, _, launches = _sweep_run(torch, T, ops, Xj, yj, 8, cfg, params,
+                                  "sweep] [per-job rows")
+    _check_solve_launches(launches, res, "per-job rows")
+    fits = {s: T.fit_mapreduce(Xj[s], yj[s], 8, cfg, params=T.SolverParams(
+        *(float(f[s]) for f in params))) for s in range(2)}
+    diff = _sweep_vs_fits(torch, res, fits, "per-job rows")
+    say(f"[sweep] [per-job rows] ≡ 2 sequential fits (max|ΔR_emp| "
+        f"{diff:.2e}, bit for bit)")
+
+
+def full_sweep(torch, T, ops, X, y, L, cfg, params, fits, tag, seq_ms,
+               routes, solve="cd_solve", bits=True, sync_round=True):
+    """A full-width sweep through ``fit_mapreduce_sweep``, counts from 0:
+    its routes, its configs in ``fits`` (config → sequential fit made
+    before) reproduced, its time beside S × the sequential fit's
+    (``seq_ms``); then one round from its converged state profiled and
+    (``sync_round``) one under ``set_sync_debug_mode("error")`` (the
+    eq. 8 readback after it). → the result."""
+    import numpy as np
+    from repro_torch.core import sweep as sweep_mod
+    from repro_torch.kernels import hinge_score
+    packs = []
+    pack = hinge_score.pack
+    hinge_score.pack = lambda W: packs.append(W.shape) or pack(W)
+    try:
+        res, ms, launches = _sweep_run(torch, T, ops, X, y, L, cfg, params,
+                                       tag)
+    finally:
+        hinge_score.pack = pack
+    S = len(res.rounds)
+    if launches.get("hinge_scores/sparse"):
+        # the solve's (d, 8⌈S·L/8⌉) w is read in place, 8 hypotheses a
+        # launch, never packed again
+        check(not packs, f"{tag}: hinge_scores/sparse packed W {packs}")
+    _check_solve_launches(launches, res, tag, solve)
+    check(all(launches.get(k, 0) == n(res) for k, n in routes.items()),
+          f"{tag}: routes {launches}, expected "
+          f"{ {k: n(res) for k, n in routes.items()} }")
+    diff = _sweep_vs_fits(torch, res, fits, tag, bits=bits)
+    say(f"[{tag}] configs {sorted(fits)} ≡ their sequential fits (rounds, "
+        f"picks, SV ids, max|ΔR_emp| {diff:.2e}, "
+        f"{'w and b' if bits else 'final α'} bit for bit); the sweep "
+        f"{ms:.1f} ms for S={S}, S × the sequential fit {S * seq_ms:.1f} ms "
+        f"({S * seq_ms / ms:.2f}×)")
+    Xp = X.reshape(L, -1, X.shape[-1])
+    yp = y.to(X.dtype).reshape(L, -1)
+    maskp = torch.ones_like(yp)
+
+    def step(sv_b, eff):
+        out = T.sweep_round(Xp, yp, maskp, sv_b, cfg, eff)
+        return (out.sv, *sweep_mod.best_reducers(out))
+    done = np.zeros(S, bool)
+    profile(torch, lambda: sweep_mod.masked_step(
+        step, res.sv, res.params, done)[1].cpu(), f"one sweep round ({tag})")
+    if not sync_round:
+        return res
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, picks, _, _ = sweep_mod.masked_step(step, res.sv, res.params, done)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    picks = picks.cpu()
+    torch.cuda.synchronize()
+    say(f"[{tag}] one sweep round under set_sync_debug_mode('error'): no "
+        f"host sync, enqueued in {enqueue_ms:.1f} ms, risks "
+        f"{picks[0].tolist()}")
+    check(bool(torch.isfinite(picks).all()), f"{tag}: round risks")
+    return res
 
 
 # --- slice 3: the LM serve path --------------------------------------------
@@ -2645,11 +3104,13 @@ def main() -> int:
     phase_gram_solve_rows(torch, ops, ref)
     phase_hinge_small(torch, ops, ref)
     phase_sparse_linear_small(torch, ops, ref, sp)
+    phase_sweep_kernels_small(torch, ops, ref, sp)
     phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()
     phase_pipeline(torch, T, text)
     phase_sparse_pipeline(torch, T, text, sp)
     gram_launches = phase_kernel_pipeline(torch, T, text)
+    phase_sweep_golden(torch, T, text, sp)
     phase_serve_smoke(torch, ops)
     torch.cuda.synchronize()
     if args.quick:

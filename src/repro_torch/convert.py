@@ -9,6 +9,10 @@ the reference — linear or Gram path, dense or blocked-CSR rows — can be
 served by the port. Blocked-CSR feature rows travel as the triple
 ``(indices, values, d)`` of the reference's ``SparseRows``.
 
+:func:`solver_params_from_numpy` takes the reference's ``SolverParams``
+(scalars, or a sweep's (S,) arrays) and gives the port's, so that both
+packages run the same grid.
+
 :func:`lm_params_from_jax` takes the parameters of the reference's
 ``TransformerModel`` (a nested dict of arrays, stacked ``layers``) and
 gives the port's, under the same names and layout, so that both
@@ -27,7 +31,7 @@ import torch
 
 from repro_torch import sparse as sparse_rows
 from repro_torch.core.mapreduce_svm import MapReduceSVM, SVBuffer
-from repro_torch.core.svm import BinarySVM
+from repro_torch.core.svm import BinarySVM, SolverParams
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import tree_map
 
@@ -79,6 +83,16 @@ def mapreduce_model_from_numpy(w, b, sv: Sequence, final: Sequence, risk,
         final=binary_svm_from_numpy(*final, device=device),
         risk=tensor_from_numpy(risk, device), rounds=int(rounds),
         history=tuple(dict(h) for h in history))
+
+
+def solver_params_from_numpy(params, device: DeviceLike = "cpu"
+                             ) -> SolverParams:
+    """The reference's ``SolverParams`` (fields as numpy arrays or
+    scalars, e.g. ``np.asarray`` of each JAX field) → the port's: 0-dim
+    fields as floats, (S,) fields as float32 tensors on ``device``."""
+    fields = [np.asarray(f, np.float32) for f in params]
+    return SolverParams(*(float(f) if f.ndim == 0
+                          else tensor_from_numpy(f, device) for f in fields))
 
 
 def lm_params_from_jax(params: Mapping, device: DeviceLike = "cpu"):

@@ -11,12 +11,18 @@ from repro_torch.core.mapreduce_svm import (CONVERGE_IMPLS, SHUFFLE_IMPLS,
                                             RoundResult, SVBuffer,
                                             decision_values, fit_mapreduce,
                                             init_sv_buffer, mapreduce_round,
-                                            predict, update_mapreduce)
+                                            predict, sweep_round,
+                                            update_mapreduce)
 from repro_torch.core.multiclass import (OneVsOneSVM, OneVsRestSVM,
                                          confusion_matrix, fit_one_vs_one,
                                          fit_one_vs_rest)
 from repro_torch.core.risk import (converged, empirical_risk, hinge_loss,
                                    zero_one_loss)
+from repro_torch.core.sweep import (SweepOneVsRest, SweepResult,
+                                    fit_mapreduce_sweep,
+                                    fit_one_vs_rest_sweep, predict_sweep,
+                                    stack_params, sweep_decision_values,
+                                    sweep_grid)
 
 __all__ = [
     "KernelConfig", "apply_kernel", "BinarySVM", "SolverParams", "SVMConfig",
@@ -25,8 +31,11 @@ __all__ = [
     "support_mask", "CONVERGE_IMPLS", "SHUFFLE_IMPLS", "MapReduceSVM",
     "MRSVMConfig", "RoundResult", "SVBuffer", "decision_values",
     "fit_mapreduce", "init_sv_buffer", "mapreduce_round", "predict",
-    "update_mapreduce",
+    "sweep_round", "update_mapreduce",
     "OneVsOneSVM", "OneVsRestSVM", "confusion_matrix", "fit_one_vs_one",
     "fit_one_vs_rest", "converged", "empirical_risk", "hinge_loss",
     "zero_one_loss",
+    "SweepOneVsRest", "SweepResult", "fit_mapreduce_sweep",
+    "fit_one_vs_rest_sweep", "predict_sweep", "stack_params",
+    "sweep_decision_values", "sweep_grid",
 ]

@@ -27,8 +27,11 @@ hypothesis through the same Gram kernel in chunks of query rows; on
 blocked-CSR rows, through one fused ``sparse_gram_scores`` launch that
 never forms K. The
 incremental :func:`update_mapreduce` retrains on new rows ∪ the carried
-SV_global. The sharded mode, the sweep axis and the fault seams of the
-reference wait for later slices (ROADMAP Queue 1).
+SV_global. :func:`sweep_round` runs the round of S configs at once
+(the sweep axis, :mod:`repro_torch.core.sweep`): one solve launch for
+all S·L jobs; :func:`mapreduce_round` is its one-config case. The
+sharded mode and the fault seams of the reference wait for later
+slices (ROADMAP Queue 1).
 """
 from __future__ import annotations
 
@@ -63,6 +66,8 @@ class SVBuffer(NamedTuple):
 
 
 class RoundResult(NamedTuple):
+    """A round's output; :func:`sweep_round` adds a leading (S,) axis to
+    every field."""
     sv: SVBuffer
     risks: torch.Tensor     # (L,) empirical risk of every reducer hypothesis
     ws: torch.Tensor        # (L, d) reducer primal hypotheses (Gram path:
@@ -178,66 +183,130 @@ def _kernel_risks(Xp, sv: SVBuffer, yp, maskp, res: BinarySVM, y_aug,
                         for l in range(L)])
 
 
+def config_params(p: SolverParams, s: int) -> SolverParams:
+    """Config ``s``'s params of (S,)-batched ``p`` (numbers stay)."""
+    return SolverParams(*(f[s] if isinstance(f, torch.Tensor) else f
+                          for f in p))
+
+
+def job_params(p: SolverParams, L: int) -> SolverParams:
+    """(S,)-batched params as (S·L,) per job, config-major (job s·L + l
+    is config s, partition l); numbers stay."""
+    return SolverParams(*(f[:, None].expand(-1, L).reshape(-1)
+                          if isinstance(f, torch.Tensor) else f for f in p))
+
+
 def mapreduce_round(Xp, yp: torch.Tensor, maskp: torch.Tensor,
                     sv: SVBuffer, cfg: MRSVMConfig,
                     params: Optional[SolverParams] = None) -> RoundResult:
-    """One full MapReduce round over stacked partitions.
+    """One full MapReduce round over stacked partitions: the one-config
+    case of :func:`sweep_round`.
 
     Xp: (L, per, d) dense or ``SparseRows``; rows are ordered so global
     id of (l, i) = l*per + i.
     """
-    L, per, d = Xp.shape
+    out = sweep_round(Xp, yp, maskp, SVBuffer(*(f[None] for f in sv)), cfg,
+                      params)
+    return RoundResult(SVBuffer(*(f[0] for f in out.sv)),
+                       *(f[0] for f in out[1:]))
+
+
+def sweep_round(Xp, yp: torch.Tensor, maskp: torch.Tensor, sv: SVBuffer,
+                cfg: MRSVMConfig,
+                params: Optional[SolverParams] = None) -> RoundResult:
+    """One MapReduce round of S configs at once.
+
+    Xp (L, per, d) rows shared by the configs or (S, L, per, d) per
+    config, dense or ``SparseRows``; yp and maskp (L, per) or (S, L,
+    per); sv the configs' SV buffers, (S, cap, …); params numbers or
+    (S,) tensors. Job s·L + l trains config s's reducer l on
+    ``[X_l; SV_s]`` with config s's C, tol and epoch cutoff: one solve
+    launch for all S·L jobs (and on the Gram path one Gram build). The
+    fold, the top-k merge (with config s's ``sv_threshold``) and eq. 7
+    run per config, eq. 7 on the linear path in one ``hinge_scores``
+    call when the rows and labels are shared. → :class:`RoundResult`
+    with a leading (S,) axis.
+    """
+    S, cap = sv.y.shape
+    L, per, d = Xp.shape[-3:]
+    per_config_x = len(Xp.shape) == 4
     p = cfg.svm.params() if params is None else params
-    cap = sv.y.shape[0]
     if cap % L != 0:
         raise ValueError(f"sv_capacity {cap} must divide by partitions {L}")
     k = cap // L
+    yS, mS = yp.expand(S, L, per), maskp.expand(S, L, per)
 
-    # --- map + reduce: all L partitions in one solve -----------------------
-    y_aug = torch.cat([yp, sv.y.expand(L, cap)], 1)
-    m_aug = torch.cat([maskp, sv.mask.expand(L, cap)], 1)
+    # --- map + reduce: all S·L jobs in one solve ----------------------------
+    y_aug = torch.cat([yS, sv.y[:, None].expand(S, L, cap)], 2) \
+        .reshape(S * L, per + cap)
+    m_aug = torch.cat([mS, sv.mask[:, None].expand(S, L, cap)], 2) \
+        .reshape(S * L, per + cap)
+    xh = Xp.reshape(S * L, per, d) if per_config_x else Xp
     solve = solve_linear_jobs if cfg.svm.is_linear else solve_kernel_jobs
-    res: BinarySVM = solve(Xp, sv.x, y_aug, m_aug, cfg.svm, p)
-    alpha = res.alpha                                # (L, per + cap)
-    home_alpha = alpha[:, :per].reshape(-1)          # (L*per,) by global id
-    copy_alpha = alpha[:, per:]                      # (L, cap) appended copies
+    res: BinarySVM = solve(xh, sv.x, y_aug, m_aug, cfg.svm, job_params(p, L))
+    alpha = res.alpha.reshape(S, L, per + cap)
+    home_alpha = alpha[:, :, :per].reshape(S, L * per)  # by global id
+    copy_alpha = alpha[:, :, per:]                      # appended copies
 
     # --- union semantics: α_eff(row) = max over all copies ------------------
-    buf_alpha = copy_alpha.max(0).values * sv.mask               # (cap,)
+    buf_alpha = copy_alpha.max(1).values * sv.mask                # (S, cap)
     live_id = sv.ids >= 0
     safe_ids = torch.where(live_id, sv.ids, 0).long()
     folded = torch.zeros_like(home_alpha).scatter_reduce_(
-        0, safe_ids, torch.where(live_id, buf_alpha, 0.0).to(home_alpha.dtype),
+        1, safe_ids, torch.where(live_id, buf_alpha, 0.0).to(home_alpha.dtype),
         "amax", include_self=True)
-    home_alpha = torch.maximum(home_alpha, folded).reshape(L, per) * maskp
+    home_alpha = torch.maximum(home_alpha, folded).reshape(S, L, per) * mS
 
     # --- merge: balanced top-k per partition, concatenated -------------------
     # A stable descending sort puts the lower index first on ties, as
     # lax.top_k does (torch.topk does not); bound SVs tie exactly at α = C.
-    topv, topi = torch.sort(home_alpha, dim=1, descending=True, stable=True)
-    topv, topi = topv[:, :k], topi[:, :k]                        # (L, k)
-    new_x = sparse_rows.take_rows_along(Xp, topi).reshape(cap, d)
-    new_y = sparse_rows.take_rows_along(yp, topi).reshape(cap)
-    live = (topv > p.sv_threshold).to(Xp.dtype)
-    base_ids = (torch.arange(L, dtype=torch.int32, device=yp.device)
-                * per)[:, None] + topi.to(torch.int32)
+    topv, topi = torch.sort(home_alpha, dim=2, descending=True, stable=True)
+    topv, topi = topv[..., :k], topi[..., :k]                    # (S, L, k)
+    dev = yp.device
+    configs = torch.arange(S, device=dev)[:, None, None]
+    parts = torch.arange(L, device=dev)[None, :, None]
+    new_x = (Xp[configs, parts, topi] if per_config_x
+             else Xp[parts, topi]).reshape(S, cap, d)
+    new_y = yS[configs, parts, topi].reshape(S, cap)
+    thr = p.sv_threshold
+    if isinstance(thr, torch.Tensor):
+        thr = thr.reshape(S, 1, 1)
+    live = (topv > thr).to(Xp.dtype).reshape(S, cap)
+    base_ids = (torch.arange(L, dtype=torch.int32, device=dev) * per
+                )[None, :, None] + topi.to(torch.int32)
     new_sv = SVBuffer(
-        x=new_x * live.reshape(cap, 1),
-        y=new_y * live.reshape(cap),
-        alpha=(topv * live).reshape(cap),
-        ids=torch.where(live.reshape(cap) > 0, base_ids.reshape(cap), -1)
+        x=new_x * live[..., None],
+        y=new_y * live,
+        alpha=topv.reshape(S, cap) * live,
+        ids=torch.where(live > 0, base_ids.reshape(S, cap), -1)
         .to(torch.int32),
-        mask=live.reshape(cap),
+        mask=live,
     )
 
     # --- driver: risk of every reducer hypothesis on the FULL data (eq. 7) --
+    ws = res.w.reshape(S, L, d)
+    bs = res.b.reshape(S, L)
     if cfg.svm.is_linear:
-        risks = _risks(Xp.reshape(L * per, d), yp.reshape(L * per),
-                       maskp.reshape(L * per), res.w, res.b, cfg.risk_loss)
+        shared = not per_config_x and yp.dim() == 2 and maskp.dim() == 2
+        if shared:
+            risks = _risks(Xp.reshape(L * per, d), yp.reshape(L * per),
+                           maskp.reshape(L * per), res.w, res.b,
+                           cfg.risk_loss).reshape(S, L)
+        else:
+            risks = torch.stack([_risks(
+                (Xp[s] if per_config_x else Xp).reshape(L * per, d),
+                yS[s].reshape(L * per), mS[s].reshape(L * per), ws[s], bs[s],
+                cfg.risk_loss) for s in range(S)])
     else:
-        risks = _kernel_risks(Xp, sv, yp, maskp, res, y_aug, m_aug, cfg, p)
-    return RoundResult(sv=new_sv, risks=risks, ws=res.w, bs=res.b,
-                       sv_count=new_sv.mask.sum())
+        y_aug = y_aug.reshape(S, L, per + cap)
+        m_aug = m_aug.reshape(S, L, per + cap)
+        risks = torch.stack([_kernel_risks(
+            Xp[s] if per_config_x else Xp, SVBuffer(*(f[s] for f in sv)),
+            yS[s], mS[s], BinarySVM(*(f.reshape(S, L, *f.shape[1:])[s]
+                                      for f in res)),
+            y_aug[s], m_aug[s], cfg, config_params(p, s)) for s in range(S)])
+    return RoundResult(sv=new_sv, risks=risks, ws=ws, bs=bs,
+                       sv_count=new_sv.mask.sum(1))
 
 
 class MapReduceSVM(NamedTuple):

@@ -16,11 +16,12 @@ L1-loss), on two paths:
   ``cd_solve_gram``, O(n²) per epoch. As in the reference, K, y, the
   mask, α and the gradient are kept in the rows' dtype.
 
-Both solve all partitions of a MapReduce round in one launch. The
-bias is LIBLINEAR's regularized bias: ``K ← K + 1`` /
-``Q_ii = ||x_i||² + 1`` and ``b = Σ α_i y_i``. Masked rows get
-``Q_ii = 1`` and their updates are multiplied by 0, so their α stays
-exactly 0.
+Both solve all partitions of a MapReduce round in one launch, and all
+S·L jobs of a sweep round (:mod:`repro_torch.core.sweep`), whose
+hyper-parameters may be per job. The bias is LIBLINEAR's regularized
+bias: ``K ← K + 1`` / ``Q_ii = ||x_i||² + 1`` and ``b = Σ α_i y_i``.
+Masked rows get ``Q_ii = 1`` and their updates are multiplied by 0, so
+their α stays exactly 0.
 """
 from __future__ import annotations
 
@@ -34,23 +35,27 @@ from repro_torch import sparse as sparse_rows
 from repro_torch.core.kernel_fns import KernelConfig, apply_kernel
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.gram import JobRows
 
 #: K entries one chunk of a decision may hold (~1 GB of float32)
 _CHUNK_ELEMS = 1 << 28
 
 
 class SolverParams(NamedTuple):
-    """Value-like solver hyper-parameters, as plain floats.
+    """Value-like solver hyper-parameters: plain floats, or a leading
+    (S,) axis on every field (numpy float32 arrays or 1-D tensors of one
+    length; a sweep's configs, :mod:`repro_torch.core.sweep`). The
+    solves also take (jobs,) tensors, one value a job.
 
     ``max_epochs`` is a cutoff: the solve stops at
-    ``min(cfg.max_epochs, params.max_epochs)`` epochs.
+    ``min(cfg.max_epochs, params.max_epochs)`` epochs (0 allowed).
     """
-    C: float
-    tol: float
-    sv_threshold: float
-    gamma: float
-    coef0: float
-    max_epochs: float
+    C: object
+    tol: object
+    sv_threshold: object
+    gamma: object
+    coef0: object
+    max_epochs: object
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,17 +127,25 @@ def support_mask(alpha: torch.Tensor, threshold: float = 1e-6) -> torch.Tensor:
     return alpha > threshold
 
 
-def epoch_cap(cfg: SVMConfig, p: SolverParams) -> int:
-    """Epochs the solve may run: ``t < min(cfg, params)`` as an int."""
+def epoch_cap(cfg: SVMConfig, p: SolverParams):
+    """Epochs the solve may run: ``t < min(cfg, params)`` as a whole
+    number, ``ceil(min(cfg.max_epochs, p.max_epochs))`` and at least 0:
+    an int, or an int32 tensor of ``p.max_epochs``'s shape."""
+    if isinstance(p.max_epochs, torch.Tensor):
+        cap = torch.ceil(torch.clamp(p.max_epochs.float(),
+                                     max=float(cfg.max_epochs)))
+        return torch.clamp(cap, min=0).to(torch.int32)
     return max(0, math.ceil(min(float(cfg.max_epochs), float(p.max_epochs))))
 
 
 def solve_linear_jobs(xh, xs, y: torch.Tensor, m: torch.Tensor,
                       cfg: SVMConfig,
                       params: Optional[SolverParams] = None) -> BinarySVM:
-    """Solve L jobs at once: job l trains on rows ``[xh[l]; xs]`` (dense
-    or ``SparseRows``) with labels/mask ``y[l]``, ``m[l]`` (L, per + S).
-    One ``cd_solve`` launch on the card. → :class:`BinarySVM` with a
+    """Solve L jobs at once: job l trains on rows ``[xh[l % n_home];
+    xs]`` (dense or ``SparseRows``; xs a (B, S, d) stack gives job l its
+    block l // (L / B)) with labels/mask ``y[l]``, ``m[l]`` (L, per + S)
+    and ``params`` whose fields are numbers or (L,) tensors. One
+    ``cd_solve`` launch on the card. → :class:`BinarySVM` with a
     leading (L,) axis."""
     p = cfg.params() if params is None else params
     alpha, w, b, t, viol = ops.cd_solve(
@@ -167,10 +180,11 @@ def kernel_matrix(X, Z, cfg: SVMConfig,
     pair under ``"pallas_sparse"``, which the reference also sends to
     ``cross_dots`` (``gram.py:178``).
 
-    Sides are row batches or ``(home, shared)`` pairs (see
-    :func:`repro_torch.kernels.ops.gram`). → (n, m), or (jobs, n, m)
-    when a side is a pair; float32 from the kernels, the rows' dtype
-    from ``apply_kernel``.
+    Sides are row batches, ``(home, shared)`` pairs or ``(home, shared
+    stack, jobs_per_shared)`` triples (see
+    :func:`repro_torch.kernels.ops.gram`); γ and coef0 numbers or one
+    a job. → (n, m), or (jobs, n, m) when a side is a pair; float32
+    from the kernels, the rows' dtype from ``apply_kernel``.
     """
     p = cfg.params() if params is None else params
     kc = cfg.kernel
@@ -187,16 +201,17 @@ def kernel_matrix(X, Z, cfg: SVMConfig,
 def solve_kernel_jobs(xh, xs, y: torch.Tensor, m: torch.Tensor,
                       cfg: SVMConfig,
                       params: Optional[SolverParams] = None) -> BinarySVM:
-    """Solve L jobs on the Gram path: job l trains on rows
-    ``[xh[l]; xs]`` (dense or ``SparseRows``) with labels/mask ``y[l]``,
-    ``m[l]`` (L, per + S). One Gram build over the L jobs and one
-    ``cd_solve_gram`` launch on the card. The state is in the rows'
-    dtype (``K.astype(X.dtype)``, ``svm.py:248``). → :class:`BinarySVM`
-    with a leading (L,) axis."""
+    """Solve L jobs on the Gram path: job l trains on rows as in
+    :func:`solve_linear_jobs`, with its own params. One Gram build over
+    the L jobs and one ``cd_solve_gram`` launch on the card. The state
+    is in the rows' dtype (``K.astype(X.dtype)``, ``svm.py:248``). →
+    :class:`BinarySVM` with a leading (L,) axis."""
     p = cfg.params() if params is None else params
     dt = xh.dtype
     L = y.shape[0]
-    K = kernel_matrix((xh, xs), (xh, xs), cfg, p).to(dt)
+    jps = L if len(xs.shape) == 2 else L // xs.shape[0]
+    side = (xh, xs) if len(xs.shape) == 2 else (xh, xs, jps)
+    K = kernel_matrix(side, side, cfg, p).to(dt)
     y, m = y.to(dt).contiguous(), m.to(dt).contiguous()
     alpha, t, viol = ops.cd_solve_gram(K.contiguous(), y, m, C=p.C,
                                        tol=p.tol,
@@ -204,12 +219,17 @@ def solve_kernel_jobs(xh, xs, y: torch.Tensor, m: torch.Tensor,
     coef = alpha * y * m
     d = xh.shape[-1]
     if cfg.kernel.name == "linear":
-        w = torch.stack([sparse_rows.weighted_row_sum(
-            sparse_rows.rows_concat(xh[j], xs), coef[j]).to(dt)
-            for j in range(L)])
+        rows = JobRows(*side)
+        w = torch.stack([sparse_rows.weighted_row_sum(rows.rows(j),
+                                                      coef[j]).to(dt)
+                         for j in range(L)])
     else:
         w = torch.zeros((L, d), dtype=dt, device=coef.device)
-    return BinarySVM(alpha=alpha, b=coef.sum(1), w=w, epochs_run=t,
+    # b = Σ α·y·m in blocks of the jobs of one shared block: a block sums
+    # as a lone round's jobs do, so a sweep's job gets that fit's bits
+    # (a reduction's order on the card depends on the rows it is given)
+    b = torch.cat([coef[j:j + jps].sum(1) for j in range(0, L, jps)])
+    return BinarySVM(alpha=alpha, b=b, w=w, epochs_run=t,
                      max_violation=viol)
 
 

@@ -13,6 +13,11 @@
 //     w  += Δ y_i x_i;  b += Δ y_i;  viol = max(viol, |pg_i| m_i)
 // Home rows (job l's partition) and the shared rows (SV_global) come
 // through two pointers, so the L augmented partitions are never copied.
+// A launch may hold the jobs of a sweep: job l reads home block
+// l % n_home and shared block l / jobs_per_shared (S configs × L
+// partitions over L shared home blocks and S SV buffers), and its own
+// C, tol and epoch cutoff, read once at the kernel's start. A job with
+// cutoff 0 runs no epoch and returns α = 0, w = 0, b = 0.
 //
 // What bounds it on an H100: the row recurrence. Each row needs the
 // w of the row before, so one job is one chain of n dependent
@@ -98,8 +103,9 @@ template <typename T, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
 cd_solve_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
                 const float* __restrict__ y, const float* __restrict__ m,
-                int per, int n_shared, int d, float C, float tol,
-                int max_epochs, int w_in_smem,
+                int per, int n_shared, int d, int n_home, int jps,
+                const float* __restrict__ Cs, const float* __restrict__ tols,
+                const int* __restrict__ cutoffs, int w_in_smem,
                 float* __restrict__ alpha, float* __restrict__ w_out,
                 float* __restrict__ b_out, int* __restrict__ epochs_out,
                 float* __restrict__ viol_out) {
@@ -114,7 +120,10 @@ cd_solve_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int n = per + n_shared;
-  const T* home = xh + (size_t)job * per * d;
+  const T* home = xh + (size_t)(job % n_home) * per * d;
+  const T* shared = xs + (size_t)(job / jps) * n_shared * d;
+  const float C = Cs[job], tol = tols[job];
+  const int max_epochs = cutoffs[job];
   const float* yj = y + (size_t)job * n;
   const float* mj = m + (size_t)job * n;
   float* aj = alpha + (size_t)job * n;
@@ -138,7 +147,7 @@ cd_solve_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
     float viol_ep = 0.f;
     for (int i = 0; i < n; ++i) {
       const T* x = i < per ? home + (size_t)i * d
-                           : xs + (size_t)(i - per) * d;
+                           : shared + (size_t)(i - per) * d;
       float yi = 0.f, mi = 0.f, ai = 0.f;
       if (tid == 0) { yi = yj[i]; mi = mj[i]; ai = aj[i]; }
       float wx = 0.f, xx = 0.f;
@@ -229,12 +238,20 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// The job axis of a launch: its jobs' home and shared blocks and their
+// per-job hyper-parameters.
+struct Jobs {
+  int jobs, n_home, jps;
+  const float* C;
+  const float* tol;
+  const int* cutoff;
+};
+
 template <typename T, bool kVectorized>
 cudaError_t launch(const void* xh, const void* xs, const float* y,
-                   const float* m, int jobs, int per, int n_shared, int d,
-                   float C, float tol, int max_epochs, float* alpha,
-                   float* w, float* b, int* epochs, float* viol,
-                   cudaStream_t stream) {
+                   const float* m, const Jobs& J, int per, int n_shared,
+                   int d, float* alpha, float* w, float* b, int* epochs,
+                   float* viol, cudaStream_t stream) {
   const size_t w_bytes = (size_t)d * sizeof(float);
   const int w_in_smem = w_bytes <= kMaxSmemW;
   const size_t smem = w_in_smem ? w_bytes : 0;
@@ -242,9 +259,10 @@ cudaError_t launch(const void* xh, const void* xs, const float* y,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmemW);
   if (err != cudaSuccess) return err;
-  kernel<<<jobs, kThreads, smem, stream>>>(
+  kernel<<<J.jobs, kThreads, smem, stream>>>(
       static_cast<const T*>(xh), static_cast<const T*>(xs), y, m, per,
-      n_shared, d, C, tol, max_epochs, w_in_smem, alpha, w, b, epochs, viol);
+      n_shared, d, J.n_home, J.jps, J.C, J.tol, J.cutoff, w_in_smem, alpha,
+      w, b, epochs, viol);
   return cudaGetLastError();
 }
 
@@ -318,12 +336,18 @@ __host__ __device__ constexpr size_t smem_bytes(int threads, int c, int n) {
          (size_t)2 * c * (threads / 32) * sizeof(float2) + (size_t)n * 4;
 }
 
+// One CTA an SM at most (its shared memory sees to that), so ptxas may
+// use up to 128 registers a thread: w's slice and the per-job values
+// stay out of local memory.
 template <typename T>
-__global__ void __launch_bounds__(kMaxThreads)
+__global__ void __launch_bounds__(kMaxThreads, 1)
 cd_solve_cluster_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
                         const float* __restrict__ y,
                         const float* __restrict__ m, int per, int n_shared,
-                        int d, float C, float tol, int max_epochs,
+                        int d, int n_home, int jps,
+                        const float* __restrict__ Cs,
+                        const float* __restrict__ tols,
+                        const int* __restrict__ cutoffs,
                         float* __restrict__ alpha,
                         float* __restrict__ w_out, float* __restrict__ b_out,
                         int* __restrict__ epochs_out,
@@ -347,7 +371,12 @@ cd_solve_cluster_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
   // global store in the row loop would hold up each barrier's release.
   float* aj = reinterpret_cast<float*>(slots + 2 * parts);
 
-  const T* home = xh + (size_t)job * per * d;
+  // Every CTA of a cluster reads its job's C, tol and cutoff, so all
+  // run the same epochs and meet at the same barriers.
+  const T* home = xh + (size_t)(job % n_home) * per * d;
+  const T* shared = xs + (size_t)(job / jps) * n_shared * d;
+  const float C = Cs[job], tol = tols[job];
+  const int max_epochs = cutoffs[job];
   const float* yj = y + (size_t)job * n;
   const float* mj = m + (size_t)job * n;
 
@@ -366,7 +395,7 @@ cd_solve_cluster_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
   auto issue = [&](long long s) {
     const int i = (int)(s % n);
     const T* x = i < per ? home + (size_t)i * d
-                         : xs + (size_t)(i - per) * d;
+                         : shared + (size_t)(i - per) * d;
     uint4* st = ring + (size_t)(s % kStages) * kNV * threads;
 #pragma unroll
     for (int u = 0; u < kNV; ++u)
@@ -529,14 +558,13 @@ cudaError_t max_active(int d, int n, int c, int* clusters) {
 
 template <typename T>
 cudaError_t launch(const void* xh, const void* xs, const float* y,
-                   const float* m, int jobs, int per, int n_shared, int d,
-                   float C, float tol, int max_epochs, int c, float* alpha,
-                   float* w, float* b, int* epochs, float* viol,
-                   cudaStream_t stream) {
+                   const float* m, const Jobs& J, int per, int n_shared,
+                   int d, int c, float* alpha, float* w, float* b,
+                   int* epochs, float* viol, cudaStream_t stream) {
   const int n = per + n_shared;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cudaError_t err = configure<T>(jobs, d, n, c, stream, &cfg, &attr);
+  cudaError_t err = configure<T>(J.jobs, d, n, c, stream, &cfg, &attr);
   if (err != cudaSuccess) return err;
   int clusters = 0;
   err = max_active<T>(d, n, c, &clusters);
@@ -545,7 +573,8 @@ cudaError_t launch(const void* xh, const void* xs, const float* y,
   err = cudaLaunchKernelEx(&cfg, cd_solve_cluster_kernel<T>,
                            static_cast<const T*>(xh),
                            static_cast<const T*>(xs), y, m, per, n_shared, d,
-                           C, tol, max_epochs, alpha, w, b, epochs, viol);
+                           J.n_home, J.jps, J.C, J.tol, J.cutoff, alpha, w, b,
+                           epochs, viol);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -553,32 +582,34 @@ cudaError_t launch(const void* xh, const void* xs, const float* y,
 }  // namespace cl
 }  // namespace
 
-// xh (jobs, per, d) and xs (n_shared, d) rows, bf16 if is_bf16 else
-// f32; y, m (jobs, per + n_shared) f32. Outputs: alpha (jobs, n), w
-// (jobs, d), b, epochs, viol (jobs,). Returns a cudaError_t (0 = ok).
+// xh (n_home, per, d) and xs (jobs / jobs_per_shared, n_shared, d) rows,
+// bf16 if is_bf16 else f32; y, m (jobs, per + n_shared) f32; C, tol
+// (jobs,) f32 and cutoff (jobs,) int32, each job's own. Job l reads home
+// block l % n_home and shared block l / jobs_per_shared. Outputs: alpha
+// (jobs, n), w (jobs, d), b, epochs, viol (jobs,). Returns a cudaError_t
+// (0 = ok).
 extern "C" int cd_solve(const void* xh, const void* xs, int is_bf16,
                         const float* y, const float* m, int jobs, int per,
-                        int n_shared, int d, float C, float tol,
-                        int max_epochs, float* alpha, float* w, float* b,
-                        int* epochs, float* viol, void* stream) {
+                        int n_shared, int d, int n_home, int jobs_per_shared,
+                        const float* C, const float* tol, const int* cutoff,
+                        float* alpha, float* w, float* b, int* epochs,
+                        float* viol, void* stream) {
   if (jobs <= 0) return cudaSuccess;
+  if (n_home < 1 || jobs_per_shared < 1) return cudaErrorInvalidValue;
+  const Jobs J{jobs, n_home, jobs_per_shared, C, tol, cutoff};
   const bool vec = d % kVec == 0 && aligned16(xh) && aligned16(w) &&
                    (n_shared == 0 || aligned16(xs));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16) {
-    return vec ? launch<__nv_bfloat16, true>(xh, xs, y, m, jobs, per, n_shared,
-                                             d, C, tol, max_epochs, alpha, w,
-                                             b, epochs, viol, s)
-               : launch<__nv_bfloat16, false>(xh, xs, y, m, jobs, per,
-                                              n_shared, d, C, tol, max_epochs,
-                                              alpha, w, b, epochs, viol, s);
+    return vec ? launch<__nv_bfloat16, true>(xh, xs, y, m, J, per, n_shared,
+                                             d, alpha, w, b, epochs, viol, s)
+               : launch<__nv_bfloat16, false>(xh, xs, y, m, J, per, n_shared,
+                                              d, alpha, w, b, epochs, viol, s);
   }
-  return vec ? launch<float, true>(xh, xs, y, m, jobs, per, n_shared, d, C,
-                                   tol, max_epochs, alpha, w, b, epochs, viol,
-                                   s)
-             : launch<float, false>(xh, xs, y, m, jobs, per, n_shared, d, C,
-                                    tol, max_epochs, alpha, w, b, epochs,
-                                    viol, s);
+  return vec ? launch<float, true>(xh, xs, y, m, J, per, n_shared, d, alpha,
+                                   w, b, epochs, viol, s)
+             : launch<float, false>(xh, xs, y, m, J, per, n_shared, d, alpha,
+                                    w, b, epochs, viol, s);
 }
 
 // Cluster route: as cd_solve, one cluster of c CTAs (a power of two in
@@ -589,23 +620,22 @@ extern "C" int cd_solve(const void* xh, const void* xs, int is_bf16,
 // cluster of c such CTAs can be resident on the card.
 extern "C" int cd_solve_cluster(const void* xh, const void* xs, int is_bf16,
                                 const float* y, const float* m, int jobs,
-                                int per, int n_shared, int d, float C,
-                                float tol, int max_epochs, int c,
-                                float* alpha, float* w,
-                                float* b, int* epochs, float* viol,
-                                void* stream) {
+                                int per, int n_shared, int d, int n_home,
+                                int jobs_per_shared, const float* C,
+                                const float* tol, const int* cutoff, int c,
+                                float* alpha, float* w, float* b, int* epochs,
+                                float* viol, void* stream) {
   if (jobs <= 0) return cudaSuccess;
-  if (per + n_shared < 1 || !aligned16(xh) || !aligned16(w) ||
-      (n_shared > 0 && !aligned16(xs)))
+  if (per + n_shared < 1 || n_home < 1 || jobs_per_shared < 1 ||
+      !aligned16(xh) || !aligned16(w) || (n_shared > 0 && !aligned16(xs)))
     return cudaErrorInvalidValue;
+  const Jobs J{jobs, n_home, jobs_per_shared, C, tol, cutoff};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return cl::launch<__nv_bfloat16>(xh, xs, y, m, jobs, per, n_shared, d, C,
-                                     tol, max_epochs, c, alpha,
-                                     w, b, epochs, viol, s);
-  return cl::launch<float>(xh, xs, y, m, jobs, per, n_shared, d, C, tol,
-                           max_epochs, c, alpha, w, b, epochs,
-                           viol, s);
+    return cl::launch<__nv_bfloat16>(xh, xs, y, m, J, per, n_shared, d, c,
+                                     alpha, w, b, epochs, viol, s);
+  return cl::launch<float>(xh, xs, y, m, J, per, n_shared, d, c, alpha, w, b,
+                           epochs, viol, s);
 }
 
 // How many clusters of c CTAs of the cluster route for n rows of width

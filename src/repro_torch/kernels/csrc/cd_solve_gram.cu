@@ -15,7 +15,10 @@
 //       pg  = projected g_i on the box [0, C]
 //       α_i ← clip(α_i − g_i / Q_ii, 0, C), Δ = (α_new − α_old) · m_i
 //       g  += Δ · Q[:, i];  viol = max(viol, |pg| · m_i)
-// K excludes the +1: the kernel adds it where it forms Q.
+// K excludes the +1: the kernel adds it where it forms Q. Each job has
+// its own C, tol and epoch cutoff (a sweep's configs on one launch),
+// read once at the kernel's start by every CTA of its cluster, so the
+// CTAs run the same epochs; a job with cutoff 0 runs none (α = 0).
 //
 // State type: the reference keeps K, y, m, α, g, C and tol in the rows'
 // dtype (svm.py:248, :260-261, :305). The kernel is templated on float
@@ -68,8 +71,9 @@ constexpr int kThreads = 512;      // warp 0 chains, warps 1.. update
 constexpr int kMaxCluster = 16;    // non-portable above 8
 constexpr int kStateArrays = 5;    // g, alpha, qdiag, y, m
 constexpr size_t kSmemMax = 232448;
-// static shared memory: (Δ, y, m) of a tile by parity, violations
-constexpr size_t kStaticSmem = (2 * 3 * kTile + 2 * kMaxCluster) * 4;
+// static shared memory: (Δ, y, m) of a tile by parity, violations, the
+// job's tol and cutoff
+constexpr size_t kStaticSmem = (2 * 3 * kTile + 2 * kMaxCluster + 2) * 4;
 // rows a CTA can own: whole tiles of state in its dynamic shared memory
 constexpr int kMaxRowsPerCta =
     (int)((kSmemMax - kStaticSmem) / (kStateArrays * 4)) / kTile * kTile;
@@ -235,12 +239,17 @@ __device__ __forceinline__ void prefetch_rows(const T* __restrict__ Kj, int n,
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
-                     const T* __restrict__ m, int n, int W, float C_in,
-                     float tol_in, int max_epochs, T* __restrict__ alpha_out,
+                     const T* __restrict__ m, int n, int W,
+                     const float* __restrict__ Cs,
+                     const float* __restrict__ tols,
+                     const int* __restrict__ cutoffs,
+                     T* __restrict__ alpha_out,
                      int* __restrict__ epochs_out, T* __restrict__ viol_out) {
   extern __shared__ float smem[];
   __shared__ float dl[2][3 * kTile];      // (Δ, y, m) of a tile, by parity
   __shared__ float vs[2][kMaxCluster];    // each CTA's violation, by epoch
+  __shared__ float s_tol;                 // the job's tol and cutoff, read
+  __shared__ int s_cutoff;                // once an epoch: no registers
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks();
   const int rank = (int)cluster.block_rank();
@@ -255,8 +264,11 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
   const int tiles = (n + kTile - 1) / kTile;
   const int tiles_per_cta = W / kTile;
   const T* Kj = K + (size_t)job * n * n;
-  const float C = rt<T>(C_in);
-  const float tol = rt<T>(tol_in);
+  const float C = rt<T>(Cs[job]);
+  if (tid == 0) {
+    s_tol = rt<T>(tols[job]);
+    s_cutoff = cutoffs[job];
+  }
 
   for (int jl = tid; jl < nown; jl += nt) {
     const int j = r0 + jl;
@@ -276,7 +288,7 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
 
   float viol = INFINITY;
   int t = 0;
-  while (t < max_epochs && (t == 0 || viol > tol)) {
+  while (t < s_cutoff && (t == 0 || viol > s_tol)) {
     float vmax = 0.f;   // warp 0: the violations of the rows it chained
     if (warp == 0 && rank == 0) {   // tile 0's owner
       float kq[kTile];
@@ -403,8 +415,9 @@ cudaError_t max_active(int n, int c, int* clusters) {
 
 template <typename T>
 cudaError_t launch(const void* K, const void* y, const void* m, int jobs,
-                   int n, int c, float C, float tol, int max_epochs,
-                   void* alpha, int* epochs, void* viol, cudaStream_t stream) {
+                   int n, int c, const float* C, const float* tol,
+                   const int* cutoff, void* alpha, int* epochs, void* viol,
+                   cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure<T>(jobs, n, c, stream, &cfg, &attr);
@@ -416,7 +429,7 @@ cudaError_t launch(const void* K, const void* y, const void* m, int jobs,
   err = cudaLaunchKernelEx(&cfg, cd_solve_gram_kernel<T>,
                            static_cast<const T*>(K), static_cast<const T*>(y),
                            static_cast<const T*>(m), n, rows_per_cta(n, c), C,
-                           tol, max_epochs, static_cast<T*>(alpha), epochs,
+                           tol, cutoff, static_cast<T*>(alpha), epochs,
                            static_cast<T*>(viol));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
@@ -439,19 +452,22 @@ extern "C" int cd_solve_gram_occupancy(int is_bf16, int n, int c,
 }
 
 // K (jobs, n, n) symmetric, y, m (jobs, n), all bf16 if is_bf16 else
-// f32; c CTAs a job (1 ≤ c ≤ 16). Outputs alpha (jobs, n) and viol
+// f32; c CTAs a job (1 ≤ c ≤ 16); C, tol (jobs,) f32 and cutoff (jobs,)
+// int32, each job's own (C and tol rounded to the state type, as the
+// reference casts them to the rows' dtype). Outputs alpha (jobs, n) and viol
 // (jobs,) in the same type, epochs (jobs,) int32. Returns a cudaError_t
 // (0 = ok; cudaErrorInvalidConfiguration when no cluster of c can be
 // resident).
 extern "C" int cd_solve_gram(const void* K, int is_bf16, const void* y,
-                             const void* m, int jobs, int n, int c, float C,
-                             float tol, int max_epochs, void* alpha,
+                             const void* m, int jobs, int n, int c,
+                             const float* C, const float* tol,
+                             const int* cutoff, void* alpha,
                              int* epochs, void* viol, void* stream) {
   if (jobs <= 0 || n <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(K, y, m, jobs, n, c, C, tol, max_epochs,
-                                 alpha, epochs, viol, s);
-  return launch<float>(K, y, m, jobs, n, c, C, tol, max_epochs, alpha, epochs,
+    return launch<__nv_bfloat16>(K, y, m, jobs, n, c, C, tol, cutoff, alpha,
+                                 epochs, viol, s);
+  return launch<float>(K, y, m, jobs, n, c, C, tol, cutoff, alpha, epochs,
                        viol, s);
 }

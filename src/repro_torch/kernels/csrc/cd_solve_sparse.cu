@@ -89,6 +89,12 @@
 // svm_step.emulate_sparse_lookahead repeats the arithmetic bit for bit.
 // Reruns are bit-identical.
 //
+// A launch may hold the jobs of a sweep, as in cd_solve.cu: job l reads
+// home block l % n_home and shared block l / jobs_per_shared, and its
+// own C, tol and epoch cutoff (a job with cutoff 0 runs no epoch: α, w
+// and b stay 0). The prep kernel lays out each job's own rows, so the
+// solve and the look-ahead table are per job as before.
+//
 // w is the job's column of a (d, ldw) array (ldw = L rounded up to 8),
 // so that the eq. 7 kernel (hinge_scores.cu, sparse route) reads a
 // column id's 8 hypotheses as one 32-byte sector without a transpose.
@@ -244,13 +250,16 @@ __device__ __forceinline__ unsigned hash_slot(int id, int log2h) {
   return ((unsigned)id * 2654435761u) >> (32 - log2h);
 }
 
+// At most kSpt = 8 slots a lane (nnz_cap ≤ 256) the prep keeps to 80
+// registers a thread, so that 3 CTAs share an SM.
 template <typename T, int kSpt>
-__global__ void __launch_bounds__(kPrepWarps * 32)
+__global__ void __launch_bounds__(kPrepWarps * 32, kSpt <= 8 ? 3 : 1)
 cds_prep_kernel(const int* __restrict__ xh_idx, const T* __restrict__ xh_val,
                 const int* __restrict__ xs_idx, const T* __restrict__ xs_val,
                 const float* __restrict__ y, const float* __restrict__ m,
-                int per, int n_shared, int cap, int k, int log2h,
-                uint8_t* __restrict__ blocks, float* __restrict__ alpha) {
+                int per, int n_shared, int n_home, int jps, int cap, int k,
+                int log2h, uint8_t* __restrict__ blocks,
+                float* __restrict__ alpha) {
   extern __shared__ int hash[];
   const int H = 1 << log2h;
   const int lane = threadIdx.x & 31;
@@ -261,12 +270,13 @@ cds_prep_kernel(const int* __restrict__ xh_idx, const T* __restrict__ xh_val,
   const int job = blockIdx.y;
   const int n = per + n_shared;
   const int bb = block_bytes(cap);
+  const size_t home0 = (size_t)(job % n_home) * per;
+  const size_t shared0 = (size_t)(job / jps) * n_shared;
   // The lane's slots lane + 32j of row `row`, loaded all at once.
   auto load = [&](int row, int* id, float* v) {
-    const int* ri = row < per ? xh_idx + ((size_t)job * per + row) * cap
-                              : xs_idx + (size_t)(row - per) * cap;
-    const T* rv = row < per ? xh_val + ((size_t)job * per + row) * cap
-                            : xs_val + (size_t)(row - per) * cap;
+    const size_t r = row < per ? home0 + row : shared0 + (row - per);
+    const int* ri = (row < per ? xh_idx : xs_idx) + r * cap;
+    const T* rv = (row < per ? xh_val : xs_val) + r * cap;
 #pragma unroll
     for (int j = 0; j < kSpt; ++j) {
       const int s = lane + 32 * j;
@@ -339,11 +349,14 @@ cds_prep_kernel(const int* __restrict__ xh_idx, const T* __restrict__ xh_val,
 // --- the solve: one CTA a job --------------------------------------------
 // kFull: k = kAhead (every job of more than kAhead rows), so the waits
 // and the look-ahead are constants; else k comes at run time.
+// A minimum of one CTA an SM lets ptxas give the step the registers it
+// needs; without it ptxas held the kernel to 40 and spilled.
 template <int kSpt, bool kFull>
-__global__ void __launch_bounds__((kMaxWarps + 1) * 32)
+__global__ void __launch_bounds__((kMaxWarps + 1) * 32, 1)
 cds_solve_kernel(const uint8_t* __restrict__ blocks, int n, int cap,
-                 int warps, int k_run, float C, float tol, int max_epochs,
-                 float* __restrict__ alpha, float* w_all, int ldw,
+                 int warps, int k_run, const float* __restrict__ Cs,
+                 const float* __restrict__ tols,
+                 const int* __restrict__ cutoffs, float* __restrict__ alpha, float* w_all, int ldw,
                  float* __restrict__ b_out, int* __restrict__ epochs_out,
                  float* __restrict__ viol_out) {
   extern __shared__ __align__(16) uint8_t smem[];
@@ -362,6 +375,16 @@ cds_solve_kernel(const uint8_t* __restrict__ blocks, int n, int cap,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  // C is on the step's chain and stays in a register; tol and the
+  // cutoff are read once an epoch, from shared memory
+  __shared__ float tol;
+  __shared__ int max_epochs;
+  const float C = Cs[job];
+  if (tid == 0) {
+    tol = tols[job];
+    max_epochs = cutoffs[job];
+  }
+  __syncthreads();
   const bool producer = warp == warps;
   const bool copier = tid == T;            // the producer's lane that copies
   const uint8_t* jb = blocks + (size_t)job * n * bb;
@@ -571,8 +594,9 @@ int ceil_log2(int x) {
 template <typename T>
 cudaError_t launch(const void* xh_idx, const void* xh_val, const void* xs_idx,
                    const void* xs_val, const float* y, const float* m, int L,
-                   int per, int n_shared, int cap, float C, float tol,
-                   int max_epochs, uint8_t* blocks, float* alpha, float* w,
+                   int per, int n_shared, int n_home, int jps, int cap,
+                   const float* C, const float* tol, const int* cutoff,
+                   uint8_t* blocks, float* alpha, float* w,
                    int ldw, float* b, int* epochs, float* viol,
                    cudaStream_t s) {
   const int n = per + n_shared;
@@ -594,7 +618,7 @@ cudaError_t launch(const void* xh_idx, const void* xh_val, const void* xs_idx,
     prep<<<grid, kPrepWarps * 32, pbytes, s>>>(                              \
         static_cast<const int*>(xh_idx), static_cast<const T*>(xh_val),      \
         static_cast<const int*>(xs_idx), static_cast<const T*>(xs_val), y,   \
-        m, per, n_shared, cap, k, log2h, blocks, alpha);                     \
+        m, per, n_shared, n_home, jps, cap, k, log2h, blocks, alpha);        \
   } while (0)
     if (pspt <= 1)
       CDS_PREP(1);
@@ -623,7 +647,7 @@ cudaError_t launch(const void* xh_idx, const void* xh_val, const void* xs_idx,
         cudaSuccess)                                                         \
       return err;                                                            \
     kern<<<L, threads + 32, smem, s>>>(blocks, n, cap, warps, k, C, tol,     \
-                                       max_epochs, alpha, w, ldw, b, epochs,  \
+                                       cutoff, alpha, w, ldw, b, epochs,      \
                                        viol);                                 \
   } while (0)
   if (spt <= 1)
@@ -650,9 +674,12 @@ extern "C" int cd_solve_sparse_block_bytes(int cap) {
   return block_bytes(cap);
 }
 
-// xh: indices (L, per, cap) int32 and values (L, per, cap); xs: indices
-// (S, cap) int32 and values (S, cap); values f32 (bf16 = 0) or bf16
-// (bf16 = 1). y, m (L, per + S) f32. Scratch blocks: L · (per + S) ·
+// xh: indices (n_home, per, cap) int32 and values (n_home, per, cap);
+// xs: indices (L / jobs_per_shared, S, cap) int32 and values of that
+// shape; values f32 (bf16 = 0) or bf16 (bf16 = 1). Job l reads home
+// block l % n_home and shared block l / jobs_per_shared. y, m (L, per +
+// S) f32; C, tol (L,) f32 and cutoff (L,) int32, each job's own.
+// Scratch blocks: L · (per + S) ·
 // cd_solve_sparse_block_bytes(cap) bytes, 16-byte aligned.
 // Outputs alpha (L, n); w (d, ldw) f32, 16-byte aligned, ZEROED by the
 // caller, job l's w in column l (ldw ≥ L, a multiple of 4); b (L,),
@@ -661,13 +688,14 @@ extern "C" int cd_solve_sparse_block_bytes(int cap) {
 extern "C" int cd_solve_sparse(const void* xh_idx, const void* xh_val,
                                const void* xs_idx, const void* xs_val,
                                int bf16, const float* y, const float* m,
-                               int L, int per, int n_shared, int cap,
-                               float C, float tol, int max_epochs,
+                               int L, int per, int n_shared, int n_home,
+                               int jobs_per_shared, int cap, const float* C,
+                               const float* tol, const int* cutoff,
                                void* blocks, float* alpha, float* w, int ldw,
                                float* b, int* epochs, float* viol,
                                void* stream) {
   if (L < 1 || cap < 1 || cap > kMaxCap || per < 0 || n_shared < 0 ||
-      ldw < L || ldw % 4 != 0 ||
+      n_home < 1 || jobs_per_shared < 1 || ldw < L || ldw % 4 != 0 ||
       (reinterpret_cast<uintptr_t>(blocks) & 15u) != 0 ||
       (reinterpret_cast<uintptr_t>(w) & 15u) != 0)
     return cudaErrorInvalidValue;
@@ -675,9 +703,10 @@ extern "C" int cd_solve_sparse(const void* xh_idx, const void* xh_val,
   auto* bl = static_cast<uint8_t*>(blocks);
   if (bf16)
     return launch<__nv_bfloat16>(xh_idx, xh_val, xs_idx, xs_val, y, m, L, per,
-                                 n_shared, cap, C, tol, max_epochs, bl, alpha,
-                                 w, ldw, b, epochs, viol, s);
+                                 n_shared, n_home, jobs_per_shared, cap, C,
+                                 tol, cutoff, bl, alpha, w, ldw, b, epochs,
+                                 viol, s);
   return launch<float>(xh_idx, xh_val, xs_idx, xs_val, y, m, L, per, n_shared,
-                       cap, C, tol, max_epochs, bl, alpha, w, ldw, b, epochs,
-                       viol, s);
+                       n_home, jobs_per_shared, cap, C, tol, cutoff, bl,
+                       alpha, w, ldw, b, epochs, viol, s);
 }

@@ -4,7 +4,9 @@
 // Replaces the TPU kernel src/repro/kernels/gram.py: gram
 // (_gram_kernel, pl.pallas_call at line 83). As there, products are
 // taken from float32-cast rows and summed in float32, γ and coef0 are
-// runtime scalars, and the transform is applied to the finished sum:
+// runtime values (one of each a job, read from the card, so that a
+// sweep over kernel scales runs in one launch), and the transform is
+// applied to the finished sum:
 //     linear: K = acc
 //     poly:   K = (γ·acc + c0)^degree   (integer degree ≥ 0, repeated
 //             multiplication — powf NaNs on negative bases)
@@ -12,10 +14,11 @@
 //             from the float32-cast rows (gram.py:76-77)
 //
 // Rows of job l come through per-row pointers (row_ptr), as in
-// cd_solve.cu: row i is home row i of the job for i < per, else shared
-// row i − per. A MapReduce round's L augmented partitions [X_l;
-// SV_global] are so never copied; a plain (n, d) matrix is one job with
-// no shared rows.
+// cd_solve.cu: row i is row i of home block l % n_home for i < per,
+// else row i − per of shared block l / jobs_per_shared. A MapReduce
+// round's L augmented partitions [X_l; SV_global] are so never copied,
+// nor a sweep's S·L ones [X_l; SV_s]; a plain (n, d) matrix is one job
+// with no shared rows.
 //
 // What bounds it on an H100: operations. 2·n·m·d multiply-adds against
 // (n + m)·d input bytes; at one full-width reducer Gram (10240² pairs,
@@ -77,29 +80,54 @@ __device__ __forceinline__ void load8(const float* p, float* v) {
   v[4] = c.x; v[5] = c.y; v[6] = c.z; v[7] = c.w;
 }
 
-// Row i of job `job`: home rows first, then the shared rows.
+// Row i of job `job`: the rows of its home block first, then those of
+// its shared block.
 struct RowSource {
   const void* home;
-  long long job_rows;   // rows between two jobs' home blocks (0: shared)
-  int per;              // home rows per job
+  int n_home;           // home blocks; job l's is l % n_home
+  int per;              // rows a home block
   const void* shared;
-  int n;                // per + shared rows
-  long long home_total; // home rows of all jobs (norm index of shared)
+  int n_shared;         // rows a shared block
+  int jps;              // jobs a shared block; job l's is l / jps
+  int n;                // per + n_shared
+  long long home_total; // rows of all home blocks (norm index of shared)
 };
+
+// Index of row i of job `job` among all home rows, then all shared rows.
+__device__ __forceinline__ long long row_index(const RowSource& s, int job,
+                                               int i) {
+  return i < s.per ? (long long)(job % s.n_home) * s.per + i
+                   : s.home_total + (long long)(job / s.jps) * s.n_shared +
+                         (i - s.per);
+}
 
 template <typename T>
 __device__ __forceinline__ const T* row_ptr(const RowSource& s, int job,
                                             int i, int d) {
-  return i < s.per
-             ? static_cast<const T*>(s.home) +
-                   (size_t)((long long)job * s.job_rows + i) * d
-             : static_cast<const T*>(s.shared) + (size_t)(i - s.per) * d;
+  const long long r = row_index(s, job, i);
+  return i < s.per ? static_cast<const T*>(s.home) + (size_t)r * d
+                   : static_cast<const T*>(s.shared) +
+                         (size_t)(r - s.home_total) * d;
 }
 
-__device__ __forceinline__ long long norm_index(const RowSource& s, int job,
-                                                int i) {
-  return i < s.per ? (long long)job * s.job_rows + i
-                   : s.home_total + (i - s.per);
+// A side's row norms for one job: row i's is home[i] for i < per, else
+// shared[i]; the block offsets are taken once a job, not once a pair.
+struct JobNorms {
+  const float* home;
+  const float* shared;
+  int per;
+
+  __device__ __forceinline__ float operator[](int i) const {
+    return i < per ? home[i] : shared[i];
+  }
+};
+
+__device__ __forceinline__ JobNorms job_norms(const RowSource& s,
+                                              const float* norms, int job) {
+  return JobNorms{norms + (long long)(job % s.n_home) * s.per,
+                  norms + s.home_total + (long long)(job / s.jps) * s.n_shared -
+                      s.per,
+                  s.per};
 }
 
 // Σ_k float(x_k)² of `rows` contiguous rows; one warp per row.
@@ -138,13 +166,15 @@ __device__ __forceinline__ void load_slice(const T* row, int k0, int d,
 
 template <typename T, bool kVectorized>
 __global__ void __launch_bounds__(kThreads)
-gram_kernel(RowSource xs, RowSource zs, int d, int kind, float gamma,
-            float coef0, int degree, const float* __restrict__ xnorm,
+gram_kernel(RowSource xs, RowSource zs, int d, int kind,
+            const float* __restrict__ gammas, const float* __restrict__ coef0s,
+            int degree, const float* __restrict__ xnorm,
             const float* __restrict__ znorm, float* __restrict__ K) {
   __shared__ __align__(16) float As[kBK][kBM + kPad];
   __shared__ __align__(16) float Bs[kBK][kBN + kPad];
 
   const int job = blockIdx.z;
+  const float gamma = gammas[job], coef0 = coef0s[job];
   const int m0 = blockIdx.y * kBM;
   const int n0 = blockIdx.x * kBN;
   const int tid = threadIdx.x;
@@ -194,11 +224,13 @@ gram_kernel(RowSource xs, RowSource zs, int d, int kind, float gamma,
   }
 
   float* Kj = K + (size_t)job * xs.n * zs.n;
+  const JobNorms xnj = job_norms(xs, xnorm, job);
+  const JobNorms znj = job_norms(zs, znorm, job);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     const int r = m0 + ty * kTM + i;
     if (r >= xs.n) continue;
-    const float xn = kind == kRbf ? xnorm[norm_index(xs, job, r)] : 0.f;
+    const float xn = kind == kRbf ? xnj[r] : 0.f;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
       const int c = n0 + tx * kTN + j;
@@ -209,7 +241,7 @@ gram_kernel(RowSource xs, RowSource zs, int d, int kind, float gamma,
         v = 1.f;
         for (int e = 0; e < degree; ++e) v = __fmul_rn(v, base);
       } else if (kind == kRbf) {
-        const float zn = znorm[norm_index(zs, job, c)];
+        const float zn = znj[c];
         const float sq = __fsub_rn(__fadd_rn(xn, zn), __fmul_rn(2.f, v));
         v = expf(__fmul_rn(-gamma, fmaxf(sq, 0.f)));
       }
@@ -242,7 +274,8 @@ cudaError_t side_norms(const RowSource& s, long long shared_rows, int d,
 }
 
 cudaError_t launch_simt(const RowSource& xs, const RowSource& zs, int jobs,
-                        int d, int kind, float gamma, float coef0, int degree,
+                        int d, int kind, const float* gamma,
+                        const float* coef0, int degree,
                         const float* xnorm, const float* znorm, float* K,
                         cudaStream_t stream) {
   const bool vec = d % 8 == 0 && aligned16(xs.home) && aligned16(zs.home) &&
@@ -499,7 +532,8 @@ __device__ __forceinline__ void produce(const RowSource& xs,
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads, 1)
 gram_tc_kernel(RowSource xs, RowSource zs, int d, int sym, int kind,
-               float gamma, float coef0, int degree,
+               const float* __restrict__ gammas,
+               const float* __restrict__ coef0s, int degree,
                const float* __restrict__ xnorm,
                const float* __restrict__ znorm, float* __restrict__ K) {
   extern __shared__ uint8_t smem_raw[];
@@ -512,6 +546,7 @@ gram_tc_kernel(RowSource xs, RowSource zs, int d, int sym, int kind,
   int bi, bj;
   tile_of(blockIdx.x, tm, tn, sym != 0, bi, bj);
   const int job = blockIdx.z;
+  const float gamma = gammas[job], coef0 = coef0s[job];
   const int m0 = bi * kBM, n0 = bj * kBN;
   const int slices = (d + kBK - 1) / kBK;
 
@@ -560,11 +595,13 @@ gram_tc_kernel(RowSource xs, RowSource zs, int d, int sym, int kind,
   const int warp = (threadIdx.x / 32) & 3;
   const int lane = threadIdx.x & 31;
   float* Kj = K + (size_t)job * xs.n * zs.n;
+  const JobNorms xnj = job_norms(xs, xnorm, job);
+  const JobNorms znj = job_norms(zs, znorm, job);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = m0 + wg * 64 + warp * 16 + lane / 4 + 8 * h;
     if (r >= xs.n) continue;
-    const float xn = kind == kRbf ? xnorm[norm_index(xs, job, r)] : 0.f;
+    const float xn = kind == kRbf ? xnj[r] : 0.f;
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
@@ -573,7 +610,7 @@ gram_tc_kernel(RowSource xs, RowSource zs, int d, int sym, int kind,
         if (c >= zs.n) continue;
         // a symmetric K takes each pair once, from the upper triangle
         if (sym != 0 && c < r) continue;
-        const float zn = kind == kRbf ? znorm[norm_index(zs, job, c)] : 0.f;
+        const float zn = kind == kRbf ? znj[c] : 0.f;
         const float v = epilogue(acc[4 * j + 2 * h + e], kind, gamma, coef0,
                                  degree, xn, zn);
         Kj[(size_t)r * zs.n + c] = v;
@@ -584,7 +621,8 @@ gram_tc_kernel(RowSource xs, RowSource zs, int d, int sym, int kind,
 }
 
 cudaError_t launch(const RowSource& xs, const RowSource& zs, int jobs, int d,
-                   bool sym, int kind, float gamma, float coef0, int degree,
+                   bool sym, int kind, const float* gamma, const float* coef0,
+                   int degree,
                    const float* xnorm, const float* znorm, float* K,
                    cudaStream_t stream) {
   const long long tm = (xs.n + kBM - 1) / kBM, tn = (zs.n + kBN - 1) / kBN;
@@ -611,42 +649,52 @@ cudaError_t launch(const RowSource& xs, const RowSource& zs, int jobs, int d,
 }  // namespace
 
 // K (jobs, nx, nz) f32 with nx = x_per + x_shared, nz = z_per + z_shared.
-// X rows of job l: xh[l·x_job_rows + i] for i < x_per, else
-// xs[i − x_per]; likewise Z. x_home_total/z_home_total are the home rows
-// of all jobs. Rows are bf16 if is_bf16 (the tensor-core route) else f32
-// (the SIMT route), all of one type. symmetric: Z's rows are X's (same
-// pointers and counts), so only tiles on or above the diagonal are
-// computed (tensor-core route) and the norms once. xnorm (x_home_total
-// + x_shared) and znorm are scratch, read only for rbf. kind: 0 linear,
-// 1 poly, 2 rbf. *route ← 1 for the tensor-core route, 0 for SIMT.
-// Returns a cudaError_t (0 = ok).
-extern "C" int gram(const void* xh, long long x_job_rows, int x_per,
+// X rows of job l: row i of home block l % x_n_home (xh, x_per rows a
+// block) for i < x_per, else row i − x_per of shared block l /
+// x_jps (xs, x_shared rows a block); likewise Z. x_home_total /
+// x_shared_total are the rows of all home / shared blocks. Rows are
+// bf16 if is_bf16 (the tensor-core route) else f32 (the SIMT route),
+// all of one type. symmetric: Z's rows are X's (same pointers and
+// counts), so only tiles on or above the diagonal are computed
+// (tensor-core route) and the norms once. xnorm (x_home_total +
+// x_shared_total) and znorm are scratch, read only for rbf. kind: 0
+// linear, 1 poly, 2 rbf; gamma, coef0 (jobs,) f32, each job's own.
+// *route ← 1 for the tensor-core route, 0 for SIMT. Returns a
+// cudaError_t (0 = ok).
+extern "C" int gram(const void* xh, int x_n_home, int x_per,
                     long long x_home_total, const void* xs, int x_shared,
-                    const void* zh, long long z_job_rows, int z_per,
-                    long long z_home_total, const void* zs, int z_shared,
-                    int jobs, int d, int is_bf16, int symmetric, int kind,
-                    float gamma, float coef0, int degree, float* xnorm,
+                    int x_jps, long long x_shared_total, const void* zh,
+                    int z_n_home, int z_per, long long z_home_total,
+                    const void* zs, int z_shared, int z_jps,
+                    long long z_shared_total, int jobs, int d, int is_bf16,
+                    int symmetric, int kind, const float* gamma,
+                    const float* coef0, int degree, float* xnorm,
                     float* znorm, float* K, int* route, void* stream) {
-  const RowSource x{xh, x_job_rows, x_per, xs, x_per + x_shared,
-                    x_home_total};
-  const RowSource z{zh, z_job_rows, z_per, zs, z_per + z_shared,
-                    z_home_total};
+  const RowSource x{xh, x_n_home, x_per, xs, x_shared, x_jps,
+                    x_per + x_shared, x_home_total};
+  const RowSource z{zh, z_n_home, z_per, zs, z_shared, z_jps,
+                    z_per + z_shared, z_home_total};
   *route = is_bf16 ? 1 : 0;
   if (jobs <= 0 || x.n <= 0 || z.n <= 0) return cudaSuccess;
+  if (x_n_home < 1 || z_n_home < 1 || x_jps < 1 || z_jps < 1)
+    return cudaErrorInvalidValue;
   if (symmetric &&
-      (xh != zh || xs != zs || x_job_rows != z_job_rows || x_per != z_per ||
-       x_shared != z_shared || x_home_total != z_home_total))
+      (xh != zh || xs != zs || x_n_home != z_n_home || x_per != z_per ||
+       x_shared != z_shared || x_jps != z_jps ||
+       x_home_total != z_home_total || x_shared_total != z_shared_total))
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* zn = symmetric ? xnorm : znorm;
   cudaError_t err;
   if (kind == kRbf) {
-    err = is_bf16 ? side_norms<__nv_bfloat16>(x, x_shared, d, xnorm, s)
-                  : side_norms<float>(x, x_shared, d, xnorm, s);
+    err = is_bf16
+              ? side_norms<__nv_bfloat16>(x, x_shared_total, d, xnorm, s)
+              : side_norms<float>(x, x_shared_total, d, xnorm, s);
     if (err != cudaSuccess) return err;
     if (!symmetric) {
-      err = is_bf16 ? side_norms<__nv_bfloat16>(z, z_shared, d, znorm, s)
-                    : side_norms<float>(z, z_shared, d, znorm, s);
+      err = is_bf16
+                ? side_norms<__nv_bfloat16>(z, z_shared_total, d, znorm, s)
+                : side_norms<float>(z, z_shared_total, d, znorm, s);
       if (err != cudaSuccess) return err;
     }
   }

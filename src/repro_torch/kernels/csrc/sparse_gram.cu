@@ -7,7 +7,10 @@
 // (_sparse_gram_kernel, pl.pallas_call at line 201). It computes the
 // same function: K_ij = Σ over slot pairs with equal column ids of
 // x_v · z_v (duplicate ids sum, padding adds 0), f32 sums from f32-cast
-// values, norms Σ v², the same transforms.
+// values, norms Σ v², the same transforms, with γ and coef0 read from
+// the card, one of each a job. Rows of job l are those of home block
+// l % n_home, then those of shared block l / jobs_per_shared, as in
+// gram.cu, so a sweep's S·L augmented partitions go in one launch.
 //
 // It does NOT carry over the TPU's index match, which spends px·pz
 // compare-selects on every pair (65536 at nnz_cap 256) to find the
@@ -98,13 +101,24 @@ __global__ void slot_sq_norms_kernel(const T* __restrict__ v, long long rows,
   out[r] = s;
 }
 
+// Index of row i of job `job` among all home rows (i < per) or among
+// all shared rows (i ≥ per): home block job % n_home, shared block
+// job / jps.
+__device__ __forceinline__ long long block_row(int n_home, int per, int jps,
+                                               int n_shared, int job, int i) {
+  return i < per ? (long long)(job % n_home) * per + i
+                 : (long long)(job / jps) * n_shared + (i - per);
+}
+
 struct XRows {
-  const int* hi;          // home indices (jobs_x · per, cap)
+  const int* hi;          // home indices (n_home · per, cap)
   const void* hv;         // home values
-  long long job_rows;     // rows between two jobs' home blocks (0: shared)
+  int n_home;             // home blocks
   int per;
-  const int* si;          // shared indices (S, cap)
+  const int* si;          // shared indices (shared blocks · S, cap)
   const void* sv;
+  int n_shared;           // rows a shared block
+  int jps;                // jobs a shared block
   int n;                  // per + S
   long long home_total;   // norm index of the first shared row
 };
@@ -117,14 +131,19 @@ struct ZView {
   const int* end;
   long long off_job_stride;   // tiles · d, or 0 when Z has one job
   const int2* ent;        // (Z row in its job, float bits of its value)
-  long long norm_job_rows;    // Z norms: home rows between two jobs
+  int n_home;             // Z norms: as XRows
   int per;
+  int n_shared;
+  int jps;
   long long home_total;
 };
 
+// The transform's arguments: γ and coef0 of every job, on the card (a
+// kernel reads its job's pair once into registers).
 struct Transform {
   int kind;
-  float gamma, coef0;
+  const float* gamma;
+  const float* coef0;
   int degree;
   const float* xnorm;
   const float* znorm;
@@ -169,8 +188,7 @@ __device__ __forceinline__ void accumulate(const XRows& x, int cap, int d,
                                            const ZView& z, int job, int tile,
                                            int i, float* acc, int width) {
   const int lane = threadIdx.x & 31;
-  const long long xr = i < x.per ? (long long)job * x.job_rows + i
-                                 : (long long)(i - x.per);
+  const long long xr = block_row(x.n_home, x.per, x.jps, x.n_shared, job, i);
   const int* xi = (i < x.per ? x.hi : x.si) + (size_t)xr * cap;
   const T* xv = static_cast<const T*>(i < x.per ? x.hv : x.sv) +
                 (size_t)xr * cap;
@@ -252,22 +270,41 @@ __device__ __forceinline__ void accumulate(const XRows& x, int cap, int d,
   }
 }
 
-// k(x_i, z_c) from the dot product `acc` of tile column c.
-__device__ __forceinline__ float transform(const Transform& f, float xn,
-                                           const ZView& z, int job, int zc,
+// Row norms for one job: row i's is home[i] for i < per, else shared[i];
+// the block offsets are taken once a (row, tile), not once a pair.
+struct JobNorms {
+  const float* home;
+  const float* shared;
+  int per;
+
+  __device__ __forceinline__ float operator[](int i) const {
+    return i < per ? home[i] : shared[i];
+  }
+};
+
+__device__ __forceinline__ JobNorms job_norms(const float* norms, int n_home,
+                                              int per, int jps, int n_shared,
+                                              long long home_total, int job) {
+  return JobNorms{norms + (long long)(job % n_home) * per,
+                  norms + home_total + (long long)(job / jps) * n_shared - per,
+                  per};
+}
+
+// k(x_i, z_c) from the dot product `acc` of tile column c, with the
+// job's γ and coef0 and Z's norms (zn, read for rbf).
+__device__ __forceinline__ float transform(const Transform& f, float gamma,
+                                           float coef0, float xn,
+                                           const JobNorms& zn, int zc,
                                            float acc) {
   if (f.kind == kPoly) {
-    const float base = __fadd_rn(__fmul_rn(f.gamma, acc), f.coef0);
+    const float base = __fadd_rn(__fmul_rn(gamma, acc), coef0);
     float out = 1.f;
     for (int e = 0; e < f.degree; ++e) out = __fmul_rn(out, base);
     return out;
   }
   if (f.kind == kRbf) {
-    const long long zr = zc < z.per ? (long long)job * z.norm_job_rows + zc
-                                    : z.home_total + (zc - z.per);
-    const float sq = __fsub_rn(__fadd_rn(xn, f.znorm[zr]),
-                               __fmul_rn(2.f, acc));
-    return expf(__fmul_rn(-f.gamma, fmaxf(sq, 0.f)));
+    const float sq = __fsub_rn(__fadd_rn(xn, zn[zc]), __fmul_rn(2.f, acc));
+    return expf(__fmul_rn(-gamma, fmaxf(sq, 0.f)));
   }
   return acc;
 }
@@ -275,8 +312,14 @@ __device__ __forceinline__ float transform(const Transform& f, float xn,
 __device__ __forceinline__ float x_norm(const XRows& x, const Transform& f,
                                         int job, int i) {
   if (f.kind != kRbf) return 0.f;
-  return f.xnorm[i < x.per ? (long long)job * x.job_rows + i
-                           : x.home_total + (i - x.per)];
+  return job_norms(f.xnorm, x.n_home, x.per, x.jps, x.n_shared, x.home_total,
+                   job)[i];
+}
+
+__device__ __forceinline__ JobNorms z_norms(const ZView& z,
+                                            const Transform& f, int job) {
+  return job_norms(f.znorm, z.n_home, z.per, z.jps, z.n_shared, z.home_total,
+                   job);
 }
 
 template <typename T>
@@ -289,15 +332,18 @@ sparse_gram_kernel(XRows x, int cap, int d, ZView z, Transform f,
   const int i = blockIdx.x * kWarps + threadIdx.x / 32;
   const int lane = threadIdx.x & 31;
   if (i >= x.n) return;
+  // the job's γ and coef0, loaded while the row accumulates
+  const float gamma = f.gamma[job], coef0 = f.coef0[job];
   float* acc = seg + (threadIdx.x / 32) * warp_floats(z.tile);
   const int c0 = tile * z.tile;
   const int width = min(z.tile, z.n - c0);
   accumulate<T>(x, cap, d, z, job, tile, i, acc, width);
   __syncwarp();
   const float xn = x_norm(x, f, job, i);
+  const JobNorms zn = z_norms(z, f, job);
   float* Krow = K + ((size_t)job * x.n + i) * z.n + c0;
   for (int c = lane; c < width; c += 32)
-    Krow[c] = transform(f, xn, z, job, c0 + c, acc[c]);
+    Krow[c] = transform(f, gamma, coef0, xn, zn, c0 + c, acc[c]);
 }
 
 // X and Z are one job each. live[h·tiles + T] is 0 where hypothesis
@@ -322,14 +368,16 @@ sparse_scores_kernel(XRows x, int cap, int d, ZView z, Transform f,
     for (int h = lane; h < hyps; h += 32) out[h * z.tiles] = 0.f;
     return;
   }
+  const float gamma = f.gamma[0], coef0 = f.coef0[0];
   float* acc = seg + (threadIdx.x / 32) * warp_floats(z.tile);
   const int c0 = tile * z.tile;
   const int width = min(z.tile, z.n - c0);
   accumulate<T>(x, cap, d, z, 0, tile, i, acc, width);
   __syncwarp();
   const float xn = x_norm(x, f, 0, i);
+  const JobNorms zn = z_norms(z, f, 0);
   for (int c = lane; c < width; c += 32)
-    acc[c] = rt<TC>(transform(f, xn, z, 0, c0 + c, acc[c]));
+    acc[c] = rt<TC>(transform(f, gamma, coef0, xn, zn, c0 + c, acc[c]));
   __syncwarp();
   for (int h = 0; h < hyps; ++h) {
     float s = 0.f;
@@ -400,7 +448,8 @@ size_t seg_bytes(int tile) {
 template <typename T>
 cudaError_t launch_gram(const XRows& x, long long x_shared, int cap, int d,
                         int jobs, const ZView& z, const ZSlots& zs,
-                        const Transform& f, float* K, cudaStream_t stream) {
+                        const Transform& f, float* K,
+                        cudaStream_t stream) {
   cudaError_t err = prepare<T>(x, x_shared, cap, zs, f, stream);
   if (err) return err;
   auto kernel = sparse_gram_kernel<T>;
@@ -444,44 +493,50 @@ cudaError_t launch_scores(const XRows& x, long long x_shared, int cap, int d,
 // Z rows a tile at most (the wrapper's tile must not exceed it).
 extern "C" int sparse_gram_max_tile() { return kMaxTile; }
 
-// X rows of job l: home row l·x_job_rows + i for i < x_per, else shared
-// row i − x_per; each row is `cap` slots of int32 column id and value
-// (bf16 if is_bf16 else f32). Z comes as its CSC view by (job, tile,
-// column): for Z job l (bounds at l·off_job_stride), tile T (z_tile
-// rows) and column c, with k = (l·z_tiles + T)·d + c, the entries
-// [start[k], end[k]) of ent, each (Z row in 0..z_n, float32 bits of
-// its value). Z's slot
-// values (zh_val, zs_val, laid out like X's) are read only for the rbf
-// norms. xnorm and znorm are scratch. kind: 0 linear, 1 poly, 2 rbf.
+// X rows of job l: row i of home block l % x_n_home (x_per rows a
+// block) for i < x_per, else row i − x_per of shared block l / x_jps
+// (x_shared rows a block); each row is `cap` slots of int32 column id
+// and value (bf16 if is_bf16 else f32). x_shared_total is the rows of
+// all shared blocks. Z comes as its CSC view by (job, tile, column):
+// for Z job l (bounds at l·off_job_stride), tile T (z_tile rows) and
+// column c, with k = (l·z_tiles + T)·d + c, the entries [start[k],
+// end[k]) of ent, each (Z row in 0..z_n, float32 bits of its value).
+// Z's slot values (zh_val, zs_val, laid out like X's) are read only
+// for the rbf norms. xnorm and znorm are scratch. kind: 0 linear, 1
+// poly, 2 rbf; gamma and coef0 (jobs,) f32, each job's own (the scores
+// route reads element 0).
 #define SPARSE_ARGS                                                          \
-  const int *xh_idx, const void *xh_val, long long x_job_rows, int x_per,    \
+  const int *xh_idx, const void *xh_val, int x_n_home, int x_per,            \
       long long x_home_total, const int *xs_idx, const void *xs_val,         \
-      int x_shared, int cap, int d, int z_n, int z_tile, const int *start,   \
-      const int *end, long long off_job_stride, const int2 *ent,             \
-      const void *zh_val, long long z_job_rows, int z_per,                   \
-      long long z_home_total, const void *zs_val, int z_shared, int is_bf16, \
-      int kind, float gamma, float coef0, int degree, float *xnorm,          \
-      float *znorm
+      int x_shared, int x_jps, long long x_shared_total, int cap, int d,     \
+      int z_n, int z_tile, const int *start, const int *end,                 \
+      long long off_job_stride, const int2 *ent, const void *zh_val,         \
+      int z_n_home, int z_per, long long z_home_total, const void *zs_val,   \
+      int z_shared, int z_jps, long long z_shared_total, int is_bf16,        \
+      int kind, const float *gamma, const float *coef0, int degree,          \
+      float *xnorm, float *znorm
 
 #define SPARSE_SETUP                                                         \
-  const XRows x{xh_idx, xh_val, x_job_rows, x_per, xs_idx, xs_val,           \
-                x_per + x_shared, x_home_total};                             \
+  const XRows x{xh_idx, xh_val,   x_n_home, x_per,            xs_idx,       \
+                xs_val, x_shared, x_jps,    x_per + x_shared, x_home_total}; \
   const int z_tiles = z_tile > 0 ? (z_n + z_tile - 1) / z_tile : 0;          \
-  const ZView z{z_n,           z_tile, z_tiles, start, end, off_job_stride, \
-                ent,           z_job_rows, z_per, z_home_total};             \
-  const ZSlots zs{zh_val, z_home_total, zs_val, z_shared};                   \
+  const ZView z{z_n,  z_tile,   z_tiles, start,    end,   off_job_stride,    \
+                ent,  z_n_home, z_per,   z_shared, z_jps, z_home_total};     \
+  const ZSlots zs{zh_val, z_home_total, zs_val, z_shared_total};             \
   const Transform f{kind, gamma, coef0, degree, xnorm, znorm};               \
   cudaStream_t s = static_cast<cudaStream_t>(stream);                        \
-  if (z_tile < 1 || z_tile > kMaxTile) return cudaErrorInvalidValue;
+  if (z_tile < 1 || z_tile > kMaxTile || x_n_home < 1 || z_n_home < 1 ||     \
+      x_jps < 1 || z_jps < 1)                                                \
+    return cudaErrorInvalidValue;
 
 // The Gram route: K (jobs, nx, z_n) f32. Returns a cudaError_t (0 = ok).
 extern "C" int sparse_gram(SPARSE_ARGS, int jobs, float* K, void* stream) {
   if (jobs <= 0 || x_per + x_shared <= 0 || z_n <= 0) return cudaSuccess;
   SPARSE_SETUP
   if (is_bf16)
-    return launch_gram<__nv_bfloat16>(x, x_shared, cap, d, jobs, z, zs, f, K,
-                                      s);
-  return launch_gram<float>(x, x_shared, cap, d, jobs, z, zs, f, K, s);
+    return launch_gram<__nv_bfloat16>(x, x_shared_total, cap, d, jobs, z, zs,
+                                      f, K, s);
+  return launch_gram<float>(x, x_shared_total, cap, d, jobs, z, zs, f, K, s);
 }
 
 // The scores route: X and Z one job each; coef (hyps, z_n) and b
@@ -499,15 +554,15 @@ extern "C" int sparse_gram_scores(SPARSE_ARGS, const void* coef,
   if (is_bf16)
     return coef_bf16
         ? launch_scores<__nv_bfloat16, __nv_bfloat16>(
-              x, x_shared, cap, d, z, zs, f, coef, live, b, hyps, partial,
-              out, s)
-        : launch_scores<__nv_bfloat16, float>(x, x_shared, cap, d, z, zs, f,
-                                              coef, live, b, hyps, partial,
-                                              out, s);
+              x, x_shared_total, cap, d, z, zs, f, coef, live, b, hyps,
+              partial, out, s)
+        : launch_scores<__nv_bfloat16, float>(x, x_shared_total, cap, d, z,
+                                              zs, f, coef, live, b, hyps,
+                                              partial, out, s);
   return coef_bf16
-      ? launch_scores<float, __nv_bfloat16>(x, x_shared, cap, d, z, zs, f,
-                                            coef, live, b, hyps, partial, out,
-                                            s)
-      : launch_scores<float, float>(x, x_shared, cap, d, z, zs, f, coef, live,
-                                    b, hyps, partial, out, s);
+      ? launch_scores<float, __nv_bfloat16>(x, x_shared_total, cap, d, z,
+                                            zs, f, coef, live, b, hyps,
+                                            partial, out, s)
+      : launch_scores<float, float>(x, x_shared_total, cap, d, z, zs, f,
+                                    coef, live, b, hyps, partial, out, s);
 }

@@ -9,17 +9,19 @@ scores of blocked-CSR rows, which never form K), which check the
 inputs, count launches and take the plain versions for CPU tensors.
 
 Both take each side as :class:`JobRows`: job ``l``'s rows are its home
-block ``home[l]`` followed by the ``shared`` rows, so a MapReduce
-round's augmented partitions ``[X_l; SV_global]`` go in without a copy.
-A home block with one job is used by every job.
+block ``home[l % J]`` followed by its shared rows, so a MapReduce
+round's augmented partitions ``[X_l; SV_global]`` go in without a copy,
+and a sweep's ``[X_l; SV_s]`` too. A home block with one job is used by
+every job. γ and coef0 go in as (jobs,) float32 tensors on the card.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch import sparse as sparse_rows
 from repro_torch.kernels import build
 
 _P = ctypes.c_void_p
@@ -31,28 +33,60 @@ KINDS = {"linear": 0, "poly": 1, "rbf": 2}
 
 
 class JobRows(NamedTuple):
-    """Rows of each job: ``home`` (J, per, ·) then ``shared`` (S, ·);
-    dense tensors or ``SparseRows``."""
+    """Rows of each job: ``home`` (J, per, ·) then ``shared`` (S, ·), or
+    a stack of shared blocks (B, S, ·) with ``jps`` jobs a block; dense
+    tensors or ``SparseRows``. Job l has the rows ``[home[l % J];
+    shared[l // jps]]``: J jobs with one shared block, B·jps with B."""
     home: object
     shared: object
+    jps: Optional[int] = None
+
+    @property
+    def stacked(self) -> bool:
+        return len(self.shared.shape) == 3
 
     @property
     def jobs(self) -> int:
-        return self.home.shape[0]
+        return self.shared.shape[0] * self.jps if self.stacked \
+            else self.home.shape[0]
 
     @property
     def per(self) -> int:
         return self.home.shape[1]
 
     @property
+    def n_shared(self) -> int:
+        """Rows a shared block."""
+        return self.shared.shape[-2]
+
+    @property
     def n(self) -> int:
-        return self.home.shape[1] + self.shared.shape[0]
+        return self.per + self.n_shared
+
+    @property
+    def home_total(self) -> int:
+        return self.home.shape[0] * self.per
+
+    @property
+    def shared_total(self) -> int:
+        return (self.shared.shape[0] if self.stacked else 1) * self.n_shared
+
+    def jobs_per_shared(self, jobs: int) -> int:
+        """Jobs a shared block in a launch of ``jobs`` jobs."""
+        return self.jps if self.stacked else max(jobs, 1)
+
+    def rows(self, job: int):
+        """Job ``job``'s rows, concatenated."""
+        shared = self.shared[job // self.jps] if self.stacked else self.shared
+        return sparse_rows.rows_concat(self.home[job % self.home.shape[0]],
+                                       shared)
 
 
 def _gram_fn():
     fn = build.load("gram").gram
-    fn.argtypes = [_P, _LL, _I, _LL, _P, _I, _P, _LL, _I, _LL, _P, _I, _I, _I,
-                   _I, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P]
+    side = [_P, _I, _I, _LL, _P, _I, _I, _LL]
+    fn.argtypes = side + side + [_I, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P,
+                                 _P, _P]
     fn.restype = _I
     return fn
 
@@ -62,14 +96,26 @@ def _stream(dev):
 
 
 def _norm_scratch(side: JobRows, dev) -> torch.Tensor:
-    return torch.empty((side.jobs * side.per + side.shared.shape[0],),
+    return torch.empty((side.home_total + side.shared_total,),
                        dtype=torch.float32, device=dev)
 
 
-def launch_gram(X: JobRows, Z: JobRows, jobs: int, kind: str, gamma: float,
-                coef0: float, degree: int, symmetric: bool):
+def _side_args(side: JobRows, jobs: int, home_ptr, shared_ptr):
+    """A side's rows and job layout as the kernels take them: home
+    pointer, home blocks, rows a home block, home rows in all; shared
+    pointer, rows a shared block, jobs a shared block, shared rows in
+    all."""
+    return (home_ptr, side.home.shape[0], side.per, side.home_total,
+            shared_ptr, side.n_shared, side.jobs_per_shared(jobs),
+            side.shared_total)
+
+
+def launch_gram(X: JobRows, Z: JobRows, jobs: int, kind: str,
+                gamma: torch.Tensor, coef0: torch.Tensor, degree: int,
+                symmetric: bool):
     """Launch on the current stream; inputs already checked (CUDA,
-    contiguous, one row dtype, job counts 1 or ``jobs``). ``symmetric``:
+    contiguous, one row dtype, job counts 1 or ``jobs``; γ and coef0
+    (jobs,) float32 on the card). ``symmetric``:
     Z's rows are X's (see ``ops.same_rows``), so the bf16 route computes
     only the tiles holding a pair r ≤ c and mirrors them. → (K (jobs, X.n, Z.n) float32, route):
     route "tensor_core" (bf16 rows) or "simt" (f32 rows), as the library
@@ -81,13 +127,12 @@ def launch_gram(X: JobRows, Z: JobRows, jobs: int, kind: str, gamma: float,
     zn = xn if symmetric else _norm_scratch(Z, dev)
     route = ctypes.c_int(-1)
     err = _gram_fn()(
-        X.home.data_ptr(), X.per if X.jobs > 1 else 0, X.per,
-        X.jobs * X.per, X.shared.data_ptr(), X.shared.shape[0],
-        Z.home.data_ptr(), Z.per if Z.jobs > 1 else 0, Z.per,
-        Z.jobs * Z.per, Z.shared.data_ptr(), Z.shared.shape[0],
+        *_side_args(X, jobs, X.home.data_ptr(), X.shared.data_ptr()),
+        *_side_args(Z, jobs, Z.home.data_ptr(), Z.shared.data_ptr()),
         jobs, d, int(X.home.dtype == torch.bfloat16), int(symmetric),
-        KINDS[kind], float(gamma), float(coef0), int(degree), xn.data_ptr(),
-        zn.data_ptr(), K.data_ptr(), ctypes.addressof(route), _stream(dev))
+        KINDS[kind], gamma.data_ptr(), coef0.data_ptr(), int(degree),
+        xn.data_ptr(), zn.data_ptr(), K.data_ptr(), ctypes.addressof(route),
+        _stream(dev))
     if err != 0:
         raise RuntimeError(f"gram kernel launch failed: cudaError {err}")
     return K, ("tensor_core" if route.value == 1 else "simt")
@@ -106,8 +151,9 @@ def sparse_tile(nz: int) -> int:
 
 def _sparse_lib():
     lib = build.load("sparse_gram")
-    head = [_P, _P, _LL, _I, _LL, _P, _P, _I, _I, _I, _I, _I, _P, _P, _LL, _P,
-            _P, _LL, _I, _LL, _P, _I, _I, _I, _F, _F, _I, _P, _P]
+    head = [_P, _P, _I, _I, _LL, _P, _P, _I, _I, _LL, _I, _I, _I, _I, _P, _P,
+            _LL, _P, _P, _I, _I, _LL, _P, _I, _I, _LL, _I, _I, _P, _P, _I,
+            _P, _P]
     lib.sparse_gram.argtypes = head + [_I, _P, _P]
     lib.sparse_gram_scores.argtypes = head + [_P, _P, _P, _I, _I, _P, _P, _P]
     for fn in (lib.sparse_gram, lib.sparse_gram_scores,
@@ -121,7 +167,9 @@ def _sparse_lib():
 
 
 def csc_view(Z: JobRows, d: int, tile: int, chunk_slots: int = 1 << 22):
-    """Z's nonzero slots in column-major order by (job, Z tile, column):
+    """Z's nonzero slots in column-major order by (job, Z tile, column)
+    over Z's ``Jz = Z.jobs`` jobs (each its rows ``[home[l % J];
+    its shared block]``):
     list bounds ``start`` and ``end`` (Jz · tiles · d,) int32 and ``ent``
     (E, 2) int32, each entry the Z row (in its job) and the float32 bits
     of its value, where a tile is ``tile`` consecutive rows of a job. A
@@ -132,8 +180,8 @@ def csc_view(Z: JobRows, d: int, tile: int, chunk_slots: int = 1 << 22):
     chunks of whole tiles of about ``chunk_slots`` slots, each sorted on
     its own, so the scratch beside the view stays that small; no step
     waits for the device."""
-    Jz, per, cap = Z.home.indices.shape
-    S = Z.shared.indices.shape[0]
+    _, per, cap = Z.home.indices.shape
+    Jz, J, S = Z.jobs, Z.home.shape[0], Z.n_shared
     dev = Z.home.indices.device
     n = per + S
     _check_int32(Jz * n * cap, "slots")
@@ -141,14 +189,16 @@ def csc_view(Z: JobRows, d: int, tile: int, chunk_slots: int = 1 << 22):
     starts, ends, ents = [], [], []
     base = 0
     for j in range(Jz):
+        home = Z.home[j % J]
+        shared = Z.shared[j // Z.jps] if Z.stacked else Z.shared
         for r0 in range(0, n, step):
             r1 = min(n, r0 + step)
             h0, h1 = min(r0, per), min(r1, per)
             s0, s1 = max(r0 - per, 0), max(r1 - per, 0)
-            idx = torch.cat([Z.home.indices[j, h0:h1],
-                             Z.shared.indices[s0:s1]]).long()
-            val = torch.cat([Z.home.values[j, h0:h1],
-                             Z.shared.values[s0:s1]]).reshape(-1)
+            idx = torch.cat([home.indices[h0:h1],
+                             shared.indices[s0:s1]]).long()
+            val = torch.cat([home.values[h0:h1],
+                             shared.values[s0:s1]]).reshape(-1)
             bins = -(-(r1 - r0) // tile) * d
             tile_of = (torch.arange(r1 - r0, device=dev) // tile * d)[:, None]
             key = torch.where(val != 0, (tile_of + idx).reshape(-1), bins)
@@ -170,36 +220,38 @@ def _check_int32(count: int, what: str) -> None:
                          f"{count} is too many")
 
 
-def _sparse_args(X: JobRows, Z: JobRows, tile: int, kind: str, gamma: float,
-                 coef0: float, degree: int):
+def _sparse_args(X: JobRows, Z: JobRows, jobs: int, tile: int, kind: str,
+                 gamma: torch.Tensor, coef0: torch.Tensor, degree: int):
     """The arguments the two routes share, and the buffers they keep
     alive (the CSC view, the norms' scratch)."""
     dev = X.home.values.device
     d = X.home.d
     start, end, ent = csc_view(Z, d, tile)
     xn, zn = _norm_scratch(X, dev), _norm_scratch(Z, dev)
+    x_home = X.home.indices.data_ptr(), X.home.values.data_ptr()
+    x_shared = X.shared.indices.data_ptr(), X.shared.values.data_ptr()
+    _, x_nh, x_per, x_ht, _, x_ns, x_jps, x_st = _side_args(X, jobs, 0, 0)
+    _, z_nh, z_per, z_ht, _, z_ns, z_jps, z_st = _side_args(Z, jobs, 0, 0)
     args = (
-        X.home.indices.data_ptr(), X.home.values.data_ptr(),
-        X.per if X.jobs > 1 else 0, X.per, X.jobs * X.per,
-        X.shared.indices.data_ptr(), X.shared.values.data_ptr(),
-        X.shared.shape[0], X.home.nnz_cap, d, Z.n, tile, start.data_ptr(),
-        end.data_ptr(), (-(-Z.n // tile)) * d if Z.jobs > 1 else 0,
-        ent.data_ptr(), Z.home.values.data_ptr(),
-        Z.per if Z.jobs > 1 else 0, Z.per, Z.jobs * Z.per,
-        Z.shared.values.data_ptr(), Z.shared.shape[0],
-        int(X.home.dtype == torch.bfloat16), KINDS[kind], float(gamma),
-        float(coef0), int(degree), xn.data_ptr(), zn.data_ptr())
+        *x_home, x_nh, x_per, x_ht, *x_shared, x_ns, x_jps, x_st,
+        X.home.nnz_cap, d, Z.n, tile, start.data_ptr(), end.data_ptr(),
+        (-(-Z.n // tile)) * d if Z.jobs > 1 else 0, ent.data_ptr(),
+        Z.home.values.data_ptr(), z_nh, z_per, z_ht,
+        Z.shared.values.data_ptr(), z_ns, z_jps, z_st,
+        int(X.home.dtype == torch.bfloat16), KINDS[kind], gamma.data_ptr(),
+        coef0.data_ptr(), int(degree), xn.data_ptr(), zn.data_ptr())
     return args, (start, end, ent, xn, zn)
 
 
 def launch_sparse_gram(X: JobRows, Z: JobRows, jobs: int, kind: str,
-                       gamma: float, coef0: float, degree: int):
+                       gamma: torch.Tensor, coef0: torch.Tensor, degree: int):
     """The Gram route on the current stream; inputs already checked
     (CUDA, ``SparseRows`` of one nnz_cap and value dtype, indices in
-    [0, d), job counts 1 or ``jobs``). → K (jobs, X.n, Z.n) float32."""
+    [0, d), job counts 1 or ``jobs``; γ and coef0 (jobs,) float32 on the
+    card). → K (jobs, X.n, Z.n) float32."""
     dev = X.home.values.device
-    args, _bufs = _sparse_args(X, Z, sparse_tile(Z.n), kind, gamma, coef0,
-                               degree)
+    args, _bufs = _sparse_args(X, Z, jobs, sparse_tile(Z.n), kind, gamma,
+                               coef0, degree)
     K = torch.empty((jobs, X.n, Z.n), dtype=torch.float32, device=dev)
     err = _sparse_lib().sparse_gram(*args, jobs, K.data_ptr(), _stream(dev))
     if err != 0:
@@ -209,17 +261,17 @@ def launch_sparse_gram(X: JobRows, Z: JobRows, jobs: int, kind: str,
 
 
 def launch_sparse_scores(X: JobRows, Z: JobRows, coef: torch.Tensor,
-                         b: torch.Tensor, kind: str, gamma: float,
-                         coef0: float, degree: int):
+                         b: torch.Tensor, kind: str, gamma: torch.Tensor,
+                         coef0: torch.Tensor, degree: int):
     """The scores route on the current stream; inputs already checked
-    (as :func:`launch_sparse_gram`; X and Z one job each; coef (L, Z.n)
-    and b (L,) contiguous, f32 or bf16). → (X.n, L) in coef's dtype; K
-    is never formed."""
+    (as :func:`launch_sparse_gram`; X and Z one job each, γ and coef0
+    (1,); coef (L, Z.n) and b (L,) contiguous, f32 or bf16). → (X.n, L)
+    in coef's dtype; K is never formed."""
     dev = X.home.values.device
     L = coef.shape[0]
     tile = sparse_tile(Z.n)
     tiles = -(-Z.n // tile)
-    args, _bufs = _sparse_args(X, Z, tile, kind, gamma, coef0, degree)
+    args, _bufs = _sparse_args(X, Z, 1, tile, kind, gamma, coef0, degree)
     live = torch.nn.functional.pad(coef != 0, (0, tiles * tile - Z.n)) \
         .view(L, tiles, tile).any(-1).to(torch.uint8)
     partial = torch.empty((X.n, L, tiles), dtype=torch.float32, device=dev)

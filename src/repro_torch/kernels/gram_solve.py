@@ -26,7 +26,7 @@ _F = ctypes.c_float
 
 def _lib():
     lib = build.load("cd_solve_gram")
-    lib.cd_solve_gram.argtypes = [_P, _I, _P, _P, _I, _I, _I, _F, _F, _I, _P,
+    lib.cd_solve_gram.argtypes = [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
                                   _P, _P, _P]
     lib.cd_solve_gram_occupancy.argtypes = [_I, _I, _I, _P]
     for fn in (lib.cd_solve_gram, lib.cd_solve_gram_occupancy,
@@ -56,10 +56,12 @@ def max_active_clusters(dtype: torch.dtype, n: int, c: int) -> int:
 
 
 def launch_cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
-                         C: float, tol: float, max_epochs: int, cluster: int):
+                         C: torch.Tensor, tol: torch.Tensor,
+                         max_epochs: torch.Tensor, cluster: int):
     """Launch on the current stream with ``cluster`` CTAs a job; inputs
     already checked (CUDA, contiguous, K (L, n, n) and y, m (L, n) of one
-    dtype, f32 or bf16). A size the kernel does not take, or that the
+    dtype, f32 or bf16; C, tol (L,) f32 and max_epochs (L,) int32 on the
+    card). A size the kernel does not take, or that the
     card cannot schedule, raises. → alpha (L, n), epochs (L,) int32,
     viol (L,)."""
     L, n, _ = K.shape
@@ -69,8 +71,9 @@ def launch_cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
     viol = torch.empty((L,), dtype=K.dtype, device=dev)
     err = _lib().cd_solve_gram(
         K.data_ptr(), int(K.dtype == torch.bfloat16), y.data_ptr(),
-        m.data_ptr(), L, n, int(cluster), float(C), float(tol),
-        int(max_epochs), alpha.data_ptr(), epochs.data_ptr(), viol.data_ptr(),
+        m.data_ptr(), L, n, int(cluster), C.data_ptr(), tol.data_ptr(),
+        max_epochs.data_ptr(), alpha.data_ptr(), epochs.data_ptr(),
+        viol.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         what = " (no cluster of that size can be resident)" if err == 9 \

@@ -17,6 +17,14 @@ path. The rules that pick a route
 (:func:`decode_route`, :func:`cd_solve_cluster_size`,
 :func:`cd_solve_gram_cluster_size`) are plain functions of shapes and
 dtypes.
+
+The solve and Gram wrappers take their hyper-parameters (C, tol and
+the epoch cutoff; γ and coef0) as a number for every job or as a
+(jobs,) tensor, one value a job (:func:`job_values`), and run a sweep's
+jobs in one launch. Their rows come as home blocks (n_home, per, ·) and
+shared rows (S, ·), or a stack of shared blocks (B, S, ·): job l reads
+home block l % n_home and shared block l // jobs_per_shared, with
+jobs_per_shared = jobs / B (:func:`job_layout`).
 """
 from __future__ import annotations
 
@@ -75,6 +83,41 @@ def _check_cuda_layout(named: Dict[str, torch.Tensor]) -> None:
         _check(t.is_contiguous(), f"{name} must be contiguous")
 
 
+def job_values(value, jobs: int, device, dtype=torch.float32
+               ) -> torch.Tensor:
+    """A hyper-parameter as a (jobs,) tensor on ``device``: a number for
+    every job, a 0-dim tensor likewise, or a (jobs,) tensor as it is
+    (cast to ``dtype``)."""
+    if not isinstance(value, torch.Tensor):
+        return torch.full((jobs,), value, dtype=dtype, device=device)
+    _check(value.dim() == 0 or tuple(value.shape) == (jobs,),
+           f"a per-job value must be a number or ({jobs},), got "
+           f"{tuple(value.shape)}")
+    _check(value.device == torch.device(device),
+           f"per-job values on {value.device}, rows on {device}")
+    return value.to(dtype).expand(jobs).contiguous()
+
+
+def _epoch_cutoffs(max_epochs, jobs: int, device) -> torch.Tensor:
+    """Epoch cutoffs (whole numbers) as (jobs,) int32."""
+    if not isinstance(max_epochs, torch.Tensor):
+        max_epochs = int(max_epochs)
+    return job_values(max_epochs, jobs, device, torch.int32)
+
+
+def job_layout(home, shared, jobs: int):
+    """The job axis of home rows (n_home, per, ·) and shared rows (S,
+    ·) or (B, S, ·): job l reads home block l % n_home and shared block
+    l // jobs_per_shared. → (n_home, jobs_per_shared)."""
+    n_home = home.shape[0]
+    B = shared.shape[0] if len(shared.shape) == 3 else 1
+    _check(n_home >= 1 and jobs % n_home == 0,
+           f"{jobs} jobs do not cycle over {n_home} home blocks")
+    _check(B >= 1 and jobs % B == 0,
+           f"{jobs} jobs do not split over {B} shared blocks")
+    return n_home, jobs // B
+
+
 #: the cluster route's limits (``csrc/cd_solve.cu``, namespace ``cl``):
 #: the largest cluster, threads a CTA, 16-byte column vectors a thread,
 #: rows in its ring, dynamic shared memory a CTA
@@ -129,62 +172,66 @@ def cd_solve_cluster_size(n: int, d: int, dtype: torch.dtype) -> int:
     return c if c <= CLUSTER_MAX else 1
 
 
-def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C: float,
-             tol: float, max_epochs: int):
+def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C, tol,
+             max_epochs):
     """Dual-CD solve of L jobs (see :func:`ref.cd_solve_ref`).
 
-    xh (L, per, d) and xs (S, d) rows (f32 or bf16, one dtype), dense or
-    both ``SparseRows`` of one nnz_cap (the ``cd_solve/sparse`` route);
-    y, m (L, per + S) f32. → alpha (L, n), w (L, d), b (L,), epochs (L,)
+    xh (n_home, per, d) and xs (S, d) or (B, S, d) rows (f32 or bf16,
+    one dtype), dense or both ``SparseRows`` of one nnz_cap (the
+    ``cd_solve/sparse`` route); job l trains on ``[xh[l % n_home];
+    its shared block]`` (:func:`job_layout`); y, m (L, per + S) f32. C,
+    tol and max_epochs (whole) are numbers or (L,) tensors
+    (:func:`job_values`). → alpha (L, n), w (L, d), b (L,), epochs (L,)
     int32, viol (L,). On the card, dense rows run on
     :func:`cd_solve_cluster_size` CTAs a job; a size the card cannot
     schedule raises.
     """
-    _check(len(xh.shape) == 3 and len(xs.shape) == 2,
-           f"xh must be (L, per, d) and xs (S, d), got {tuple(xh.shape)} "
-           f"and {tuple(xs.shape)}")
-    L, per, d = xh.shape
-    n = per + xs.shape[0]
-    _check(xs.shape[1] == d, f"xs has {xs.shape[1]} features, xh {d}")
+    _check(len(xh.shape) == 3 and len(xs.shape) in (2, 3),
+           f"xh must be (n_home, per, d) and xs (S, d) or (B, S, d), got "
+           f"{tuple(xh.shape)} and {tuple(xs.shape)}")
+    _, per, d = xh.shape
+    L = y.shape[0]
+    n = per + xs.shape[-2]
+    _check(xs.shape[-1] == d, f"xs has {xs.shape[-1]} features, xh {d}")
     _check(tuple(y.shape) == (L, n) and tuple(m.shape) == (L, n),
            f"y and m must be {(L, n)}, got {tuple(y.shape)}/{tuple(m.shape)}")
+    layout = job_layout(xh, xs, L)
+    kw = dict(C=job_values(C, L, y.device), tol=job_values(tol, L, y.device),
+              max_epochs=_epoch_cutoffs(max_epochs, L, y.device))
     if sparse_rows.is_sparse(xh) or sparse_rows.is_sparse(xs):
-        return _cd_solve_sparse(xh, xs, y, m, C=C, tol=tol,
-                                max_epochs=max_epochs)
+        return _cd_solve_sparse(xh, xs, y, m, layout, **kw)
     _check(xh.dtype in _ROW_DTYPES and xs.dtype == xh.dtype,
            f"rows must be one of {_ROW_DTYPES}, got {xh.dtype}/{xs.dtype}")
     if not _on_card(xh, xs, y, m):
-        return ref.cd_solve_ref(xh, xs, y, m, C=C, tol=tol,
-                                max_epochs=max_epochs)
+        return ref.cd_solve_ref(xh, xs, y, m, **kw)
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
            "y and m must be float32")
     _check_cuda_layout({"xh": xh, "xs": xs, "y": y, "m": m})
     c = cd_solve_cluster_size(n, d, xh.dtype)
     from repro_torch.kernels.svm_step import launch_cd_solve
-    out = launch_cd_solve(xh, xs, y, m, float(C), float(tol), int(max_epochs),
-                          c)
+    out = launch_cd_solve(xh, xs, y, m, kw["C"], kw["tol"], kw["max_epochs"],
+                          c, layout)
     LAUNCHES["cd_solve"] += 1
     ROUTE_LAUNCHES["cd_solve/" + ("cluster" if c > 1 else "single")] += 1
     return out
 
 
-def _cd_solve_sparse(xh, xs, y, m, *, C: float, tol: float,
-                     max_epochs: int):
+def _cd_solve_sparse(xh, xs, y, m, layout, *, C: torch.Tensor,
+                     tol: torch.Tensor, max_epochs: torch.Tensor):
     """:func:`cd_solve` on blocked-CSR rows (see
     :func:`ref.cd_solve_sparse_ref`). A call of the route launches two
     kernels, the prep of the row blocks and the solve, and counts one."""
     parts, leaves = _sparse_parts((xh, xs), "cd_solve on SparseRows")
     check_column_ids(*parts)
+    kw = dict(C=C, tol=tol, max_epochs=max_epochs)
     if not _on_card(*leaves, y, m):
-        return ref.cd_solve_sparse_ref(xh, xs, y, m, C=C, tol=tol,
-                                       max_epochs=max_epochs)
+        return ref.cd_solve_sparse_ref(xh, xs, y, m, **kw)
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
            "y and m must be float32")
     _check_cuda_layout({"y": y, "m": m,
                         **{f"leaf {i}": t for i, t in enumerate(leaves)}})
     from repro_torch.kernels.svm_step import launch_cd_solve_sparse
-    out = launch_cd_solve_sparse(xh, xs, y, m, float(C), float(tol),
-                                 int(max_epochs))
+    out = launch_cd_solve_sparse(xh, xs, y, m, C, tol, max_epochs, layout)
     LAUNCHES["cd_solve"] += 1
     ROUTE_LAUNCHES["cd_solve/sparse"] += 1
     return out
@@ -236,16 +283,27 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
 
 
 def _job_rows(side):
-    """A side of a Gram: a (n, ·) row batch (one job, no shared rows) or
-    a ``(home (J, per, ·), shared (S, ·))`` pair, dense or sparse. →
-    (JobRows, was_plain)."""
+    """A side of a Gram: a (n, ·) row batch (one job, no shared rows), a
+    ``(home (J, per, ·), shared (S, ·))`` pair, or a ``(home, shared
+    (B, S, ·), jobs_per_shared)`` triple, dense or sparse (see
+    :class:`repro_torch.kernels.gram.JobRows`). → (JobRows, was_plain)."""
     from repro_torch.kernels.gram import JobRows
     if isinstance(side, tuple):
-        home, shared = side
-        _check(len(home.shape) == 3 and len(shared.shape) == 2,
-               "a (home, shared) side must be (J, per, d) and (S, d), got "
-               f"{tuple(home.shape)} and {tuple(shared.shape)}")
-        return JobRows(home, shared), False
+        _check(len(side) in (2, 3), "a side is (home, shared) or (home, "
+               "shared, jobs_per_shared)")
+        home, shared = side[:2]
+        jps = side[2] if len(side) == 3 else None
+        _check(len(home.shape) == 3 and (
+            len(shared.shape) == 2 if jps is None else
+            len(shared.shape) == 3 and int(jps) >= 1),
+               "a side must be (home (J, per, d), shared (S, d)) or (home, "
+               "shared (B, S, d), jobs_per_shared), got "
+               f"{tuple(home.shape)}, {tuple(shared.shape)}, {jps}")
+        rows = JobRows(home, shared, jps)
+        _check(rows.jobs % home.shape[0] == 0,
+               f"{rows.jobs} jobs do not cycle over {home.shape[0]} home "
+               "blocks")
+        return rows, False
     _check(len(side.shape) == 2, f"rows must be (n, d), got {side.shape}")
     return JobRows(side[None], side[:0]), True
 
@@ -263,8 +321,11 @@ def same_rows(X, Z) -> bool:
     triangle from X alone."""
     if isinstance(X, tuple) != isinstance(Z, tuple):
         return False
-    pairs = zip(X, Z) if isinstance(X, tuple) else ((X, Z),)
-    return all(_same_storage(a, b) for a, b in pairs)
+    if not isinstance(X, tuple):
+        return _same_storage(X, Z)
+    if len(X) != len(Z) or X[2:] != Z[2:]:
+        return False
+    return all(_same_storage(a, b) for a, b in zip(X[:2], Z[:2]))
 
 
 def _gram_sides(X, Z, kind: str, degree: int):
@@ -281,27 +342,29 @@ def _gram_sides(X, Z, kind: str, degree: int):
 
 
 def per_job(fn, X, Z, **kw) -> torch.Tensor:
-    """``fn(X_l, Z_l, **kw)`` on each job's concatenated rows
-    ``[home[l]; shared]`` (sides as in :func:`gram`), stacked; (n, m)
-    for two plain sides. The plain versions and the ``"xla"`` route run
-    job rows this way."""
+    """``fn(X_l, Z_l, **kw)`` on each job's concatenated rows (sides as
+    in :func:`gram`), stacked; (n, m) for two plain sides. A 1-D tensor
+    in ``kw`` holds one value a job: job l gets its own. The plain
+    versions and the ``"xla"`` route run job rows this way."""
     (xr, xp), (zr, zp) = _job_rows(X), _job_rows(Z)
     jobs = max(xr.jobs, zr.jobs)
-    K = torch.stack([fn(
-        sparse_rows.rows_concat(xr.home[j if xr.jobs > 1 else 0], xr.shared),
-        sparse_rows.rows_concat(zr.home[j if zr.jobs > 1 else 0], zr.shared),
-        **kw) for j in range(jobs)])
+    K = torch.stack([fn(xr.rows(j), zr.rows(j), **{
+        k: v[j] if isinstance(v, torch.Tensor) and v.dim() == 1 else v
+        for k, v in kw.items()}) for j in range(jobs)])
     return K[0] if xp and zp else K
 
 
-def gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
-         coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+def gram(X, Z, *, kind: str = "linear", gamma=1.0, coef0=0.0,
+         degree: int = 3) -> torch.Tensor:
     """Dense Gram K = k(X, Zᵀ) in float32 (see :func:`ref.gram_ref`).
 
-    X and Z are (n, d) rows, or ``(home (J, per, d), shared (S, d))``
-    pairs whose job ``l`` has the rows ``[home[l]; shared]`` (a home
-    with J = 1 serves every job). Rows f32 or bf16, one dtype. → (n, m)
-    for two plain sides, else (jobs, n, m).
+    X and Z are (n, d) rows, ``(home (J, per, d), shared (S, d))`` pairs
+    whose job ``l`` has the rows ``[home[l % J]; shared]``, or ``(home,
+    shared (B, S, d), jobs_per_shared)`` triples whose job l has the
+    rows ``[home[l % J]; shared[l // jobs_per_shared]]`` (a sweep's S·L
+    jobs). Rows f32 or bf16, one dtype. γ and coef0 are numbers or
+    (jobs,) tensors (:func:`job_values`). → (n, m) for two plain sides,
+    else (jobs, n, m).
     """
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
     leaves = (xr.home, xr.shared, zr.home, zr.shared)
@@ -310,6 +373,8 @@ def gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
     _check(xr.home.dtype in _ROW_DTYPES
            and all(t.dtype == xr.home.dtype for t in leaves),
            f"rows must be one of {_ROW_DTYPES}, all of one dtype")
+    dev = xr.home.device
+    gamma, coef0 = job_values(gamma, jobs, dev), job_values(coef0, jobs, dev)
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves):
         return per_job(ref.gram_ref, X, Z, **kw)
@@ -354,20 +419,23 @@ def check_column_ids(*parts) -> None:
         t.mark_ids_in_range()
 
 
-def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
-                coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+def sparse_gram(X, Z, *, kind: str = "linear", gamma=1.0, coef0=0.0,
+                degree: int = 3) -> torch.Tensor:
     """Gram of blocked-CSR rows in float32 (see :func:`ref.sparse_gram_ref`).
 
     X and Z are ``SparseRows`` of one nnz_cap and value dtype (f32 or
-    bf16), or ``(home, shared)`` pairs of them as in :func:`gram`. Both
-    sides must be sparse: the mixed dense × sparse Gram is not a kernel
-    (it is :func:`repro_torch.core.kernel_fns.apply_kernel`). → (n, m)
-    for two plain sides, else (jobs, n, m).
+    bf16), or pairs or triples of them as in :func:`gram`; γ and coef0
+    as there. Both sides must be sparse: the mixed dense × sparse Gram
+    is not a kernel (it is
+    :func:`repro_torch.core.kernel_fns.apply_kernel`). → (n, m) for two
+    plain sides, else (jobs, n, m).
     """
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
     parts, leaves = _sparse_parts((xr.home, xr.shared, zr.home, zr.shared),
                                   "sparse_gram")
     check_column_ids(*parts)
+    dev = xr.home.device
+    gamma, coef0 = job_values(gamma, jobs, dev), job_values(coef0, jobs, dev)
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves):
         return per_job(ref.sparse_gram_ref, X, Z, **kw)
@@ -380,8 +448,8 @@ def sparse_gram(X, Z, *, kind: str = "linear", gamma: float = 1.0,
 
 
 def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
-                       kind: str = "linear", gamma: float = 1.0,
-                       coef0: float = 0.0, degree: int = 3) -> torch.Tensor:
+                       kind: str = "linear", gamma=1.0, coef0=0.0,
+                       degree: int = 3) -> torch.Tensor:
     """Decision scores of blocked-CSR query rows against blocked-CSR
     rows, S = k(X, Zᵀ)·coefᵀ + b, without forming K (see
     :func:`ref.sparse_gram_scores_ref`).
@@ -389,9 +457,10 @@ def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
     X is ``SparseRows`` (n, d) of query rows. Z is ``SparseRows`` or a
     ``(home (1, per, d), shared)`` pair of rows ``[home[0]; shared]``,
     of X's nnz_cap and value dtype. coef (L, Z's rows) and b (L,) of one
-    dtype, f32 or bf16. A hypothesis skips the tiles of Z where its
-    coefficients are all 0 (eq. 7's are 0 off their job's rows).
-    → (n, L) in coef's dtype.
+    dtype, f32 or bf16. γ and coef0 are one job's: numbers, or 0-dim or
+    (1,) tensors (a sweep launches this once a config). A hypothesis
+    skips the tiles of Z where its coefficients are all 0 (eq. 7's are 0
+    off their job's rows). → (n, L) in coef's dtype.
     """
     _check(sparse_rows.is_sparse(X) and len(X.shape) == 2,
            "sparse_gram_scores takes (n, d) SparseRows query rows")
@@ -406,9 +475,12 @@ def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
            and b.dtype == coef.dtype,
            f"b must be ({L},) and coef, b one dtype of {_ROW_DTYPES}")
     check_column_ids(*parts)
+    gamma, coef0 = (job_values(gamma, 1, coef.device),
+                    job_values(coef0, 1, coef.device))
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves, coef, b):
-        return ref.sparse_gram_scores_ref(X, Z, coef, b, **kw)
+        return ref.sparse_gram_scores_ref(X, Z, coef, b, **dict(
+            kw, gamma=gamma[0], coef0=coef0[0]))
     _check_cuda_layout({"coef": coef, "b": b,
                         **{f"leaf {i}": t for i, t in enumerate(leaves)}})
     from repro_torch.kernels.gram import launch_sparse_scores
@@ -459,12 +531,14 @@ def cd_solve_gram_cluster_size(L: int, n: int) -> int:
 
 
 def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
-                  C: float, tol: float, max_epochs: int):
+                  C, tol, max_epochs):
     """Gram dual-CD solve of L jobs (see :func:`ref.cd_solve_gram_ref`).
 
     K (L, n, n) symmetric, without the bias +1; y, m (L, n); all one
-    dtype, f32 or bf16 (the solver state's dtype). → alpha (L, n),
-    epochs (L,) int32, viol (L,). On the card,
+    dtype, f32 or bf16 (the solver state's dtype). C, tol and max_epochs
+    (whole) are numbers or (L,) tensors (:func:`job_values`); C and tol
+    are rounded to the state dtype. → alpha (L, n), epochs (L,) int32,
+    viol (L,). On the card,
     :func:`cd_solve_gram_cluster_size` CTAs run each job; a size the
     card cannot schedule raises.
     """
@@ -475,14 +549,15 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
            f"y and m must be {(L, n)}, got {tuple(y.shape)}/{tuple(m.shape)}")
     _check(K.dtype in _ROW_DTYPES and y.dtype == m.dtype == K.dtype,
            f"K, y and m must share one dtype of {_ROW_DTYPES}")
+    kw = dict(C=job_values(C, L, K.device), tol=job_values(tol, L, K.device),
+              max_epochs=_epoch_cutoffs(max_epochs, L, K.device))
     if not _on_card(K, y, m):
-        return ref.cd_solve_gram_ref(K, y, m, C=C, tol=tol,
-                                     max_epochs=max_epochs)
+        return ref.cd_solve_gram_ref(K, y, m, **kw)
     _check_cuda_layout({"K": K, "y": y, "m": m})
     c = cd_solve_gram_cluster_size(L, n)
     from repro_torch.kernels.gram_solve import launch_cd_solve_gram
-    out = launch_cd_solve_gram(K, y, m, float(C), float(tol),
-                               int(max_epochs), c)
+    out = launch_cd_solve_gram(K, y, m, kw["C"], kw["tol"], kw["max_epochs"],
+                               c)
     LAUNCHES["cd_solve_gram"] += 1
     ROUTE_LAUNCHES["cd_solve_gram/" + ("cluster" if c > 1 else "single")] \
         += 1

@@ -4,6 +4,12 @@ The CPU tests run these, and ``chip_smoke.py`` holds each CUDA kernel
 against its plain version on the card. They compute exactly what the
 kernels compute, with the rows in the same order: in float32, except
 that the Gram solve keeps its state in K's dtype as the reference does.
+
+As the kernels, the solves take C, tol and max_epochs as numbers or as
+(jobs,) tensors, one value a job, and their rows as home blocks
+(n_home, per, ·) and shared rows (S, ·) or a stack of shared blocks
+(B, S, ·): job l reads home block l % n_home and shared block
+l // (jobs / B).
 """
 from __future__ import annotations
 
@@ -14,12 +20,30 @@ import torch
 from repro_torch import sparse as sparse_rows
 
 
-def _rows(xh: torch.Tensor, xs: torch.Tensor, i: int) -> torch.Tensor:
-    """Row ``i`` of every job's augmented partition, as (L, d) float32:
-    home row ``xh[:, i]`` for ``i < per``, else shared row ``xs[i-per]``."""
-    L, per, d = xh.shape
-    x = xh[:, i] if i < per else xs[i - per].expand(L, d)
-    return x.float()
+def _blocks(xh, xs, jobs: int, device):
+    """Each job's home block and shared block: (jobs,) int64 each."""
+    j = torch.arange(jobs, device=device)
+    B = xs.shape[0] if len(xs.shape) == 3 else 1
+    return j % xh.shape[0], j // (jobs // B)
+
+
+def _shared3(xs):
+    """Shared rows as a stack of blocks (B, S, ·)."""
+    return xs if len(xs.shape) == 3 else xs[None]
+
+
+def _rows(xh, xs, i: int, home, shared):
+    """Row ``i`` of every job's augmented partition (L rows, dense or
+    ``SparseRows``): row i of the job's home block for ``i < per``, else
+    row i − per of its shared block (``home``, ``shared`` from
+    :func:`_blocks`)."""
+    return xh[home, i] if i < xh.shape[1] else \
+        _shared3(xs)[shared, i - xh.shape[1]]
+
+
+def _per_job(v, jobs: int, device, dtype=torch.float32):
+    """A number or a (jobs,) tensor as a (jobs,) tensor."""
+    return torch.as_tensor(v, dtype=dtype, device=device).expand(jobs)
 
 
 def _dots(w: torch.Tensor, x: torch.Tensor):
@@ -27,14 +51,16 @@ def _dots(w: torch.Tensor, x: torch.Tensor):
     return (w * x).sum(-1), (x * x).sum(-1)
 
 
-def _cd_step(wx, q, y, m, alpha, i: int, b, C: float, active):
+def _cd_step(wx, q, y, m, alpha, i: int, b, C, active):
     """Row ``i``'s dual-CD update of every job, in place on α and b, from
-    its w·x and Q_ii (L,). → (Δ·y (L,), |pg|·m (L,))."""
+    its w·x and Q_ii (L,); C a number or (L,). → (Δ·y (L,), |pg|·m
+    (L,))."""
     yi, mi, ai = y[:, i], m[:, i], alpha[:, i]
+    C = torch.as_tensor(C, dtype=torch.float32, device=ai.device)
     g = yi * (wx + b) - 1.0                           # ∂/∂α_i of dual obj
     pg = torch.where(ai <= 0.0, g.clamp(max=0.0),
                      torch.where(ai >= C, g.clamp(min=0.0), g))
-    a_new = (ai - g / q).clamp(0.0, C)
+    a_new = torch.minimum((ai - g / q).clamp(min=0.0), C)
     delta = (a_new - ai) * mi * active
     alpha[:, i] = ai + delta
     coef = delta * yi
@@ -42,17 +68,18 @@ def _cd_step(wx, q, y, m, alpha, i: int, b, C: float, active):
     return coef, pg.abs() * mi
 
 
-def _cd_epoch(xh, xs, y, m, alpha, w, b, C: float, active, dots=_dots):
+def _cd_epoch(xh, xs, y, m, alpha, w, b, C, active, dots=_dots):
     """One sequential dual-CD epoch over every job, in place.
 
     Jobs whose ``active`` is 0 keep their state; ``dots(w, x)`` gives
     each row's (w·x, x·x). → max projected-gradient violation of the
     epoch per job (L,).
     """
-    n = y.shape[1]
+    L, n = y.shape
+    home, shared = _blocks(xh, xs, L, y.device)
     viol = torch.zeros_like(b)
     for i in range(n):
-        x = _rows(xh, xs, i)
+        x = _rows(xh, xs, i, home, shared).float()
         wx, xx = dots(w, x)
         q = torch.where(m[:, i] > 0, xx + 1.0, 1.0)   # Q_ii, bias augment
         coef, v = _cd_step(wx, q, y, m, alpha, i, b, C, active)
@@ -61,25 +88,16 @@ def _cd_epoch(xh, xs, y, m, alpha, w, b, C: float, active, dots=_dots):
     return viol
 
 
-def _sparse_row(xh, xs, i: int):
-    """Row ``i`` of every job's augmented partition of blocked-CSR rows:
-    its column ids (L, cap) int64 and values (L, cap) float32."""
-    L, per = xh.values.shape[:2]
-    if i < per:
-        return xh.indices[:, i].long(), xh.values[:, i].float()
-    j = i - per
-    return (xs.indices[j].long().expand(L, -1),
-            xs.values[j].float().expand(L, -1))
-
-
-def _cd_epoch_sparse(xh, xs, y, m, q, alpha, w, b, C: float, active):
+def _cd_epoch_sparse(xh, xs, y, m, q, alpha, w, b, C, active):
     """:func:`_cd_epoch` on blocked-CSR rows: w·x is the gather of w at
     the row's ids times its values, one float32 sum over the slots; the
     update scatter-adds Δ·y·v at the ids (padding slots add 0). ``q``
     (L, n) holds Q_ii."""
+    home, shared = _blocks(xh, xs, y.shape[0], y.device)
     viol = torch.zeros_like(b)
     for i in range(y.shape[1]):
-        idx, val = _sparse_row(xh, xs, i)
+        rows = _rows(xh, xs, i, home, shared)
+        idx, val = rows.indices.long(), rows.values.float()
         wx = (w.gather(1, idx) * val).sum(-1)
         coef, v = _cd_step(wx, q[:, i], y, m, alpha, i, b, C, active)
         w.scatter_add_(1, idx, coef[:, None] * val)
@@ -88,15 +106,17 @@ def _cd_epoch_sparse(xh, xs, y, m, q, alpha, w, b, C: float, active):
 
 
 def cd_solve_ref(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
-                 m: torch.Tensor, *, C: float, tol: float, max_epochs: int):
+                 m: torch.Tensor, *, C, tol, max_epochs):
     """The whole dual-CD solve of L jobs (the plain ``cd_solve``).
 
-    xh (L, per, d) home rows, xs (S, d) rows shared by every job; job l
-    solves over the augmented rows ``[xh[l]; xs]`` with labels/mask
-    y, m (L, per + S). Each job runs at least one epoch (when
-    ``max_epochs`` > 0) and stops once its own violation ≤ ``tol`` —
-    a job that stops is frozen while the others go on, as ``vmap`` of
-    the reference's ``while_loop`` behaves.
+    xh (n_home, per, d) home rows, xs (S, d) rows shared by every job
+    or (B, S, d) blocks (see the module's note); job l solves over the
+    augmented rows ``[xh[l % n_home]; its shared block]`` with
+    labels/mask y, m (L, per + S), and its own C, tol and max_epochs
+    (numbers or (L,) tensors). Each job runs at least one epoch (when
+    its ``max_epochs`` > 0) and stops once its own violation ≤ its
+    ``tol`` — a job that stops is frozen while the others go on, as
+    ``vmap`` of the reference's ``while_loop`` behaves.
 
     → alpha (L, n) f32, w (L, d) f32, b (L,) f32, epochs (L,) int32,
     viol (L,) f32.
@@ -104,12 +124,11 @@ def cd_solve_ref(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
     return solve_with(xh, xs, y, m, C=C, tol=tol, max_epochs=max_epochs)
 
 
-def solve_with(xh, xs, y, m, *, C: float, tol: float, max_epochs: int,
-               dots=_dots):
+def solve_with(xh, xs, y, m, *, C, tol, max_epochs, dots=_dots):
     """:func:`cd_solve_ref` with the row dot products taken by
     ``dots(w, x) → (w·x, x·x)`` (an emulation of a kernel's sum order
     passes its own)."""
-    return _solve(xh.shape, y, m, tol, max_epochs,
+    return _solve(xh.shape[-1], y, m, tol, max_epochs,
                   lambda a, w, b, y, m, act: _cd_epoch(xh, xs, y, m, a, w, b,
                                                        C, act, dots))
 
@@ -136,30 +155,34 @@ def sparse_sq_norms(values: torch.Tensor) -> torch.Tensor:
 
 
 def cd_solve_sparse_ref(xh, xs, y: torch.Tensor, m: torch.Tensor, *,
-                        C: float, tol: float, max_epochs: int):
+                        C, tol, max_epochs):
     """:func:`cd_solve_ref` on blocked-CSR rows (the plain
-    ``cd_solve/sparse``): xh ``SparseRows`` (L, per, d), xs
-    ``SparseRows`` (S, d) of one nnz_cap. Values are cast to float32 for
+    ``cd_solve/sparse``): xh ``SparseRows`` (n_home, per, d), xs
+    ``SparseRows`` (S, d) or (B, S, d) of one nnz_cap, blocks as there.
+    Values are cast to float32 for
     w·x and the update, as the reference does (``svm.py:183-185``);
     Q_ii = Σ v² + 1 with Σ v² in the values' dtype
     (:func:`sparse_sq_norms`, ``svm.py:165``), 1 on masked rows. The
     same outputs, stop rule and frozen jobs."""
-    L = xh.shape[0]
+    home, shared = _blocks(xh, xs, y.shape[0], y.device)
     qh = sparse_sq_norms(xh.values)
-    qs = sparse_sq_norms(xs.values)
-    q = torch.cat([qh, qs.expand(L, -1)], 1)
+    qs = sparse_sq_norms(_shared3(xs).values)
+    q = torch.cat([qh[home], qs[shared]], 1)
     q = torch.where(m.float() > 0, q + 1.0, 1.0)
-    return _solve(xh.shape, y, m, tol, max_epochs,
+    return _solve(xh.shape[-1], y, m, tol, max_epochs,
                   lambda a, w, b, y, m, act: _cd_epoch_sparse(
                       xh, xs, y, m, q, a, w, b, C, act))
 
 
-def _solve(shape, y, m, tol: float, max_epochs: int, epoch):
-    """The epoch loop with the reference's stop rule over L jobs of rows
-    of ``shape`` (L, per, d); ``epoch(α, w, b, y, m, active)`` runs one
-    epoch in place and returns its violation per job."""
-    L, _, d = shape
+def _solve(d: int, y, m, tol, max_epochs, epoch):
+    """The epoch loop with the reference's stop rule over the L jobs of
+    y (L, n) on rows of width d, each with its own tol and max_epochs
+    (numbers or (L,)); ``epoch(α, w, b, y, m, active)`` runs one epoch
+    in place and returns its violation per job."""
+    L = y.shape[0]
     dev = y.device
+    tol = _per_job(tol, L, dev)
+    max_epochs = _per_job(max_epochs, L, dev, torch.int32)
     y, m = y.float(), m.float()
     alpha = torch.zeros(y.shape, dtype=torch.float32, device=dev)
     w = torch.zeros((L, d), dtype=torch.float32, device=dev)
@@ -278,24 +301,28 @@ def sparse_gram_scores_ref(X, Z, coef: torch.Tensor, b: torch.Tensor,
 
 
 def cd_solve_gram_ref(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
-                      C: float, tol: float, max_epochs: int):
+                      C, tol, max_epochs):
     """The Gram dual-CD solve of L jobs (the plain ``cd_solve_gram``).
 
     K (L, n, n) without the bias ``+1``; y, m (L, n). Every operation
     runs in K's dtype as in ``fit_binary_kernel`` (``svm.py:258-308``):
     Q = (y yᵀ)·(K + 1)·(m mᵀ), Q_ii → 1 on masked rows, g = −m, and per
     row i: α_i ← clip(α_i − g_i/Q_ii, 0, C), g += Δ·Q[:, i]. Each job
-    runs at least one epoch (when ``max_epochs`` > 0) and stops once its
-    own violation ≤ ``tol``; a stopped job is frozen while the others go
-    on, as ``vmap`` of the reference's ``while_loop`` behaves.
+    runs at least one epoch (when its ``max_epochs`` > 0) and stops once
+    its own violation ≤ its ``tol``; a stopped job is frozen while the
+    others go on, as ``vmap`` of the reference's ``while_loop`` behaves.
+    C, tol and max_epochs are numbers or (L,) tensors; C and tol are
+    taken in K's dtype, a tensor's float32 values rounded to it.
 
     → alpha (L, n), epochs (L,) int32, viol (L,), in K's dtype.
     """
     L, n, _ = K.shape
     dt, dev = K.dtype, K.device
     y, m = y.to(dt), m.to(dt)
-    Cv = torch.tensor(C, dtype=dt, device=dev)
-    tolv = torch.tensor(tol, dtype=dt, device=dev)
+    Cv, tolv = (v.to(dt).expand(L) if isinstance(v, torch.Tensor)
+                else torch.tensor(v, dtype=dt, device=dev).expand(L)
+                for v in (C, tol))
+    max_epochs = _per_job(max_epochs, L, dev, torch.int32)
     Q = (y[:, :, None] * y[:, None, :]) * (K + 1.0)
     Q = Q * (m[:, :, None] * m[:, None, :])
     qdiag = torch.where(m > 0, torch.diagonal(Q, dim1=1, dim2=2),

@@ -28,10 +28,9 @@ _F = ctypes.c_float
 
 def _lib():
     lib = build.load("cd_solve")
-    lib.cd_solve.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _F, _F, _I,
-                             _P, _P, _P, _P, _P, _P]
-    lib.cd_solve_cluster.argtypes = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _F,
-                                     _F, _I, _I, _P, _P, _P, _P, _P, _P]
+    head = [_P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P]
+    lib.cd_solve.argtypes = head + [_P, _P, _P, _P, _P, _P]
+    lib.cd_solve_cluster.argtypes = head + [_I, _P, _P, _P, _P, _P, _P]
     lib.cd_solve_cluster_occupancy.argtypes = [_I, _I, _I, _I, _P]
     for fn in (lib.cd_solve, lib.cd_solve_cluster,
                lib.cd_solve_cluster_occupancy, lib.cd_solve_cluster_vectors,
@@ -71,8 +70,7 @@ def cluster_slice_cols(d: int, cluster: int, dtype: torch.dtype) -> int:
 
 
 def emulate_cluster(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
-                    m: torch.Tensor, *, C: float, tol: float,
-                    max_epochs: int, cluster: int):
+                    m: torch.Tensor, *, C, tol, max_epochs, cluster: int):
     """The cluster route's arithmetic in plain PyTorch: each row's
     (w·x, x·x) as ``cluster`` partials over the ranks' column slices
     (:func:`cluster_slice_cols`), added in rank order; otherwise the
@@ -94,15 +92,20 @@ def emulate_cluster(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
 
 
 def launch_cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
-                    m: torch.Tensor, C: float, tol: float, max_epochs: int,
-                    cluster: int):
+                    m: torch.Tensor, C: torch.Tensor, tol: torch.Tensor,
+                    max_epochs: torch.Tensor, cluster: int, layout=None):
     """Launch on the current stream; inputs already checked (CUDA,
-    contiguous, rows bf16/f32, y/m f32); ``cluster`` CTAs a job (1: the
-    single route; :func:`ops.cd_solve` passes its rule's size). A size
+    contiguous, rows bf16/f32, y/m f32; C, tol (L,) f32 and max_epochs
+    (L,) int32 on the card); ``cluster`` CTAs a job (1: the single route;
+    :func:`ops.cd_solve` passes its rule's size); ``layout`` as
+    ``ops.job_layout`` gives it (default: that of xh and xs). A size
     the route does not take, or that the card cannot schedule, raises.
     → alpha, w, b, epochs, viol."""
-    L, per, d = xh.shape
-    S = xs.shape[0]
+    from repro_torch.kernels import ops
+    L = y.shape[0]
+    _, per, d = xh.shape
+    S = xs.shape[-2]
+    n_home, jps = layout or ops.job_layout(xh, xs, L)
     dev = xh.device
     alpha = torch.empty((L, per + S), dtype=torch.float32, device=dev)
     w = torch.empty((L, d), dtype=torch.float32, device=dev)
@@ -110,7 +113,8 @@ def launch_cd_solve(xh: torch.Tensor, xs: torch.Tensor, y: torch.Tensor,
     epochs = torch.empty((L,), dtype=torch.int32, device=dev)
     viol = torch.empty((L,), dtype=torch.float32, device=dev)
     head = (xh.data_ptr(), xs.data_ptr(), int(xh.dtype == torch.bfloat16),
-            y.data_ptr(), m.data_ptr(), L, per, S, d, C, tol, max_epochs)
+            y.data_ptr(), m.data_ptr(), L, per, S, d, n_home, jps,
+            C.data_ptr(), tol.data_ptr(), max_epochs.data_ptr())
     tail = (w.data_ptr(), b.data_ptr(), epochs.data_ptr(), viol.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     if cluster == 1:
@@ -138,8 +142,8 @@ SPARSE_MAX_WARPS = 8
 def _sparse_lib():
     lib = build.load("cd_solve_sparse")
     lib.cd_solve_sparse.argtypes = [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I,
-                                    _I, _F, _F, _I, _P, _P, _P, _I, _P, _P,
-                                    _P, _P]
+                                    _I, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                                    _P, _P, _P, _P]
     lib.cd_solve_sparse_block_bytes.argtypes = [_I]
     for fn in (lib.cd_solve_sparse, lib.cd_solve_sparse_max_cap,
                lib.cd_solve_sparse_ahead, lib.cd_solve_sparse_max_warps,
@@ -208,7 +212,7 @@ def _kernel_order_sum(p: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 
 
 def emulate_sparse_lookahead(xh, xs, y: torch.Tensor, m: torch.Tensor, *,
-                             C: float, tol: float, max_epochs: int,
+                             C, tol, max_epochs,
                              ahead: int = SPARSE_AHEAD,
                              order: str = "kernel", correct: bool = True):
     """The ``cd_solve/sparse`` kernel's pipeline in plain PyTorch: w lives
@@ -286,16 +290,22 @@ def emulate_sparse_lookahead(xh, xs, y: torch.Tensor, m: torch.Tensor, *,
 
 
 def launch_cd_solve_sparse(xh, xs, y: torch.Tensor, m: torch.Tensor,
-                           C: float, tol: float, max_epochs: int):
+                           C: torch.Tensor, tol: torch.Tensor,
+                           max_epochs: torch.Tensor, layout=None):
     """Launch the sparse route on the current stream; inputs already
     checked (CUDA, contiguous leaves, one nnz_cap, int32 ids in [0, d),
-    values bf16/f32 of one dtype, y/m f32). An nnz_cap above the
-    kernel's limit raises. w comes back as the (L, d) view of a (d,
-    8⌈L/8⌉) array, hypotheses adjacent, which the ``hinge_scores/sparse``
-    kernel reads without a copy. → alpha, w, b, epochs, viol."""
+    values bf16/f32 of one dtype, y/m f32; C, tol (L,) f32 and
+    max_epochs (L,) int32 on the card; ``layout`` as for
+    :func:`launch_cd_solve`). An nnz_cap above the kernel's limit
+    raises. w comes back as the (L, d) view of a (d, 8⌈L/8⌉) array,
+    hypotheses adjacent, which the ``hinge_scores/sparse`` kernel reads
+    in chunks of 8 without a copy. → alpha, w, b, epochs, viol."""
+    from repro_torch.kernels import ops
     lib = _sparse_lib()
-    L, per, d = xh.shape
-    S = xs.shape[0]
+    L = y.shape[0]
+    _, per, d = xh.shape
+    S = xs.shape[-2]
+    n_home, jps = layout or ops.job_layout(xh, xs, L)
     cap = xh.nnz_cap
     limit = lib.cd_solve_sparse_max_cap()
     if cap > limit:
@@ -314,7 +324,8 @@ def launch_cd_solve_sparse(xh, xs, y: torch.Tensor, m: torch.Tensor,
     err = lib.cd_solve_sparse(
         xh.indices.data_ptr(), xh.values.data_ptr(), xs.indices.data_ptr(),
         xs.values.data_ptr(), bf16, y.data_ptr(), m.data_ptr(), L, per, S,
-        cap, C, tol, max_epochs, blocks.data_ptr(), alpha.data_ptr(),
+        n_home, jps, cap, C.data_ptr(), tol.data_ptr(), max_epochs.data_ptr(),
+        blocks.data_ptr(), alpha.data_ptr(),
         w.data_ptr(), ldw, b.data_ptr(), epochs.data_ptr(), viol.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
