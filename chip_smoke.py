@@ -117,16 +117,41 @@ Phases, one line or block each; any failure exits non-zero:
    tensor-core route) with ``flash_decode`` timed at one layer's shape
    in turns with the library call and the SIMT route, one step under
    ``torch.cuda.set_sync_debug_mode("error")``, the kernel route against
-   the plain route and one step profiled.
+   the plain route and one step profiled;
+9. slice 10, the serving layer: after the smoke serve, ``[stream-smoke]``
+   (the --smoke svm-tfidf serve through the port's CLI, 2 streams × 2
+   waves, against the same batches through the plain versions on the
+   CPU) and ``[sched-smoke]`` (the decode ``BatchScheduler`` at
+   ``smoke_variant`` against the CPU, token for token); before the
+   full-width LM serve, ``[stream-full]`` (``serve_svm`` at the
+   svm-tfidf width: 4 streams × 3 waves of 8192 bf16 rows on the
+   background scheduler's stream, the streams submitting one after
+   another as in the reference's launcher, so a wave may fold as
+   several sweeps; wave 1's widest solve call (a real tenant's jobs)
+   and first hinge_scores call against the plain versions, and each
+   tenant ≡ its ``update_mapreduce`` bit for bit; per wave its time,
+   rows/s, latencies, folds and launches by route; a wave profiled;
+   predicts from the main thread while wave 3 folds, each ≡ the predict
+   of the version it reports), ``[stream-full-mixed]`` (2 dense and 2
+   blocked-CSR tenants as one wave of two fold groups, its host syncs
+   counted, then 3 + 3 tenants, each group padded to 4 jobs; every
+   tenant ≡ its ``update_mapreduce``, each padding job's solve ≡ plain,
+   a blocked-CSR tenant's solve and the blocked-CSR hinge_scores
+   against plain) and ``[sched-full]`` (the scheduler at
+   tinyllama-1.1b's width, bf16, batch 4, cache 512, 10 requests; every
+   ``flash_decode`` launch on the tensor-core route, one step's calls
+   against plain). Each kernel row's ``launches`` is its main path's
+   count; ``launches_by_path`` adds these paths' counts beside it.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
 power limit as nvidia-smi gives them. ``--quick`` stops after phase 4
-and the smoke serve, and prints no result.
+and the smoke serves, and prints no result.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -888,13 +913,21 @@ def time_cd_solve(torch, T, ops, ref, Xp, yp, maskp, cfg):
 def profile(torch, fn, what: str) -> None:
     """``fn()`` (which ends in a host readback) under torch.profiler:
     device time by kernel and the device's busy share of the call."""
+    with profiling(torch, what):
+        fn()
+
+
+@contextlib.contextmanager
+def profiling(torch, what: str):
+    """The block (which ends in a host readback) under torch.profiler,
+    as :func:`profile` reports it; kernels of every thread count."""
     acts = [torch.profiler.ProfilerActivity.CPU]
     if DEV == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        fn()
+        yield
         wall_ms = 1e3 * (time.perf_counter() - t0)
     # Kernel rows only: an operator's row repeats its kernels' time.
     rows = sorted(((evt.self_device_time_total / 1e3, evt.count, evt.key)
@@ -2794,6 +2827,645 @@ def phase_serve_full(torch, ops, ref, cfg, batch, cache_len, steps):
     return row
 
 
+# --- slice 10: the streaming service and the decode batch scheduler --------
+
+# [stream-smoke]: the card's w and b against the CPU's, over max |w| of the
+# CPU's final model: kernel and plain versions sum in other orders, as
+# update_mapreduce's R_emp in [sparse-pipeline] (atol 1e-4)
+STREAM_TOL = 1e-4
+STREAMS = 4
+
+
+def _route_delta(after: dict, before: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def _row_launches(routes: dict) -> dict:
+    """Launches by the kernel-table row a route belongs to."""
+    rows = {"cd_solve/cluster": "cd_solve", "cd_solve/single": "cd_solve",
+            "hinge_scores/tensor_core": "hinge_scores",
+            "hinge_scores/simt": "hinge_scores",
+            "cd_solve/sparse": "cd_solve/sparse",
+            "hinge_scores/sparse": "hinge_scores/sparse",
+            "flash_decode/tensor_core": "flash_decode",
+            "flash_decode/simt": "flash_decode"}
+    out = {}
+    for route, n in routes.items():
+        check(route in rows, f"a stream or scheduler run took route {route}")
+        out[rows[route]] = out.get(rows[route], 0) + n
+    return out
+
+
+def _same_as_update(torch, T, got, base, X, y, L, cfg, tag):
+    """A tenant's snapshot from a batched wave ≡ ``update_mapreduce`` of
+    the model it folded from, on the same batch: rounds, R_emp and picks
+    per round, SV ids, w, b and the final α, w and b, bit for bit."""
+    ref = T.update_mapreduce(base, X, y, L, cfg)
+    risks = ([h["risk"] for h in got.history],
+             [h["risk"] for h in ref.history])
+    same = (got.rounds == ref.rounds and risks[0] == risks[1]
+            and [h["reducer"] for h in got.history]
+            == [h["reducer"] for h in ref.history]
+            and all(torch.equal(a, b) for a, b in (
+                (got.w, ref.w), (got.b, ref.b), (got.sv.ids, ref.sv.ids),
+                (got.final.alpha, ref.final.alpha),
+                (got.final.w, ref.final.w), (got.final.b, ref.final.b))))
+    check(same, f"{tag}: the wave's model differs from update_mapreduce "
+          f"(rounds {got.rounds} vs {ref.rounds}, R_emp {risks[0]} vs "
+          f"{risks[1]})")
+    return got.rounds
+
+
+def _stream_smoke_cpu(torch, T, cfg, streams, waves, rows, d):
+    """The launcher's smoke run on the CPU (plain versions) from the same
+    batches, made on the card: the service driven synchronously (each
+    wave's submits, then ``drain``). → (service, stale, fresh)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving import StreamingSVMService
+    svc = StreamingSVMService(cfg, num_partitions=8,
+                              max_batches_per_wave=streams, device="cpu")
+
+    def batch(s, w):
+        X, y = serve.stream_batch(s, w, rows, d, torch.float32, DEV)
+        return X.cpu(), y.cpu()
+    for s in range(streams):
+        svc.register(f"stream{s}",
+                     T.fit_mapreduce(*batch(s, 0), 8, cfg, device="cpu"))
+    stale, fresh = [], []
+    for w in range(1, waves + 1):
+        bs = [batch(s, w) for s in range(streams)]
+
+        def acc():
+            return [float((svc.predict(f"stream{s}", X) == y).float().mean())
+                    for s, (X, y) in enumerate(bs)]
+        stale.append(acc())
+        for s, (X, y) in enumerate(bs):
+            svc.submit(f"stream{s}", X, y)
+        svc.drain()
+        fresh.append(acc())
+    return svc, stale, fresh
+
+
+def phase_stream_smoke(torch, T, ops):
+    """The --smoke svm-tfidf serve (2 streams, 2 waves) through the
+    port's CLI on the card, against the same waves on the CPU (plain
+    versions) on the same batches, made on the card: the same stale and
+    folded accuracies, w and b within STREAM_TOL of max |w|; folding
+    beats the stale model in each wave."""
+    from repro_torch.launch import serve
+    ops.reset_launches()
+    card = serve.main(["--arch", "svm-tfidf", "--smoke", "--streams", "2",
+                       "--waves", "2", "--device", DEV])
+    routes = _linear_route_counts(ops)
+    # the launcher's --smoke cut: 256 rows of d 128 a stream a wave
+    svc_cpu, stale_cpu, fresh_cpu = _stream_smoke_cpu(torch, T, card.cfg,
+                                                      2, 2, 256, 128)
+    worst, ids = 0.0, 0
+    for s in range(2):
+        a = card.service.snapshot(f"stream{s}").model
+        b = svc_cpu.snapshot(f"stream{s}").model
+        scale = float(b.final.w.abs().max())
+        for x, z in ((a.w, b.w), (a.b, b.b), (a.final.w, b.final.w),
+                     (a.final.b, b.final.b)):
+            worst = max(worst, float((x.cpu() - z).abs().max()) / scale)
+        ids += int((a.sv.ids.cpu() == b.sv.ids).sum())
+    say(f"[stream-smoke] 2 streams × 2 waves on the card (folds of "
+        f"{[st.streams for st in card.service.stats]} tenants): stale "
+        f"{card.stale} → folded {card.fresh}; the CPU (plain versions, the "
+        f"same batches): stale {stale_cpu} → folded {fresh_cpu}; w and b "
+        f"max |Δ| {worst:.2e} of max |w| (tol {STREAM_TOL:g}), SV ids equal "
+        f"{ids} of 128; routes {routes}; "
+        f"{card.service.throughput_report()}")
+    check(card.stale == stale_cpu and card.fresh == fresh_cpu,
+          "stream smoke accuracies differ from the plain versions")
+    check(worst <= STREAM_TOL, f"stream smoke w, b differ by {worst:.2e}")
+    check(all(sum(f) > sum(s) for f, s in zip(card.fresh, card.stale)),
+          "a folded wave did not beat the stale model")
+    check(set(routes) == {"cd_solve/single", "hinge_scores/simt"},
+          f"stream smoke routes {routes}")
+
+
+@contextlib.contextmanager
+def recording(ops, names, keep):
+    """While the block runs, each ``ops.<name>`` of ``names`` runs as
+    shipped (its launch count unchanged) and then appends
+    ``keep(name, args, kwargs, out, calls)`` to ``calls[name]`` where
+    that is not None; ``calls`` is what the block gets. The calls may
+    come from another thread (the service's scheduler)."""
+    shipped = {n: getattr(ops, n) for n in names}
+    calls = {n: [] for n in names}
+
+    def wrap(name):
+        def record(*a, **kw):
+            out = shipped[name](*a, **kw)
+            kept = keep(name, a, kw, out, calls)
+            if kept is not None:
+                calls[name].append(kept)
+            return out
+        return record
+    for n in names:
+        setattr(ops, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n, f in shipped.items():
+            setattr(ops, n, f)
+
+
+def _job_slice(torch, sp, a, kw, out, jobs):
+    """Jobs ``jobs`` (a slice) of a ``cd_solve`` call (args ``a``,
+    keywords ``kw``, outputs ``out``) as a call of their own: the home
+    rows a view, the rest copied at once, on the caller's stream (a
+    later round may reuse their buffers). → ((xh, xs, y, m), kw, out)."""
+    xh, xs, y, m = a[:4]
+    L = y.shape[0]
+
+    def copy(x):
+        return (sp.SparseRows(x.indices.clone(), x.values.clone(), x.d,
+                              x.ids_in_range) if sp.is_sparse(x)
+                else x.clone())
+    if len(xs.shape) == 3:                   # block l // (L / B) of B
+        jps = L // xs.shape[0]
+        xs = xs[jobs.start // jps:(jobs.stop - 1) // jps + 1]
+    if xh.shape[0] == L:
+        xh = xh[jobs]
+    else:                                    # home rows l % n_home
+        check(jobs.start % xh.shape[0] == 0
+              and jobs.stop - jobs.start == xh.shape[0],
+              f"jobs {jobs} do not cover the {xh.shape[0]} home blocks")
+    kw = {k: v[jobs].clone() if isinstance(v, torch.Tensor) and v.dim()
+          else v for k, v in kw.items()}
+    return ((xh, copy(xs), y[jobs].clone(), m[jobs].clone()), kw,
+            tuple(o[jobs].clone() for o in out))
+
+
+def _hinge_call(a, out):
+    """A ``hinge_scores`` call as (rows (a view), W, b, y, m copied),
+    (losses, count) copied."""
+    return (a[0],) + tuple(t.clone() for t in a[1:5]), \
+        tuple(t.clone() for t in out)
+
+
+def _solve_vs_plain(torch, ref, sp, call, tag):
+    """A recorded solve of one tenant's jobs (:func:`_job_slice`) against
+    the plain solve of the same jobs: the hinge risk of each job's w, b
+    over the jobs' home rows within 1e-4, as ``[kernels] cd_solve`` at
+    full width holds one epoch (an update or mask gone wrong moves it by
+    far more); max |Δα| and the epochs printed."""
+    (xh, xs, y, m), kw, out = call
+    L, per, d = xh.shape
+    sparse = sp.is_sparse(xh)
+    t0 = time.perf_counter()
+    plain = (ref.cd_solve_sparse_ref if sparse else ref.cd_solve_ref)(
+        xh, xs, y, m, **kw)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    Xflat = xh.reshape(L * per, d)
+    yflat, mflat = y[:, :per].reshape(-1), m[:, :per].reshape(-1)
+
+    def risk(o):
+        return ref.hinge_scores_ref(Xflat, o[1], o[2], yflat,
+                                    mflat)[0] / mflat.sum()
+    rerr = float((risk(out) - risk(plain)).abs().max())
+    same = all(torch.equal(k, p) for k, p in zip(out[:3], plain[:3]))
+    say(f"[{tag}] {'cd_solve/sparse' if sparse else 'cd_solve/cluster'} "
+        f"of a real tenant ({L} jobs of {per} + {xs.shape[-2]} rows, "
+        f"{per * L} rows with mask {float(mflat.sum()):.0f}) against plain "
+        f"({plain_s:.1f} s): hinge risk max|Δ| {rerr:.2e} (atol 1e-4), "
+        f"max|Δα| {float((out[0] - plain[0]).abs().max()):.2e}, α, w, b "
+        f"bit for bit {same}; epochs {out[3].tolist()} vs "
+        f"{plain[3].tolist()}")
+    check(rerr <= 1e-4, f"{tag}: the solve's risk differs from plain by "
+          f"{rerr:.2e}")
+
+
+def _hinge_vs_plain(torch, ref, call, tag):
+    """A recorded ``hinge_scores`` call (:func:`_hinge_call`) against the
+    plain version on its inputs: rtol 1e-4 and the same count, as
+    ``[kernels] hinge_scores`` at full width."""
+    (X, W, b, y, m), (loss_k, cnt_k) = call
+    loss_p, cnt_p = ref.hinge_scores_ref(X, W, b, y, m)
+    rel = float(((loss_k - loss_p).abs() / loss_p.abs().clamp(min=1e-30))
+                .max())
+    say(f"[{tag}] hinge_scores of the wave (n={X.shape[0]} d={X.shape[-1]} "
+        f"L={W.shape[0]}) against plain: max rel Δ {rel:.2e} (rtol 1e-4), "
+        f"count {float(cnt_k)} vs {float(cnt_p)}")
+    check(rel <= 1e-4 and float(cnt_k) == float(cnt_p),
+          f"{tag}: hinge_scores differs from plain")
+
+
+def _bucket(k: int) -> int:
+    """The job-axis width a fold of k tenants runs at."""
+    return 1 if k <= 1 else 1 << (k - 1).bit_length()
+
+
+def phase_stream_full(torch, T, ops, ref):
+    """``serve_svm`` at configs/svm_tfidf.py's width (d 131072, sv_capacity
+    2048, 8 partitions, 8192 bf16 rows a stream a wave; C 1, max_epochs
+    10, γ 1e-4, max_rounds 3): 4 streams × 3 waves with the background
+    scheduler. The streams submit one after another, as the reference's
+    launcher does, and the scheduler folds what has queued when it
+    wakes: a wave may fold as several sweeps (printed). Per wave its
+    time, rows/s, latencies, its folds and launches by route (counted
+    per fold). Wave 1: the first solve call of its widest fold (jobs
+    0–7, a real tenant) and its first hinge_scores call against the
+    plain versions, and each tenant ≡ its own update_mapreduce bit for
+    bit; wave 2 profiled; at least 20 predicts with their versions
+    while wave 3 folds, each ≡ the predict of that version. → (launches
+    by kernel row, the result)."""
+    import collections
+    from repro_torch import sparse as sp
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.launch import serve
+    d, rows = SVM_TFIDF.num_features, SVM_TFIDF.stream_rows_per_wave
+    dt = getattr(torch, SVM_TFIDF.dtype)
+    Xq = [serve.stream_batch(s, 3, 1024, d, dt, DEV)[0]
+          for s in range(STREAMS)]
+    marks, snaps, reads, held = {}, {}, [], {}
+
+    def read(svc, s):
+        """One predict and its host time, to the result on the host."""
+        t0 = time.perf_counter()
+        pred, ver = svc.predict(f"stream{s}", Xq[s], with_version=True)
+        pred = pred.cpu()
+        reads.append((s, ver, pred, 1e3 * (time.perf_counter() - t0)))
+
+    def keep(name, a, kw, out, calls):
+        """The first solve call of each fold width (a round's, 8 jobs a
+        tenant; the final retrains' fewer jobs are skipped), jobs 0–7;
+        the first hinge_scores call."""
+        if name == "hinge_scores":
+            return None if calls[name] else _hinge_call(a, out)
+        jobs = a[2].shape[0]
+        if jobs < 8 or any(c[0] == jobs for c in calls[name]):
+            return None
+        return jobs, _job_slice(torch, sp, a, kw, out, slice(0, 8))
+
+    def probe(wave, stage, svc):
+        marks[wave, stage] = dict(ops.ROUTE_LAUNCHES)
+        if stage == "submit":
+            snaps[wave] = [svc.snapshot(f"stream{s}") for s in range(STREAMS)]
+            if wave == 1:
+                held["rec"] = recording(ops, ("cd_solve", "hinge_scores"),
+                                        keep)
+                held["calls"] = held["rec"].__enter__()
+            elif wave == 2:
+                held["prof"] = profiling(torch, "one full-width wave, "
+                                         "submit → every stream folded "
+                                         "(4 tenants, 8 jobs each)")
+                held["prof"].__enter__()
+        elif stage == "folded" and wave == 1:
+            held.pop("rec").__exit__(None, None, None)
+            calls = held.pop("calls")
+            jobs, solve = max(calls["cd_solve"], key=lambda c: c[0])
+            widths = [c[0] for c in calls["cd_solve"]]
+            say(f"[stream-full] wave 1: solve calls of {widths} jobs; "
+                f"held to plain: the {jobs}-job call's jobs 0–7")
+            _solve_vs_plain(torch, ref, sp, solve, "stream-full")
+            _hinge_vs_plain(torch, ref, calls["hinge_scores"][0],
+                            "stream-full")
+            del calls, solve
+        elif stage == "folded" and wave == 2:
+            held.pop("prof").__exit__(None, None, None)
+        elif stage == "submitted" and wave == 3:
+            # readers on the caller's stream while the fold runs on the
+            # service's: each read tagged with the version it served
+            while svc.scheduler_error is None and (len(reads) < 20 or any(
+                    svc.snapshot(f"stream{s}").version < 3
+                    for s in range(STREAMS))):
+                read(svc, len(reads) % STREAMS)
+                time.sleep(0.002)
+            for s in range(STREAMS):         # and once more after the swap
+                read(svc, s)
+
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    res = serve.serve_svm(SVM_TFIDF, streams=STREAMS, waves=3, device=DEV,
+                          test_probe=probe)
+    total_s = time.perf_counter() - t0
+    routes = _linear_route_counts(ops)
+    svc, cfg = res.service, res.cfg
+    after = {w: snaps[w + 1] for w in (1, 2)}
+    after[3] = [svc.snapshot(f"stream{s}") for s in range(STREAMS)]
+    from repro_torch.kernels import svm_step
+    n_job = -(-(rows + cfg.sv_capacity) // 8) + cfg.sv_capacity
+    resident = svm_step.max_active_clusters(dt, d, n_job, 8)
+    say(f"[stream-full] {STREAMS} streams × 3 waves × {rows} rows of {d} "
+        f"{SVM_TFIDF.dtype}, 8 partitions, sv_capacity {cfg.sv_capacity}: "
+        f"{total_s:.1f} s with set-up (4 fit_mapreduce) and the wave-1 "
+        f"checks; launches {routes}; a fold of k tenants solves "
+        f"{_bucket(STREAMS)} × 8 jobs at most, of {n_job} rows on clusters "
+        f"of 8 CTAs, {resident} resident")
+    stats = {st.wave: st for st in svc.stats}
+    for w in (1, 2, 3):
+        # each wave submits one batch a stream, uids 4(w − 1) + 1 … 4w
+        folds = collections.defaultdict(list)
+        for mb in svc.done:
+            if (mb.uid - 1) // STREAMS == w - 1:
+                folds[mb.wave].append(int(mb.stream[len("stream"):]))
+        lats = [1e3 * mb.latency_s for mb in svc.done
+                if (mb.uid - 1) // STREAMS == w - 1]
+        delta = _route_delta(marks[w, "folded"], marks[w, "submit"])
+        delta = {k: v for k, v in delta.items()
+                 if k.startswith(("cd_solve", "hinge_scores"))}
+        want = collections.Counter()
+        told = []
+        for sw, tenants in sorted(folds.items()):
+            r = max(after[w][s].model.rounds for s in tenants)
+            want["cd_solve/cluster"] += r + 1
+            want["hinge_scores/tensor_core"] += _bucket(len(tenants)) * r
+            ms = [round(h["ms"], 1)
+                  for h in after[w][tenants[0]].model.history]
+            told.append(f"{sorted(tenants)} {1e3 * stats[sw].wall_s:.1f} ms "
+                        f"{r} rounds (round ms {ms})")
+        secs = res.seconds[w - 1]
+        say(f"[stream-full] wave {w}: {1e3 * secs:.1f} ms submit → every "
+            f"stream folded, {STREAMS * rows / secs:.0f} rows/s; folds "
+            f"(tenants, wall, rounds): {'; '.join(told)}; batch latency "
+            f"mean {sum(lats) / len(lats):.1f} ms p95 "
+            f"{float(torch.tensor(lats).quantile(0.95)):.1f} ms; accuracy "
+            f"stale {sum(res.stale[w - 1]) / STREAMS:.4f} → folded "
+            f"{sum(res.fresh[w - 1]) / STREAMS:.4f}; launches {delta}")
+        check(sorted(s for t in folds.values() for s in t)
+              == list(range(STREAMS)), f"wave {w} folds {dict(folds)}")
+        check(delta == dict(want), f"wave {w} launches {delta}, want "
+              f"{dict(want)}")
+    say(f"[stream-full] {svc.throughput_report()}")
+
+    # wave 1 ≡ each tenant's own update_mapreduce
+    for s in range(STREAMS):
+        X1, y1 = serve.stream_batch(s, 1, rows, d, dt, DEV)
+        _same_as_update(torch, T, after[1][s].model, snaps[1][s].model,
+                        X1, y1, 8, cfg, f"stream-full wave 1 stream{s}")
+    say(f"[stream-full] wave 1 ≡ update_mapreduce of each tenant bit for "
+        f"bit (rounds {[a.model.rounds for a in after[1]]}, R_emp, picks, "
+        "SV ids, w, b, final α, w, b)")
+
+    # every interleaved read ≡ the predict of the version it reports
+    expect = {(s, snap.version): T.predict(snap.model, Xq[s], cfg).cpu()
+              for s in range(STREAMS) for snap in (snaps[3][s], after[3][s])}
+    bad = [(s, v) for s, v, p, _ in reads
+           if (s, v) not in expect or not torch.equal(p, expect[s, v])]
+    during = [ms for _, v, _, ms in reads if v == 2]
+    say(f"[stream-full] {len(reads)} predicts (1024 rows each) from the "
+        f"main thread around wave 3's folds on the service's stream: "
+        f"{len(during)} served by version 2 (while it folded; ms each, "
+        f"to the result on the host: median "
+        f"{sorted(during)[len(during) // 2] if during else 0:.2f}, max "
+        f"{max(during, default=0):.2f}), {len(reads) - len(during)} by "
+        f"version 3, each ≡ the predict of the version it reports: "
+        f"{not bad}")
+    check(len(reads) >= 20 and during and not bad,
+          f"interleaved predicts: {len(reads)} reads, {len(during)} during "
+          f"the fold, mismatches {bad[:4]}")
+    return _row_launches(routes), res
+
+
+def _padding_job_vs_plain(torch, ref, sp, call, tag):
+    """The all-masked padding config of a bucket-padded fold (recorded
+    as jobs 24–31 of its first solve launch by :func:`_job_slice`)
+    against the plain solve of the same jobs: α, w and b bit for bit."""
+    (xh, xs, y, m), kw, out = call
+    plain = (ref.cd_solve_sparse_ref if sp.is_sparse(xh)
+             else ref.cd_solve_ref)(xh, xs, y, m, **kw)
+    same = all(torch.equal(o, p) for o, p in zip(out[:3], plain[:3]))
+    say(f"[stream-full-mixed] {tag} padding job (mask all 0): α, w, b ≡ "
+        f"plain {same}; max |α| {float(out[0].abs().max()):.1e}, "
+        f"epochs {out[3].tolist()}")
+    check(same, f"{tag}: the padding job's solve differs from plain")
+
+
+def phase_stream_mixed(torch, T, ops, ref, dense_models, cfg):
+    """2 dense and 2 blocked-CSR tenants (nnz_cap 256, bf16 values, the
+    config's sparse_csr rows) at the same widths as one wave (two fold
+    groups) under set_sync_debug_mode("warn") (its host syncs counted),
+    then 3 + 3 tenants, each group bucket-padded to 4 jobs. Routes
+    counted; each real tenant ≡ its update_mapreduce; each padding job's
+    solve ≡ plain. → launches by kernel row."""
+    import collections
+    import warnings
+    from repro_torch import sparse as sp
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import svm_rows_sparse_device
+    from repro_torch.launch import serve
+    from repro_torch.serving import StreamingSVMService
+    d, rows = SVM_TFIDF.num_features, SVM_TFIDF.stream_rows_per_wave
+    cap, dt, L = SVM_TFIDF.nnz_cap, getattr(torch, SVM_TFIDF.dtype), 8
+    svc = StreamingSVMService(cfg, num_partitions=L, max_batches_per_wave=1,
+                              device=DEV)
+    for s, model in enumerate(dense_models):
+        svc.register(f"d{s}", model)
+
+    def sparse_batch(s, wave):
+        X, y = svm_rows_sparse_device(rows, d, cap, seed=100 * wave + s,
+                                      nnz=cap, dtype=dt, device=DEV)
+        return X, y.to(dt)
+    for s in range(3):
+        svc.register(f"s{s}", T.fit_mapreduce(*sparse_batch(s, 0), L, cfg))
+    counts = collections.Counter()
+
+    def wave(names, w, capture=None):
+        batches = {n: (serve.stream_batch(int(n[1]), 3 + w, rows, d, dt, DEV)
+                       if n[0] == "d" else sparse_batch(int(n[1]), w))
+                   for n in names}
+        base = {n: svc.snapshot(n) for n in names}
+        for n, (X, y) in batches.items():
+            svc.submit(n, X, y)
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        st = svc.run_wave() if capture is None else capture()
+        routes = _linear_route_counts(ops)
+        counts.update(routes)
+        got = {n: svc.snapshot(n) for n in names}
+        rounds = {k: max(got[n].model.rounds for n in names if n[0] == k)
+                  for k in "ds"}
+        # a group of k tenants folds at the next power of two of k jobs
+        width = {k: 1 << (sum(n[0] == k for n in names) - 1).bit_length()
+                 for k in "ds"}
+        want = {"cd_solve/cluster": rounds["d"] + 1,
+                "hinge_scores/tensor_core": width["d"] * rounds["d"],
+                "cd_solve/sparse": rounds["s"] + 1,
+                "hinge_scores/sparse": width["s"] * rounds["s"]}
+        check(routes == want and st.streams == len(names) and st.batched,
+              f"mixed wave {w}: routes {routes}, want {want}")
+        for n in names:
+            _same_as_update(torch, T, got[n].model, base[n].model,
+                            *batches[n], L, cfg, f"stream-full-mixed {n}")
+        say(f"[stream-full-mixed] wave {w}: {len(names)} tenants "
+            f"{sorted(names)}, {1e3 * st.wall_s:.1f} ms, "
+            f"{st.rows / st.wall_s:.0f} rows/s, rounds {rounds}, launches "
+            f"{routes}; every tenant ≡ its update_mapreduce bit for bit")
+
+    def with_syncs():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                st = svc.run_wave()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [c for c in caught if "synchroniz" in str(c.message)]
+        where = collections.Counter(
+            f"{Path(c.filename).name}:{c.lineno}" for c in syncs)
+        say(f"[stream-full-mixed] host syncs in one fold of 2 + 2 tenants "
+            f"(set_sync_debug_mode('warn')): {len(syncs)}, by line "
+            f"{dict(where.most_common())}")
+        return st
+    wave(["d0", "d1", "s0", "s1"], 1, with_syncs)
+
+    def keep(name, a, kw, out, calls):
+        """Per format, the fold's first solve call: its padding jobs
+        24–31 and (blocked-CSR) a real tenant's jobs 0–7; the first
+        blocked-CSR hinge_scores call."""
+        kind = "sparse" if sp.is_sparse(a[0]) else "dense"
+        if any(c[0] == kind for c in calls[name]):
+            return None
+        if name == "hinge_scores":
+            return (kind, _hinge_call(a, out)) if kind == "sparse" else None
+        real = (_job_slice(torch, sp, a, kw, out, slice(0, L))
+                if kind == "sparse" else None)
+        return (kind, a[2].shape[0],
+                _job_slice(torch, sp, a, kw, out, slice(3 * L, 4 * L)), real)
+
+    rec = {}
+
+    def recorded():
+        with recording(ops, ("cd_solve", "hinge_scores"),
+                       keep) as rec["calls"]:
+            return svc.run_wave()
+    wave(["d0", "d1", "d2", "s0", "s1", "s2"], 2, recorded)
+    calls = rec.pop("calls")
+    for kind, jobs, padding, real in calls["cd_solve"]:
+        check(jobs == 4 * L, f"{kind} fold jobs {jobs}")
+        _padding_job_vs_plain(torch, ref, sp, padding, kind)
+        if real is not None:
+            _solve_vs_plain(torch, ref, sp, real, "stream-full-mixed")
+    check({c[0] for c in calls["cd_solve"]} == {"dense", "sparse"}
+          and len(calls["hinge_scores"]) == 1,
+          f"recorded {[c[0] for c in calls['cd_solve']]}")
+    _hinge_vs_plain(torch, ref, calls["hinge_scores"][0][1],
+                    "stream-full-mixed")
+    return _row_launches(dict(counts))
+
+
+def _requests(Request, spec):
+    return [Request(uid=u, prompt=p, max_new_tokens=m) for u, p, m in spec]
+
+
+def _decode_calls(sched) -> int:
+    """decode_step calls of a scheduler's waves: the prompt steps, then
+    one a generated token but the last."""
+    return sum(st.prompt_steps + st.decode_steps - 1 for st in sched.stats)
+
+
+def phase_sched_smoke(torch, ops):
+    """BatchScheduler at smoke_variant (f32: the SIMT flash_decode) on
+    the card, the 10 requests of tests/test_serving.py in waves of 4,
+    against the same weights on the CPU (plain versions): the same
+    tokens, one flash_decode launch a layer a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, smoke_variant
+    from repro_torch.models.layers import tree_map
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = smoke_variant(get_config("tinyllama-1.1b"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    spec = [(i, [1 + i, 2, 3], 5 + (i % 3)) for i in range(10)]
+    out = {}
+    for dev, p in ((DEV, params), ("cpu", tree_map(lambda w: w.cpu(),
+                                                   params))):
+        ops.reset_launches()
+        sched = BatchScheduler(model, p, batch_size=4, cache_len=96,
+                               device=dev)
+        for r in _requests(Request, spec):
+            sched.submit(r)
+        out[dev] = {r.uid: r.output for r in sched.run()}
+        if dev == DEV:
+            launches, card = ops.LAUNCHES["flash_decode"], sched
+            routes = _routes(ops, "flash_decode")
+    say(f"[sched-smoke] {cfg.name}: 10 requests in {len(card.stats)} waves, "
+        f"{card.throughput_report()}; flash_decode launches {launches} "
+        f"(want {cfg.num_layers} × {_decode_calls(card)} steps), routes "
+        f"{routes}; tokens ≡ the CPU's: {out[DEV] == out['cpu']}")
+    check(out[DEV] == out["cpu"], "scheduler tokens differ from the CPU's")
+    check(launches == cfg.num_layers * _decode_calls(card)
+          and routes.get("simt") == launches,
+          f"sched smoke flash_decode launches {launches}, routes {routes}")
+
+
+def phase_sched_full(torch, ops, ref):
+    """BatchScheduler at tinyllama-1.1b's full width (bf16, random weights
+    from a seeded generator), batch 4, cache 512, 10 requests with
+    prompts of 3–12 tokens and 4–16 new tokens (seeded): every
+    flash_decode launch on the tensor-core route, one a layer a step;
+    one step's calls against the plain version; each request's latency
+    at most its wave's wall time, and the earliest done below it; tok/s.
+    → launches by kernel row."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serving import BatchScheduler, Request
+    cfg = get_config("tinyllama-1.1b")
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(0)
+    spec = [(i, rng.integers(1, cfg.vocab_size,
+                             int(rng.integers(3, 13))).tolist(),
+             int(rng.integers(4, 17))) for i in range(10)]
+    sched = BatchScheduler(model, params, batch_size=4, cache_len=512,
+                           device=DEV)
+    for r in _requests(Request, spec):
+        sched.submit(r)
+    # the ninth decode_step of the first wave (one call a layer), its
+    # inputs and outputs copied as they were (the cache is written on)
+    step = range(8 * cfg.num_layers, 9 * cfg.num_layers)
+    seen = [0]
+
+    def keep(name, a, kw, out, calls):
+        seen[0] += 1
+        if seen[0] - 1 not in step:
+            return None
+        return tuple(t.clone() for t in a), out.clone()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    with recording(ops, ("decode_attention",), keep) as calls:
+        done = sched.run()
+    launches = ops.LAUNCHES["flash_decode"]
+    routes = _routes(ops, "flash_decode")
+    worst = max(_rel_max(out, ref.decode_attention_ref(*a))
+                for a, out in calls["decode_attention"])
+    valid = int(calls["decode_attention"][0][0][3])
+    say(f"[sched-full] one decode_step of the run ({cfg.num_layers} "
+        f"flash_decode calls, B 4, cache 512, valid {valid}) against the "
+        f"plain decode_attention on the same inputs: max|Δ| {worst:.2e} of "
+        f"max|plain| (tol {FD_TOL['bfloat16']:g})")
+    check(len(calls["decode_attention"]) == cfg.num_layers
+          and worst <= FD_TOL["bfloat16"],
+          f"sched full flash_decode differs from plain by {worst:.2e}")
+    rep = sched.throughput_report()
+    for k, st in enumerate(sched.stats):
+        lat = [1e3 * r.latency_s for r in done[4 * k:4 * k + 4]]
+        say(f"[sched-full] wave {k}: {st.batch} requests, {st.prompt_steps} "
+            f"prompt + {st.decode_steps} decode steps in "
+            f"{1e3 * st.wall_s:.1f} ms ({st.tokens_per_s:.1f} tok/s by "
+            f"WaveStats), per-slot latency ms {[round(x, 1) for x in lat]}")
+        check(max(lat) <= 1e3 * st.wall_s + 1e-3 and min(lat)
+              < 1e3 * st.wall_s, f"wave {k} latencies {lat} vs wall "
+              f"{1e3 * st.wall_s:.1f} ms")
+    say(f"[sched-full] {cfg.name} bf16, batch 4, cache 512: {rep}; "
+        f"flash_decode launches {launches} (want {cfg.num_layers} × "
+        f"{_decode_calls(sched)} steps), routes {routes}")
+    check(all(0 <= t < cfg.vocab_size for r in done for t in r.output)
+          and [len(r.output) for r in done] == [m for _, _, m in spec],
+          "sched full tokens out of range or short")
+    check(launches == cfg.num_layers * _decode_calls(sched)
+          and routes.get("tensor_core") == launches,
+          f"sched full flash_decode launches {launches}, routes {routes}")
+    return {"flash_decode": launches}
+
+
 # --variants: build variants of flash_decode, cd_solve and cd_solve/sparse,
 # each a copy of the shipped source with (old, new) text replacements,
 # timed at the main path's shapes through the shipped launchers.
@@ -3112,6 +3784,8 @@ def main() -> int:
     gram_launches = phase_kernel_pipeline(torch, T, text)
     phase_sweep_golden(torch, T, text, sp)
     phase_serve_smoke(torch, ops)
+    phase_stream_smoke(torch, T, ops)
+    phase_sched_smoke(torch, ops)
     torch.cuda.synchronize()
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
@@ -3129,10 +3803,30 @@ def main() -> int:
     kernels += phase_full_sparse(torch, T, ops, ref, sp)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # slice 10's full-width paths: their launches join the kernels' rows
+    stream, res = phase_stream_full(torch, T, ops, ref)
+    mixed = phase_stream_mixed(
+        torch, T, ops, ref,
+        [res.service.snapshot(f"stream{s}").model for s in range(3)],
+        res.cfg)
+    del res
+    torch.cuda.empty_cache()
+    sched = phase_sched_full(torch, ops, ref)
+    say(f"[stream] launches by kernel row: [stream-full] {stream}, "
+        f"[stream-full-mixed] {mixed}, [sched-full] {sched}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     kernels.append(phase_serve_full(torch, ops, ref,
                                     get_config("tinyllama-1.1b"), batch=32,
                                     cache_len=32768, steps=16))
+    # `launches` stays the row's main path's own count (the fit, or the
+    # LM serve for flash_decode); slice 10's paths are counted beside it
+    for row in kernels:
+        row["launches_by_path"] = {
+            "main": row["launches"], "stream": stream.get(row["name"], 0),
+            "stream_mixed": mixed.get(row["name"], 0),
+            "sched": sched.get(row["name"], 0)}
     torch.cuda.synchronize()
     say(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi())

@@ -5,6 +5,11 @@ shared library with a plain C interface, named after a hash of its
 source, under ``_build/`` beside this file (listed in ``.gitignore``).
 A library whose source has not changed is reused. :func:`build_all`
 starts one ``nvcc`` per source, all at once.
+
+:func:`load` and :func:`build_all` hold one lock, so two threads that
+reach an unbuilt kernel together build it once and load it once; each
+build writes to a temporary file of its own (process and thread), so
+two processes building into the same directory do not collide either.
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict
@@ -25,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 #: ptxas report (registers, shared memory, spills) of each fresh build
 PTXAS_REPORT: Dict[str, str] = {}
 
@@ -47,8 +54,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
+def _tmp_path(name: str) -> Path:
+    """A build's temporary output, unique to this process and thread."""
+    return library_path(name).with_suffix(
+        f".{os.getpid()}-{threading.get_ident()}.tmp")
+
+
 def build_all() -> float:
     """Compile every stale source in parallel; → seconds spent."""
+    with _LOCK:
+        return _build_stale()
+
+
+def _build_stale() -> float:
     t0 = time.perf_counter()
     todo = [n for n in SOURCES if not library_path(n).is_file()]
     if not todo:
@@ -57,7 +75,7 @@ def build_all() -> float:
     exe = nvcc()
     procs = {}
     for name in todo:
-        tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+        tmp = _tmp_path(name)
         procs[name] = (tmp, subprocess.Popen(
             [exe, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -77,9 +95,13 @@ def build_all() -> float:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, built first if needed."""
     lib = _LIBS.get(name)
-    if lib is None:
-        if not library_path(name).is_file():
-            build_all()
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LIBS[name] = lib
-    return lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            if not library_path(name).is_file():
+                build_all()
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LIBS[name] = lib
+        return lib

@@ -1,25 +1,37 @@
-"""Serving entry point, LM mode: the greedy single-token decode loop.
+"""Serving entry points: the LM family's greedy decode loop and the svm
+family's streaming polarization service.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --batch 4 --tokens 16                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --tokens 4 --batch 2 --cache-len 64 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \\
+        --smoke --streams 4 --waves 3                      # on the card
 
-The loop starts from a zero cache and token 0 and feeds each step's
+LM: the loop starts from a zero cache and token 0 and feeds each step's
 argmax back in, as ``repro/launch/serve.py:188-218``. Every step stays
 on the device: the tokens are copied to the host once, after the loop.
-The svm family's streaming serve mode is not ported yet (ROADMAP Queue 1
-item 8).
+
+svm: micro-batches of drifting messages fold into each tenant's
+SV_global behind the service's background scheduler
+(:mod:`repro_torch.serving.svm_stream`), as ``repro/launch/serve.py:
+34-133``: the streams submit one after another and the scheduler folds
+what has queued when it wakes, so a wave's first stream may fold alone
+and the rest as one sweep. Its checkpoint, watchdog, cluster and
+``--shuffle`` flags are refused (ROADMAP Queue 1 items 9, 10 and 7).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core.mapreduce_svm import MRSVMConfig, fit_mapreduce
+from repro_torch.core.svm import SVMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.config import ModelConfig, smoke_variant
@@ -62,7 +74,131 @@ def serve_lm(cfg: ModelConfig, *, batch: int, cache_len: int, tokens: int,
     return ServeResult(out, dt, tokens * batch / dt, state)
 
 
-def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
+def stream_batch(stream: int, wave: int, rows: int, d: int,
+                 dtype: torch.dtype, device, drift: float = 0.4):
+    """Synthetic drifting message batch: rows N(0, 1) in ``dtype``,
+    labels sign(x·w) against stream ``stream``'s separator w = w0 +
+    drift · wave · wd, which rotates along a per-stream direction. Made
+    on ``device`` from seeded ``torch.Generator`` s (w0: seed ``stream``,
+    wd: 500 + ``stream``, rows: 1000 · ``stream`` + ``wave``). → (X
+    (rows, d), y (rows,) in ``dtype``)."""
+    dev = torch.device(device)
+
+    def gen(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+    w0 = torch.randn(d, generator=gen(stream), device=dev)
+    wd = torch.randn(d, generator=gen(500 + stream), device=dev)
+    w = w0 + drift * wave * wd
+    X = torch.randn((rows, d), generator=gen(1000 * stream + wave),
+                    device=dev, dtype=dtype)
+    y = torch.sign(X.float() @ w).to(dtype)
+    return X, y
+
+
+class StreamServeResult(NamedTuple):
+    service: object            # the stopped StreamingSVMService
+    cfg: MRSVMConfig
+    stale: List[List[float]]   # per wave, per stream: acc before the fold
+    fresh: List[List[float]]   # per wave, per stream: acc after it
+    seconds: List[float]       # per wave: submit → every stream folded
+
+
+def _accuracy(svc, stream: str, X, y) -> float:
+    return float((svc.predict(stream, X) == y).float().mean())
+
+
+def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
+              smoke: bool = False, partitions: int = 8,
+              quarantine: bool = True, device=None,
+              test_probe: Optional[Callable] = None) -> StreamServeResult:
+    """The streaming polarization serve mode (``--arch svm-tfidf``).
+
+    Registers ``streams`` tenants, each trained by ``fit_mapreduce`` on
+    its wave-0 batch, starts the background scheduler and runs
+    ``waves`` waves: each stream submits its drifting batch
+    (:func:`stream_batch`), and the wave ends when every stream's
+    snapshot has swapped; the stale and folded accuracies on that batch
+    are printed. ``smoke`` cuts the config to d 128, ``sv_capacity`` 64,
+    256 rows a wave, f32. The service and the batches live on ``device``
+    (default ``cuda``). ``test_probe(wave, stage, service)`` is a seam
+    for a test harness that measures the waves (the CLI never sets it):
+    it is called with stage "submit" before a wave's submits,
+    "submitted" right after them and "folded" once every stream has
+    swapped. → :class:`StreamServeResult`.
+    """
+    from repro_torch.serving import StreamingSVMService
+
+    if smoke:
+        svm_cfg = dataclasses.replace(svm_cfg, num_features=128,
+                                      sv_capacity=64,
+                                      stream_rows_per_wave=256,
+                                      dtype="float32")
+    d, rows = svm_cfg.num_features, svm_cfg.stream_rows_per_wave
+    L = partitions
+    cfg = MRSVMConfig(sv_capacity=svm_cfg.sv_capacity, gamma=1e-4,
+                      max_rounds=3, shuffle_impl=svm_cfg.shuffle_impl,
+                      svm=SVMConfig(C=svm_cfg.C,
+                                    max_epochs=svm_cfg.max_epochs))
+    dt = getattr(torch, svm_cfg.dtype)
+    svc = StreamingSVMService(cfg, num_partitions=L,
+                              max_batches_per_wave=streams,
+                              quarantine=quarantine, device=device)
+    dev = svc.device
+
+    def batch(stream: int, wave: int):
+        return stream_batch(stream, wave, rows, d, dt, dev)
+
+    print(f"svm-serve: {streams} streams × {rows} rows/wave, {d} features, "
+          f"{L} partitions ({dev})")
+    for s in range(streams):
+        X0, y0 = batch(s, 0)
+        svc.register(f"stream{s}", fit_mapreduce(X0, y0, L, cfg,
+                                                 device=dev))
+    svc.start()
+    stale_all, fresh_all, secs = [], [], []
+    for wave in range(1, waves + 1):
+        batches = [batch(s, wave) for s in range(streams)]
+        stale = [_accuracy(svc, f"stream{s}", X, y)
+                 for s, (X, y) in enumerate(batches)]
+        if test_probe is not None:
+            test_probe(wave, "submit", svc)
+        t0 = time.perf_counter()
+        for s, (X, y) in enumerate(batches):
+            svc.submit(f"stream{s}", X, y)
+        if test_probe is not None:
+            test_probe(wave, "submitted", svc)
+        deadline = t0 + 300
+        while any(svc.snapshot(f"stream{s}").version < wave
+                  for s in range(streams)):
+            if svc.scheduler_error is not None \
+                    or time.perf_counter() > deadline:
+                raise RuntimeError(
+                    f"wave {wave} never folded") from svc.scheduler_error
+            time.sleep(0.001)
+        secs.append(time.perf_counter() - t0)
+        if test_probe is not None:
+            test_probe(wave, "folded", svc)
+        fresh = [_accuracy(svc, f"stream{s}", X, y)
+                 for s, (X, y) in enumerate(batches)]
+        stale_all.append(stale)
+        fresh_all.append(fresh)
+        print(f"wave {wave}: stale acc={sum(stale) / len(stale):.3f} → "
+              f"folded acc={sum(fresh) / len(fresh):.3f} "
+              f"({secs[-1]:.2f}s)")
+    svc.stop()
+    print(svc.throughput_report())
+    return StreamServeResult(svc, cfg, stale_all, fresh_all, secs)
+
+
+#: flags of the reference's svm serve mode that the port refuses, with
+#: the ROADMAP Queue 1 item that brings them
+_NOT_PORTED_FLAGS = {"checkpoint_dir": 9, "checkpoint_every": 9,
+                     "restore": 9, "checkpoint_keep": 9, "shuffle": 7,
+                     "fold_deadline": 9, "heartbeat": 9, "coordinator": 10,
+                     "num_processes": 10, "process_id": 10}
+
+
+def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
@@ -72,12 +208,33 @@ def main(argv: Optional[Sequence[str]] = None) -> ServeResult:
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda; 'cpu' runs the "
                          "plain versions of the kernels)")
+    ap.add_argument("--data-par", type=int, default=1,
+                    help="svm family: partitions (default 8)")
+    ap.add_argument("--streams", type=int, default=4,
+                    help="svm family: tenant streams served")
+    ap.add_argument("--waves", type=int, default=3,
+                    help="svm family: update waves to run")
+    ap.add_argument("--no-quarantine", action="store_true",
+                    help="svm family: fold non-finite batches instead of "
+                         "diverting them at submit()")
+    for flag, item in _NOT_PORTED_FLAGS.items():
+        ap.add_argument("--" + flag.replace("_", "-"), default=None,
+                        nargs="?", const=True,
+                        help=f"not ported yet (ROADMAP Queue 1 item {item})")
     args = ap.parse_args(argv)
+    for flag, item in _NOT_PORTED_FLAGS.items():
+        if getattr(args, flag) is not None:
+            raise NotImplementedError(
+                f"--{flag.replace('_', '-')} is not ported to repro_torch "
+                f"yet (ROADMAP Queue 1 item {item})")
     cfg = get_config(args.arch)
     if getattr(cfg, "family", None) == "svm":
-        raise NotImplementedError(
-            "the svm family's streaming serve mode is not ported to "
-            "repro_torch yet (ROADMAP Queue 1 item 8)")
+        return serve_svm(cfg, streams=args.streams, waves=args.waves,
+                         smoke=args.smoke,
+                         partitions=args.data_par if args.data_par > 1
+                         else 8,
+                         quarantine=not args.no_quarantine,
+                         device=args.device)
     if args.smoke:
         cfg = smoke_variant(cfg)
     res = serve_lm(cfg, batch=args.batch, cache_len=args.cache_len,

@@ -18,7 +18,8 @@ The kernels take only column ids in [0, d). A ``SparseRows`` carries a
 mark that its ids were found in range (:meth:`SparseRows.mark_ids_in_range`,
 set by ``kernels.ops.check_column_ids`` after one check); rows derived
 from marked rows (``[]``, ``*``, ``reshape``, ``to``, :func:`pad_rows`,
-:func:`take_rows_along`, :func:`rows_concat` of two marked batches) keep
+:func:`take_rows_along`, and :func:`rows_concat`, :func:`rows_concat_all`
+or :func:`rows_stack` of marked batches) keep
 it, so a kernel wrapper checks a batch once and not at every call. The
 mark holds the ids tensor it was given for and that tensor's version
 counter, so giving the rows other ids, or changing the ids in place,
@@ -196,6 +197,80 @@ def rows_concat(a, b, axis: int = 0):
     return SparseRows(torch.cat([a.indices, b.indices], dim=axis),
                       torch.cat([a.values, b.values.to(a.dtype)], dim=axis),
                       a.d, a.ids_in_range and b.ids_in_range)
+
+
+def rows_concat_all(parts, axis: int = 0):
+    """Concatenate one or more row batches of one format along a batch
+    axis (the streaming wave's join of its micro-batches), in one copy."""
+    if not parts:
+        raise ValueError("rows_concat_all: empty sequence")
+    if len(parts) == 1:
+        return parts[0]
+    sp = is_sparse(parts[0])
+    if any(is_sparse(p) != sp for p in parts[1:]):
+        raise TypeError("cannot concatenate sparse rows with dense rows")
+    if not sp:
+        return torch.cat(list(parts), dim=axis)
+    first = parts[0]
+    for p in parts[1:]:
+        if p.d != first.d:
+            raise ValueError(f"feature-dim mismatch: {first.d} vs {p.d}")
+        if p.nnz_cap != first.nnz_cap:
+            raise ValueError(f"nnz_cap mismatch: {first.nnz_cap} vs "
+                             f"{p.nnz_cap}")
+    return SparseRows(torch.cat([p.indices for p in parts], dim=axis),
+                      torch.cat([p.values.to(first.dtype) for p in parts],
+                                dim=axis),
+                      first.d, all(p.ids_in_range for p in parts))
+
+
+def rows_stack(jobs, rows: int | None = None):
+    """Stack row batches on a NEW leading axis (the sweep's job axis).
+
+    Entry s of ``jobs`` is a sequence of 2-D row batches that job s
+    holds one after the other along the row axis, zero-padded to
+    ``rows`` rows (default: the longest job); an empty entry is a job of
+    padding only. All batches share one format, d (and ``nnz_cap``).
+    The jobs are written into one preallocated ``(S, rows, ·)`` array,
+    so no job's joined rows are ever copied on their own. Blocked-CSR
+    padding is index 0 / value 0, the empty row. Values take the first
+    batch's dtype."""
+    parts = [p for job in jobs for p in job]
+    if not parts:
+        raise ValueError("rows_stack: no row batch to stack")
+    first = parts[0]
+    sp = is_sparse(first)
+    if any(is_sparse(p) != sp for p in parts[1:]):
+        raise TypeError("rows_stack: mixed dense/sparse inputs")
+    for p in parts[1:]:
+        if p.shape[-1] != first.shape[-1]:
+            raise ValueError(f"feature-dim mismatch: {first.shape[-1]} vs "
+                             f"{p.shape[-1]}")
+        if sp and p.nnz_cap != first.nnz_cap:
+            raise ValueError(f"nnz_cap mismatch: {first.nnz_cap} vs "
+                             f"{p.nnz_cap}")
+    lengths = [sum(p.shape[0] for p in job) for job in jobs]
+    rows = max(lengths) if rows is None else rows
+    if max(lengths) > rows:
+        raise ValueError(f"a job holds {max(lengths)} rows, more than "
+                         f"{rows}")
+    leaves = ((lambda p: p.indices), (lambda p: p.values)) if sp \
+        else ((lambda p: p),)
+    outs = []
+    for leaf in leaves:
+        like = leaf(first)
+        out = torch.empty((len(jobs), rows) + tuple(like.shape[1:]),
+                          dtype=like.dtype, device=like.device)
+        for s, job in enumerate(jobs):
+            r = 0
+            for p in job:
+                out[s, r:r + p.shape[0]] = leaf(p)
+                r += p.shape[0]
+            out[s, r:].zero_()
+        outs.append(out)
+    if not sp:
+        return outs[0]
+    return SparseRows(*outs, first.d, all(p.ids_in_range for p in parts))
 
 
 def pad_rows(x, pad: int):

@@ -344,5 +344,5 @@ def test_unported_archs_and_families_raise_naming_the_roadmap():
         get_config("llama3-8b")
     with pytest.raises(NotImplementedError, match="item 13"):
         build_model(ModelConfig(**dict(SMALL, family="moe")))
-    with pytest.raises(NotImplementedError, match="item 8"):
-        main(["--arch", "svm-tfidf", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="item 9"):
+        main(["--arch", "svm-tfidf", "--device", "cpu", "--restore"])

@@ -160,7 +160,9 @@ def _imports(path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
-    assert len(files) > 10
+    twins = sorted((ROOT / "examples").glob("torch_*.py"))
+    assert len(files) > 10 and len(twins) >= 2
+    files += twins
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -182,3 +184,12 @@ def test_entry_points_refuse_to_run_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fit_mapreduce(torch.from_numpy(X), y, 2, MRSVMConfig(sv_capacity=4),
                       device="cuda")
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, smoke_variant
+    from repro_torch.serving import BatchScheduler, StreamingSVMService
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        StreamingSVMService(MRSVMConfig(sv_capacity=4))
+    model = build_model(smoke_variant(get_config("tinyllama-1.1b")))
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        BatchScheduler(model, params, batch_size=1, cache_len=8)

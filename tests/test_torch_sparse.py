@@ -93,6 +93,43 @@ def test_structural_ops_match_reference():
         tsp.rows_concat(xt, tsp.from_dense(tsp.to_dense(yt), 4))
 
 
+@pytest.mark.parametrize("fmt", ["sparse", "dense"])
+def test_wave_helpers_match_reference(fmt):
+    """The streaming wave's joins: ``rows_concat_all`` of micro-batches,
+    ``rows_stack`` of jobs [new rows; SVs] zero-padded to the longest
+    (the reference's pad-then-stack), an empty job as the reference's
+    ``rows_zeros_like`` job; the column-id mark kept."""
+    parts = [_pair(n=n, seed=s) for n, s in ((24, 4), (10, 5), (16, 6))]
+    if fmt == "dense":
+        parts = [(d, torch.from_numpy(d), jnp.asarray(d))
+                 for d, _, _ in parts]
+        same = lambda t, j: np.testing.assert_array_equal(  # noqa: E731
+            t.numpy(), np.asarray(j))
+    else:
+        same = _same
+        for _, t, _ in parts:
+            t.mark_ids_in_range()
+    (_, a, ja), (_, b, jb), (_, c, jc) = parts
+    same(tsp.rows_concat_all([a, b, c]), jsp.rows_concat_all([ja, jb, jc]))
+    assert tsp.rows_concat_all([a]) is a
+    jobs_j = [jsp.rows_concat(ja, jb), jsp.pad_rows(jc, 34 - 16)]
+    jobs_j.append(jsp.rows_zeros_like(jobs_j[0]))
+    got = tsp.rows_stack([[a, b], [c], []])
+    same(got, jsp.rows_stack(jobs_j))
+    assert tuple(tsp.rows_stack([[c]], 20).shape) == (1, 20, 40)
+    if fmt == "sparse":
+        assert got.ids_in_range
+        assert not tsp.rows_stack([[a, tsp.from_dense(
+            torch.zeros((2, 40)), 8)]]).ids_in_range
+    with pytest.raises(ValueError, match="more than"):
+        tsp.rows_stack([[a, b]], 20)
+    with pytest.raises(TypeError):
+        tsp.rows_stack([[a], [tsp.to_dense(a) if fmt == "sparse"
+                              else tsp.from_dense(a, 8)]])
+    with pytest.raises(ValueError):
+        tsp.rows_concat_all([])
+
+
 @pytest.mark.parametrize("mix", ["ss", "sd", "ds", "dd"])
 def test_cross_dots_every_format_mix_matches_reference(mix):
     """1e-5: float32 sums of ≤ 5 products in another order."""
