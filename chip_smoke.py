@@ -154,6 +154,7 @@ import argparse
 import contextlib
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -1025,6 +1026,16 @@ def phase_full_width(torch, T, ops, ref):
                {"cd_solve/cluster": lambda r: len(r.history) + 1,
                 "hinge_scores/tensor_core":
                     lambda r: len(r.history) * -(-S * L // 8)})
+
+    # --- [nan-full]: one NaN entry in these rows, for the two calls ------
+    old = X[37, 5].clone()
+    X[37, 5] = math.nan
+    _nan_full(torch, ops, "fit_mapreduce, dense bf16 rows (8 × 8192 × "
+              "131072, sv_capacity 2048)",
+              lambda: T.fit_mapreduce(X, y, L, cfg))
+    _nan_full(torch, ops, f"fit_mapreduce_sweep S = {S}, dense bf16 rows",
+              lambda: T.fit_mapreduce_sweep(X, y, L, cfg, params))
+    X[37, 5] = old
     return [cd, hinge]
 
 
@@ -2019,6 +2030,11 @@ def phase_full_sparse(torch, T, ops, ref, sp):
                {"cd_solve/sparse": lambda r: len(r.history) + 1,
                 "hinge_scores/sparse":
                     lambda r: len(r.history) * -(-S * L // 8)})
+    old = X.values[37, 0].clone()
+    X.values[37, 0] = math.nan
+    _nan_full(torch, ops, f"fit_mapreduce, blocked-CSR bf16 rows (nnz_cap "
+              f"{cap})", lambda: T.fit_mapreduce(X, y, L, cfg))
+    X.values[37, 0] = old
 
     # --- the same rows, dense ---------------------------------------------
     hist, ids = model.history, model.sv.ids
@@ -3466,6 +3482,458 @@ def phase_sched_full(torch, ops, ref):
     return {"flash_decode": launches}
 
 
+# --- slice 11: NaN through the kernels, fault seams, checkpoints ------------
+
+def _nan_pattern(torch, got, want, tol):
+    """Whether two outputs are NaN, ±Inf and finite at the same places,
+    and the largest |Δ| over the places where both are finite."""
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    same = (torch.equal(torch.isnan(g), torch.isnan(w))
+            and torch.equal(torch.isinf(g), torch.isinf(w)))
+    fin = torch.isfinite(g) & torch.isfinite(w)
+    err = float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
+    return same and err <= tol, err, int(torch.isnan(w).sum()), w.numel()
+
+
+def _nan_case(torch, route, tag, got, want, names, tol, bad):
+    """One [nan-small] comparison: each named output's NaN/finite pattern
+    and finite entries (within ``tol``) against the plain version's; an
+    int32 output (the epochs) must be equal."""
+    parts = []
+    ok = True
+    for name, g, w in zip(names, got, want):
+        if not g.dtype.is_floating_point:
+            same = torch.equal(g.cpu(), w.cpu())
+            parts.append(f"{name} {g.tolist()} vs {w.tolist()}")
+        else:
+            same, err, nans, n = _nan_pattern(torch, g, w, tol)
+            parts.append(f"{name} NaN {nans}/{n} pattern "
+                         f"{'equal' if same else 'DIFFERS'} max|Δ| {err:.2e}")
+        ok &= same
+    say(f"[nan-small] {route} {tag}: {'; '.join(parts)} (tol {tol:g}) — "
+        f"{'matches plain' if ok else 'DIFFERS from plain'}")
+    if not ok:
+        bad.append(f"{route} {tag}")
+
+
+def phase_nan_small(torch, ops, ref, sp):
+    """One row with a NaN (or an Inf) entry through each solve and scoring
+    route at small shapes, against the plain versions, which let NaN
+    through as the reference's ``jnp.clip`` / ``jnp.maximum`` do: the
+    NaN/finite pattern of α, w, b, the violation and the losses, the
+    epochs run, and the finite entries to the route's limit. A job that
+    meets the NaN stops after its first epoch (its violation is NaN);
+    the other jobs go on to their own stop. Routes: cd_solve single (f32,
+    d 256) and cluster (bf16, d 131072), cd_solve/sparse (f32 and bf16),
+    cd_solve_gram on the rule's cluster and on one CTA, hinge_scores
+    SIMT, tensor cores and sparse (a NaN row of X; W of a NaN solve), and
+    sparse_gram's rbf on both routes (the clamp of the squared distance).
+    → the routes that differ (empty once every kernel lets NaN through)."""
+    from repro_torch.kernels.gram_solve import launch_cd_solve_gram
+    dev = torch.device(DEV)
+    gen = torch.Generator(device=dev).manual_seed(21)
+    bad = []
+    kw = dict(C=1.0, tol=1e-6, max_epochs=20)
+    names = ("α", "w", "b", "epochs", "viol")
+
+    # dense cd_solve: a NaN in job 0's home rows, an Inf in job 1's, and
+    # a NaN in the shared rows (every job); job 2 finite in the first two
+    for route, L, per, S, d, dtype, tol in (
+            ("cd_solve/single", 3, 12, 4, 256, torch.float32, 1e-5),
+            ("cd_solve/cluster", 3, 12, 4, 131072, torch.bfloat16, 1e-3)):
+        xh = _rows(torch, gen, L * per, d, torch.float32, dev, 0.5
+                   ).reshape(L, per, d)
+        xs = _rows(torch, gen, S, d, torch.float32, dev, 0.5)
+        y = _labels(torch, gen, torch.cat([xh.reshape(-1, d), xs]))
+        y_aug = torch.cat([y[:L * per].reshape(L, per),
+                           y[L * per:].expand(L, S)], 1).contiguous()
+        m_aug = torch.ones_like(y_aug)
+        m_aug[0, 7] = 0.0
+        for where, poison in (("NaN in job 0's row 5, Inf in job 1's row 3",
+                               ((0, 5, 2, math.nan), (1, 3, 1, math.inf))),
+                              ("NaN in shared row 2", None)):
+            a, b = xh.clone(), xs.clone()
+            if poison is None:
+                b[2, 3] = math.nan
+            else:
+                for j, i, c, v in poison:
+                    a[j, i, c] = v
+            a, b = a.to(dtype), b.to(dtype)
+            ops.reset_launches()
+            k = ops.cd_solve(a, b, y_aug, m_aug, **kw)
+            torch.cuda.synchronize()
+            want = route.split("/")[1]
+            check(_routes(ops, "cd_solve")[want] == 1,
+                  f"[nan-small] {route}: took {_routes(ops, 'cd_solve')}")
+            p = ref.cd_solve_ref(a, b, y_aug, m_aug, **kw)
+            _nan_case(torch, route, f"{where}", k, p, names, tol, bad)
+
+    # cd_solve/sparse: NaN in slot 0 of job 0's row 4 (the poison seam's
+    # slot), padding slots and dead shared slots beside it
+    for dtype in (torch.float32, torch.bfloat16):
+        L, per, S, d, cap = 3, 12, 6, 64, 8
+        rows = _sparse_rows(torch, sp, gen, L * per + S, d, cap, dtype)
+        vals = rows.values.clone()
+        vals[4, 0] = math.nan
+        rows = sp.SparseRows(rows.indices, vals, d)
+        xh = rows[:L * per].reshape(L, per, d)
+        live = (torch.arange(S, device=dev) % 3 != 1).float()[:, None]
+        xs = rows[L * per:] * live
+        y = torch.where(torch.rand((L * per + S,), generator=gen,
+                                   device=dev) > 0.5, 1.0, -1.0)
+        y_aug = torch.cat([y[:L * per].reshape(L, per),
+                           y[L * per:].expand(L, S)], 1).contiguous()
+        m_aug = torch.ones_like(y_aug)
+        ops.reset_launches()
+        k = ops.cd_solve(xh, xs, y_aug, m_aug, **kw)
+        torch.cuda.synchronize()
+        check(_routes(ops, "cd_solve")["sparse"] == 1,
+              f"[nan-small] cd_solve/sparse took {_routes(ops, 'cd_solve')}")
+        p = ref.cd_solve_sparse_ref(xh, xs, y_aug, m_aug, **kw)
+        tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'} NaN in slot 0"
+        _nan_case(torch, "cd_solve/sparse", tag, k, p, names, 1e-5, bad)
+        # eq. 7 on these rows with the NaN solve's W (its (d, 8) view),
+        # and with finite W: every loss NaN (the NaN row is in X)
+        Xall = rows
+        yy = torch.where(torch.arange(Xall.shape[0], device=dev) % 2 == 0,
+                         1.0, -1.0)
+        mm = torch.ones_like(yy)
+        mm[4] = 0.0                          # a masked NaN row still counts
+        Wf = torch.randn((L, d), generator=gen, device=dev)
+        bf = torch.randn((L,), generator=gen, device=dev)
+        for wtag, W, bb in (("W of the NaN solve", k[1], k[2]),
+                            ("finite W", Wf, bf)):
+            ops.reset_launches()
+            hk = ops.hinge_scores(Xall, W, bb, yy, mm)
+            torch.cuda.synchronize()
+            check(_routes(ops, "hinge_scores")["sparse"] == 1,
+                  "[nan-small] hinge_scores/sparse took "
+                  f"{_routes(ops, 'hinge_scores')}")
+            hp = ref.hinge_scores_ref(Xall, W, bb, yy, mm)
+            _nan_case(torch, "hinge_scores/sparse", f"{tag}, {wtag}", hk, hp,
+                      ("losses", "count"), 1e-4 * float(hp[0].nan_to_num()
+                                                        .abs().max() + 1),
+                      bad)
+
+    # dense hinge_scores: a NaN row of X (masked), then W with one NaN
+    # hypothesis (a job that met a NaN) over finite X
+    for route, dtype in (("hinge_scores/simt", torch.float32),
+                         ("hinge_scores/tensor_core", torch.bfloat16)):
+        n, d, L = 65, 1001, 8
+        X = torch.randn((n, d), generator=gen, device=dev)
+        y = torch.where(torch.rand((n,), generator=gen, device=dev) > 0.5,
+                        1.0, -1.0)
+        m = torch.ones_like(y)
+        m[9] = 0.0
+        W = torch.randn((L, d), generator=gen, device=dev) * 0.1
+        b = torch.randn((L,), generator=gen, device=dev)
+        Xn = X.clone()
+        Xn[9, 17] = math.nan
+        Wn = W.clone()
+        Wn[3] = math.nan
+        for tag, XX, WW in (("NaN in masked row 9 of X", Xn, W),
+                            ("hypothesis 3 all NaN", X, Wn)):
+            XX = XX.to(dtype)
+            ops.reset_launches()
+            hk = ops.hinge_scores(XX, WW, b, y, m)
+            torch.cuda.synchronize()
+            want = route.split("/")[1]
+            check(_routes(ops, "hinge_scores")[want] == 1,
+                  f"[nan-small] {route} took {_routes(ops, 'hinge_scores')}")
+            hp = ref.hinge_scores_ref(XX, WW, b, y, m)
+            _nan_case(torch, route, tag, hk, hp, ("losses", "count"),
+                      1e-4 * float(hp[0].nan_to_num().abs().max() + 1), bad)
+
+    # cd_solve_gram, bit-symmetric K: NaN in row and column 5 of job 0
+    # and an Inf alone on job 1's diagonal (a Δ = 0 row's 0 · Inf must
+    # reach g, as in the reference), job 2 finite; then the linear Gram
+    # of rows with a NaN entry (job 0, row 5) and an Inf entry (job 1,
+    # row 7)
+    L, n = 3, 40
+    Xg = torch.randn((L, n, 16), generator=gen, device=dev)
+    K1 = _symmetric(Xg @ Xg.mT / 16)
+    K1[0, 5, :] = math.nan
+    K1[0, :, 5] = math.nan
+    K1[1, 7, 7] = math.inf
+    Xg[0, 5, 3] = math.nan
+    Xg[1, 7, 2] = math.inf
+    K2 = _symmetric(Xg @ Xg.mT / 16)
+    y = torch.where(torch.rand((L, n), generator=gen, device=dev) > 0.5,
+                    1.0, -1.0)
+    m = torch.ones_like(y)
+    m[2, 9] = 0.0
+    rule = ops.cd_solve_gram_cluster_size(L, n)
+    for ktag, K in (("K with NaN row/column, Inf on a diagonal", K1),
+                    ("Gram of rows with NaN and Inf entries", K2)):
+        p = ref.cd_solve_gram_ref(K, y, m, **kw)
+        for c in (None, 2 if rule == 1 else 1):
+            ops.reset_launches()
+            got = ops.cd_solve_gram(K, y, m, **kw) if c is None else \
+                launch_cd_solve_gram(K, y, m,
+                                     *_launch_kw(torch, ops, kw, L, dev), c)
+            torch.cuda.synchronize()
+            _nan_case(torch, "cd_solve_gram",
+                      f"{ktag}, c={c or f'{rule} (the rule)'}", got, p,
+                      ("α", "epochs", "viol"), 0.0, bad)
+
+    # sparse_gram rbf: a NaN value in query row 3 (its norm is NaN, so
+    # every distance is); the reducer Gram and the fused scores route
+    Q = _sparse_rows(torch, sp, gen, 24, 64, 8, torch.float32)
+    Z = _sparse_rows(torch, sp, gen, 30, 64, 8, torch.float32)
+    vals = Q.values.clone()
+    vals[3, 1] = math.nan
+    Qn = sp.SparseRows(Q.indices, vals, 64)
+    Kk = ops.sparse_gram(Qn, Z, kind="rbf", gamma=0.5)
+    torch.cuda.synchronize()
+    _nan_case(torch, "sparse_gram/gram", "rbf, NaN in query row 3", (Kk,),
+              (ref.sparse_gram_ref(Qn, Z, kind="rbf", gamma=0.5),), ("K",),
+              1e-5, bad)
+    coef = torch.randn((4, 30), generator=gen, device=dev)
+    bb = torch.randn((4,), generator=gen, device=dev)
+    Sk = ops.sparse_gram_scores(Qn, Z, coef, bb, kind="rbf", gamma=0.5)
+    torch.cuda.synchronize()
+    _nan_case(torch, "sparse_gram/scores", "rbf, NaN in query row 3", (Sk,),
+              (ref.sparse_gram_scores_ref(Qn, Z, coef, bb, kind="rbf",
+                                          gamma=0.5),), ("scores",), 1e-4,
+              bad)
+    say(f"[nan-small] routes that drop NaN where the plain versions keep "
+        f"it: {bad or 'none'}")
+    return bad
+
+
+def phase_chaos(torch):
+    """``repro_torch.faults.chaos`` on the card: the seven scenarios that
+    need no mesh, seeds 0, 1 and 2, each against the reference's outcome
+    (survived bit for bit, or detected and named); a delayed or retried
+    round launches what a clean one does (checked inside the scenarios
+    from ``ops.ROUTE_LAUNCHES``). The transport and cluster scenarios
+    wait for ROADMAP Queue 1 items 7 and 10."""
+    from repro_torch.faults import chaos
+    t0 = time.perf_counter()
+    rows = chaos.sweep([0, 1, 2], DEV)
+    for seed, name, expect, outcome, ok, dt, detail in rows:
+        say(f"[chaos] seed {seed} {name}: expected {expect}, got {outcome} "
+            f"in {dt:.2f} s — {detail}")
+    say(f"[chaos] {len(rows)} scenario runs in "
+        f"{time.perf_counter() - t0:.1f} s; waiting: "
+        + ", ".join(f"{k} (item {v})" for k, v in chaos.WAITING.items()))
+    check(len(rows) == 21 and all(r[4] for r in rows),
+          f"[chaos] violated: {[r[:4] for r in rows if not r[4]]}")
+
+
+def _nan_full(torch, ops, tag, run, solves=1):
+    """``run()`` on full-width rows with one NaN entry raises
+    ``FaultDetected("core")`` at round 0, after that round's launches
+    (``solves`` solve launches, no final fit) and no more."""
+    from repro_torch import faults
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        run()
+    except faults.FaultDetected as e:
+        ms = 1e3 * (time.perf_counter() - t0)
+        routes = {k: v for k, v in ops.ROUTE_LAUNCHES.items() if v}
+        say(f"[nan-full] {tag}: FaultDetected [{e.layer}] “{e.cause}” "
+            f"after {ms:.1f} ms, launches {routes}")
+        check(e.layer == "core" and "round 0" in e.cause,
+              f"[nan-full] {tag}: raised [{e.layer}] {e.cause}")
+        check(ops.LAUNCHES["cd_solve"] == solves,
+              f"[nan-full] {tag}: {ops.LAUNCHES['cd_solve']} solve launches")
+        return
+    check(False, f"[nan-full] {tag}: a NaN row folded without a "
+          "FaultDetected")
+
+
+def phase_nan_stream(torch, T, ops, models, cfg):
+    """``[nan-full]`` on the streaming service: the [stream-full] tenants
+    in a service with ``quarantine=False``, one wave of 4 full-width
+    batches, stream1's with a NaN entry: ``FaultDetected("core")`` at
+    round 0 of the wave's sweep, every admitted batch requeued at the
+    head (``pending()`` 4, as the reference gives), every snapshot still
+    at its version."""
+    from repro_torch import faults
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.launch import serve
+    from repro_torch.serving import StreamingSVMService
+    d, rows = SVM_TFIDF.num_features, SVM_TFIDF.stream_rows_per_wave
+    dt = getattr(torch, SVM_TFIDF.dtype)
+    svc = StreamingSVMService(cfg, num_partitions=8,
+                              max_batches_per_wave=STREAMS,
+                              quarantine=False, device=DEV)
+    for s, m in enumerate(models):
+        svc.register(f"stream{s}", m)
+    for s in range(STREAMS):
+        X, y = serve.stream_batch(s, 4, rows, d, dt, DEV)
+        if s == 1:
+            X[100, 7] = math.nan
+        svc.submit(f"stream{s}", X, y)
+    _nan_full(torch, ops, f"quarantine=False service, {STREAMS} tenants, "
+              "stream1's batch NaN", svc.run_wave)
+    versions = [svc.snapshot(f"stream{s}").version for s in range(STREAMS)]
+    rep = svc.throughput_report()
+    say(f"[nan-full] service after the fault: pending {svc.pending()}, "
+        f"requeued {rep['requeued']}, versions {versions}")
+    check(svc.pending() == STREAMS == rep["requeued"]
+          and versions == [0] * STREAMS,
+          "[nan-full] the service did not requeue the wave intact")
+
+
+def _same_snapshot(torch, a, b) -> bool:
+    """Two snapshots bit for bit: version, rounds and every leaf of the
+    checkpointed tree (w, b, risk, every sv and final leaf)."""
+    from repro_torch.ckpt import checkpoint as ck
+    from repro_torch.serving import svm_stream
+    la = ck._leaves(svm_stream._snapshot_tree(a))
+    lb = ck._leaves(svm_stream._snapshot_tree(b))
+    return (a.version == b.version and a.model.rounds == b.model.rounds
+            and la.keys() == lb.keys()
+            and all(la[k].dtype == lb[k].dtype
+                    and torch.equal(la[k].cpu(), lb[k].cpu()) for k in la))
+
+
+def phase_stream_ckpt(torch, T, ops):
+    """``[stream-full-ckpt]``: the [stream-full] configuration (4 streams
+    × 8192 bf16 rows a wave, d 131072, 8 partitions, sv_capacity 2048,
+    max_rounds 3, the streams submitting one after another to the
+    background scheduler) with ``checkpoint_dir`` (a temporary directory,
+    removed at the end), ``checkpoint_every_waves=1`` and
+    ``checkpoint_keep=2``. Register (each register checkpoints), waves 1
+    and 2, each checkpointed; restore on the card; wave 3 on the original
+    service (checkpointing, under an armed ``ckpt_corrupt``) and on the
+    restored one (not checkpointing): every tenant bit for bit the same
+    in both, versions and uids continuing from the manifest; then a
+    restore falls back past the corrupted generation to wave 2's, bit
+    for bit. Each checkpoint's ms by part, restore ms, bytes on disk."""
+    import shutil
+    import tempfile
+    from repro_torch import faults
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.launch import serve
+    from repro_torch.serving import StreamingSVMService
+    d, rows = SVM_TFIDF.num_features, SVM_TFIDF.stream_rows_per_wave
+    dt = getattr(torch, SVM_TFIDF.dtype)
+    cfg = T.MRSVMConfig(sv_capacity=SVM_TFIDF.sv_capacity, gamma=1e-4,
+                        max_rounds=3,
+                        svm=T.SVMConfig(C=SVM_TFIDF.C,
+                                        max_epochs=SVM_TFIDF.max_epochs))
+    ck_dir = tempfile.mkdtemp(prefix="stream_ckpt_")
+    free = shutil.disk_usage(ck_dir).free
+    say(f"[stream-full-ckpt] checkpoint_dir {ck_dir}: {free / 1e9:.1f} GB "
+        "free (keep 2 generations of ~2.15 GB, a third while it is "
+        "written)")
+    names = [f"stream{s}" for s in range(STREAMS)]
+
+    def split(ms):
+        return ", ".join(f"{k} {v:.1f}" for k, v in ms.items())
+
+    def wave(svc, w):
+        """One wave, the reference's arrival; → (ms submit → folded,
+        ms submit → folded and checkpointed, the folds' walls and the
+        checkpoints taken: one a fold, ``run_wave``)."""
+        base = [svc.snapshot(s).version for s in names]
+        n_stats, gen = len(svc.stats), svc._generation
+        t0 = time.perf_counter()
+        for s in range(STREAMS):
+            svc.submit(names[s], *serve.stream_batch(s, w, rows, d, dt, DEV))
+        while any(svc.snapshot(s).version < v + 1
+                  for s, v in zip(names, base)):
+            check(svc.scheduler_error is None,
+                  f"[stream-full-ckpt] wave {w}: {svc.scheduler_error!r}")
+            time.sleep(0.001)
+        folded = 1e3 * (time.perf_counter() - t0)
+        check(svc.wait_idle(timeout_s=300), "[stream-full-ckpt] wave hung")
+        done = 1e3 * (time.perf_counter() - t0)
+        return folded, done, (f"{[round(1e3 * st.wall_s, 1) for st in svc.stats[n_stats:]]}"
+                              f", {svc._generation - gen} checkpoints")
+
+    try:
+        svc = StreamingSVMService(cfg, num_partitions=8,
+                                  max_batches_per_wave=STREAMS,
+                                  checkpoint_dir=ck_dir,
+                                  checkpoint_every_waves=1,
+                                  checkpoint_keep=2, device=DEV)
+        for s in range(STREAMS):
+            X0, y0 = serve.stream_batch(s, 0, rows, d, dt, DEV)
+            model = T.fit_mapreduce(X0, y0, 8, cfg)
+            svc.register(names[s], model)
+            say(f"[stream-full-ckpt] register {names[s]}: checkpoint of "
+                f"{s + 1} stream(s) {split(svc.last_checkpoint_ms)} ms")
+        del X0, y0, model
+        svc.start()
+        for w in (1, 2):
+            folded, done, walls = wave(svc, w)
+            say(f"[stream-full-ckpt] wave {w}: folded {folded:.1f} ms (folds "
+                f"{walls}), with its checkpoint {done:.1f} ms; checkpoint "
+                f"{split(svc.last_checkpoint_ms)} ms")
+        files = [os.path.join(ck_dir, f) for f in os.listdir(ck_dir)]
+        on_disk = sum(os.path.getsize(f) for f in files)
+        man = json.load(open(os.path.join(ck_dir, "service_manifest.json")))
+        say(f"[stream-full-ckpt] on disk: {on_disk / 1e9:.3f} GB in "
+            f"{len(files)} files, generations "
+            f"{[g['generation'] for g in man['generations']]}, one "
+            f"generation {sum(os.path.getsize(os.path.join(ck_dir, m['file'])) for m in man['generations'][-1]['streams'].values()) / 1e9:.3f} GB")
+        after2 = {s: svc.snapshot(s) for s in names}
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r1 = StreamingSVMService.restore(cfg, ck_dir, device=DEV,
+                                         checkpoint_every_waves=0)
+        torch.cuda.synchronize()
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+        same = all(_same_snapshot(torch, r1.snapshot(s), after2[s])
+                   for s in names)
+        say(f"[stream-full-ckpt] restore on the card: {restore_ms:.1f} ms, "
+            f"{len(r1.streams())} streams at versions "
+            f"{[r1.snapshot(s).version for s in names]}, every leaf bit for "
+            f"bit the saved snapshot's {same}; wave/uid {r1._wave}/{r1._uid} "
+            f"vs the service's {svc._wave}/{svc._uid}")
+        check(same and r1._uid == svc._uid and r1._wave == svc._wave,
+              "[stream-full-ckpt] restore is not the saved state")
+
+        folded, done, walls = wave(svc, 3)
+        say(f"[stream-full-ckpt] wave 3, original service: folded "
+            f"{folded:.1f} ms (folds {walls}), with its checkpoints "
+            f"{done:.1f} ms")
+        svc.stop()
+        r1.start()
+        folded, done, walls = wave(r1, 3)
+        r1.stop()
+        same = all(_same_snapshot(torch, r1.snapshot(s), svc.snapshot(s))
+                   for s in names)
+        uids = sorted(mb.uid for mb in r1.done)
+        say(f"[stream-full-ckpt] wave 3, restored service (no checkpoint): "
+            f"folded {folded:.1f} ms (folds {walls}); every tenant bit for "
+            f"bit the original's {same}, versions "
+            f"{[r1.snapshot(s).version for s in names]}, uids {uids}")
+        check(same and uids == sorted(mb.uid for mb in svc.done[-STREAMS:]),
+              "[stream-full-ckpt] the restored service folds differently")
+        del r1, after2
+
+        # one more checkpoint, its medium corrupted: restore falls back to
+        # the generation before it, wave 3's last, bit for bit
+        plan = faults.FaultPlan.single("ckpt_corrupt", 0)
+        with faults.inject(plan) as armed:
+            svc.checkpoint()
+        check(bool(armed.fired), "[stream-full-ckpt] corruption never fired")
+        t0 = time.perf_counter()
+        r2 = StreamingSVMService.restore(cfg, ck_dir, device=DEV,
+                                         checkpoint_every_waves=0)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        same = all(_same_snapshot(torch, r2.snapshot(s), svc.snapshot(s))
+                   for s in names)
+        say(f"[stream-full-ckpt] a checkpoint corrupted on the medium "
+            f"({split(svc.last_checkpoint_ms)} ms), then restore: {ms:.1f} "
+            f"ms, restore_fallbacks {r2.restore_fallbacks}, versions "
+            f"{[r2.snapshot(s).version for s in names]}, bit for bit the "
+            f"generation before {same}")
+        check(r2.restore_fallbacks >= 1 and same,
+              "[stream-full-ckpt] no fallback to the intact generation")
+    finally:
+        shutil.rmtree(ck_dir, ignore_errors=True)
+
+
 # --variants: build variants of flash_decode, cd_solve and cd_solve/sparse,
 # each a copy of the shipped source with (old, new) text replacements,
 # timed at the main path's shapes through the shipped launchers.
@@ -3777,6 +4245,8 @@ def main() -> int:
     phase_hinge_small(torch, ops, ref)
     phase_sparse_linear_small(torch, ops, ref, sp)
     phase_sweep_kernels_small(torch, ops, ref, sp)
+    bad = phase_nan_small(torch, ops, ref, sp)
+    check(not bad, f"[nan-small] routes differ from plain on NaN: {bad}")
     phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()
     phase_pipeline(torch, T, text)
@@ -3786,6 +4256,7 @@ def main() -> int:
     phase_serve_smoke(torch, ops)
     phase_stream_smoke(torch, T, ops)
     phase_sched_smoke(torch, ops)
+    phase_chaos(torch)
     torch.cuda.synchronize()
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
@@ -3809,7 +4280,11 @@ def main() -> int:
         torch, T, ops, ref,
         [res.service.snapshot(f"stream{s}").model for s in range(3)],
         res.cfg)
+    phase_nan_stream(torch, T, ops, [res.service.snapshot(
+        f"stream{s}").model for s in range(STREAMS)], res.cfg)
     del res
+    torch.cuda.empty_cache()
+    phase_stream_ckpt(torch, T, ops)
     torch.cuda.empty_cache()
     sched = phase_sched_full(torch, ops, ref)
     say(f"[stream] launches by kernel row: [stream-full] {stream}, "

@@ -30,8 +30,11 @@ incremental :func:`update_mapreduce` retrains on new rows ∪ the carried
 SV_global. :func:`sweep_round` runs the round of S configs at once
 (the sweep axis, :mod:`repro_torch.core.sweep`): one solve launch for
 all S·L jobs; :func:`mapreduce_round` is its one-config case. The
-sharded mode and the fault seams of the reference wait for later
-slices (ROADMAP Queue 1).
+driver carries the reference's fault seams (:mod:`repro_torch.faults`):
+a delayed round, a transiently failing merge retried with backoff, and
+a non-finite risk at the eq. 8 readback raised as
+``FaultDetected("core")``. The sharded mode waits for a later slice
+(ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -42,6 +45,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch import sparse as sparse_rows
 from repro_torch.core import risk as risk_lib
 from repro_torch.core.svm import (BinarySVM, SolverParams, SVMConfig,
@@ -357,10 +361,29 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
     rounds_done = 0
     for t in range(cfg.max_rounds):
         t0 = time.perf_counter()
-        out = mapreduce_round(Xp, yp, maskp, sv, cfg, params=params)
+        # transport seams: a delayed round completes late but exactly; a
+        # merge that fails transiently is retried with backoff. The
+        # injected fault raises before the round launches anything, so a
+        # retried round launches what a clean one does; real errors
+        # surface at once.
+        faults.maybe_sleep("transport.round", when=t)
+
+        def run_round():
+            faults.maybe_raise("transport.merge", kinds=("transport_exc",),
+                               when=t)
+            return mapreduce_round(Xp, yp, maskp, sv, cfg, params=params)
+
+        out = faults.retry_with_backoff(
+            run_round, attempts=3, base_s=0.05,
+            retry_on=faults.TransientFault, layer="transport",
+            cause=f"merge collective at round {t}",
+            action="check inter-host links; a persistent failure means "
+                   "the mesh lost a member — restart from the last "
+                   "checkpoint")
         sv = out.sv
         risks = out.risks.cpu().numpy()          # eq. 8's sync point
         ms = 1e3 * (time.perf_counter() - t0)
+        faults.check_finite_risks(risks, where=f"mapreduce round {t}")
         l_star = int(np.argmin(risks))
         r_star = float(risks[l_star])
         if r_star < best[0]:

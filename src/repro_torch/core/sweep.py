@@ -19,10 +19,12 @@ params and data.
 One-vs-rest multiclass folds into the same axis: k classes × S configs
 are k·S binary jobs (:func:`fit_one_vs_rest_sweep`).
 
-The reference's sharded sweep (``build_sharded_sweep_round``,
-``run_sharded_sweep``, ``DedupChunk``) waits for the sharded mode, and
-its ``faults.check_finite_risks`` seam for the fault seams (ROADMAP
-Queue 1, items 7 and 4a.3).
+A non-finite risk of an active config at a round's readback raises
+``FaultDetected("core")`` (``faults.check_finite_risks``), as the
+reference's. The reference's sharded sweep (``build_sharded_sweep_round``,
+``run_sharded_sweep``, ``DedupChunk``) and its round-state checkpoints
+(``save_sweep_state``, ``restore_sweep_state``) wait for the sharded
+mode (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch import sparse as sparse_rows
 from repro_torch.core.mapreduce_svm import (MRSVMConfig, SVBuffer,
                                             init_sv_buffer, sweep_round)
@@ -178,6 +181,7 @@ def _run_rounds(step, svb: SVBuffer, d: int, cfg: MRSVMConfig,
         r_star, l_star = picks.cpu().numpy()     # eq. 8's sync point
         ms = 1e3 * (time.perf_counter() - t0)
         act = ~done
+        faults.check_finite_risks(r_star, where=f"{tag} round {t}", mask=act)
         improved = act & (r_star < best_risk)
         if improved.any():
             imp = _on_card(improved, dev)

@@ -71,6 +71,18 @@
 
 namespace {
 
+// NaN passes through these as through the reference's jnp.maximum,
+// jnp.minimum and jnp.clip: fmaxf and fminf return the other operand when
+// one is NaN, which would turn a NaN step into a finite one.
+__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
+__device__ __forceinline__ float min0(float x) { return x > 0.f ? 0.f : x; }
+__device__ __forceinline__ float clip0(float x, float C) {
+  return x < 0.f ? 0.f : (x > C ? C : x);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
+
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kVec = 8;                       // elements per vector load
@@ -186,14 +198,14 @@ cd_solve_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
         }
         if (lane == 0) {
           const float g = yi * (wx + b) - 1.f;
-          const float pg = ai <= 0.f ? fminf(g, 0.f)
-                                     : (ai >= C ? fmaxf(g, 0.f) : g);
+          const float pg = ai <= 0.f ? min0(g)
+                                     : (ai >= C ? max0(g) : g);
           const float q = mi > 0.f ? xx + 1.f : 1.f;
-          const float a_new = fminf(fmaxf(ai - g / q, 0.f), C);
+          const float a_new = clip0(ai - g / q, C);
           const float delta = (a_new - ai) * mi;
           aj[i] = ai + delta;
           b += delta * yi;
-          viol_ep = fmaxf(viol_ep, fabsf(pg) * mi);
+          viol_ep = nan_max(viol_ep, fabsf(pg) * mi);
           s_coef = delta * yi;
         }
       }
@@ -455,17 +467,17 @@ cd_solve_cluster_kernel(const T* __restrict__ xh, const T* __restrict__ xs,
         xx += __shfl_xor_sync(0xffffffffu, xx, o);
       }
       const float g = yi * (wx + b) - 1.f;
-      const float pg = ai <= 0.f ? fminf(g, 0.f)
-                                 : (ai >= C ? fmaxf(g, 0.f) : g);
+      const float pg = ai <= 0.f ? min0(g)
+                                 : (ai >= C ? max0(g) : g);
       const float q = mi > 0.f ? xx + 1.f : 1.f;
-      const float a_new = fminf(fmaxf(ai - g / q, 0.f), C);
+      const float a_new = clip0(ai - g / q, C);
       const float delta = (a_new - ai) * mi;
       if (tid == 0) aj[i] = ai + delta;
       // The next step reads aj[i + 1] after its own barrier; with one row
       // it reads this aj[0] before any barrier, so wait for the store.
       if (n == 1) __syncthreads();
       b += delta * yi;
-      viol_ep = fmaxf(viol_ep, fabsf(pg) * mi);
+      viol_ep = nan_max(viol_ep, fabsf(pg) * mi);
       const float coef = delta * yi;
       if (coef != 0.f) {
 #pragma unroll

@@ -43,7 +43,9 @@
 //   * Every CTA then adds the tile's rank-kTile update to the g of the
 //     rows it owns outside the tile, k in tile order, reading K's rows
 //     t..t+kTile−1 (Q is symmetric, so Q[:, i] is K's contiguous row i)
-//     and skipping rows whose Δ is 0; its slices of those rows are
+//     and skipping rows whose Δ is 0 (exact for a finite K; a job whose
+//     K holds a NaN or ±Inf skips none, as the reference adds 0 · Inf =
+//     NaN); its slices of those rows are
 //     first prefetched into L2, so each thread's later loads of 32 rows
 //     of a column wait on L2, not on device memory. Warp 0 of the next
 //     tile's owner updates the next tile's rows first and runs its
@@ -63,6 +65,18 @@
 #include <stdint.h>
 
 namespace {
+
+// NaN passes through these as through the reference's jnp.maximum,
+// jnp.minimum and jnp.clip: fmaxf and fminf return the other operand when
+// one is NaN, which would turn a NaN step into a finite one.
+__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
+__device__ __forceinline__ float min0(float x) { return x > 0.f ? 0.f : x; }
+__device__ __forceinline__ float clip0(float x, float C) {
+  return x < 0.f ? 0.f : (x > C ? C : x);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
 
 namespace cg = cooperative_groups;
 
@@ -171,7 +185,8 @@ template <typename T>
 __device__ __forceinline__ void chain(cg::cluster_group& cluster, int c,
                                       int n, int i0, int r0, float g_l,
                                       float (&kq)[kTile], const State& s,
-                                      float C, float* dl, float& vmax) {
+                                      float C, bool every, float* dl,
+                                      float& vmax) {
   const int lane = threadIdx.x & 31;
   const int i = i0 + lane;
   const bool valid = i < n;
@@ -189,16 +204,17 @@ __device__ __forceinline__ void chain(cg::cluster_group& cluster, int c,
 #pragma unroll
   for (int k = 0; k < kTile; ++k) {
     if (lane == k && valid) {
-      const float pg = a_l <= 0.f ? fminf(g_l, 0.f)
-                                  : (a_l >= C ? fmaxf(g_l, 0.f) : g_l);
+      const float pg = a_l <= 0.f ? min0(g_l)
+                                  : (a_l >= C ? max0(g_l) : g_l);
       float an = rt<T>(__fsub_rn(a_l, rt<T>(__fdiv_rn(g_l, q_l))));
-      an = fminf(fmaxf(an, 0.f), C);
+      an = clip0(an, C);
       d_l = rt<T>(__fmul_rn(rt<T>(__fsub_rn(an, a_l)), m_l));
       a_l = rt<T>(__fadd_rn(a_l, d_l));
-      vmax = fmaxf(vmax, rt<T>(__fmul_rn(fabsf(pg), m_l)));
+      vmax = nan_max(vmax, rt<T>(__fmul_rn(fabsf(pg), m_l)));
     }
     const float dk = __shfl_sync(0xffffffffu, d_l, k);
-    if (dk != 0.f) g_l = rt<T>(__fadd_rn(g_l, rt<T>(__fmul_rn(dk, kq[k]))));
+    if (dk != 0.f || every)
+      g_l = rt<T>(__fadd_rn(g_l, rt<T>(__fmul_rn(dk, kq[k]))));
   }
   for (int p = 0; p < c; ++p) {
     float* peer = cluster.map_shared_rank(dl, p);
@@ -243,6 +259,7 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
                      const float* __restrict__ Cs,
                      const float* __restrict__ tols,
                      const int* __restrict__ cutoffs,
+                     const int* __restrict__ nonfinite,
                      T* __restrict__ alpha_out,
                      int* __restrict__ epochs_out, T* __restrict__ viol_out) {
   extern __shared__ float smem[];
@@ -265,6 +282,10 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
   const int tiles_per_cta = W / kTile;
   const T* Kj = K + (size_t)job * n * n;
   const float C = rt<T>(Cs[job]);
+  // A job whose K holds a NaN or ±Inf adds every row's Δ·Q[:, i], Δ = 0
+  // included, as the reference does (0 · Inf is NaN); a finite K skips
+  // the Δ = 0 rows, which then add exact zeros.
+  const bool every = nonfinite[job] != 0;
   if (tid == 0) {
     s_tol = rt<T>(tols[job]);
     s_cutoff = cutoffs[job];
@@ -294,7 +315,7 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
       float kq[kTile];
       load_block<T>(Kj, n, 0, kq);
       const float g0 = lane < nown ? s.g[lane] : 0.f;
-      chain<T>(cluster, c, n, 0, 0, g0, kq, s, C, dl[0], vmax);
+      chain<T>(cluster, c, n, 0, 0, g0, kq, s, C, every, dl[0], vmax);
     }
     for (int tile = 0; tile < tiles; ++tile) {
       cluster_barrier();            // tile's (Δ, y, m) are everywhere
@@ -304,7 +325,8 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
       const float* M = D + 2 * kTile;
       unsigned live = 0;
 #pragma unroll
-      for (int k = 0; k < kTile; ++k) live |= (D[k] != 0.f ? 1u : 0u) << k;
+      for (int k = 0; k < kTile; ++k)
+        live |= (D[k] != 0.f || (every && i0 + k < n) ? 1u : 0u) << k;
       const int next = tile + 1 < tiles ? tile + 1 : -1;
       const bool own_next = next >= 0 && next / tiles_per_cta == rank;
       if (warp == 0) {
@@ -331,7 +353,8 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
           }
           float kq[kTile];   // loaded after the update: fewer live registers
           load_block<T>(Kj, n, i1, kq);
-          chain<T>(cluster, c, n, i1, r0, gj, kq, s, C, dl[next & 1], vmax);
+          chain<T>(cluster, c, n, i1, r0, gj, kq, s, C, every, dl[next & 1],
+                   vmax);
         }
       } else if (live) {
         prefetch_rows<T>(Kj, n, i0, r0, nown, live, tid - 32, nt - 32);
@@ -349,12 +372,12 @@ cd_solve_gram_kernel(const T* __restrict__ K, const T* __restrict__ y,
     if (warp == 0) {
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1)
-        vmax = fmaxf(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
+        vmax = nan_max(vmax, __shfl_xor_sync(0xffffffffu, vmax, o));
       if (lane < c) *cluster.map_shared_rank(&vs[t & 1][rank], lane) = vmax;
     }
     cluster_barrier();
     float v = 0.f;
-    for (int p = 0; p < c; ++p) v = fmaxf(v, vs[t & 1][p]);
+    for (int p = 0; p < c; ++p) v = nan_max(v, vs[t & 1][p]);
     viol = v;
     ++t;
   }
@@ -416,8 +439,8 @@ cudaError_t max_active(int n, int c, int* clusters) {
 template <typename T>
 cudaError_t launch(const void* K, const void* y, const void* m, int jobs,
                    int n, int c, const float* C, const float* tol,
-                   const int* cutoff, void* alpha, int* epochs, void* viol,
-                   cudaStream_t stream) {
+                   const int* cutoff, const int* nonfinite, void* alpha,
+                   int* epochs, void* viol, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = configure<T>(jobs, n, c, stream, &cfg, &attr);
@@ -429,8 +452,8 @@ cudaError_t launch(const void* K, const void* y, const void* m, int jobs,
   err = cudaLaunchKernelEx(&cfg, cd_solve_gram_kernel<T>,
                            static_cast<const T*>(K), static_cast<const T*>(y),
                            static_cast<const T*>(m), n, rows_per_cta(n, c), C,
-                           tol, cutoff, static_cast<T*>(alpha), epochs,
-                           static_cast<T*>(viol));
+                           tol, cutoff, nonfinite, static_cast<T*>(alpha),
+                           epochs, static_cast<T*>(viol));
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
@@ -454,20 +477,22 @@ extern "C" int cd_solve_gram_occupancy(int is_bf16, int n, int c,
 // K (jobs, n, n) symmetric, y, m (jobs, n), all bf16 if is_bf16 else
 // f32; c CTAs a job (1 ≤ c ≤ 16); C, tol (jobs,) f32 and cutoff (jobs,)
 // int32, each job's own (C and tol rounded to the state type, as the
-// reference casts them to the rows' dtype). Outputs alpha (jobs, n) and viol
+// reference casts them to the rows' dtype); nonfinite (jobs,) int32, 1
+// where the job's K holds a NaN or ±Inf. Outputs alpha (jobs, n) and viol
 // (jobs,) in the same type, epochs (jobs,) int32. Returns a cudaError_t
 // (0 = ok; cudaErrorInvalidConfiguration when no cluster of c can be
 // resident).
 extern "C" int cd_solve_gram(const void* K, int is_bf16, const void* y,
                              const void* m, int jobs, int n, int c,
                              const float* C, const float* tol,
-                             const int* cutoff, void* alpha,
-                             int* epochs, void* viol, void* stream) {
+                             const int* cutoff, const int* nonfinite,
+                             void* alpha, int* epochs, void* viol,
+                             void* stream) {
   if (jobs <= 0 || n <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(K, y, m, jobs, n, c, C, tol, cutoff, alpha,
-                                 epochs, viol, s);
-  return launch<float>(K, y, m, jobs, n, c, C, tol, cutoff, alpha, epochs,
-                       viol, s);
+    return launch<__nv_bfloat16>(K, y, m, jobs, n, c, C, tol, cutoff,
+                                 nonfinite, alpha, epochs, viol, s);
+  return launch<float>(K, y, m, jobs, n, c, C, tol, cutoff, nonfinite, alpha,
+                       epochs, viol, s);
 }

@@ -24,7 +24,12 @@
 // Value-0 slots are skipped in the gather and the write, and a row
 // whose Δ is 0 writes nothing; both skips are exact (the reference adds
 // zeros), and they keep a padding slot from writing a stale w[0] over a
-// real column 0 of the same row.
+// real column 0 of the same row. A NaN Δ writes every slot, value 0
+// included, as the reference's NaN · 0 does (every such write is NaN, so
+// the order of a padding slot's and a live slot's writes is moot), and
+// NaN passes through the clip, the projected gradient and the violation
+// as through jnp.clip / jnp.minimum / jnp.maximum: a job that meets a
+// NaN stops after that epoch, as the reference's.
 //
 // What bounds it on an H100: the row recurrence, not bytes. The rows'
 // slots read once an epoch are 126 MB at 8 jobs × 10240 rows × 256
@@ -104,6 +109,18 @@
 #include <stdint.h>
 
 namespace {
+
+// NaN passes through these as through the reference's jnp.maximum,
+// jnp.minimum and jnp.clip: fmaxf and fminf return the other operand when
+// one is NaN, which would turn a NaN step into a finite one.
+__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
+__device__ __forceinline__ float min0(float x) { return x > 0.f ? 0.f : x; }
+__device__ __forceinline__ float clip0(float x, float C) {
+  return x < 0.f ? 0.f : (x > C ? C : x);
+}
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a > b || a != a) ? a : b;
+}
 
 constexpr int kAhead = 2;                      // look-ahead depth, at most
 constexpr int kRing = kAhead + 1;              // gathers and reads kept
@@ -521,14 +538,14 @@ cds_solve_kernel(const uint8_t* __restrict__ blocks, int n, int cap,
                   qi = __int_as_float(info.z);
       const float a = agath[rg_c];
       const float gr = __fsub_rn(__fmul_rn(yi, __fadd_rn(wx, b)), 1.f);
-      const float pg = a <= 0.f ? fminf(gr, 0.f)
-                                : (a >= C ? fmaxf(gr, 0.f) : gr);
+      const float pg = a <= 0.f ? min0(gr)
+                                : (a >= C ? max0(gr) : gr);
       const float a_new =
-          fminf(fmaxf(__fsub_rn(a, __fdiv_rn(gr, qi)), 0.f), C);
+          clip0(__fsub_rn(a, __fdiv_rn(gr, qi)), C);
       const float delta = __fmul_rn(__fsub_rn(a_new, a), mi);
       const float coef = __fmul_rn(delta, yi);
       b = __fadd_rn(b, coef);
-      viol_ep = fmaxf(viol_ep, __fmul_rn(fabsf(pg), mi));
+      viol_ep = nan_max(viol_ep, __fmul_rn(fabsf(pg), mi));
 #pragma unroll
       for (int d = kAhead; d > 1; --d) coef_back[d] = coef_back[d - 1];
       coef_back[1] = coef;
@@ -552,7 +569,7 @@ cds_solve_kernel(const uint8_t* __restrict__ blocks, int n, int cap,
         if (delta != 0.f) {
 #pragma unroll
           for (int j = 0; j < kSpt; ++j)
-            if (tid + T * j < cap && vs[j] != 0.f)
+            if (tid + T * j < cap && (vs[j] != 0.f || coef != coef))
               w[(size_t)ids[j] * ldw] =
                   __fadd_rn(xs[j], __fmul_rn(coef, vs[j]));
         }

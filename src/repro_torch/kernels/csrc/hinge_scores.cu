@@ -75,6 +75,10 @@
 
 namespace {
 
+// max(x, 0) that passes NaN on, as the reference's jnp.maximum does:
+// fmaxf(0, NaN) is 0, which would turn a NaN score into a loss of 0.
+__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
+
 constexpr int kThreads = 512;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowsPerWarp = 4;
@@ -178,7 +182,7 @@ hinge_partial_kernel(const T* __restrict__ x, const float* __restrict__ W,
       const float mi = m[row];
 #pragma unroll
       for (int l = 0; l < kMaxL; ++l)
-        if (l < L) loss[l] += fmaxf(0.f, 1.f - yi * (acc[r][l] + bias[l])) * mi;
+        if (l < L) loss[l] += max0(1.f - yi * (acc[r][l] + bias[l])) * mi;
       cnt += mi;
     }
   }
@@ -345,7 +349,7 @@ hinge_sparse_kernel(const int* __restrict__ idx, const T* __restrict__ val,
     const float yi = y[row];
     const float mi = m[row];
     const float hinge =
-        fmaxf(0.f, __fsub_rn(1.f, __fmul_rn(yi, __fadd_rn(dot, bh))));
+        max0(__fsub_rn(1.f, __fmul_rn(yi, __fadd_rn(dot, bh))));
     loss = __fadd_rn(loss, __fmul_rn(hinge, mi));
     cnt = __fadd_rn(cnt, mi);
   }
@@ -552,7 +556,7 @@ hinge_tc_finish_kernel(const float* __restrict__ part, int slabs, int n,
     const float yi = y[row], mi = m[row];
 #pragma unroll
     for (int l = 0; l < kMaxL; ++l)
-      if (l < L) loss[l] = fmaxf(0.f, 1.f - yi * (s[l] + bias[l])) * mi;
+      if (l < L) loss[l] = max0(1.f - yi * (s[l] + bias[l])) * mi;
     cnt = mi;
   }
 #pragma unroll

@@ -59,6 +59,10 @@
 
 namespace {
 
+// max(x, 0) that passes NaN on, as the reference's jnp.maximum does:
+// fmaxf(0, NaN) is 0, which would turn a NaN score into a loss of 0.
+__device__ __forceinline__ float max0(float x) { return x < 0.f ? 0.f : x; }
+
 constexpr int kWarps = 4;          // warps a CTA
 constexpr int kMaxTile = 2048;     // Z rows a tile
 constexpr int kChunk = 256;        // slots a lane's registers hold 8 of
@@ -304,7 +308,7 @@ __device__ __forceinline__ float transform(const Transform& f, float gamma,
   }
   if (f.kind == kRbf) {
     const float sq = __fsub_rn(__fadd_rn(xn, zn[zc]), __fmul_rn(2.f, acc));
-    return expf(__fmul_rn(-gamma, fmaxf(sq, 0.f)));
+    return expf(__fmul_rn(-gamma, max0(sq)));
   }
   return acc;
 }

@@ -27,7 +27,7 @@ _F = ctypes.c_float
 def _lib():
     lib = build.load("cd_solve_gram")
     lib.cd_solve_gram.argtypes = [_P, _I, _P, _P, _I, _I, _I, _P, _P, _P, _P,
-                                  _P, _P, _P]
+                                  _P, _P, _P, _P]
     lib.cd_solve_gram_occupancy.argtypes = [_I, _I, _I, _P]
     for fn in (lib.cd_solve_gram, lib.cd_solve_gram_occupancy,
                lib.cd_solve_gram_tile, lib.cd_solve_gram_max_cluster,
@@ -62,18 +62,22 @@ def launch_cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor,
     already checked (CUDA, contiguous, K (L, n, n) and y, m (L, n) of one
     dtype, f32 or bf16; C, tol (L,) f32 and max_epochs (L,) int32 on the
     card). A size the kernel does not take, or that the
-    card cannot schedule, raises. → alpha (L, n), epochs (L,) int32,
+    card cannot schedule, raises. A job whose K holds a NaN or ±Inf (one
+    min/max pass over K, no host sync) adds every row's update, Δ = 0
+    included, as the reference does. → alpha (L, n), epochs (L,) int32,
     viol (L,)."""
     L, n, _ = K.shape
     dev = K.device
+    lo, hi = torch.aminmax(K.reshape(L, -1), dim=1)
+    nonfinite = (~(torch.isfinite(lo) & torch.isfinite(hi))).to(torch.int32)
     alpha = torch.empty((L, n), dtype=K.dtype, device=dev)
     epochs = torch.empty((L,), dtype=torch.int32, device=dev)
     viol = torch.empty((L,), dtype=K.dtype, device=dev)
     err = _lib().cd_solve_gram(
         K.data_ptr(), int(K.dtype == torch.bfloat16), y.data_ptr(),
         m.data_ptr(), L, n, int(cluster), C.data_ptr(), tol.data_ptr(),
-        max_epochs.data_ptr(), alpha.data_ptr(), epochs.data_ptr(),
-        viol.data_ptr(),
+        max_epochs.data_ptr(), nonfinite.data_ptr(), alpha.data_ptr(),
+        epochs.data_ptr(), viol.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         what = " (no cluster of that size can be resident)" if err == 9 \
@@ -91,7 +95,8 @@ def emulate_tiled(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
     :func:`repro_torch.kernels.ops.gram_solve_rows_per_cta` rows each;
     each tile's chain (Δ_k, then Δ_k·Q_jk into the tile's own g, k in
     order), then the rank-``tile`` update of every rank's other rows, k
-    in order, skipping Δ = 0; the epoch's violation as the maximum of
+    in order, skipping Δ = 0 (none where K holds a NaN or ±Inf); the
+    epoch's violation as the maximum of
     the ranks' maxima. Each job runs its own stop rule. → as
     :func:`repro_torch.kernels.ref.cd_solve_gram_ref`."""
     from repro_torch.kernels import ops
@@ -106,6 +111,7 @@ def emulate_tiled(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
     epochs = torch.zeros((L,), dtype=torch.int32, device=dev)
     viols = torch.full((L,), math.inf, dtype=dt, device=dev)
     for job in range(L):
+        every = not bool(torch.isfinite(K[job]).all())
         yj, mj = y[job].to(dt), m[job].to(dt)
         Q = (yj[:, None] * yj[None, :]) * (K[job] + 1.0)
         Q = Q * (mj[:, None] * mj[None, :])
@@ -131,13 +137,13 @@ def emulate_tiled(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
                     a[i] = ao + d
                     rank_max[own] = torch.maximum(rank_max[own],
                                                   pg.abs() * mj[i])
-                    if d != 0:
+                    if d != 0 or every:
                         g[i0:i0 + tile] = g[i0:i0 + tile] + d * Q[i0:i0 + tile,
                                                                   i]
                     deltas.append((i, d))
                 for lo, hi in owned:                  # the rank update
                     for i, d in deltas:
-                        if d == 0:
+                        if d == 0 and not every:
                             continue
                         for a0, a1 in ((lo, min(hi, i0)),
                                        (max(lo, i0 + tile), hi)):

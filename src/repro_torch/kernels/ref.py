@@ -53,15 +53,17 @@ def _dots(w: torch.Tensor, x: torch.Tensor):
 
 def _cd_step(wx, q, y, m, alpha, i: int, b, C, active):
     """Row ``i``'s dual-CD update of every job, in place on α and b, from
-    its w·x and Q_ii (L,); C a number or (L,). → (Δ·y (L,), |pg|·m
-    (L,))."""
+    its w·x and Q_ii (L,); C a number or (L,). Jobs whose ``active`` is 0
+    take a step of exactly 0, so a stopped job keeps its state even where
+    it is NaN, as the reference's ``vmap`` of a ``while_loop`` selects it.
+    → (Δ·y (L,), |pg|·m (L,))."""
     yi, mi, ai = y[:, i], m[:, i], alpha[:, i]
     C = torch.as_tensor(C, dtype=torch.float32, device=ai.device)
     g = yi * (wx + b) - 1.0                           # ∂/∂α_i of dual obj
     pg = torch.where(ai <= 0.0, g.clamp(max=0.0),
                      torch.where(ai >= C, g.clamp(min=0.0), g))
     a_new = torch.minimum((ai - g / q).clamp(min=0.0), C)
-    delta = (a_new - ai) * mi * active
+    delta = torch.where(active > 0, (a_new - ai) * mi, 0.0)
     alpha[:, i] = ai + delta
     coef = delta * yi
     b += coef
@@ -336,7 +338,6 @@ def cd_solve_gram_ref(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
         active = (t < max_epochs) & ((t == 0) | (viol > tolv))
         if not bool(active.any()):
             break
-        act = active.to(dt)
         ep = torch.zeros((L,), dtype=dt, device=dev)
         for i in range(n):
             gi, ao, mi = g[:, i], alpha[:, i], m[:, i]
@@ -344,7 +345,7 @@ def cd_solve_gram_ref(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
                              torch.where(ao >= Cv, torch.maximum(gi, zero),
                                          gi))
             an = torch.clamp(ao - gi / qdiag[:, i], min=zero, max=Cv)
-            delta = (an - ao) * mi * act
+            delta = torch.where(active, (an - ao) * mi, zero)
             alpha[:, i] = ao + delta
             g = g + delta[:, None] * Q[:, :, i]
             ep = torch.maximum(ep, pg.abs() * mi)

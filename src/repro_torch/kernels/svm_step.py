@@ -279,7 +279,8 @@ def emulate_sparse_lookahead(xh, xs, y: torch.Tensor, m: torch.Tensor, *,
             coef, v_i = ref._cd_step(wx, q[:, i], y, m, alpha, i, b, C,
                                      active.float())
             out = x + coef[:, None] * v
-            memory[jobs[lv], ids[:, i][lv]] = out[lv]
+            st = lv | torch.isnan(coef)[:, None]  # a NaN step writes all
+            memory[jobs[st], ids[:, i][st]] = out[st]
             records[g] = out
             records.pop(g - k - 1, None)
             ep = torch.maximum(ep, v_i)

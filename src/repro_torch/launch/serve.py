@@ -17,8 +17,19 @@ SV_global behind the service's background scheduler
 (:mod:`repro_torch.serving.svm_stream`), as ``repro/launch/serve.py:
 34-133``: the streams submit one after another and the scheduler folds
 what has queued when it wakes, so a wave's first stream may fold alone
-and the rest as one sweep. Its checkpoint, watchdog, cluster and
-``--shuffle`` flags are refused (ROADMAP Queue 1 items 9, 10 and 7).
+and the rest as one sweep. ``--checkpoint-dir`` saves every tenant's
+snapshot on register and every ``--checkpoint-every`` waves (the newest
+``--checkpoint-keep`` generations kept); ``--restore`` rebuilds the
+service from that directory instead of retraining the streams, and the
+waves count from the restored versions; ``--fold-deadline`` arms the
+fold watchdog (heartbeat file ``--heartbeat``), which exits the process
+with code 17 on a stalled fold. The cluster flags and ``--shuffle`` are
+refused (ROADMAP Queue 1 items 10 and 7).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \
+        --smoke --streams 3 --waves 2 --checkpoint-dir /tmp/ck
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \
+        --smoke --streams 3 --waves 2 --checkpoint-dir /tmp/ck --restore
 """
 from __future__ import annotations
 
@@ -110,6 +121,10 @@ def _accuracy(svc, stream: str, X, y) -> float:
 def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
               smoke: bool = False, partitions: int = 8,
               quarantine: bool = True, device=None,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 1, checkpoint_keep: int = 3,
+              restore: bool = False, fold_deadline: Optional[float] = None,
+              heartbeat: Optional[str] = None,
               test_probe: Optional[Callable] = None) -> StreamServeResult:
     """The streaming polarization serve mode (``--arch svm-tfidf``).
 
@@ -120,7 +135,12 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     snapshot has swapped; the stale and folded accuracies on that batch
     are printed. ``smoke`` cuts the config to d 128, ``sv_capacity`` 64,
     256 rows a wave, f32. The service and the batches live on ``device``
-    (default ``cuda``). ``test_probe(wave, stage, service)`` is a seam
+    (default ``cuda``). ``checkpoint_dir``, ``checkpoint_every``,
+    ``checkpoint_keep``, ``fold_deadline`` and ``heartbeat`` configure
+    the service's durability and watchdog; with ``restore`` the service
+    comes back from ``checkpoint_dir``, restored streams are not
+    registered again, and a wave is complete when each stream's version
+    is its restored one plus the wave. ``test_probe(wave, stage, service)`` is a seam
     for a test harness that measures the waves (the CLI never sets it):
     it is called with stage "submit" before a wave's submits,
     "submitted" right after them and "folded" once every stream has
@@ -140,9 +160,21 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
                       svm=SVMConfig(C=svm_cfg.C,
                                     max_epochs=svm_cfg.max_epochs))
     dt = getattr(torch, svm_cfg.dtype)
-    svc = StreamingSVMService(cfg, num_partitions=L,
-                              max_batches_per_wave=streams,
-                              quarantine=quarantine, device=device)
+    hardening = dict(checkpoint_every_waves=checkpoint_every,
+                     checkpoint_keep=checkpoint_keep, quarantine=quarantine,
+                     fold_deadline_s=fold_deadline, heartbeat_path=heartbeat,
+                     device=device)
+    if restore:
+        if not checkpoint_dir:
+            raise SystemExit("--restore requires --checkpoint-dir")
+        svc = StreamingSVMService.restore(cfg, checkpoint_dir, **hardening)
+        L = svc.L
+        print(f"svm-serve: restored {len(svc.streams())} streams from "
+              f"{checkpoint_dir}")
+    else:
+        svc = StreamingSVMService(cfg, num_partitions=L,
+                                  max_batches_per_wave=streams,
+                                  checkpoint_dir=checkpoint_dir, **hardening)
     dev = svc.device
 
     def batch(stream: int, wave: int):
@@ -151,9 +183,14 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     print(f"svm-serve: {streams} streams × {rows} rows/wave, {d} features, "
           f"{L} partitions ({dev})")
     for s in range(streams):
+        if f"stream{s}" in svc.streams():
+            continue                   # came back with the checkpoint
         X0, y0 = batch(s, 0)
         svc.register(f"stream{s}", fit_mapreduce(X0, y0, L, cfg,
                                                  device=dev))
+    # after a restore the versions resume from the checkpoint, so a
+    # wave's completion counts from them
+    base = {s: svc.snapshot(f"stream{s}").version for s in range(streams)}
     svc.start()
     stale_all, fresh_all, secs = [], [], []
     for wave in range(1, waves + 1):
@@ -168,7 +205,7 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
         if test_probe is not None:
             test_probe(wave, "submitted", svc)
         deadline = t0 + 300
-        while any(svc.snapshot(f"stream{s}").version < wave
+        while any(svc.snapshot(f"stream{s}").version < base[s] + wave
                   for s in range(streams)):
             if svc.scheduler_error is not None \
                     or time.perf_counter() > deadline:
@@ -192,10 +229,8 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
 
 #: flags of the reference's svm serve mode that the port refuses, with
 #: the ROADMAP Queue 1 item that brings them
-_NOT_PORTED_FLAGS = {"checkpoint_dir": 9, "checkpoint_every": 9,
-                     "restore": 9, "checkpoint_keep": 9, "shuffle": 7,
-                     "fold_deadline": 9, "heartbeat": 9, "coordinator": 10,
-                     "num_processes": 10, "process_id": 10}
+_NOT_PORTED_FLAGS = {"shuffle": 7, "coordinator": 10, "num_processes": 10,
+                     "process_id": 10}
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -217,6 +252,25 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--no-quarantine", action="store_true",
                     help="svm family: fold non-finite batches instead of "
                          "diverting them at submit()")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="svm family: durable per-stream snapshot "
+                         "checkpoints")
+    ap.add_argument("--checkpoint-every", type=int, default=1,
+                    help="svm family: waves between checkpoints")
+    ap.add_argument("--restore", action="store_true",
+                    help="svm family: rebuild the service from the newest "
+                         "intact generation in --checkpoint-dir instead of "
+                         "retraining the stream models")
+    ap.add_argument("--checkpoint-keep", type=int, default=3,
+                    help="svm family: snapshot generations kept; restore "
+                         "falls back past corrupt ones")
+    ap.add_argument("--fold-deadline", type=float, default=None,
+                    help="svm family: watchdog deadline (s) of a wave's "
+                         "folds; a stalled fold exits the process with "
+                         "code 17")
+    ap.add_argument("--heartbeat", default=None,
+                    help="svm family: path of the watchdog's JSON "
+                         "heartbeat file")
     for flag, item in _NOT_PORTED_FLAGS.items():
         ap.add_argument("--" + flag.replace("_", "-"), default=None,
                         nargs="?", const=True,
@@ -234,7 +288,13 @@ def main(argv: Optional[Sequence[str]] = None):
                          partitions=args.data_par if args.data_par > 1
                          else 8,
                          quarantine=not args.no_quarantine,
-                         device=args.device)
+                         device=args.device,
+                         checkpoint_dir=args.checkpoint_dir,
+                         checkpoint_every=args.checkpoint_every,
+                         checkpoint_keep=args.checkpoint_keep,
+                         restore=args.restore,
+                         fold_deadline=args.fold_deadline,
+                         heartbeat=args.heartbeat)
     if args.smoke:
         cfg = smoke_variant(cfg)
     res = serve_lm(cfg, batch=args.batch, cache_len=args.cache_len,

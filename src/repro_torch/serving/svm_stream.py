@@ -38,15 +38,34 @@ control bounds the per-tenant queues (``max_queue_per_stream``,
 ``shed_policy``) and the wave's width (``max_streams_per_wave``), and
 counts latency-SLO violations (``slo_s``).
 
-Not ported yet, and refused with ``NotImplementedError``: checkpoints
-and restore, the fault seams and the watchdog (ROADMAP Queue 1 item 9),
-the retrace guard (item 12), the multi-process ``cluster`` (item 10)
+Durability: with ``checkpoint_dir`` set, every tenant's snapshot is
+saved through :mod:`repro_torch.ckpt` on ``register`` and after each
+``checkpoint_every_waves``-th wave, one npz a stream a *generation*
+(``gen000007_stream0.npz``) and a format-2 manifest keeping the last
+``checkpoint_keep`` generations with per-leaf and file crc32s, in the
+reference's file format: each package restores the other's.
+:meth:`StreamingSVMService.restore` rebuilds a queues-empty service on
+its device from the newest intact generation, falling back past corrupt
+ones. A checkpoint reads snapshots only after their swap, so its
+device-to-host copies (on the caller's stream) never wait for a fold
+running on the service's stream.
+
+Fault seams (:mod:`repro_torch.faults`): ``serving.submit`` poisons a
+batch before the quarantine, ``serving.wave`` kills a wave before it
+folds (its batches requeue), ``serving.stall`` stalls a fold past
+``fold_deadline_s``, whose watchdog (heartbeat at ``heartbeat_path``)
+raises ``FaultDetected("serving")`` or calls ``watchdog_handler``.
+
+Not ported yet, and refused with ``NotImplementedError``: the retrace
+guard (ROADMAP Queue 1 item 12), the multi-process ``cluster`` (item 10)
 and the SV merge transport ``shuffle_impl`` of sharded mode (item 7).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
+import os
 import threading
 import time
 import traceback
@@ -55,17 +74,23 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import faults
 from repro_torch import sparse as sparse_rows
+from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.mapreduce_svm import (MapReduceSVM, MRSVMConfig,
                                             SVBuffer,
                                             decision_values as
                                             mr_decision_values,
+                                            init_sv_buffer,
                                             predict as mr_predict,
                                             update_mapreduce)
 from repro_torch.core.svm import BinarySVM, SolverParams
 from repro_torch.core.sweep import fit_mapreduce_sweep, stack_params
 from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
+
+_MANIFEST = "service_manifest.json"
+
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
     return NotImplementedError(
@@ -102,6 +127,49 @@ def _leaves(obj):
     elif isinstance(obj, (tuple, list)):
         for o in obj:
             yield from _leaves(o)
+
+
+def _f32(v) -> torch.Tensor:
+    """A hyper-parameter (number, numpy or tensor) as a float32 tensor."""
+    return torch.as_tensor(np.float32(v) if not isinstance(v, torch.Tensor)
+                           else v, dtype=torch.float32)
+
+
+def _snapshot_tree(snap: "ModelSnapshot") -> dict:
+    """The checkpointable view of one stream's snapshot, as the
+    reference's: ``rounds`` and ``version`` ride the manifest, and
+    ``history`` restores empty."""
+    m = snap.model
+    tree = {"model": {"w": m.w, "b": m.b, "risk": _f32(m.risk),
+                      "sv": dict(m.sv._asdict()),
+                      "final": dict(m.final._asdict())}}
+    if snap.params is not None:
+        tree["params"] = {k: _f32(v) for k, v in snap.params._asdict().items()}
+    return tree
+
+
+def _abstract_snapshot_tree(cfg: MRSVMConfig, d: int,
+                            nnz_cap: Optional[int], has_params: bool,
+                            dtypes: Dict[str, str]) -> dict:
+    """The ``like`` tree of :func:`_snapshot_tree` from the manifest's
+    facts: shapes from (cfg, d, nnz_cap), leaf dtypes from the recorded
+    :func:`repro_torch.ckpt.leaf_dtypes`; ``meta`` tensors, no memory."""
+    cap = cfg.sv_capacity
+
+    def zf(*shape):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+
+    sv = init_sv_buffer(cap, d, device="meta", nnz_cap=nnz_cap)
+    final = BinarySVM(alpha=zf(cap), b=zf(), w=zf(d),
+                      epochs_run=torch.empty((), dtype=torch.int32,
+                                             device="meta"),
+                      max_violation=zf())
+    tree = {"model": {"w": zf(d), "b": zf(), "risk": zf(),
+                      "sv": dict(sv._asdict()),
+                      "final": dict(final._asdict())}}
+    if has_params:
+        tree["params"] = {k: zf() for k in SolverParams._fields}
+    return ckpt.with_dtypes(tree, dtypes)
 
 
 @dataclasses.dataclass
@@ -165,29 +233,28 @@ class StreamingSVMService:
                  shuffle_impl: Optional[str] = None,
                  cluster=None,
                  checkpoint_dir: Optional[str] = None,
-                 checkpoint_every_waves: Optional[int] = None,
+                 checkpoint_every_waves: int = 1,
                  max_queue_per_stream: Optional[int] = None,
                  shed_policy: str = "drop_oldest",
                  max_streams_per_wave: Optional[int] = None,
                  slo_s: Optional[float] = None,
                  pad_wave_to_bucket: bool = True,
                  fail_on_retrace: bool = False,
-                 checkpoint_keep: Optional[int] = None,
+                 checkpoint_keep: int = 3,
                  quarantine: bool = True,
                  fold_deadline_s: Optional[float] = None,
                  heartbeat_path: Optional[str] = None,
                  watchdog_handler=None,
                  device: DeviceLike = None):
-        # the reference's arguments that the port refuses, with the
-        # ROADMAP Queue 1 item that brings them
+        # ``checkpoint_dir`` turns on durable snapshots: on register and
+        # after every ``checkpoint_every_waves``-th wave, the newest
+        # ``checkpoint_keep`` generations kept. ``fold_deadline_s`` arms a
+        # watchdog around each wave's folds (heartbeat file at
+        # ``heartbeat_path``; ``watchdog_handler`` replaces the default
+        # handler, which exits the process).
+        # The reference's arguments that the port refuses, with the
+        # ROADMAP Queue 1 item that brings them:
         for name, given, item in (
-                ("checkpoint_dir", checkpoint_dir is not None, 9),
-                ("checkpoint_every_waves",
-                 checkpoint_every_waves is not None, 9),
-                ("checkpoint_keep", checkpoint_keep is not None, 9),
-                ("fold_deadline_s", fold_deadline_s is not None, 9),
-                ("heartbeat_path", heartbeat_path is not None, 9),
-                ("watchdog_handler", watchdog_handler is not None, 9),
                 ("fail_on_retrace", fail_on_retrace, 12),
                 ("cluster", cluster is not None, 10),
                 ("shuffle_impl", shuffle_impl is not None, 7)):
@@ -207,6 +274,12 @@ class StreamingSVMService:
         self.slo_s = slo_s
         self.pad_wave_to_bucket = pad_wave_to_bucket
         self.quarantine = quarantine
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every_waves = checkpoint_every_waves
+        self.checkpoint_keep = checkpoint_keep
+        self.fold_deadline_s = fold_deadline_s
+        self.heartbeat_path = heartbeat_path
+        self.watchdog_handler = watchdog_handler
         # folds run on a stream of their own, readers on theirs
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
@@ -215,14 +288,32 @@ class StreamingSVMService:
         self.quarantined: List[MicroBatch] = []
         self._requeued = 0
         self._slo_violations = 0
+        self.restore_fallbacks = 0
+        self._retries = 0
+        self._watchdog_fires = 0
+        self._waves_since_ckpt = 0
+        #: ms of the last checkpoint() by part (d2h, savez, fsync, crc32,
+        #: manifest, total)
+        self.last_checkpoint_ms: Dict[str, float] = {}
+        self._stream_slot: Dict[str, int] = {}
         self._snapshots: Dict[str, ModelSnapshot] = {}
         self._queues: Dict[str, List[MicroBatch]] = {}
         self._history: Dict[str, Dict[int, ModelSnapshot]] = {}
         self._lock = threading.Lock()          # queues + snapshot refs
         self._cv = threading.Condition(self._lock)
         self._wave_lock = threading.Lock()     # serializes folds
+        self._ckpt_lock = threading.Lock()     # serializes checkpoints
         self._uid = 0
         self._wave = 0
+        # the generation counter resumes past an existing manifest, so a
+        # checkpoint never reuses a file name a kept record references
+        self._generation = 0
+        self._gen_records: List[dict] = []
+        if checkpoint_dir is not None:
+            man = self._read_manifest(checkpoint_dir)
+            if man is not None and man.get("format", 1) >= 2:
+                self._generation = int(man.get("generation", -1)) + 1
+                self._gen_records = list(man.get("generations", []))
         self.done: List[MicroBatch] = []
         self.stats: List[StreamWaveStats] = []
         self._thread: Optional[threading.Thread] = None
@@ -245,17 +336,222 @@ class StreamingSVMService:
                 raise ValueError(f"stream {stream!r} already registered")
             self._snapshots[stream] = snap
             self._queues[stream] = []
+            self._stream_slot[stream] = len(self._stream_slot)
             if self.keep_history:
                 self._history[stream] = {0: snap}
         self._fold_after_caller()
+        if self.checkpoint_dir is not None:
+            # a stream is durable from the moment it exists
+            self.checkpoint()
         return snap
 
     @classmethod
-    def restore(cls, cfg: MRSVMConfig, checkpoint_dir: str, **kwargs):
-        raise _not_ported("restore()", 9)
+    def restore(cls, cfg: MRSVMConfig, checkpoint_dir: str,
+                **kwargs) -> "StreamingSVMService":
+        """Rebuild a queues-empty service from the newest intact
+        generation of the manifest (format 1 or 2, either package's).
+
+        Every stream's snapshot comes back at its checkpointed version,
+        on the service's device (``device=`` among ``kwargs``); the wave
+        and uid counters resume from the manifest. A generation whose
+        file or leaves fail their crc32s is skipped (counted in
+        ``restore_fallbacks``); none intact raises
+        ``FaultDetected("ckpt")``. Blocked-CSR SV rows read from a file
+        have their column ids checked once. Queued batches are not
+        durable: clients re-submit what they never saw complete.
+        ``cfg`` must match the checkpointed ``sv_capacity``; the other
+        ``kwargs`` go to the constructor (``num_partitions`` and
+        ``max_batches_per_wave`` default to the manifest's).
+        """
+        path = os.path.join(checkpoint_dir, _MANIFEST)
+        if not os.path.exists(path):
+            raise FileNotFoundError(
+                f"no service manifest under {checkpoint_dir!r} — the "
+                "service checkpoints on register and every "
+                "checkpoint_every_waves-th wave")
+        with open(path) as f:
+            man = json.load(f)
+        if man.get("sv_capacity") != cfg.sv_capacity:
+            raise ValueError(
+                f"checkpoint was taken at sv_capacity="
+                f"{man.get('sv_capacity')} but cfg has {cfg.sv_capacity} "
+                "— restore with the training-time config")
+        kwargs.setdefault("num_partitions", man["num_partitions"])
+        kwargs.setdefault("max_batches_per_wave",
+                          man["max_batches_per_wave"])
+        svc = cls(cfg, checkpoint_dir=checkpoint_dir, **kwargs)
+        if man.get("format", 1) >= 2:
+            gens = list(man.get("generations", []))
+        else:                          # format 1: one implicit generation
+            gens = [{"generation": 0, "wave": man["wave"],
+                     "uid": man["uid"], "streams": man["streams"]}]
+        errors: List[str] = []
+        restored = None
+        for rec in reversed(gens):
+            try:
+                restored = rec, {s: svc._load_stream(cfg, checkpoint_dir,
+                                                     rec["streams"][s])
+                                 for s in sorted(rec["streams"])}
+                break
+            except Exception as e:     # this generation is corrupt/missing
+                errors.append(f"generation {rec.get('generation')}: {e}")
+                faults.count("ckpt_fallbacks")
+                svc.restore_fallbacks += 1
+        if restored is None:
+            raise faults.FaultDetected(
+                "ckpt",
+                f"no intact snapshot generation under {checkpoint_dir!r}"
+                f" ({'; '.join(errors) or 'no generations recorded'})",
+                action="restore from an older backup or re-register the "
+                       "streams from their training pipelines")
+        rec, loaded = restored
+        if svc.restore_fallbacks:
+            print(f"[svm_stream] newest snapshot generation(s) failed "
+                  f"verification — restored generation "
+                  f"{rec.get('generation')} instead "
+                  f"({svc.restore_fallbacks} skipped)", flush=True)
+        with svc._lock:
+            for stream, (snap, slot) in loaded.items():
+                svc._snapshots[stream] = snap
+                svc._queues[stream] = []
+                svc._stream_slot[stream] = slot
+                if svc.keep_history:
+                    svc._history[stream] = {snap.version: snap}
+            svc._wave = rec["wave"]
+            svc._uid = rec["uid"]
+        return svc
+
+    def _load_stream(self, cfg: MRSVMConfig, checkpoint_dir: str,
+                     meta: dict) -> Tuple[ModelSnapshot, int]:
+        """One stream's snapshot of a generation record, verified (file
+        crc32, per-leaf crc32s, shapes and dtypes) and on the service's
+        device; → (snapshot, slot)."""
+        fpath = os.path.join(checkpoint_dir, meta["file"])
+        want = meta.get("file_crc32")
+        if want is not None and ckpt.file_crc32(fpath) != want:
+            raise ckpt.CorruptCheckpointError(
+                f"{meta['file']}: medium does not match its recorded crc32")
+        like = _abstract_snapshot_tree(cfg, meta["d"], meta["nnz_cap"],
+                                       meta["has_params"], meta["dtypes"])
+        tree = ckpt.restore(fpath, like, checksums=meta.get("checksums"))
+        dev = self.device
+        m = tree["model"]
+        x = as_tensor(m["sv"]["x"], dev)
+        if sparse_rows.is_sparse(x):
+            ops.check_column_ids(x)    # rows from a file: checked, once
+        sv = SVBuffer(**{k: x if k == "x" else as_tensor(v, dev)
+                         for k, v in m["sv"].items()})
+        model = MapReduceSVM(
+            w=as_tensor(m["w"], dev), b=as_tensor(m["b"], dev), sv=sv,
+            final=BinarySVM(**{k: as_tensor(v, dev)
+                               for k, v in m["final"].items()}),
+            risk=m["risk"], rounds=meta["rounds"], history=())
+        # params stay host numbers, as a live service's are
+        params = (SolverParams(**{k: float(v)
+                                  for k, v in tree["params"].items()})
+                  if meta["has_params"] else None)
+        self._fold_after_caller()
+        return (ModelSnapshot(model=model, params=params,
+                              version=meta["version"]), meta["slot"])
+
+    @staticmethod
+    def _read_manifest(checkpoint_dir: str) -> Optional[dict]:
+        try:
+            with open(os.path.join(checkpoint_dir, _MANIFEST)) as f:
+                return json.load(f)
+        except (OSError, json.JSONDecodeError, ValueError):
+            return None
 
     def checkpoint(self) -> str:
-        raise _not_ported("checkpoint()", 9)
+        """Durably snapshot every stream and the service counters;
+        returns the manifest path.
+
+        Under ``checkpoint_dir``: one npz a stream a generation
+        (``gen000007_stream0.npz``, :func:`repro_torch.ckpt.save`: tmp →
+        fsync → rename) and an atomically replaced JSON manifest (format
+        2) of the last ``checkpoint_keep`` generations with each stream's
+        per-leaf and file crc32s, so :meth:`restore` verifies each
+        payload and falls back past a corrupt newest generation. A crash
+        at any point leaves the previous complete checkpoint installed;
+        media of dropped generations are removed. Snapshots are read
+        after their swap: their device-to-host copies run on the
+        caller's stream and wait for no fold. ``last_checkpoint_ms``
+        holds the time by part.
+        """
+        if self.checkpoint_dir is None:
+            raise RuntimeError("service was built without checkpoint_dir")
+        os.makedirs(self.checkpoint_dir, exist_ok=True)
+        with self._ckpt_lock:
+            t_all = time.perf_counter()
+            ms = {"d2h": 0.0, "savez": 0.0, "fsync": 0.0, "crc32": 0.0}
+            gen = self._generation
+            self._generation += 1
+            with self._lock:
+                snaps = dict(self._snapshots)
+                slots = dict(self._stream_slot)
+                wave, uid = self._wave, self._uid
+            streams_meta = {}
+            for stream, snap in snaps.items():
+                fname = f"gen{gen:06d}_stream{slots[stream]}.npz"
+                t0 = time.perf_counter()
+                tree = ckpt.to_host(_snapshot_tree(snap))
+                ms["d2h"] += 1e3 * (time.perf_counter() - t0)
+                crc = ckpt.save(
+                    os.path.join(self.checkpoint_dir, fname), tree,
+                    on_retry=self._note_retry, timings=ms)
+                t0 = time.perf_counter()
+                sums = ckpt.leaf_checksums(tree)
+                ms["crc32"] += 1e3 * (time.perf_counter() - t0)
+                x = snap.model.sv.x
+                sp = sparse_rows.is_sparse(x)
+                streams_meta[stream] = {
+                    "file": fname, "slot": slots[stream],
+                    "version": snap.version,
+                    "rounds": int(snap.model.rounds),
+                    "d": int(x.shape[1]),
+                    "nnz_cap": int(x.nnz_cap) if sp else None,
+                    "has_params": snap.params is not None,
+                    "dtypes": ckpt.leaf_dtypes(tree),
+                    "checksums": sums,
+                    "file_crc32": crc,
+                }
+            rec = {"generation": gen, "wave": wave, "uid": uid,
+                   "streams": streams_meta}
+            records = [r for r in self._gen_records
+                       if r.get("generation") != gen] + [rec]
+            keep = max(int(self.checkpoint_keep), 1)
+            dropped, records = records[:-keep], records[-keep:]
+            self._gen_records = records
+            t0 = time.perf_counter()
+            # the top-level wave/uid/streams mirror the newest generation,
+            # so format-1 readers keep working
+            ckpt.atomic_write_json(
+                os.path.join(self.checkpoint_dir, _MANIFEST),
+                {"format": 2, "wave": wave, "uid": uid,
+                 "sv_capacity": self.cfg.sv_capacity,
+                 "num_partitions": self.L,
+                 "max_batches_per_wave": self.max_batches_per_wave,
+                 "generation": gen, "generations": records,
+                 "streams": streams_meta},
+                on_retry=self._note_retry)
+            kept = {m["file"] for r in records
+                    for m in r["streams"].values()}
+            for r in dropped:
+                for m in r["streams"].values():
+                    if m["file"] not in kept:
+                        try:
+                            os.remove(os.path.join(self.checkpoint_dir,
+                                                   m["file"]))
+                        except OSError:
+                            pass
+            ms["manifest"] = 1e3 * (time.perf_counter() - t0)
+            ms["total"] = 1e3 * (time.perf_counter() - t_all)
+            self.last_checkpoint_ms = ms
+            self._waves_since_ckpt = 0
+            return os.path.join(self.checkpoint_dir, _MANIFEST)
+
+    def _note_retry(self, attempt: int, exc: BaseException) -> None:
+        self._retries += 1
 
     def streams(self) -> List[str]:
         with self._lock:
@@ -292,6 +588,11 @@ class StreamingSVMService:
                 "streaming scheduler died — restart the service before "
                 "submitting more work") from self._scheduler_error
         X, y = _as_rows(X), _as_rows(y)
+        # featurizer seam: an armed poison_rows fault lands a NaN or Inf
+        # in the batch where a buggy upstream vectorizer would
+        spec = faults.fire("serving.submit", kinds=("poison_rows",))
+        if spec is not None:
+            X, y = faults.poison_batch(X, y, spec)
         if X.ndim != 2 or y.dim() != 1 or y.shape[0] != X.shape[0]:
             raise ValueError(f"micro-batch must be (n, d) rows with (n,) "
                              f"labels; got X{tuple(X.shape)} "
@@ -329,6 +630,7 @@ class StreamingSVMService:
             if not finite:
                 # NaN/Inf never reaches a fold: the batch is
                 # acknowledged (uid) but diverted, and counted.
+                faults.count("quarantined")
                 self._uid += 1
                 mb = MicroBatch(uid=self._uid, stream=stream, X=None,
                                 y=None, submitted_s=time.perf_counter())
@@ -450,21 +752,37 @@ class StreamingSVMService:
                     yn = torch.cat([mb.y.to(Xn.dtype) for mb in batches])
                     joined[s] = (snap, batches, Xn, yn)
                 try:
-                    for group in self._fold_groups(names, joined):
-                        if len(group) == 1:
-                            # a lone tenant: the plain incremental update
-                            s = group[0]
-                            snap, _, Xn, yn = joined[s]
-                            self._fold_signatures.add(self._fold_signature(
-                                "single", Xn, yn, snap.model.sv))
-                            model = update_mapreduce(
-                                snap.model, Xn, yn, self.L, self.cfg,
-                                params=snap.params)
-                            self._swap(s, model, snap.params)
-                            swapped.append(s)
-                        else:
-                            any_batched = True
-                            self._fold_batched(joined, group, swapped)
+                    # scheduler seam: an armed scheduler_kill dies here,
+                    # before any launch, and the wave's batches requeue
+                    faults.maybe_raise("serving.wave",
+                                       kinds=("scheduler_kill",),
+                                       when=wave_id)
+                    with self._watchdog(wave_id) as wd:
+                        # stall seam: a fold that stops making progress,
+                        # past the deadline, so the watchdog ends it
+                        if faults.fire("serving.stall", ("stall",),
+                                       when=wave_id) is not None:
+                            time.sleep((self.fold_deadline_s or 0.5) * 1.5)
+                        for group in self._fold_groups(names, joined):
+                            if len(group) == 1:
+                                # a lone tenant: the plain incremental update
+                                s = group[0]
+                                snap, _, Xn, yn = joined[s]
+                                self._fold_signatures.add(
+                                    self._fold_signature(
+                                        "single", Xn, yn, snap.model.sv))
+                                model = update_mapreduce(
+                                    snap.model, Xn, yn, self.L, self.cfg,
+                                    params=snap.params)
+                                self._swap(s, model, snap.params)
+                                swapped.append(s)
+                            else:
+                                any_batched = True
+                                self._fold_batched(joined, group, swapped)
+                            if wd is not None:
+                                wd.beat()
+                    if wd is not None:
+                        wd.check()
                 except BaseException:
                     self._recover_wave(joined, names, swapped)
                     raise
@@ -487,7 +805,32 @@ class StreamingSVMService:
                                  batches=n_batches, rows=n_rows,
                                  batched=any_batched, wall_s=now - t0)
             self.stats.append(st)
+            if (self.checkpoint_dir is not None
+                    and self.checkpoint_every_waves > 0):
+                self._waves_since_ckpt += 1
+                if self._waves_since_ckpt >= self.checkpoint_every_waves:
+                    self.checkpoint()
             return st
+
+    def _watchdog(self, wave_id: int):
+        """The deadline around a wave's folds (``fold_deadline_s``), or
+        no watchdog."""
+        if self.fold_deadline_s is None:
+            return contextlib.nullcontext()
+        return faults.CollectiveWatchdog(
+            self.fold_deadline_s, heartbeat_path=self.heartbeat_path,
+            layer="serving", cause=f"wave {wave_id} fold",
+            action="kill the process and restore the service from its "
+                   "last checkpoint generation",
+            on_timeout=self._on_watchdog_timeout)
+
+    def _on_watchdog_timeout(self, info: dict) -> None:
+        self._watchdog_fires += 1
+        handler = self.watchdog_handler
+        if handler is not None:
+            handler(info)
+        else:
+            faults.exit_handler(info)
 
     @staticmethod
     def _fold_signature(kind: str, *trees) -> tuple:
@@ -671,7 +1014,8 @@ class StreamingSVMService:
     def stop(self, drain: bool = True, timeout_s: float = 60.0) -> None:
         """Stop the scheduler thread; optionally fold what is queued.
         Re-raises the error that killed the scheduler, if any; a thread
-        that does not end within ``timeout_s`` raises."""
+        that does not end within ``timeout_s`` (stranded in a fold)
+        raises ``FaultDetected("serving")``."""
         thread = self._thread
         if thread is None:
             return
@@ -680,9 +1024,12 @@ class StreamingSVMService:
             self._cv.notify_all()
         thread.join(timeout=timeout_s)
         if thread.is_alive():
-            raise RuntimeError(
-                f"scheduler thread did not end within {timeout_s:.0f} s "
-                "(a fold still running)")
+            raise faults.FaultDetected(
+                "serving",
+                f"scheduler thread refused to die within {timeout_s:.0f}s"
+                " (likely stranded in a fold)",
+                action="kill the process and restart from the last "
+                       "checkpoint generation")
         self._thread = None
         if self._scheduler_error is not None:
             raise RuntimeError(
@@ -693,9 +1040,8 @@ class StreamingSVMService:
     # -- reporting ---------------------------------------------------------
 
     def throughput_report(self) -> Dict[str, float]:
-        """The reference's keys. ``retries``, ``watchdog_fires`` and
-        ``retraces`` count seams that are not ported (ROADMAP Queue 1
-        items 9 and 12) and stay 0."""
+        """The reference's keys. ``retraces`` counts a guard that is not
+        ported (ROADMAP Queue 1 item 12) and stays 0."""
         lats = [mb.latency_s for mb in self.done]
         queues = [mb.queue_s for mb in self.done]
         rows = sum(s.rows for s in self.stats)
@@ -717,6 +1063,6 @@ class StreamingSVMService:
             "fold_programs": len(self._fold_signatures),
             "retraces": 0,
             "quarantined": len(self.quarantined),
-            "retries": 0,
-            "watchdog_fires": 0,
+            "retries": self._retries,
+            "watchdog_fires": self._watchdog_fires,
         }

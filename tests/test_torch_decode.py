@@ -344,5 +344,9 @@ def test_unported_archs_and_families_raise_naming_the_roadmap():
         get_config("llama3-8b")
     with pytest.raises(NotImplementedError, match="item 13"):
         build_model(ModelConfig(**dict(SMALL, family="moe")))
-    with pytest.raises(NotImplementedError, match="item 9"):
+    # --restore is ported (item 9) and, as the reference's, needs its
+    # directory; --shuffle still waits for the sharded mode (item 7)
+    with pytest.raises(SystemExit, match="--restore requires"):
         main(["--arch", "svm-tfidf", "--device", "cpu", "--restore"])
+    with pytest.raises(NotImplementedError, match="item 7"):
+        main(["--arch", "svm-tfidf", "--device", "cpu", "--shuffle", "ring"])

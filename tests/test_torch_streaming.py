@@ -9,6 +9,8 @@ of the JAX service, SV ids equal. A batched job of the port reads the
 rows and parameters ``update_mapreduce`` builds for its stream, so the
 two agree to float32 rounding of the plain versions' sums (1e-6, as
 ``tests/test_torch_sweep.py``), with the same rounds and SV ids."""
+import json
+import os
 import sys
 import threading
 import time
@@ -22,7 +24,7 @@ import repro.core as J
 import repro_torch.core as T
 from repro import sparse as jsp
 from repro.serving import StreamingSVMService as JService
-from repro_torch import convert
+from repro_torch import convert, faults
 from repro_torch import sparse as tsp
 from repro_torch.launch import serve
 from repro_torch.serving import StreamingSVMService
@@ -539,30 +541,103 @@ def test_versions_rise_by_one_a_swap_under_interleaved_readers(cfgs,
 # what is left out, and the serve mode
 # ---------------------------------------------------------------------------
 
+_FIRES = []
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(checkpoint_dir="/nonexistent"), 9),
-    (dict(checkpoint_every_waves=1), 9), (dict(checkpoint_keep=3), 9),
+    (dict(checkpoint_dir="ck"), 9),
+    (dict(checkpoint_every_waves=2), 9), (dict(checkpoint_keep=1), 9),
     (dict(fold_deadline_s=1.0), 9), (dict(heartbeat_path="hb.json"), 9),
-    (dict(watchdog_handler=print), 9), (dict(fail_on_retrace=True), 12),
+    (dict(watchdog_handler=_FIRES.append), 9),
+    (dict(fail_on_retrace=True), 12),
     (dict(cluster=object()), 10), (dict(shuffle_impl="ring"), 7)])
-def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        StreamingSVMService(cfgs[1], device="cpu", **kw)
+def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item,
+                                                    tmp_path):
+    """The arguments of ROADMAP Queue 1 items 7, 10 and 12 raise naming
+    their item. Those of item 9 (checkpoints and the fold watchdog), ported
+    since, are accepted and take effect."""
+    if item != 9:
+        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+            StreamingSVMService(cfgs[1], device="cpu", **kw)
+        return
+    name = next(iter(kw))
+    # every item-9 argument is exercised beside what it needs to act
+    ck = str(tmp_path / "ck")
+    extra = {"checkpoint_dir": {},
+             "checkpoint_every_waves": {"checkpoint_dir": ck},
+             "checkpoint_keep": {"checkpoint_dir": ck},
+             "fold_deadline_s": {"watchdog_handler": _FIRES.append},
+             "heartbeat_path": {"fold_deadline_s": 60.0},
+             "watchdog_handler": {"fold_deadline_s": 1.0}}[name]
+    kw = {k: str(tmp_path / v) if k in ("checkpoint_dir", "heartbeat_path")
+          else v for k, v in kw.items()}
+    svc = StreamingSVMService(cfgs[1], num_partitions=L, device="cpu",
+                              **kw, **extra)
+    X0, y0 = _sep_data(0, 128)
+    svc.register("t", T.fit_mapreduce(X0, y0, L, cfgs[1], device="cpu"))
+    _FIRES.clear()
+    if name in ("fold_deadline_s", "watchdog_handler"):
+        # a stalled fold trips the deadline; the fold still publishes
+        svc.submit("t", *_sep_data(1, 64))
+        with faults.inject(faults.FaultPlan.single("stall", 0)):
+            with pytest.raises(faults.FaultDetected, match="wave 0 fold"):
+                svc.run_wave()
+        assert svc.snapshot("t").version == 1 and svc.pending() == 0
+        assert len(_FIRES) == 1 and _FIRES[0]["layer"] == "serving"
+        assert svc.throughput_report()["watchdog_fires"] == 1
+        return
+    for wave in (1, 2):
+        svc.submit("t", *_sep_data(wave, 64))
+        assert svc.run_wave() is not None
+    assert svc.snapshot("t").version == 2
+    man = (json.load(open(os.path.join(ck, "service_manifest.json")))
+           if os.path.isdir(ck) else {})
+    gens = [g["generation"] for g in man.get("generations", [])]
+    files = sorted(os.listdir(ck)) if os.path.isdir(ck) else []
+    if name == "checkpoint_dir":
+        # register, then each wave; the default keeps all three
+        assert gens == [0, 1, 2]
+        r = StreamingSVMService.restore(cfgs[1], ck, device="cpu")
+        assert r.snapshot("t").version == 2
+    elif name == "checkpoint_every_waves":
+        assert gens == [0, 1]                 # register, then wave 2 only
+    elif name == "checkpoint_keep":
+        assert files == ["gen000002_stream0.npz", "service_manifest.json"]
+    else:
+        hb = json.load(open(kw["heartbeat_path"]))
+        assert hb["status"] == "alive" and hb["cause"] == "wave 1 fold"
 
 
-def test_left_out_methods_and_flags_raise_naming_their_item(cfgs):
+def test_left_out_methods_and_flags_raise_naming_their_item(cfgs, tmp_path,
+                                                            capsys):
+    """checkpoint() and restore() are ported (ROADMAP Queue 1 item 9), as
+    are the serve mode's checkpoint and watchdog flags: a smoke run with
+    them, then one restored from its directory. The cluster flags (item
+    10) and --shuffle (item 7) still raise naming their item."""
     svc = StreamingSVMService(cfgs[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(RuntimeError, match="without checkpoint_dir"):
         svc.checkpoint()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        StreamingSVMService.restore(cfgs[1], "/nonexistent")
-    base = ["--arch", "svm-tfidf", "--smoke", "--device", "cpu"]
-    for flags, item in ((["--checkpoint-dir", "ck"], 9), (["--restore"], 9),
-                        (["--checkpoint-every", "2"], 9),
-                        (["--checkpoint-keep", "2"], 9),
-                        (["--fold-deadline", "5"], 9),
-                        (["--heartbeat", "hb"], 9),
-                        (["--coordinator", "localhost:1"], 10),
+    with pytest.raises(FileNotFoundError, match="no service manifest"):
+        StreamingSVMService.restore(cfgs[1], str(tmp_path / "none"))
+    base = ["--arch", "svm-tfidf", "--smoke", "--device", "cpu",
+            "--streams", "2", "--checkpoint-dir", str(tmp_path / "ck")]
+    first = serve.main(base + ["--waves", "1", "--checkpoint-every", "1",
+                               "--checkpoint-keep", "2",
+                               "--fold-deadline", "120",
+                               "--heartbeat", str(tmp_path / "hb.json")])
+    assert first.service.fold_deadline_s == 120.0
+    assert json.load(open(tmp_path / "hb.json"))["status"] == "alive"
+    again = serve.main(base + ["--waves", "1", "--restore"])
+    out = capsys.readouterr().out
+    assert "restored 2 streams" in out and out.count("folded acc=") == 2
+    for s in range(2):
+        a = first.service.snapshot(f"stream{s}")
+        b = again.service.snapshot(f"stream{s}")
+        assert b.version == a.version + 1
+    with pytest.raises(SystemExit, match="--restore requires"):
+        serve.main(["--arch", "svm-tfidf", "--smoke", "--device", "cpu",
+                    "--restore"])
+    for flags, item in ((["--coordinator", "localhost:1"], 10),
                         (["--num-processes", "2"], 10),
                         (["--process-id", "0"], 10),
                         (["--shuffle", "hier"], 7)):
