@@ -141,7 +141,25 @@ Phases, one line or block each; any failure exits non-zero:
    tinyllama-1.1b's width, bf16, batch 4, cache 512, 10 requests; every
    ``flash_decode`` launch on the tensor-core route, one step's calls
    against plain). Each kernel row's ``launches`` is its main path's
-   count; ``launches_by_path`` adds these paths' counts beside it.
+   count; ``launches_by_path`` adds these paths' counts beside it;
+10. slice 12, the sharded round (``build_sharded_round`` on
+   ``torch.distributed``): after ``[chaos]`` (whose four transport
+   scenarios run on 8 ranks), ``[sharded-small]`` (the golden rows on 8
+   ranks sharing the card over gloo: allgather, ring and hier × dense,
+   blocked-CSR and ``use_gram`` rows with psum, and on dense rows with
+   tree, each ≡ the functional round on the card, ring and hier ≡
+   allgather bit for bit;
+   then W = 1 on NCCL, a round of each transport under
+   ``set_sync_debug_mode("error")``); after phase 7b, ``[sharded-full]``
+   (svm-tfidf at full width, 8 ranks × 8192 rows, each making only its
+   own rows, dense bf16 and blocked-CSR rows on ``ring`` and
+   ``allgather``, 3 rounds each: SV ids and α bit for bit with 3
+   functional rounds on the same rows, risks within 1e-5; a round-0
+   solve and hinge_scores call of each format (ranks 0 and 1) against
+   plain; round ms split
+   into solve, merge and eq. 7, the bytes a rank ships), whose launches
+   over the ranks go into ``launches_by_path["sharded-full"]``.
+   ``--sharded`` runs only these two phases after the build.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
@@ -3702,12 +3720,13 @@ def phase_nan_small(torch, ops, ref, sp):
 
 
 def phase_chaos(torch):
-    """``repro_torch.faults.chaos`` on the card: the seven scenarios that
-    need no mesh, seeds 0, 1 and 2, each against the reference's outcome
-    (survived bit for bit, or detected and named); a delayed or retried
-    round launches what a clean one does (checked inside the scenarios
-    from ``ops.ROUTE_LAUNCHES``). The transport and cluster scenarios
-    wait for ROADMAP Queue 1 items 7 and 10."""
+    """``repro_torch.faults.chaos`` on the card: eleven scenarios, seeds
+    0, 1 and 2, each against the reference's outcome (survived bit for
+    bit, or detected and named); a delayed or retried round launches
+    what a clean one does (checked inside the scenarios from
+    ``ops.ROUTE_LAUNCHES``). The four transport scenarios run the sharded
+    round on 8 ranks sharing the card over gloo, every seed's in one
+    spawn. The cluster scenario waits for ROADMAP Queue 1 item 10."""
     from repro_torch.faults import chaos
     t0 = time.perf_counter()
     rows = chaos.sweep([0, 1, 2], DEV)
@@ -3717,7 +3736,7 @@ def phase_chaos(torch):
     say(f"[chaos] {len(rows)} scenario runs in "
         f"{time.perf_counter() - t0:.1f} s; waiting: "
         + ", ".join(f"{k} (item {v})" for k, v in chaos.WAITING.items()))
-    check(len(rows) == 21 and all(r[4] for r in rows),
+    check(len(rows) == 33 and all(r[4] for r in rows),
           f"[chaos] violated: {[r[:4] for r in rows if not r[4]]}")
 
 
@@ -3937,6 +3956,479 @@ def phase_stream_ckpt(torch, T, ops):
 # --variants: build variants of flash_decode, cd_solve and cd_solve/sparse,
 # each a copy of the shipped source with (old, new) text replacements,
 # timed at the main path's shapes through the shipped launchers.
+# ---------------------------------------------------------------------------
+# slice 12: the sharded round on torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_TRANSPORTS = (("allgather", None), ("ring", None), ("hier", 2))
+# the reference's own tolerances (tests/test_sharded_round.py)
+SHARDED_RTOL, SHARDED_ATOL = 1e-4, 1e-5
+SV_FIELDS = ("ids", "mask", "alpha", "y", "x", "w", "b")
+
+
+def _leaves(v):
+    return v if isinstance(v, tuple) else (v,)
+
+
+def _same_np(a, b) -> bool:
+    import numpy as np
+    return all(np.array_equal(u, w, equal_nan=True)
+               for u, w in zip(_leaves(a), _leaves(b)))
+
+
+def _replicated(per_rank, i, tag):
+    """Case ``i``'s outputs on every rank equal rank 0's bit for bit."""
+    ref0 = per_rank[0]["cases"][i]
+    for r, res in enumerate(per_rank[1:], 1):
+        got = res["cases"][i]
+        check(all(_same_np(a, b) for k in ref0 for a, b in zip(ref0[k],
+                                                              got[k])),
+              f"[{tag}] rank {r}'s outputs differ from rank 0's")
+
+
+def _functional_rounds(torch, T, X, y, L, cfg, rounds):
+    """The port's functional round on the card over ``rounds`` rounds:
+    per round (risks, ids, mask, alpha) as numpy."""
+    from repro_torch import sparse as sp
+    n, d = X.shape
+    per = n // L
+    Xp = X.reshape(L, per, d)
+    yp = y.to(X.dtype).reshape(L, per)
+    mp = torch.ones_like(yp)
+    sv = T.init_sv_buffer(cfg.sv_capacity, d, X.dtype, DEV,
+                          nnz_cap=X.nnz_cap if sp.is_sparse(X) else None)
+    out = []
+    for _ in range(rounds):
+        res = T.mapreduce_round(Xp, yp, mp, sv, cfg)
+        sv = res.sv
+        out.append(tuple(t.float().cpu().numpy() if t.is_floating_point()
+                         else t.cpu().numpy()
+                         for t in (res.risks, sv.ids, sv.mask, sv.alpha)))
+    return out
+
+
+def _hold_to_functional(per_rank, i, want, tag):
+    """Rank 0's case ``i`` against the functional rounds ``want``: SV ids
+    and mask equal, α and risks within the reference's rtol / atol.
+    → max |Δ risk|."""
+    import numpy as np
+    got = per_rank[0]["cases"][i]
+    worst = 0.0
+    for t, (risks, ids, mask, alpha) in enumerate(want):
+        check(np.array_equal(got["ids"][t], ids)
+              and np.array_equal(got["mask"][t], mask),
+              f"[{tag}] round {t}: SV ids or mask differ from the "
+              "functional round")
+        for what, a, b in (("alpha", got["alpha"][t], alpha),
+                           ("risks", got["risks"][t], risks)):
+            ok = np.allclose(a, b, rtol=SHARDED_RTOL, atol=SHARDED_ATOL)
+            check(ok, f"[{tag}] round {t}: {what} differ from the functional "
+                  f"round by {float(np.abs(a - b).max()):.2e}")
+        worst = max(worst, float(np.abs(got["risks"][t] - risks).max()))
+    return worst
+
+
+def _packed_vs_allgather(per_rank, names, tag):
+    """Each ring / hier case ≡ its allgather case (wire dtype = data
+    dtype): SV buffer, w and b bit for bit; risks within 1e-6 relative.
+    → whether every packed case's risks were also bit for bit."""
+    import numpy as np
+    all_bits = True
+    for i, name in enumerate(names):
+        parts = name.split("-")
+        if parts[1] not in ("ring", "hier"):
+            continue
+        j = names.index("-".join([parts[0], "allgather"] + parts[2:]))
+        a, b = per_rank[0]["cases"][i], per_rank[0]["cases"][j]
+        picks = [(int(np.argmin(u)), int(np.argmin(v)))
+                 for u, v in zip(a["risks"], b["risks"])]
+        for k in SV_FIELDS:
+            check(all(_same_np(u, v) for u, v in zip(a[k], b[k])),
+                  f"[{tag}] {name}: {k} differs from allgather's (picks "
+                  f"by round {picks})")
+        for u, v in zip(a["risks"], b["risks"]):
+            check(np.allclose(u, v, rtol=1e-6, atol=0),
+                  f"[{tag}] {name}: risks differ from allgather's")
+        all_bits &= all(np.array_equal(u, v) for u, v in zip(a["risks"],
+                                                             b["risks"]))
+    return all_bits
+
+
+def phase_sharded_small(torch, T, text):
+    """``[sharded-small]``: the sharded round (``build_sharded_round``)
+    at the golden size (the golden pipeline's 768 training rows × 1024
+    features, sv_capacity 128) on 8 ranks sharing the card over gloo:
+    allgather, ring and hier (2 simulated hosts) × dense, blocked-CSR
+    (``nnz_cap`` 32) and ``use_gram`` rows (dense ``gram``; blocked-CSR
+    ``sparse_gram``) with the psum readback, and the three transports on
+    dense rows with the tree readback, 3 rounds each, every rank's
+    outputs the same; each held to the port's functional ``mapreduce_round`` on
+    the card (SV ids and mask equal, α and risks within 1e-4 / 1e-5); an
+    f32 wire, so ring and hier ≡ allgather bit for bit (SV buffer and
+    hypothesis); a ring message garbled on one rank alone, which must
+    give +inf risks on every rank; then W = 1 on NCCL, round 1 of each
+    transport under ``set_sync_debug_mode("error")``. → launches by
+    route, summed over the ranks of the 8-rank run."""
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.launch.sharded import Case, run_cases
+    corpus = text.generate(text.CorpusConfig(num_messages=1024,
+                                             classes=(-1, 1), seed=0))
+    Xd, _ = text.fit_transform(text.vectorize(corpus.texts, 1024),
+                               device="cpu")
+    Xs, _ = text.fit_transform(
+        text.vectorize_sparse(corpus.texts, 1024, nnz_cap=32), device="cpu")
+    Xd = Xd[:768].numpy()
+    Xs = (Xs.indices[:768].numpy(), Xs.values[:768].numpy(), 1024)
+    y = np.asarray(corpus.labels[:768], np.float32)
+    lin = dict(C=1.0, max_epochs=15)
+    fmts = {"dense": (Xd, {}),
+            "sparse": (Xs, dict(row_format="sparse_csr", nnz_cap=32)),
+            "gram": (Xd, dict(use_gram=True, gram_impl="pallas")),
+            "sparse_gram": (Xs, dict(use_gram=True, row_format="sparse_csr",
+                                     nnz_cap=32, gram_impl="pallas_sparse"))}
+    cases = []
+    for conv in ("psum", "tree"):
+        for impl, hosts in SHARDED_TRANSPORTS:
+            for fmt, (X, svm) in fmts.items():
+                if conv == "tree" and fmt != "dense":   # the readback is
+                    continue                            # format-blind
+                cfg = T.MRSVMConfig(
+                    sv_capacity=128, shuffle_impl=impl, converge_impl=conv,
+                    hier_num_hosts=hosts, shuffle_wire_dtype="float32",
+                    svm=T.SVMConfig(**lin, **svm))
+                cases.append(Case(f"{fmt}-{impl}-{conv}", cfg, X, y))
+    names = [c.name for c in cases]
+    # one rank's received ring message garbled: every rank must see +inf
+    garble = Case("garble-ring-r3", T.MRSVMConfig(
+        sv_capacity=128, shuffle_impl="ring", shuffle_wire_dtype="float32",
+        shuffle_wire_check=True, svm=T.SVMConfig(**lin)), Xd, y, rounds=1,
+        garble=(3, 0))
+    t0 = time.perf_counter()
+    per_rank = compat.spawn(run_cases, 8, (cases + [garble],), device="cuda",
+                            timeout_s=300.0, join_timeout_s=600.0)
+    secs = time.perf_counter() - t0
+    check(all(r["modules"] == [] for r in per_rank),
+          "[sharded-small] a rank imported JAX or the reference")
+    check(all(r["backend"] == "gloo" for r in per_rank),
+          "[sharded-small] 8 ranks on one card must share it over gloo")
+    lone = [r["cases"][len(cases)]["risks"][0] for r in per_rank]
+    check(all(np.isposinf(x).all() for x in lone),
+          f"[sharded-small] a message garbled on rank 3 alone left finite "
+          f"risks on some rank: {lone}")
+    routes = {}
+    for r in per_rank:
+        for k, v in r["routes"].items():
+            routes[k] = routes.get(k, 0) + v
+    routes = {k: v for k, v in routes.items() if v}
+    yt = torch.from_numpy(y).to(DEV)
+    want = {}
+    for fmt, (X, svm) in fmts.items():
+        cfg = T.MRSVMConfig(sv_capacity=128, svm=T.SVMConfig(**lin, **svm))
+        rows = (sp_rows(torch, X) if isinstance(X, tuple)
+                else torch.from_numpy(X).to(DEV))
+        want[fmt] = _functional_rounds(torch, T, rows, yt, 8, cfg, 3)
+    worst = 0.0
+    for i, name in enumerate(names):
+        _replicated(per_rank, i, f"sharded-small {name}")
+        worst = max(worst, _hold_to_functional(
+            per_rank, i, want[name.split("-")[0]], f"sharded-small {name}"))
+    bits = _packed_vs_allgather(per_rank, names, "sharded-small")
+    for i, name in enumerate(names):
+        if name.endswith("-tree"):
+            j = names.index(name[:-4] + "psum")
+            a, b = per_rank[0]["cases"][i], per_rank[0]["cases"][j]
+            check(all(_same_np(u, v) for k in ("ids", "x", "alpha", "w")
+                      for u, v in zip(a[k], b[k])),
+                  f"[sharded-small] {name}: differs from psum")
+    p = per_rank[3]["probe"]
+    check(p["index"] == 3 and np.isnan(p["pmax"][1])
+          and np.array_equal(p["ring"], np.arange(3) + 20.0),
+          f"[sharded-small] collective probe on rank 3: {p}")
+    check(len(cases) == 15, f"[sharded-small] {len(cases)} cases")
+    say(f"[sharded-small] {len(cases)} cases × 3 rounds on 8 ranks sharing "
+        f"the card over gloo in {secs:.1f} s (spawn included): every rank "
+        "the same, each ≡ the functional round (SV ids, mask; α and risks "
+        f"within 1e-4/1e-5, max |ΔR| {worst:.2e}), ring and hier ≡ "
+        f"allgather bit for bit (risks too: {bits}), tree ≡ psum; launches "
+        f"by route over the ranks {routes}; a ring message garbled on "
+        "rank 3 alone gave +inf risks on all 8")
+    check(routes.get("cd_solve/single", 0) > 0
+          and routes.get("cd_solve/sparse", 0) > 0
+          and routes.get("cd_solve_gram/single", 0)
+          + routes.get("cd_solve_gram/cluster", 0) > 0
+          and routes.get("hinge_scores/simt", 0) > 0
+          and routes.get("hinge_scores/sparse", 0) > 0,
+          f"[sharded-small] a kernel of the path never launched: {routes}")
+
+    # --- W = 1 on NCCL, a round of each transport with no host sync ---
+    # hier_num_hosts None: the hosts of the group (one), counted when the
+    # round is built
+    one = [Case(f"dense-{impl}-psum", T.MRSVMConfig(
+        sv_capacity=128, shuffle_impl=impl, shuffle_wire_dtype="float32",
+        svm=T.SVMConfig(**lin)), Xd, y, sync_check_round=1)
+        for impl, _ in SHARDED_TRANSPORTS]
+    t0 = time.perf_counter()
+    res = compat.spawn(run_cases, 1, (one,), device="cuda",
+                       timeout_s=120.0, join_timeout_s=300.0)
+    secs = time.perf_counter() - t0
+    check(res[0]["backend"] == "nccl",
+          f"[sharded-small] W = 1 ran on {res[0]['backend']}, not NCCL")
+    cfg = T.MRSVMConfig(sv_capacity=128, svm=T.SVMConfig(**lin))
+    w1 = _functional_rounds(torch, T, torch.from_numpy(Xd).to(DEV), yt, 1,
+                            cfg, 3)
+    names1 = [c.name for c in one]
+    for i, name in enumerate(names1):
+        _hold_to_functional(res, i, w1, f"sharded-small W=1 nccl {name}")
+    _packed_vs_allgather(res, names1, "sharded-small W=1 nccl")
+    say(f"[sharded-small] W = 1 on NCCL ({secs:.1f} s with the spawn): "
+        "allgather, ring and hier ≡ the functional round (L = 1), ring and "
+        "hier ≡ allgather bit for bit, round 1 of each under "
+        "set_sync_debug_mode('error') with no host sync; launches "
+        f"{ {k: v for k, v in res[0]['routes'].items() if v} }")
+    return routes
+
+
+def sp_rows(torch, X):
+    """``(indices, values, d)`` numpy → ``SparseRows`` on the card."""
+    from repro_torch.convert import rows_from_numpy
+    return rows_from_numpy(X, DEV)
+
+
+@contextlib.contextmanager
+def _timed(torch, ops, acc, keep=None):
+    """While the block runs, ``ops.cd_solve`` and ``ops.hinge_scores``
+    run as shipped between two ``torch.cuda.synchronize`` and add their
+    seconds to ``acc[name]``; ``keep(name, args, kwargs, out)`` sees
+    each call."""
+    shipped = {n: getattr(ops, n) for n in ("cd_solve", "hinge_scores")}
+
+    def wrap(name):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = shipped[name](*a, **kw)
+            torch.cuda.synchronize()
+            acc[name] += time.perf_counter() - t0
+            if keep is not None:
+                keep(name, a, kw, out)
+            return out
+        return run
+    for n in shipped:
+        setattr(ops, n, wrap(n))
+    try:
+        yield acc
+    finally:
+        for n, f in shipped.items():
+            setattr(ops, n, f)
+
+
+SHARDED_FULL_ROUNDS = 3
+
+
+def _sharded_full_cfg(T, fmt, impl):
+    from repro_torch.configs import SVM_TFIDF
+    svm = dict(C=SVM_TFIDF.C, max_epochs=SVM_TFIDF.max_epochs)
+    if fmt == "sparse":
+        svm.update(row_format="sparse_csr", nnz_cap=SVM_TFIDF.nnz_cap)
+    return T.MRSVMConfig(sv_capacity=SVM_TFIDF.sv_capacity, gamma=1e-4,
+                         shuffle_impl=impl, svm=T.SVMConfig(**svm))
+
+
+def _sharded_full_rank(rank, rounds):
+    """``[sharded-full]`` on one rank: its own 8192 rows of the
+    svm-tfidf data (dense bf16, then blocked-CSR ``nnz_cap`` 256 with
+    bf16 values), made here by ``svm_rows_device`` /
+    ``svm_rows_sparse_device`` with its process index; ``rounds`` rounds
+    on ``ring`` (the config's transport, bf16 wire), then on
+    ``allgather``, each round timed and split into the solve, eq. 7 and
+    the rest (the merge: collectives, staging, assembly). Rank 0 records
+    its round-0 solve and first hinge_scores call of the dense ring case,
+    rank 1 those of the blocked-CSR ring case; each holds them to the
+    plain versions after the last case, so that the two plain solves
+    (~45 s each at this shape) run at once. → per case: per round ids,
+    α, risks, the split, the bytes a rank ships; launches by route of
+    the rounds."""
+    import torch
+    import repro_torch.core as T
+    from repro_torch import sparse as sp
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.core import mapreduce_svm as mr
+    from repro_torch.data.pipeline import (svm_rows_device,
+                                           svm_rows_sparse_device)
+    from repro_torch.kernels import ops, ref
+    L, per, d = rank.world_size, SVM_TFIDF.rows_per_device, \
+        SVM_TFIDF.num_features
+    dev = rank.device
+    shard = dict(device=dev, process_index=rank.rank,
+                 process_count=rank.world_size)
+    out = {"cases": {}, "routes": {}}
+    checks = []
+    for fmt in ("dense", "sparse"):
+        if fmt == "dense":
+            X, y = svm_rows_device(L * per, d, seed=0, dtype=torch.bfloat16,
+                                   **shard)
+        else:
+            X, y = svm_rows_sparse_device(L * per, d, SVM_TFIDF.nnz_cap,
+                                          seed=0, nnz=SVM_TFIDF.nnz_cap,
+                                          dtype=torch.bfloat16, **shard)
+        m = torch.ones_like(y)
+        for impl in ("ring", "allgather"):
+            cfg = _sharded_full_cfg(T, fmt, impl)
+            fn = T.build_sharded_round(cfg, per, device=dev)
+            sv = T.init_sv_buffer(cfg.sv_capacity, d, torch.bfloat16, dev,
+                                  nnz_cap=X.nnz_cap if sp.is_sparse(X)
+                                  else None)
+            record = impl == "ring" and rank.rank == ("dense",
+                                                      "sparse").index(fmt)
+            calls = {}
+
+            def keep(name, a, kw, o):
+                if record and name not in calls:
+                    calls[name] = (_job_slice(torch, sp, a, kw, o,
+                                              slice(0, 1))
+                                   if name == "cd_solve"
+                                   else _hinge_call(a, o))
+            res = {k: [] for k in ("ids", "alpha", "risks", "solve_ms",
+                                   "eq7_ms", "merge_ms", "round_ms")}
+            before = dict(ops.ROUTE_LAUNCHES)
+            for t in range(rounds):
+                acc = {"cd_solve": 0.0, "hinge_scores": 0.0}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _timed(torch, ops, acc, keep if t == 0 else None):
+                    sv, risks, w, b = fn(X, y, m, sv)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                res["round_ms"].append(ms)
+                res["solve_ms"].append(1e3 * acc["cd_solve"])
+                res["eq7_ms"].append(1e3 * acc["hinge_scores"])
+                res["merge_ms"].append(ms - 1e3 * (acc["cd_solve"]
+                                                   + acc["hinge_scores"]))
+                res["ids"].append(sv.ids.cpu().numpy())
+                res["alpha"].append(sv.alpha.float().cpu().numpy())
+                res["risks"].append(risks.cpu().numpy())
+            for k, v in ops.ROUTE_LAUNCHES.items():
+                out["routes"][k] = out["routes"].get(k, 0) + v - before[k]
+            k = cfg.sv_capacity // L
+            if impl == "ring":
+                _, wslots = mr.pack_wire_rows(X[:1], cfg.shuffle_wire_dtype)
+                lanes = k * wslots + 4 * k + d + 1
+                res["msg_bytes"] = 4 * lanes
+                res["rows_bytes"] = 4 * k * wslots
+                res["sent_bytes"] = (L - 1) * 4 * lanes
+            else:
+                xb = (k * X.nnz_cap * 6 if sp.is_sparse(X) else k * d * 2)
+                res["msg_bytes"] = xb + k * (2 + 4 + 2 + 4) + 4 * d + 4
+                res["rows_bytes"] = xb
+                res["sent_bytes"] = (L - 1) * res["msg_bytes"]
+            if record:
+                checks.append((fmt, calls))
+            out["cases"][f"{fmt}-{impl}"] = res
+            del fn, sv
+        del X, y, m
+        torch.cuda.empty_cache()
+    for fmt, calls in checks:
+        tag = f"sharded-full {fmt} rank {rank.rank}"
+        _solve_vs_plain(torch, ref, sp, calls["cd_solve"], tag)
+        _hinge_vs_plain(torch, ref, calls["hinge_scores"], tag)
+    return out
+
+
+def phase_sharded_full(torch, T):
+    """``[sharded-full]``: configs/svm_tfidf.py at full width on 8 ranks
+    × 8192 rows × d = 131072 sharing the card over gloo (a cut: one
+    card; NCCL needs a card a rank): dense bf16 rows and the config's
+    blocked-CSR rows (``nnz_cap`` 256, bf16 values), on ``ring`` (bf16
+    wire) and ``allgather``, 3 rounds each, each rank making only its own
+    rows. Held to 3 functional rounds on the same rows, run first here
+    and freed before the spawn: SV ids equal each round, α bit for bit,
+    risks within 1e-5 relative. → launches by kernel row over the ranks."""
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import (svm_rows_device,
+                                           svm_rows_sparse_device)
+    L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
+    want = {}
+    t0 = time.perf_counter()
+    for fmt in ("dense", "sparse"):
+        if fmt == "dense":
+            X, y = svm_rows_device(L * per, d, seed=0, dtype=torch.bfloat16,
+                                   device=DEV)
+        else:
+            X, y = svm_rows_sparse_device(L * per, d, SVM_TFIDF.nnz_cap,
+                                          seed=0, nnz=SVM_TFIDF.nnz_cap,
+                                          dtype=torch.bfloat16, device=DEV)
+        want[fmt] = _functional_rounds(torch, T, X, y, L, _sharded_full_cfg(
+            T, fmt, "allgather"), SHARDED_FULL_ROUNDS)
+        del X, y
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    say(f"[sharded-full] the functional reference, dense and blocked-CSR, "
+        f"{SHARDED_FULL_ROUNDS} rounds each: {time.perf_counter() - t0:.1f} "
+        "s; its rows freed")
+    t0 = time.perf_counter()
+    per_rank = compat.spawn(_sharded_full_rank, L, (SHARDED_FULL_ROUNDS,),
+                            device="cuda", timeout_s=600.0,
+                            join_timeout_s=900.0)
+    say(f"[sharded-full] 8 ranks × 4 cases × {SHARDED_FULL_ROUNDS} rounds "
+        f"in {time.perf_counter() - t0:.1f} s (the spawn and each rank's "
+        "rows included)")
+    routes = {}
+    for r in per_rank:
+        for k, v in r["routes"].items():
+            if v:
+                routes[k] = routes.get(k, 0) + v
+    for case in per_rank[0]["cases"]:
+        fmt = case.split("-")[0]
+        for r, res in enumerate(per_rank):
+            got = res["cases"][case]
+            for t, (risks, ids, mask, alpha) in enumerate(want[fmt]):
+                rel = float(np.abs(got["risks"][t] - risks).max()
+                            / np.abs(risks).max())
+                check(np.array_equal(got["ids"][t], ids),
+                      f"[sharded-full] {case} rank {r} round {t}: SV ids "
+                      "differ from the functional round")
+                check(np.array_equal(got["alpha"][t], alpha),
+                      f"[sharded-full] {case} rank {r} round {t}: α not "
+                      "bit for bit with the functional round")
+                check(rel <= 1e-5, f"[sharded-full] {case} rank {r} round "
+                      f"{t}: risks differ by {rel:.2e} relative")
+        r0 = per_rank[0]["cases"][case]
+        for t in range(SHARDED_FULL_ROUNDS):
+            split = {k: [round(res["cases"][case][k][t], 1)
+                         for res in per_rank]
+                     for k in ("round_ms", "solve_ms", "merge_ms", "eq7_ms")}
+            say(f"[sharded-full] {case} round {t}: R_emp "
+                f"{float(r0['risks'][t].min()):.6f}, |SV| "
+                f"{int((r0['ids'][t] >= 0).sum())}; ms by rank: "
+                + json.dumps(split))
+        say(f"[sharded-full] {case}: a rank ships "
+            f"{r0['sent_bytes'] / 1e6:.2f} MB a round ({r0['msg_bytes'] / 1e6:.3f} "
+            f"MB a message, {r0['rows_bytes'] / 1e6:.3f} MB of it feature "
+            "rows); SV ids and α bit for bit, risks within 1e-5 of the "
+            "functional round on every rank")
+    # the reckoned row lanes of a ring message: k = 2048 / 8 = 256 rows of
+    # d / 2 = 65536 bf16 pairs (dense), or of 128 value pairs + 256 ids
+    k, cap = SVM_TFIDF.sv_capacity // L, SVM_TFIDF.nnz_cap
+    ring = per_rank[0]["cases"]
+    check(ring["dense-ring"]["rows_bytes"] == k * (d // 2) * 4
+          and ring["sparse-ring"]["rows_bytes"] == k * (cap // 2 + cap) * 4,
+          "[sharded-full] the ring message's row lanes are not the "
+          f"reckoned {k} × {d // 2} (dense) and {k} × {cap // 2 + cap} "
+          "(blocked-CSR) lanes")
+    rows = _row_launches(routes)
+    say(f"[sharded-full] launches over the 8 ranks: routes {routes}, by "
+        f"kernel row {rows}")
+    check(rows.get("cd_solve", 0) == 2 * L * SHARDED_FULL_ROUNDS
+          and rows.get("cd_solve/sparse", 0) == 2 * L * SHARDED_FULL_ROUNDS
+          and rows.get("hinge_scores", 0) > 0
+          and rows.get("hinge_scores/sparse", 0) > 0,
+          f"[sharded-full] launches {rows}")
+    return rows
+
+
 def _fd_variant(chunk, warps, stages, l2_hint=True):
     edits = [(f"    FD_TC_CASE({hd})\n", "")      # hd 64 only: a quick build
              for hd in (16, 32, 48, 80, 96, 112, 128)]
@@ -4217,6 +4709,10 @@ def main() -> int:
                     help="time build variants of these kernels (all three "
                     "when none is named) after the kernel build; print no "
                     "result")
+    ap.add_argument("--sharded", action="store_true",
+                    help="run only the sharded round's phases "
+                    "([sharded-small], [sharded-full]) after the kernel "
+                    "build; print no result")
     args = ap.parse_args()
 
     import torch
@@ -4239,6 +4735,13 @@ def main() -> int:
         say(f"[variants] done in {time.perf_counter() - t_all:.1f} s; "
             f"{nvidia_smi()}; no result")
         return 0
+    if args.sharded:
+        phase_sharded_small(torch, T, text)
+        say(f"[sharded-full] launches by kernel row "
+            f"{phase_sharded_full(torch, T)}")
+        say(f"[sharded] done in {time.perf_counter() - t_all:.1f} s; "
+            f"{nvidia_smi()}; no result")
+        return 0
     phase_kernels_small(torch, ops, ref)
     phase_gram_small(torch, ops, ref, sp)
     phase_gram_solve_rows(torch, ops, ref)
@@ -4257,6 +4760,7 @@ def main() -> int:
     phase_stream_smoke(torch, T, ops)
     phase_sched_smoke(torch, ops)
     phase_chaos(torch)
+    phase_sharded_small(torch, T, text)
     torch.cuda.synchronize()
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
@@ -4273,6 +4777,9 @@ def main() -> int:
     torch.cuda.synchronize()
     kernels += phase_full_sparse(torch, T, ops, ref, sp)
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    # slice 12: the sharded round at full width, 8 ranks on this card
+    sharded = phase_sharded_full(torch, T)
     torch.cuda.empty_cache()
     # slice 10's full-width paths: their launches join the kernels' rows
     stream, res = phase_stream_full(torch, T, ops, ref)
@@ -4301,7 +4808,8 @@ def main() -> int:
         row["launches_by_path"] = {
             "main": row["launches"], "stream": stream.get(row["name"], 0),
             "stream_mixed": mixed.get(row["name"], 0),
-            "sched": sched.get(row["name"], 0)}
+            "sched": sched.get(row["name"], 0),
+            "sharded-full": sharded.get(row["name"], 0)}
     torch.cuda.synchronize()
     say(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi())

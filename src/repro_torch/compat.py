@@ -1,0 +1,408 @@
+"""Collectives of the sharded mode over a ``torch.distributed`` group.
+
+The counterpart of the collective half of ``repro/compat.py``: the same
+names (:func:`axis_index`, :func:`psum`, :func:`pmax`,
+:func:`all_gather`, :func:`all_gather_groups`, :func:`ppermute`,
+:func:`ring_shift`, :func:`process_count`) over a ``ProcessGroup`` in
+place of mesh axes. One process is one rank, and a rank holds one
+partition, as one device of the reference's mesh does. ``group=None``
+is the default (world) group.
+
+Backends. NCCL runs every op on device tensors. gloo reads host memory,
+so on a gloo group every op here stages a CUDA tensor through a pinned
+host buffer (one copy to the host before the op, one back after it);
+CPU tensors go as they are. Only the message moves through the host:
+the solve and the scoring stay on the card. The backend is read from
+``dist.get_backend(group)``. 2-byte floats and bools travel as views
+of their bytes, which every backend carries bit for bit.
+
+Semantics follow ``jax.lax``: :func:`ppermute` gives zeros to a rank
+that receives nothing and copies locally on a self pair (i → i);
+:func:`pmax` passes NaN on, as ``lax.pmax`` does (gloo's MAX is
+``std::max``, which drops it, so it is a gather and a local ``amax``).
+
+:func:`spawn` is the one-host counterpart of ``compat.make_mesh``: it
+starts W ranks with ``torch.multiprocessing`` and runs a function on
+each, under a collective time limit and a join time limit of its own.
+"""
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import queue as queue_mod
+import shutil
+import socket
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+
+def _backend(group=None) -> str:
+    return str(dist.get_backend(group)).lower()
+
+
+def _staged(t: torch.Tensor, group=None) -> bool:
+    """Whether ``t`` goes through host memory on ``group``."""
+    return t.is_cuda and _backend(group) == "gloo"
+
+
+_BYTES = (torch.bfloat16, torch.float16, torch.bool)
+
+
+def _wire(t: torch.Tensor) -> torch.Tensor:
+    """The tensor a backend moves: 2-byte floats and bools as a flat
+    uint8 view of their bytes (which every backend carries bit for bit;
+    gloo has no int16), everything else as it is; contiguous."""
+    t = t.contiguous()
+    return t.reshape(-1).view(torch.uint8) if t.dtype in _BYTES else t
+
+
+def _to_host(t: torch.Tensor) -> torch.Tensor:
+    h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    h.copy_(t)
+    return h
+
+
+def _host_like(t: torch.Tensor) -> torch.Tensor:
+    return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+
+
+def _back(h: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``h`` (a :func:`_wire` view, maybe on the host) as ``like``'s
+    dtype, shape and device."""
+    h = h.to(like.device, non_blocking=True)
+    return h.view(like.dtype).reshape(like.shape) \
+        if h.dtype != like.dtype else h
+
+
+def axis_index(group=None) -> int:
+    """This rank's index in ``group`` (the flattened device index)."""
+    return dist.get_rank(group)
+
+
+def axis_size(group=None) -> int:
+    return dist.get_world_size(group)
+
+
+def process_count() -> int:
+    """Processes of the job: one a rank, so the world size."""
+    return dist.get_world_size()
+
+
+def host_count(group=None) -> int:
+    """Hosts of ``group``: its ranks grouped by host name, which must be
+    host-major (the ranks of one host contiguous, the same number on
+    each). A collective: every rank of ``group`` calls it."""
+    names: List[Optional[str]] = [None] * axis_size(group)
+    dist.all_gather_object(names, socket.gethostname(), group=group)
+    hosts = list(dict.fromkeys(names))
+    per = len(names) // len(hosts)
+    if len(names) % len(hosts) or any(
+            names[i] != hosts[i // per] for i in range(len(names))):
+        raise ValueError(f"ranks are not in host-major order: {names}")
+    return len(hosts)
+
+
+def psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum of ``x`` over the ranks (an all-reduce); a new tensor."""
+    if _staged(x, group):
+        h = _to_host(x)
+        dist.all_reduce(h, group=group)
+        return h.to(x.device, non_blocking=True)
+    out = x.clone()
+    dist.all_reduce(out, group=group)
+    return out
+
+
+def _gather_list(x: torch.Tensor, group) -> List[torch.Tensor]:
+    n = axis_size(group)
+    w = _wire(x)
+    if _staged(x, group):
+        w = _to_host(w)
+        outs = [_host_like(w) for _ in range(n)]
+    else:
+        outs = [torch.empty_like(w) for _ in range(n)]
+    dist.all_gather(outs, w, group=group)
+    return [_back(o, x) for o in outs]
+
+
+def all_gather(x: torch.Tensor, group=None, *, tiled: bool = False
+               ) -> torch.Tensor:
+    """Every rank's ``x`` in rank order: stacked on a new leading axis,
+    or with ``tiled`` concatenated along axis 0."""
+    parts = _gather_list(x, group)
+    return torch.cat(parts) if tiled else torch.stack(parts)
+
+
+def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Elementwise max over the ranks; NaN passes on (``lax.pmax``)."""
+    return all_gather(x, group).amax(0)
+
+
+@dataclasses.dataclass
+class Groups:
+    """Subgroups made once, when a round is built: ``handles[i]`` is the
+    ``ProcessGroup`` of group i of a partition of the ranks, ``mine``
+    the index of this rank's group."""
+    handles: List[Any]
+    mine: int
+
+
+_GROUPS: dict = {}
+
+
+def new_groups(groups: Sequence[Sequence[int]], group=None) -> Groups:
+    """A ``ProcessGroup`` for each of ``groups`` (ascending rank lists
+    that partition ``group``). Every rank creates every group, in the
+    same order, as ``dist.new_group`` requires. The groups of one
+    partition of one parent group are made once and reused: every
+    rank builds the same rounds, so every rank hits or misses alike."""
+    groups = [list(g) for g in groups]
+    flat = sorted(r for g in groups for r in g)
+    if flat != list(range(axis_size(group))) or any(
+            g != sorted(g) for g in groups):
+        raise ValueError(f"groups {groups} must partition the ranks in "
+                         "ascending lists")
+    parent = dist.group.WORLD if group is None else group
+    key = (id(parent), tuple(map(tuple, groups)))
+    if key not in _GROUPS or _GROUPS[key][0] is not parent:
+        ranks = (list(range(axis_size(group))) if group is None
+                 else dist.get_process_group_ranks(group))
+        _GROUPS[key] = (parent, [dist.new_group([ranks[r] for r in g])
+                                 for g in groups])
+    me = axis_index(group)
+    mine = next(i for i, g in enumerate(groups) if me in g)
+    return Groups(_GROUPS[key][1], mine)
+
+
+def all_gather_groups(x: torch.Tensor, groups: Groups, *,
+                      tiled: bool = False) -> torch.Tensor:
+    """Grouped all-gather: each rank gathers within its own group of
+    ``groups`` (:func:`new_groups`), in the group's rank order."""
+    return all_gather(x, groups.handles[groups.mine], tiled=tiled)
+
+
+class Pending:
+    """A started :func:`ppermute_start`; :meth:`wait` gives the received
+    tensor on the sender's device."""
+
+    def __init__(self, like: torch.Tensor, works, recv, local):
+        self._like, self._works = like, works
+        self._recv, self._local = recv, local
+
+    def wait(self) -> torch.Tensor:
+        for w in self._works:
+            w.wait()
+        if self._local is not None:
+            return self._local
+        if self._recv is None:
+            return torch.zeros_like(self._like)
+        return _back(self._recv, self._like)
+
+
+def ppermute_start(x: torch.Tensor, perm, group=None) -> Pending:
+    """Start sending ``x`` along ``perm`` (pairs (src, dst) of rank
+    indices in ``group``, each rank at most once a source and once a
+    destination) with ``dist.batch_isend_irecv``; the transfer runs while
+    the caller goes on until :meth:`Pending.wait`."""
+    me = axis_index(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"rank {me} sends or receives twice in {perm}")
+    if dst and dst[0] == me:
+        return Pending(x, [], None, x.clone())
+    staged = _staged(x, group)
+    w = _wire(x)
+    ops, recv = [], None
+    if dst:
+        out = _to_host(w) if staged else w
+        ops.append(dist.P2POp(dist.isend, out, _global(dst[0], group),
+                              group))
+    if src:
+        recv = _host_like(w) if staged else torch.empty_like(w)
+        ops.append(dist.P2POp(dist.irecv, recv, _global(src[0], group),
+                              group))
+    works = dist.batch_isend_irecv(ops) if ops else []
+    return Pending(x, works, recv, None)
+
+
+def _global(r: int, group) -> int:
+    return r if group is None else dist.get_global_rank(group, r)
+
+
+def ppermute(x: torch.Tensor, perm, group=None) -> torch.Tensor:
+    """``lax.ppermute``: rank d gets x of the rank s with (s, d) in
+    ``perm``, zeros if there is none."""
+    return ppermute_start(x, perm, group).wait()
+
+
+def ring_perm(n: int):
+    return [(i, (i + 1) % n) for i in range(n)]
+
+
+def ring_shift(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Each rank's ``x`` to its ring successor: rank i gets rank
+    i − 1 mod N's."""
+    return ppermute(x, ring_perm(axis_size(group)), group)
+
+
+def probe(rank) -> dict:
+    """Each op of this module once on small tensors of ``rank.device``
+    over the world group: a self-check of their semantics that a spawn
+    returns (the tests and the card's smoke run hold it). → numpy
+    results by name."""
+    n, me = rank.world_size, rank.rank
+    dev = rank.device
+    x = torch.arange(3, dtype=torch.float32, device=dev) + 10 * me
+    nan = torch.tensor([float(me), float("nan") if me == n - 1 else 0.0],
+                       device=dev)
+    half = torch.full((2,), me + 0.5, dtype=torch.bfloat16, device=dev)
+    # a partial permutation: 0 → 1, a self pair on the last rank; the
+    # other ranks receive nothing
+    perm = [(0, 1 % n)] + ([(n - 1, n - 1)] if n > 2 else [])
+    groups = new_groups([list(range(n // 2)), list(range(n // 2, n))]
+                        if n > 1 else [[0]])
+    out = {"index": axis_index(), "size": axis_size(),
+           "psum": psum(x), "pmax": pmax(nan),
+           "gather": all_gather(half), "tiled": all_gather(x, tiled=True),
+           "groups": all_gather_groups(x, groups),
+           "ppermute": ppermute(x, perm), "ring": ring_shift(x)}
+    return {k: (v.float().cpu().numpy() if isinstance(v, torch.Tensor)
+                else v) for k, v in out.items()}
+
+
+def rank_sum(rank, skip: Optional[int] = None) -> float:
+    """The sum of the rank indices by one all-reduce; rank ``skip`` never
+    calls it (a partner that does not come: the others' collective then
+    fails within the spawn's limits, it does not hang)."""
+    if rank.rank == skip:
+        return float("nan")
+    return float(psum(torch.tensor([float(rank.rank)],
+                                   device=rank.device))[0])
+
+
+# ---------------------------------------------------------------------------
+# One host: W ranks as processes.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class Rank:
+    """What :func:`spawn` hands the function on each rank."""
+    rank: int
+    world_size: int
+    device: str          # "cpu" or "cuda:<i>"
+    backend: str
+
+
+def choose_backend(world_size: int, device: str) -> str:
+    """NCCL when each rank has a card of its own, gloo otherwise (CPU
+    tensors, or ranks sharing a card)."""
+    if device == "cpu":
+        return "gloo"
+    return "nccl" if world_size <= torch.cuda.device_count() else "gloo"
+
+
+def _rank_main(rank, world, init, backend, device, timeout_s, fn, args,
+               results):
+    torch.set_num_threads(1)
+    dev = "cpu"
+    try:
+        if device != "cpu":
+            ordinal = rank % torch.cuda.device_count()
+            torch.cuda.set_device(ordinal)
+            dev = f"cuda:{ordinal}"
+        dist.init_process_group(
+            backend, init_method=init, world_size=world, rank=rank,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(Rank(rank, world, dev, backend), *args)
+        finally:
+            dist.destroy_process_group()
+        results.put((rank, True, out))
+    except BaseException:
+        # the parent stops every rank on this report; the exit code says
+        # the same to anything else watching the process
+        results.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
+          device: str = "cuda", timeout_s: float = 300.0,
+          join_timeout_s: float = 900.0) -> List[Any]:
+    """Run ``fn(Rank, *args)`` on ``world_size`` new processes (spawn
+    start method), one rank each, and return their results in rank
+    order.
+
+    ``fn`` must be importable by name (a module-level function of a
+    module on ``sys.path``). Ranks rendezvous through a file in a
+    directory of their own, so concurrent spawns never share a port; each
+    calls ``torch.set_num_threads(1)``. ``device="cuda"`` (the default;
+    without a card it raises unless ``device="cpu"``) gives rank r card
+    ``r % device_count``; the backend is :func:`choose_backend`'s. The
+    kernels are built here, before the ranks start, so that no rank runs
+    ``nvcc``.
+    A collective that waits longer than ``timeout_s`` raises on its
+    rank. A rank that raises makes this raise with its traceback; ranks
+    still running after ``join_timeout_s`` are killed and this raises
+    ``TimeoutError``. Either way every rank is stopped first.
+    """
+    import torch.multiprocessing as mp
+    if device != "cpu":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device is available; pass "
+                               "device='cpu' to run the ranks on the CPU")
+        from repro_torch.kernels import build
+        build.build_all()
+    backend = choose_backend(world_size, device)
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    rdzv = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(r, world_size, f"file://{rdzv}/store",
+                               backend, device, timeout_s, fn, tuple(args),
+                               results))
+             for r in range(world_size)]
+    got: dict = {}
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + join_timeout_s
+        while len(got) < world_size:
+            left = deadline - time.monotonic()
+            if left <= 0:
+                raise TimeoutError(
+                    f"ranks {sorted(set(range(world_size)) - set(got))} of "
+                    f"{world_size} still running after {join_timeout_s} s")
+            try:
+                rank, ok, out = results.get(timeout=min(left, 1.0))
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if r not in got and p.exitcode is not None]
+                if dead:
+                    time.sleep(0.5)             # its last message may lag
+                    if results.empty():
+                        raise RuntimeError(
+                            f"rank {dead[0]} exited with code "
+                            f"{procs[dead[0]].exitcode} and no result")
+                continue
+            if not ok:
+                raise RuntimeError(f"rank {rank} of {world_size} failed:\n"
+                                   f"{out}")
+            got[rank] = out
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1.0))
+        return [got[r] for r in range(world_size)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+        for p in procs:
+            if p.pid is not None:
+                p.join(timeout=5.0)
+        results.close()
+        shutil.rmtree(rdzv, ignore_errors=True)

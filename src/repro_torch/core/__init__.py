@@ -6,12 +6,16 @@ from repro_torch.core.svm import (BinarySVM, SolverParams, SVMConfig,
                                   fit_binary_linear, kernel_matrix,
                                   predict_sign, solve_kernel_jobs,
                                   support_mask)
-from repro_torch.core.mapreduce_svm import (CONVERGE_IMPLS, SHUFFLE_IMPLS,
-                                            MapReduceSVM, MRSVMConfig,
-                                            RoundResult, SVBuffer,
+from repro_torch.core.mapreduce_svm import (CONVERGE_IMPLS, PACKED_SHUFFLES,
+                                            SHUFFLE_IMPLS, MapReduceSVM,
+                                            MRSVMConfig, RoundResult,
+                                            SVBuffer, build_sharded_round,
                                             decision_values, fit_mapreduce,
-                                            init_sv_buffer, mapreduce_round,
-                                            predict, sweep_round,
+                                            init_sv_buffer,
+                                            make_sharded_round,
+                                            mapreduce_round, pack_wire_rows,
+                                            predict, resolve_topology,
+                                            sweep_round, unpack_wire_rows,
                                             update_mapreduce)
 from repro_torch.core.multiclass import (OneVsOneSVM, OneVsRestSVM,
                                          confusion_matrix, fit_one_vs_one,
@@ -28,10 +32,12 @@ __all__ = [
     "KernelConfig", "apply_kernel", "BinarySVM", "SolverParams", "SVMConfig",
     "decision_kernel", "decision_linear", "fit_binary", "fit_binary_kernel",
     "fit_binary_linear", "kernel_matrix", "predict_sign", "solve_kernel_jobs",
-    "support_mask", "CONVERGE_IMPLS", "SHUFFLE_IMPLS", "MapReduceSVM",
-    "MRSVMConfig", "RoundResult", "SVBuffer", "decision_values",
-    "fit_mapreduce", "init_sv_buffer", "mapreduce_round", "predict",
-    "sweep_round", "update_mapreduce",
+    "support_mask", "CONVERGE_IMPLS", "PACKED_SHUFFLES", "SHUFFLE_IMPLS",
+    "MapReduceSVM", "MRSVMConfig", "RoundResult", "SVBuffer",
+    "build_sharded_round", "decision_values", "fit_mapreduce",
+    "init_sv_buffer", "make_sharded_round", "mapreduce_round",
+    "pack_wire_rows", "predict", "resolve_topology", "sweep_round",
+    "unpack_wire_rows", "update_mapreduce",
     "OneVsOneSVM", "OneVsRestSVM", "confusion_matrix", "fit_one_vs_one",
     "fit_one_vs_rest", "converged", "empirical_risk", "hinge_loss",
     "zero_one_loss",

@@ -33,8 +33,16 @@ all S·L jobs; :func:`mapreduce_round` is its one-config case. The
 driver carries the reference's fault seams (:mod:`repro_torch.faults`):
 a delayed round, a transiently failing merge retried with backoff, and
 a non-finite risk at the eq. 8 readback raised as
-``FaultDetected("core")``. The sharded mode waits for a later slice
-(ROADMAP Queue 1 item 7).
+``FaultDetected("core")``.
+
+The sharded mode (:func:`build_sharded_round`) runs the round with one
+partition a rank of a ``torch.distributed`` group: each rank solves its
+reducer (one job of the same kernels), the SV merge runs over the
+transport ``cfg.shuffle_impl`` names (``allgather``; ``ring`` and
+``hier`` over the packed wire of :func:`pack_wire_rows`, with the
+integrity lane under ``shuffle_wire_check``), and each rank scores eq. 7
+on its own rows before the convergence collective (``psum`` or
+``tree``) sums the partial risks.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch import faults
 from repro_torch import sparse as sparse_rows
 from repro_torch.core import risk as risk_lib
@@ -58,6 +67,10 @@ from repro_torch.kernels import ops
 # mode; the port validates against the same names as the reference.
 SHUFFLE_IMPLS = ("allgather", "ring", "hier")
 CONVERGE_IMPLS = ("psum", "tree")
+
+# The transports whose wire is the coalesced packed f32 message; they
+# share the hop engine (:func:`_merge_hops`).
+PACKED_SHUFFLES = ("ring", "hier")
 
 
 class SVBuffer(NamedTuple):
@@ -92,8 +105,10 @@ class MRSVMConfig:
     """Driver configuration for the iterative MapReduce SVM.
 
     The transport fields (``shuffle_impl`` … ``shuffle_wire_check``)
-    configure the reference's sharded mode; they are validated here as
-    there and are not read by the functional mode.
+    configure the sharded mode (:func:`build_sharded_round`); the
+    functional mode does not read them. ``sweep_dedup`` and
+    ``dedup_max_unique`` belong to the sharded sweep, which is not
+    ported yet (ROADMAP Queue 1 item 7b).
     """
     sv_capacity: int = 256
     svm: SVMConfig = SVMConfig()
@@ -313,6 +328,64 @@ def sweep_round(Xp, yp: torch.Tensor, maskp: torch.Tensor, sv: SVBuffer,
                        sv_count=new_sv.mask.sum(1))
 
 
+def drive_rounds(step, cfg: MRSVMConfig, *, label: str,
+                 verbose: bool = False):
+    """The host driver of the rounds: rounds until eq. 8
+    (|R_emp(h^{t-1}) − R_emp(h^t)| ≤ γ) fires or ``cfg.max_rounds``,
+    keeping the best hypothesis of eq. 7. Shared by
+    :func:`fit_mapreduce` and the sharded driver
+    (:func:`repro_torch.launch.sharded.fit_sharded`), whose risks are
+    the same on every rank, so every rank stops at the same round.
+
+    ``step(t)`` runs round t and returns ``(risks, hypothesis,
+    sv_count)``: the (L,) risks on the device, ``hypothesis(l) -> (w,
+    b)`` of reducer l, and |SV_global|. Around it sit the transport
+    seams: a delayed round completes late but exactly; a merge that
+    fails transiently is retried with backoff. The injected fault
+    raises before the round launches anything or joins a collective, so
+    a retried round launches what a clean one does; real errors surface
+    at once. A non-finite risk at the readback raises
+    ``FaultDetected``. Each history entry records the round's host-clock
+    ``ms`` (the round ends at the readback, which waits for the device).
+    → ``((risk, w, b) of the best hypothesis, history)``.
+    """
+    best = (np.inf, None, None)
+    prev_risk = np.inf
+    history = []
+    for t in range(cfg.max_rounds):
+        t0 = time.perf_counter()
+        faults.maybe_sleep("transport.round", when=t)
+
+        def run_round():
+            faults.maybe_raise("transport.merge", kinds=("transport_exc",),
+                               when=t)
+            return step(t)
+
+        risks, hypothesis, sv_count = faults.retry_with_backoff(
+            run_round, attempts=3, base_s=0.05,
+            retry_on=faults.TransientFault, layer="transport",
+            cause=f"merge collective at round {t}",
+            action="check inter-host links; a persistent failure means "
+                   "the mesh lost a member — restart from the last "
+                   "checkpoint")
+        risks = risks.cpu().numpy()              # eq. 8's sync point
+        ms = 1e3 * (time.perf_counter() - t0)
+        faults.check_finite_risks(risks, where=f"{label} round {t}")
+        l_star = int(np.argmin(risks))
+        r_star = float(risks[l_star])
+        if r_star < best[0]:
+            best = (r_star, *hypothesis(l_star))
+        history.append({"round": t, "risk": r_star, "reducer": l_star,
+                        "sv_count": int(sv_count), "ms": ms})
+        if verbose:
+            print(f"[{label}-svm] round={t} R_emp={r_star:.5f} "
+                  f"|SV|={int(sv_count)} ms={ms:.1f}")
+        if t > 0 and abs(prev_risk - r_star) <= cfg.gamma:   # eq. 8
+            break
+        prev_risk = r_star
+    return best, history
+
+
 class MapReduceSVM(NamedTuple):
     """Driver output: best reducer hypothesis (eq. 7) + final SV model."""
     w: torch.Tensor          # (d,) best linear hypothesis
@@ -355,48 +428,15 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
     sv = init_sv_buffer(
         cfg.sv_capacity, d, X.dtype, dev,
         nnz_cap=X.nnz_cap if sparse_rows.is_sparse(X) else None)
-    best = (np.inf, None, None)
-    prev_risk = np.inf
-    history = []
-    rounds_done = 0
-    for t in range(cfg.max_rounds):
-        t0 = time.perf_counter()
-        # transport seams: a delayed round completes late but exactly; a
-        # merge that fails transiently is retried with backoff. The
-        # injected fault raises before the round launches anything, so a
-        # retried round launches what a clean one does; real errors
-        # surface at once.
-        faults.maybe_sleep("transport.round", when=t)
 
-        def run_round():
-            faults.maybe_raise("transport.merge", kinds=("transport_exc",),
-                               when=t)
-            return mapreduce_round(Xp, yp, maskp, sv, cfg, params=params)
-
-        out = faults.retry_with_backoff(
-            run_round, attempts=3, base_s=0.05,
-            retry_on=faults.TransientFault, layer="transport",
-            cause=f"merge collective at round {t}",
-            action="check inter-host links; a persistent failure means "
-                   "the mesh lost a member — restart from the last "
-                   "checkpoint")
+    def step(t):
+        nonlocal sv
+        out = mapreduce_round(Xp, yp, maskp, sv, cfg, params=params)
         sv = out.sv
-        risks = out.risks.cpu().numpy()          # eq. 8's sync point
-        ms = 1e3 * (time.perf_counter() - t0)
-        faults.check_finite_risks(risks, where=f"mapreduce round {t}")
-        l_star = int(np.argmin(risks))
-        r_star = float(risks[l_star])
-        if r_star < best[0]:
-            best = (r_star, out.ws[l_star], out.bs[l_star])
-        history.append({"round": t, "risk": r_star, "reducer": l_star,
-                        "sv_count": int(out.sv_count), "ms": ms})
-        rounds_done = t + 1
-        if verbose:
-            print(f"[mapreduce-svm] round={t} R_emp={r_star:.5f} "
-                  f"|SV|={int(out.sv_count)} ms={ms:.1f}")
-        if t > 0 and abs(prev_risk - r_star) <= cfg.gamma:   # eq. 8
-            break
-        prev_risk = r_star
+        return out.risks, lambda l: (out.ws[l], out.bs[l]), out.sv_count
+
+    best, history = drive_rounds(step, cfg, label="mapreduce",
+                                 verbose=verbose)
 
     # Final consolidated model: retrain on SV_global alone (cascade-style).
     solve = solve_linear_jobs if cfg.svm.is_linear else solve_kernel_jobs
@@ -405,7 +445,7 @@ def fit_mapreduce(X, y, num_partitions: int, cfg: MRSVMConfig,
     final = BinarySVM(*(f[0] for f in res))
     return MapReduceSVM(w=best[1], b=best[2], sv=sv, final=final,
                         risk=torch.tensor(best[0], dtype=torch.float32),
-                        rounds=rounds_done, history=tuple(history))
+                        rounds=len(history), history=tuple(history))
 
 
 def predict(model: MapReduceSVM, X, cfg: MRSVMConfig, use_final: bool = True,
@@ -473,3 +513,391 @@ def update_mapreduce(model: MapReduceSVM, X_new, y_new, num_partitions: int,
                       as_tensor(sv.mask, dev, X_new.dtype)])
     return fit_mapreduce(X, y, num_partitions, cfg, mask=mask,
                          params=params, verbose=verbose, device=dev)
+
+
+# ---------------------------------------------------------------------------
+# Sharded mode: one partition a rank of a torch.distributed group.
+# ---------------------------------------------------------------------------
+
+def _round_candidates(Xl, yl, ml, sv: SVBuffer, cfg: MRSVMConfig, group,
+                      idx: int, k: int, per: int,
+                      params: Optional[SolverParams]):
+    """map + reduce + union-fold + balanced top-k of ONE rank.
+
+    The reducer is a 1-job solve over the home rows and SV_global, read
+    through the two pointers of :func:`solve_linear_jobs` /
+    :func:`solve_kernel_jobs` (the augmented rows are never copied).
+    SV rows that arrived in another dtype than the home rows (the wire
+    dtype) are cast to it: they are copies of rows of that dtype, so the
+    cast is exact. → ``(cand, w, b)``: the rank's (k,)-row candidate
+    chunk and its reducer hypothesis.
+    """
+    p = cfg.svm.params() if params is None else params
+    xs = sv.x if sv.x.dtype == Xl.dtype else sv.x.to(dtype=Xl.dtype)
+    y_aug = torch.cat([yl, sv.y.to(yl.dtype)])[None]
+    m_aug = torch.cat([ml, sv.mask.to(ml.dtype)])[None]
+    solve = solve_linear_jobs if cfg.svm.is_linear else solve_kernel_jobs
+    res = BinarySVM(*(f[0] for f in solve(Xl[None], xs, y_aug, m_aug,
+                                          cfg.svm, params)))
+    home_alpha = res.alpha[:per]
+    copy_alpha = res.alpha[per:] * sv.mask.to(res.alpha.dtype)
+
+    # union semantics: fold the max appended-copy α back into the home
+    # rows (buffer row with global id g lives on rank g // per)
+    buf_alpha = compat.pmax(copy_alpha, group)                   # (cap,)
+    mine = (sv.ids >= 0) & (torch.div(sv.ids, per, rounding_mode="floor")
+                            == idx)
+    pos = torch.where(mine, sv.ids % per, 0).long()
+    folded = torch.zeros_like(home_alpha).scatter_reduce_(
+        0, pos, torch.where(mine, buf_alpha, 0.0).to(home_alpha.dtype),
+        "amax", include_self=True)
+    home_alpha = torch.maximum(home_alpha, folded) * ml.to(home_alpha.dtype)
+
+    # balanced top-k: a stable descending sort keeps lax.top_k's order
+    # on ties (the lower index first)
+    topv, topi = torch.sort(home_alpha, descending=True, stable=True)
+    topv, topi = topv[:k], topi[:k]
+    live = (topv > p.sv_threshold).to(Xl.dtype)
+    cand_ids = (idx * per + topi).to(torch.int32)
+    cand = SVBuffer(x=Xl[topi] * live[:, None], y=yl[topi] * live,
+                    alpha=topv * live,
+                    ids=torch.where(live > 0, cand_ids, -1).to(torch.int32),
+                    mask=live)
+    return cand, res.w, res.b
+
+
+def _partials(Xl, yl, ml, W, B, loss: str) -> torch.Tensor:
+    """This rank's eq. 7 loss sums of hypotheses W (m, d), B (m,) over
+    its own rows: ``hinge_scores`` for the hinge (as :func:`_risks`),
+    :func:`decision_linear` for the 0-1 loss. → (m,) float32."""
+    if loss == "hinge":
+        return ops.hinge_scores(Xl, W.float().contiguous(),
+                                B.float().contiguous(), yl.float(),
+                                ml.float())[0]
+    scores = torch.stack([decision_linear(w, b, Xl) for w, b in zip(W, B)],
+                         1)                                      # (per, m)
+    per_ex = risk_lib.zero_one_loss(scores, yl[:, None]).to(scores.dtype)
+    return (per_ex * ml[:, None].to(scores.dtype)).sum(0).float()
+
+
+def _device_risks(part: torch.Tensor, cnt: torch.Tensor, bad: torch.Tensor,
+                  cfg: MRSVMConfig, group, ndev: int) -> torch.Tensor:
+    """eq. 7 empirical risks from this rank's (ndev,) loss sums and row
+    count: the global (Σ loss)/(Σ count), the eq. 8 readback collective.
+    ``"psum"`` is one all-reduce of the combined vector; ``"tree"`` is
+    log2(ndev) recursive-doubling stages of XOR-partner
+    :func:`compat.ppermute`, the partial risks and the count riding one
+    message. NaN passes on through either.
+
+    ``bad`` is this rank's count of failed wire checks (0 without the
+    integrity lane); it rides the same message, so a message garbled on
+    its way to any rank makes every rank's risks +inf (the checksum's
+    sentinel: the driver's readback raises ``FaultDetected
+    ("transport")`` everywhere), though the rank it came from kept a
+    clean copy."""
+    vec = torch.cat([part.float(), cnt.reshape(1).float(),
+                     bad.reshape(1).float()])
+    if cfg.converge_impl == "tree":
+        s = 1
+        while s < ndev:                  # power of two: build-time checked
+            vec = vec + compat.ppermute(
+                vec, [(i, i ^ s) for i in range(ndev)], group)
+            s <<= 1
+    else:
+        vec = compat.psum(vec, group)
+    risks = vec[:-2] / torch.clamp(vec[-2], min=1.0)
+    return torch.where(vec[-1] > 0, torch.full_like(risks, float("inf")),
+                       risks)
+
+
+# the reference's names; the lanes live beside the blocked-CSR wire
+_pack_lanes = sparse_rows.pack_lanes
+_unpack_lanes = sparse_rows.unpack_lanes
+
+
+def pack_wire_rows(x, wire_dt):
+    """Flatten feature rows into f32 lanes for the coalesced packed
+    message. → ``(flat, wslots)`` with ``wslots`` f32 lanes a row.
+
+    Dense rows ship all ``d`` features in the wire dtype, 2-byte values
+    in pairs a lane (:func:`_pack_lanes`). Blocked-CSR rows
+    (``SparseRows``) ship only their ``nnz_cap`` (index, value) pairs a
+    row (:func:`repro_torch.sparse.pack_wire`), so the payload scales
+    with ``nnz_cap``, not ``d``. The lanes equal the reference's
+    ``pack_wire_rows`` bit for bit."""
+    wire_dt = _float_dtype(wire_dt) if isinstance(wire_dt, str) else wire_dt
+    if sparse_rows.is_sparse(x):
+        lanes, wslots = sparse_rows.pack_wire(x, wire_dt)
+        return lanes.reshape(-1), wslots
+    n = x.shape[0]
+    lanes, slots = _pack_lanes(x.to(wire_dt), wire_dt)
+    return lanes.reshape(n * slots), slots
+
+
+def unpack_wire_rows(flat: torch.Tensor, n: int, d: int, wire_dt,
+                     wslots: int, nnz_cap: Optional[int] = None):
+    """Inverse of :func:`pack_wire_rows`: f32 lanes → (n, d) wire-dtype
+    rows, or with ``nnz_cap`` the ``SparseRows`` the sparse pack shipped
+    (whose ids the next kernel checks: they carry no mark)."""
+    wire_dt = _float_dtype(wire_dt) if isinstance(wire_dt, str) else wire_dt
+    arr = flat.reshape(n, wslots)
+    if nnz_cap is not None:
+        return sparse_rows.unpack_wire(arr, d, nnz_cap, wire_dt)
+    return _unpack_lanes(arr, d, wire_dt)
+
+
+def _wire_sum(lanes: torch.Tensor) -> torch.Tensor:
+    """The int32 wrap-sum of f32 lanes' bits along the last axis (the
+    integrity lane). The sum runs in int64, then wraps to int32, as
+    the reference's int32 sum does."""
+    s = lanes.contiguous().view(torch.int32).sum(-1, dtype=torch.int64)
+    return (torch.remainder(s + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+class _HopPlan(NamedTuple):
+    """Transport parameterization of the hop engine (:func:`_merge_hops`):
+    ``num_stages`` hops of the ``shift`` permutation (started, waited
+    later), each expanded by the ``expand`` group collective into ``m``
+    arrived messages; ``gi`` is this rank's origin-group index."""
+    num_stages: int   # hops of the merge (ring: ndev, hier: num_hosts)
+    m: int            # messages consumed a stage (ring: 1, hier: ndev/H)
+    gi: int           # this rank's origin-group index
+    shift: object     # (L,) msg → compat.Pending of the next group's msg
+    expand: object    # (L,) msg → (m, L) arrived block
+
+
+def resolve_topology(cfg: MRSVMConfig, num_devices: int, group=None) -> int:
+    """Build-time topology facts: the hier host-group count, with the
+    checks the collectives need.
+
+    ``cfg.hier_num_hosts`` pins the host count; ``None`` counts the
+    hosts of ``group`` (:func:`compat.host_count`, ranks grouped by host
+    name in host-major order) — one process is one rank, so the process
+    count would always make hier the flat ring. One host is a single
+    grouped all-gather; hosts == ranks is the flat ring. Tree needs a
+    power-of-two rank count.
+    """
+    if cfg.converge_impl == "tree" and (num_devices & (num_devices - 1)):
+        raise ValueError(
+            "converge_impl='tree' (recursive doubling) needs a "
+            f"power-of-two device count, got {num_devices}")
+    if cfg.shuffle_impl != "hier":
+        return 1
+    hosts = cfg.hier_num_hosts or compat.host_count(group)
+    if num_devices % hosts:
+        raise ValueError(
+            f"hier shuffle needs the device count ({num_devices}) "
+            f"divisible by the host count ({hosts}); pin "
+            "MRSVMConfig.hier_num_hosts for simulated topologies")
+    return hosts
+
+
+def _hop_plan(cfg: MRSVMConfig, group, ndev: int, idx: int,
+              hosts: int) -> _HopPlan:
+    """The (group collective, hop permutation, messages a hop) of each
+    packed transport.
+
+    * ``ring``: ndev stages of the ring shift, one message a stage, no
+      group collective.
+    * ``hier``: ``hosts`` host-stages. Rank (h, l) = h·Dl + l forwards
+      its message to rank (h+1, l), so each stage every pair crosses a
+      host boundary and only the bytes the next host has not seen move
+      between hosts; the grouped all-gather within a host then gives the
+      arrived host's Dl messages. The shift forwards the gather's input,
+      so stage t+1's transfer overlaps stage t's gather and scoring.
+      The host groups are made here, once, on every rank.
+    """
+    if cfg.shuffle_impl == "ring":
+        perm = compat.ring_perm(ndev)
+        return _HopPlan(num_stages=ndev, m=1, gi=idx,
+                        shift=lambda c: compat.ppermute_start(c, perm,
+                                                              group),
+                        expand=lambda c: c[None, :])
+    Dl = ndev // hosts
+    groups = compat.new_groups(
+        [[h * Dl + l for l in range(Dl)] for h in range(hosts)], group)
+    perm = [(h * Dl + l, ((h + 1) % hosts) * Dl + l)
+            for h in range(hosts) for l in range(Dl)]
+    return _HopPlan(num_stages=hosts, m=Dl, gi=idx // Dl,
+                    shift=lambda c: compat.ppermute_start(c, perm, group),
+                    expand=lambda c: compat.all_gather_groups(c, groups))
+
+
+def _merge_hops(side: torch.Tensor, plan: _HopPlan, consume):
+    """The hop engine of the packed transports: ``plan.num_stages``
+    stages, each starting the NEXT stage's shift before it expands the
+    current message into the (m, L) block that arrived this stage and
+    hands it to ``consume`` (the eq. 7 work), so the transfer runs
+    behind the scoring. The message received at hop t passes the
+    ``faults.garble_wire`` seam.
+
+    Stage t carries origin group ``(gi - t) mod num_stages``, so the
+    REVERSED arrival list is origin groups gi+1, gi+2, … and one roll
+    of ``gi + 1`` group blocks puts it in origin-rank order.
+    → ``(M, ordered)``: the (ndev, L) message matrix in rank order and
+    the ``consume`` outputs concatenated in rank order.
+    """
+    L = side.shape[0]
+    msgs, parts = [], []
+    cur = side
+    for t in range(plan.num_stages):
+        pending = plan.shift(cur) if t < plan.num_stages - 1 else None
+        blk = plan.expand(cur)                 # (m, L) arrived messages
+        msgs.append(blk.reshape(plan.m * L))
+        parts.append(consume(blk))
+        cur = (faults.garble_wire(pending.wait(), hop=t)
+               if pending is not None else None)
+    ndev = plan.num_stages * plan.m
+    M = torch.roll(torch.cat(msgs[::-1]),
+                   (plan.gi + 1) * plan.m * L).reshape(ndev, L)
+    ordered = torch.roll(torch.cat(parts[::-1]), (plan.gi + 1) * plan.m)
+    return M, ordered
+
+
+def _packed_merge(cand: SVBuffer, w, b, Xl, yl, ml, cfg: MRSVMConfig,
+                  ndev: int, k: int, plan: _HopPlan):
+    """Packed-wire merge and eq. 7 scoring, the ring and hier transports
+    over the shared hop engine.
+
+    One coalesced f32 message a hop: the wire-dtype feature rows
+    (:func:`pack_wire_rows`) then the sideband ``[y | α | mask | ids | w
+    | b]`` in f32 (ids are exact in f32 below 2^24 rows). Every rank
+    applies the same wire round trip to every chunk, its own included,
+    so the assembled buffer is the same on every rank. Its feature rows
+    stay in the wire dtype; y and the mask come back in the rows' dtype,
+    α and the hypotheses in f32.
+
+    With ``cfg.shuffle_wire_check`` the message carries one more lane,
+    the int32 wrap-sum of its bits (:func:`_wire_sum`); every arrived
+    message is summed again after assembly, and a mismatch on this rank
+    makes ``wire_ok`` False (which :func:`_device_risks` shares with
+    every rank). → ``(sv, W, B, part, wire_ok)``.
+    """
+    d = Xl.shape[-1]
+    wire_dt = _float_dtype(cfg.shuffle_wire_dtype)
+    f32 = torch.float32
+    nnzc = cand.x.nnz_cap if sparse_rows.is_sparse(cand.x) else None
+    xf, wslots = pack_wire_rows(cand.x, wire_dt)
+    side = torch.cat([xf, cand.y.to(f32), cand.alpha.to(f32),
+                      cand.mask.to(f32), cand.ids.to(f32), w.to(f32),
+                      b.reshape(1).to(f32)])
+    o_x = k * wslots
+    o_w = o_x + 4 * k
+    if cfg.shuffle_wire_check:
+        side = torch.cat([side, _wire_sum(side).reshape(1).view(f32)])
+    L = side.shape[0]
+
+    def consume(blk):                    # (m, L) arrived → (m,) loss sums
+        return _partials(Xl, yl, ml, blk[:, o_w:o_w + d],
+                         blk[:, o_w + d], cfg.risk_loss)
+
+    M, part = _merge_hops(side, plan, consume)
+
+    def col(a, b2):                      # sideband lanes [a·k, b2·k)
+        return M[:, o_x + a * k:o_x + b2 * k].reshape(ndev * k)
+
+    dt = Xl.dtype
+    sv = SVBuffer(
+        x=unpack_wire_rows(M[:, :o_x].reshape(-1), ndev * k, d, wire_dt,
+                           wslots, nnz_cap=nnzc),
+        y=col(0, 1).to(dt), alpha=col(1, 2).to(cand.alpha.dtype),
+        ids=col(3, 4).to(torch.int32), mask=col(2, 3).to(dt))
+    wire_ok = None
+    if cfg.shuffle_wire_check:
+        got = M[:, L - 1].contiguous().view(torch.int32)
+        wire_ok = torch.all(got == _wire_sum(M[:, :L - 1]))
+    return sv, M[:, o_w:o_w + d], M[:, o_w + d], part, wire_ok
+
+
+def _gather_leaf(a, group):
+    """A candidate leaf from every rank, concatenated in rank order, in
+    its exact dtype (``SparseRows`` leaf by leaf)."""
+    if sparse_rows.is_sparse(a):
+        return sparse_rows.SparseRows(
+            compat.all_gather(a.indices, group, tiled=True),
+            compat.all_gather(a.values, group, tiled=True), a.d)
+    return compat.all_gather(a, group, tiled=True)
+
+
+def make_sharded_round(cfg: MRSVMConfig, group, num_devices: int,
+                       rows_per_device: int):
+    """The per-rank body of one MapReduce round.
+
+    The returned function runs on ONE rank's shard: Xl (per, d) dense
+    or ``SparseRows``, yl, ml (per,) in Xl's dtype, sv (replicated
+    SVBuffer), optional ``params``; and returns (new_sv, risks (ndev,),
+    best_w (d,), best_b ()), the same on every rank.
+
+    ``cfg.shuffle_impl`` picks the merge:
+
+    * ``"allgather"``: each candidate leaf all-gathered in its exact
+      dtype, then eq. 7 over the all-gathered hypotheses (one
+      ``hinge_scores`` call);
+    * ``"ring"`` / ``"hier"``: :func:`_packed_merge` over the hop plan of
+      :func:`_hop_plan`, scoring each stage's hypotheses as they arrive.
+
+    With ``shuffle_wire_dtype`` equal to the rows' dtype the packed
+    transports give allgather's SV buffer and hypothesis bit for bit.
+    The host groups of hier are made here, so every rank of ``group``
+    must build the round.
+    """
+    cap = cfg.sv_capacity
+    if cap % num_devices != 0:
+        raise ValueError("sv_capacity must divide the data-parallel size")
+    k = cap // num_devices
+    per = rows_per_device
+    hosts = resolve_topology(cfg, num_devices, group)
+    idx = compat.axis_index(group)
+    packed = cfg.shuffle_impl in PACKED_SHUFFLES
+    plan = _hop_plan(cfg, group, num_devices, idx, hosts) if packed else None
+
+    def round_body(Xl, yl, ml, sv: SVBuffer,
+                   params: Optional[SolverParams] = None):
+        cand, w, b = _round_candidates(Xl, yl, ml, sv, cfg, group, idx, k,
+                                       per, params)
+        cnt = ml.float().sum()
+        if packed:
+            new_sv, W, B, part, wire_ok = _packed_merge(
+                cand, w, b, Xl, yl, ml, cfg, num_devices, k, plan)
+        else:
+            new_sv = SVBuffer(*(_gather_leaf(f, group) for f in cand))
+            W = compat.all_gather(w, group)                  # (ndev, d)
+            B = compat.all_gather(b.reshape(1), group, tiled=True)
+            part = _partials(Xl, yl, ml, W, B, cfg.risk_loss)
+            wire_ok = None
+        bad = (torch.zeros((), device=cnt.device) if wire_ok is None
+               else (~wire_ok).float())
+        risks = _device_risks(part, cnt, bad, cfg, group, num_devices)
+        l_star = torch.argmin(risks).reshape(1)
+        return (new_sv, risks, W.index_select(0, l_star)[0],
+                B.index_select(0, l_star)[0])
+
+    return round_body
+
+
+def build_sharded_round(cfg: MRSVMConfig, rows_per_device: int, group=None,
+                        device: DeviceLike = None):
+    """One MapReduce round on this rank's shard of ``group`` (default the
+    world group; one partition a rank, rank r holding global rows
+    [r·per, (r+1)·per)). Call it on every rank of ``group``.
+
+    → ``f(Xl, yl, ml, sv) -> (sv', risks, w_best, b_best)``, every output
+    the same on every rank. Inputs go to ``device`` (default ``cuda``;
+    without a card it raises unless ``device="cpu"``); labels and mask
+    are cast to the rows' dtype, as :func:`fit_mapreduce` does.
+    """
+    dev = resolve_device(device)
+    ndev = compat.axis_size(group)
+    body = make_sharded_round(cfg, group, ndev, rows_per_device)
+
+    def f(Xl, yl, ml, sv: SVBuffer, params: Optional[SolverParams] = None):
+        Xl = as_tensor(Xl, dev)
+        if Xl.shape[0] != rows_per_device:
+            raise ValueError(f"this rank holds {Xl.shape[0]} rows, the "
+                             f"round was built for {rows_per_device}")
+        sv = SVBuffer(as_tensor(sv.x, dev),
+                      *(as_tensor(a, dev) for a in sv[1:]))
+        return body(Xl, as_tensor(yl, dev, Xl.dtype),
+                    as_tensor(ml, dev, Xl.dtype), sv, params)
+
+    return f

@@ -164,9 +164,25 @@ def _block_generator(seed: int, block: int, device,
     return g
 
 
+def _shard_blocks(num_rows: int, process_index: int, process_count: int):
+    """The stateless blocks that cover one process's row range, as
+    (block, rows of the block, first row kept, end of rows kept, where
+    they go in the shard). → (shard rows, [blocks])."""
+    start, stop = host_row_range(num_rows, process_index, process_count)
+    blocks = []
+    if stop > start:
+        for block in range(start // _ROW_BLOCK, (stop - 1) // _ROW_BLOCK + 1):
+            b0 = block * _ROW_BLOCK
+            rows = min(num_rows - b0, _ROW_BLOCK)
+            lo, hi = max(start - b0, 0), min(stop - b0, rows)
+            blocks.append((block, rows, lo, hi, b0 + lo - start))
+    return stop - start, blocks
+
+
 def svm_rows_device(num_rows: int, num_features: int, seed: int = 0,
                     signal_dims: int = 64, nnz: Optional[int] = None, *,
-                    dtype: torch.dtype = torch.bfloat16, device="cuda"
+                    dtype: torch.dtype = torch.bfloat16, device="cuda",
+                    process_index: int = 0, process_count: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Rows of the ``svm_rows`` distribution, made on ``device``.
 
@@ -177,16 +193,20 @@ def svm_rows_device(num_rows: int, num_features: int, seed: int = 0,
     is torch's, so the values differ from the numpy generator's; the
     distribution does not. Rows are made in float32 and stored as
     ``dtype``; only one block is ever float32 at a time.
+
+    ``process_index`` / ``process_count`` give THIS process's shard
+    (:func:`host_row_range`), as :func:`svm_rows_shard` does: only the
+    blocks covering it are made, and the shards of all processes
+    together are one call's rows bit for bit.
     """
     dev = torch.device(device)
     nnz = default_row_nnz(num_features) if nnz is None \
         else min(num_features, max(1, int(nnz)))
     w = torch.from_numpy(_svm_signal(num_features, seed, signal_dims)).to(dev)
-    X = torch.empty((num_rows, num_features), dtype=dtype, device=dev)
-    y = torch.empty((num_rows,), dtype=torch.float32, device=dev)
-    for block in range(-(-num_rows // _ROW_BLOCK)):
-        r0 = block * _ROW_BLOCK
-        rows = min(num_rows - r0, _ROW_BLOCK)
+    n, blocks = _shard_blocks(num_rows, process_index, process_count)
+    X = torch.empty((n, num_features), dtype=dtype, device=dev)
+    y = torch.empty((n,), dtype=torch.float32, device=dev)
+    for block, rows, lo, hi, at in blocks:
         g = _block_generator(seed, block, dev)
         scores = torch.rand((rows, num_features), generator=g, device=dev)
         cols = torch.topk(scores, nnz, dim=1, largest=False).indices
@@ -195,8 +215,8 @@ def svm_rows_device(num_rows: int, num_features: int, seed: int = 0,
         Xb = torch.zeros((rows, num_features), device=dev).scatter_(1, cols,
                                                                      vals)
         Xb /= Xb.norm(dim=1, keepdim=True).clamp(min=1e-9)
-        y[r0:r0 + rows] = torch.sign(Xb @ w + 1e-3)
-        X[r0:r0 + rows] = Xb.to(dtype)
+        y[at:at + hi - lo] = torch.sign(Xb[lo:hi] @ w + 1e-3)
+        X[at:at + hi - lo] = Xb[lo:hi].to(dtype)
     return X, y
 
 
@@ -204,31 +224,34 @@ def svm_rows_sparse_device(num_rows: int, num_features: int, nnz_cap: int,
                            seed: int = 0, signal_dims: int = 64,
                            nnz: Optional[int] = None, *,
                            dtype: torch.dtype = torch.float32,
-                           device="cuda"):
+                           device="cuda", process_index: int = 0,
+                           process_count: int = 1):
     """Blocked-CSR rows of the ``svm_rows_sparse`` distribution, made on
     ``device``: per stateless block its own ``torch.Generator``, one
     uniform column per stride-``d // nnz`` stratum, uniform values,
     L2-normalized, labels ``sign(x·w + 1e-3)`` against the planted
     separator of :func:`svm_rows_sparse`. The random stream is torch's,
     so the values differ from the numpy generator's; the distribution
-    does not. → (``SparseRows`` with ``dtype`` values, labels f32)."""
+    does not. ``process_index`` / ``process_count`` give this process's
+    shard, as for :func:`svm_rows_device`. → (``SparseRows`` with
+    ``dtype`` values, labels f32)."""
     dev = torch.device(device)
     nnz = _sparse_nnz(num_features, nnz_cap, nnz)
     stride = num_features // nnz
     w = torch.from_numpy(_svm_signal(num_features, seed, signal_dims)).to(dev)
-    indices = torch.zeros((num_rows, nnz_cap), dtype=torch.int32, device=dev)
-    values = torch.zeros((num_rows, nnz_cap), dtype=dtype, device=dev)
-    y = torch.empty((num_rows,), dtype=torch.float32, device=dev)
+    n, blocks = _shard_blocks(num_rows, process_index, process_count)
+    indices = torch.zeros((n, nnz_cap), dtype=torch.int32, device=dev)
+    values = torch.zeros((n, nnz_cap), dtype=dtype, device=dev)
+    y = torch.empty((n,), dtype=torch.float32, device=dev)
     base = torch.arange(nnz, device=dev) * stride
-    for block in range(-(-num_rows // _ROW_BLOCK)):
-        r0 = block * _ROW_BLOCK
-        rows = min(num_rows - r0, _ROW_BLOCK)
+    for block, rows, lo, hi, at in blocks:
         g = _block_generator(seed, block, dev, stream=2)
         cols = base + torch.randint(0, stride, (rows, nnz), generator=g,
                                     device=dev)
         vals = torch.rand((rows, nnz), generator=g, device=dev)
         vals /= vals.norm(dim=1, keepdim=True).clamp(min=1e-9)
-        indices[r0:r0 + rows, :nnz] = cols.to(torch.int32)
-        values[r0:r0 + rows, :nnz] = vals.to(dtype)
-        y[r0:r0 + rows] = torch.sign((vals * w[cols]).sum(1) + 1e-3)
+        cols, vals = cols[lo:hi], vals[lo:hi]
+        indices[at:at + hi - lo, :nnz] = cols.to(torch.int32)
+        values[at:at + hi - lo, :nnz] = vals.to(dtype)
+        y[at:at + hi - lo] = torch.sign((vals * w[cols]).sum(1) + 1e-3)
     return sparse_rows.SparseRows(indices, values, num_features), y

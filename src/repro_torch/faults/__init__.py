@@ -2,14 +2,14 @@
 from ``repro/faults``. ``python -m repro_torch.faults.chaos`` is the
 seed-sweep harness; :mod:`repro_torch.faults.chaos` is imported there,
 never from here (it imports the layers under attack, which import this
-package). ``garble_wire``, the sharded ring's wire seam, comes with the
-sharded mode (ROADMAP Queue 1 item 7)."""
+package)."""
 from repro_torch.faults.plan import (KINDS, FaultDetected, FaultPlan,
                                      FaultSpec, InjectedFault,
                                      InjectedWriteError, TransientFault,
                                      active, check_finite_risks,
                                      corrupt_file, count, counters, fire,
-                                     inject, maybe_raise, maybe_sleep,
+                                     garble_wire, inject, maybe_raise,
+                                     maybe_sleep,
                                      poison_batch, reset_counters,
                                      set_active)
 from repro_torch.faults.retry import retry_with_backoff
@@ -20,7 +20,7 @@ __all__ = [
     "KINDS", "FaultDetected", "FaultPlan", "FaultSpec", "InjectedFault",
     "InjectedWriteError", "TransientFault", "active",
     "check_finite_risks", "corrupt_file", "count", "counters", "fire",
-    "inject", "maybe_raise", "maybe_sleep", "poison_batch",
+    "garble_wire", "inject", "maybe_raise", "maybe_sleep", "poison_batch",
     "reset_counters", "set_active", "retry_with_backoff",
     "WATCHDOG_EXIT_CODE", "CollectiveWatchdog", "exit_handler",
 ]

@@ -8,10 +8,10 @@ seed and checks the survived-vs-detected contract:
   behind the quarantine) are absorbed and the result is bit for bit the
   fault-free one; a delayed or retried round launches what a clean one
   does (``ops.ROUTE_LAUNCHES``);
-* **detected** — corrupting or terminal faults (corrupted snapshot
-  media, a stalled fold) raise a typed :class:`FaultDetected` naming
-  layer and cause, or fall back to the newest intact checkpoint
-  generation;
+* **detected** — corrupting or terminal faults (a garbled ring or hier
+  wire, corrupted snapshot media, a stalled fold) raise a typed
+  :class:`FaultDetected` naming layer and cause, or fall back to the
+  newest intact checkpoint generation;
 * never a hang (the sweep runs under its own watchdog), never a silent
   wrong answer.
 
@@ -22,10 +22,15 @@ Usage::
 
 The fits and services run on ``--device`` (default ``cuda``; without a
 card it raises unless ``--device cpu``). Exit status 0 only if every
-scenario run met its expected outcome. The scenarios of the sharded
-transport (``wire_check_clean``, ``ring_garble``, ``hier_transient``,
-``hier_garble``: ROADMAP Queue 1 item 7) and of the multi-process
-cluster (``handshake_flake``: item 10) are listed as waiting and not run.
+scenario run met its expected outcome. The four scenarios of the
+sharded transports (``wire_check_clean``, ``ring_garble``,
+``hier_transient``, ``hier_garble``) run the sharded round on
+:data:`NDEV` ranks (:func:`repro_torch.compat.spawn`; gloo on the CPU
+and for ranks that share a card), every seed's in one spawn, each rank
+checking the reference's outcome on its own outputs; a scenario passes
+when it does on every rank. The multi-process cluster's scenario
+(``handshake_flake``: ROADMAP Queue 1 item 10) is listed as waiting and
+not run.
 
 Not imported from :mod:`repro_torch.faults`: this module imports the
 layers under attack (core, ckpt, serving), which import that package.
@@ -42,12 +47,17 @@ import time
 
 import numpy as np
 
+from repro_torch import faults
 from repro_torch.faults.plan import (FaultDetected, FaultPlan, InjectedFault,
                                      counters, inject, reset_counters)
 from repro_torch.faults.watchdog import CollectiveWatchdog
 
-# partitions of the fits, as the reference's 8 devices
+# partitions of the fits and ranks of the sharded scenarios, as the
+# reference's 8 devices
 NDEV = 8
+#: the scenarios of the sharded transports, run on NDEV ranks
+TRANSPORT = ("wire_check_clean", "ring_garble", "hier_transient",
+             "hier_garble")
 
 
 class Ctx:
@@ -94,6 +104,37 @@ class Ctx:
         if "clean" not in self._cache:
             self._cache["clean"] = self.fit()
         return self._cache["clean"]
+
+    def transport(self, seed: int, name: str) -> str:
+        """Transport scenario ``name`` of ``seed``: its rows from the NDEV
+        ranks (spawned for this seed unless :meth:`run_transport` ran
+        it); the detail if every rank met the outcome, else the first
+        rank's violation raised as the harness reports it."""
+        if (seed, name) not in self._cache:
+            self.run_transport([seed])
+        rows = self._cache[(seed, name)]
+        for rank, (outcome, ok, detail) in enumerate(rows):
+            if outcome == "ERROR":
+                raise RuntimeError(f"rank {rank}: {detail}")
+            if not ok:
+                raise AssertionError(f"rank {rank}: {detail}")
+        return (f"{rows[0][2]} (on each of {len(rows)} ranks; the spawn "
+                f"of every seed's took {self._cache['spawn_s']:.1f} s)")
+
+    def run_transport(self, seeds) -> None:
+        """The transport scenarios of ``seeds`` in one spawn of NDEV
+        ranks (:func:`transport_rank`), their rows cached."""
+        from repro_torch import compat
+        seeds = list(seeds)
+        t0 = time.monotonic()
+        per_rank = compat.spawn(transport_rank, NDEV, (seeds, TRANSPORT),
+                                device="cpu" if self.device == "cpu"
+                                else "cuda", timeout_s=120.0,
+                                join_timeout_s=600.0)
+        self._cache["spawn_s"] = time.monotonic() - t0
+        for i, (seed, name) in enumerate((s, n) for s in seeds
+                                         for n in TRANSPORT):
+            self._cache[(seed, name)] = [rows[i] for rows in per_rank]
 
     def tmpdir(self, prefix: str) -> str:
         d = tempfile.mkdtemp(prefix=prefix)
@@ -309,9 +350,202 @@ def scenario_scheduler_kill(seed: int, ctx: Ctx) -> str:
     return "wave died, batch requeued, refolded exactly once bit-exact"
 
 
+# ---------------------------------------------------------------------------
+# the sharded transports' scenarios: run on each rank of a spawn
+# ---------------------------------------------------------------------------
+
+class _RankCtx:
+    """A rank's side of the transport scenarios: its 32 rows of the
+    harness's problem, the configs and the round."""
+
+    def __init__(self, rank):
+        import torch
+        from repro_torch.core import MRSVMConfig, SVMConfig
+        self.rank, self.device = rank, rank.device
+        X = np.random.default_rng(0).normal(size=(256, 16)).astype(np.float32)
+        w = np.random.default_rng(1).normal(size=16).astype(np.float32)
+        y = np.sign(X @ w).astype(np.float32)
+        self.per = 256 // rank.world_size
+        rows = slice(rank.rank * self.per, (rank.rank + 1) * self.per)
+        self.X = torch.from_numpy(X[rows].copy()).to(self.device)
+        self.y = torch.from_numpy(y[rows].copy()).to(self.device)
+        self.mask = torch.ones_like(self.y)
+        self.cfg = MRSVMConfig(sv_capacity=64, max_rounds=3, gamma=1e-4,
+                               svm=SVMConfig(C=1.0, max_epochs=10))
+
+    def ring_cfg(self, wire_check: bool):
+        import dataclasses as dc
+        return dc.replace(self.cfg, shuffle_impl="ring",
+                          shuffle_wire_dtype="float32",
+                          shuffle_wire_check=wire_check)
+
+    def hier_cfg(self, wire_check: bool):
+        """Two-level transport at the simulated 2-host × 4-local
+        topology."""
+        import dataclasses as dc
+        return dc.replace(self.cfg, shuffle_impl="hier",
+                          shuffle_wire_dtype="float32", hier_num_hosts=2,
+                          shuffle_wire_check=wire_check)
+
+    def build(self, cfg):
+        from repro_torch.core.mapreduce_svm import (build_sharded_round,
+                                                    init_sv_buffer)
+        fn = build_sharded_round(cfg, self.per, device=self.device)
+        return fn, init_sv_buffer(cfg.sv_capacity, self.X.shape[1],
+                                  device=self.device)
+
+
+def _leaves(risks, sv, w):
+    return [t.cpu() for t in (risks, sv.ids, sv.x, w)]
+
+
+def rank_wire_check_clean(seed: int, rc: _RankCtx) -> str:
+    """No fault, integrity lane ON → the checked ring gives the
+    unchecked ring's results bit for bit (the lane is free when
+    honest)."""
+    import torch
+    outs = []
+    for wire_check in (False, True):
+        fn, sv = rc.build(rc.ring_cfg(wire_check))
+        for _ in range(2):
+            sv, risks, w, b = fn(rc.X, rc.y, rc.mask, sv)
+        faults.check_finite_risks(risks.cpu().numpy(),
+                                  where="clean checked ring")
+        outs.append(_leaves(risks, sv, w))
+    for a, b2 in zip(*outs):
+        assert torch.equal(a, b2), \
+            "integrity lane changed the clean ring's results"
+    return "checked ring ≡ unchecked ring bit-for-bit, risks finite"
+
+
+def _garbled(rc: _RankCtx, cfg, plan, what: str) -> str:
+    with inject(plan) as armed:
+        fn, sv = rc.build(cfg)
+        sv, risks, w, b = fn(rc.X, rc.y, rc.mask, sv)
+    assert armed.fired, f"the garble never fired on the {what} wire"
+    try:
+        faults.check_finite_risks(risks.cpu().numpy(),
+                                  where=f"garbled {what} round")
+    except FaultDetected as e:
+        assert e.layer == "transport", f"wrong layer {e.layer!r}"
+        return e.layer
+    raise AssertionError(
+        f"garbled {what} wire produced FINITE risks — silent corruption")
+
+
+def rank_ring_garble(seed: int, rc: _RankCtx) -> str:
+    """ring_garble → DETECTED: one mantissa bit flipped on one ring hop
+    is caught by the wire checksum; FaultDetected names transport."""
+    plan = FaultPlan.single("ring_garble", seed)
+    layer = _garbled(rc, rc.ring_cfg(True), plan, "ring")
+    return (f"hop {plan.specs[0].when} garble caught: [{layer}] wire "
+            "checksum sentinel")
+
+
+def rank_hier_transient(seed: int, rc: _RankCtx) -> str:
+    """delay_round + transport_exc over the HIER transport → SURVIVED: a
+    slow hop and 1-2 transient merge failures are absorbed by the
+    driver's seams, which fire on every rank at the same round before
+    its first collective, and the hier rounds stay bit-identical to the
+    fault-free run."""
+    import torch
+    from repro_torch.faults.plan import (TransientFault, maybe_raise,
+                                         maybe_sleep)
+    from repro_torch.faults.retry import retry_with_backoff
+    fn, sv0 = rc.build(rc.hier_cfg(True))
+
+    def drive():
+        sv = sv0
+        for t in range(3):
+            maybe_sleep("transport.round", when=t)
+
+            def run_round():
+                maybe_raise("transport.merge", kinds=("transport_exc",),
+                            when=t)
+                return fn(rc.X, rc.y, rc.mask, sv)
+
+            sv, risks, w, b = retry_with_backoff(
+                run_round, attempts=3, base_s=0.01,
+                retry_on=TransientFault, layer="transport",
+                cause=f"hier merge collective at round {t}")
+        return _leaves(risks, sv, w)
+
+    clean = drive()                     # no plan armed: the oracle
+    plan = FaultPlan(seed=seed,
+                     specs=(FaultPlan.single("delay_round", seed).specs
+                            + FaultPlan.single("transport_exc", seed).specs))
+    before = counters().get("retries", 0)
+    with inject(plan) as armed:
+        chaos_run = drive()
+    assert armed.fired, "neither transport fault fired over hier"
+    assert sum(armed.remaining) == 0, "injected failures not all raised"
+    retried = counters().get("retries", 0) - before
+    for a, b2 in zip(chaos_run, clean):
+        assert torch.equal(a, b2), \
+            "hier rounds under transient faults are NOT bit-identical"
+    return (f"slow hop at round {plan.specs[0].when} + {retried} merge "
+            "retries absorbed, hier rounds bit-identical")
+
+
+def rank_hier_garble(seed: int, rc: _RankCtx) -> str:
+    """ring_garble over the HIER transport → DETECTED: a mantissa bit
+    flipped on the inter-host exchange is caught by the same checksum
+    lane. At 2 simulated hosts only hop 0 shifts, so the spec pins
+    ``when=None`` (the first opportunity), as the reference's does."""
+    from repro_torch.faults.plan import FaultSpec
+    param = int(np.random.default_rng([seed, 1093]).integers(0, 1 << 30))
+    plan = FaultPlan(seed=seed, specs=(FaultSpec("ring_garble", when=None,
+                                                 count=1, param=param),))
+    layer = _garbled(rc, rc.hier_cfg(True), plan, "hier")
+    return f"inter-host hop garble caught: [{layer}] wire checksum sentinel"
+
+
+_RANK_SCENARIOS = {"wire_check_clean": ("survived", rank_wire_check_clean),
+                   "ring_garble": ("detected", rank_ring_garble),
+                   "hier_transient": ("survived", rank_hier_transient),
+                   "hier_garble": ("detected", rank_hier_garble)}
+
+
+def transport_rank(rank, seeds, names=TRANSPORT):
+    """The rank target of :meth:`Ctx.run_transport`: each of ``names``
+    for each seed on this rank. A scenario's collectives are the same
+    on every rank, so a violation on one rank leaves the others in step.
+    → [(outcome, ok, detail)] in (seed, name) order."""
+    rc = _RankCtx(rank)
+    rows = []
+    for seed in seeds:
+        for name in names:
+            expect, fn = _RANK_SCENARIOS[name]
+            try:
+                rows.append((expect, True, fn(seed, rc)))
+            except AssertionError as e:
+                rows.append(("VIOLATED", False, str(e)))
+            except Exception as e:
+                rows.append(("ERROR", False, f"{type(e).__name__}: {e}"))
+    return rows
+
+
+def _transport_scenario(name: str):
+    def scenario(seed: int, ctx: Ctx) -> str:
+        return ctx.transport(seed, name)
+    scenario.__name__ = f"scenario_{name}"
+    scenario.__doc__ = _RANK_SCENARIOS[name][1].__doc__
+    return scenario
+
+
+scenario_wire_check_clean = _transport_scenario("wire_check_clean")
+scenario_ring_garble = _transport_scenario("ring_garble")
+scenario_hier_transient = _transport_scenario("hier_transient")
+scenario_hier_garble = _transport_scenario("hier_garble")
+
+
 SCENARIOS = [
     ("delay_round", "survived", scenario_delay_round),
     ("transport_exc", "survived", scenario_transport_exc),
+    ("wire_check_clean", "survived", scenario_wire_check_clean),
+    ("ring_garble", "detected", scenario_ring_garble),
+    ("hier_transient", "survived", scenario_hier_transient),
+    ("hier_garble", "detected", scenario_hier_garble),
     ("stall", "detected", scenario_stall),
     ("ckpt_write_fail", "survived", scenario_ckpt_write_fail),
     ("ckpt_corrupt", "detected", scenario_ckpt_corrupt),
@@ -320,8 +554,7 @@ SCENARIOS = [
 ]
 
 #: the reference's scenarios that wait for a ROADMAP Queue 1 item
-WAITING = {"wire_check_clean": 7, "ring_garble": 7, "hier_transient": 7,
-           "hier_garble": 7, "handshake_flake": 10}
+WAITING = {"handshake_flake": 10}
 
 
 def sweep(seeds, device: str = "cuda", only=None,
@@ -331,6 +564,8 @@ def sweep(seeds, device: str = "cuda", only=None,
     (seed, name, expected, outcome, ok, seconds, detail)."""
     ctx = Ctx(device)
     rows = []
+    if any(not only or only in n for n in TRANSPORT):
+        ctx.run_transport(seeds)        # one spawn for every seed
     try:
         with CollectiveWatchdog(deadline_s, layer="harness",
                                 cause="chaos scenario") as wd:

@@ -9,17 +9,19 @@ caught. The contract each seam-bearing layer owes the chaos harness
 * **survived** — a transient fault (a delayed round, a flaky merge call,
   a failed checkpoint write) is absorbed by retry with backoff and the
   run ends bit for bit as the fault-free run;
-* **detected** — a corrupting or terminal fault (flipped snapshot bytes,
-  poisoned rows, a dead scheduler, a stalled fold) raises
+* **detected** — a corrupting or terminal fault (a garbled wire,
+  flipped snapshot bytes, poisoned rows, a dead scheduler, a stalled
+  fold) raises
   :class:`FaultDetected` naming the layer and the cause, with the
   operator's action;
 * never a hang, never a silent wrong answer.
 
 Seams consult the process-wide *active plan* (:func:`inject` /
 :func:`set_active`) and cost nothing when none is armed. All seams here
-fire on the host, at call time, before any launch. The plans, their
-draws and the seams' randomness are the reference's: the same seed gives
-the same faults, rows and bytes in both packages.
+fire on the host, at call time: before any launch, except
+:func:`garble_wire`, which changes a received message on its device.
+The plans, their draws and the seams' randomness are the reference's:
+the same seed gives the same faults, rows and bytes in both packages.
 """
 from __future__ import annotations
 
@@ -255,12 +257,29 @@ def maybe_sleep(seam: str, when: Optional[int] = None,
 
 
 def garble_wire(msg, hop: int):
-    """The ring transport's wire-corruption seam (``ring_garble``): it
-    belongs to the sharded mode's SV merge, which the port does not have
-    yet."""
-    raise NotImplementedError(
-        "garble_wire is a seam of the sharded ring transport, not ported "
-        "to repro_torch yet (ROADMAP Queue 1 item 7)")
+    """The packed transports' wire-corruption seam (``ring_garble``).
+
+    Called on the message a rank receives at hop ``hop`` of a ring or
+    hier merge, every round. With a matching armed fault it flips one
+    seeded mantissa bit of one f32 lane — the lane and bit the
+    reference draws from the same plan, below the last lane so that an
+    appended integrity lane is never the one flipped and the checksum
+    mismatch is certain. Every rank arms the same plan, so every rank
+    flips its received message at the same hop, as the reference's
+    traced program does on every device. Without an armed plan the
+    message passes through untouched.
+    """
+    armed = _ACTIVE
+    spec = fire("transport.wire", ("ring_garble",), when=hop)
+    if spec is None or msg is None:
+        return msg
+    g = armed.plan.rng("garble", hop, spec.param)
+    lane = int(g.integers(0, max(int(msg.shape[0]) - 1, 1)))
+    bit = 1 << int(g.integers(1, 23))           # mantissa bit: value changes
+    out = msg.clone()
+    bits = out.view(torch.int32)
+    bits[lane] ^= bit
+    return out
 
 
 def poison_batch(X, y, spec: FaultSpec):

@@ -7,13 +7,17 @@ A library whose source has not changed is reused. :func:`build_all`
 starts one ``nvcc`` per source, all at once.
 
 :func:`load` and :func:`build_all` hold one lock, so two threads that
-reach an unbuilt kernel together build it once and load it once; each
-build writes to a temporary file of its own (process and thread), so
-two processes building into the same directory do not collide either.
+reach an unbuilt kernel together build it once and load it once. A
+build also holds a file lock in the build directory, so that processes
+(the ranks of :func:`repro_torch.compat.spawn`) that reach a stale
+source together build it once: the others wait and find it built. Each
+build writes to a temporary file of its own (process and thread) and
+renames it into place.
 """
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -63,7 +67,12 @@ def _tmp_path(name: str) -> Path:
 def build_all() -> float:
     """Compile every stale source in parallel; → seconds spent."""
     with _LOCK:
-        return _build_stale()
+        if all(library_path(n).is_file() for n in SOURCES):
+            return 0.0
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / ".lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)     # released on close
+            return _build_stale()
 
 
 def _build_stale() -> float:

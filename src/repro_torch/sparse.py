@@ -14,6 +14,10 @@ slots nor that rule, so the layout is two plain tensors.
 Rows with more than ``nnz_cap`` nonzeros are truncated by
 :func:`from_dense` to their ``nnz_cap`` largest-|value| entries.
 
+The packed wire of the sharded mode's ring and hier transports ships
+blocked-CSR rows as f32 lanes (:func:`pack_wire`, :func:`unpack_wire`):
+values packed as dense rows are, ids by their bits.
+
 The kernels take only column ids in [0, d). A ``SparseRows`` carries a
 mark that its ids were found in range (:meth:`SparseRows.mark_ids_in_range`,
 set by ``kernels.ops.check_column_ids`` after one check); rows derived
@@ -302,12 +306,16 @@ def row_sq_norms(x) -> torch.Tensor:
 
 
 def weighted_row_sum(x, coef: torch.Tensor) -> torch.Tensor:
-    """``X.T @ coef`` → dense ``(d,)``: w = Σ_i coef_i x_i."""
+    """``X.T @ coef`` → dense ``(d,)``: w = Σ_i coef_i x_i. On blocked-CSR
+    rows the slots of one column add in a fixed order (``index_put_``
+    with ``accumulate`` sorts the ids on the card, where ``index_add_``
+    adds with float atomics), so a rerun gives the same bits."""
     if not is_sparse(x):
         return x.T @ coef
     contrib = (x.values * coef[:, None]).reshape(-1)
     w = torch.zeros((x.d,), dtype=contrib.dtype, device=contrib.device)
-    return w.index_add_(0, x.indices.reshape(-1).long(), contrib)
+    return w.index_put_((x.indices.reshape(-1).long(),), contrib,
+                        accumulate=True)
 
 
 def cross_dots(x, z, *, chunk: int = 64) -> torch.Tensor:
@@ -344,3 +352,49 @@ def score_rows(x, W: torch.Tensor, b=None) -> torch.Tensor:
     """Decision scores ``X @ W.T (+ b)`` with dense ``W (L, d)``."""
     s = x @ W.T
     return s if b is None else s + b
+
+
+# -- the packed wire of the sharded mode's ring and hier transports ----------
+
+def pack_lanes(xw: torch.Tensor, wire_dt: torch.dtype):
+    """(n, m) wire-dtype matrix → ``(lanes (n, slots) f32, slots)``:
+    2-byte dtypes put element PAIRS into one f32 lane by their bits
+    (lossless; an odd m is padded with one zero), 4-byte floats pass
+    through."""
+    n, m = xw.shape
+    size = wire_dt.itemsize
+    if size == 2:
+        if m % 2:
+            xw = torch.nn.functional.pad(xw, (0, 1))
+        return xw.contiguous().view(torch.float32), (m + m % 2) // 2
+    if size != 4:
+        raise ValueError(f"unsupported shuffle_wire_dtype {wire_dt}")
+    return xw.contiguous().view(torch.float32), m
+
+
+def unpack_lanes(lanes: torch.Tensor, m: int, wire_dt: torch.dtype):
+    """Inverse of :func:`pack_lanes`: (n, slots) f32 → (n, m) wire."""
+    rows = lanes.contiguous().view(wire_dt)
+    return rows[:, :m] if rows.shape[1] != m else rows
+
+
+def pack_wire(x: SparseRows, wire_dt: torch.dtype):
+    """Blocked-CSR rows as f32 lanes: each row's values in the wire
+    dtype, packed as :func:`pack_lanes` packs dense rows, then its
+    int32 column ids by their bits (never quantized).
+    → ``(lanes (n, wslots), wslots)``, wslots = value slots + nnz_cap."""
+    vf, vslots = pack_lanes(x.values.to(wire_dt), wire_dt)
+    idxf = x.indices.to(torch.int32).contiguous().view(torch.float32)
+    return torch.cat([vf, idxf], 1), vslots + x.nnz_cap
+
+
+def unpack_wire(lanes: torch.Tensor, d: int, nnz_cap: int,
+                wire_dt: torch.dtype) -> SparseRows:
+    """Inverse of :func:`pack_wire`: (n, wslots) f32 lanes → the
+    ``SparseRows`` that were shipped, values in the wire dtype. The
+    rows are new and carry no checked-ids mark, so a kernel checks their
+    ids before it reads them and a garbled id never reaches one."""
+    vslots = lanes.shape[1] - nnz_cap
+    vals = unpack_lanes(lanes[:, :vslots], nnz_cap, wire_dt)
+    idx = lanes[:, vslots:].contiguous().view(torch.int32)
+    return SparseRows(idx, vals, d)

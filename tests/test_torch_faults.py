@@ -96,9 +96,12 @@ def test_poison_batch_hits_the_reference_entry(seed, fmt):
     np.testing.assert_array_equal(vt, vj)            # NaN/Inf included
     assert (~np.isfinite(vt)).sum() == 1
     assert np.isfinite((xt.values if fmt == "sparse" else xt).numpy()).all()
-    with pytest.raises(NotImplementedError, match="item 7"):
-        plan_mod.garble_wire(None, 1)
-    assert "garble_wire" not in faults.__all__
+    # garble_wire, the packed transports' seam, is ported: without an
+    # armed plan it passes a message through untouched (its draws are
+    # held to the reference's in tests/test_torch_sharded.py)
+    msg = torch.arange(4, dtype=torch.float32)
+    assert plan_mod.garble_wire(msg, 1) is msg
+    assert "garble_wire" in faults.__all__
 
 
 def test_fire_counts_when_and_error_types():
