@@ -159,7 +159,27 @@ Phases, one line or block each; any failure exits non-zero:
    plain; round ms split
    into solve, merge and eq. 7, the bytes a rank ships), whose launches
    over the ranks go into ``launches_by_path["sharded-full"]``.
-   ``--sharded`` runs only these two phases after the build.
+   ``--sharded`` runs only the sharded phases (these and slice 13's)
+   after the build;
+11. slice 13, the sharded sweep (``build_sharded_sweep_round`` /
+   ``run_sharded_sweep``): ``[sharded-sweep-small]`` in
+   ``[sharded-small]``'s spawn (the golden rows, S = 4 configs that
+   converge at different rounds: allgather, ring and hier with the dedup
+   state, blocked-CSR rows, 4 streams of per-config rows, bf16 rows on a
+   bf16 wire, a state saved after round 1 and resumed; each ≡ the port's
+   functional sweep on the card, ring and hier ≡ allgather bit for bit,
+   one solve launch of S jobs a round on each rank; then a W = 1 NCCL
+   sweep round on the ring under ``set_sync_debug_mode("error")``); after
+   ``[sharded-full]``, ``[sharded-sweep-full]`` (svm-tfidf width, 8
+   ranks × 8192 rows, C = logspace(-2, 1, 4), 3 rounds: blocked-CSR
+   rows through ``fit_sharded_sweep`` on ring and allgather, dense bf16
+   rows on ring round by round, and the per-stream wave of 4 tenants ×
+   (8192 + 2048) rows; each config's SV ids and α bit for bit with the
+   functional sweep every round on every rank, risks within 1e-5; the
+   round split into solve, merge and eq. 7, the bytes a rank ships, each
+   rank's peak memory; a solve and a hinge_scores call of each part
+   against plain), whose launches go into
+   ``launches_by_path["sharded-sweep-full"]``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
@@ -4071,7 +4091,7 @@ def phase_sharded_small(torch, T, text):
     route, summed over the ranks of the 8-rank run."""
     import numpy as np
     from repro_torch import compat
-    from repro_torch.launch.sharded import Case, run_cases
+    from repro_torch.launch.sharded import Case, SweepCase, run_cases
     corpus = text.generate(text.CorpusConfig(num_messages=1024,
                                              classes=(-1, 1), seed=0))
     Xd, _ = text.fit_transform(text.vectorize(corpus.texts, 1024),
@@ -4104,9 +4124,11 @@ def phase_sharded_small(torch, T, text):
         sv_capacity=128, shuffle_impl="ring", shuffle_wire_dtype="float32",
         shuffle_wire_check=True, svm=T.SVMConfig(**lin)), Xd, y, rounds=1,
         garble=(3, 0))
+    sweeps = _sweep_small_cases(T, Xd, Xs, y)
     t0 = time.perf_counter()
-    per_rank = compat.spawn(run_cases, 8, (cases + [garble],), device="cuda",
-                            timeout_s=300.0, join_timeout_s=600.0)
+    per_rank = compat.spawn(run_cases, 8, (cases + [garble], (), None, sweeps),
+                            device="cuda", timeout_s=300.0,
+                            join_timeout_s=600.0)
     secs = time.perf_counter() - t0
     check(all(r["modules"] == [] for r in per_rank),
           "[sharded-small] a rank imported JAX or the reference")
@@ -4160,6 +4182,7 @@ def phase_sharded_small(torch, T, text):
           and routes.get("hinge_scores/simt", 0) > 0
           and routes.get("hinge_scores/sparse", 0) > 0,
           f"[sharded-small] a kernel of the path never launched: {routes}")
+    _check_sweep_small(torch, T, per_rank, sweeps, secs)
 
     # --- W = 1 on NCCL, a round of each transport with no host sync ---
     # hier_num_hosts None: the hosts of the group (one), counted when the
@@ -4168,9 +4191,13 @@ def phase_sharded_small(torch, T, text):
         sv_capacity=128, shuffle_impl=impl, shuffle_wire_dtype="float32",
         svm=T.SVMConfig(**lin)), Xd, y, sync_check_round=1)
         for impl, _ in SHARDED_TRANSPORTS]
+    # a sweep round on the ring (the dedup state) under the same guard
+    w1_sweep = [SweepCase("w1-sweep-ring", sweeps[1].cfg, Xd, y,
+                          sweeps[1].params, drive=False, rounds=2,
+                          sync_check_round=1)]
     t0 = time.perf_counter()
-    res = compat.spawn(run_cases, 1, (one,), device="cuda",
-                       timeout_s=120.0, join_timeout_s=300.0)
+    res = compat.spawn(run_cases, 1, (one, (), None, w1_sweep),
+                       device="cuda", timeout_s=120.0, join_timeout_s=300.0)
     secs = time.perf_counter() - t0
     check(res[0]["backend"] == "nccl",
           f"[sharded-small] W = 1 ran on {res[0]['backend']}, not NCCL")
@@ -4181,12 +4208,230 @@ def phase_sharded_small(torch, T, text):
     for i, name in enumerate(names1):
         _hold_to_functional(res, i, w1, f"sharded-small W=1 nccl {name}")
     _packed_vs_allgather(res, names1, "sharded-small W=1 nccl")
+    w1 = _sweep_raw_rounds(torch, T, torch.from_numpy(Xd).to(DEV)[None],
+                           yt[None], w1_sweep[0], 2)
+    _raw_vs_functional(res[0]["sweeps"][0]["rounds"], w1,
+                       "sharded-sweep-small W=1 nccl")
     say(f"[sharded-small] W = 1 on NCCL ({secs:.1f} s with the spawn): "
         "allgather, ring and hier ≡ the functional round (L = 1), ring and "
         "hier ≡ allgather bit for bit, round 1 of each under "
         "set_sync_debug_mode('error') with no host sync; launches "
-        f"{ {k: v for k, v in res[0]['routes'].items() if v} }")
+        f"{ {k: v for k, v in res[0]['routes'].items() if v} }; "
+        "[sharded-sweep-small] 2 sweep rounds of S = 4 on the ring (the "
+        "dedup state), round 1 under set_sync_debug_mode('error'), ≡ 2 "
+        "functional sweep rounds (SV ids, α bit for bit); launches "
+        f"{ {k: v for k, v in res[0]['sweep_routes'].items() if v} }")
     return routes
+
+
+# ---------------------------------------------------------------------------
+# slice 13: the sharded sweep on torch.distributed
+# ---------------------------------------------------------------------------
+
+# the golden sweep grid of the reference's sharded sweep tests: its
+# configs converge at different rounds (tests/test_sweep.py)
+SWEEP_SMALL_C = (1e-4, 0.5, 1.0, 5.0)
+
+
+def _sweep_small_cases(T, Xd, Xs, y):
+    """``[sharded-sweep-small]``'s cases on [sharded-small]'s golden rows
+    (sv_capacity 128, γ 5e-3, up to 6 rounds, C = 1e-4, 0.5, 1, 5, f32
+    wire): allgather, ring and hier on dense rows (ring and hier carry
+    the dedup state; the ring also 3 rounds driven one by one with the
+    state saved after round 1 and resumed), blocked-CSR rows on
+    allgather and ring, 4 streams of permuted rows (``per_config_data``)
+    on allgather and ring, and bf16 rows on a bf16 wire."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.launch.sharded import SweepCase
+    lin = dict(C=1.0, max_epochs=15)
+
+    def cfg(impl, **svm):
+        return T.MRSVMConfig(
+            sv_capacity=128, gamma=5e-3, max_rounds=6, shuffle_impl=impl,
+            hier_num_hosts=2 if impl == "hier" else None,
+            shuffle_wire_dtype="float32", svm=T.SVMConfig(**lin, **svm))
+    params = T.sweep_grid(T.SVMConfig(**lin), C=list(SWEEP_SMALL_C))
+    rng = np.random.default_rng(5)
+    perms = [rng.permutation(y.shape[0]) for _ in range(4)]
+    Xst = np.stack([Xd[p] for p in perms])
+    yst = np.stack([y[p] for p in perms])
+    cases = [SweepCase(f"sweep-dense-{impl}", cfg(impl), Xd, y, params,
+                       rounds=3 if impl == "ring" else 0,
+                       resume_round=1 if impl == "ring" else None)
+             for impl in ("allgather", "ring", "hier")]
+    cases += [SweepCase(f"sweep-sparse-{impl}",
+                        cfg(impl, row_format="sparse_csr", nnz_cap=32), Xs,
+                        y, params) for impl in ("allgather", "ring")]
+    cases += [SweepCase(f"sweep-stream-{impl}", cfg(impl), Xst, yst, params,
+                        per_config_data=True)
+              for impl in ("allgather", "ring")]
+    cases.append(SweepCase(
+        "sweep-bf16-ring", dataclasses.replace(cfg("ring"),
+                                               shuffle_wire_dtype="bfloat16"),
+        Xd, y, params, dtype="bfloat16"))
+    return cases
+
+
+def _case_rows(torch, X, dtype):
+    """A case's numpy rows (dense or ``(indices, values, d)``, maybe with
+    a leading streams axis) on the card as ``dtype``."""
+    if isinstance(X, tuple):
+        return sp_rows(torch, X).to(dtype=dtype)
+    return torch.from_numpy(X).to(DEV, dtype)
+
+
+def _functional_sweep(torch, T, case):
+    """The port's functional sweep on the card of a sweep case's rows
+    (8 partitions)."""
+    import dataclasses
+    cfg = dataclasses.replace(case.cfg, shuffle_impl="allgather",
+                              hier_num_hosts=None)
+    dt = getattr(torch, case.dtype)
+    return T.fit_mapreduce_sweep(_case_rows(torch, case.X, dt), case.y, 8,
+                                 cfg, case.params, device=DEV)
+
+
+def _sweep_vs_functional(got, want, tag, rtol=1e-5):
+    """A driven sharded sweep (``run_sweep_case``'s ``sweep``) against the
+    functional sweep: rounds, per-round picks, SV ids and α (in the
+    state's dtype) bit for bit, per-round risks within ``rtol``. → max
+    relative |Δ risk|."""
+    import numpy as np
+    check(np.array_equal(got["rounds"], want.rounds),
+          f"[{tag}] rounds {got['rounds']} vs {want.rounds}")
+    check(np.array_equal(got["sv"].ids, want.sv.ids.cpu().numpy()),
+          f"[{tag}] SV ids differ from the functional sweep")
+    # the state keeps α in the rows' dtype
+    wa = want.sv.alpha.to(want.sv.x.dtype).float().cpu().numpy()
+    check(np.array_equal(got["sv"].alpha, wa),
+          f"[{tag}] α not bit for bit with the functional sweep")
+    worst = 0.0
+    check(len(got["history"]) == len(want.history),
+          f"[{tag}] {len(got['history'])} rounds vs {len(want.history)}")
+    for t, (r, l, h) in enumerate(zip(got["history"], got["reducers"],
+                                      want.history)):
+        check(np.array_equal(l, h["reducers"]),
+              f"[{tag}] round {t}: picks {l} vs {h['reducers']}")
+        act = ~np.isnan(h["risks"])
+        rel = float(np.max(np.abs(r[act] - h["risks"][act])
+                           / np.abs(h["risks"][act]))) if act.any() else 0.0
+        check(rel <= rtol, f"[{tag}] round {t}: risks differ by {rel:.2e}")
+        worst = max(worst, rel)
+    return worst
+
+
+def _sweep_raw_rounds(torch, T, Xp, yp, case, rounds):
+    """``rounds`` functional sweep rounds (``sweep_round``, the grid
+    unmasked) of a case on the card: per round (ids, α in the rows'
+    dtype, risks) as numpy. ``Xp`` (L, per, d) or (S, L, per, d)."""
+    import dataclasses
+    from repro_torch.core import sweep as sw
+    from repro_torch.core.mapreduce_svm import sweep_round
+    cfg = dataclasses.replace(case.cfg, shuffle_impl="allgather",
+                              hier_num_hosts=None)
+    S = len(case.params.C)
+    sv = sw._stack_sv(T.init_sv_buffer(
+        cfg.sv_capacity, Xp.shape[-1], Xp.dtype, DEV,
+        nnz_cap=Xp.nnz_cap if hasattr(Xp, "nnz_cap") else None), S)
+    params = sw._params_on(case.params, torch.device(DEV))
+    out = []
+    for _ in range(rounds):
+        res = sweep_round(Xp, yp, torch.ones_like(yp), sv, cfg, params)
+        sv = res.sv
+        out.append((sv.ids.cpu().numpy(),
+                    sv.alpha.to(Xp.dtype).float().cpu().numpy(),
+                    res.risks.float().cpu().numpy()))
+    return out
+
+
+def _raw_vs_functional(got, want, tag, rtol=1e-5):
+    """Rounds driven one by one (``run_sweep_case``'s ``rounds``, or the
+    full-width ranks' records) against functional ``sweep_round``s:
+    ids and α bit for bit, risks within ``rtol`` relative. → max
+    relative |Δ risk|."""
+    import numpy as np
+    worst = 0.0
+    for t, (g, (ids, alpha, risks)) in enumerate(zip(got, want)):
+        check(np.array_equal(g["ids"], ids),
+              f"[{tag}] round {t}: SV ids differ from the functional round")
+        check(np.array_equal(g["alpha"], alpha),
+              f"[{tag}] round {t}: α not bit for bit with the functional "
+              "round")
+        rel = float(np.max(np.abs(g["risks"] - risks) / np.abs(risks)))
+        check(rel <= rtol, f"[{tag}] round {t}: risks differ by {rel:.2e}")
+        worst = max(worst, rel)
+    check(len(got) == len(want), f"[{tag}] {len(got)} rounds recorded")
+    return worst
+
+
+def _check_sweep_small(torch, T, per_rank, sweeps, secs):
+    """``[sharded-sweep-small]``'s checks on the 8-rank run: every rank
+    the same; each driven sweep ≡ the port's functional sweep on the
+    card; ring and hier ≡ allgather bit for bit; the resumed rounds ≡
+    the uninterrupted ones; one solve launch a round on each rank."""
+    import numpy as np
+    names = [c.name for c in sweeps]
+    for i, name in enumerate(names):
+        a = per_rank[0]["sweeps"][i]
+        for r, res in enumerate(per_rank[1:], 1):
+            b = res["sweeps"][i]["sweep"]
+            check(all(_same_np(u, v) for k in ("risks", "ws", "rounds")
+                      for u, v in [(a["sweep"][k], b[k])])
+                  and _same_np(a["sweep"]["sv"].ids, b["sv"].ids),
+                  f"[sharded-sweep-small] {name}: rank {r} differs")
+    worst = 0.0
+    for i, case in enumerate(sweeps):
+        want = _functional_sweep(torch, T, case)
+        worst = max(worst, _sweep_vs_functional(
+            per_rank[0]["sweeps"][i]["sweep"], want,
+            f"sharded-sweep-small {case.name}"))
+        del want
+    for name in names:
+        kind, impl = name.rsplit("-", 1)
+        if impl == "allgather" or f"{kind}-allgather" not in names:
+            continue
+        a = per_rank[0]["sweeps"][names.index(name)]["sweep"]
+        b = per_rank[0]["sweeps"][names.index(f"{kind}-allgather")]["sweep"]
+        check(all(_same_np(getattr(a["sv"], k), getattr(b["sv"], k))
+                  for k in ("ids", "alpha", "mask"))
+              and _same_np(a["ws"], b["ws"])
+              and np.array_equal(a["rounds"], b["rounds"])
+              and np.allclose(a["risks"], b["risks"], rtol=1e-6, atol=0),
+              f"[sharded-sweep-small] {name} differs from allgather")
+    ring = per_rank[0]["sweeps"][names.index("sweep-dense-ring")]
+    check(len(ring["resumed"]) == 1 and all(
+        _same_np(ring["rounds"][2][k], ring["resumed"][0][k])
+        for k in ("ids", "alpha", "x", "risks", "w", "b", "ptr")),
+        "[sharded-sweep-small] the resumed round differs from the "
+        "uninterrupted one")
+    # rank 0's rounds: driven, one by one and resumed
+    rounds = sum(len(per_rank[0]["sweeps"][i]["sweep"]["history"])
+                 + c.rounds + (c.rounds - c.resume_round - 1
+                               if c.resume_round is not None else 0)
+                 for i, c in enumerate(sweeps))
+    routes = {}
+    for r in per_rank:
+        for k, v in r["sweep_routes"].items():
+            if v:
+                routes[k] = routes.get(k, 0) + v
+    solves = sum(v for k, v in routes.items() if k.startswith("cd_solve"))
+    check(solves == 8 * rounds,
+          f"[sharded-sweep-small] {solves} solve launches over 8 ranks, "
+          f"not one a round on each ({rounds} rounds)")
+    check(routes.get("cd_solve/sparse", 0) > 0
+          and routes.get("hinge_scores/sparse", 0) > 0
+          and routes.get("hinge_scores/tensor_core", 0) > 0,
+          f"[sharded-sweep-small] a kernel of the path never launched: "
+          f"{routes}")
+    say(f"[sharded-sweep-small] {len(sweeps)} sweeps of S = 4 on 8 ranks "
+        f"in the same spawn ({secs:.1f} s in all): every rank the same, "
+        "each ≡ the port's functional sweep on the card (rounds, picks, SV "
+        f"ids, α bit for bit; risks within 1e-5, max rel {worst:.2e}), "
+        "ring and hier ≡ allgather bit for bit, the state saved after "
+        "round 1 resumes bit for bit; one solve launch of S jobs a round "
+        f"on each rank ({solves} over {rounds} rounds × 8 ranks); "
+        f"launches by route {routes}")
 
 
 def sp_rows(torch, X):
@@ -4426,6 +4671,377 @@ def phase_sharded_full(torch, T):
           and rows.get("hinge_scores", 0) > 0
           and rows.get("hinge_scores/sparse", 0) > 0,
           f"[sharded-full] launches {rows}")
+    return rows
+
+
+SWEEP_FULL_S = 4          # C = logspace(-2, 1, 4), the launcher's --sweep 4
+SWEEP_FULL_ROUNDS = 3
+STREAM_TENANTS = 4
+
+
+def _sweep_full_cfg(T, fmt, impl):
+    import dataclasses
+    return dataclasses.replace(_sharded_full_cfg(T, fmt, impl),
+                               max_rounds=SWEEP_FULL_ROUNDS)
+
+
+def _sweep_full_grid(T, cfg, S):
+    import numpy as np
+    return T.sweep_grid(cfg.svm, C=np.logspace(-2, 1, S).astype(np.float32))
+
+
+def _stream_rows(torch, s, **kw):
+    """Tenant ``s``'s wave at the service's width: 8192 new rows and the
+    2048 carried SV rows (``sv_capacity``), bf16."""
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import svm_rows_device
+    return svm_rows_device(SVM_TFIDF.stream_rows_per_wave
+                           + SVM_TFIDF.sv_capacity, SVM_TFIDF.num_features,
+                           seed=20 + s, dtype=torch.bfloat16, **kw)
+
+
+def _state_ids_alpha(torch, state):
+    """Each config's SV ids and α of a round state, without making its
+    (S, cap, d) rows: from the dedup state's ptr, or the buffer's own."""
+    if hasattr(state, "ptr"):
+        safe = state.ptr.clamp(min=0).long()
+        valid = (state.ptr >= 0) & (state.mask > 0)
+        return (torch.where(valid, state.ids[safe], -1),
+                state.alpha * valid.to(state.alpha.dtype))
+    return state.ids, state.alpha
+
+
+def _msg_bytes(T, X, cfg, S, L, dedup):
+    """The bytes of a rank's packed sweep message: the wire rows, then
+    the f32 sidebands and the S hypotheses."""
+    from repro_torch.core import mapreduce_svm as mr
+    from repro_torch.core import sweep as sw
+    k = cfg.sv_capacity // L
+    per, d = X.shape[-2], X.shape[-1]
+    _, wslots = mr.pack_wire_rows(X.reshape(-1, d)[:1],
+                                  cfg.shuffle_wire_dtype)
+    if dedup:
+        U = sw.dedup_unique_cap(cfg, S, k, per)
+        rows, side = U * wslots, 2 * U + 3 * S * k
+    else:
+        rows, side = S * k * wslots, 4 * S * k
+    return 4 * (rows + side + S * d + S), 4 * rows
+
+
+def _sweep_full_rank(rank, rounds, s_dense):
+    """``[sharded-sweep-full]`` on one rank, its own rows made here with
+    its process index: (a) the blocked-CSR svm-tfidf rows (``nnz_cap``
+    256, bf16 values) through ``fit_sharded_sweep`` (S = 4, the train
+    mode's ``--sweep 4``) on ``ring`` then ``allgather``; (b) the dense
+    bf16 rows on ``ring``, ``rounds`` rounds driven one by one at S =
+    ``s_dense``; (c) the per-stream wave, 4 tenants × (8192 + 2048)
+    rows, ``per_config_data``, on ``ring``, ``rounds`` rounds. Each
+    round timed and split into the solve, eq. 7 and the rest (the merge);
+    each part's peak memory. Rank 0 records (b)'s round-0 solve (its
+    first job) and first hinge_scores call, rank 1 (a)'s ring, rank 2
+    (c)'s, and holds them to the plain versions after the last part.
+    → per part the results, launches by route and peak bytes."""
+    import numpy as np
+    import torch
+    import repro_torch.core as T
+    from repro_torch import sparse as sp
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import (svm_rows_device,
+                                           svm_rows_sparse_device)
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.sharded import fit_sharded_sweep
+    from repro_torch.convert import to_numpy
+    L, per, d = rank.world_size, SVM_TFIDF.rows_per_device, \
+        SVM_TFIDF.num_features
+    dev = rank.device
+    shard = dict(device=dev, process_index=rank.rank, process_count=L)
+    out = {"parts": {}, "routes": {}, "peak": {}}
+    checks = []
+
+    def recorder(on):
+        calls = {}
+
+        def keep(name, a, kw, o):
+            if on and name not in calls:
+                calls[name] = (_job_slice(torch, sp, a, kw, o, slice(0, 1))
+                               if name == "cd_solve" else _hinge_call(a, o))
+        return calls, keep
+
+    def begin():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        return dict(ops.ROUTE_LAUNCHES)
+
+    def end(name, before):
+        torch.cuda.synchronize()
+        out["peak"][name] = torch.cuda.max_memory_allocated(dev)
+        out["routes"][name] = {k: v - before[k]
+                               for k, v in ops.ROUTE_LAUNCHES.items()
+                               if v - before[k]}
+
+    # (a) blocked-CSR rows through the train mode's sweep
+    X, y = svm_rows_sparse_device(L * per, d, SVM_TFIDF.nnz_cap, seed=0,
+                                  nnz=SVM_TFIDF.nnz_cap,
+                                  dtype=torch.bfloat16, **shard)
+    for impl in ("ring", "allgather"):
+        cfg = _sweep_full_cfg(T, "sparse", impl)
+        calls, keep = recorder(impl == "ring" and rank.rank == 1)
+        before = begin()
+        acc = {"cd_solve": 0.0, "hinge_scores": 0.0}
+        with _timed(torch, ops, acc, keep):
+            res = fit_sharded_sweep(rank, X, y, cfg, sweep=SWEEP_FULL_S)
+        end(f"sparse-{impl}", before)
+        n = len(res["history"])
+        res["solve_ms"] = 1e3 * acc["cd_solve"] / n
+        res["eq7_ms"] = 1e3 * acc["hinge_scores"] / n
+        res["round_ms"] = res["ms"] / n
+        res["merge_ms"] = res["round_ms"] - res["solve_ms"] - res["eq7_ms"]
+        if impl == "ring":
+            res["msg_bytes"], res["rows_bytes"] = _msg_bytes(
+                T, X, cfg, SWEEP_FULL_S, L, True)
+        else:
+            k = cfg.sv_capacity // L
+            res["rows_bytes"] = SWEEP_FULL_S * k * X.nnz_cap * 6
+            res["msg_bytes"] = res["rows_bytes"] + SWEEP_FULL_S * (
+                k * (2 + 4 + 4 + 2) + 4 * d + 4)
+        res["sent_bytes"] = (L - 1) * res["msg_bytes"]
+        out["parts"][f"sparse-{impl}"] = res
+        if calls:
+            checks.append(("blocked-CSR ring", calls))
+    del X, y
+    torch.cuda.empty_cache()
+
+    def by_rounds(name, fn, X, y, params, S, record, dedup):
+        m = torch.ones_like(y)
+        calls, keep = recorder(record)
+        before = begin()
+        state = fn.init_sv(S, d, X.dtype)
+        res = {k: [] for k in ("ids", "alpha", "risks", "round_ms",
+                               "solve_ms", "eq7_ms", "merge_ms")}
+        for t in range(rounds):
+            acc = {"cd_solve": 0.0, "hinge_scores": 0.0}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _timed(torch, ops, acc, keep if t == 0 else None):
+                state, risks, w, b = fn(X, y, m, state, params)
+            torch.cuda.synchronize()
+            ms = 1e3 * (time.perf_counter() - t0)
+            ids, alpha = _state_ids_alpha(torch, state)
+            res["ids"].append(to_numpy(ids))
+            res["alpha"].append(to_numpy(alpha))
+            res["risks"].append(to_numpy(risks))
+            res["round_ms"].append(ms)
+            res["solve_ms"].append(1e3 * acc["cd_solve"])
+            res["eq7_ms"].append(1e3 * acc["hinge_scores"])
+            res["merge_ms"].append(ms - 1e3 * (acc["cd_solve"]
+                                               + acc["hinge_scores"]))
+        del state
+        end(name, before)
+        res["msg_bytes"], res["rows_bytes"] = _msg_bytes(
+            T, X, fn.cfg, S, L, dedup)
+        res["sent_bytes"] = (L - 1) * res["msg_bytes"]
+        out["parts"][name] = res
+        return calls
+
+    # (c) the per-stream wave: 4 tenants, ring, per-config buffers
+    rows = [_stream_rows(torch, s, **shard) for s in range(STREAM_TENANTS)]
+    Xs = torch.stack([r[0] for r in rows])
+    ys = torch.stack([r[1] for r in rows])
+    del rows
+    cfg = _sweep_full_cfg(T, "dense", "ring")
+    fn = T.build_sharded_sweep_round(cfg, Xs.shape[1], device=dev,
+                                     per_config_data=True)
+    fn.cfg = cfg
+    params = T.stack_params([cfg.svm.params()] * STREAM_TENANTS)
+    calls = by_rounds("stream-ring", fn, Xs, ys,
+                      T.SolverParams(*(torch.as_tensor(f).to(dev)
+                                       for f in params)),
+                      STREAM_TENANTS, rank.rank == 2, False)
+    if calls:
+        checks.append(("per-stream ring", calls))
+    del Xs, ys, fn
+    torch.cuda.empty_cache()
+
+    # (b) dense bf16 rows, ring (the dedup state), round by round
+    X, y = svm_rows_device(L * per, d, seed=0, dtype=torch.bfloat16, **shard)
+    fn = T.build_sharded_sweep_round(cfg, per, device=dev)
+    fn.cfg = cfg
+    params = _sweep_full_grid(T, cfg, s_dense)
+    calls = by_rounds("dense-ring", fn, X, y,
+                      T.SolverParams(*(torch.as_tensor(f).to(dev)
+                                       for f in params)),
+                      s_dense, rank.rank == 0, True)
+    if calls:
+        checks.append(("dense ring", calls))
+    del X, y, fn
+    torch.cuda.empty_cache()
+    for what, calls in checks:
+        tag = f"sharded-sweep-full {what} rank {rank.rank}"
+        _solve_vs_plain(torch, ref, sp, calls["cd_solve"], tag)
+        _hinge_vs_plain(torch, ref, calls["hinge_scores"], tag)
+    return out
+
+
+def _sweep_full_references(torch, T, s_dense, parts):
+    """The functional references of ``[sharded-sweep-full]`` on the card,
+    on the same rows made whole: (a) ``fit_mapreduce_sweep`` of the
+    blocked-CSR rows, (b) / (c) ``rounds`` functional ``sweep_round``s
+    of the dense rows at S = ``s_dense`` / of the 4 tenants' rows. Each
+    part's rows are freed before the next."""
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.data.pipeline import (svm_rows_device,
+                                           svm_rows_sparse_device)
+    from repro_torch.launch.sharded import SweepCase
+    L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
+    want = {}
+    if "sparse" in parts:
+        X, y = svm_rows_sparse_device(L * per, d, SVM_TFIDF.nnz_cap, seed=0,
+                                      nnz=SVM_TFIDF.nnz_cap,
+                                      dtype=torch.bfloat16, device=DEV)
+        cfg = _sweep_full_cfg(T, "sparse", "allgather")
+        want["sparse"] = T.fit_mapreduce_sweep(
+            X, y, L, cfg, _sweep_full_grid(T, cfg, SWEEP_FULL_S), device=DEV)
+        del X, y
+    cfg = _sweep_full_cfg(T, "dense", "allgather")
+    if "stream" in parts:
+        rows = [_stream_rows(torch, s, device=DEV)
+                for s in range(STREAM_TENANTS)]
+        n = rows[0][0].shape[0]
+        Xs = torch.stack([r[0] for r in rows]).reshape(
+            STREAM_TENANTS, L, n // L, d)
+        ys = torch.stack([r[1] for r in rows]).reshape(STREAM_TENANTS, L,
+                                                       n // L)
+        del rows
+        case = SweepCase("stream", cfg, None, None, T.stack_params(
+            [cfg.svm.params()] * STREAM_TENANTS))
+        want["stream"] = _sweep_raw_rounds(torch, T, Xs, ys.to(Xs.dtype),
+                                           case, SWEEP_FULL_ROUNDS)
+        del Xs, ys
+    if "dense" in parts:
+        X, y = svm_rows_device(L * per, d, seed=0, dtype=torch.bfloat16,
+                               device=DEV)
+        case = SweepCase("dense", cfg, None, None,
+                         _sweep_full_grid(T, cfg, s_dense))
+        want["dense"] = _sweep_raw_rounds(
+            torch, T, X.reshape(L, per, d), y.to(X.dtype).reshape(L, per),
+            case, SWEEP_FULL_ROUNDS)
+        del X, y
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return want
+
+
+def phase_sharded_sweep_full(torch, T):
+    """``[sharded-sweep-full]``: the sharded sweep at svm-tfidf width on 8
+    ranks × 8192 rows × d = 131072 sharing the card over gloo (a cut: one
+    card), 3 rounds: (a) blocked-CSR rows through ``fit_sharded_sweep``
+    on ring and allgather (C = logspace(-2, 1, 4)); (b) dense bf16 rows
+    on ring round by round, S = 4 (2 if S = 4 runs out of memory, then
+    printed as a cut); (c) the per-stream wave at the service's width, 4
+    tenants × (8192 + 2048) rows, ring. Held to the functional sweep on
+    the same rows, run first here and freed before the spawn: each
+    config's SV ids and α bit for bit every round on every rank (α in
+    the state's dtype, bf16), risks within 1e-5 relative; one solve
+    launch of S jobs a round on each rank. → launches by kernel row over
+    the ranks."""
+    import numpy as np
+    from repro_torch import compat
+    L = 8
+    s_dense = SWEEP_FULL_S
+    t0 = time.perf_counter()
+    want = _sweep_full_references(torch, T, s_dense,
+                                  ("sparse", "stream", "dense"))
+    say(f"[sharded-sweep-full] the functional references: "
+        f"{time.perf_counter() - t0:.1f} s; their rows freed")
+    t0 = time.perf_counter()
+    try:
+        per_rank = compat.spawn(_sweep_full_rank, L,
+                                (SWEEP_FULL_ROUNDS, s_dense), device="cuda",
+                                timeout_s=600.0, join_timeout_s=900.0)
+    except RuntimeError as e:
+        if "out of memory" not in str(e):
+            raise
+        s_dense = 2
+        say(f"[sharded-sweep-full] CUT: the dense sweep at S = "
+            f"{SWEEP_FULL_S} ran out of memory on a rank; again at S = 2")
+        torch.cuda.empty_cache()
+        want.update(_sweep_full_references(torch, T, s_dense, ("dense",)))
+        t0 = time.perf_counter()
+        per_rank = compat.spawn(_sweep_full_rank, L,
+                                (SWEEP_FULL_ROUNDS, s_dense), device="cuda",
+                                timeout_s=600.0, join_timeout_s=900.0)
+    say(f"[sharded-sweep-full] 8 ranks × 4 parts in "
+        f"{time.perf_counter() - t0:.1f} s (the spawn and each rank's rows "
+        f"included); dense S = {s_dense}")
+    routes = {}
+    for r in per_rank:
+        for part in r["routes"].values():
+            for k, v in part.items():
+                routes[k] = routes.get(k, 0) + v
+    # (a): each rank against the functional sweep; ring ≡ allgather
+    fa = want["sparse"]
+    for impl in ("ring", "allgather"):
+        for r, res in enumerate(per_rank):
+            got = dict(res["parts"][f"sparse-{impl}"])
+            got["sv"] = T.SVBuffer(None, None, got["alpha"], got["ids"],
+                                   None)
+            _sweep_vs_functional(got, fa, f"sharded-sweep-full blocked-CSR "
+                                 f"{impl} rank {r}")
+        solves = [res["routes"][f"sparse-{impl}"].get("cd_solve/sparse", 0)
+                  for res in per_rank]
+        n = len(per_rank[0]["parts"][f"sparse-{impl}"]["history"])
+        check(solves == [n] * L, f"[sharded-sweep-full] blocked-CSR {impl}: "
+              f"solve launches by rank {solves}, not one a round ({n})")
+    a, b = (per_rank[0]["parts"][f"sparse-{i}"] for i in ("ring",
+                                                          "allgather"))
+    check(_same_np(a["ids"], b["ids"]) and _same_np(a["alpha"], b["alpha"])
+          and np.allclose(a["risks"], b["risks"], rtol=1e-6, atol=0),
+          "[sharded-sweep-full] blocked-CSR ring differs from allgather")
+    # (b), (c): every round on every rank against the functional rounds
+    worst = 0.0
+    for part, key in (("dense-ring", "dense"), ("stream-ring", "stream")):
+        for r, res in enumerate(per_rank):
+            got = res["parts"][part]
+            worst = max(worst, _raw_vs_functional(
+                [{"ids": i, "alpha": al, "risks": rk} for i, al, rk in
+                 zip(got["ids"], got["alpha"], got["risks"])], want[key],
+                f"sharded-sweep-full {part} rank {r}"))
+            solves = sum(v for k, v in res["routes"][part].items()
+                         if k in ("cd_solve/cluster", "cd_solve/single"))
+            check(solves == SWEEP_FULL_ROUNDS,
+                  f"[sharded-sweep-full] {part} rank {r}: {solves} solve "
+                  f"launches in {SWEEP_FULL_ROUNDS} rounds")
+    for part, r0 in per_rank[0]["parts"].items():
+        keys = ("round_ms", "solve_ms", "merge_ms", "eq7_ms")
+        if isinstance(r0["round_ms"], list):
+            for t in range(SWEEP_FULL_ROUNDS):
+                split = {k: [round(res["parts"][part][k][t], 1)
+                             for res in per_rank] for k in keys}
+                say(f"[sharded-sweep-full] {part} round {t}: ms by rank "
+                    + json.dumps(split))
+        else:
+            split = {k: [round(res["parts"][part][k], 1)
+                         for res in per_rank] for k in keys}
+            say(f"[sharded-sweep-full] {part} (rounds {r0['rounds']}, "
+                f"R_emp {np.round(r0['risks'], 6).tolist()}, acc on rank "
+                f"0's shard {np.round(r0['acc'], 4).tolist()}): mean ms a "
+                "round by rank " + json.dumps(split))
+        say(f"[sharded-sweep-full] {part}: a rank ships "
+            f"{r0['sent_bytes'] / 1e6:.2f} MB a round "
+            f"({r0['msg_bytes'] / 1e6:.3f} MB a message, "
+            f"{r0['rows_bytes'] / 1e6:.3f} MB of it feature rows); peak "
+            "memory by rank (GB) "
+            + json.dumps([round(res['peak'][part] / 1e9, 3)
+                          for res in per_rank]))
+    rows = _row_launches(routes)
+    say(f"[sharded-sweep-full] every config's SV ids and α bit for bit "
+        f"with the functional sweep on every rank every round, risks "
+        f"within 1e-5 (max rel {worst:.2e}); launches over the 8 ranks: "
+        f"routes {routes}, by kernel row {rows}")
+    check(rows.get("cd_solve", 0) > 0 and rows.get("cd_solve/sparse", 0) > 0
+          and rows.get("hinge_scores", 0) > 0
+          and rows.get("hinge_scores/sparse", 0) > 0,
+          f"[sharded-sweep-full] launches {rows}")
     return rows
 
 
@@ -4710,9 +5326,10 @@ def main() -> int:
                     "when none is named) after the kernel build; print no "
                     "result")
     ap.add_argument("--sharded", action="store_true",
-                    help="run only the sharded round's phases "
-                    "([sharded-small], [sharded-full]) after the kernel "
-                    "build; print no result")
+                    help="run only the sharded round's and sweep's "
+                    "phases ([sharded-small] with [sharded-sweep-small], "
+                    "[sharded-full], [sharded-sweep-full]) after the "
+                    "kernel build; print no result")
     args = ap.parse_args()
 
     import torch
@@ -4739,6 +5356,9 @@ def main() -> int:
         phase_sharded_small(torch, T, text)
         say(f"[sharded-full] launches by kernel row "
             f"{phase_sharded_full(torch, T)}")
+        torch.cuda.empty_cache()
+        say(f"[sharded-sweep-full] launches by kernel row "
+            f"{phase_sharded_sweep_full(torch, T)}")
         say(f"[sharded] done in {time.perf_counter() - t_all:.1f} s; "
             f"{nvidia_smi()}; no result")
         return 0
@@ -4781,6 +5401,9 @@ def main() -> int:
     # slice 12: the sharded round at full width, 8 ranks on this card
     sharded = phase_sharded_full(torch, T)
     torch.cuda.empty_cache()
+    # slice 13: the sharded sweep at full width, 8 ranks on this card
+    sweep_full = phase_sharded_sweep_full(torch, T)
+    torch.cuda.empty_cache()
     # slice 10's full-width paths: their launches join the kernels' rows
     stream, res = phase_stream_full(torch, T, ops, ref)
     mixed = phase_stream_mixed(
@@ -4809,7 +5432,8 @@ def main() -> int:
             "main": row["launches"], "stream": stream.get(row["name"], 0),
             "stream_mixed": mixed.get(row["name"], 0),
             "sched": sched.get(row["name"], 0),
-            "sharded-full": sharded.get(row["name"], 0)}
+            "sharded-full": sharded.get(row["name"], 0),
+            "sharded-sweep-full": sweep_full.get(row["name"], 0)}
     torch.cuda.synchronize()
     say(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi())

@@ -311,6 +311,7 @@ def _rank_main(rank, world, init, backend, device, timeout_s, fn, args,
                results):
     torch.set_num_threads(1)
     dev = "cpu"
+    reported = False
     try:
         if device != "cpu":
             ordinal = rank % torch.cuda.device_count()
@@ -321,13 +322,20 @@ def _rank_main(rank, world, init, backend, device, timeout_s, fn, args,
             timeout=datetime.timedelta(seconds=timeout_s))
         try:
             out = fn(Rank(rank, world, dev, backend), *args)
+        except BaseException:
+            # reported before the group goes down: the peers' errors
+            # about the closed group then come after this root cause
+            results.put((rank, False, traceback.format_exc()))
+            reported = True
+            raise
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
     except BaseException:
         # the parent stops every rank on this report; the exit code says
         # the same to anything else watching the process
-        results.put((rank, False, traceback.format_exc()))
+        if not reported:
+            results.put((rank, False, traceback.format_exc()))
         raise
 
 

@@ -42,7 +42,9 @@ transport ``cfg.shuffle_impl`` names (``allgather``; ``ring`` and
 ``hier`` over the packed wire of :func:`pack_wire_rows`, with the
 integrity lane under ``shuffle_wire_check``), and each rank scores eq. 7
 on its own rows before the convergence collective (``psum`` or
-``tree``) sums the partial risks.
+``tree``) sums the partial risks. The sharded sweep
+(:func:`repro_torch.core.sweep.build_sharded_sweep_round`) runs the
+same rank-side pieces for S configs at once.
 """
 from __future__ import annotations
 
@@ -107,8 +109,8 @@ class MRSVMConfig:
     The transport fields (``shuffle_impl`` … ``shuffle_wire_check``)
     configure the sharded mode (:func:`build_sharded_round`); the
     functional mode does not read them. ``sweep_dedup`` and
-    ``dedup_max_unique`` belong to the sharded sweep, which is not
-    ported yet (ROADMAP Queue 1 item 7b).
+    ``dedup_max_unique`` shape the packed transports' round state in the
+    sharded sweep (:mod:`repro_torch.core.sweep`).
     """
     sv_capacity: int = 256
     svm: SVMConfig = SVMConfig()
@@ -522,44 +524,58 @@ def update_mapreduce(model: MapReduceSVM, X_new, y_new, num_partitions: int,
 def _round_candidates(Xl, yl, ml, sv: SVBuffer, cfg: MRSVMConfig, group,
                       idx: int, k: int, per: int,
                       params: Optional[SolverParams]):
-    """map + reduce + union-fold + balanced top-k of ONE rank.
+    """map + reduce + union-fold + balanced top-k of ONE rank, for S
+    configs at once (S = 1 in the round of one config).
 
-    The reducer is a 1-job solve over the home rows and SV_global, read
-    through the two pointers of :func:`solve_linear_jobs` /
-    :func:`solve_kernel_jobs` (the augmented rows are never copied).
-    SV rows that arrived in another dtype than the home rows (the wire
-    dtype) are cast to it: they are copies of rows of that dtype, so the
-    cast is exact. → ``(cand, w, b)``: the rank's (k,)-row candidate
-    chunk and its reducer hypothesis.
+    ``sv`` holds the S configs' SV buffers, (S, cap, …); ``Xl`` is the
+    rank's rows, (per, d) shared by the configs or (S, per, d) per
+    config (``yl``, ``ml`` (per,) or (S, per) alike); ``params`` None,
+    numbers or (S,) tensors. The S reducers are ONE solve of S jobs
+    (:func:`solve_linear_jobs` / :func:`solve_kernel_jobs`): job s reads
+    the home rows and config s's SV block through the two pointers (the
+    augmented rows are never copied), with config s's C, tol and epoch
+    cutoff. SV rows that arrived in another dtype than the home rows
+    (the wire dtype) are cast to it: they are copies of rows of that
+    dtype, so the cast is exact. The union fold's max over the ranks is
+    one collective for all S configs. → ``(cand, w, b)``: the (S, k)
+    candidate chunks and the S reducer hypotheses (S, d), (S,).
     """
     p = cfg.svm.params() if params is None else params
+    S = sv.y.shape[0]
+    per_config_x = len(Xl.shape) == 3
     xs = sv.x if sv.x.dtype == Xl.dtype else sv.x.to(dtype=Xl.dtype)
-    y_aug = torch.cat([yl, sv.y.to(yl.dtype)])[None]
-    m_aug = torch.cat([ml, sv.mask.to(ml.dtype)])[None]
+    yS, mS = yl.expand(S, per), ml.expand(S, per)
+    y_aug = torch.cat([yS, sv.y.to(yl.dtype)], 1)
+    m_aug = torch.cat([mS, sv.mask.to(ml.dtype)], 1)
     solve = solve_linear_jobs if cfg.svm.is_linear else solve_kernel_jobs
-    res = BinarySVM(*(f[0] for f in solve(Xl[None], xs, y_aug, m_aug,
-                                          cfg.svm, params)))
-    home_alpha = res.alpha[:per]
-    copy_alpha = res.alpha[per:] * sv.mask.to(res.alpha.dtype)
+    res = solve(Xl if per_config_x else Xl[None], xs, y_aug, m_aug, cfg.svm,
+                params)
+    home_alpha = res.alpha[:, :per]
+    copy_alpha = res.alpha[:, per:] * sv.mask.to(res.alpha.dtype)
 
     # union semantics: fold the max appended-copy α back into the home
     # rows (buffer row with global id g lives on rank g // per)
-    buf_alpha = compat.pmax(copy_alpha, group)                   # (cap,)
+    buf_alpha = compat.pmax(copy_alpha, group)                 # (S, cap)
     mine = (sv.ids >= 0) & (torch.div(sv.ids, per, rounding_mode="floor")
                             == idx)
     pos = torch.where(mine, sv.ids % per, 0).long()
     folded = torch.zeros_like(home_alpha).scatter_reduce_(
-        0, pos, torch.where(mine, buf_alpha, 0.0).to(home_alpha.dtype),
+        1, pos, torch.where(mine, buf_alpha, 0.0).to(home_alpha.dtype),
         "amax", include_self=True)
-    home_alpha = torch.maximum(home_alpha, folded) * ml.to(home_alpha.dtype)
+    home_alpha = torch.maximum(home_alpha, folded) * mS.to(home_alpha.dtype)
 
     # balanced top-k: a stable descending sort keeps lax.top_k's order
     # on ties (the lower index first)
-    topv, topi = torch.sort(home_alpha, descending=True, stable=True)
-    topv, topi = topv[:k], topi[:k]
-    live = (topv > p.sv_threshold).to(Xl.dtype)
+    topv, topi = torch.sort(home_alpha, dim=1, descending=True, stable=True)
+    topv, topi = topv[:, :k], topi[:, :k]
+    thr = p.sv_threshold
+    if isinstance(thr, torch.Tensor) and thr.dim():
+        thr = thr.reshape(S, 1)
+    live = (topv > thr).to(Xl.dtype)
     cand_ids = (idx * per + topi).to(torch.int32)
-    cand = SVBuffer(x=Xl[topi] * live[:, None], y=yl[topi] * live,
+    rows = (sparse_rows.take_rows_along(Xl, topi) if per_config_x
+            else Xl[topi])
+    cand = SVBuffer(x=rows * live[..., None], y=yS.gather(1, topi) * live,
                     alpha=topv * live,
                     ids=torch.where(live > 0, cand_ids, -1).to(torch.int32),
                     mask=live)
@@ -582,12 +598,12 @@ def _partials(Xl, yl, ml, W, B, loss: str) -> torch.Tensor:
 
 def _device_risks(part: torch.Tensor, cnt: torch.Tensor, bad: torch.Tensor,
                   cfg: MRSVMConfig, group, ndev: int) -> torch.Tensor:
-    """eq. 7 empirical risks from this rank's (ndev,) loss sums and row
-    count: the global (Σ loss)/(Σ count), the eq. 8 readback collective.
-    ``"psum"`` is one all-reduce of the combined vector; ``"tree"`` is
-    log2(ndev) recursive-doubling stages of XOR-partner
-    :func:`compat.ppermute`, the partial risks and the count riding one
-    message. NaN passes on through either.
+    """eq. 7 empirical risks from this rank's (…, ndev) loss sums and row
+    counts (…) or (): the global (Σ loss)/(Σ count), the eq. 8 readback
+    collective. The sums, the counts and ``bad`` ride ONE vector, so a
+    sweep's S configs are one collective: ``"psum"`` is one all-reduce
+    of it; ``"tree"`` is log2(ndev) recursive-doubling stages of
+    XOR-partner :func:`compat.ppermute`. NaN passes on through either.
 
     ``bad`` is this rank's count of failed wire checks (0 without the
     integrity lane); it rides the same message, so a message garbled on
@@ -595,7 +611,8 @@ def _device_risks(part: torch.Tensor, cnt: torch.Tensor, bad: torch.Tensor,
     sentinel: the driver's readback raises ``FaultDetected
     ("transport")`` everywhere), though the rank it came from kept a
     clean copy."""
-    vec = torch.cat([part.float(), cnt.reshape(1).float(),
+    n_part, n_cnt = part.numel(), cnt.numel()
+    vec = torch.cat([part.float().reshape(-1), cnt.float().reshape(-1),
                      bad.reshape(1).float()])
     if cfg.converge_impl == "tree":
         s = 1
@@ -605,7 +622,9 @@ def _device_risks(part: torch.Tensor, cnt: torch.Tensor, bad: torch.Tensor,
             s <<= 1
     else:
         vec = compat.psum(vec, group)
-    risks = vec[:-2] / torch.clamp(vec[-2], min=1.0)
+    sums = vec[:n_part].reshape(part.shape)
+    cnts = vec[n_part:n_part + n_cnt].reshape(cnt.shape)
+    risks = sums / torch.clamp(cnts, min=1.0)[..., None]
     return torch.where(vec[-1] > 0, torch.full_like(risks, float("inf")),
                        risks)
 
@@ -723,7 +742,7 @@ def _hop_plan(cfg: MRSVMConfig, group, ndev: int, idx: int,
                     expand=lambda c: compat.all_gather_groups(c, groups))
 
 
-def _merge_hops(side: torch.Tensor, plan: _HopPlan, consume):
+def _merge_hops(side: torch.Tensor, plan: _HopPlan, consume, rows=None):
     """The hop engine of the packed transports: ``plan.num_stages``
     stages, each starting the NEXT stage's shift before it expands the
     current message into the (m, L) block that arrived this stage and
@@ -731,26 +750,40 @@ def _merge_hops(side: torch.Tensor, plan: _HopPlan, consume):
     behind the scoring. The message received at hop t passes the
     ``faults.garble_wire`` seam.
 
-    Stage t carries origin group ``(gi - t) mod num_stages``, so the
-    REVERSED arrival list is origin groups gi+1, gi+2, … and one roll
-    of ``gi + 1`` group blocks puts it in origin-rank order.
-    → ``(M, ordered)``: the (ndev, L) message matrix in rank order and
-    the ``consume`` outputs concatenated in rank order.
+    Stage t carries origin group ``(gi - t) mod num_stages``, so each
+    arrived block is written once into its origin ranks' rows of the
+    rank-ordered message matrix, allocated before the first hop: the
+    reference's reversed-arrival concat and one roll give the same
+    matrix, at two more copies of it. With ``rows = (lanes, place)``
+    the first ``lanes`` lanes of each arrived block go to
+    ``place(origin_rows, block_lanes)`` instead, which writes them
+    where its caller keeps them (the sweep's feature rows: no copy of
+    them is made after the last hop), and the matrix holds the rest.
+    → ``(M, ordered)``: the (ndev, L) message matrix (or its lanes from
+    ``lanes`` on) in rank order and the ``consume`` outputs in rank
+    order along their leading (m,) axis.
     """
     L = side.shape[0]
-    msgs, parts = [], []
+    ns, m = plan.num_stages, plan.m
+    skip, place = rows if rows is not None else (0, None)
+    M = torch.empty((ns * m, L - skip), dtype=side.dtype, device=side.device)
+    ordered = None
     cur = side
-    for t in range(plan.num_stages):
-        pending = plan.shift(cur) if t < plan.num_stages - 1 else None
+    for t in range(ns):
+        pending = plan.shift(cur) if t < ns - 1 else None
         blk = plan.expand(cur)                 # (m, L) arrived messages
-        msgs.append(blk.reshape(plan.m * L))
-        parts.append(consume(blk))
+        origin = slice(((plan.gi - t) % ns) * m,
+                       ((plan.gi - t) % ns + 1) * m)
+        if place is not None:
+            place(origin, blk[:, :skip])
+        M[origin] = blk[:, skip:]
+        part = consume(blk)
+        if ordered is None:
+            ordered = part.new_empty((ns * m,) + tuple(part.shape[1:]))
+        ordered[origin] = part
+        del blk
         cur = (faults.garble_wire(pending.wait(), hop=t)
                if pending is not None else None)
-    ndev = plan.num_stages * plan.m
-    M = torch.roll(torch.cat(msgs[::-1]),
-                   (plan.gi + 1) * plan.m * L).reshape(ndev, L)
-    ordered = torch.roll(torch.cat(parts[::-1]), (plan.gi + 1) * plan.m)
     return M, ordered
 
 
@@ -853,8 +886,10 @@ def make_sharded_round(cfg: MRSVMConfig, group, num_devices: int,
 
     def round_body(Xl, yl, ml, sv: SVBuffer,
                    params: Optional[SolverParams] = None):
-        cand, w, b = _round_candidates(Xl, yl, ml, sv, cfg, group, idx, k,
-                                       per, params)
+        cand, w, b = _round_candidates(Xl, yl, ml,
+                                       SVBuffer(*(f[None] for f in sv)),
+                                       cfg, group, idx, k, per, params)
+        cand, w, b = SVBuffer(*(f[0] for f in cand)), w[0], b[0]
         cnt = ml.float().sum()
         if packed:
             new_sv, W, B, part, wire_ok = _packed_merge(

@@ -23,8 +23,11 @@ snapshot on register and every ``--checkpoint-every`` waves (the newest
 service from that directory instead of retraining the streams, and the
 waves count from the restored versions; ``--fold-deadline`` arms the
 fold watchdog (heartbeat file ``--heartbeat``), which exits the process
-with code 17 on a stalled fold. The cluster flags and ``--shuffle`` are
-refused (ROADMAP Queue 1 items 10 and 7).
+with code 17 on a stalled fold. ``--shuffle`` sets the config's SV merge
+transport (and for ``hier`` the simulated host count of
+:func:`repro_torch.launch.mesh.simulated_hier_hosts`), as the
+reference's does. The cluster flags are refused (ROADMAP Queue 1 item
+10).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \
         --smoke --streams 3 --waves 2 --checkpoint-dir /tmp/ck
@@ -41,7 +44,8 @@ from typing import Callable, List, NamedTuple, Optional, Sequence
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.core.mapreduce_svm import MRSVMConfig, fit_mapreduce
+from repro_torch.core.mapreduce_svm import (SHUFFLE_IMPLS, MRSVMConfig,
+                                            fit_mapreduce)
 from repro_torch.core.svm import SVMConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.steps import make_serve_step
@@ -125,6 +129,7 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
               checkpoint_every: int = 1, checkpoint_keep: int = 3,
               restore: bool = False, fold_deadline: Optional[float] = None,
               heartbeat: Optional[str] = None,
+              shuffle: Optional[str] = None,
               test_probe: Optional[Callable] = None) -> StreamServeResult:
     """The streaming polarization serve mode (``--arch svm-tfidf``).
 
@@ -144,8 +149,12 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     for a test harness that measures the waves (the CLI never sets it):
     it is called with stage "submit" before a wave's submits,
     "submitted" right after them and "folded" once every stream has
-    swapped. → :class:`StreamServeResult`.
+    swapped. ``shuffle`` (default the arch config's) is the config's SV
+    merge transport; for ``hier`` the host count is
+    :func:`repro_torch.launch.mesh.simulated_hier_hosts` of the
+    partitions. → :class:`StreamServeResult`.
     """
+    from repro_torch.launch.mesh import simulated_hier_hosts
     from repro_torch.serving import StreamingSVMService
 
     if smoke:
@@ -155,8 +164,11 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
                                       dtype="float32")
     d, rows = svm_cfg.num_features, svm_cfg.stream_rows_per_wave
     L = partitions
+    shuffle = shuffle or svm_cfg.shuffle_impl
     cfg = MRSVMConfig(sv_capacity=svm_cfg.sv_capacity, gamma=1e-4,
-                      max_rounds=3, shuffle_impl=svm_cfg.shuffle_impl,
+                      max_rounds=3, shuffle_impl=shuffle,
+                      hier_num_hosts=(simulated_hier_hosts(L)
+                                      if shuffle == "hier" else None),
                       svm=SVMConfig(C=svm_cfg.C,
                                     max_epochs=svm_cfg.max_epochs))
     dt = getattr(torch, svm_cfg.dtype)
@@ -229,7 +241,7 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
 
 #: flags of the reference's svm serve mode that the port refuses, with
 #: the ROADMAP Queue 1 item that brings them
-_NOT_PORTED_FLAGS = {"shuffle": 7, "coordinator": 10, "num_processes": 10,
+_NOT_PORTED_FLAGS = {"coordinator": 10, "num_processes": 10,
                      "process_id": 10}
 
 
@@ -247,6 +259,9 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="svm family: partitions (default 8)")
     ap.add_argument("--streams", type=int, default=4,
                     help="svm family: tenant streams served")
+    ap.add_argument("--shuffle", default=None, choices=SHUFFLE_IMPLS,
+                    help="svm family: SV merge transport of the sharded "
+                         "fold programs (default: the arch config's)")
     ap.add_argument("--waves", type=int, default=3,
                     help="svm family: update waves to run")
     ap.add_argument("--no-quarantine", action="store_true",
@@ -294,7 +309,7 @@ def main(argv: Optional[Sequence[str]] = None):
                          checkpoint_keep=args.checkpoint_keep,
                          restore=args.restore,
                          fold_deadline=args.fold_deadline,
-                         heartbeat=args.heartbeat)
+                         heartbeat=args.heartbeat, shuffle=args.shuffle)
     if args.smoke:
         cfg = smoke_variant(cfg)
     res = serve_lm(cfg, batch=args.batch, cache_len=args.cache_len,

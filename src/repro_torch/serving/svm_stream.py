@@ -56,9 +56,14 @@ folds (its batches requeue), ``serving.stall`` stalls a fold past
 ``fold_deadline_s``, whose watchdog (heartbeat at ``heartbeat_path``)
 raises ``FaultDetected("serving")`` or calls ``watchdog_handler``.
 
+``shuffle_impl`` replaces the config's SV merge transport, as the
+reference's does: the folds here have no collective, but the config is
+the one source of the sharded wave program derived from the service
+(``build_sharded_sweep_round(svc.cfg, per, per_config_data=True)``).
+
 Not ported yet, and refused with ``NotImplementedError``: the retrace
-guard (ROADMAP Queue 1 item 12), the multi-process ``cluster`` (item 10)
-and the SV merge transport ``shuffle_impl`` of sharded mode (item 7).
+guard (ROADMAP Queue 1 item 12) and the multi-process ``cluster`` (item
+10).
 """
 from __future__ import annotations
 
@@ -256,10 +261,14 @@ class StreamingSVMService:
         # ROADMAP Queue 1 item that brings them:
         for name, given, item in (
                 ("fail_on_retrace", fail_on_retrace, 12),
-                ("cluster", cluster is not None, 10),
-                ("shuffle_impl", shuffle_impl is not None, 7)):
+                ("cluster", cluster is not None, 10)):
             if given:
                 raise _not_ported(f"{name}=", item)
+        # ``shuffle_impl`` overrides the SV merge transport of the config
+        # (any of SHUFFLE_IMPLS): the sharded wave program derived from
+        # the service reads it from ``self.cfg``
+        if shuffle_impl is not None:
+            cfg = dataclasses.replace(cfg, shuffle_impl=shuffle_impl)
         if shed_policy not in ("drop_oldest", "reject"):
             raise ValueError(f"unknown shed_policy {shed_policy!r} "
                              "(expected 'drop_oldest' or 'reject')")

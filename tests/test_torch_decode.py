@@ -345,8 +345,9 @@ def test_unported_archs_and_families_raise_naming_the_roadmap():
     with pytest.raises(NotImplementedError, match="item 13"):
         build_model(ModelConfig(**dict(SMALL, family="moe")))
     # --restore is ported (item 9) and, as the reference's, needs its
-    # directory; --shuffle still waits for the sharded mode (item 7)
+    # directory; --shuffle is ported too (item 7) and, as the reference's,
+    # takes only the merge transports' names
     with pytest.raises(SystemExit, match="--restore requires"):
         main(["--arch", "svm-tfidf", "--device", "cpu", "--restore"])
-    with pytest.raises(NotImplementedError, match="item 7"):
-        main(["--arch", "svm-tfidf", "--device", "cpu", "--shuffle", "ring"])
+    with pytest.raises(SystemExit):
+        main(["--arch", "svm-tfidf", "--device", "cpu", "--shuffle", "tree"])

@@ -9,6 +9,7 @@ of the JAX service, SV ids equal. A batched job of the port reads the
 rows and parameters ``update_mapreduce`` builds for its stream, so the
 two agree to float32 rounding of the plain versions' sums (1e-6, as
 ``tests/test_torch_sweep.py``), with the same rounds and SV ids."""
+import dataclasses
 import json
 import os
 import sys
@@ -553,9 +554,17 @@ _FIRES = []
     (dict(cluster=object()), 10), (dict(shuffle_impl="ring"), 7)])
 def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item,
                                                     tmp_path):
-    """The arguments of ROADMAP Queue 1 items 7, 10 and 12 raise naming
-    their item. Those of item 9 (checkpoints and the fold watchdog), ported
-    since, are accepted and take effect."""
+    """The arguments of ROADMAP Queue 1 items 10 and 12 raise naming
+    their item. Those of item 9 (checkpoints and the fold watchdog) and
+    item 7 (``shuffle_impl``), ported since, are accepted and take
+    effect: the transport replaces the config's, as the reference's
+    service takes it."""
+    if item == 7:
+        svc = StreamingSVMService(cfgs[1], device="cpu", **kw)
+        want = JService(cfgs[0], **kw).cfg
+        assert svc.cfg.shuffle_impl == want.shuffle_impl == "ring"
+        assert dataclasses.asdict(svc.cfg) == dataclasses.asdict(want)
+        return
     if item != 9:
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             StreamingSVMService(cfgs[1], device="cpu", **kw)
@@ -612,8 +621,10 @@ def test_left_out_methods_and_flags_raise_naming_their_item(cfgs, tmp_path,
                                                             capsys):
     """checkpoint() and restore() are ported (ROADMAP Queue 1 item 9), as
     are the serve mode's checkpoint and watchdog flags: a smoke run with
-    them, then one restored from its directory. The cluster flags (item
-    10) and --shuffle (item 7) still raise naming their item."""
+    them, then one restored from its directory. ``--shuffle`` (item 7) is
+    ported too: ``--shuffle hier`` sets the transport and the simulated
+    host count of the 8 partitions, as the reference's launcher does. The
+    cluster flags (item 10) still raise naming their item."""
     svc = StreamingSVMService(cfgs[1], device="cpu")
     with pytest.raises(RuntimeError, match="without checkpoint_dir"):
         svc.checkpoint()
@@ -624,8 +635,10 @@ def test_left_out_methods_and_flags_raise_naming_their_item(cfgs, tmp_path,
     first = serve.main(base + ["--waves", "1", "--checkpoint-every", "1",
                                "--checkpoint-keep", "2",
                                "--fold-deadline", "120",
-                               "--heartbeat", str(tmp_path / "hb.json")])
+                               "--heartbeat", str(tmp_path / "hb.json"),
+                               "--shuffle", "hier"])
     assert first.service.fold_deadline_s == 120.0
+    assert first.cfg.shuffle_impl == "hier" and first.cfg.hier_num_hosts == 2
     assert json.load(open(tmp_path / "hb.json"))["status"] == "alive"
     again = serve.main(base + ["--waves", "1", "--restore"])
     out = capsys.readouterr().out
@@ -639,8 +652,7 @@ def test_left_out_methods_and_flags_raise_naming_their_item(cfgs, tmp_path,
                     "--restore"])
     for flags, item in ((["--coordinator", "localhost:1"], 10),
                         (["--num-processes", "2"], 10),
-                        (["--process-id", "0"], 10),
-                        (["--shuffle", "hier"], 7)):
+                        (["--process-id", "0"], 10)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
             serve.main(base + flags)
 
