@@ -6,6 +6,8 @@
                           [cd_solve_sparse]   # build variants, timed (all
                                               # three when none is named);
                                               # no result
+    python3 chip_smoke.py --sharded       # the sharded phases; no result
+    python3 chip_smoke.py --cluster       # the cluster phases; no result
 
 Phases, one line or block each; any failure exits non-zero:
 
@@ -179,7 +181,24 @@ Phases, one line or block each; any failure exits non-zero:
    round split into solve, merge and eq. 7, the bytes a rank ships, each
    rank's peak memory; a solve and a hinge_scores call of each part
    against plain), whose launches go into
-   ``launches_by_path["sharded-sweep-full"]``.
+   ``launches_by_path["sharded-sweep-full"]``;
+12. slice 14, the cluster launch (2 OS processes × 4 ranks sharing the
+   card over gloo, joined through ``init_cluster`` and process 0's TCP
+   store): after ``[sharded-small]``, ``[cluster-small]`` (the package's
+   multi-process harness ``repro_torch.launch.multihost``: the round on
+   allgather, ring and hier (2 hosts, counted from the processes) on
+   dense and blocked-CSR rows ≡ the functional round on the card; a
+   killed process 1 and process 0's exit 17 with a typed heartbeat; a
+   flaky handshake absorbed and the sweep resumed bit for bit from the
+   newest and, past a corrupted one, the previous generation; no rank
+   outliving its process); after ``[sharded-sweep-full]``,
+   ``[cluster-full]`` (``python -m repro_torch.launch.train --arch
+   svm-tfidf --rounds 3`` at full width as the two processes, plain and
+   with ``--sweep 4``, each bit for bit with the same runs through
+   ``compat.spawn``; start-up, handshake, the round split, MB a rank,
+   peak memory), whose launches go into
+   ``launches_by_path["cluster-full"]``. ``--cluster`` runs only these
+   two after the build.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
@@ -3740,13 +3759,13 @@ def phase_nan_small(torch, ops, ref, sp):
 
 
 def phase_chaos(torch):
-    """``repro_torch.faults.chaos`` on the card: eleven scenarios, seeds
+    """``repro_torch.faults.chaos`` on the card: twelve scenarios, seeds
     0, 1 and 2, each against the reference's outcome (survived bit for
     bit, or detected and named); a delayed or retried round launches
     what a clean one does (checked inside the scenarios from
     ``ops.ROUTE_LAUNCHES``). The four transport scenarios run the sharded
     round on 8 ranks sharing the card over gloo, every seed's in one
-    spawn. The cluster scenario waits for ROADMAP Queue 1 item 10."""
+    spawn; ``handshake_flake`` the cluster's real handshake."""
     from repro_torch.faults import chaos
     t0 = time.perf_counter()
     rows = chaos.sweep([0, 1, 2], DEV)
@@ -3754,9 +3773,8 @@ def phase_chaos(torch):
         say(f"[chaos] seed {seed} {name}: expected {expect}, got {outcome} "
             f"in {dt:.2f} s — {detail}")
     say(f"[chaos] {len(rows)} scenario runs in "
-        f"{time.perf_counter() - t0:.1f} s; waiting: "
-        + ", ".join(f"{k} (item {v})" for k, v in chaos.WAITING.items()))
-    check(len(rows) == 33 and all(r[4] for r in rows),
+        f"{time.perf_counter() - t0:.1f} s")
+    check(len(rows) == 36 and all(r[4] for r in rows),
           f"[chaos] violated: {[r[:4] for r in rows if not r[4]]}")
 
 
@@ -5045,6 +5063,304 @@ def phase_sharded_sweep_full(torch, T):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# slice 14: cluster launch (N OS processes × k ranks, the coordinator's store)
+# ---------------------------------------------------------------------------
+
+CLUSTER_PROCS, CLUSTER_LOCAL = 2, 4
+CLUSTER_FULL_ROUNDS = 3
+
+
+def _cluster_launch(module, args, out, timeout_s):
+    """``module`` as CLUSTER_PROCS processes of one cluster (CLUSTER_LOCAL
+    ranks each, sharing the card), logs in ``out``. → (return codes, the
+    logs, the epoch second before the first process started)."""
+    from repro_torch.launch import multihost as mh
+    t0 = time.time()
+    procs = mh.launch(module, CLUSTER_PROCS, CLUSTER_LOCAL, args,
+                      log_dir=out)
+    rcs = mh.wait_all(procs, timeout_s)
+    logs = [Path(out, f"p{i}.log").read_text() for i in range(CLUSTER_PROCS)]
+    return rcs, logs, t0
+
+
+def _tails(logs, n=3000):
+    return "\n".join(f"--- process {i} ---\n{log[-n:]}"
+                     for i, log in enumerate(logs))
+
+
+def _no_rank_alive(pids, tag):
+    """Every pid in ``pids`` is gone within 10 s (a rank dies with its
+    process)."""
+    from repro_torch.launch import multihost as mh
+    deadline = time.monotonic() + 10.0
+    while mh.alive(pids) and time.monotonic() < deadline:
+        time.sleep(0.2)
+    check(not mh.alive(pids), f"[{tag}] ranks {mh.alive(pids)} outlived "
+          "their process")
+
+
+def phase_cluster_small(torch, T):
+    """``[cluster-small]``: the package's multi-process harness
+    (``repro_torch.launch.multihost``, the reference's mp_worker.py) as
+    2 OS processes × 4 ranks sharing the card over gloo, joined through
+    ``init_cluster`` and process 0's TCP store. Launch A: the sharded
+    round on allgather, ring and hier (2 hosts, counted from the
+    processes) on dense and blocked-CSR rows (512 × 16, cap 8), 3 rounds,
+    each held to the port's functional ``mapreduce_round`` on the card
+    (SV ids and mask equal, α and risks within 1e-4 / 1e-5), then the
+    dedup-ring sweep until process 1 SIGKILLs itself after round 1:
+    process 0 must exit 17 (watchdog or detected peer loss, a typed
+    heartbeat) and the newest generation be round 1. Launch B: a flaky
+    handshake absorbed, the resume bit for bit from the newest
+    generation and, after its medium is corrupted, from the one before.
+    No rank may outlive its process. → launches by kernel row of the
+    round legs on rank 0."""
+    import pickle
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch.ckpt.checkpoint import latest_step
+    from repro_torch.data.pipeline import svm_rows
+    from repro_torch.launch import multihost as mh
+    out = tempfile.mkdtemp(prefix="cluster_small_")
+    try:
+        t0 = time.perf_counter()
+        rcs, logs, _ = _cluster_launch(
+            "repro_torch.launch.multihost",
+            ["--out", out, "--legs", "rounds,crash", "--device", DEV],
+            out, 600)
+        secs_a = time.perf_counter() - t0
+        check(rcs == [17, -9], f"[cluster-small] launch A exited {rcs}, "
+              f"not [17, -9]:\n{_tails(logs)}")
+        check("transport" in logs[0], "[cluster-small] process 0's log "
+              "does not name the transport")
+        _no_rank_alive(mh.rank_pids(out), "cluster-small")
+        ckpt = os.path.join(out, "ckpt")
+        hb = {p.name: json.loads(p.read_text())["status"]
+              for p in Path(ckpt).glob("hb_r*.json")}
+        p0 = [hb.get(f"hb_r{r}.json") for r in range(CLUSTER_LOCAL)]
+        check({"detected", "timeout"} & set(p0), f"[cluster-small] no "
+              f"typed heartbeat on process 0's ranks: {p0}")
+        check(latest_step(ckpt) == 1, f"[cluster-small] newest generation "
+              f"{latest_step(ckpt)}, not round 1")
+        with open(os.path.join(out, "rounds.pkl"), "rb") as f:
+            rounds = pickle.load(f)
+        Xf, yf = svm_rows(mh.N_ROWS, mh.D, seed=mh.SEED)
+        want = _functional_rounds(torch, T, torch.from_numpy(Xf).to(DEV),
+                                  torch.from_numpy(yf).to(DEV), 8,
+                                  mh._cfg("allgather"), 3)
+        worst = 0.0
+        for case in (f"{f}-{i}" for f in ("dense", "sparse")
+                     for i in ("allgather", "ring", "hier")):
+            worst = max(worst, _hold_to_functional(
+                [{"cases": [rounds[case]]}], 0, want,
+                f"cluster-small {case}"))
+        check(rounds["hosts"] == 2, f"[cluster-small] hier counted "
+              f"{rounds['hosts']} hosts, not the 2 processes")
+        routes = _row_launches(rounds["routes"])
+        check(all(routes.get(k, 0) > 0 for k in (
+            "cd_solve", "hinge_scores", "cd_solve/sparse",
+            "hinge_scores/sparse")),
+            f"[cluster-small] rank 0's round legs launched {routes}")
+        say(f"[cluster-small] launch A (6 round legs × 3 rounds, then the "
+            f"killed sweep) {secs_a:.1f} s: exits {rcs}, heartbeats of "
+            f"process 0's ranks {p0}, newest generation 1; every round ≡ "
+            f"the functional round on the card (max |Δ risk| {worst:.2e}), "
+            f"hier over 2 hosts; rank 0's launches {routes}")
+        for p in Path(out).glob("pid_r*"):
+            p.unlink()
+        t0 = time.perf_counter()
+        rcs, logs, _ = _cluster_launch(
+            "repro_torch.launch.multihost",
+            ["--out", out, "--legs", "resume", "--device", DEV], out, 600)
+        secs_b = time.perf_counter() - t0
+        check(rcs == [0, 0] and all("MP_OK resume" in x
+                                     and "absorbed by the retry" in x
+                                     for x in logs),
+              f"[cluster-small] launch B exited {rcs}:\n{_tails(logs)}")
+        _no_rank_alive(mh.rank_pids(out), "cluster-small")
+        results = []
+        for i in range(CLUSTER_PROCS):
+            with open(os.path.join(out, f"result_p{i}.pkl"), "rb") as f:
+                results += pickle.load(f)
+        check(len(results) == 8 and all(
+            r["resume"] == {"newest": 1, "fallback": 0, "leaves": 8}
+            and r["modules"] == [] and r["process_count"] == 2
+            for r in results), f"[cluster-small] resume leg: {results}")
+        res_routes = {}
+        for r in results:
+            for k, v in r["routes"].items():
+                res_routes[k] = res_routes.get(k, 0) + v
+        say(f"[cluster-small] launch B {secs_b:.1f} s: the flaky handshake "
+            "absorbed on both processes, the sweep resumed after round 1 "
+            "and, past the corrupted newest generation, after round 0, "
+            "each ≡ the uninterrupted run bit for bit (8 leaves); "
+            f"launches over the 8 ranks {_row_launches(res_routes)}; no "
+            "rank outlived its process")
+        return routes
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+
+
+def _cluster_ref_rank(rank, jobs):
+    """``[cluster-full]``'s reference on one rank of a plain spawn: each
+    train job as ``launch.train`` runs it on a rank, the memory of one
+    returned to the card before the next (8 ranks at S = 4 take 58 of
+    its 80 GB)."""
+    import gc
+    import torch
+    from repro_torch.launch import train
+    out = []
+    for job in jobs:
+        out.append(train.train_rank(rank, job))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _same_train_record(got, want, sweep, tag):
+    """A cluster rank's train record ≡ the spawn rank's: SV ids and α bit
+    for bit (each round's, or the sweep's converged buffers), rounds and
+    the pick equal, risks within 1e-6 relative."""
+    import numpy as np
+
+    def close(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return a.shape == b.shape and np.allclose(a, b, rtol=1e-6, atol=0)
+    if sweep:
+        g, w = got["sweep"], want["sweep"]
+        check(g["ids"] == w["ids"] and np.array_equal(
+            np.asarray(g["alpha"], np.float32),
+            np.asarray(w["alpha"], np.float32)),
+            f"[{tag}] SV ids or α differ from the spawn's")
+        check(g["rounds"] == w["rounds"] and g["best"] == w["best"]
+              and len(g["history"]) == len(w["history"])
+              and all(close(a, b) for a, b in zip(g["history"],
+                                                  w["history"])),
+              f"[{tag}] rounds, pick or risks differ from the spawn's")
+        return
+    g, w = got["rounds"], want["rounds"]
+    check(len(g) == len(w), f"[{tag}] {len(g)} rounds, the spawn {len(w)}")
+    for t, (a, b) in enumerate(zip(g, w)):
+        check(a["ids"] == b["ids"] and np.array_equal(
+            np.asarray(a["alpha"], np.float32),
+            np.asarray(b["alpha"], np.float32)),
+            f"[{tag}] round {t}: SV ids or α differ from the spawn's")
+        check(close(a["risk"], b["risk"]) and a["sv"] == b["sv"],
+              f"[{tag}] round {t}: R_emp or |SV| differ from the spawn's")
+
+
+def phase_cluster_full(torch, T):
+    """``[cluster-full]``: ``python -m repro_torch.launch.train --arch
+    svm-tfidf --rounds 3`` as 2 OS processes × 4 ranks sharing the card
+    over gloo (``--coordinator 127.0.0.1:<port> --num-processes 2
+    --process-id {0,1} --local-devices 4``): full width, 8 × 8192 ×
+    131072 bf16 rows, ring, each rank making only its rows; then the same
+    launch with ``--sweep 4``. Each is held to the same computation
+    through ``compat.spawn`` (one process, 8 ranks, run first here): each
+    round's SV ids and α (the sweep's converged buffers, rounds and pick)
+    bit for bit on every rank, risks within 1e-6. Prints each rank's
+    time from its process's start to round 0, each process's handshake,
+    the round ms split into solve, merge and eq. 7, the MB a rank ships a
+    round, each rank's peak memory and the launches by route. → launches
+    by kernel row over both launches' ranks."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import compat
+    from repro_torch.configs import SVM_TFIDF
+    from repro_torch.launch import multihost as mh
+    from repro_torch.launch import train
+    L, per, d = 8, SVM_TFIDF.rows_per_device, SVM_TFIDF.num_features
+
+    jobs = {mode: train.svm_job(SVM_TFIDF, L, rounds=CLUSTER_FULL_ROUNDS,
+                                sweep=S)
+            for mode, S in (("plain", 0), ("sweep", SWEEP_FULL_S))}
+    t0 = time.perf_counter()
+    per_rank = compat.spawn(_cluster_ref_rank, L, (list(jobs.values()),),
+                            device=DEV, timeout_s=600.0, join_timeout_s=900.0)
+    refs = {mode: (job, [r[i] for r in per_rank])
+            for i, (mode, job) in enumerate(jobs.items())}
+    say(f"[cluster-full] the reference: both runs through compat.spawn, 8 "
+        f"ranks of one process, in {time.perf_counter() - t0:.1f} s; peak "
+        "memory by rank (GB) " + json.dumps(
+            {mode: [round((r["peak_bytes"] or 0) / 1e9, 3) for r in ref]
+             for mode, (_, ref) in refs.items()}))
+    meta = torch.zeros((per, d), dtype=torch.bfloat16, device="meta")
+    routes = {}
+    out = tempfile.mkdtemp(prefix="cluster_full_")
+    try:
+        for mode, (job, ref) in refs.items():
+            S, tag = job.sweep, f"cluster-full {mode}"
+            report = os.path.join(out, f"{mode}.json")
+            t0 = time.perf_counter()
+            rcs, logs, t_launch = _cluster_launch(
+                "repro_torch.launch.train",
+                ["--arch", "svm-tfidf", "--rounds", str(CLUSTER_FULL_ROUNDS),
+                 "--split-ms", "--report", report, "--device", DEV]
+                + (["--sweep", str(S)] if S else []), out, 900)
+            secs = time.perf_counter() - t0
+            check(rcs == [0, 0], f"[{tag}] exited {rcs}:\n{_tails(logs)}")
+            rep = json.load(open(report))
+            ranks = rep["ranks"]
+            check([r["rank"] for r in ranks] == list(range(L))
+                  and [r["process"] for r in ranks] == [0] * 4 + [1] * 4,
+                  f"[{tag}] ranks {[(r['rank'], r['process']) for r in ranks]}")
+            for r in range(L):
+                _same_train_record(ranks[r], ref[r], S, f"{tag} rank {r}")
+            _no_rank_alive([r["pid"] for r in ranks], tag)
+            cfg = job.cfg
+            k = cfg.sv_capacity // L
+            if S:
+                msg, rows_b = _msg_bytes(T, meta, cfg, S, L, True)
+            else:
+                lanes = k * (d // 2) + 4 * k + d + 1
+                msg, rows_b = 4 * lanes, 4 * k * (d // 2)
+            keys = ("ms", "solve_ms", "merge_ms", "eq7_ms")
+            if S:
+                split = {kk: [round(r["sweep"]["round_ms" if kk == "ms"
+                                               else kk], 1) for r in ranks]
+                         for kk in keys}
+                first = ranks[0]["sweep"]
+                say(f"[{tag}] rounds {first['rounds']}, R_emp "
+                    f"{np.round(first['risks'], 6).tolist()}, selected C = "
+                    f"{first['C'][first['best']]:.4g}; mean ms a round by "
+                    f"rank {json.dumps(split)}")
+            else:
+                for t in range(len(ranks[0]["rounds"])):
+                    split = {kk: [round(r["rounds"][t][kk], 1)
+                                  for r in ranks] for kk in keys}
+                    say(f"[{tag}] round {t}: R_emp "
+                        f"{ranks[0]['rounds'][t]['risk']:.6f}, |SV| "
+                        f"{ranks[0]['rounds'][t]['sv']}; ms by rank "
+                        + json.dumps(split))
+            say(f"[{tag}] launch {secs:.1f} s; process start → round 0 by "
+                "rank (s) "
+                + json.dumps([round(r["first_round_at"] - t_launch, 2)
+                              for r in ranks])
+                + "; handshake ms by process "
+                + json.dumps([round(ranks[p * 4]["handshake_ms"], 1)
+                              for p in range(CLUSTER_PROCS)])
+                + f"; a rank ships {(L - 1) * msg / 1e6:.2f} MB a round "
+                f"({msg / 1e6:.3f} MB a message, {rows_b / 1e6:.3f} MB of "
+                "it feature rows); peak memory by rank (GB) "
+                + json.dumps([round((r["peak_bytes"] or 0) / 1e9, 3)
+                              for r in ranks]))
+            rows = _row_launches(rep["routes"])
+            say(f"[{tag}] SV ids and α bit for bit with the spawn on every "
+                f"rank; launches over the 8 ranks: routes {rep['routes']}, "
+                f"by kernel row {rows}")
+            check(rows.get("cd_solve", 0) > 0
+                  and rows.get("hinge_scores", 0) > 0,
+                  f"[{tag}] launches {rows}")
+            for kk, v in rows.items():
+                routes[kk] = routes.get(kk, 0) + v
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    return routes
+
+
 def _fd_variant(chunk, warps, stages, l2_hint=True):
     edits = [(f"    FD_TC_CASE({hd})\n", "")      # hd 64 only: a quick build
              for hd in (16, 32, 48, 80, 96, 112, 128)]
@@ -5330,6 +5646,10 @@ def main() -> int:
                     "phases ([sharded-small] with [sharded-sweep-small], "
                     "[sharded-full], [sharded-sweep-full]) after the "
                     "kernel build; print no result")
+    ap.add_argument("--cluster", action="store_true",
+                    help="run only the cluster launch's phases "
+                    "([cluster-small], [cluster-full]) after the kernel "
+                    "build; print no result")
     args = ap.parse_args()
 
     import torch
@@ -5362,6 +5682,13 @@ def main() -> int:
         say(f"[sharded] done in {time.perf_counter() - t_all:.1f} s; "
             f"{nvidia_smi()}; no result")
         return 0
+    if args.cluster:
+        phase_cluster_small(torch, T)
+        say(f"[cluster-full] launches by kernel row "
+            f"{phase_cluster_full(torch, T)}")
+        say(f"[cluster] done in {time.perf_counter() - t_all:.1f} s; "
+            f"{nvidia_smi()}; no result")
+        return 0
     phase_kernels_small(torch, ops, ref)
     phase_gram_small(torch, ops, ref, sp)
     phase_gram_solve_rows(torch, ops, ref)
@@ -5382,6 +5709,7 @@ def main() -> int:
     phase_chaos(torch)
     phase_sharded_small(torch, T, text)
     torch.cuda.synchronize()
+    phase_cluster_small(torch, T)
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
             "full-width phases skipped, no result")
@@ -5403,6 +5731,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     # slice 13: the sharded sweep at full width, 8 ranks on this card
     sweep_full = phase_sharded_sweep_full(torch, T)
+    torch.cuda.empty_cache()
+    # slice 14: the train launch as 2 processes × 4 ranks on this card
+    cluster = phase_cluster_full(torch, T)
     torch.cuda.empty_cache()
     # slice 10's full-width paths: their launches join the kernels' rows
     stream, res = phase_stream_full(torch, T, ops, ref)
@@ -5433,7 +5764,8 @@ def main() -> int:
             "stream_mixed": mixed.get(row["name"], 0),
             "sched": sched.get(row["name"], 0),
             "sharded-full": sharded.get(row["name"], 0),
-            "sharded-sweep-full": sweep_full.get(row["name"], 0)}
+            "sharded-sweep-full": sweep_full.get(row["name"], 0),
+            "cluster-full": cluster.get(row["name"], 0)}
     torch.cuda.synchronize()
     say(f"[done] {time.perf_counter() - t_all:.1f} s")
     print(nvidia_smi())

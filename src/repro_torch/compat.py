@@ -21,17 +21,23 @@ that receives nothing and copies locally on a self pair (i → i);
 :func:`pmax` passes NaN on, as ``lax.pmax`` does (gloo's MAX is
 ``std::max``, which drops it, so it is a gather and a local ``amax``).
 
-:func:`spawn` is the one-host counterpart of ``compat.make_mesh``: it
-starts W ranks with ``torch.multiprocessing`` and runs a function on
-each, under a collective time limit and a join time limit of its own.
+:func:`spawn` is the counterpart of ``compat.make_mesh``: it starts W
+ranks with ``torch.multiprocessing`` and runs a function on each, under
+a collective time limit and a join time limit of its own; under a
+cluster launch (:mod:`repro_torch.launch.cluster`) each process starts
+its k ranks and they join one world through the coordinator's store.
+:func:`process_count` is the number of launched processes, as the
+reference's.
 """
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
+import os
 import queue as queue_mod
 import shutil
-import socket
+import signal
 import tempfile
 import time
 import traceback
@@ -88,23 +94,24 @@ def axis_size(group=None) -> int:
     return dist.get_world_size(group)
 
 
+#: the processes of the launch this process belongs to (set by
+#: ``launch.cluster.init_cluster`` in a launching process and by
+#: :func:`spawn` in each of its ranks)
+_PROCESSES = 1
+
+
 def process_count() -> int:
-    """Processes of the job: one a rank, so the world size."""
-    return dist.get_world_size()
+    """Processes of the job, as the reference's ``jax.process_count()``:
+    the OS processes a cluster launch started, each running its own
+    ranks (:mod:`repro_torch.launch.cluster`); 1 under :func:`spawn`
+    alone. The ranks of a process are contiguous in rank order."""
+    return _PROCESSES
 
 
-def host_count(group=None) -> int:
-    """Hosts of ``group``: its ranks grouped by host name, which must be
-    host-major (the ranks of one host contiguous, the same number on
-    each). A collective: every rank of ``group`` calls it."""
-    names: List[Optional[str]] = [None] * axis_size(group)
-    dist.all_gather_object(names, socket.gethostname(), group=group)
-    hosts = list(dict.fromkeys(names))
-    per = len(names) // len(hosts)
-    if len(names) % len(hosts) or any(
-            names[i] != hosts[i // per] for i in range(len(names))):
-        raise ValueError(f"ranks are not in host-major order: {names}")
-    return len(hosts)
+def set_process_count(n: int) -> None:
+    """Record the processes of this process's launch."""
+    global _PROCESSES
+    _PROCESSES = int(n)
 
 
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -287,61 +294,126 @@ def rank_sum(rank, skip: Optional[int] = None) -> float:
 
 
 # ---------------------------------------------------------------------------
-# One host: W ranks as processes.
+# Ranks as processes: W on one host, or k a process of a cluster launch.
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
 class Rank:
-    """What :func:`spawn` hands the function on each rank."""
+    """What :func:`spawn` hands the function on each rank: its global
+    rank and the world size, its device and backend, and where it sits
+    in a cluster launch (``process_index · k + local_rank == rank``)."""
     rank: int
     world_size: int
     device: str          # "cpu" or "cuda:<i>"
     backend: str
+    local_rank: int = 0
+    process_index: int = 0
 
 
-def choose_backend(world_size: int, device: str) -> str:
+class RankFailed(RuntimeError):
+    """A rank of :func:`spawn` raised, exited or was killed: ``rank`` is
+    its global rank, ``exitcode`` the code it exited with (its
+    ``SystemExit`` code, or the process's exit code when it left no
+    report; None when it raised)."""
+
+    def __init__(self, msg: str, rank: int, exitcode: Optional[int]):
+        super().__init__(msg)
+        self.rank, self.exitcode = rank, exitcode
+
+
+def choose_backend(world_size: int, device: str,
+                   cards_per_process: Optional[int] = None) -> str:
     """NCCL when each rank has a card of its own, gloo otherwise (CPU
-    tensors, or ranks sharing a card)."""
+    tensors, or ranks sharing a card). Under a cluster launch
+    ``world_size`` is a process's ranks and ``cards_per_process`` the
+    cards each process may give them (0 when processes share a host)."""
     if device == "cpu":
         return "gloo"
-    return "nccl" if world_size <= torch.cuda.device_count() else "gloo"
+    cards = (torch.cuda.device_count() if cards_per_process is None
+             else cards_per_process)
+    return "nccl" if world_size <= cards else "gloo"
+
+
+_PR_SET_PDEATHSIG = 1
+
+
+def _die_with_parent(parent_pid: int) -> None:
+    """SIGKILL this process when the process that started it dies
+    (``prctl(PR_SET_PDEATHSIG)``), so that no rank outlives a killed
+    launcher and holds its card, port or peers; if the parent is gone
+    already, exit."""
+    try:
+        import ctypes
+        ctypes.CDLL(None, use_errno=True).prctl(_PR_SET_PDEATHSIG,
+                                                int(signal.SIGKILL))
+    except (OSError, AttributeError):      # not Linux: the join limits hold
+        pass
+    if os.getppid() != parent_pid:
+        os._exit(1)
+
+
+def _rendezvous(init, timeout) -> dict:
+    """``init_process_group``'s keywords: a file store of its own on one
+    host, or a client of the coordinator's TCP store (``(host, port,
+    prefix)``) under a cluster launch."""
+    if isinstance(init, str):
+        return {"init_method": init}
+    host, port, prefix = init
+    store = dist.TCPStore(host, port, is_master=False, timeout=timeout)
+    return {"store": dist.PrefixStore(prefix, store)}
 
 
 def _rank_main(rank, world, init, backend, device, timeout_s, fn, args,
-               results):
+               results, parent_pid, local_rank, process_index,
+               process_count):
+    _die_with_parent(parent_pid)
+    set_process_count(process_count)
     torch.set_num_threads(1)
     dev = "cpu"
     reported = False
     try:
         if device != "cpu":
-            ordinal = rank % torch.cuda.device_count()
+            ordinal = local_rank % torch.cuda.device_count()
             torch.cuda.set_device(ordinal)
             dev = f"cuda:{ordinal}"
-        dist.init_process_group(
-            backend, init_method=init, world_size=world, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout_s))
+        timeout = datetime.timedelta(seconds=timeout_s)
+        dist.init_process_group(backend, world_size=world, rank=rank,
+                                timeout=timeout,
+                                **_rendezvous(init, timeout))
         try:
-            out = fn(Rank(rank, world, dev, backend), *args)
-        except BaseException:
+            out = fn(Rank(rank, world, dev, backend, local_rank,
+                          process_index), *args)
+        except BaseException as e:
             # reported before the group goes down: the peers' errors
             # about the closed group then come after this root cause
-            results.put((rank, False, traceback.format_exc()))
+            results.put((rank, False, (_exit_code(e),
+                                       traceback.format_exc())))
             reported = True
             raise
         finally:
             dist.destroy_process_group()
         results.put((rank, True, out))
-    except BaseException:
+    except BaseException as e:
         # the parent stops every rank on this report; the exit code says
         # the same to anything else watching the process
         if not reported:
-            results.put((rank, False, traceback.format_exc()))
+            results.put((rank, False, (_exit_code(e),
+                                       traceback.format_exc())))
         raise
+
+
+def _exit_code(e: BaseException) -> Optional[int]:
+    if isinstance(e, SystemExit):
+        return e.code if isinstance(e.code, int) else 1
+    return None
+
+
+_SPAWNS = itertools.count()
 
 
 def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
           device: str = "cuda", timeout_s: float = 300.0,
-          join_timeout_s: float = 900.0) -> List[Any]:
+          join_timeout_s: float = 900.0, cluster=None) -> List[Any]:
     """Run ``fn(Rank, *args)`` on ``world_size`` new processes (spawn
     start method), one rank each, and return their results in rank
     order.
@@ -349,15 +421,29 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
     ``fn`` must be importable by name (a module-level function of a
     module on ``sys.path``). Ranks rendezvous through a file in a
     directory of their own, so concurrent spawns never share a port; each
-    calls ``torch.set_num_threads(1)``. ``device="cuda"`` (the default;
-    without a card it raises unless ``device="cpu"``) gives rank r card
-    ``r % device_count``; the backend is :func:`choose_backend`'s. The
+    calls ``torch.set_num_threads(1)`` and dies with this process
+    (``PR_SET_PDEATHSIG``). ``device="cuda"`` (the default;
+    without a card it raises unless ``device="cpu"``) gives local rank i
+    card ``i % device_count``; the backend is :func:`choose_backend`'s. The
     kernels are built here, before the ranks start, so that no rank runs
     ``nvcc``.
+
+    With ``cluster`` (a joined :class:`repro_torch.launch.cluster.
+    Cluster`), this process starts its ``cluster.local_device_count``
+    ranks (``world_size`` must be that number) and they join one world
+    of ``process_count · k`` ranks with every other process's, through
+    the coordinator's TCP store: local rank i is global rank
+    ``process_index · k + i``, and :func:`process_count` in a rank is the
+    cluster's. Every process of the cluster calls :func:`spawn` as often
+    and in the same order (each call is a world of its own). The result
+    is this process's ranks' results, in rank order.
+
     A collective that waits longer than ``timeout_s`` raises on its
-    rank. A rank that raises makes this raise with its traceback; ranks
-    still running after ``join_timeout_s`` are killed and this raises
-    ``TimeoutError``. Either way every rank is stopped first.
+    rank. A rank that raises or exits makes this raise
+    :class:`RankFailed` with its traceback (a rank's own error, reported
+    before its group goes down, comes first); ranks still running after
+    ``join_timeout_s`` are killed and this raises ``TimeoutError``.
+    Either way every rank of this process is stopped first.
     """
     import torch.multiprocessing as mp
     if device != "cpu":
@@ -366,45 +452,63 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
                                "device='cpu' to run the ranks on the CPU")
         from repro_torch.kernels import build
         build.build_all()
-    backend = choose_backend(world_size, device)
+    n_spawn = next(_SPAWNS)
+    if cluster is None:
+        k, first, world, procs_n, pidx = world_size, 0, world_size, 1, 0
+        backend = choose_backend(world_size, device)
+        rdzv = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
+        init = f"file://{rdzv}/store"
+    else:
+        k = cluster.local_device_count
+        if world_size != k:
+            raise ValueError(f"this process of the cluster runs {k} ranks, "
+                             f"not {world_size}")
+        pidx, procs_n = cluster.process_index, cluster.process_count
+        first, world = pidx * k, procs_n * k
+        backend = choose_backend(k, device, cluster.cards_per_process)
+        rdzv = None
+        host, port = cluster.coordinator.rsplit(":", 1)
+        init = (host, int(port), f"spawn{n_spawn}/")
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    rdzv = tempfile.mkdtemp(prefix="repro_torch_rdzv_")
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world_size, f"file://{rdzv}/store",
-                               backend, device, timeout_s, fn, tuple(args),
-                               results))
-             for r in range(world_size)]
+                         args=(first + i, world, init, backend, device,
+                               timeout_s, fn, tuple(args), results,
+                               os.getpid(), i, pidx, procs_n))
+             for i in range(k)]
+    mine = list(range(first, first + k))
     got: dict = {}
     try:
         for p in procs:
             p.start()
         deadline = time.monotonic() + join_timeout_s
-        while len(got) < world_size:
+        while len(got) < k:
             left = deadline - time.monotonic()
             if left <= 0:
                 raise TimeoutError(
-                    f"ranks {sorted(set(range(world_size)) - set(got))} of "
-                    f"{world_size} still running after {join_timeout_s} s")
+                    f"ranks {sorted(set(mine) - set(got))} of {world} "
+                    f"still running after {join_timeout_s} s")
             try:
                 rank, ok, out = results.get(timeout=min(left, 1.0))
             except queue_mod.Empty:
-                dead = [r for r, p in enumerate(procs)
+                dead = [r for r, p in zip(mine, procs)
                         if r not in got and p.exitcode is not None]
                 if dead:
                     time.sleep(0.5)             # its last message may lag
                     if results.empty():
-                        raise RuntimeError(
-                            f"rank {dead[0]} exited with code "
-                            f"{procs[dead[0]].exitcode} and no result")
+                        code = procs[dead[0] - first].exitcode
+                        raise RankFailed(
+                            f"rank {dead[0]} exited with code {code} and "
+                            "no result", dead[0], code)
                 continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {world_size} failed:\n"
-                                   f"{out}")
+                code, text = out
+                raise RankFailed(f"rank {rank} of {world} failed:\n{text}",
+                                 rank, code)
             got[rank] = out
         for p in procs:
             p.join(timeout=max(deadline - time.monotonic(), 1.0))
-        return [got[r] for r in range(world_size)]
+        return [got[r] for r in mine]
     finally:
         for p in procs:
             if p.is_alive():
@@ -413,4 +517,5 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
             if p.pid is not None:
                 p.join(timeout=5.0)
         results.close()
-        shutil.rmtree(rdzv, ignore_errors=True)
+        if rdzv is not None:
+            shutil.rmtree(rdzv, ignore_errors=True)

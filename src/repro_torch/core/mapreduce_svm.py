@@ -685,14 +685,15 @@ class _HopPlan(NamedTuple):
     expand: object    # (L,) msg → (m, L) arrived block
 
 
-def resolve_topology(cfg: MRSVMConfig, num_devices: int, group=None) -> int:
+def resolve_topology(cfg: MRSVMConfig, num_devices: int) -> int:
     """Build-time topology facts: the hier host-group count, with the
     checks the collectives need.
 
-    ``cfg.hier_num_hosts`` pins the host count; ``None`` counts the
-    hosts of ``group`` (:func:`compat.host_count`, ranks grouped by host
-    name in host-major order) — one process is one rank, so the process
-    count would always make hier the flat ring. One host is a single
+    ``cfg.hier_num_hosts`` pins the host count; ``None`` reads the
+    launched processes (:func:`compat.process_count`, 1 under
+    ``compat.spawn`` alone), as the reference does: the ranks of a
+    cluster launch are process-major (global rank = process · k +
+    local), so a host is a process's k ranks. One host is a single
     grouped all-gather; hosts == ranks is the flat ring. Tree needs a
     power-of-two rank count.
     """
@@ -702,7 +703,7 @@ def resolve_topology(cfg: MRSVMConfig, num_devices: int, group=None) -> int:
             f"power-of-two device count, got {num_devices}")
     if cfg.shuffle_impl != "hier":
         return 1
-    hosts = cfg.hier_num_hosts or compat.host_count(group)
+    hosts = cfg.hier_num_hosts or compat.process_count()
     if num_devices % hosts:
         raise ValueError(
             f"hier shuffle needs the device count ({num_devices}) "
@@ -879,7 +880,7 @@ def make_sharded_round(cfg: MRSVMConfig, group, num_devices: int,
         raise ValueError("sv_capacity must divide the data-parallel size")
     k = cap // num_devices
     per = rows_per_device
-    hosts = resolve_topology(cfg, num_devices, group)
+    hosts = resolve_topology(cfg, num_devices)
     idx = compat.axis_index(group)
     packed = cfg.shuffle_impl in PACKED_SHUFFLES
     plan = _hop_plan(cfg, group, num_devices, idx, hosts) if packed else None

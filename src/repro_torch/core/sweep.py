@@ -152,6 +152,34 @@ def _freeze(done: torch.Tensor, old, new):
     return torch.where(done.reshape((-1,) + (1,) * (new.dim() - 1)), old, new)
 
 
+def _config_part(tree, s: int):
+    """A copy of config ``s``'s slice of a per-config tree (leading S),
+    in host memory: tensors, ``SparseRows`` and NamedTuples of them."""
+    if isinstance(tree, tuple):
+        return type(tree)(*(_config_part(f, s) for f in tree))
+    if sparse_rows.is_sparse(tree):
+        return sparse_rows.SparseRows(tree.indices[s].to("cpu", copy=True),
+                                      tree.values[s].to("cpu", copy=True),
+                                      tree.d, tree.ids_in_range)
+    return tree[s].to("cpu", copy=True)
+
+
+def _put_config(tree, s: int, part) -> None:
+    """Write :func:`_config_part`'s ``part`` back as config ``s`` of
+    ``tree``, in place (the column-id mark kept when both had it)."""
+    if isinstance(tree, tuple):
+        for f, p in zip(tree, part):
+            _put_config(f, s, p)
+    elif sparse_rows.is_sparse(tree):
+        marked = tree.ids_in_range and part.ids_in_range
+        tree.indices[s].copy_(part.indices)
+        tree.values[s].copy_(part.values)
+        if marked:
+            tree.mark_ids_in_range()
+    else:
+        tree[s].copy_(part)
+
+
 def _on_card(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host mask on the card without a host sync (a copy of it is
     staged at the call)."""
@@ -193,7 +221,10 @@ def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
     so its candidates die and it can neither claim a unique slot nor
     change an active config's result), and ``snapshot(state)`` makes the
     per-config (S, cap, …) buffer only on a round where a config
-    converges (its frozen copy) and on the last round.
+    converges and on the last round; of the first only the converged
+    configs' slices are kept, in host memory until the last round (at
+    svm-tfidf width a config's slice is 0.54 GB a rank, which 8 ranks
+    sharing one card cannot hold beside a round).
     """
     S = _num_configs(params)
     dev = params.C.device
@@ -205,6 +236,7 @@ def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
     rounds = np.zeros(S, np.int64)
     history = []
     frozen = None if snapshot is not None else svb
+    parts = {}            # snapshot: each converged config's frozen slice
     for t in range(cfg.max_rounds):
         t0 = time.perf_counter()
         sv_new, picks, ws, bs = masked_step(step, svb, params, done,
@@ -234,8 +266,14 @@ def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
         if snapshot is not None and (newly.any()
                                      or t == cfg.max_rounds - 1):
             exp = snapshot(sv_new)
-            frozen = exp if frozen is None else _freeze(
-                _on_card(done, dev), frozen, exp)
+            if t == cfg.max_rounds - 1 or (done | newly).all():
+                for s, part in parts.items():
+                    _put_config(exp, s, part)
+                frozen = exp
+            else:
+                for s in np.flatnonzero(newly):
+                    parts[int(s)] = _config_part(exp, int(s))
+            del exp
         done |= newly
         prev = np.where(act, r_star, prev)
         if done.all():
@@ -507,8 +545,15 @@ def expand_chunk(chunk: DedupChunk, buf_dtype=torch.float32) -> SVBuffer:
     safe = torch.clamp(chunk.ptr, min=0).long()
     valid = (chunk.ptr >= 0) & (chunk.mask > 0)
     vf = valid.to(buf_dtype)
+    x = chunk.x[safe]
+    if sparse_rows.is_sparse(x):
+        x = x.to(dtype=buf_dtype) * vf[..., None]
+    else:
+        # the 0/1 mask in place before the cast (exact in either order):
+        # one copy of the (…, k, d) rows fewer
+        x = x.mul_(vf[..., None].to(x.dtype)).to(dtype=buf_dtype)
     return SVBuffer(
-        x=chunk.x[safe].to(dtype=buf_dtype) * vf[..., None],
+        x=x,
         y=chunk.y[safe].to(buf_dtype) * vf,
         alpha=chunk.alpha.to(buf_dtype) * vf,
         ids=torch.where(valid, chunk.ids[safe], -1),
@@ -691,7 +736,7 @@ def _make_packed_sweep_body(cfg: MRSVMConfig, group, ndev: int, per: int,
     k = cap // ndev
     wire_dt = _float_dtype(cfg.shuffle_wire_dtype)
     dedup = uses_dedup_state(cfg, per_config_data)
-    hosts = resolve_topology(cfg, ndev, group)
+    hosts = resolve_topology(cfg, ndev)
     idx = compat.axis_index(group)
     plan = _hop_plan(cfg, group, ndev, idx, hosts)
     f32 = torch.float32
@@ -808,7 +853,7 @@ def make_sharded_sweep_round(cfg: MRSVMConfig, group, num_devices: int,
                                        rows_per_device, per_config_data)
     k = cap // num_devices
     per = rows_per_device
-    resolve_topology(cfg, num_devices, group)
+    resolve_topology(cfg, num_devices)
     idx = compat.axis_index(group)
 
     def sweep_body(Xl, yl, ml, sv: SVBuffer, params: SolverParams):
@@ -923,7 +968,8 @@ def run_sharded_sweep(round_fn, X, y, mask, cfg: MRSVMConfig,
     On the dedup transports the shared-row state threads through the
     rounds unfrozen and the per-config buffer is made only when a config
     converges and on the last round (:func:`_run_rounds`); the result
-    always carries the (S, cap, …) ``SVBuffer``. ``fail_on_retrace``
+    always carries the (S, cap, …) ``SVBuffer``, its rows in the rows'
+    dtype. ``fail_on_retrace``
     (the reference's retrace guard) is not ported (ROADMAP Queue 1 item
     12) and raises.
     """
@@ -941,16 +987,23 @@ def run_sharded_sweep(round_fn, X, y, mask, cfg: MRSVMConfig,
     y = as_tensor(y, dev, X.dtype)
     mask = (torch.ones(X.shape[:-1], dtype=X.dtype, device=dev)
             if mask is None else as_tensor(mask, dev, X.dtype))
-    svb = round_fn.init_sv(S, d, X.dtype)
 
     def step(sv_b, eff):
         sv_new, risks, ws, bs = round_fn(X, y, mask, sv_b, eff)
         r_star, l_star = risks.min(1)        # each config's best reducer
         return sv_new, r_star, l_star, ws, bs
 
+    # the per-config buffer of a dedup state in the rows' dtype (the
+    # reference's in f32): its values are the same, and at svm-tfidf width
+    # S = 4 configs' f32 buffer is 4.3 GB a rank, which 8 ranks sharing
+    # one card cannot hold beside a round
+    snapshot = (None if round_fn.expand_sv is None else
+                lambda state: round_fn.expand_sv(state, X.dtype))
+    # the round-0 state is handed over, not kept here: held for the whole
+    # loop it would be one more state a rank (2.15 GB at svm-tfidf width)
     svb, best_risk, best_w, best_b, rounds, history = _run_rounds(
-        step, svb, d, cfg, params, verbose, "sharded-sweep",
-        snapshot=round_fn.expand_sv)
+        step, round_fn.init_sv(S, d, X.dtype), d, cfg, params, verbose,
+        "sharded-sweep", snapshot=snapshot)
     return ShardedSweep(risks=torch.as_tensor(best_risk, dtype=torch.float32),
                         ws=best_w, bs=best_b, sv=svb, rounds=rounds,
                         history=history)

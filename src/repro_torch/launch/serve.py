@@ -26,8 +26,9 @@ fold watchdog (heartbeat file ``--heartbeat``), which exits the process
 with code 17 on a stalled fold. ``--shuffle`` sets the config's SV merge
 transport (and for ``hier`` the simulated host count of
 :func:`repro_torch.launch.mesh.simulated_hier_hosts`), as the
-reference's does. The cluster flags are refused (ROADMAP Queue 1 item
-10).
+reference's does. The cluster flags (:mod:`repro_torch.launch.cluster`)
+make the service process-count-aware: process 0 admits and folds, every
+other process is a read-only replica that serves its snapshots.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \
         --smoke --streams 3 --waves 2 --checkpoint-dir /tmp/ck
@@ -48,6 +49,9 @@ from repro_torch.core.mapreduce_svm import (SHUFFLE_IMPLS, MRSVMConfig,
                                             fit_mapreduce)
 from repro_torch.core.svm import SVMConfig
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.launch.cluster import (add_cluster_flags,
+                                        cluster_config_from_args,
+                                        init_cluster)
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.config import ModelConfig, smoke_variant
 from repro_torch.models.transformer import DecodeState, build_model
@@ -130,7 +134,8 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
               restore: bool = False, fold_deadline: Optional[float] = None,
               heartbeat: Optional[str] = None,
               shuffle: Optional[str] = None,
-              test_probe: Optional[Callable] = None) -> StreamServeResult:
+              test_probe: Optional[Callable] = None,
+              cluster=None) -> StreamServeResult:
     """The streaming polarization serve mode (``--arch svm-tfidf``).
 
     Registers ``streams`` tenants, each trained by ``fit_mapreduce`` on
@@ -152,7 +157,10 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     swapped. ``shuffle`` (default the arch config's) is the config's SV
     merge transport; for ``hier`` the host count is
     :func:`repro_torch.launch.mesh.simulated_hier_hosts` of the
-    partitions. → :class:`StreamServeResult`.
+    partitions. On a process of ``cluster`` other than 0 the service is
+    a read-only replica (``repro/launch/serve.py:99-105``): its streams
+    are registered and readable, it reports stream 0's accuracy and runs
+    no wave. → :class:`StreamServeResult`.
     """
     from repro_torch.launch.mesh import simulated_hier_hosts
     from repro_torch.serving import StreamingSVMService
@@ -175,7 +183,7 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     hardening = dict(checkpoint_every_waves=checkpoint_every,
                      checkpoint_keep=checkpoint_keep, quarantine=quarantine,
                      fold_deadline_s=fold_deadline, heartbeat_path=heartbeat,
-                     device=device)
+                     cluster=cluster, device=device)
     if restore:
         if not checkpoint_dir:
             raise SystemExit("--restore requires --checkpoint-dir")
@@ -200,6 +208,14 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
         X0, y0 = batch(s, 0)
         svc.register(f"stream{s}", fit_mapreduce(X0, y0, L, cfg,
                                                  device=dev))
+    if cluster is not None and not cluster.is_coordinator:
+        # snapshots are served from every process; admission is not
+        X0, y0 = batch(0, 0)
+        print(f"process {cluster.process_index}: read-only replica "
+              f"(stream0 snapshot v{svc.snapshot('stream0').version}, "
+              f"acc={_accuracy(svc, 'stream0', X0, y0):.3f}); admission "
+              "runs on process 0")
+        return StreamServeResult(svc, cfg, [], [], [])
     # after a restore the versions resume from the checkpoint, so a
     # wave's completion counts from them
     base = {s: svc.snapshot(f"stream{s}").version for s in range(streams)}
@@ -238,11 +254,6 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     print(svc.throughput_report())
     return StreamServeResult(svc, cfg, stale_all, fresh_all, secs)
 
-
-#: flags of the reference's svm serve mode that the port refuses, with
-#: the ROADMAP Queue 1 item that brings them
-_NOT_PORTED_FLAGS = {"coordinator": 10, "num_processes": 10,
-                     "process_id": 10}
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -286,16 +297,10 @@ def main(argv: Optional[Sequence[str]] = None):
     ap.add_argument("--heartbeat", default=None,
                     help="svm family: path of the watchdog's JSON "
                          "heartbeat file")
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        ap.add_argument("--" + flag.replace("_", "-"), default=None,
-                        nargs="?", const=True,
-                        help=f"not ported yet (ROADMAP Queue 1 item {item})")
+    add_cluster_flags(ap)
     args = ap.parse_args(argv)
-    for flag, item in _NOT_PORTED_FLAGS.items():
-        if getattr(args, flag) is not None:
-            raise NotImplementedError(
-                f"--{flag.replace('_', '-')} is not ported to repro_torch "
-                f"yet (ROADMAP Queue 1 item {item})")
+    # before anything else: a process joins its cluster first
+    cluster = init_cluster(cluster_config_from_args(args))
     cfg = get_config(args.arch)
     if getattr(cfg, "family", None) == "svm":
         return serve_svm(cfg, streams=args.streams, waves=args.waves,
@@ -309,7 +314,11 @@ def main(argv: Optional[Sequence[str]] = None):
                          checkpoint_keep=args.checkpoint_keep,
                          restore=args.restore,
                          fold_deadline=args.fold_deadline,
-                         heartbeat=args.heartbeat, shuffle=args.shuffle)
+                         heartbeat=args.heartbeat, shuffle=args.shuffle,
+                         cluster=cluster)
+    if cluster.is_distributed:
+        raise SystemExit(
+            "multi-process launch currently covers the svm family")
     if args.smoke:
         cfg = smoke_variant(cfg)
     res = serve_lm(cfg, batch=args.batch, cache_len=args.cache_len,

@@ -332,7 +332,9 @@ def fit_sharded_sweep(rank, X, y, cfg: MRSVMConfig, sweep: int = 4,
                             verbose=verbose and rank.rank == 0)
     ms = 1e3 * (time.perf_counter() - t0)
     yf = yl.float()
-    acc = [float(((decision_linear(res.ws[s], res.bs[s], Xl) >= 0)
+    # in row chunks: a float32 copy of a full-width rank's rows is 4.3 GB
+    acc = [float(((decision_linear(res.ws[s], res.bs[s], Xl,
+                                   chunk_rows=1024) >= 0)
                   .float() * 2 - 1 == yf).float().mean())
            for s in range(sweep)]
     if verbose and rank.rank == 0:

@@ -61,9 +61,14 @@ reference's does: the folds here have no collective, but the config is
 the one source of the sharded wave program derived from the service
 (``build_sharded_sweep_round(svc.cfg, per, per_config_data=True)``).
 
+``cluster`` (a :class:`repro_torch.launch.cluster.Cluster`) makes the
+service process-count-aware, as the reference's: admission (``submit``,
+``run_wave``, the background scheduler, checkpoints) runs on process 0
+only, while every process's snapshots stay readable; ``None`` is one
+process, every method enabled.
+
 Not ported yet, and refused with ``NotImplementedError``: the retrace
-guard (ROADMAP Queue 1 item 12) and the multi-process ``cluster`` (item
-10).
+guard (ROADMAP Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -259,11 +264,8 @@ class StreamingSVMService:
         # handler, which exits the process).
         # The reference's arguments that the port refuses, with the
         # ROADMAP Queue 1 item that brings them:
-        for name, given, item in (
-                ("fail_on_retrace", fail_on_retrace, 12),
-                ("cluster", cluster is not None, 10)):
-            if given:
-                raise _not_ported(f"{name}=", item)
+        if fail_on_retrace:
+            raise _not_ported("fail_on_retrace=", 12)
         # ``shuffle_impl`` overrides the SV merge transport of the config
         # (any of SHUFFLE_IMPLS): the sharded wave program derived from
         # the service reads it from ``self.cfg``
@@ -273,6 +275,7 @@ class StreamingSVMService:
             raise ValueError(f"unknown shed_policy {shed_policy!r} "
                              "(expected 'drop_oldest' or 'reject')")
         self.device = resolve_device(device)
+        self.cluster = cluster
         self.cfg = cfg
         self.L = num_partitions
         self.max_batches_per_wave = max_batches_per_wave
@@ -349,7 +352,7 @@ class StreamingSVMService:
             if self.keep_history:
                 self._history[stream] = {0: snap}
         self._fold_after_caller()
-        if self.checkpoint_dir is not None:
+        if self.checkpoint_dir is not None and self._admits:
             # a stream is durable from the moment it exists
             self.checkpoint()
         return snap
@@ -585,17 +588,30 @@ class StreamingSVMService:
         if self._stream is not None:
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
 
+    @property
+    def _admits(self) -> bool:
+        """Whether THIS process runs admission (process 0, or local)."""
+        return self.cluster is None or self.cluster.is_coordinator
+
     def submit(self, stream: str, X, y) -> int:
         """Queue one vectorized micro-batch; returns its uid. ``X`` is
         dense ``(n, d)`` or blocked-CSR :class:`repro_torch.sparse.
         SparseRows`, whichever format the stream's model serves; numpy
         input goes to the service's device. A dead scheduler raises:
         enqueueing behind one grows queues that can never fold while
-        readers pin the stale snapshot."""
+        readers pin the stale snapshot. Admission runs on process 0 of a
+        cluster: a submit on another process is a routing bug (its queue
+        would never fold), so it raises."""
         if self._scheduler_error is not None:
             raise RuntimeError(
                 "streaming scheduler died — restart the service before "
                 "submitting more work") from self._scheduler_error
+        if not self._admits:
+            raise RuntimeError(
+                f"stream admission runs on process 0; this is process "
+                f"{self.cluster.process_index} of "
+                f"{self.cluster.process_count} (snapshots stay readable "
+                "here — route submissions to the coordinator)")
         X, y = _as_rows(X), _as_rows(y)
         # featurizer seam: an armed poison_rows fault lands a NaN or Inf
         # in the batch where a buggy upstream vectorizer would
@@ -740,7 +756,10 @@ class StreamingSVMService:
 
     def run_wave(self) -> Optional[StreamWaveStats]:
         """Admit one wave and fold it. Returns its stats, or ``None``
-        when every queue was empty. Thread-safe; folds are serialized."""
+        when every queue was empty. Thread-safe; folds are serialized.
+        A no-op (``None``) off process 0: nothing can queue there."""
+        if not self._admits:
+            return None
         with self._wave_lock:
             t0 = time.perf_counter()
             admitted = self._admit()
@@ -957,7 +976,10 @@ class StreamingSVMService:
 
     def start(self, idle_poll_s: float = 0.05) -> None:
         """Start the background wave scheduler: batches submitted after
-        this fold in continuously without blocking the submitter."""
+        this fold in continuously without blocking the submitter. A
+        no-op off process 0, so symmetric launch code may call it."""
+        if not self._admits:
+            return
         with self._lock:
             if self._thread is not None:
                 return

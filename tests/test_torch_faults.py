@@ -414,9 +414,13 @@ def test_chaos_scenario_meets_the_reference_outcome(ctx, name, expect, fn):
 
 
 def test_chaos_main_lists_the_waiting_scenarios(capsys):
+    """No scenario waits any more: ``handshake_flake`` (ROADMAP Queue 1
+    item 10) runs and meets the reference's outcome."""
     assert chaos.main(["--seeds", "1", "--only", "stall",
                        "--device", "cpu"]) == 0
     out = capsys.readouterr().out
-    assert "detected" in out and "[ok ]" in out
-    for name, item in chaos.WAITING.items():
-        assert f"{name}" in out and f"item {item}: not run" in out
+    assert "detected" in out and "[ok ]" in out and "not run" not in out
+    assert chaos.main(["--seeds", "1", "--only", "handshake",
+                       "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert "handshake_flake" in out and "survived" in out and "[ok ]" in out

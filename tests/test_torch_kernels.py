@@ -161,8 +161,14 @@ def test_port_imports_neither_jax_nor_the_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     twins = sorted((ROOT / "examples").glob("torch_*.py"))
-    assert len(files) > 10 and len(twins) >= 2
+    assert len(files) > 10 and len(twins) >= 4
     files += twins
+    # the cluster launch's modules and its example twin are walked too
+    walked = {str(f.relative_to(ROOT)) for f in files}
+    assert {"src/repro_torch/launch/cluster.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/multihost.py",
+            "examples/torch_multihost_svm.py"} <= walked
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _imports(f)
            if mod.split(".")[0] in ("jax", "jaxlib", "repro")]

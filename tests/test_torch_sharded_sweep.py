@@ -13,20 +13,25 @@ streaming wave), blocked-CSR rows beside the same rows dense, bf16 rows
 on a bf16 wire, a NaN row, and a round state saved at round 1 and
 resumed. While it runs, a child process runs the reference's own
 ``run_sharded_sweep`` on an 8-device CPU mesh for the f32 ring and the
-per-stream wave. The tests hold each case to ``repro.core``'s
-functional sweep with the reference's limits (risks and ws rtol 1e-4 /
+per-stream wave, and ``repro.core``'s functional sweep of each case (in
+a process of its own: in an xdist worker that had run other files the
+in-process JAX sweep of the freeze cases once gave other SV ids). The
+tests hold each case to that functional sweep with the reference's
+limits (risks and ws rtol 1e-4 /
 atol 1e-5; ids, rounds and best equal), to the port's functional sweep,
 and the packed transports to allgather bit for bit. In-process tests
 hold the dedup format, the round state's shapes and dtypes, the
 checkpoints, ``simulated_hier_hosts`` and the service's transport to
 the reference's, and count a round's solve launches and readbacks."""
 import dataclasses
+import json
 import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+import types
 from pathlib import Path
 
 import jax
@@ -171,13 +176,16 @@ _CHILD = """
 import os, sys
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import dataclasses as dc
+import json
 import jax, jax.numpy as jnp, numpy as np
 from repro import compat
 from repro.core import (MRSVMConfig, SVMConfig, sweep_grid,
-                        build_sharded_sweep_round, run_sharded_sweep)
+                        build_sharded_sweep_round, fit_mapreduce_sweep,
+                        run_sharded_sweep)
 
-data = np.load(sys.argv[1])
-X, y, Xs, ys = (jnp.asarray(data[k]) for k in ("X", "y", "Xs", "ys"))
+data = dict(np.load(sys.argv[1]))
+X, y, Xs, ys = (jnp.asarray(data[k])
+                for k in ("dense_X", "dense_y", "stream_X", "stream_y"))
 n, d = X.shape
 cfg_a = MRSVMConfig(sv_capacity=64, gamma=5e-3, max_rounds=6,
                     svm=SVMConfig(C=1.0, max_epochs=15))
@@ -204,6 +212,22 @@ def run(tag, fn, Xq, yq, mq, params, S):
             out[f"{tag}/{t}/ptr"] = np.asarray(state.ptr)
 
 
+# the functional sweeps the tests hold the port to, here in a process of
+# their own: in a test process they can read state an earlier test file
+# left in it (an xdist worker runs many files)
+for tag, (key, grid, cfg_d, dt) in json.loads(sys.argv[3]).items():
+    svm = SVMConfig(**cfg_d.pop("svm"))
+    dt = jnp.dtype(dt)
+    Xq, yq = (data[f"{key}_{k}"] for k in ("X", "y"))
+    res = fit_mapreduce_sweep(jnp.asarray(Xq, dt), jnp.asarray(yq, dt), 8,
+                              MRSVMConfig(svm=svm, **cfg_d),
+                              sweep_grid(svm, **grid),
+                              mask=jnp.ones(yq.shape, dt))
+    for k in ("risks", "ws", "rounds", "best"):
+        out[f"fn/{tag}/{k}"] = np.asarray(getattr(res, k))
+    out[f"fn/{tag}/ids"] = np.asarray(res.sv.ids)
+    out[f"fn/{tag}/alpha"] = np.asarray(res.sv.alpha, np.float32)
+
 fr = build_sharded_sweep_round(mesh, ("data",), cfg_r, n // 8)
 run("ring", fr, X, y, jnp.ones((n,)),
     sweep_grid(cfg_a.svm, C=[1e-4, 0.5, 1.0, 5.0]), 4)
@@ -229,10 +253,12 @@ def runs(data):
     from conftest import subprocess_env
     tmp = tempfile.mkdtemp(prefix="sharded_sweep_")
     inp, outp = os.path.join(tmp, "in.npz"), os.path.join(tmp, "out.npz")
-    np.savez(inp, X=data["dense"][0], y=data["dense"][1],
-             Xs=data["stream"][0], ys=data["stream"][1])
+    np.savez(inp, **{f"{key}_{k}": data[key][i]
+                     for key in ("dense", "stream", "sparse_dense", "bf16")
+                     for i, k in enumerate("Xy")})
     child = subprocess.Popen(
-        [sys.executable, "-c", _CHILD, inp, outp], cwd=str(REPO),
+        [sys.executable, "-c", _CHILD, inp, outp,
+         json.dumps(_functional_specs())], cwd=str(REPO),
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=subprocess_env(PYTHONPATH=str(REPO / "src")))
     try:
@@ -255,27 +281,42 @@ def _sweep(runs, name, rank=0):
     return runs[0][rank]["sweeps"][NAMES.index(name)]
 
 
-_JAX = {}
-
-
-def _jax_sweep(data, name):
-    """``repro.core.fit_mapreduce_sweep`` on the case's rows (dense for
-    the blocked-CSR case; the transport fields do not enter it)."""
+def _functional_key(name):
+    """The rows, grid, JAX config and dtype of ``repro.core.
+    fit_mapreduce_sweep`` on case ``name``'s rows (dense for the
+    blocked-CSR case; the transport fields do not enter it), as the tag
+    of its result in the child process and its arguments there."""
     key, grid, _, j_cfg, kw = SPECS[name]
     key = "sparse_dense" if key == "sparse" else key
-    jk = (key, grid, dataclasses.replace(
+    cfg = dataclasses.replace(
         j_cfg, shuffle_impl="allgather", hier_num_hosts=None,
         shuffle_wire_dtype="float32",
-        svm=dataclasses.replace(j_cfg.svm, row_format="dense", nnz_cap=0)),
-        kw.get("dtype", "float32"))
-    if jk not in _JAX:
-        X, y = data[key]
-        dt = jnp.dtype(jk[3])
-        mask = jnp.ones(y.shape, dt)
-        _JAX[jk] = J.fit_mapreduce_sweep(
-            jnp.asarray(X, dt), jnp.asarray(y, dt), NDEV, jk[2],
-            _grid(J, jk[2], grid), mask=mask)
-    return _JAX[jk]
+        svm=dataclasses.replace(j_cfg.svm, row_format="dense", nnz_cap=0))
+    assert cfg.svm.kernel == J.SVMConfig().kernel
+    fields = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    fields["svm"] = {f.name: getattr(cfg.svm, f.name)
+                     for f in dataclasses.fields(cfg.svm) if f.name != "kernel"}
+    dt = kw.get("dtype", "float32")
+    return f"{key}|{grid}|{dt}", (key, GRIDS[grid], fields, dt)
+
+
+def _functional_specs():
+    return dict(_functional_key(n) for n in NAMES
+                if not n.startswith("nan"))
+
+
+def _jax_sweep(runs, name):
+    """``repro.core.fit_mapreduce_sweep`` on the case's rows, as the
+    child process of ``runs`` computed it: its risks, ws, rounds, best
+    and SV ids and α (float32)."""
+    ref = runs[1]
+    tag = _functional_key(name)[0]
+    get = {k: ref[f"fn/{tag}/{k}"] for k in ("risks", "ws", "rounds",
+                                             "best", "ids", "alpha")}
+    return types.SimpleNamespace(
+        risks=get["risks"], ws=get["ws"], rounds=get["rounds"],
+        best=int(get["best"]),
+        sv=types.SimpleNamespace(ids=get["ids"], alpha=get["alpha"]))
 
 
 _PORT = {}
@@ -364,7 +405,7 @@ def test_sweep_matches_the_reference_functional_sweep(runs, data, name):
     rows with the reference's own limits: risks and ws within 1e-4 /
     1e-5, SV ids, rounds and the selected config equal."""
     got = _sweep(runs, name)["sweep"]
-    want = _jax_sweep(data, name)
+    want = _jax_sweep(runs, name)
     np.testing.assert_allclose(got["risks"], np.asarray(want.risks),
                                rtol=RTOL, atol=ATOL)
     np.testing.assert_allclose(got["ws"], np.asarray(want.ws), rtol=RTOL,
@@ -425,7 +466,7 @@ def test_per_stream_wave_matches_both_functional_sweeps(runs, data):
     state row with another."""
     got = _sweep(runs, "stream-ring")
     assert got["state"] == "SVBuffer" and got["rounds"][0]["ptr"] is None
-    want = _jax_sweep(data, "stream-ring")
+    want = _jax_sweep(runs, "stream-ring")
     np.testing.assert_array_equal(got["sweep"]["sv"].ids,
                                   np.asarray(want.sv.ids))
     assert got["sweep"]["sv"].x.shape == (4, 64, D)
@@ -450,7 +491,7 @@ def test_bf16_rows_on_a_bf16_wire_hold_to_jax(runs, data, name):
     risks within 1e-4 / 1e-5, α within bf16's rounding (the state keeps
     α in the rows' dtype, as the reference's packed state does)."""
     got = _sweep(runs, name)["sweep"]
-    want = _jax_sweep(data, name)
+    want = _jax_sweep(runs, name)
     np.testing.assert_array_equal(got["rounds"], want.rounds)
     np.testing.assert_array_equal(got["sv"].ids, np.asarray(want.sv.ids))
     np.testing.assert_allclose(got["risks"], np.asarray(want.risks),

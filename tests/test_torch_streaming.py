@@ -27,7 +27,10 @@ from repro import sparse as jsp
 from repro.serving import StreamingSVMService as JService
 from repro_torch import convert, faults
 from repro_torch import sparse as tsp
+from repro.launch import cluster as jcluster
+from repro_torch.launch import cluster as tcluster
 from repro_torch.launch import serve
+from repro_torch.launch.cluster import Cluster
 from repro_torch.serving import StreamingSVMService
 from repro_torch.serving import svm_stream
 
@@ -551,14 +554,28 @@ _FIRES = []
     (dict(fold_deadline_s=1.0), 9), (dict(heartbeat_path="hb.json"), 9),
     (dict(watchdog_handler=_FIRES.append), 9),
     (dict(fail_on_retrace=True), 12),
-    (dict(cluster=object()), 10), (dict(shuffle_impl="ring"), 7)])
+    (dict(cluster=Cluster(process_index=1, process_count=2)), 10),
+    (dict(shuffle_impl="ring"), 7)])
 def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item,
                                                     tmp_path):
-    """The arguments of ROADMAP Queue 1 items 10 and 12 raise naming
-    their item. Those of item 9 (checkpoints and the fold watchdog) and
-    item 7 (``shuffle_impl``), ported since, are accepted and take
-    effect: the transport replaces the config's, as the reference's
-    service takes it."""
+    """The argument of ROADMAP Queue 1 item 12 raises naming its item.
+    Those of item 9 (checkpoints and the fold watchdog), item 7
+    (``shuffle_impl``) and item 10 (``cluster``), ported since, are
+    accepted and take effect: the transport replaces the config's, as
+    the reference's service takes it, and on a process other than 0 the
+    service refuses admission with the reference's message."""
+    if item == 10:
+        svc = StreamingSVMService(cfgs[1], device="cpu", **kw)
+        jsvc = JService(cfgs[0], cluster=jcluster.Cluster(
+            process_index=1, process_count=2))
+        X, y = _sep_data(0, 64)
+        with pytest.raises(RuntimeError) as te:
+            svc.submit("t", X, y)
+        with pytest.raises(RuntimeError) as je:
+            jsvc.submit("t", jnp.asarray(X), jnp.asarray(y))
+        assert str(te.value) == str(je.value)
+        assert svc.run_wave() is None and jsvc.run_wave() is None
+        return
     if item == 7:
         svc = StreamingSVMService(cfgs[1], device="cpu", **kw)
         want = JService(cfgs[0], **kw).cfg
@@ -618,13 +635,16 @@ def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item,
 
 
 def test_left_out_methods_and_flags_raise_naming_their_item(cfgs, tmp_path,
-                                                            capsys):
+                                                            capsys,
+                                                            monkeypatch):
     """checkpoint() and restore() are ported (ROADMAP Queue 1 item 9), as
     are the serve mode's checkpoint and watchdog flags: a smoke run with
     them, then one restored from its directory. ``--shuffle`` (item 7) is
     ported too: ``--shuffle hier`` sets the transport and the simulated
-    host count of the 8 partitions, as the reference's launcher does. The
-    cluster flags (item 10) still raise naming their item."""
+    host count of the 8 partitions, as the reference's launcher does. So
+    are the cluster flags (item 10): an incomplete triple raises the
+    reference's error before any side effect (the 2-process serve runs
+    in ``tests/test_torch_launch_cluster.py``)."""
     svc = StreamingSVMService(cfgs[1], device="cpu")
     with pytest.raises(RuntimeError, match="without checkpoint_dir"):
         svc.checkpoint()
@@ -650,10 +670,13 @@ def test_left_out_methods_and_flags_raise_naming_their_item(cfgs, tmp_path,
     with pytest.raises(SystemExit, match="--restore requires"):
         serve.main(["--arch", "svm-tfidf", "--smoke", "--device", "cpu",
                     "--restore"])
-    for flags, item in ((["--coordinator", "localhost:1"], 10),
-                        (["--num-processes", "2"], 10),
-                        (["--process-id", "0"], 10)):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+    def boom(*a, **k):
+        raise AssertionError("a side effect before the triple was checked")
+    monkeypatch.setattr(torch.distributed, "TCPStore", boom)
+    for flags in (["--coordinator", "localhost:1"], ["--num-processes", "2"],
+                  ["--coordinator", "localhost:1", "--process-id", "0"]):
+        monkeypatch.setattr(tcluster, "_CLUSTER", None)
+        with pytest.raises(ValueError, match="full triple"):
             serve.main(base + flags)
 
 
