@@ -72,7 +72,7 @@ Phases, one line or block each; any failure exits non-zero:
    ``fit_mapreduce_sweep``, one ``cd_solve/cluster`` launch of 32 jobs a
    round (the waves a round printed), C = 1 ≡ the fit above, its time
    beside 4 × the fit's, one sweep round under
-   ``set_sync_debug_mode("error")``;
+   ``no_implicit_host_sync``;
 6. ``gram`` at one full-width reducer shape (10240 × 10240 × 131072
    bf16, rbf and linear) on the tensor-core route's upper triangle (K
    must equal its transpose), against its plain version and the bf16
@@ -99,14 +99,14 @@ Phases, one line or block each; any failure exits non-zero:
    and ``hinge_scores/sparse`` (W as the solve returns it, and as rows
    the wrapper packs first) checked and timed against plain, the bound and (for the hinge)
    ``torch.sparse.mm``; one round under
-   ``torch.cuda.set_sync_debug_mode("error")`` and one profiled; last,
+   ``no_implicit_host_sync`` and one profiled; last,
    the rows densified (17.2 GB) and fit on the dense linear path, which
    must pick the same reducers and keep the same SV ids, with R_emp per
    round within 1e-4 (the paths differ only in Q_ii, whose Σ v² the
    reference rounds to bf16 on blocked-CSR rows); before that,
    ``[full-sparse-sweep]``: the S = 4 grid of phase 5 on these rows, one
    ``cd_solve/sparse`` call of 32 jobs a round, C = 1 ≡ the fit above,
-   one sweep round under ``set_sync_debug_mode("error")``;
+   one sweep round under ``no_implicit_host_sync``;
 8. slice 3, the LM serve path: ``flash_decode`` against its plain
    version at small shapes (f32 and bf16 — the SIMT and the
    tensor-core route, each route's launches counted —, valid_len 0, 1,
@@ -118,7 +118,7 @@ Phases, one line or block each; any failure exits non-zero:
    K/V, 16 greedy tokens through ``serve_lm``, every launch on the
    tensor-core route) with ``flash_decode`` timed at one layer's shape
    in turns with the library call and the SIMT route, one step under
-   ``torch.cuda.set_sync_debug_mode("error")``, the kernel route against
+   ``no_implicit_host_sync``, the kernel route against
    the plain route and one step profiled;
 9. slice 10, the serving layer: after the smoke serve, ``[stream-smoke]``
    (the --smoke svm-tfidf serve through the port's CLI, 2 streams × 2
@@ -152,7 +152,7 @@ Phases, one line or block each; any failure exits non-zero:
    tree, each ≡ the functional round on the card, ring and hier ≡
    allgather bit for bit;
    then W = 1 on NCCL, a round of each transport under
-   ``set_sync_debug_mode("error")``); after phase 7b, ``[sharded-full]``
+   ``no_implicit_host_sync``); after phase 7b, ``[sharded-full]``
    (svm-tfidf at full width, 8 ranks × 8192 rows, each making only its
    own rows, dense bf16 and blocked-CSR rows on ``ring`` and
    ``allgather``, 3 rounds each: SV ids and α bit for bit with 3
@@ -171,7 +171,7 @@ Phases, one line or block each; any failure exits non-zero:
    bf16 wire, a state saved after round 1 and resumed; each ≡ the port's
    functional sweep on the card, ring and hier ≡ allgather bit for bit,
    one solve launch of S jobs a round on each rank; then a W = 1 NCCL
-   sweep round on the ring under ``set_sync_debug_mode("error")``); after
+   sweep round on the ring under ``no_implicit_host_sync``); after
    ``[sharded-full]``, ``[sharded-sweep-full]`` (svm-tfidf width, 8
    ranks × 8192 rows, C = logspace(-2, 1, 4), 3 rounds: blocked-CSR
    rows through ``fit_sharded_sweep`` on ring and allgather, dense bf16
@@ -199,6 +199,18 @@ Phases, one line or block each; any failure exits non-zero:
    peak memory), whose launches go into
    ``launches_by_path["cluster-full"]``. ``--cluster`` runs only these
    two after the build.
+
+13. slice 15, the invariant linter (``repro_torch.analysis``): after
+   ``[chaos]``, ``[lint]`` (the self-test on the card, with a seeded
+   ``.item()`` that must raise inside ``no_implicit_host_sync``, and the
+   dynamic rules at the lint shapes on the card); ``[full-sweep]``,
+   ``[full-sparse-sweep]`` and ``[full-kernel-sweep]`` run with
+   ``fail_on_retrace=True``, ``[stream-full]`` under the service's
+   retrace guard (``retraces`` must be 0), ``[full-sparse]`` holds one
+   blocked-CSR round's peak memory under one dense copy of a job's rows
+   (``check_memory_ceiling``), and ``[sharded-small]`` /
+   ``[sharded-sweep-small]`` hold every rank's recorded collective
+   schedule valid and equal on all 8 ranks.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
@@ -1723,17 +1735,15 @@ def _sparse_id_check(torch, ops, sp, gen):
     bad.indices[1, 0] = d
     fresh = all(refused(c) for c in calls(bad))
     ops.check_column_ids(rows)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    from repro_torch.analysis import no_implicit_host_sync
+    with no_implicit_host_sync():
         for c in calls(rows):
             c()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     rows.indices[0, 0] = d + 5
     changed = all(refused(c) for c in calls(rows))
     say(f"[kernels] column id ≥ d: refused before any launch for fresh rows "
         f"{fresh} and for checked rows changed in place {changed}; checked "
-        "rows ran under set_sync_debug_mode('error')")
+        "rows ran under no_implicit_host_sync")
     check(fresh and changed, "an out-of-range column id was not refused")
 
 
@@ -1998,7 +2008,7 @@ def phase_full_sparse(torch, T, ops, ref, sp):
     """Slice 7's main path at svm-tfidf widths: blocked-CSR rows
     (``nnz_cap`` = row nnz = 256, bf16 values, the config's dtype) on
     the linear path, no cut; the two kernels timed at its shapes; one
-    round under ``set_sync_debug_mode("error")`` and one profiled; last,
+    round under ``no_implicit_host_sync`` and one profiled; last,
     the same rows densified and fit on the dense linear path, which must
     pick the same reducers and keep the same SV ids, with R_emp per
     round within 1e-4. The two paths differ as the reference's do:
@@ -2064,19 +2074,31 @@ def phase_full_sparse(torch, T, ops, ref, sp):
     # one round from the converged SV_global with no host sync in it: the
     # rows' ids checked once before it, then every check passes on the mark
     ops.check_column_ids(Xp)
+    from repro_torch import analysis
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with analysis.no_implicit_host_sync():
         out = T.mapreduce_round(Xp, yp, maskp, model.sv, cfg)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     enqueue_ms = 1e3 * (time.perf_counter() - t0)
     risks_sync = out.risks.cpu()
-    say(f"[full-sparse] one mapreduce_round under set_sync_debug_mode"
-        f"('error'): no host sync, enqueued in {enqueue_ms:.1f} ms, risks "
-        f"finite {bool(torch.isfinite(risks_sync).all())}")
+    say(f"[full-sparse] one mapreduce_round under no_implicit_host_sync: "
+        f"no host sync, enqueued in {enqueue_ms:.1f} ms, risks finite "
+        f"{bool(torch.isfinite(risks_sync).all())}")
     check(bool(torch.isfinite(risks_sync).all()), "round risks not finite")
+    del out, risks_sync
+    # the dense-materialization rule's memory layer: one round's peak
+    # device memory above what it found, under one dense copy of a job's
+    # rows (per · d · 4 B, the reference's ceiling for a round)
+    per, d = Xp.shape[1], Xp.shape[-1]
+    limit = per * d * 4
+    rep = analysis.check_memory_ceiling(
+        lambda *a: T.mapreduce_round(*a, cfg), (Xp, yp, maskp, model.sv),
+        limit_bytes=limit, program="full-sparse round")
+    peak = int(rep.note.split()[1])
+    say(f"[full-sparse] one blocked-CSR round's peak device memory "
+        f"{peak} B ({peak / 2**30:.3f} GiB) under the ceiling {limit} B "
+        f"({limit / 2**30:.3f} GiB): one dense copy of a job's {per} rows "
+        f"× {d} f32")
     profile_round(torch, T, Xp, yp, maskp, model.sv, cfg)
     cds["launches"] = launches["cd_solve"]
     hs["launches"] = launches["hinge_scores"]
@@ -2465,7 +2487,7 @@ def full_sweep(torch, T, ops, X, y, L, cfg, params, fits, tag, seq_ms,
     its routes, its configs in ``fits`` (config → sequential fit made
     before) reproduced, its time beside S × the sequential fit's
     (``seq_ms``); then one round from its converged state profiled and
-    (``sync_round``) one under ``set_sync_debug_mode("error")`` (the
+    (``sync_round``) one under ``no_implicit_host_sync`` (the
     eq. 8 readback after it). → the result."""
     import numpy as np
     from repro_torch.core import sweep as sweep_mod
@@ -2475,7 +2497,7 @@ def full_sweep(torch, T, ops, X, y, L, cfg, params, fits, tag, seq_ms,
     hinge_score.pack = lambda W: packs.append(W.shape) or pack(W)
     try:
         res, ms, launches = _sweep_run(torch, T, ops, X, y, L, cfg, params,
-                                       tag)
+                                       tag, fail_on_retrace=True)
     finally:
         hinge_score.pack = pack
     S = len(res.rounds)
@@ -2505,17 +2527,16 @@ def full_sweep(torch, T, ops, X, y, L, cfg, params, fits, tag, seq_ms,
         step, res.sv, res.params, done)[1].cpu(), f"one sweep round ({tag})")
     if not sync_round:
         return res
+    from repro_torch.analysis import no_implicit_host_sync
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_implicit_host_sync():
         _, picks, _, _ = sweep_mod.masked_step(step, res.sv, res.params, done)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
     enqueue_ms = 1e3 * (time.perf_counter() - t0)
     picks = picks.cpu()
     torch.cuda.synchronize()
-    say(f"[{tag}] one sweep round under set_sync_debug_mode('error'): no "
+    say(f"[{tag}] the sweep ran with fail_on_retrace=True (no compile event "
+        f"past round 0); one sweep round under no_implicit_host_sync: no "
         f"host sync, enqueued in {enqueue_ms:.1f} ms, risks "
         f"{picks[0].tolist()}")
     check(bool(torch.isfinite(picks).all()), f"{tag}: round risks")
@@ -2851,15 +2872,12 @@ def phase_serve_full(torch, ops, ref, cfg, batch, cache_len, steps):
 
     # one step may not wait for the device
     step = make_serve_step(model)
+    from repro_torch.analysis import no_implicit_host_sync
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    with no_implicit_host_sync():
         step(params, state, tok)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    say("[serve-full] one decode step ran under "
-        "torch.cuda.set_sync_debug_mode('error')")
+    say("[serve-full] one decode step ran under no_implicit_host_sync")
 
     # --- the main path: counts from 0, one serve_lm, counts read ---------
     ops.reset_launches()
@@ -3216,7 +3234,7 @@ def phase_stream_full(torch, T, ops, ref):
     ops.reset_launches()
     t0 = time.perf_counter()
     res = serve.serve_svm(SVM_TFIDF, streams=STREAMS, waves=3, device=DEV,
-                          test_probe=probe)
+                          test_probe=probe, fail_on_retrace=True)
     total_s = time.perf_counter() - t0
     routes = _linear_route_counts(ops)
     svc, cfg = res.service, res.cfg
@@ -3265,7 +3283,11 @@ def phase_stream_full(torch, T, ops, ref):
               == list(range(STREAMS)), f"wave {w} folds {dict(folds)}")
         check(delta == dict(want), f"wave {w} launches {delta}, want "
               f"{dict(want)}")
-    say(f"[stream-full] {svc.throughput_report()}")
+    report = svc.throughput_report()
+    say(f"[stream-full] {report}")
+    say(f"[stream-full] under fail_on_retrace: fold_programs "
+        f"{report['fold_programs']}, retraces {report['retraces']}")
+    check(report["retraces"] == 0, f"[stream-full] retraces {report}")
 
     # wave 1 ≡ each tenant's own update_mapreduce
     for s in range(STREAMS):
@@ -3374,11 +3396,12 @@ def phase_stream_mixed(torch, T, ops, ref, dense_models, cfg):
     def with_syncs():
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
+            prev = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("warn")   # counted, not refused
             try:
                 st = svc.run_wave()
             finally:
-                torch.cuda.set_sync_debug_mode(0)
+                torch.cuda.set_sync_debug_mode(prev)
         syncs = [c for c in caught if "synchroniz" in str(c.message)]
         where = collections.Counter(
             f"{Path(c.filename).name}:{c.lineno}" for c in syncs)
@@ -3778,6 +3801,37 @@ def phase_chaos(torch):
           f"[chaos] violated: {[r[:4] for r in rows if not r[4]]}")
 
 
+def phase_lint(torch):
+    """``[lint]``: the invariant linter (``repro_torch.analysis``) on the
+    card. Its self-test (every rule's seeded violation fires, naming op
+    and program; the wire pack is allowed and recorded), with the
+    runtime host-sync guard that only a card can fire: a seeded
+    ``.item()`` inside ``no_implicit_host_sync`` must raise, one inside
+    ``allowed_host_sync`` must not; then the dynamic rules at the lint
+    shapes: ``fit_mapreduce_sweep`` under ``no_implicit_host_sync`` with
+    ``fail_on_retrace=True``, and a ``StreamingSVMService(
+    fail_on_retrace=True)`` folding two waves of one shape."""
+    import contextlib
+    import io
+    from repro_torch.analysis import lint
+    t0 = time.perf_counter()
+    check(lint.runtime_guard_fires(DEV),
+          "[lint] a seeded .item() did not raise inside "
+          "no_implicit_host_sync")
+    say("[lint] a seeded .item() raised inside no_implicit_host_sync on "
+        "the card; one inside allowed_host_sync did not")
+    for name, run in (("self-test", lint.run_self_test),
+                      ("dynamic rules", lint.run_dynamic)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            failures = run(DEV)
+        for line in out.getvalue().splitlines():
+            say(f"[lint] {name}: {line.strip()}")
+        check(failures == 0, f"[lint] {name}: {failures} failure(s)")
+    say(f"[lint] self-test and dynamic rules on the card in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def _nan_full(torch, ops, tag, run, solves=1):
     """``run()`` on full-width rows with one NaN entry raises
     ``FaultDetected("core")`` at round 0, after that round's launches
@@ -4092,6 +4146,23 @@ def _packed_vs_allgather(per_rank, names, tag):
     return all_bits
 
 
+def _schedules_agree(per_rank, cases, sweeps):
+    """Every rank's recorded collective schedule of each case (checked
+    valid on the rank by ``run_cases``) equal on all ranks."""
+    from repro_torch import analysis
+    n = 0
+    for key, cs, tag in (("schedules", cases, "sharded-small"),
+                         ("sweep_schedules", sweeps, "sharded-sweep-small")):
+        for i, c in enumerate(cs):
+            analysis.assert_schedules_agree(
+                {f"rank{r}": res[key][i] for r, res in enumerate(per_rank)},
+                program=f"{tag} {c.name}")
+            n += len(per_rank[0][key][i])
+    say(f"[sharded-small] collective schedules of {len(cases)} cases and "
+        f"{len(sweeps)} sweep cases valid on every rank and equal on all "
+        f"{len(per_rank)} ({n} collectives a rank)")
+
+
 def phase_sharded_small(torch, T, text):
     """``[sharded-small]``: the sharded round (``build_sharded_round``)
     at the golden size (the golden pipeline's 768 training rows × 1024
@@ -4105,7 +4176,7 @@ def phase_sharded_small(torch, T, text):
     f32 wire, so ring and hier ≡ allgather bit for bit (SV buffer and
     hypothesis); a ring message garbled on one rank alone, which must
     give +inf risks on every rank; then W = 1 on NCCL, round 1 of each
-    transport under ``set_sync_debug_mode("error")``. → launches by
+    transport under ``no_implicit_host_sync``. → launches by
     route, summed over the ranks of the 8-rank run."""
     import numpy as np
     from repro_torch import compat
@@ -4152,6 +4223,7 @@ def phase_sharded_small(torch, T, text):
           "[sharded-small] a rank imported JAX or the reference")
     check(all(r["backend"] == "gloo" for r in per_rank),
           "[sharded-small] 8 ranks on one card must share it over gloo")
+    _schedules_agree(per_rank, cases + [garble], sweeps)
     lone = [r["cases"][len(cases)]["risks"][0] for r in per_rank]
     check(all(np.isposinf(x).all() for x in lone),
           f"[sharded-small] a message garbled on rank 3 alone left finite "
@@ -4233,10 +4305,10 @@ def phase_sharded_small(torch, T, text):
     say(f"[sharded-small] W = 1 on NCCL ({secs:.1f} s with the spawn): "
         "allgather, ring and hier ≡ the functional round (L = 1), ring and "
         "hier ≡ allgather bit for bit, round 1 of each under "
-        "set_sync_debug_mode('error') with no host sync; launches "
+        "no_implicit_host_sync with no host sync; launches "
         f"{ {k: v for k, v in res[0]['routes'].items() if v} }; "
         "[sharded-sweep-small] 2 sweep rounds of S = 4 on the ring (the "
-        "dedup state), round 1 under set_sync_debug_mode('error'), ≡ 2 "
+        "dedup state), round 1 under no_implicit_host_sync, ≡ 2 "
         "functional sweep rounds (SV ids, α bit for bit); launches "
         f"{ {k: v for k, v in res[0]['sweep_routes'].items() if v} }")
     return routes
@@ -5707,6 +5779,7 @@ def main() -> int:
     phase_stream_smoke(torch, T, ops)
     phase_sched_smoke(torch, ops)
     phase_chaos(torch)
+    phase_lint(torch)
     phase_sharded_small(torch, T, text)
     torch.cuda.synchronize()
     phase_cluster_small(torch, T)

@@ -28,9 +28,14 @@ cluster launch (:mod:`repro_torch.launch.cluster`) each process starts
 its k ranks and they join one world through the coordinator's store.
 :func:`process_count` is the number of launched processes, as the
 reference's.
+
+:func:`record_collectives` records, while it is armed, every collective
+this process issues (:class:`CollectiveEntry`): the schedule the
+invariant linter checks (:mod:`repro_torch.analysis.schedule`).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import itertools
@@ -41,10 +46,12 @@ import signal
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.analysis.hostsync import allowed_host_sync
 
 
 def _backend(group=None) -> str:
@@ -69,7 +76,8 @@ def _wire(t: torch.Tensor) -> torch.Tensor:
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:
     h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    h.copy_(t)
+    with allowed_host_sync("gloo stages a CUDA message through the host"):
+        h.copy_(t)
     return h
 
 
@@ -114,8 +122,70 @@ def set_process_count(n: int) -> None:
     _PROCESSES = int(n)
 
 
+class CollectiveEntry(NamedTuple):
+    """One collective as :func:`record_collectives` saw it: its kind,
+    the global ranks of its group, the replica groups (the partition a
+    grouped collective runs over, as group-rank lists), the (source,
+    target) pairs of a permute, the shapes and dtypes it moved, and a
+    serial number that pairs a ``ppermute_start`` with its wait."""
+    kind: str
+    ranks: tuple
+    replica_groups: tuple
+    pairs: tuple
+    shapes: tuple
+    dtypes: tuple
+    serial: int
+
+    def signature(self) -> tuple:
+        """What every rank of the collective must agree on."""
+        return (self.kind, self.replica_groups, self.pairs, self.shapes,
+                self.dtypes)
+
+
+_RECORD: Optional[list] = None
+_SERIAL = itertools.count()
+
+
+@contextlib.contextmanager
+def record_collectives():
+    """Record every collective this process issues inside the block;
+    yields the list of :class:`CollectiveEntry`, in issue order."""
+    global _RECORD
+    prev, _RECORD = _RECORD, []
+    try:
+        yield _RECORD
+    finally:
+        _RECORD = prev
+
+
+def _group_ranks(group) -> tuple:
+    return (tuple(range(dist.get_world_size())) if group is None
+            else tuple(dist.get_process_group_ranks(group)))
+
+
+def _note(kind: str, x: Optional[torch.Tensor], group=None, *,
+          replica_groups=None, pairs=(), serial: Optional[int] = None
+          ) -> int:
+    """Append a :class:`CollectiveEntry` when recording; → its serial."""
+    if serial is None:
+        serial = next(_SERIAL)
+    if _RECORD is None:
+        return serial
+    n = axis_size(group)
+    groups = (tuple(tuple(g) for g in replica_groups)
+              if replica_groups is not None else (tuple(range(n)),))
+    _RECORD.append(CollectiveEntry(
+        kind=kind, ranks=_group_ranks(group), replica_groups=groups,
+        pairs=tuple(tuple(p) for p in pairs),
+        shapes=() if x is None else (tuple(x.shape),),
+        dtypes=() if x is None else (str(x.dtype).replace("torch.", ""),),
+        serial=serial))
+    return serial
+
+
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks (an all-reduce); a new tensor."""
+    _note("psum", x, group)
     if _staged(x, group):
         h = _to_host(x)
         dist.all_reduce(h, group=group)
@@ -141,22 +211,26 @@ def all_gather(x: torch.Tensor, group=None, *, tiled: bool = False
                ) -> torch.Tensor:
     """Every rank's ``x`` in rank order: stacked on a new leading axis,
     or with ``tiled`` concatenated along axis 0."""
+    _note("all_gather", x, group)
     parts = _gather_list(x, group)
     return torch.cat(parts) if tiled else torch.stack(parts)
 
 
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
     """Elementwise max over the ranks; NaN passes on (``lax.pmax``)."""
-    return all_gather(x, group).amax(0)
+    _note("pmax", x, group)
+    return torch.stack(_gather_list(x, group)).amax(0)
 
 
 @dataclasses.dataclass
 class Groups:
     """Subgroups made once, when a round is built: ``handles[i]`` is the
     ``ProcessGroup`` of group i of a partition of the ranks, ``mine``
-    the index of this rank's group."""
+    the index of this rank's group and ``groups`` the partition, as
+    rank lists of the parent group."""
     handles: List[Any]
     mine: int
+    groups: tuple = ()
 
 
 _GROUPS: dict = {}
@@ -183,25 +257,31 @@ def new_groups(groups: Sequence[Sequence[int]], group=None) -> Groups:
                                  for g in groups])
     me = axis_index(group)
     mine = next(i for i, g in enumerate(groups) if me in g)
-    return Groups(_GROUPS[key][1], mine)
+    return Groups(_GROUPS[key][1], mine, tuple(map(tuple, groups)))
 
 
 def all_gather_groups(x: torch.Tensor, groups: Groups, *,
                       tiled: bool = False) -> torch.Tensor:
     """Grouped all-gather: each rank gathers within its own group of
     ``groups`` (:func:`new_groups`), in the group's rank order."""
-    return all_gather(x, groups.handles[groups.mine], tiled=tiled)
+    handle = groups.handles[groups.mine]
+    _note("all_gather_groups", x, handle, replica_groups=groups.groups)
+    parts = _gather_list(x, handle)
+    return torch.cat(parts) if tiled else torch.stack(parts)
 
 
 class Pending:
     """A started :func:`ppermute_start`; :meth:`wait` gives the received
     tensor on the sender's device."""
 
-    def __init__(self, like: torch.Tensor, works, recv, local):
+    def __init__(self, like: torch.Tensor, works, recv, local,
+                 group=None, serial: int = -1):
         self._like, self._works = like, works
         self._recv, self._local = recv, local
+        self._group, self._serial = group, serial
 
     def wait(self) -> torch.Tensor:
+        _note("ppermute_wait", None, self._group, serial=self._serial)
         for w in self._works:
             w.wait()
         if self._local is not None:
@@ -217,12 +297,13 @@ def ppermute_start(x: torch.Tensor, perm, group=None) -> Pending:
     destination) with ``dist.batch_isend_irecv``; the transfer runs while
     the caller goes on until :meth:`Pending.wait`."""
     me = axis_index(group)
+    serial = _note("ppermute_start", x, group, pairs=perm)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
     if len(dst) > 1 or len(src) > 1:
         raise ValueError(f"rank {me} sends or receives twice in {perm}")
     if dst and dst[0] == me:
-        return Pending(x, [], None, x.clone())
+        return Pending(x, [], None, x.clone(), group, serial)
     staged = _staged(x, group)
     w = _wire(x)
     ops, recv = [], None
@@ -235,7 +316,7 @@ def ppermute_start(x: torch.Tensor, perm, group=None) -> Pending:
         ops.append(dist.P2POp(dist.irecv, recv, _global(src[0], group),
                               group))
     works = dist.batch_isend_irecv(ops) if ops else []
-    return Pending(x, works, recv, None)
+    return Pending(x, works, recv, None, group, serial)
 
 
 def _global(r: int, group) -> int:

@@ -58,6 +58,7 @@ import torch
 from repro_torch import compat
 from repro_torch import faults
 from repro_torch import sparse as sparse_rows
+from repro_torch.analysis.hostsync import allowed_host_sync
 from repro_torch.core import risk as risk_lib
 from repro_torch.core.svm import (BinarySVM, SolverParams, SVMConfig,
                                   decision_kernel, decision_linear,
@@ -370,7 +371,11 @@ def drive_rounds(step, cfg: MRSVMConfig, *, label: str,
             action="check inter-host links; a persistent failure means "
                    "the mesh lost a member — restart from the last "
                    "checkpoint")
-        risks = risks.cpu().numpy()              # eq. 8's sync point
+        # eq. 8's designed device→host sync point, sanctioned for the
+        # host-sync rule by name where it happens
+        with allowed_host_sync("eq. 8 risk readback"):
+            risks = risks.cpu().numpy()
+            sv_count = int(sv_count)
         ms = 1e3 * (time.perf_counter() - t0)
         faults.check_finite_risks(risks, where=f"{label} round {t}")
         l_star = int(np.argmin(risks))

@@ -41,6 +41,7 @@ reference's file format.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import NamedTuple, Optional, Sequence, Tuple
 
@@ -49,6 +50,8 @@ import torch
 
 from repro_torch import compat, faults
 from repro_torch import sparse as sparse_rows
+from repro_torch.analysis.hostsync import allowed_host_sync
+from repro_torch.analysis.retrace import no_retrace
 from repro_torch.core.mapreduce_svm import (PACKED_SHUFFLES, MRSVMConfig,
                                             RoundResult, SVBuffer,
                                             _device_risks,
@@ -203,7 +206,7 @@ def masked_step(step, svb: SVBuffer, params: SolverParams,
 
 def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
                 params: SolverParams, verbose: bool, tag: str,
-                snapshot=None):
+                snapshot=None, fail_on_retrace: bool = False):
     """The eq. 8-masked host round loop.
 
     ``step(svb, eff_params) -> (sv_new, r_star (S,), l_star (S,), ws (S,
@@ -225,6 +228,17 @@ def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
     configs' slices are kept, in host memory until the last round (at
     svm-tfidf width a config's slice is 0.54 GB a rank, which 8 ranks
     sharing one card cannot hold beside a round).
+
+    Invariant hooks (:mod:`repro_torch.analysis`): the per-round
+    readback of the risks and picks is the loop's designed sync point
+    and runs under ``allowed_host_sync``, as does the copy of a
+    converged config's slice to host memory, so a caller-armed
+    ``no_implicit_host_sync`` passes them and catches any other sync.
+    ``fail_on_retrace`` arms the retrace rule on every round past the
+    first: a steady-state round meets no new kernel library or wrapper
+    signature (round 0 meets them; a convergence round's ``snapshot``
+    is off the hot path and stays outside the guard, as in the
+    reference).
     """
     S = _num_configs(params)
     dev = params.C.device
@@ -239,12 +253,17 @@ def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
     parts = {}            # snapshot: each converged config's frozen slice
     for t in range(cfg.max_rounds):
         t0 = time.perf_counter()
-        sv_new, picks, ws, bs = masked_step(step, svb, params, done,
-                                            freeze=snapshot is None)
-        svb = sv_new
-        if snapshot is None:
-            frozen = svb
-        r_star, l_star = picks.cpu().numpy()     # eq. 8's sync point
+        guard = (no_retrace(f"[{tag}] steady-state round {t}")
+                 if fail_on_retrace and t >= 1
+                 else contextlib.nullcontext())
+        with guard:
+            sv_new, picks, ws, bs = masked_step(step, svb, params, done,
+                                                freeze=snapshot is None)
+            svb = sv_new
+            if snapshot is None:
+                frozen = svb
+            with allowed_host_sync("eq. 8 convergence readback"):
+                r_star, l_star = picks.cpu().numpy()
         ms = 1e3 * (time.perf_counter() - t0)
         act = ~done
         faults.check_finite_risks(r_star, where=f"{tag} round {t}", mask=act)
@@ -271,8 +290,10 @@ def _run_rounds(step, svb, d: int, cfg: MRSVMConfig,
                     _put_config(exp, s, part)
                 frozen = exp
             else:
-                for s in np.flatnonzero(newly):
-                    parts[int(s)] = _config_part(exp, int(s))
+                with allowed_host_sync("a converged config's slice to "
+                                       "host memory"):
+                    for s in np.flatnonzero(newly):
+                        parts[int(s)] = _config_part(exp, int(s))
             del exp
         done |= newly
         prev = np.where(act, r_star, prev)
@@ -317,7 +338,8 @@ def best_reducers(out):
 def fit_mapreduce_sweep(X, y, num_partitions: int, cfg: MRSVMConfig,
                         params: SolverParams, mask=None,
                         verbose: bool = False,
-                        device: DeviceLike = None) -> SweepResult:
+                        device: DeviceLike = None,
+                        fail_on_retrace: bool = False) -> SweepResult:
     """Run S MapReduce-SVM jobs in one batched computation.
 
     Every data input is either shared or carries a leading (S,) job
@@ -327,7 +349,8 @@ def fit_mapreduce_sweep(X, y, num_partitions: int, cfg: MRSVMConfig,
     ``(n,)`` or ``(S, n)``. ``params`` has (S,) fields (numpy or
     tensors). Each config's trajectory is that of a sequential
     ``fit_mapreduce`` with its params and data slice. Numpy inputs go
-    to ``device`` (default ``cuda``).
+    to ``device`` (default ``cuda``). ``fail_on_retrace`` arms the
+    retrace rule on every round past the first (:func:`_run_rounds`).
     """
     S = _num_configs(params)
     dev = resolve_device(device, like=X)
@@ -363,7 +386,8 @@ def fit_mapreduce_sweep(X, y, num_partitions: int, cfg: MRSVMConfig,
         return (out.sv, *best_reducers(out))
 
     svb, best_risk, best_w, best_b, rounds, history = _run_rounds(
-        step, svb, d, cfg, params, verbose, "sweep")
+        step, svb, d, cfg, params, verbose, "sweep",
+        fail_on_retrace=fail_on_retrace)
     final = _retrain(svb, params, cfg)
     return SweepResult(params=params,
                        risks=torch.as_tensor(best_risk, dtype=torch.float32),
@@ -969,14 +993,9 @@ def run_sharded_sweep(round_fn, X, y, mask, cfg: MRSVMConfig,
     rounds unfrozen and the per-config buffer is made only when a config
     converges and on the last round (:func:`_run_rounds`); the result
     always carries the (S, cap, …) ``SVBuffer``, its rows in the rows'
-    dtype. ``fail_on_retrace``
-    (the reference's retrace guard) is not ported (ROADMAP Queue 1 item
-    12) and raises.
+    dtype. ``fail_on_retrace`` arms the retrace rule on every round
+    past the first (:func:`_run_rounds`).
     """
-    if fail_on_retrace:
-        raise NotImplementedError(
-            "fail_on_retrace= is not ported to repro_torch yet (ROADMAP "
-            "Queue 1 item 12)")
     S = _num_configs(params)
     dev = round_fn.device
     params = _params_on(params, dev)
@@ -1003,7 +1022,8 @@ def run_sharded_sweep(round_fn, X, y, mask, cfg: MRSVMConfig,
     # loop it would be one more state a rank (2.15 GB at svm-tfidf width)
     svb, best_risk, best_w, best_b, rounds, history = _run_rounds(
         step, round_fn.init_sv(S, d, X.dtype), d, cfg, params, verbose,
-        "sharded-sweep", snapshot=snapshot)
+        "sharded-sweep", snapshot=snapshot,
+        fail_on_retrace=fail_on_retrace)
     return ShardedSweep(risks=torch.as_tensor(best_risk, dtype=torch.float32),
                         ws=best_w, bs=best_b, sv=svb, rounds=rounds,
                         history=history)

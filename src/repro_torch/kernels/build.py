@@ -13,6 +13,9 @@ build also holds a file lock in the build directory, so that processes
 source together build it once: the others wait and find it built. Each
 build writes to a temporary file of its own (process and thread) and
 renames it into place.
+
+A library loaded into the process is a compile event of the retrace
+rule (:func:`repro_torch.analysis.retrace.note_compile`).
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+from repro_torch.analysis.retrace import note_compile
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -113,4 +118,5 @@ def load(name: str) -> ctypes.CDLL:
                 build_all()
             lib = ctypes.CDLL(str(library_path(name)))
             _LIBS[name] = lib
+            note_compile(f"build:{name}")
         return lib

@@ -18,6 +18,12 @@ path. The rules that pick a route
 :func:`cd_solve_gram_cluster_size`) are plain functions of shapes and
 dtypes.
 
+Each wrapper records its call's signature at its entry, on either
+device (:func:`repro_torch.analysis.retrace.note_signature`): the first
+call of a signature in the process is a compile event of the retrace
+rule. Recording counts no launch. The linter's rules read a plain
+version as one op (:func:`repro_torch.analysis.base.run_plain`).
+
 The solve and Gram wrappers take their hyper-parameters (C, tol and
 the epoch cutoff; γ and coef0) as a number for every job or as a
 (jobs,) tensor, one value a job (:func:`job_values`), and run a sweep's
@@ -33,6 +39,8 @@ from typing import Dict
 import torch
 
 from repro_torch import sparse as sparse_rows
+from repro_torch.analysis.base import run_plain
+from repro_torch.analysis.retrace import note_signature
 from repro_torch.kernels import ref
 
 LAUNCHES: Dict[str, int] = {"cd_solve": 0, "hinge_scores": 0, "gram": 0,
@@ -59,6 +67,13 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+def _plain(fn, *args, **kwargs):
+    """A kernel's plain version on CPU tensors; the linter's rules read
+    it as one op (:func:`repro_torch.analysis.base.run_plain`)."""
+    name = getattr(args[0], "__name__", "") if fn is per_job else ""
+    return run_plain(name or fn.__name__, fn, *args, **kwargs)
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -186,6 +201,8 @@ def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C, tol,
     :func:`cd_solve_cluster_size` CTAs a job; a size the card cannot
     schedule raises.
     """
+    note_signature("cd_solve", xh, xs, y, m, C=C, tol=tol,
+                   max_epochs=max_epochs)
     _check(len(xh.shape) == 3 and len(xs.shape) in (2, 3),
            f"xh must be (n_home, per, d) and xs (S, d) or (B, S, d), got "
            f"{tuple(xh.shape)} and {tuple(xs.shape)}")
@@ -203,7 +220,7 @@ def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C, tol,
     _check(xh.dtype in _ROW_DTYPES and xs.dtype == xh.dtype,
            f"rows must be one of {_ROW_DTYPES}, got {xh.dtype}/{xs.dtype}")
     if not _on_card(xh, xs, y, m):
-        return ref.cd_solve_ref(xh, xs, y, m, **kw)
+        return _plain(ref.cd_solve_ref, xh, xs, y, m, **kw)
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
            "y and m must be float32")
     _check_cuda_layout({"xh": xh, "xs": xs, "y": y, "m": m})
@@ -225,7 +242,7 @@ def _cd_solve_sparse(xh, xs, y, m, layout, *, C: torch.Tensor,
     check_column_ids(*parts)
     kw = dict(C=C, tol=tol, max_epochs=max_epochs)
     if not _on_card(*leaves, y, m):
-        return ref.cd_solve_sparse_ref(xh, xs, y, m, **kw)
+        return _plain(ref.cd_solve_sparse_ref, xh, xs, y, m, **kw)
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
            "y and m must be float32")
     _check_cuda_layout({"y": y, "m": m,
@@ -244,6 +261,7 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
     ``SparseRows`` (the ``hinge_scores/sparse`` route, which also takes W
     as the packed view ``cd_solve/sparse`` returns), W (L, d), b (L,), y,
     m (n,) f32. → (losses (L,), count ())."""
+    note_signature("hinge_scores", X, W, b, y, m)
     _check(len(X.shape) == 2 and W.dim() == 2 and W.shape[1] == X.shape[1],
            f"X must be (n, d) and W (L, d), got {tuple(X.shape)} and "
            f"{tuple(W.shape)}")
@@ -260,7 +278,7 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
         _check(X.dtype in _ROW_DTYPES, f"X must be one of {_ROW_DTYPES}")
         rows = [X]
     if not _on_card(*rows, W, b, y, m):
-        return ref.hinge_scores_ref(X, W, b, y, m)
+        return _plain(ref.hinge_scores_ref, X, W, b, y, m)
     _check(all(t.dtype == torch.float32 for t in (W, b, y, m)),
            "W, b, y and m must be float32")
     from repro_torch.kernels.hinge_score import (MAX_HYPOTHESES, is_packed,
@@ -366,6 +384,8 @@ def gram(X, Z, *, kind: str = "linear", gamma=1.0, coef0=0.0,
     (jobs,) tensors (:func:`job_values`). → (n, m) for two plain sides,
     else (jobs, n, m).
     """
+    note_signature("gram", X, Z, kind=kind, gamma=gamma, coef0=coef0,
+                   degree=degree)
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
     leaves = (xr.home, xr.shared, zr.home, zr.shared)
     _check(all(not sparse_rows.is_sparse(t) for t in leaves),
@@ -377,7 +397,7 @@ def gram(X, Z, *, kind: str = "linear", gamma=1.0, coef0=0.0,
     gamma, coef0 = job_values(gamma, jobs, dev), job_values(coef0, jobs, dev)
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves):
-        return per_job(ref.gram_ref, X, Z, **kw)
+        return _plain(per_job, ref.gram_ref, X, Z, **kw)
     _check_cuda_layout(dict(zip(("X home", "X shared", "Z home",
                                  "Z shared"), leaves)))
     from repro_torch.kernels.gram import launch_gram
@@ -430,6 +450,8 @@ def sparse_gram(X, Z, *, kind: str = "linear", gamma=1.0, coef0=0.0,
     :func:`repro_torch.core.kernel_fns.apply_kernel`). → (n, m) for two
     plain sides, else (jobs, n, m).
     """
+    note_signature("sparse_gram", X, Z, kind=kind, gamma=gamma, coef0=coef0,
+                   degree=degree)
     xr, zr, jobs, plain = _gram_sides(X, Z, kind, degree)
     parts, leaves = _sparse_parts((xr.home, xr.shared, zr.home, zr.shared),
                                   "sparse_gram")
@@ -438,7 +460,7 @@ def sparse_gram(X, Z, *, kind: str = "linear", gamma=1.0, coef0=0.0,
     gamma, coef0 = job_values(gamma, jobs, dev), job_values(coef0, jobs, dev)
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves):
-        return per_job(ref.sparse_gram_ref, X, Z, **kw)
+        return _plain(per_job, ref.sparse_gram_ref, X, Z, **kw)
     _check_cuda_layout({f"leaf {i}": t for i, t in enumerate(leaves)})
     from repro_torch.kernels.gram import launch_sparse_gram
     K = launch_sparse_gram(xr, zr, jobs, **kw)
@@ -462,6 +484,8 @@ def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
     skips the tiles of Z where its coefficients are all 0 (eq. 7's are 0
     off their job's rows). → (n, L) in coef's dtype.
     """
+    note_signature("sparse_gram_scores", X, Z, coef, b, kind=kind,
+                   gamma=gamma, coef0=coef0, degree=degree)
     _check(sparse_rows.is_sparse(X) and len(X.shape) == 2,
            "sparse_gram_scores takes (n, d) SparseRows query rows")
     xr, zr, _, _ = _gram_sides(X, Z, kind, degree)
@@ -479,7 +503,7 @@ def sparse_gram_scores(X, Z, coef: torch.Tensor, b: torch.Tensor, *,
                     job_values(coef0, 1, coef.device))
     kw = dict(kind=kind, gamma=gamma, coef0=coef0, degree=degree)
     if not _on_card(*leaves, coef, b):
-        return ref.sparse_gram_scores_ref(X, Z, coef, b, **dict(
+        return _plain(ref.sparse_gram_scores_ref, X, Z, coef, b, **dict(
             kw, gamma=gamma[0], coef0=coef0[0]))
     _check_cuda_layout({"coef": coef, "b": b,
                         **{f"leaf {i}": t for i, t in enumerate(leaves)}})
@@ -542,6 +566,8 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
     :func:`cd_solve_gram_cluster_size` CTAs run each job; a size the
     card cannot schedule raises.
     """
+    note_signature("cd_solve_gram", K, y, m, C=C, tol=tol,
+                   max_epochs=max_epochs)
     _check(K.dim() == 3 and K.shape[1] == K.shape[2],
            f"K must be (L, n, n), got {tuple(K.shape)}")
     L, n, _ = K.shape
@@ -552,7 +578,7 @@ def cd_solve_gram(K: torch.Tensor, y: torch.Tensor, m: torch.Tensor, *,
     kw = dict(C=job_values(C, L, K.device), tol=job_values(tol, L, K.device),
               max_epochs=_epoch_cutoffs(max_epochs, L, K.device))
     if not _on_card(K, y, m):
-        return ref.cd_solve_gram_ref(K, y, m, **kw)
+        return _plain(ref.cd_solve_gram_ref, K, y, m, **kw)
     _check_cuda_layout({"K": K, "y": y, "m": m})
     c = cd_solve_gram_cluster_size(L, n)
     from repro_torch.kernels.gram_solve import launch_cd_solve_gram
@@ -585,6 +611,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     :func:`ref.decode_attention_ref`): q (B, H, hd), k, v (B, KV, S, hd),
     one dtype of f32/bf16; valid_len () int32 on q's device (read there:
     no host round trip). → (B, H, hd) in q's dtype."""
+    note_signature("decode_attention", q, k, v, valid_len)
     _check(q.dim() == 3 and k.dim() == 4 and tuple(v.shape) == tuple(k.shape),
            f"q must be (B, H, hd) and k, v (B, KV, S, hd), got "
            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -598,7 +625,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(valid_len.dim() == 0 and valid_len.dtype == torch.int32,
            "valid_len must be an int32 scalar tensor")
     if not _on_card(q, k, v, valid_len):
-        return ref.decode_attention_ref(q, k, v, valid_len)
+        return _plain(ref.decode_attention_ref, q, k, v, valid_len)
     _check_cuda_layout({"q": q, "k": k, "v": v})
     _check(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
            "q, k and v must be 16-byte aligned")

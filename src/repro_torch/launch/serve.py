@@ -135,7 +135,8 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
               heartbeat: Optional[str] = None,
               shuffle: Optional[str] = None,
               test_probe: Optional[Callable] = None,
-              cluster=None) -> StreamServeResult:
+              cluster=None,
+              fail_on_retrace: bool = False) -> StreamServeResult:
     """The streaming polarization serve mode (``--arch svm-tfidf``).
 
     Registers ``streams`` tenants, each trained by ``fit_mapreduce`` on
@@ -160,7 +161,9 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     partitions. On a process of ``cluster`` other than 0 the service is
     a read-only replica (``repro/launch/serve.py:99-105``): its streams
     are registered and readable, it reports stream 0's accuracy and runs
-    no wave. → :class:`StreamServeResult`.
+    no wave. ``fail_on_retrace`` arms the service's retrace guard around
+    each fold (:mod:`repro_torch.analysis.retrace`). →
+    :class:`StreamServeResult`.
     """
     from repro_torch.launch.mesh import simulated_hier_hosts
     from repro_torch.serving import StreamingSVMService
@@ -183,7 +186,8 @@ def serve_svm(svm_cfg, *, streams: int = 4, waves: int = 3,
     hardening = dict(checkpoint_every_waves=checkpoint_every,
                      checkpoint_keep=checkpoint_keep, quarantine=quarantine,
                      fold_deadline_s=fold_deadline, heartbeat_path=heartbeat,
-                     cluster=cluster, device=device)
+                     cluster=cluster, device=device,
+                     fail_on_retrace=fail_on_retrace)
     if restore:
         if not checkpoint_dir:
             raise SystemExit("--restore requires --checkpoint-dir")

@@ -43,6 +43,7 @@ import torch
 
 from repro_torch import faults
 from repro_torch import sparse as sparse_rows
+from repro_torch.analysis.hostsync import no_implicit_host_sync
 from repro_torch.convert import rows_from_numpy, tensor_from_numpy, to_numpy
 from repro_torch.core.mapreduce_svm import (MRSVMConfig, build_sharded_round,
                                             decision_linear, drive_rounds,
@@ -64,9 +65,8 @@ class Case:
     the rank as ``dtype``; the empty buffer's feature rows are
     ``sv_dtype`` (default ``dtype``; the wire dtype, to start a packed
     transport as it goes on). On a CUDA rank, round
-    ``sync_check_round`` runs under
-    ``torch.cuda.set_sync_debug_mode("error")``: a host sync in it
-    raises. With ``garble = (r, seed)`` round 0 runs under
+    ``sync_check_round`` runs under :func:`no_host_sync`: a host sync in
+    it raises. With ``garble = (r, seed)`` round 0 runs under
     ``FaultPlan.single("ring_garble", seed)`` armed on rank r alone, so
     one rank's received message is garbled and the others' are not."""
     name: str
@@ -81,18 +81,12 @@ class Case:
     garble: Optional[Tuple[int, int]] = None
 
 
-@contextlib.contextmanager
 def no_host_sync(device, on: bool = True):
-    """``torch.cuda.set_sync_debug_mode("error")`` around the block on a
-    CUDA ``device`` when ``on``."""
+    """:func:`repro_torch.analysis.no_implicit_host_sync` around the block
+    on a CUDA ``device`` when ``on`` (the mode found is restored)."""
     if not on or torch.device(device).type != "cuda":
-        yield
-        return
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        yield
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
+        return contextlib.nullcontext()
+    return no_implicit_host_sync()
 
 
 def _rows(X, rows: slice, device, dtype: torch.dtype):
@@ -159,11 +153,10 @@ class SweepCase:
     (:func:`repro_torch.core.sweep_grid`). The rows go to the rank as
     ``dtype``. ``drive=False`` skips the driven sweep. The rounds driven
     one by one take ``params`` as they are (no eq. 8 mask); on a CUDA
-    rank round ``sync_check_round`` runs under
-    ``torch.cuda.set_sync_debug_mode("error")``; with ``resume_round``
-    the state after that round is saved (:func:`save_sweep_state`),
-    restored (:func:`restore_sweep_state`) and driven on to ``rounds``
-    beside the uninterrupted run."""
+    rank round ``sync_check_round`` runs under :func:`no_host_sync`; with
+    ``resume_round`` the state after that round is saved
+    (:func:`save_sweep_state`), restored (:func:`restore_sweep_state`)
+    and driven on to ``rounds`` beside the uninterrupted run."""
     name: str
     cfg: MRSVMConfig
     X: object
@@ -249,6 +242,19 @@ def run_sweep_case(rank, case: SweepCase) -> dict:
     return out
 
 
+def _recorded(rank, run, cases):
+    """``run(rank, case)`` for each case with its collectives recorded.
+    → (results, each case's schedule), each schedule checked valid."""
+    from repro_torch import analysis, compat
+    results, schedules = [], []
+    for c in cases:
+        with compat.record_collectives() as rec:
+            results.append(run(rank, c))
+        analysis.check_schedule(rec, program=c.name)
+        schedules.append(analysis.collective_schedule(rec))
+    return results, schedules
+
+
 def run_cases(rank, cases: Sequence[Case], chaos_seeds: Sequence[int] = (),
               fit: Optional[tuple] = None,
               sweep_cases: Sequence[SweepCase] = ()) -> dict:
@@ -260,15 +266,18 @@ def run_cases(rank, cases: Sequence[Case], chaos_seeds: Sequence[int] = (),
     :func:`repro_torch.faults.chaos.transport_rank`, "fit": its result
     or None, "routes" / "sweep_routes": launches by route of the cases /
     the sweep cases on this rank, "backend": the group's, "modules":
-    whether JAX or the reference package was imported on this rank}``."""
+    whether JAX or the reference package was imported on this rank,
+    "schedules" / "sweep_schedules": each case's collective schedule on
+    this rank (:func:`repro_torch.analysis.collective_schedule`), checked
+    valid here; the parent holds them equal across ranks}``."""
     import sys
     from repro_torch import compat
     from repro_torch.faults import chaos
     probe = compat.probe(rank)
     before = dict(ops.ROUTE_LAUNCHES)
-    results = [run_case(rank, c) for c in cases]
+    results, schedules = _recorded(rank, run_case, cases)
     mid = dict(ops.ROUTE_LAUNCHES)
-    sweeps = [run_sweep_case(rank, c) for c in sweep_cases]
+    sweeps, sweep_schedules = _recorded(rank, run_sweep_case, sweep_cases)
     routes = {k: mid[k] - before.get(k, 0) for k in mid}
     sweep_routes = {k: v - mid.get(k, 0)
                     for k, v in ops.ROUTE_LAUNCHES.items()}
@@ -277,6 +286,7 @@ def run_cases(rank, cases: Sequence[Case], chaos_seeds: Sequence[int] = (),
     return {"probe": probe, "cases": results, "sweeps": sweeps,
             "chaos": rows, "fit": fit_sharded(rank, *fit) if fit else None,
             "routes": routes, "sweep_routes": sweep_routes,
+            "schedules": schedules, "sweep_schedules": sweep_schedules,
             "backend": rank.backend,
             "modules": sorted(m for m in ("jax", "repro") if m in sys.modules)}
 

@@ -67,8 +67,14 @@ service process-count-aware, as the reference's: admission (``submit``,
 only, while every process's snapshots stay readable; ``None`` is one
 process, every method enabled.
 
-Not ported yet, and refused with ``NotImplementedError``: the retrace
-guard (ROADMAP Queue 1 item 12).
+``fail_on_retrace`` arms the invariant linter's retrace rule around
+each fold (:mod:`repro_torch.analysis.retrace`), as the reference's: the
+first fold of a signature (every folded leaf's shape and dtype and the
+fold kind) warms; a later fold of the same signature that meets a new
+kernel library or wrapper signature raises ``RetraceError``, and
+``retraces`` counts those events. While another thread holds a
+``no_implicit_host_sync`` region, the background scheduler folds
+nothing (:func:`repro_torch.analysis.hostsync.armed_elsewhere`).
 """
 from __future__ import annotations
 
@@ -86,6 +92,8 @@ import torch
 
 from repro_torch import faults
 from repro_torch import sparse as sparse_rows
+from repro_torch.analysis.hostsync import armed_elsewhere
+from repro_torch.analysis.retrace import RetraceError, watch_compiles
 from repro_torch.ckpt import checkpoint as ckpt
 from repro_torch.core.mapreduce_svm import (MapReduceSVM, MRSVMConfig,
                                             SVBuffer,
@@ -100,12 +108,6 @@ from repro_torch.device import DeviceLike, as_tensor, resolve_device
 from repro_torch.kernels import ops
 
 _MANIFEST = "service_manifest.json"
-
-
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} of the streaming service is not ported to repro_torch yet "
-        f"(ROADMAP Queue 1 item {item})")
 
 
 def _as_rows(x):
@@ -262,10 +264,7 @@ class StreamingSVMService:
         # watchdog around each wave's folds (heartbeat file at
         # ``heartbeat_path``; ``watchdog_handler`` replaces the default
         # handler, which exits the process).
-        # The reference's arguments that the port refuses, with the
-        # ROADMAP Queue 1 item that brings them:
-        if fail_on_retrace:
-            raise _not_ported("fail_on_retrace=", 12)
+        # ``fail_on_retrace`` arms the retrace rule around each fold
         # ``shuffle_impl`` overrides the SV merge transport of the config
         # (any of SHUFFLE_IMPLS): the sharded wave program derived from
         # the service reads it from ``self.cfg``
@@ -295,7 +294,9 @@ class StreamingSVMService:
         # folds run on a stream of their own, readers on theirs
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        self.fail_on_retrace = fail_on_retrace
         self._fold_signatures: set = set()
+        self._retraces = 0
         self.shed: List[MicroBatch] = []
         self.quarantined: List[MicroBatch] = []
         self._requeued = 0
@@ -796,12 +797,14 @@ class StreamingSVMService:
                                 # a lone tenant: the plain incremental update
                                 s = group[0]
                                 snap, _, Xn, yn = joined[s]
-                                self._fold_signatures.add(
-                                    self._fold_signature(
-                                        "single", Xn, yn, snap.model.sv))
-                                model = update_mapreduce(
-                                    snap.model, Xn, yn, self.L, self.cfg,
-                                    params=snap.params)
+                                sig = self._fold_signature(
+                                    "single", Xn, yn, snap.model.sv)
+                                with self._retrace_guard(
+                                        sig, "run_wave single-tenant fold "
+                                        f"{s}"):
+                                    model = update_mapreduce(
+                                        snap.model, Xn, yn, self.L,
+                                        self.cfg, params=snap.params)
                                 self._swap(s, model, snap.params)
                                 swapped.append(s)
                             else:
@@ -859,6 +862,25 @@ class StreamingSVMService:
             handler(info)
         else:
             faults.exit_handler(info)
+
+    @contextlib.contextmanager
+    def _retrace_guard(self, signature: tuple, label: str):
+        """The retrace rule around one fold, as the reference's: the
+        first fold of ``signature`` warms; a later fold of the same
+        signature that records a compile event (a kernel library loaded,
+        a wrapper signature met for the first time) raises
+        ``RetraceError`` naming the events, which ``retraces`` counts."""
+        if not self.fail_on_retrace:
+            self._fold_signatures.add(signature)
+            yield
+            return
+        first = signature not in self._fold_signatures
+        with watch_compiles() as stats:
+            yield
+        self._fold_signatures.add(signature)
+        if not first and stats.count:
+            self._retraces += stats.count
+            raise RetraceError(label, stats.events)
 
     @staticmethod
     def _fold_signature(kind: str, *trees) -> tuple:
@@ -941,10 +963,11 @@ class StreamingSVMService:
         Xb = sparse_rows.rows_stack(jobs, n_max)          # (S', n_max, d)
         params_b = stack_params(ps)
 
-        self._fold_signatures.add(self._fold_signature(
-            "batched", Xb, yb, mb_, params_b))
-        res = fit_mapreduce_sweep(Xb, yb, self.L, self.cfg, params_b,
-                                  mask=mb_, device=self.device)
+        sig = self._fold_signature("batched", Xb, yb, mb_, params_b)
+        with self._retrace_guard(
+                sig, f"run_wave batched fold ({len(names)} streams)"):
+            res = fit_mapreduce_sweep(Xb, yb, self.L, self.cfg, params_b,
+                                      mask=mb_, device=self.device)
         del Xb
         for i, s in enumerate(names):                    # padding dropped
             snap = joined[s][0]
@@ -1003,6 +1026,11 @@ class StreamingSVMService:
                     self._cv.wait(timeout=idle_poll_s)
                 if self._stop_evt.is_set():
                     return
+            if armed_elsewhere():
+                # a host-sync region another thread armed: its folds are
+                # the ones that thread runs
+                self._stop_evt.wait(idle_poll_s)
+                continue
             try:
                 self.run_wave()
             except BaseException as e:
@@ -1071,8 +1099,8 @@ class StreamingSVMService:
     # -- reporting ---------------------------------------------------------
 
     def throughput_report(self) -> Dict[str, float]:
-        """The reference's keys. ``retraces`` counts a guard that is not
-        ported (ROADMAP Queue 1 item 12) and stays 0."""
+        """The reference's keys; ``retraces`` counts the compile events
+        that raised under ``fail_on_retrace``."""
         lats = [mb.latency_s for mb in self.done]
         queues = [mb.queue_s for mb in self.done]
         rows = sum(s.rows for s in self.stats)
@@ -1092,7 +1120,7 @@ class StreamingSVMService:
             "requeued": self._requeued,
             "slo_violations": self._slo_violations,
             "fold_programs": len(self._fold_signatures),
-            "retraces": 0,
+            "retraces": self._retraces,
             "quarantined": len(self.quarantined),
             "retries": self._retries,
             "watchdog_fires": self._watchdog_fires,

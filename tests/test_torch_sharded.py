@@ -487,6 +487,19 @@ def test_topology_checks_match_the_reference():
     assert tmr.resolve_topology(_cfgs(LIN)[0], 6) == 1
 
 
+@pytest.mark.parametrize("name", NAMES)
+def test_every_rank_records_the_same_valid_schedule(runs, name):
+    """Each case's collectives as every rank recorded them
+    (``compat.record_collectives``; ``run_cases`` checked each valid):
+    the same ordered schedule on all 8 ranks, a collective a round at
+    least."""
+    from repro_torch import analysis
+    i = NAMES.index(name)
+    sched = {f"rank{r}": res["schedules"][i] for r, res in enumerate(runs)}
+    analysis.assert_schedules_agree(sched, program=name)
+    assert len(sched["rank0"]) >= len(_case(runs, name)["risks"])
+
+
 def test_ranks_import_neither_jax_nor_the_reference(runs):
     assert all(r["modules"] == [] for r in runs)
     # every case ran the plain versions here: no kernel launched

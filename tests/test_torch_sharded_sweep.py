@@ -178,6 +178,13 @@ os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
 import dataclasses as dc
 import json
 import jax, jax.numpy as jnp, numpy as np
+# The reference's round loop hands its host ``done`` mask to jnp and then
+# updates it in place (``done |= newly``); on the CPU ``jnp.asarray`` of
+# a numpy array may share its memory, so under asynchronous dispatch a
+# still-pending freeze select can read the updated mask and freeze a
+# config one round early. Synchronous dispatch runs each call to its end
+# before the host goes on: the loop's intended order, every run.
+jax.config.update("jax_cpu_enable_async_dispatch", False)
 from repro import compat
 from repro.core import (MRSVMConfig, SVMConfig, sweep_grid,
                         build_sharded_sweep_round, fit_mapreduce_sweep,
@@ -394,6 +401,19 @@ def test_every_rank_reads_the_same_sweep(runs, name):
                                            SPECS[name][4].get(
                                                "per_config_data", False))
         else "SVBuffer")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_every_rank_records_the_same_valid_schedule(runs, name):
+    """Each sweep case's collectives as every rank recorded them
+    (``compat.record_collectives``; ``run_cases`` checked each valid):
+    the same ordered schedule on all 8 ranks."""
+    from repro_torch import analysis
+    i = NAMES.index(name)
+    analysis.assert_schedules_agree(
+        {f"rank{r}": res["sweep_schedules"][i]
+         for r, res in enumerate(runs[0])}, program=name)
+    assert len(runs[0][0]["sweep_schedules"][i]) > 0
 
 
 REFERENCE_CASES = [n for n in NAMES if not n.startswith(("nan", "bf16"))]
@@ -839,12 +859,43 @@ def test_fit_sharded_sweep_is_the_train_modes_sweep(one_rank, data):
     assert min(out["acc"]) > 0.8 and out["best"] == want.best
 
 
-def test_retrace_guard_still_refused():
-    """``fail_on_retrace=True`` raises naming ROADMAP Queue 1 item 12."""
-    with pytest.raises(NotImplementedError, match=r"item 12\)"):
-        T.run_sharded_sweep(None, np.zeros((2, 2)), np.zeros(2), None,
-                            T.MRSVMConfig(), tsw.sweep_grid(T.SVMConfig()),
-                            fail_on_retrace=True)
+def test_run_sharded_sweep_takes_the_retrace_guard(one_rank, data):
+    """``fail_on_retrace=True`` (the reference's guard on every round past
+    the first) gives the sweep without it bit for bit, on the ring's
+    dedup state with configs that converge at different rounds; a
+    steady-state round that meets a wrapper signature new to the process
+    raises ``RetraceError`` naming it."""
+    from repro_torch.analysis import RetraceError
+    from repro_torch.analysis.lint import _fresh_gram as fresh_gram
+    X, y = data["dense"]
+    t_cfg, _ = _cfgs(FREEZE, shuffle_impl="ring", **F32_WIRE)
+    params = tsw.sweep_grid(t_cfg.svm, **GRIDS["freeze"])
+    fn = T.build_sharded_sweep_round(t_cfg, N, device="cpu")
+    mask = np.ones(N, np.float32)
+    off = T.run_sharded_sweep(fn, X, y, mask, t_cfg, params)
+    on = T.run_sharded_sweep(fn, X, y, mask, t_cfg, params,
+                             fail_on_retrace=True)
+    assert len(set(on.rounds.tolist())) > 1
+    np.testing.assert_array_equal(on.rounds, off.rounds)
+    for a, b in zip(on.sv, off.sv):
+        assert torch.equal(a, b)
+    for k in ("risks", "ws", "bs"):
+        assert torch.equal(getattr(on, k), getattr(off, k)), k
+
+    calls = []
+
+    def new_shape_in_round_1(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            fresh_gram("cpu")
+        return fn(*a, **kw)
+    new_shape_in_round_1.init_sv, new_shape_in_round_1.device = (
+        fn.init_sv, fn.device)
+    new_shape_in_round_1.expand_sv = fn.expand_sv
+    with pytest.raises(RetraceError, match=r"round 1") as e:
+        T.run_sharded_sweep(new_shape_in_round_1, X, y, mask, t_cfg,
+                            params, fail_on_retrace=True)
+    assert e.value.rule == "retrace" and e.value.op.startswith("gram[")
 
 
 def test_new_modules_import_neither_jax_nor_the_reference():

@@ -558,12 +558,29 @@ _FIRES = []
     (dict(shuffle_impl="ring"), 7)])
 def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item,
                                                     tmp_path):
-    """The argument of ROADMAP Queue 1 item 12 raises naming its item.
-    Those of item 9 (checkpoints and the fold watchdog), item 7
-    (``shuffle_impl``) and item 10 (``cluster``), ported since, are
-    accepted and take effect: the transport replaces the config's, as
-    the reference's service takes it, and on a process other than 0 the
-    service refuses admission with the reference's message."""
+    """The arguments of item 9 (checkpoints and the fold watchdog), item
+    7 (``shuffle_impl``), item 10 (``cluster``) and item 12
+    (``fail_on_retrace``), all ported, are accepted and take effect: the
+    transport replaces the config's, as the reference's service takes
+    it; on a process other than 0 the service refuses admission with the
+    reference's message; under the retrace guard both services fold two
+    waves of one shape with one fold program and no retrace."""
+    if item == 12:
+        Xr, yr = _sep_data(0, 96)
+        models = _models(cfgs[0], {"t": (jnp.asarray(Xr), yr)})
+        jsvc, tsvc = _services(cfgs[0], cfgs[1], models, **kw)
+        for seed in (1, 2):
+            X, y = _sep_data(seed, 64)
+            jsvc.submit("t", jnp.asarray(X), jnp.asarray(y))
+            tsvc.submit("t", X, y)
+            jsvc.run_wave()
+            tsvc.run_wave()
+        jr, tr = jsvc.throughput_report(), tsvc.throughput_report()
+        assert tr["retraces"] == jr["retraces"] == 0
+        assert tr["fold_programs"] == jr["fold_programs"] == 1
+        _same_as_jax(jsvc, tsvc, ["t"], jnp.asarray(Xr),
+                     torch.from_numpy(Xr))
+        return
     if item == 10:
         svc = StreamingSVMService(cfgs[1], device="cpu", **kw)
         jsvc = JService(cfgs[0], cluster=jcluster.Cluster(
@@ -581,10 +598,6 @@ def test_left_out_arguments_raise_naming_their_item(cfgs, kw, item,
         want = JService(cfgs[0], **kw).cfg
         assert svc.cfg.shuffle_impl == want.shuffle_impl == "ring"
         assert dataclasses.asdict(svc.cfg) == dataclasses.asdict(want)
-        return
-    if item != 9:
-        with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-            StreamingSVMService(cfgs[1], device="cpu", **kw)
         return
     name = next(iter(kw))
     # every item-9 argument is exercised beside what it needs to act
