@@ -1,6 +1,8 @@
 """Serving entry points: the LM family's greedy decode loop and the svm
 family's streaming polarization service.
 
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
+        --batch 8 --cache-len 4096 --tokens 16             # full width, card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
         --smoke --batch 4 --tokens 16                      # on the card
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
@@ -8,8 +10,10 @@ family's streaming polarization service.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \\
         --smoke --streams 4 --waves 3                      # on the card
 
-LM: the loop starts from a zero cache and token 0 and feeds each step's
-argmax back in, as ``repro/launch/serve.py:188-218``. Every step stays
+LM (tinyllama-1.1b, llama3-8b, qwen2-1.5b, chatglm3-6b, llava-next-34b):
+the loop starts from a zero cache and token 0 and feeds each step's
+argmax back in, as ``repro/launch/serve.py:188-218``; llava decodes its
+text from token 0 with no prefix, as the reference's does. Every step stays
 on the device: the tokens are copied to the host once, after the loop.
 
 svm: micro-batches of drifting messages fold into each tenant's

@@ -2,8 +2,8 @@
 step of the dense decoder (``repro/launch/steps.py:160-170``).
 
 The reference's shape suite names ``decode_32k`` (seq 32768, global
-batch 128); the train and prefill steps, shardings and abstract inputs
-wait for ROADMAP Queue 1 item 13.
+batch 128); the train and prefill steps wait for ROADMAP Queue 1 item
+13c, shardings and abstract inputs for 13g.
 """
 from __future__ import annotations
 

@@ -1,12 +1,14 @@
-"""GQA attention: single-token decode against a (optionally
-sliding-window) KV cache.
+"""GQA attention: full-sequence (prefill, forward, cross-attention),
+query-chunked as the reference's, and single-token decode against a
+(optionally sliding-window) KV cache.
 
 ``kv_repeat``: KV heads may be physically duplicated r× (the reference
 does so when its tensor-parallel degree exceeds num_kv_heads); the
 caches then hold KV·r heads.
 
-The full-sequence ``attention`` (prefill and training) is not ported
-yet (ROADMAP Queue 1 item 13).
+The full-sequence ``attention`` has no Pallas kernel in the reference:
+it is its chunked masked softmax in plain PyTorch, rounded where the
+reference rounds.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import PSpec, apply_rope
 
 _NEG_INF = -1e30
+_Q_CHUNK = 512
 
 
 def attn_template(cfg: ModelConfig, d_in: Optional[int] = None) -> Dict[str, PSpec]:
@@ -58,6 +61,71 @@ def _project_qkv(p, x, kv_x, cfg: ModelConfig, kv_repeat: int):
         k = torch.repeat_interleave(k, kv_repeat, dim=2)
         v = torch.repeat_interleave(v, kv_repeat, dim=2)
     return q, k, v
+
+
+def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q (B, Sq, H, hd), k (B, Sk, KVr, hd) → scores (B, KVr, G, Sq, Sk)
+    in the activation dtype, over √hd rounded to it (the reference's
+    ``jnp.sqrt(hd).astype(q.dtype)``)."""
+    B, Sq, H, hd = q.shape
+    KVr = k.shape[2]
+    qg = q.reshape(B, Sq, KVr, H // KVr, hd)
+    root = torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
+    return torch.einsum("bskgh,btkh->bkgst", qg, k) / root
+
+
+def _grouped_out(probs: torch.Tensor, v: torch.Tensor, H: int) -> torch.Tensor:
+    """probs (B, KVr, G, Sq, Sk), v (B, Sk, KVr, hd) → (B, Sq, H, hd)."""
+    B, KVr, G, Sq, Sk = probs.shape
+    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
+    return out.reshape(B, Sq, KVr * G, out.shape[-1])
+
+
+def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
+              positions: torch.Tensor, kv_repeat: int = 1,
+              causal: bool = True, kv_x: Optional[torch.Tensor] = None,
+              kv_positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Full-sequence attention (forward / prefill / cross), as
+    ``repro/models/attention.py:78-137``.
+
+    x: (B, S, D); positions: (B, S) on x's device. ``kv_x`` switches to
+    cross-attention over ``kv_positions`` (no RoPE). Queries go in
+    blocks of 512 when S > 512 and S % 512 == 0, else as one block, so
+    the f32 scores never exceed (B, heads, 512, Sk). The scores and
+    their 1/√hd scale are in the activation dtype, then widened; masked
+    scores are −1e30; the softmax is f32, cast back before the PV
+    product.
+    """
+    B, S, _ = x.shape
+    H, hd = cfg.num_heads, cfg.hd
+    self_attn = kv_x is None
+    kv_x = x if self_attn else kv_x
+    kv_pos = positions if self_attn else kv_positions
+    q, k, v = _project_qkv(p, x, kv_x, cfg, kv_repeat)
+    if self_attn and cfg.rope_fraction > 0:
+        q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
+        k = apply_rope(k, kv_pos, cfg.rope_fraction, cfg.rope_theta)
+    window = cfg.sliding_window
+
+    def block_attend(q_blk, qpos_blk):
+        scores = _grouped_scores(q_blk, k).float()
+        mask = torch.ones((B, q_blk.shape[1], k.shape[1]), dtype=torch.bool,
+                          device=x.device)
+        if causal:
+            mask &= qpos_blk[:, :, None] >= kv_pos[:, None, :]
+        if window is not None:
+            mask &= qpos_blk[:, :, None] - kv_pos[:, None, :] < window
+        scores = torch.where(mask[:, None, None], scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        return _grouped_out(probs, v, H)
+
+    if S > _Q_CHUNK and S % _Q_CHUNK == 0:
+        out = torch.cat([block_attend(q[:, c:c + _Q_CHUNK],
+                                      positions[:, c:c + _Q_CHUNK])
+                         for c in range(0, S, _Q_CHUNK)], dim=1)
+    else:
+        out = block_attend(q, positions)
+    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
 
 
 class LayerKVCache(NamedTuple):

@@ -7,8 +7,9 @@ gives the parameters' names, shapes and init. Layer stacks keep their
 weights with a leading "layers" dim, as in the reference, and the model
 walks them in a Python loop.
 
-The losses (``chunked_lm_loss``, ``cross_entropy_loss``) belong to
-training and are not ported yet (ROADMAP Queue 1 item 13).
+The losses (``chunked_lm_loss``, ``cross_entropy_loss``) are forward
+only: nothing takes a gradient until LM training is ported (ROADMAP
+Queue 1 item 13c).
 """
 from __future__ import annotations
 
@@ -38,9 +39,12 @@ def tree_map(fn: Callable, tree: Any) -> Any:
 def template_init(tpl, gen: torch.Generator, dtype: torch.dtype) -> Any:
     """Template → parameters on ``gen``'s device (fan-in scaled normal
     init; ``embed`` rows 1/√d_model), drawn leaf by leaf in sorted key
-    order from the one generator. The reference's ``jax.random`` gives
-    other numbers from the same seed: tests hand both packages the same
-    arrays instead."""
+    order from the one generator. A stacked leaf (leading "layers" axis)
+    is drawn one layer's slice at a time, in float32, into the output:
+    the transient is one slice, not two float32 copies of the whole leaf
+    (llava-next-34b's ``w_gate`` is 8.8 G values). The reference's
+    ``jax.random`` gives other numbers from the same seed: tests hand
+    both packages the same arrays instead."""
     def init(p: PSpec) -> torch.Tensor:
         if p.init == "zeros":
             return torch.zeros(p.shape, dtype=dtype, device=gen.device)
@@ -54,8 +58,12 @@ def template_init(tpl, gen: torch.Generator, dtype: torch.dtype) -> Any:
             fan_in = p.fan_in or (p.shape[-2] if len(p.shape) >= 2
                                   else p.shape[-1])
             std = 1.0 / math.sqrt(max(fan_in, 1))
-        x = torch.randn(p.shape, generator=gen, device=gen.device)
-        return (x * std).to(dtype)
+        out = torch.empty(p.shape, dtype=dtype, device=gen.device)
+        slices = out if p.axes[:1] == ("layers",) else out[None]
+        for part in slices:
+            part.copy_(torch.randn(part.shape, generator=gen,
+                                   device=gen.device).mul_(std))
+        return out
     return tree_map(init, tpl)
 
 
@@ -167,3 +175,51 @@ def lm_logits(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
     if tie:
         return x @ p["embedding"].T
     return x @ p["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# LM losses (forward only; f32 reductions as the reference)
+# ---------------------------------------------------------------------------
+
+def chunked_lm_loss(embed_params, h: torch.Tensor, labels: torch.Tensor,
+                    tie: bool, mask: Optional[torch.Tensor] = None,
+                    chunk: int = 8192) -> torch.Tensor:
+    """Mean next-token CE over h (B, S, D) with labels (B, S), computed
+    in token-major chunks of ``chunk`` rows so that only (chunk, V) f32
+    logits exist at a time, as ``repro/models/layers.py:178``. The last
+    chunk is padded with rows of mask 0; the mean is over
+    max(Σ mask, 1)."""
+    B, S, D = h.shape
+    T = B * S
+    if T <= chunk:
+        return cross_entropy_loss(lm_logits(embed_params, h, tie), labels,
+                                  mask)
+    pad = (-T) % chunk
+    hf = F.pad(h.reshape(T, D), (0, 0, 0, pad))
+    lf = F.pad(labels.reshape(T), (0, pad))
+    mf = F.pad(torch.ones((T,), dtype=torch.float32, device=h.device)
+               if mask is None else mask.reshape(T).float(), (0, pad))
+    tot = torch.zeros((), dtype=torch.float32, device=h.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for c0 in range(0, T + pad, chunk):
+        sl = slice(c0, c0 + chunk)
+        logits = lm_logits(embed_params, hf[sl], tie).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lf[sl, None].long())[:, 0]
+        tot = tot + ((lse - gold) * mf[sl]).sum()
+        cnt = cnt + mf[sl].sum()
+    return tot / cnt.clamp(min=1.0)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean next-token CE in f32 (logits (B, S, V), labels (B, S)); with
+    a mask, Σ nll·mask / max(Σ mask, 1)."""
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = lf.gather(-1, labels[..., None].long())[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        m = mask.float()
+        return (nll * m).sum() / m.sum().clamp(min=1.0)
+    return nll.mean()

@@ -63,7 +63,7 @@ class BatchScheduler:
         if frames is not None:
             raise NotImplementedError(
                 "encoder frames (the encoder-decoder family) are not ported "
-                "to repro_torch yet (ROADMAP Queue 1 item 13)")
+                "to repro_torch yet (ROADMAP Queue 1 item 13f)")
         self.device = resolve_device(device)
         self.model = model
         self.params = tree_map(lambda w: w.to(self.device), params)

@@ -340,10 +340,13 @@ def test_serve_lm_refuses_to_run_without_a_card(monkeypatch):
 
 def test_unported_archs_and_families_raise_naming_the_roadmap():
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="item 13"):
-        get_config("llama3-8b")
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(NotImplementedError, match="item 13d"):
+        get_config("mixtral-8x22b")
+    with pytest.raises(NotImplementedError, match="item 13d"):
         build_model(ModelConfig(**dict(SMALL, family="moe")))
+    # the vlm family (llava-next-34b) is the dense decoder: it builds
+    assert build_model(ModelConfig(**dict(SMALL, family="vlm"))).cfg.family \
+        == "vlm"
     # --restore is ported (item 9) and, as the reference's, needs its
     # directory; --shuffle is ported too (item 7) and, as the reference's,
     # takes only the merge transports' names
