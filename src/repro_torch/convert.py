@@ -16,7 +16,8 @@ packages run the same grid.
 :func:`lm_params_from_jax` takes the parameters of the reference's
 ``TransformerModel`` (a nested dict of arrays, stacked ``layers``) and
 gives the port's, under the same names and layout, so that both
-packages compute the same model.
+packages compute the same model; :func:`opt_state_from_jax` does the
+same for the reference's AdamW state.
 
 bfloat16 numpy arrays (the ``ml_dtypes`` type JAX hands out) are read
 by their bits. :func:`to_numpy` widens bfloat16 to float32, which is
@@ -34,6 +35,7 @@ from repro_torch.core.mapreduce_svm import MapReduceSVM, SVBuffer
 from repro_torch.core.svm import BinarySVM, SolverParams
 from repro_torch.device import DeviceLike
 from repro_torch.models.layers import tree_map
+from repro_torch.optim import OptState
 
 
 def tensor_from_numpy(a, device: DeviceLike = "cpu") -> torch.Tensor:
@@ -99,6 +101,17 @@ def lm_params_from_jax(params: Mapping, device: DeviceLike = "cpu"):
     """The reference LM's parameters (nested dict of arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``."""
     return tree_map(lambda a: tensor_from_numpy(a, device), dict(params))
+
+
+def opt_state_from_jax(state, device: DeviceLike = "cpu") -> OptState:
+    """The reference's ``OptState`` (``mu``, ``nu`` trees and ``step``,
+    e.g. ``jax.tree.map(np.asarray, state)``) → the port's, on
+    ``device``: both packages then step from the same state."""
+    mu, nu, step = state
+    return OptState(mu=lm_params_from_jax(mu, device),
+                    nu=lm_params_from_jax(nu, device),
+                    step=tensor_from_numpy(np.asarray(step, np.int32),
+                                           device))
 
 
 def to_numpy(obj):

@@ -1,9 +1,14 @@
-"""Deterministic synthetic TF×IDF-like rows for the MapReduce SVM.
+"""Deterministic synthetic data: LM token batches and TF×IDF-like rows
+for the MapReduce SVM. The numpy code is the reference's
+(``repro/data/pipeline.py``), byte for byte.
+
+LM batches (:func:`lm_batch_at`, :func:`lm_batches`) are Zipf tokens
+with a planted bigram rule, stateless in ``(seed, step)``: a run resumes
+from any checkpoint step on the same batches.
 
 Rows are generated in BLOCK-STATELESS chunks: block j draws from
 ``default_rng((seed, 1, j))`` independently of every other block, so a
-process can make exactly its own row range. The numpy code is the reference's,
-byte for byte.
+process can make exactly its own row range.
 
 :func:`svm_rows_device` makes rows of the same distribution straight
 on the device, where a full-width dataset takes seconds instead of
@@ -12,12 +17,74 @@ minutes of host time. :func:`svm_rows_sparse` and
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import sparse as sparse_rows
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    batch_size: int = 8
+    seq_len: int = 128
+    seed: int = 0
+
+
+def _tokens_for_step(cfg: DataConfig, vocab: int, step: int,
+                     structure: int = 97) -> np.ndarray:
+    """Zipfian tokens with a deterministic bigram rule planted:
+    after token t comes (t * 31 + 7) % structure with prob ~0.5 —
+    learnable signal for smoke-training."""
+    rng = np.random.default_rng((cfg.seed, step))
+    B, S = cfg.batch_size, cfg.seq_len
+    base = rng.zipf(1.3, size=(B, S)).clip(1, vocab - 1)
+    follow = (base * 31 + 7) % min(structure, vocab)
+    use_follow = rng.random((B, S)) < 0.5
+    out = base.copy()
+    out[:, 1:] = np.where(use_follow[:, 1:], follow[:, :-1], base[:, 1:])
+    return out.astype(np.int32)
+
+
+def lm_batches(cfg: DataConfig, model_cfg: ModelConfig,
+               start_step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    """Next-token LM batches: {tokens, labels} (+ frontend stubs)."""
+    step = start_step
+    while True:
+        yield lm_batch_at(cfg, model_cfg, step)
+        step += 1
+
+
+def lm_batch_at(cfg: DataConfig, model_cfg: ModelConfig,
+                step: int) -> Dict[str, np.ndarray]:
+    """The batch of ``step`` as numpy arrays: tokens and next-token
+    labels (B, S) int32, and a VLM's stub ``prefix_embeds`` (B, P, D)
+    float32, its text then S − P tokens. The encoder-decoder branch
+    (``frames``) waits for its family."""
+    if model_cfg.frontend == "audio":
+        raise NotImplementedError(
+            "encoder frames (the encoder-decoder family) are not ported "
+            "to repro_torch yet (ROADMAP Queue 1 item 13f)")
+    rng = np.random.default_rng((cfg.seed, step, 1))
+    S = cfg.seq_len
+    P = model_cfg.num_prefix_tokens if model_cfg.frontend == "vision" else 0
+    toks = _tokens_for_step(cfg, model_cfg.vocab_size, step)
+    batch: Dict[str, np.ndarray] = {}
+    if P > 0:
+        batch["prefix_embeds"] = rng.normal(
+            0, 1, (cfg.batch_size, P, model_cfg.d_model)).astype(np.float32)
+        text = toks[:, :S - P]
+        batch["tokens"] = text
+        batch["labels"] = np.concatenate(
+            [text[:, 1:], text[:, :1]], axis=1).astype(np.int32)
+    else:
+        batch["tokens"] = toks
+        batch["labels"] = np.concatenate(
+            [toks[:, 1:], toks[:, :1]], axis=1).astype(np.int32)
+    return batch
 
 _ROW_BLOCK = 1024     # rows per stateless block (host memory granule)
 

@@ -1,26 +1,194 @@
-"""Step builders. Only the serve step is ported: one greedy decode
-step of the dense decoder (``repro/launch/steps.py:160-170``).
+"""Step builders, ported from ``repro/launch/steps.py``: the training,
+prefill and decode steps of the dense and VLM decoders, with their
+abstract inputs as ``meta`` tensors.
 
-The reference's shape suite names ``decode_32k`` (seq 32768, global
-batch 128); the train and prefill steps wait for ROADMAP Queue 1 item
-13c, shardings and abstract inputs for 13g.
+Input-shape suite (the reference's):
+    train_4k     seq=4096    global_batch=256   (training)
+    prefill_32k  seq=32768   global_batch=32    (inference-prefill)
+    decode_32k   seq=32768   global_batch=128   (decode: 1 token, KV=seq)
+    long_500k    seq=524288  global_batch=1     (long-context decode)
+
+A step runs on whatever device its tensors are on. The steps are for one
+process: ``mesh`` must be ``None`` and ``rules`` too (sharded steps,
+their shardings and the svm-tfidf steps are ROADMAP Queue 1 item 13g),
+so ``in_shardings`` and ``out_shardings`` are ``None``. The train step
+updates the params and the optimizer state in place, the serve step the
+caches: ``donate_argnums`` names them, as the reference's.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import dataclasses
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.models.transformer import DecodeState, TransformerModel
+from repro_torch import optim
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (lm_logits, tree_leaves,
+                                       tree_unflatten, tree_map)
+from repro_torch.models.transformer import (DecodeState, TransformerModel,
+                                            build_model)
+
+
+@dataclasses.dataclass(frozen=True)
+class InputShape:
+    name: str
+    kind: str          # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", "train", 4096, 256),
+    "prefill_32k": InputShape("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": InputShape("decode_32k", "decode", 32768, 128),
+    "long_500k": InputShape("long_500k", "decode", 524288, 1),
+}
+
+
+def applicability(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
+    """None if the (arch, shape) pair runs; else a skip reason. The
+    reference's ``attn_free`` is the ssm family here, its
+    ``is_encoder_decoder`` the audio family."""
+    if shape.name == "long_500k":
+        sub_quadratic = (cfg.family in ("ssm", "hybrid")
+                         or cfg.sliding_window is not None)
+        if cfg.family == "audio":
+            return ("SKIP: encoder-decoder with architecturally capped "
+                    "decoder context (448) — long_500k out of family range")
+        if not sub_quadratic:
+            return ("SKIP: pure full-attention arch — long_500k requires "
+                    "sub-quadratic attention (no SWA variant in model card)")
+    return None
+
+
+def _single_process(mesh, rules) -> None:
+    if mesh is not None or rules is not None:
+        raise NotImplementedError(
+            "sharded steps (mesh=, rules=) are not ported to repro_torch "
+            "yet (ROADMAP Queue 1 item 13g); pass mesh=None")
+
+
+def _meta(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def train_batch_abstract(cfg: ModelConfig, shape: InputShape):
+    """The train batch of ``shape`` as ``meta`` tensors."""
+    B, S = shape.global_batch, shape.seq_len
+    i32 = lambda s: _meta(s, torch.int32)
+    if cfg.frontend == "audio":
+        raise NotImplementedError(
+            "encoder frames (the encoder-decoder family) are not ported "
+            "to repro_torch yet (ROADMAP Queue 1 item 13f)")
+    if cfg.frontend == "vision":
+        P = cfg.num_prefix_tokens
+        return {"prefix_embeds": _meta((B, P, cfg.d_model), cfg.torch_dtype),
+                "tokens": i32((B, S - P)), "labels": i32((B, S - P))}
+    return {"tokens": i32((B, S)), "labels": i32((B, S))}
+
+
+class StepBundle(NamedTuple):
+    fn: Callable
+    args: Tuple
+    in_shardings: Any
+    out_shardings: Any
+    donate_argnums: Tuple[int, ...]
+    model: Any
+
+
+def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
+                     opt_cfg: Optional[optim.OptConfig] = None,
+                     rules: Optional[dict] = None,
+                     remat: bool = True) -> StepBundle:
+    """→ ``train_step(params, opt_state, batch)`` returning ``(params,
+    opt_state, {"loss", "ce", "aux", "lr", "grad_norm"})``: the loss and
+    its gradients by autograd (each layer checkpointed when ``remat``),
+    then one AdamW step written into ``params`` and ``opt_state`` in
+    place. The metrics are 0-d tensors on the device: nothing in the step
+    waits for it."""
+    _single_process(mesh, rules)
+    if remat and not cfg.remat:
+        cfg = dataclasses.replace(cfg, remat=True)
+    model = build_model(cfg)
+    opt_cfg = opt_cfg or optim.OptConfig()
+
+    def train_step(params, opt_state, batch):
+        with torch.enable_grad():
+            # aliases of the params' storage that autograd may track
+            wrt = tree_map(lambda p: p.detach().requires_grad_(), params)
+            loss, metrics = model.loss(wrt, batch)
+            grads = torch.autograd.grad(loss, tree_leaves(wrt))
+        params, opt_state, om = optim.apply_updates(
+            params, tree_unflatten(params, grads), opt_state, opt_cfg)
+        return params, opt_state, {
+            "loss": loss.detach(),
+            **{k: v.detach() for k, v in metrics.items()}, **om}
+
+    params_abs = model.abstract()
+    return StepBundle(
+        fn=train_step,
+        args=(params_abs, optim.abstract_state(params_abs),
+              train_batch_abstract(cfg, shape)),
+        in_shardings=None, out_shardings=None,
+        donate_argnums=(0, 1), model=model)
+
+
+def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
+                       rules: Optional[dict] = None) -> StepBundle:
+    """→ ``prefill_step(params, batch)``: the full-context forward, then
+    the last position's logits (B, 1, V) only (the production prefill
+    result; full logits would be B·S·V)."""
+    _single_process(mesh, rules)
+    model = build_model(cfg)
+
+    @torch.no_grad()
+    def prefill_step(params, batch):
+        h, _ = model.hidden_states(params, batch["tokens"],
+                                   batch.get("prefix_embeds"))
+        return lm_logits(params["embed"], h[:, -1:, :], cfg.tie_embeddings)
+
+    batch_abs = train_batch_abstract(cfg, shape)
+    batch_abs.pop("labels")
+    return StepBundle(
+        fn=prefill_step, args=(model.abstract(), batch_abs),
+        in_shardings=None, out_shardings=None, donate_argnums=(),
+        model=model)
 
 
 def make_serve_step(model: TransformerModel) -> Callable[
         ..., Tuple[torch.Tensor, DecodeState]]:
-    """→ ``serve_step(params, state, tokens (B, 1))`` returning the next
-    tokens (B,) int32 (argmax of the last logits; ties go to the first
-    index, as ``jnp.argmax``) and the new state."""
+    """→ ``serve_step(params, state, tokens (B, 1))`` of ``model``
+    returning the next tokens (B,) int32 (argmax of the last logits; ties
+    go to the first index, as ``jnp.argmax``) and the new state; the
+    caches are written in place."""
     def serve_step(params, state: DecodeState, tokens: torch.Tensor):
         logits, state = model.decode_step(params, state, tokens)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return next_tok, state
     return serve_step
+
+
+def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
+                     rules: Optional[dict] = None) -> StepBundle:
+    """One decode step (:func:`make_serve_step` of ``cfg``'s model) for
+    a seq_len-deep cache of global_batch sequences."""
+    _single_process(mesh, rules)
+    model = build_model(cfg)
+    B = shape.global_batch
+    return StepBundle(
+        fn=make_serve_step(model),
+        args=(model.abstract(),
+              model.init_decode_state(B, shape.seq_len, device="meta"),
+              _meta((B, 1), torch.int32)),
+        in_shardings=None, out_shardings=None, donate_argnums=(1,),
+        model=model)
+
+
+def build_step(cfg: ModelConfig, mesh, shape: InputShape,
+               rules: Optional[dict] = None, **kw) -> StepBundle:
+    if shape.kind == "train":
+        return build_train_step(cfg, mesh, shape, rules=rules, **kw)
+    if shape.kind == "prefill":
+        return build_prefill_step(cfg, mesh, shape, rules=rules)
+    return build_serve_step(cfg, mesh, shape, rules=rules)

@@ -25,7 +25,17 @@ of the run: every rank's times, each round's SV ids and α, launches by
 route, peak memory. ``--split-ms`` times each round's solve and eq. 7
 between device syncs (the rest is the merge).
 
-The reference's LM train mode is not ported (ROADMAP Queue 1 item 13).
+The LM mode (``--arch`` of a dense or VLM config) trains on one process,
+as the reference's: random weights (``torch.Generator`` seed 0), the
+synthetic token stream (``data.lm_batch_at``), ``build_train_step``
+without remat, a line every 10 steps and ``--ckpt PATH`` saving
+``{"params": params}`` in the reference's file format:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch \
+        tinyllama-1.1b --smoke --steps 2 --batch 2 --seq 64 --device cpu
+
+``--data-par`` and ``--model-par`` above 1 raise (ROADMAP Queue 1 item
+13g); a multi-process LM launch exits, as the reference's.
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ import dataclasses
 import json
 import os
 import time
-from typing import NamedTuple, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -280,12 +290,57 @@ def train_svm(svm_cfg, args, cluster) -> Optional[dict]:
     return report
 
 
+def train_lm(cfg, args) -> List[float]:
+    """The LM train mode (``repro/launch/train.py:155-194``) on one
+    process, on ``args.device`` (default cuda). → the losses printed."""
+    from repro_torch import optim
+    from repro_torch.ckpt import save
+    from repro_torch.data import DataConfig, lm_batch_at
+    from repro_torch.device import resolve_device
+    from repro_torch.launch.steps import InputShape, build_train_step
+    from repro_torch.models.config import smoke_variant
+    if args.data_par > 1 or args.model_par > 1:
+        raise NotImplementedError(
+            "--data-par and --model-par above 1 (a sharded train step) are "
+            "not ported to repro_torch yet (ROADMAP Queue 1 item 13g)")
+    dev = resolve_device(args.device)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    shape = InputShape("cli", "train", args.seq, args.batch)
+    bundle = build_train_step(cfg, None, shape, remat=False)
+    params = bundle.model.init(torch.Generator(device=dev).manual_seed(0))
+    opt_state = optim.init(params)
+    dcfg = DataConfig(batch_size=args.batch, seq_len=args.seq)
+    losses = []
+    t0 = time.time()
+    for step in range(args.steps):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in lm_batch_at(dcfg, cfg, step).items()}
+        params, opt_state, m = bundle.fn(params, opt_state, batch)
+        if step % 10 == 0 or step == args.steps - 1:
+            losses.append(float(m["loss"]))
+            print(f"step {step:4d} loss {losses[-1]:.4f} "
+                  f"gnorm {float(m['grad_norm']):.2f} "
+                  f"{(step + 1) * args.batch * args.seq / (time.time() - t0):,.0f} tok/s",
+                  flush=True)
+    if args.ckpt:
+        save(args.ckpt, {"params": params}, step=args.steps)
+        print(f"saved {args.ckpt}")
+    return losses
+
+
 def main(argv: Optional[Sequence[str]] = None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true",
-                    help="reduced variant: d 256, sv_capacity 64, 64 rows "
-                         "a rank, f32")
+                    help="reduced variant (svm: d 256, sv_capacity 64, 64 "
+                         "rows a rank, f32; LM: smoke_variant)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--data-par", type=int, default=1)
+    ap.add_argument("--model-par", type=int, default=1)
+    ap.add_argument("--ckpt", default=None)
     ap.add_argument("--sweep", type=int, default=0,
                     help="svm family: run S configs (C = logspace(-2, 1, "
                          "S)) a round as one batched sweep")
@@ -319,9 +374,7 @@ def main(argv: Optional[Sequence[str]] = None):
         raise SystemExit(
             "multi-process launch currently covers the svm family; the "
             "LM data pipeline still materializes full global batches")
-    raise NotImplementedError(
-        f"the LM train mode of {args.arch!r} is not ported to repro_torch "
-        "yet (ROADMAP Queue 1 item 13)")
+    return train_lm(cfg, args)
 
 
 if __name__ == "__main__":

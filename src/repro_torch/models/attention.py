@@ -70,7 +70,8 @@ def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     B, Sq, H, hd = q.shape
     KVr = k.shape[2]
     qg = q.reshape(B, Sq, KVr, H // KVr, hd)
-    root = torch.tensor(math.sqrt(hd), dtype=q.dtype, device=q.device)
+    # a host number: a device constant would be a host→device copy a call
+    root = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()
     return torch.einsum("bskgh,btkh->bkgst", qg, k) / root
 
 

@@ -47,6 +47,7 @@ class ModelConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     dtype: str = "float32"                 # 'float32' on the CPU, 'bfloat16' on the card
+    remat: bool = False                    # checkpoint each layer (training)
     citation: str = ""
 
     @property

@@ -7,9 +7,8 @@ gives the parameters' names, shapes and init. Layer stacks keep their
 weights with a leading "layers" dim, as in the reference, and the model
 walks them in a Python loop.
 
-The losses (``chunked_lm_loss``, ``cross_entropy_loss``) are forward
-only: nothing takes a gradient until LM training is ported (ROADMAP
-Queue 1 item 13c).
+The losses (``chunked_lm_loss``, ``cross_entropy_loss``) are
+differentiable: the train step takes their gradients with autograd.
 """
 from __future__ import annotations
 
@@ -18,6 +17,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 
 class PSpec(NamedTuple):
@@ -34,6 +34,20 @@ def tree_map(fn: Callable, tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k]) for k in sorted(tree)}
     return fn(tree)
+
+
+def tree_leaves(tree: Any) -> list:
+    """The non-dict leaves of a nested dict in :func:`tree_map`'s order."""
+    out: list = []
+    tree_map(out.append, tree)
+    return out
+
+
+def tree_unflatten(like: Any, leaves) -> Any:
+    """``leaves`` (in :func:`tree_leaves` order) in the structure of
+    ``like``."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
 
 
 def template_init(tpl, gen: torch.Generator, dtype: torch.dtype) -> Any:
@@ -165,10 +179,13 @@ def embed_template(vocab: int, d: int, tie: bool) -> Dict[str, PSpec]:
 
 def embed_tokens(p, tokens: torch.Tensor) -> torch.Tensor:
     """Lookup × √D (T5/Gemma convention), as the reference. √D is first
-    rounded to the table's dtype, as JAX's weakly typed scalar is."""
+    rounded to the table's dtype, as JAX's weakly typed scalar is. The
+    lookup is ``F.embedding``: its backward sums a token's rows in f32
+    before one rounding to the table's dtype, where indexing's
+    (``index_put_``) rounds a bf16 table after every row."""
     E = p["embedding"]
     root = torch.tensor(math.sqrt(E.shape[-1]), dtype=E.dtype).item()
-    return E[tokens] * root
+    return F.embedding(tokens, E) * root
 
 
 def lm_logits(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
@@ -178,15 +195,26 @@ def lm_logits(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# LM losses (forward only; f32 reductions as the reference)
+# LM losses (f32 reductions as the reference)
 # ---------------------------------------------------------------------------
+
+def _chunk_nll(embed_params, hc: torch.Tensor, lc: torch.Tensor,
+               mc: torch.Tensor, tie: bool) -> torch.Tensor:
+    """Σ masked next-token CE of one chunk's rows, f32."""
+    logits = lm_logits(embed_params, hc, tie).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, lc[:, None].long())[:, 0]
+    return ((lse - gold) * mc).sum()
+
 
 def chunked_lm_loss(embed_params, h: torch.Tensor, labels: torch.Tensor,
                     tie: bool, mask: Optional[torch.Tensor] = None,
                     chunk: int = 8192) -> torch.Tensor:
     """Mean next-token CE over h (B, S, D) with labels (B, S), computed
     in token-major chunks of ``chunk`` rows so that only (chunk, V) f32
-    logits exist at a time, as ``repro/models/layers.py:178``. The last
+    logits exist at a time, as ``repro/models/layers.py:178``. Each chunk
+    is checkpointed (the reference's ``jax.checkpoint``): the backward
+    recomputes its logits instead of keeping every chunk's. The last
     chunk is padded with rows of mask 0; the mean is over
     max(Σ mask, 1)."""
     B, S, D = h.shape
@@ -203,10 +231,8 @@ def chunked_lm_loss(embed_params, h: torch.Tensor, labels: torch.Tensor,
     cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for c0 in range(0, T + pad, chunk):
         sl = slice(c0, c0 + chunk)
-        logits = lm_logits(embed_params, hf[sl], tie).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, lf[sl, None].long())[:, 0]
-        tot = tot + ((lse - gold) * mf[sl]).sum()
+        tot = tot + checkpoint(_chunk_nll, embed_params, hf[sl], lf[sl],
+                               mf[sl], tie, use_reentrant=False)
         cnt = cnt + mf[sl].sum()
     return tot / cnt.clamp(min=1.0)
 

@@ -3,6 +3,7 @@ dense decoder consuming stub prefix embeddings):
 
     model = build_model(cfg, kv_repeat=r)
     params = model.init(torch.Generator(device).manual_seed(0))
+    shapes = model.abstract()            # the same tree on the meta device
     h, aux = model.hidden_states(params, tokens, prefix_embeds)
     logits, aux = model.forward(params, tokens, prefix_embeds)
     loss, metrics = model.loss(params, batch)
@@ -11,15 +12,21 @@ dense decoder consuming stub prefix embeddings):
 
 Layer weights are stacked on a leading "layers" dim, as in the
 reference's template; a Python loop walks the layers where the
-reference scans. Nothing here takes a gradient (LM training is ROADMAP
-Queue 1 item 13c). The MoE, SSM, hybrid and audio families raise
+reference scans, each stacked leaf taken apart once (``unbind``), so
+that autograd stacks the layers' gradients once instead of writing a
+whole-stack zero tensor for every layer's slice. ``cfg.remat``
+checkpoints each layer, as the reference's ``jax.checkpoint`` of its
+scan body: the backward recomputes a layer from its input. The train
+step (``repro_torch.launch.steps.build_train_step``) differentiates
+``loss`` with autograd. The MoE, SSM, hybrid and audio families raise
 (items 13d, 13e, 13f).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.config import ModelConfig
@@ -34,6 +41,12 @@ def stack_template(tpl, n: int):
     """Prepend a stacked 'layers' dim to every leaf of a layer template."""
     return tree_map(lambda p: PSpec((n,) + p.shape, ("layers",) + p.axes,
                                     p.init, p.fan_in), tpl)
+
+
+def unstack_layers(stacked, n: int) -> List[Any]:
+    """A stacked layer tree → n per-layer trees, each leaf unbound once."""
+    parts = tree_map(lambda w: w.unbind(0), stacked)
+    return [tree_map(lambda ws: ws[i], parts) for i in range(n)]
 
 
 class DecodeState(NamedTuple):
@@ -75,6 +88,13 @@ class TransformerModel:
         """Random parameters on ``gen``'s device, in the config's dtype."""
         return template_init(self.template(), gen, self.cfg.torch_dtype)
 
+    def abstract(self):
+        """The parameters' shapes and dtype as ``meta`` tensors."""
+        return tree_map(lambda p: torch.empty(p.shape,
+                                              dtype=self.cfg.torch_dtype,
+                                              device="meta"),
+                        self.template())
+
     # -- forward ----------------------------------------------------------
     def _layer_fwd(self, lp, h: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
@@ -95,9 +115,12 @@ class TransformerModel:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
-        for i in range(cfg.num_layers):
-            h = self._layer_fwd(tree_map(lambda w: w[i], params["layers"]),
-                                h, positions)
+        for lp in unstack_layers(params["layers"], cfg.num_layers):
+            if cfg.remat:
+                h = checkpoint(self._layer_fwd, lp, h, positions,
+                               use_reentrant=False)
+            else:
+                h = self._layer_fwd(lp, h, positions)
         h = apply_norm(h, params["final_norm"], cfg.norm_style, cfg.norm_eps)
         return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
@@ -143,8 +166,8 @@ class TransformerModel:
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
         pos = state.pos
-        for i in range(cfg.num_layers):
-            lp = tree_map(lambda w: w[i], params["layers"])
+        for i, lp in enumerate(unstack_layers(params["layers"],
+                                              cfg.num_layers)):
             cache = attn_lib.LayerKVCache(state.caches.k[i],
                                           state.caches.v[i])
             a_in = apply_norm(h, lp["attn_norm"], cfg.norm_style,

@@ -297,9 +297,13 @@ def test_streaming_service_admission_is_coordinator_only():
         np.asarray(jsvc0.snapshot("s0").model.w), rtol=1e-5, atol=1e-5)
 
 
-def test_lm_train_mode_waits_for_item_13(monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        train.main(["--arch", "tinyllama-1.1b", "--device", "cpu"])
+def test_lm_train_mode_trains_and_its_2_process_launch_exits(monkeypatch):
+    """The LM mode trains on one process (--smoke, on the CPU); a
+    2-process LM launch exits naming the svm family, as the reference's."""
+    losses = train.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps",
+                         "2", "--batch", "2", "--seq", "32", "--device",
+                         "cpu"])
+    assert len(losses) == 2 and np.isfinite(losses).all()
     monkeypatch.setattr(train, "init_cluster",
                         lambda cfg: cl.Cluster(process_index=0,
                                                process_count=2))
