@@ -247,6 +247,24 @@ Phases, one line or block each; any failure exits non-zero:
    ``[train-backbone]``: ``examples/torch_train_backbone.py --preset
    100m`` for 20 steps, then ``--resume`` for 80 more.
 
+16. slice 18, the MoE family: ``flash_decode``'s small shapes add G 16
+   at hd 64 (qwen3-moe's group); ``[model-full]`` adds mixtral-8x22b
+   and qwen3-moe-235b-a22b at full width, every expert and the config's
+   top-k, full vocabulary, bf16, depth cut to 4 layers (a stated cut):
+   the forward and loss at 3 × 4096 (aux finite and > 0, the prefill
+   under ``no_implicit_host_sync``), the teacher-forced decode against
+   the forward at capacity factor E / K (C = T) over the positions routed
+   alike in every layer, and a 16-step ``[serve-full]`` at batch 32 and
+   the config's capacity factor 1.25, with the share of assignments past
+   capacity printed per step (the serve run again from the same cache
+   with the routing recorded); mixtral's sliding window decodes on the
+   ring route, with no kernel, so it adds no flash_decode row, config or
+   launches. Every model's step and decode checks compare the rows
+   routed alike (all rows without experts). ``[moe-sharded]``, in
+   ``[sharded-full]``'s spawn: one qwen3-moe layer at full width through
+   ``apply_moe_sharded`` on 2 data × 4 model ranks over gloo against
+   ``apply_moe`` on one rank.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
 power limit as nvidia-smi gives them. ``--quick`` stops after phase 4
@@ -2605,7 +2623,8 @@ def _rel_max(a, b) -> float:
 def phase_decode_small(torch, ops, ref):
     """flash_decode against its plain version at small shapes: the three
     of tests/test_kernels.py:46-50, G = 8 at hd = 64, a ragged S = 1000,
-    G = 6, 7 and 16 at hd = 128 (the new dense and VLM configs' groups);
+    G = 6, 7 and 16 at hd = 128 (the new dense and VLM configs' groups),
+    G = 16 at hd = 64 (qwen3-moe-235b-a22b's);
     valid_len 0, 1, a partial chunk and S; a flat and a peaked softmax
     (FD_Q_SCALES); K/V past valid_len set to ±99 (nothing may change)
     and a rerun (bit-identical)."""
@@ -2616,7 +2635,9 @@ def phase_decode_small(torch, ops, ref):
               (1, 12, 1, 700, 32),
               # hd 128 at the groups of qwen2 (G 6), llava (G 7, part of a
               # CTA's 8 heads) and chatglm3 (G 16: two CTAs a KV head)
-              (2, 12, 2, 300, 128), (1, 56, 8, 260, 128), (2, 32, 2, 512, 128))
+              (2, 12, 2, 300, 128), (1, 56, 8, 260, 128), (2, 32, 2, 512, 128),
+              # qwen3-moe-235b-a22b's group: H 64 / KV 4 (G 16) at hd 64
+              (2, 64, 4, 600, 64))
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
         worst, cases = 0.0, 0
@@ -2820,6 +2841,14 @@ def time_flash_decode(torch, ops, ref, H, k, v, valid, gen):
 # So the limits are those set at 22 layers, scaled by the depth.
 ROUTE_TOL = 0.2 / 22       # a layer
 SWAP_TOL = 0.15 / 22
+# A MoE layer passes a rounding on further than a dense one: its gates
+# move with the router's logits. A CPU probe (d 1024, 16 heads / 1 KV, 4
+# layers, batch 8, a chunked f32 flash-decode for the kernel) read the
+# route check at 0.0129 a MoE layer (E 128, K 8) against 0.0057 a dense
+# one, on the rows routed alike; the card (NVIDIA H100 80GB HBM3, 700 W)
+# read 0.0121 a qwen3-moe layer against 0.0024–0.0055 for the dense
+# configs. So a MoE layer counts MOE_STEP_LAYERS.
+MOE_STEP_LAYERS = 3
 
 
 def _step_controls(torch, ops):
@@ -2835,27 +2864,177 @@ def _step_controls(torch, ops):
     }
 
 
-def _step_logits(ops, model, params, state, tok, attend=None):
-    """Last logits (f32) of one decode step from ``state``; ``attend``
-    stands in for ops.decode_attention during the step when given."""
+# A MoE token whose expert set differs between two runs in some layer (a
+# near tie at the k-th place decided the other way by a rounding) moves
+# its logits by ~0.07 of max |logit|: a CPU probe (d 512 and 1024, E 128,
+# K 8, 4 bf16 layers, 3 × 32 teacher-forced tokens) saw 4–7 % of the
+# token-layers flip between decode and forward, the positions routed
+# alike within 0.009–0.017 and the others up to 0.074. So the checks
+# compare the rows (positions) routed alike in every layer by both runs,
+# and at least MIN_ALIKE of them must be: a fault that moves the routing
+# everywhere fails that instead. Without experts every row is alike. On
+# the card (NVIDIA H100 80GB HBM3, 700 W) the comparisons read 47 %
+# (qwen3-moe's kernel route against the plain route, whose bf16 scores
+# over 32768 keys flip the most) to 96 % alike, the controls 0–33 %, and
+# each control at ≥ 25 % exceeded the error limit.
+MIN_ALIKE = 0.25
+
+
+@contextlib.contextmanager
+def _routing(log):
+    """Record, while armed, the expert set (ascending ids, (B, S, K)) of
+    every apply_moe call into ``log``; the package's routing itself runs
+    as it is."""
+    from repro_torch.models import moe
+    apply_moe = moe.apply_moe
+
+    def recording(p, x, cfg, capacity_factor=None):
+        _, _, idx = moe.route(x.reshape(-1, x.shape[-1]), p["router"], cfg)
+        log.append(idx.sort(-1).values.reshape(x.shape[0], x.shape[1], -1))
+        return apply_moe(p, x, cfg, capacity_factor)
+    moe.apply_moe = recording
+    try:
+        yield log
+    finally:
+        moe.apply_moe = apply_moe
+
+
+def _by_layer(torch, log, L):
+    """Recorded sets of L-layer passes (layer-minor) → (L, B, positions,
+    K), the passes' positions in order; None without experts."""
+    if not log:
+        return None
+    return torch.stack([torch.cat(log[i::L], 1) for i in range(L)])
+
+
+def _alike(torch, a, b, shape):
+    """(B, positions) True where runs ``a`` and ``b`` (``_by_layer``)
+    chose the same experts in every layer."""
+    if a is None:
+        return torch.ones(shape, dtype=torch.bool, device=DEV)
+    return (~(a != b).any(-1).any(0)).reshape(shape)
+
+
+def _rows_check(torch, got, want, alike, scale, tol) -> tuple:
+    """→ (max |Δ| / scale over the rows routed alike, their share, ok)."""
+    err = (got - want).abs().amax(-1) / scale
+    share = float(alike.float().mean())
+    rel = float(err[alike].max()) if bool(alike.any()) else float("inf")
+    return rel, share, share >= MIN_ALIKE and rel <= tol
+
+
+def _over(rel: float, share: float) -> str:
+    """A ``_rows_check`` reading for the log."""
+    if share == 0:
+        return "no row routed alike"
+    return f"{rel:.2e} over {share:.0%}"
+
+
+def _step_logits(torch, ops, model, params, state, tok, attend=None):
+    """Last logits (f32) of one decode step from ``state`` and its
+    routing by layer; ``attend`` stands in for ops.decode_attention
+    during the step when given."""
     fd = ops.decode_attention
     if attend is not None:
         ops.decode_attention = attend
     try:
-        return model.decode_step(params, state, tok)[0][:, -1].float()
+        with _routing([]) as log:
+            logits = model.decode_step(params, state, tok)[0][:, -1].float()
+        return logits, _by_layer(torch, log, model.cfg.num_layers)
     finally:
         ops.decode_attention = fd
+
+
+def _step_checks(torch, ops, ref, model, params, state, tok):
+    """One step from ``state``: the kernel route against the plain route
+    and against itself with the kernel's plain version, each with
+    controls, over the rows routed alike."""
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    batch = tok.shape[0]
+    logits_k, route_k = _step_logits(torch, ops, model, params, state, tok)
+    check(bool(torch.isfinite(logits_k).all()),
+          "kernel-route logits not finite")
+    plain = _step_logits(torch, ops, build_model(cfg, decode_kernel=False),
+                         params, state, tok)
+    swap = _step_logits(torch, ops, model, params, state, tok,
+                        ref.decode_attention_ref)
+    controls = {name: _step_logits(torch, ops, model, params, state, tok, fn)
+                for name, fn in _step_controls(torch, ops).items()}
+    scale = float(plain[0].abs().max())
+    L = cfg.num_layers * (MOE_STEP_LAYERS if cfg.is_moe else 1)
+    for what, (want, route_w), tol in (
+            ("plain route", plain, ROUTE_TOL * L),
+            ("kernel's plain version", swap, SWAP_TOL * L)):
+        alike = _alike(torch, route_k, route_w, (batch,))
+        rel, share, ok = _rows_check(torch, logits_k, want, alike, scale,
+                                     tol)
+        ctl = {n: _rows_check(torch, c, want,
+                              _alike(torch, r, route_w, (batch,)), scale,
+                              tol)
+               for n, (c, r) in controls.items()}
+        say(f"[serve-full] kernel route vs {what}, one step: logits max|Δ| "
+            f"{rel:.2e} of max |logit| {scale:.3f} over the {share:.0%} of "
+            f"rows routed alike (tol {tol:.3g}, at least {MIN_ALIKE:.0%}); "
+            "controls: " + ", ".join(f"{n} {_over(r, s)}"
+                                     for n, (r, s, _) in ctl.items()))
+        check(ok, f"kernel route and {what} differ by {rel:.2e} over "
+              f"{share:.0%} of the rows")
+        check(not any(c[2] for c in ctl.values()), f"the step check "
+              f"against the {what} cannot see a control")
+    alike = _alike(torch, route_k, plain[1], (batch,))
+    diff = float((logits_k - plain[0])[alike].abs().max())
+    top2 = plain[0].topk(2, dim=-1).values
+    clear = ((top2[:, 0] - top2[:, 1]) > diff) & alike
+    agree = logits_k.argmax(-1) == plain[0].argmax(-1)
+    say(f"[serve-full] greedy tokens of the two routes equal in "
+        f"{int(agree.sum())} of {batch} rows, {int(clear.sum())} rows routed "
+        f"alike with a top-2 margin > their max|Δ| {diff:.4f}")
+    check(bool(agree[clear].all()), "greedy tokens differ where the margin "
+          "exceeds the routes' difference")
+
+
+def _drop_shares(torch, cfg, res, params, state, snap, start, cache_len):
+    """The serve again from the same cache and position with each layer's
+    routing recorded: its tokens must be the serve's; → per step the
+    share of the step's B·K·layers assignments past an expert's
+    capacity (the config's factor over the step's B tokens)."""
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import moe
+    state.caches.k.copy_(snap[0])
+    state.caches.v.copy_(snap[1])
+    B = state.caches.k.shape[1]
+    C = moe.capacity(B, cfg)
+    with _routing([]) as log:
+        again = serve_lm(cfg, batch=B, cache_len=cache_len,
+                         tokens=res.tokens.shape[0], device=DEV,
+                         params=params, state=state._replace(pos=start))
+    check(torch.equal(again.tokens, res.tokens), "the serve's tokens differ "
+          "when it runs again from the same cache")
+    L, K = cfg.num_layers, cfg.experts_per_token
+    shares = []
+    for s in range(res.tokens.shape[0]):
+        dropped = sum(int((torch.bincount(idx.reshape(-1),
+                                          minlength=cfg.num_experts) - C)
+                          .clamp(min=0).sum())
+                      for idx in log[s * L:(s + 1) * L])
+        shares.append(dropped / (L * B * K))
+    return shares, C
 
 
 def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     """The LM serve path at ``cfg``'s width with ``params`` on the card: a
     cache filled with seeded random K/V, 16 greedy tokens from position
-    cache_len − steps through serve_lm."""
+    cache_len − steps through serve_lm. A sliding-window config decodes
+    on the ring route, which launches no kernel: no flash_decode row (→
+    None) and no route checks. A MoE config's serve prints the share of
+    assignments past capacity per step."""
     from repro_torch.launch.serve import serve_lm
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import build_model
     model = build_model(cfg)
     dev = torch.device(DEV)
+    ring = bool(cfg.sliding_window)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
     state = model.init_decode_state(batch, cache_len, dev)
@@ -2865,54 +3044,26 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     torch.cuda.synchronize()
     w_bytes = _nbytes(params)
     kv_bytes = 2 * state.caches.k.numel() * state.caches.k.element_size()
+    S_cache = state.caches.k.shape[3]
     say(f"[serve-full] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}; weights {w_bytes / 1e9:.3f} GB, "
         f"KV cache {kv_bytes / 1e9:.3f} GB (batch {batch}, cache "
-        f"{cache_len}); set-up {time.perf_counter() - t0:.1f} s")
+        f"{cache_len}, {S_cache} slots); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
 
     H, hd = cfg.num_heads, cfg.hd
-    full = torch.full((), cache_len, dtype=torch.int32, device=dev)
-    row = time_flash_decode(torch, ops, ref, H, state.caches.k[0],
-                            state.caches.v[0], full, gen)
-
-    # one step from `start`: the kernel route against the plain route and
-    # against itself with the kernel's plain version, each with controls
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-    logits_k = _step_logits(ops, model, params, state, tok)
-    check(bool(torch.isfinite(logits_k).all()), "kernel-route logits not finite")
-    logits_p = _step_logits(ops, build_model(cfg, decode_kernel=False),
-                            params, state, tok)
-    logits_r = _step_logits(ops, model, params, state, tok,
-                            ref.decode_attention_ref)
-    controls = {name: _step_logits(ops, model, params, state, tok, fn)
-                for name, fn in _step_controls(torch, ops).items()}
-    scale = float(logits_p.abs().max())
-    readings = []
-    L = cfg.num_layers
-    for what, want, tol in (("plain route", logits_p, ROUTE_TOL * L),
-                            ("kernel's plain version", logits_r,
-                             SWAP_TOL * L)):
-        rel = float((logits_k - want).abs().max()) / scale
-        ctl = {n: float((c - want).abs().max()) / scale
-               for n, c in controls.items()}
-        say(f"[serve-full] kernel route vs {what}, one step: logits max|Δ| "
-            f"{rel:.2e} of max |logit| {scale:.3f} (tol {tol:.3g}); controls: "
-            + ", ".join(f"{n} {r:.2e}" for n, r in ctl.items()))
-        readings.append((what, rel, tol, min(ctl.values())))
-    for what, rel, tol, least in readings:
-        check(rel <= tol, f"kernel route and {what} differ by {rel:.2e}")
-        check(least > tol, f"the step check against the {what} cannot see "
-              "a control")
-    diff = float((logits_k - logits_p).abs().max())
-    top2 = logits_p.topk(2, dim=-1).values
-    clear = (top2[:, 0] - top2[:, 1]) > diff
-    agree = logits_k.argmax(-1) == logits_p.argmax(-1)
-    say(f"[serve-full] greedy tokens of the two routes equal in "
-        f"{int(agree.sum())} of {batch} rows, {int(clear.sum())} rows with a "
-        f"top-2 margin > max|Δ| {diff:.4f}")
-    check(bool(agree[clear].all()), "greedy tokens differ where the margin "
-          "exceeds the routes' difference")
+    row = None
+    if ring:
+        say(f"[serve-full] {cfg.name}: sliding window {cfg.sliding_window}, "
+            "the ring route (plain attention, as the reference's "
+            "use_pallas and not sliding_window): no kernel on this path")
+    else:
+        full = torch.full((), cache_len, dtype=torch.int32, device=dev)
+        row = time_flash_decode(torch, ops, ref, H, state.caches.k[0],
+                                state.caches.v[0], full, gen)
+        _step_checks(torch, ops, ref, model, params, state, tok)
 
     # one step may not wait for the device
     step = make_serve_step(model)
@@ -2923,6 +3074,8 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     torch.cuda.synchronize()
     say("[serve-full] one decode step ran under no_implicit_host_sync")
 
+    snap = (state.caches.k.clone(), state.caches.v.clone()) \
+        if cfg.is_moe else None
     # --- the main path: counts from 0, one serve_lm, counts read ---------
     ops.reset_launches()
     res = serve_lm(cfg, batch=batch, cache_len=cache_len, tokens=steps,
@@ -2930,35 +3083,51 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     launches = ops.LAUNCHES["flash_decode"]
     step_ms = 1e3 * res.seconds / steps
     # a step reads every weight but the embedding table (B rows of it),
-    # and the K/V rows up to its position; bytes bound it
-    rows = sum(cache_len - steps + i + 1 for i in range(steps)) / steps
+    # and the K/V rows up to its position (a ring: its slots); bytes
+    # bound it
+    rows = min(S_cache, sum(cache_len - steps + i + 1
+                            for i in range(steps)) / steps)
     kv_read = 2 * cfg.num_layers * batch * cfg.num_kv_heads * rows * hd \
         * state.caches.k.element_size()
     emb = params["embed"]["embedding"]
     step_bytes = w_bytes - emb.numel() * emb.element_size() \
         + batch * cfg.d_model * emb.element_size() + kv_read
-    sbms, sby = bound_ms(step_bytes, 2.0 * batch * cfg.param_count(),
+    sbms, sby = bound_ms(step_bytes, _matmul_flops(cfg, batch),
                          BF16_FLOP_PER_S)
+    want = 0 if ring else cfg.num_layers * steps
     say(f"[serve-full] serve_lm: {steps} tokens × {batch} seqs from "
         f"position {cache_len - steps} in {1e3 * res.seconds:.1f} ms: "
         f"{step_ms:.3f} ms per step (bound {sbms:.3f} ms, {sby}: "
         f"{step_bytes / 1e9:.2f} GB a step), {res.tok_per_s:.1f} tok/s; "
-        f"flash_decode launches {launches} (want {cfg.num_layers} × {steps}), "
-        f"routes {_routes(ops, 'flash_decode')}")
+        f"flash_decode launches {launches} (want {want}), routes "
+        f"{_routes(ops, 'flash_decode')}")
     toks = res.tokens
-    check(launches == cfg.num_layers * steps,
+    check(launches == want,
           f"flash_decode launched {launches} times in the serve")
-    route = ops.decode_route(cfg.torch_dtype, hd)
-    check(ops.ROUTE_LAUNCHES[f"flash_decode/{route}"] == launches,
-          f"the serve's flash_decode took the routes "
-          f"{_routes(ops, 'flash_decode')}, want {route}")
+    if not ring:
+        route = ops.decode_route(cfg.torch_dtype, hd)
+        check(ops.ROUTE_LAUNCHES[f"flash_decode/{route}"] == launches,
+              f"the serve's flash_decode took the routes "
+              f"{_routes(ops, 'flash_decode')}, want {route}")
     check(tuple(toks.shape) == (steps, batch) and 0 <= int(toks.min())
           and int(toks.max()) < cfg.vocab_size, "serve tokens out of range")
     check(int(res.state.pos) == cache_len, f"pos {int(res.state.pos)}")
+    if cfg.is_moe:
+        shares, C = _drop_shares(torch, cfg, res, params, state, snap, start,
+                                 cache_len)
+        del snap
+        say(f"[serve-full] {cfg.name} at capacity factor "
+            f"{cfg.moe_capacity_factor:g} (C = {C} slots an expert for the "
+            f"step's {batch} tokens): share of the {batch} × "
+            f"{cfg.experts_per_token} × {cfg.num_layers} assignments past "
+            f"capacity, by step: {[round(s, 4) for s in shares]}, mean "
+            f"{sum(shares) / len(shares):.4f} (the serve run again from the "
+            "same cache, routing recorded: the same tokens)")
 
     profile(torch, lambda: step(params, state, tok)[0].cpu(),
             f"one decode step at position {cache_len - steps}")
-    row["launches"] = launches
+    if row is not None:
+        row["launches"] = launches
     return row
 
 
@@ -2969,7 +3138,13 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
 # stated cut: its 68.8 GB of weights leave ~15 GB of the card.
 MODEL_CELLS = (("tinyllama-1.1b", 32, 32768), ("qwen2-1.5b", 32, 32768),
                ("chatglm3-6b", 32, 32768), ("llama3-8b", 8, 32768),
-               ("llava-next-34b", 4, 4096))
+               ("llava-next-34b", 4, 4096), ("mixtral-8x22b", 32, 32768),
+               ("qwen3-moe-235b-a22b", 32, 32768))
+# The MoE configs run at full width, every expert and the config's top-k,
+# full vocabulary, with the depth cut to MOE_LAYERS (a stated cut):
+# neither fits the card whole (261.9 and 431.6 GiB); 4 layers are ~20.8
+# GB (mixtral) and ~22.1 GB (qwen3-moe) of bf16 weights.
+MOE_LAYERS = 4
 FWD_BATCH, FWD_SEQ = 3, 4096     # 3 × 4096 tokens: chunked_lm_loss chunks
 TF_STEPS = 32
 # Teacher-forced decode against the forward, max |Δ| of the logits over
@@ -3003,6 +3178,25 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
 
 
+def _matmul_flops(cfg, tokens: int, head_tokens=None) -> float:
+    """Matmul operations of the layers over ``tokens`` tokens and of the
+    LM head over ``head_tokens`` (default ``tokens``): 2 · weights ·
+    tokens; a MoE layer's experts count over the E · C slots the
+    dispatch fills and multiplies (C = capacity of ``tokens``)."""
+    from repro_torch.models.moe import capacity
+    V, D = cfg.vocab_size, cfg.d_model
+    head = V * D
+    body = cfg.param_count() - head * (1 if cfg.tie_embeddings else 2)
+    flops = 2.0 * body * tokens + 2.0 * head * (
+        tokens if head_tokens is None else head_tokens)
+    if cfg.is_moe:
+        expert = 3 * D * cfg.d_ff
+        slots = cfg.num_experts * capacity(tokens, cfg)
+        flops += 2.0 * cfg.num_layers * expert * (
+            slots - cfg.num_experts * tokens)
+    return flops
+
+
 def _forward_full(torch, model, params, gen):
     """The prefill step (``launch.steps.build_prefill_step``:
     hidden_states → last-position logits) and the loss at batch FWD_BATCH
@@ -3034,6 +3228,7 @@ def _forward_full(torch, model, params, gen):
     def prefill():
         return prefill_step(params, prefill_batch)
 
+    from repro_torch.analysis import no_implicit_host_sync
     t_all = time.perf_counter()
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -3041,38 +3236,42 @@ def _forward_full(torch, model, params, gen):
         base = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         loss, metrics = model.loss(params, batch)
-        loss_v = float(loss)
+        loss_v, aux = float(loss), float(metrics["aux"])
         loss_ms = 1e3 * (time.perf_counter() - t0)
         loss_peak = torch.cuda.max_memory_allocated() - base
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        last = prefill()
+        # the forward may not wait for the device
+        with no_implicit_host_sync():
+            last = prefill()
         torch.cuda.synchronize()
         fwd_ms = 1e3 * (time.perf_counter() - t0)
         fwd_peak = torch.cuda.max_memory_allocated() - base
     T = FWD_BATCH * S_text
-    n_body = cfg.param_count() - cfg.vocab_size * cfg.d_model * (
-        1 if cfg.tie_embeddings else 2)
-    # matmul FLOPs of the body over every position, the causal half of the
-    # scores and PV, the head over the last positions; every weight read
-    flops = 2.0 * n_body * FWD_BATCH * FWD_SEQ + 2.0 * cfg.num_layers \
-        * FWD_BATCH * FWD_SEQ ** 2 * cfg.num_heads * cfg.hd \
-        + 2.0 * FWD_BATCH * cfg.d_model * cfg.vocab_size
+    # matmul FLOPs of the layers over every position (a MoE layer's experts
+    # over the dispatched E · C slots), the causal half of the scores and
+    # PV, the head over the last positions; every weight read
+    flops = _matmul_flops(cfg, FWD_BATCH * FWD_SEQ, FWD_BATCH) \
+        + 2.0 * cfg.num_layers * FWD_BATCH * FWD_SEQ ** 2 * cfg.num_heads \
+        * cfg.hd
     bms, by = bound_ms(_nbytes(params), flops, BF16_FLOP_PER_S)
     say(f"[model-full] {cfg.name} forward: batch {FWD_BATCH} × {FWD_SEQ} "
         f"positions ({P} prefix embeddings + {S_text} tokens): prefill to "
         f"last-position logits {fwd_ms:.1f} ms (bound {bms:.1f} ms, {by}; "
-        f"after the loss's forward), peak {fwd_peak / 1e9:.2f} GB above the "
+        f"{flops / 1e12:.2f} TFLOP; after the loss's forward; under "
+        f"no_implicit_host_sync), peak {fwd_peak / 1e9:.2f} GB above the "
         f"weights; loss over {T} text tokens ({-(-T // 8192)} chunks of "
         f"8192, the last padded; the first forward) {loss_ms:.1f} ms, peak "
         f"{loss_peak / 1e9:.2f} GB: "
         f"ce {float(metrics['ce']):.4f} (ln V = "
-        f"{math.log(cfg.vocab_size):.4f}), aux {float(metrics['aux']):g}")
+        f"{math.log(cfg.vocab_size):.4f}), aux {aux:g}")
     check(tuple(last.shape) == (FWD_BATCH, 1, cfg.vocab_size)
           and bool(torch.isfinite(last.float()).all()),
           f"{cfg.name} prefill logits not finite or of shape "
           f"{tuple(last.shape)}")
     check(math.isfinite(loss_v) and loss_v > 0, f"{cfg.name} loss {loss_v}")
+    check(math.isfinite(aux) and (aux > 0) == cfg.is_moe,
+          f"{cfg.name} aux {aux}")
 
     # information: one layer's attention at this shape, the port's
     # chunked masked softmax against scaled_dot_product_attention
@@ -3113,81 +3312,126 @@ def _forward_full(torch, model, params, gen):
     return time.perf_counter() - t_all
 
 
-def _teacher_forced(torch, ops, model, params, tokens, start=0, attend=None):
+def _teacher_forced(torch, ops, model, params, tokens, start=0, attend=None,
+                    step_attn=None):
     """Logits (B, T, V) f32 of decode_step fed ``tokens`` one at a time
-    from a zero cache at position ``start``; ``attend`` stands in for
-    ops.decode_attention when given."""
+    from a zero cache at position ``start``, and the routing by layer
+    (``_by_layer``); ``attend`` stands in for ops.decode_attention,
+    ``step_attn`` for the layers' attention_decode_step, when given."""
+    from repro_torch.models import attention as attn_lib
     B, steps = tokens.shape
     dev = tokens.device
     state = model.init_decode_state(B, steps + start, dev)
     state = state._replace(pos=torch.full((), start, dtype=torch.int32,
                                           device=dev))
-    fd = ops.decode_attention
+    fd, sa = ops.decode_attention, attn_lib.attention_decode_step
     if attend is not None:
         ops.decode_attention = attend
+    if step_attn is not None:
+        attn_lib.attention_decode_step = step_attn
     try:
         outs = []
-        for t in range(steps):
-            logits, state = model.decode_step(params, state,
-                                              tokens[:, t:t + 1])
-            outs.append(logits[:, 0].float())
+        with _routing([]) as log:
+            for t in range(steps):
+                logits, state = model.decode_step(params, state,
+                                                  tokens[:, t:t + 1])
+                outs.append(logits[:, 0].float())
     finally:
-        ops.decode_attention = fd
-    return torch.stack(outs, 1)
+        ops.decode_attention, attn_lib.attention_decode_step = fd, sa
+    return torch.stack(outs, 1), _by_layer(torch, log, model.cfg.num_layers)
+
+
+def _decode_controls(torch, ops, ring: bool) -> dict:
+    """The teacher-forced decode's faults, name → ``_teacher_forced``
+    keywords: on the kernel route stand-ins for ops.decode_attention; on
+    the ring route, which never calls it, wrappers of each layer's
+    attention_decode_step."""
+    if not ring:
+        fd = ops.decode_attention
+        return {
+            "attention zeroed": dict(
+                attend=lambda q, k, v, n: torch.zeros_like(q)),
+            "KV heads rolled": dict(
+                attend=lambda q, k, v, n: fd(q, k.roll(1, 1), v.roll(1, 1),
+                                             n))}
+    from repro_torch.models import attention as attn_lib
+    step = attn_lib.attention_decode_step
+
+    def zeroed(p, x, cache, pos, cfg, kv_repeat=1, use_kernel=False):
+        y, cache = step(p, x, cache, pos, cfg, kv_repeat, use_kernel)
+        return torch.zeros_like(y), cache
+
+    def rolled(p, x, cache, pos, cfg, kv_repeat=1, use_kernel=False):
+        step(p, x, cache, pos, cfg, kv_repeat, use_kernel)   # the write
+        y, _ = step(p, x, attn_lib.LayerKVCache(cache.k.roll(1, 1),
+                                                cache.v.roll(1, 1)),
+                    pos, cfg, kv_repeat, use_kernel)
+        return y, cache
+    return {"attention zeroed": dict(step_attn=zeroed),
+            "KV heads rolled": dict(step_attn=rolled)}
 
 
 def _decode_vs_forward(torch, ops, model, params, gen) -> int:
-    """TF_STEPS tokens teacher-forced through decode_step on the kernel
-    route against forward's logits over the same tokens, with controls.
-    → the decode's flash_decode launches."""
+    """TF_STEPS tokens teacher-forced through decode_step (the kernel
+    route; a sliding-window config's ring route) against forward's
+    logits over the same tokens, over the positions routed alike, with
+    controls. → the decode's flash_decode launches."""
     cfg = model.cfg
+    ring = bool(cfg.sliding_window)
     tokens = torch.randint(0, cfg.vocab_size, (FWD_BATCH, TF_STEPS),
                            generator=gen, device=gen.device,
                            dtype=torch.int32)
+    L = cfg.num_layers
     with torch.no_grad():
-        want = model.forward(params, tokens)[0].float()
+        with _routing([]) as log:
+            want = model.forward(params, tokens)[0].float()
+        route_w = _by_layer(torch, log, L)
         ops.reset_launches()
-        got = _teacher_forced(torch, ops, model, params, tokens)
+        got, route_g = _teacher_forced(torch, ops, model, params, tokens)
         launches = ops.LAUNCHES["flash_decode"]
         routes = _routes(ops, "flash_decode")
-        fd = ops.decode_attention
         first = tokens[:, :CONTROL_STEPS]
-        controls = {
-            "positions shifted by one": _teacher_forced(
-                torch, ops, model, params, first, start=1),
-            "attention zeroed": _teacher_forced(
-                torch, ops, model, params, first,
-                attend=lambda q, k, v, n: torch.zeros_like(q)),
-            "KV heads rolled": _teacher_forced(
-                torch, ops, model, params, first,
-                attend=lambda q, k, v, n: fd(q, k.roll(1, 1), v.roll(1, 1),
-                                             n)),
-        }
+        controls = {"positions shifted by one": _teacher_forced(
+            torch, ops, model, params, first, start=1)}
+        for name, kw in _decode_controls(torch, ops, ring).items():
+            controls[name] = _teacher_forced(torch, ops, model, params,
+                                             first, **kw)
     scale = float(want.abs().max())
-    diff = float((got - want).abs().max())
-    ctl = {n: float((c - want[:, :CONTROL_STEPS]).abs().max()) / scale
-           for n, c in controls.items()}
+    shape = tokens.shape
+    alike = _alike(torch, route_g, route_w, shape)
+    rel, share, ok = _rows_check(torch, got, want, alike, scale,
+                                 DECODE_FWD_TOL)
+    head = (lambda r: None if r is None else r[:, :, :CONTROL_STEPS])
+    ctl = {n: _rows_check(torch, c, want[:, :CONTROL_STEPS],
+                          _alike(torch, r, head(route_w),
+                                 first.shape), scale, DECODE_FWD_TOL)
+           for n, (c, r) in controls.items()}
+    diff = float((got - want)[alike].abs().max()) if bool(alike.any()) \
+        else float("inf")
     top2 = want.topk(2, dim=-1).values
-    clear = (top2[..., 0] - top2[..., 1]) > diff
+    clear = ((top2[..., 0] - top2[..., 1]) > diff) & alike
     agree = got.argmax(-1) == want.argmax(-1)
+    every = float((got - want).abs().max()) / scale
+    want_l = 0 if ring else L * TF_STEPS
     say(f"[model-full] {cfg.name} decode of {TF_STEPS} teacher-forced tokens "
         f"× {FWD_BATCH} from a zero cache vs forward: logits max|Δ| "
-        f"{diff / scale:.2e} of max |logit| {scale:.3f} (tol "
-        f"{DECODE_FWD_TOL:g}); controls: "
-        + ", ".join(f"{n} {r:.2e}" for n, r in ctl.items())
-        + f" (over the first {CONTROL_STEPS}); greedy tokens equal at {int(agree.sum())} of {agree.numel()} "
-        f"positions, {int(clear.sum())} with a top-2 margin > max|Δ|; "
-        f"flash_decode launches {launches} (want {cfg.num_layers} × "
-        f"{TF_STEPS}), routes {routes}")
-    check(diff / scale <= DECODE_FWD_TOL, f"{cfg.name} teacher-forced "
-          f"decode differs from the forward by {diff / scale:.2e}")
-    check(min(ctl.values()) > DECODE_FWD_TOL, f"{cfg.name}: the decode-vs-"
+        f"{rel:.2e} of max |logit| {scale:.3f} over the {share:.0%} of "
+        f"positions routed alike in every layer (tol {DECODE_FWD_TOL:g}, "
+        f"at least {MIN_ALIKE:.0%}; {every:.2e} over all); controls: "
+        + ", ".join(f"{n} {_over(r, s)}" for n, (r, s, _) in ctl.items())
+        + f" (over the first {CONTROL_STEPS}); greedy tokens equal at "
+        f"{int(agree.sum())} of {agree.numel()} positions, "
+        f"{int(clear.sum())} routed alike with a top-2 margin > their "
+        f"max|Δ|; flash_decode launches {launches} (want {want_l}), routes "
+        f"{routes}")
+    check(ok, f"{cfg.name} teacher-forced decode differs from the forward "
+          f"by {rel:.2e} over {share:.0%} of the positions")
+    check(not any(c[2] for c in ctl.values()), f"{cfg.name}: the decode-vs-"
           f"forward check cannot see a control ({ctl})")
     check(bool(agree[clear].all()), f"{cfg.name} greedy tokens differ where "
           "the margin exceeds the difference")
     route = ops.decode_route(cfg.torch_dtype, cfg.hd)
-    check(launches == cfg.num_layers * TF_STEPS
-          and routes[route] == launches,
+    check(launches == want_l and routes[route] == launches,
           f"{cfg.name} decode launched flash_decode {launches} times, "
           f"routes {routes}")
     return launches
@@ -3250,11 +3494,23 @@ def phase_model_full(torch, T, ops, ref, arch, batch, cache_len):
     """One config at full width: seeded random weights on the card, the
     forward and the loss, the teacher-forced decode against the forward,
     the serve path (phase_serve_full) and, for qwen2-1.5b, [embed-full];
-    the weights freed after. → (the serve's flash_decode row, its
-    launches by path, [embed-full]'s launches)."""
+    the weights freed after. A MoE config keeps its width, experts and
+    top-k, its depth cut to MOE_LAYERS; its decode runs against the
+    forward at capacity factor E / K (C = T: neither drops a token, as
+    the reference's own decode test sets 8.0), its forward and serve at
+    the config's own. → (the serve's flash_decode row, None on the ring
+    route, its launches by path, [embed-full]'s launches)."""
+    import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config(arch)
+    cut = ""
+    if cfg.is_moe:
+        cut = (f"; a stated cut: {MOE_LAYERS} of its {cfg.num_layers} "
+               f"layers, every one of its {cfg.num_experts} experts, top-"
+               f"{cfg.experts_per_token}, capacity factor "
+               f"{cfg.moe_capacity_factor:g}")
+        cfg = dataclasses.replace(cfg, num_layers=MOE_LAYERS)
     model = build_model(cfg)
     dev = torch.device(DEV)
     t_phase = time.perf_counter()
@@ -3273,17 +3529,22 @@ def phase_model_full(torch, T, ops, ref, arch, batch, cache_len):
         f"{cfg.num_heads // cfg.num_kv_heads}), hd {cfg.hd}, ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}; weights {w_bytes / 1e9:.3f} GB "
         f"({w_bytes / 2 ** 30:.2f} GiB) drawn in {init_s:.1f} s, init "
-        f"transient {transient / 1e9:.3f} GB")
+        f"transient {transient / 1e9:.3f} GB{cut}")
     fwd_s = _forward_full(torch, model, params, gen)
     t0 = time.perf_counter()
+    tf_model = model
+    if cfg.is_moe:
+        tf_model = build_model(dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.num_experts
+            / cfg.experts_per_token))
     paths = {f"decode-vs-forward:{arch}": _decode_vs_forward(
-        torch, ops, model, params, gen)}
+        torch, ops, tf_model, params, gen)}
     tf_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     row = phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len,
                            16)
-    paths[f"serve-full:{arch}"] = row["launches"]
+    paths[f"serve-full:{arch}"] = 0 if row is None else row["launches"]
     serve_s = time.perf_counter() - t0
     embed = {}
     if arch == "qwen2-1.5b":
@@ -5309,9 +5570,10 @@ def _sharded_full_rank(rank, rounds):
     its round-0 solve and first hinge_scores call of the dense ring case,
     rank 1 those of the blocked-CSR ring case; each holds them to the
     plain versions after the last case, so that the two plain solves
-    (~45 s each at this shape) run at once. → per case: per round ids,
+    (~45 s each at this shape) run at once; before them, the rank's part
+    of [moe-sharded] (``_moe_sharded_rank``). → per case: per round ids,
     α, risks, the split, the bytes a rank ships; launches by route of
-    the rounds."""
+    the rounds; "moe": the [moe-sharded] part."""
     import torch
     import repro_torch.core as T
     from repro_torch import sparse as sp
@@ -5391,11 +5653,133 @@ def _sharded_full_rank(rank, rounds):
             del fn, sv
         del X, y, m
         torch.cuda.empty_cache()
+    out["moe"] = _moe_sharded_rank(rank)
     for fmt, calls in checks:
         tag = f"sharded-full {fmt} rank {rank.rank}"
         _solve_vs_plain(torch, ref, sp, calls["cd_solve"], tag)
         _hinge_vs_plain(torch, ref, calls["hinge_scores"], tag)
     return out
+
+
+# [moe-sharded]: one qwen3-moe-235b-a22b layer at full width (128 experts,
+# 32 a model rank, top-8) through apply_moe_sharded on 2 data × 4 model
+# ranks of [sharded-full]'s spawn (experts split over model, the weights
+# over data as the reference's in_specs), against apply_moe on one rank,
+# both at capacity factor E / K (C = T: nothing dropped), bf16.
+MOE_SHARDED_ARCH = "qwen3-moe-235b-a22b"
+MOE_SHARDED_GRID = (2, 4)
+MOE_SHARDED_TOKENS = (4, 256)          # batch, positions
+# y, max |Δ| over max |y|: the two sum a token's 8 bf16 contributions in
+# other groupings (each model rank's experts, then the 4 partials over
+# gloo, against one sequential sum): a few bf16 ulps (2⁻⁸ each) of partial
+# sums as large as y (a CPU rehearsal at d 256 read 8.1e-3); the control
+# (one model rank's 32 experts left out, 0.73 there) must exceed it
+MOE_SHARDED_TOL = 2 ** -5
+
+
+def _moe_sharded_inputs(torch, cfg, dev, take):
+    """The seeded full-width MoE layer, drawn the same on every process:
+    each leaf in sorted order (an expert's slice at a time, f32 draws
+    rounded to bf16, fan-in scaled) handed to ``take(name, leaf)`` and
+    dropped; → the tokens (B, S, D) bf16, drawn last."""
+    from repro_torch.models import moe
+    gen = torch.Generator(device=dev).manual_seed(7)
+    tpl = moe.moe_template(cfg)
+    for name in sorted(tpl):
+        shape = tpl[name].shape
+        leaf = torch.empty(shape, dtype=torch.bfloat16, device=dev)
+        for part in (leaf[None] if len(shape) == 2 else leaf):
+            part.copy_(torch.randn(part.shape, generator=gen, device=dev)
+                       .mul_(1.0 / math.sqrt(shape[-2])))
+        take(name, leaf)
+        del leaf
+    B, S = MOE_SHARDED_TOKENS
+    return torch.randn((B, S, cfg.d_model), generator=gen,
+                       device=dev).to(torch.bfloat16)
+
+
+def _moe_sharded_rank(rank) -> dict:
+    """This rank's part of [moe-sharded]: its shards of the layer and of
+    the tokens, one apply_moe_sharded (timed, its weight gathers
+    included). → its y shard (f32 numpy), aux, ms, the part's seconds,
+    shard bytes, peak."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    t_part = time.perf_counter()
+    cfg = get_config(MOE_SHARDED_ARCH)
+    mesh = moe.moe_mesh(*MOE_SHARDED_GRID)
+    torch.cuda.reset_peak_memory_stats()
+    p = {}
+    x = _moe_sharded_inputs(
+        torch, cfg, rank.device,
+        lambda name, leaf: p.update(moe.shard_moe_params({name: leaf}, cfg,
+                                                         mesh)))
+    x = moe.shard_tokens(x, mesh).contiguous()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    y, aux = moe.apply_moe_sharded(
+        p, x, cfg, mesh, cfg.num_experts / cfg.experts_per_token)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return {"y": y.float().cpu().numpy(), "aux": float(aux), "ms": ms,
+            "s": time.perf_counter() - t_part, "bytes": _nbytes(p),
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def _check_moe_sharded(torch, per_rank) -> None:
+    """[moe-sharded] on the card: the ranks' y shards (each data shard's
+    model replicas equal) against apply_moe on one rank, with a control;
+    aux within the reference test's rtol 0.1."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe
+    cfg = get_config(MOE_SHARDED_ARCH)
+    E, K = cfg.num_experts, cfg.experts_per_token
+    data, model = MOE_SHARDED_GRID
+    t0 = time.perf_counter()
+    p = {}
+    x = _moe_sharded_inputs(torch, cfg, DEV, p.__setitem__)
+    with torch.no_grad():
+        y_one, aux_one = moe.apply_moe(p, x, cfg, E / K)
+        w_down = p["w_down"].clone()
+        w_down[:E // model] = 0            # model rank 0's experts left out
+        y_ctl = moe.apply_moe(dict(p, w_down=w_down), x, cfg, E / K)[0]
+    del p, w_down
+    torch.cuda.empty_cache()
+    ys = [r["y"] for r in per_rank]
+    for d in range(data):
+        for m in range(1, model):
+            check(np.array_equal(ys[d * model + m], ys[d * model]),
+                  f"[moe-sharded] data shard {d}: model rank {m}'s y is not "
+                  "rank 0's")
+    auxes = {r["aux"] for r in per_rank}
+    check(len(auxes) == 1, f"[moe-sharded] aux differs over the ranks "
+          f"{auxes}")
+    y = torch.from_numpy(np.concatenate(ys[::model])).to(DEV)
+    want = y_one.float()
+    rel = _rel_max(y, want)
+    ctl = _rel_max(y_ctl, want)
+    aux = auxes.pop()
+    B, S = MOE_SHARDED_TOKENS
+    say(f"[moe-sharded] {MOE_SHARDED_ARCH} one layer at full width (d "
+        f"{cfg.d_model}, ff {cfg.d_ff}, {E} experts, top-{K}), {B} × {S} "
+        f"tokens bf16, {data} data × {model} model ranks ({E // model} "
+        f"experts a model rank) at capacity factor {E // K} (C = T): y max|Δ| "
+        f"{rel:.2e} of max|y| against apply_moe on one rank (tol "
+        f"{MOE_SHARDED_TOL:.3g}; control, model rank 0's experts left "
+        f"out: {ctl:.2e}); aux {aux:.6f} (mean of the data shards') vs "
+        f"{float(aux_one):.6f}; apply_moe_sharded ms by rank "
+        f"{[round(r['ms'], 1) for r in per_rank]} (the weight gathers over "
+        f"gloo included), shard {per_rank[0]['bytes'] / 1e9:.3f} GB a rank, "
+        f"peak {max(r['peak'] for r in per_rank) / 1e9:.2f} GB; the ranks' "
+        f"part {max(r['s'] for r in per_rank):.1f} s with the draws, the "
+        f"one-rank reference {time.perf_counter() - t0:.1f} s")
+    check(rel <= MOE_SHARDED_TOL, f"[moe-sharded] y differs by {rel:.2e}")
+    check(ctl > MOE_SHARDED_TOL, "[moe-sharded] the check cannot see a "
+          f"model rank's experts left out ({ctl:.2e})")
+    check(abs(aux - float(aux_one)) <= 0.1 * float(aux_one),
+          f"[moe-sharded] aux {aux} against {float(aux_one)}")
 
 
 def phase_sharded_full(torch, T):
@@ -5485,6 +5869,7 @@ def phase_sharded_full(torch, T):
     rows = _row_launches(routes)
     say(f"[sharded-full] launches over the 8 ranks: routes {routes}, by "
         f"kernel row {rows}")
+    _check_moe_sharded(torch, [r["moe"] for r in per_rank])
     check(rows.get("cd_solve", 0) == 2 * L * SHARDED_FULL_ROUNDS
           and rows.get("cd_solve/sparse", 0) == 2 * L * SHARDED_FULL_ROUNDS
           and rows.get("hinge_scores", 0) > 0
@@ -6575,8 +6960,10 @@ def main() -> int:
     for arch, batch, cache_len in MODEL_CELLS:
         fd_row, paths, got = phase_model_full(torch, T, ops, ref, arch,
                                               batch, cache_len)
-        fd_paths.update(paths)
         embed = got or embed
+        if fd_row is None:          # the ring route: no kernel on its path
+            continue
+        fd_paths.update(paths)
         if arch == MODEL_CELLS[0][0]:
             kernels.append(fd_row)
         else:

@@ -40,6 +40,7 @@ import dataclasses
 import datetime
 import itertools
 import os
+import pickle
 import queue as queue_mod
 import shutil
 import signal
@@ -444,10 +445,12 @@ def _rendezvous(init, timeout) -> dict:
     return {"store": dist.PrefixStore(prefix, store)}
 
 
-def _rank_main(rank, world, init, backend, device, timeout_s, fn, args,
+def _rank_main(rank, world, init, backend, device, timeout_s, fn, args_path,
                results, parent_pid, local_rank, process_index,
                process_count):
     _die_with_parent(parent_pid)
+    with open(args_path, "rb") as f:
+        args = pickle.load(f)
     set_process_count(process_count)
     torch.set_num_threads(1)
     dev = "cpu"
@@ -500,7 +503,10 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
     order.
 
     ``fn`` must be importable by name (a module-level function of a
-    module on ``sys.path``). Ranks rendezvous through a file in a
+    module on ``sys.path``); ``args`` reach the ranks pickled in a file
+    (through the start pipe, a start would wait for the previous rank to
+    import ``fn``'s module when they exceed the pipe's 64 KiB). Ranks
+    rendezvous through a file in a
     directory of their own, so concurrent spawns never share a port; each
     calls ``torch.set_num_threads(1)`` and dies with this process
     (``PR_SET_PDEATHSIG``). ``device="cuda"`` (the default;
@@ -550,11 +556,15 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
         rdzv = None
         host, port = cluster.coordinator.rsplit(":", 1)
         init = (host, int(port), f"spawn{n_spawn}/")
+    box = tempfile.mkdtemp(prefix="repro_torch_args_")
+    args_path = os.path.join(box, "args.pkl")
+    with open(args_path, "wb") as f:
+        pickle.dump(tuple(args), f, protocol=pickle.HIGHEST_PROTOCOL)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     procs = [ctx.Process(target=_rank_main, daemon=True,
                          args=(first + i, world, init, backend, device,
-                               timeout_s, fn, tuple(args), results,
+                               timeout_s, fn, args_path, results,
                                os.getpid(), i, pidx, procs_n))
              for i in range(k)]
     mine = list(range(first, first + k))
@@ -598,5 +608,6 @@ def spawn(fn: Callable, world_size: int, args: Sequence = (), *,
             if p.pid is not None:
                 p.join(timeout=5.0)
         results.close()
+        shutil.rmtree(box, ignore_errors=True)
         if rdzv is not None:
             shutil.rmtree(rdzv, ignore_errors=True)

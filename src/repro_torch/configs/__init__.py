@@ -1,10 +1,11 @@
 """Workload configurations of the port, and the architecture registry
 ``get_config(arch_id)`` of the reference's ``repro/configs``.
 
-Only the ported architectures resolve: the paper's svm-tfidf and the
+Only the ported architectures resolve: the paper's svm-tfidf, the
 dense and VLM decoders (tinyllama-1.1b, llama3-8b, qwen2-1.5b,
-chatglm3-6b, llava-next-34b). Every other architecture of the reference
-raises ``NotImplementedError`` naming the roadmap item that ports it.
+chatglm3-6b, llava-next-34b) and the MoE decoders (mixtral-8x22b,
+qwen3-moe-235b-a22b). Every other architecture of the reference raises
+``NotImplementedError`` naming the roadmap item that ports it.
 """
 from __future__ import annotations
 
@@ -13,11 +14,11 @@ import importlib
 from repro_torch.configs.svm_tfidf import CONFIG as SVM_TFIDF, SVMTfidfConfig
 
 PORTED_ARCHS = ("svm_tfidf", "tinyllama_1_1b", "llama3_8b", "qwen2_1_5b",
-                "chatglm3_6b", "llava_next_34b")
+                "chatglm3_6b", "llava_next_34b", "mixtral_8x22b",
+                "qwen3_moe_235b_a22b")
 
 #: ROADMAP Queue 1 item of each architecture not ported yet
-UNPORTED_ARCHS = {"mixtral_8x22b": "13d", "qwen3_moe_235b_a22b": "13d",
-                  "rwkv6_7b": "13e", "zamba2_1_2b": "13e",
+UNPORTED_ARCHS = {"rwkv6_7b": "13e", "zamba2_1_2b": "13e",
                   "whisper_base": "13f"}
 
 

@@ -10,7 +10,8 @@ family's streaming polarization service.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch svm-tfidf \\
         --smoke --streams 4 --waves 3                      # on the card
 
-LM (tinyllama-1.1b, llama3-8b, qwen2-1.5b, chatglm3-6b, llava-next-34b):
+LM (tinyllama-1.1b, llama3-8b, qwen2-1.5b, chatglm3-6b, llava-next-34b,
+mixtral-8x22b, qwen3-moe-235b-a22b):
 the loop starts from a zero cache and token 0 and feeds each step's
 argmax back in, as ``repro/launch/serve.py:188-218``; llava decodes its
 text from token 0 with no prefix, as the reference's does. Every step stays

@@ -22,7 +22,10 @@ against a reference. They import neither JAX nor any test module.
   round state saved and resumed from its checkpoint;
   :func:`fit_sharded_sweep` is the train mode's ``--sweep S``: C =
   logspace(-2, 1, S), each config's R_emp and accuracy on the rank's
-  shard.
+  shard;
+* :func:`run_moe_cases` runs expert layers (:class:`MoECase`) through
+  :func:`repro_torch.models.moe.apply_moe_sharded` on a (data × model)
+  grid of the ranks, each rank on its shards of the weights and tokens.
 
     from repro_torch import compat
     from repro_torch.launch.sharded import fit_sharded
@@ -54,6 +57,8 @@ from repro_torch.core.sweep import (build_sharded_sweep_round,
                                     run_sharded_sweep, save_sweep_state,
                                     sweep_grid)
 from repro_torch.kernels import ops
+from repro_torch.models import moe
+from repro_torch.models.config import ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,3 +365,32 @@ def fit_sharded_sweep(rank, X, y, cfg: MRSVMConfig, sweep: int = 4,
             "reducers": [h["reducers"] for h in res.history],
             "ids": to_numpy(res.sv.ids), "alpha": to_numpy(res.sv.alpha),
             "ms": ms}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoECase:
+    """One expert layer on a (data × model) ``grid`` of the spawn's
+    ranks: the config, the full weights (numpy, by name) and tokens
+    ``x`` (B, S, D), of which each rank takes its shards
+    (:func:`repro_torch.models.moe.shard_moe_params`, ``shard_tokens``);
+    ``capacity_factor`` None is the config's."""
+    cfg: ModelConfig
+    params: dict
+    x: np.ndarray
+    grid: Tuple[int, int] = (2, 4)
+    capacity_factor: Optional[float] = None
+
+
+def run_moe_cases(rank, cases: Sequence[MoECase]) -> list:
+    """Each case through ``apply_moe_sharded`` on this rank. → per case
+    (this rank's y shard (B / data, S, D) as numpy, aux)."""
+    out = []
+    for c in cases:
+        mesh = moe.moe_mesh(*c.grid)
+        p = moe.shard_moe_params(
+            {k: tensor_from_numpy(v, rank.device)
+             for k, v in c.params.items()}, c.cfg, mesh)
+        x = moe.shard_tokens(tensor_from_numpy(c.x, rank.device), mesh)
+        y, aux = moe.apply_moe_sharded(p, x, c.cfg, mesh, c.capacity_factor)
+        out.append((to_numpy(y), float(aux)))
+    return out

@@ -1,5 +1,5 @@
 """Step builders, ported from ``repro/launch/steps.py``: the training,
-prefill and decode steps of the dense and VLM decoders, with their
+prefill and decode steps of the dense, MoE and VLM decoders, with their
 abstract inputs as ``meta`` tensors.
 
 Input-shape suite (the reference's):

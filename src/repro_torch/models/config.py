@@ -1,12 +1,13 @@
-"""Architecture configuration of the dense decoder family and the VLM
-family (the dense decoder behind stub prefix embeddings).
+"""Architecture configuration of the dense decoder family, the MoE
+family (the decoder with a routed expert layer in place of its MLP) and
+the VLM family (the dense decoder behind stub prefix embeddings).
 
-The fields of the reference's ``repro/models/config.py`` that the
-dense and VLM paths and ``param_count`` read, with ``torch_dtype`` in
-place of ``jdtype``. ``num_experts`` and ``experts_per_token`` are here
-only for ``is_moe`` and ``active_param_count``: nothing routes on them
-until the MoE family is ported (ROADMAP Queue 1 item 13d). The SSM,
-hybrid and encoder-decoder fields come with items 13e and 13f.
+The fields of the reference's ``repro/models/config.py`` that these
+paths and ``param_count`` read, with ``torch_dtype`` in place of
+``jdtype``. The MoE fields (``num_experts``, ``experts_per_token``,
+``router_aux_coef``, ``moe_capacity_factor``) are read by
+:mod:`repro_torch.models.moe`. The SSM, hybrid and encoder-decoder
+fields come with ROADMAP Queue 1 items 13e and 13f.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                            # 'dense' | 'vlm' are ported
+    family: str                            # 'dense' | 'moe' | 'vlm' are ported
     num_layers: int
     d_model: int
     num_heads: int
@@ -28,9 +29,11 @@ class ModelConfig:
     vocab_size: int
     head_dim: Optional[int] = None
 
-    # MoE (counted by param_count, not routed yet)
+    # MoE
     num_experts: int = 0
     experts_per_token: int = 0
+    router_aux_coef: float = 0.01
+    moe_capacity_factor: float = 1.25
 
     # attention flavour
     rope_fraction: float = 1.0        # chatglm3: 0.5 (2d/partial rotary)
@@ -86,7 +89,8 @@ class ModelConfig:
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced config for CPU smoke tests: ≤2 layers, d_model≤256, ≤4
-    experts, 4 prefix tokens for a frontend."""
+    experts at capacity factor 8 (no token dropped), 4 prefix tokens for
+    a frontend."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
@@ -103,6 +107,7 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         vocab_size=min(cfg.vocab_size, 512),
         num_experts=min(cfg.num_experts, 4) if cfg.is_moe else 0,
         experts_per_token=min(cfg.experts_per_token, 2) if cfg.is_moe else 0,
+        moe_capacity_factor=8.0 if cfg.is_moe else cfg.moe_capacity_factor,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
         num_prefix_tokens=4 if cfg.frontend else 0,
         dtype="float32",

@@ -1,4 +1,5 @@
-"""Decoder-only transformer stack, dense and VLM families (vlm = the
+"""Decoder-only transformer stack, dense, MoE and VLM families (moe =
+the decoder with a routed expert layer in place of its MLP; vlm = the
 dense decoder consuming stub prefix embeddings):
 
     model = build_model(cfg, kv_repeat=r)
@@ -18,8 +19,11 @@ whole-stack zero tensor for every layer's slice. ``cfg.remat``
 checkpoints each layer, as the reference's ``jax.checkpoint`` of its
 scan body: the backward recomputes a layer from its input. The train
 step (``repro_torch.launch.steps.build_train_step``) differentiates
-``loss`` with autograd. The MoE, SSM, hybrid and audio families raise
-(items 13d, 13e, 13f).
+``loss`` with autograd. A MoE layer's load-balance loss is summed over
+the layers into ``aux``, which ``loss`` adds to the CE; the decode step
+routes each token as the forward does, at the config's capacity factor
+over the step's B tokens. The SSM, hybrid and audio families raise
+(items 13e, 13f).
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (PSpec, apply_mlp, apply_norm,
                                        chunked_lm_loss, embed_template,
@@ -55,7 +60,7 @@ class DecodeState(NamedTuple):
 
 
 class TransformerModel:
-    """Dense decoder (dense and vlm families). ``decode_kernel`` routes each layer's cache
+    """Decoder (dense, moe and vlm families). ``decode_kernel`` routes each layer's cache
     attention through the ``flash_decode`` kernel when the cache is full
     (the reference's ``use_pallas``); False keeps the plain route."""
 
@@ -72,7 +77,8 @@ class TransformerModel:
             "attn_norm": norm_template(cfg.d_model, cfg.norm_style),
             "attn": attn_lib.attn_template(cfg),
             "mlp_norm": norm_template(cfg.d_model, cfg.norm_style),
-            "mlp": mlp_template(cfg.d_model, cfg.d_ff, cfg.mlp_style),
+            "mlp": (moe_lib.moe_template(cfg) if cfg.is_moe else
+                    mlp_template(cfg.d_model, cfg.d_ff, cfg.mlp_style)),
         }
 
     def template(self) -> Dict[str, Any]:
@@ -96,33 +102,45 @@ class TransformerModel:
                         self.template())
 
     # -- forward ----------------------------------------------------------
+    def _mlp(self, lp, m_in: torch.Tensor):
+        """→ (the MLP or expert layer's output, its aux loss or None)."""
+        cfg = self.cfg
+        if cfg.is_moe:
+            return moe_lib.apply_moe(lp["mlp"], m_in, cfg)
+        return apply_mlp(m_in, lp["mlp"], cfg.mlp_style), None
+
     def _layer_fwd(self, lp, h: torch.Tensor, positions: torch.Tensor):
         cfg = self.cfg
         a_in = apply_norm(h, lp["attn_norm"], cfg.norm_style, cfg.norm_eps)
         h = h + attn_lib.attention(lp["attn"], a_in, cfg, positions=positions,
                                    kv_repeat=self.kv_repeat)
         m_in = apply_norm(h, lp["mlp_norm"], cfg.norm_style, cfg.norm_eps)
-        return h + apply_mlp(m_in, lp["mlp"], cfg.mlp_style)
+        y, aux = self._mlp(lp, m_in)
+        return h + y, aux
 
     def hidden_states(self, params, tokens: torch.Tensor,
                       prefix_embeds: Optional[torch.Tensor] = None):
         """tokens (B, S_text) → (hidden (B, S_total, D), aux ()). S_total
-        = P + S_text with ``prefix_embeds`` (B, P, D) in front; aux is a
-        f32 zero on the device (no router loss in these families)."""
+        = P + S_text with ``prefix_embeds`` (B, P, D) in front; aux () f32
+        on the device is the layers' load-balance losses summed (zero
+        without experts)."""
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
         if prefix_embeds is not None:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for lp in unstack_layers(params["layers"], cfg.num_layers):
             if cfg.remat:
-                h = checkpoint(self._layer_fwd, lp, h, positions,
-                               use_reentrant=False)
+                h, a = checkpoint(self._layer_fwd, lp, h, positions,
+                                  use_reentrant=False)
             else:
-                h = self._layer_fwd(lp, h, positions)
+                h, a = self._layer_fwd(lp, h, positions)
+            if a is not None:
+                aux = aux + a
         h = apply_norm(h, params["final_norm"], cfg.norm_style, cfg.norm_eps)
-        return h, torch.zeros((), dtype=torch.float32, device=h.device)
+        return h, aux
 
     def forward(self, params, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None):
@@ -177,21 +195,20 @@ class TransformerModel:
                 use_kernel=self.decode_kernel)
             h = h + a_out
             m_in = apply_norm(h, lp["mlp_norm"], cfg.norm_style, cfg.norm_eps)
-            h = h + apply_mlp(m_in, lp["mlp"], cfg.mlp_style)
+            h = h + self._mlp(lp, m_in)[0]
         h = apply_norm(h, params["final_norm"], cfg.norm_style, cfg.norm_eps)
         logits = lm_logits(params["embed"], h, cfg.tie_embeddings)
         return logits, DecodeState(caches=state.caches, pos=pos + 1)
 
 
 #: the roadmap item that ports each family not ported yet
-UNPORTED_FAMILIES = {"moe": "13d", "ssm": "13e", "hybrid": "13e",
-                     "audio": "13f"}
+UNPORTED_FAMILIES = {"ssm": "13e", "hybrid": "13e", "audio": "13f"}
 
 
 def build_model(cfg: ModelConfig, kv_repeat: int = 1,
                 decode_kernel: bool = True) -> TransformerModel:
-    """The dense and vlm families; every other family raises."""
-    if cfg.family in ("dense", "vlm"):
+    """The dense, moe and vlm families; every other family raises."""
+    if cfg.family in ("dense", "moe", "vlm"):
         return TransformerModel(cfg, kv_repeat, decode_kernel)
     item = UNPORTED_FAMILIES.get(cfg.family, "13")
     raise NotImplementedError(

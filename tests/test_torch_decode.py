@@ -50,7 +50,9 @@ def _pair(a, dtype):
 # flash_decode: the port's plain version ≡ the Pallas kernel
 # ---------------------------------------------------------------------------
 
-SWEEP = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (2, 16, 4, 512, 128)]
+# the last: qwen3-moe-235b-a22b's group, G 16 at hd 64
+SWEEP = [(1, 4, 4, 128, 64), (2, 8, 2, 256, 64), (2, 16, 4, 512, 128),
+         (1, 64, 4, 256, 64)]
 
 
 def _qkv(B, H, KV, S, hd, seed):
@@ -276,7 +278,8 @@ SMALL = dict(name="gqa-small", family="dense", num_layers=2, d_model=128,
              num_heads=8, num_kv_heads=2, d_ff=256, vocab_size=512)
 
 
-@pytest.mark.parametrize("arch", ["gqa-small", "tinyllama-smoke"])
+@pytest.mark.parametrize("arch", ["gqa-small", "tinyllama-smoke",
+                                  "qwen3-moe-smoke"])
 @pytest.mark.parametrize("kernel", [True, False])
 def test_greedy_decode_matches_reference_serve_step(arch, kernel):
     """8 greedy steps from token 0 and a zero cache: the reference's
@@ -285,8 +288,10 @@ def test_greedy_decode_matches_reference_serve_step(arch, kernel):
     if arch == "gqa-small":
         jcfg, tcfg = JModelConfig(**SMALL), ModelConfig(**SMALL)
     else:
-        jcfg = j_smoke_variant(j_get_config("tinyllama-1.1b"))
-        tcfg = smoke_variant(get_config("tinyllama-1.1b"))
+        name = {"tinyllama-smoke": "tinyllama-1.1b",
+                "qwen3-moe-smoke": "qwen3-moe-235b-a22b"}[arch]
+        jcfg = j_smoke_variant(j_get_config(name))
+        tcfg = smoke_variant(get_config(name))
     B, steps, cache_len = 3, 8, 16
     bundle = build_serve_step(jcfg, make_host_mesh(1, 1),
                               InputShape("t", "decode", cache_len, B))
@@ -340,10 +345,14 @@ def test_serve_lm_refuses_to_run_without_a_card(monkeypatch):
 
 def test_unported_archs_and_families_raise_naming_the_roadmap():
     from repro_torch.launch.serve import main
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        get_config("mixtral-8x22b")
-    with pytest.raises(NotImplementedError, match="item 13d"):
-        build_model(ModelConfig(**dict(SMALL, family="moe")))
+    with pytest.raises(NotImplementedError, match="item 13e"):
+        get_config("rwkv6-7b")
+    with pytest.raises(NotImplementedError, match="item 13e"):
+        build_model(ModelConfig(**dict(SMALL, family="ssm")))
+    # the moe family (mixtral-8x22b, qwen3-moe-235b-a22b) is ported
+    assert build_model(ModelConfig(**dict(SMALL, family="moe",
+                                          num_experts=4,
+                                          experts_per_token=2))).cfg.is_moe
     # the vlm family (llava-next-34b) is the dense decoder: it builds
     assert build_model(ModelConfig(**dict(SMALL, family="vlm"))).cfg.family \
         == "vlm"

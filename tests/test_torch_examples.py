@@ -117,7 +117,7 @@ def test_incremental_update_twin_matches_the_reference(monkeypatch, capsys):
 def test_serve_twin_runs_each_ported_lm_at_smoke_size():
     mod = _load("torch_serve")
     ops.reset_launches()
-    for arch in ("llama3-8b", "llava-next-34b"):
+    for arch in ("llama3-8b", "llava-next-34b", "mixtral-8x22b"):
         res = mod.main(arch, batch=2, prompt_len=4, tokens=4, cache_len=16,
                        device="cpu")
         toks = res["tokens"]
@@ -136,7 +136,8 @@ def test_embed_twin_fits_the_svm_on_backbone_embeddings():
 
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-1.5b", "chatglm3-6b",
-                                  "llava-next-34b"])
+                                  "llava-next-34b", "mixtral-8x22b",
+                                  "qwen3-moe-235b-a22b"])
 def test_serve_cli_runs_each_new_architecture(arch):
     """``python -m repro_torch.launch.serve --arch …`` on each new config
     (smoke width, plain versions): llava decodes from token 0 with no

@@ -1,6 +1,6 @@
 """The port's decode batch scheduler (``repro_torch.serving.scheduler``)
 against the JAX scheduler on the CPU: the reference's ``smoke_variant``
-of tinyllama-1.1b, its weights carried across by
+of tinyllama-1.1b (and of mixtral-8x22b), its weights carried across by
 ``convert.lm_params_from_jax``, the requests of ``tests/test_serving.py``.
 Greedy tokens must be equal, token for token."""
 import jax
@@ -58,6 +58,28 @@ def test_scheduler_matches_the_reference_token_for_token(models):
     assert rep["tokens"] == sum(m for _, _, m in spec)
     assert rep["tok_per_s"] > 0
     assert [s.batch for s in sched.stats] == [4, 4, 2]
+
+
+def test_moe_config_matches_the_reference_token_for_token():
+    """The same 10 requests on mixtral-8x22b's smoke variant (experts,
+    sliding window 64 over a 96-slot cache): every slot's tokens routed
+    as the reference's, greedy tokens equal."""
+    jmodel = j_build_model(j_smoke_variant(j_get_config("mixtral-8x22b")))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tmodel = build_model(smoke_variant(get_config("mixtral-8x22b")))
+    params = convert.lm_params_from_jax(jax.tree.map(np.asarray, jparams))
+    spec = [(i, [1 + i, 2, 3], 5 + (i % 3)) for i in range(10)]
+    jdone = _run(JScheduler(jmodel, jparams, batch_size=4, cache_len=96),
+                 [JRequest(uid=u, prompt=p, max_new_tokens=m)
+                  for u, p, m in spec])
+    done = _run(BatchScheduler(tmodel, params, batch_size=4, cache_len=96,
+                               device="cpu"),
+                [Request(uid=u, prompt=p, max_new_tokens=m)
+                 for u, p, m in spec])
+    assert tmodel.cfg.is_moe and len(done) == 10
+    for u, _, m in spec:
+        assert done[u].output == jdone[u].output, u
+        assert len(done[u].output) == m
 
 
 def test_ragged_prompts_match_the_reference(models):

@@ -47,7 +47,7 @@ from repro_torch.models.transformer import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
 LM_ARCHS = ("tinyllama-1.1b", "llama3-8b", "qwen2-1.5b", "chatglm3-6b",
-            "llava-next-34b")
+            "llava-next-34b", "mixtral-8x22b", "qwen3-moe-235b-a22b")
 TRAJ_ARCHS = ("tinyllama-1.1b", "qwen2-1.5b", "llava-next-34b")
 TOL = 1e-5
 B, S = 2, 32
@@ -145,18 +145,21 @@ def test_chunked_loss_gradients_match_reference(arch):
 
 
 def test_remat_gives_the_same_gradients():
-    """cfg.remat (each layer checkpointed) against no remat, in the port:
-    the same loss and gradients within 1e-6."""
-    cfg, _, _, tparams, batch = _setup("llava-next-34b")
-    out = []
-    for remat in (False, True):
-        model = build_model(dataclasses.replace(cfg, remat=remat))
-        out.append(_grads(lambda p: model.loss(p, _tb(batch))[0], tparams))
-    (l0, g0), (l1, g1) = out
-    assert float(l0) == pytest.approx(float(l1), rel=1e-6)
-    for a, b in zip(g0, g1):
-        assert float((a - b).abs().max()) <= 1e-6 * max(
-            float(a.abs().max()), 1e-30)
+    """cfg.remat (each layer checkpointed) against no remat, in the port,
+    on the VLM and a MoE config: the same loss and gradients within
+    1e-6."""
+    for arch in ("llava-next-34b", "qwen3-moe-235b-a22b"):
+        cfg, _, _, tparams, batch = _setup(arch)
+        out = []
+        for remat in (False, True):
+            model = build_model(dataclasses.replace(cfg, remat=remat))
+            out.append(_grads(lambda p: model.loss(p, _tb(batch))[0],
+                              tparams))
+        (l0, g0), (l1, g1) = out
+        assert float(l0) == pytest.approx(float(l1), rel=1e-6)
+        for a, b in zip(g0, g1):
+            assert float((a - b).abs().max()) <= 1e-6 * max(
+                float(a.abs().max()), 1e-30)
 
 
 # ---------------------------------------------------------------------------
