@@ -265,6 +265,23 @@ Phases, one line or block each; any failure exits non-zero:
    ``apply_moe_sharded`` on 2 data × 4 model ranks over gloo against
    ``apply_moe`` on one rank.
 
+17. slice 19, the SSM, hybrid and encoder-decoder families:
+   ``flash_decode``'s small shapes add G 1 at hd 64 (zamba2-1.2b's 32
+   and whisper-base's 8 heads); ``[model-full]`` adds rwkv6-7b,
+   zamba2-1.2b and whisper-base at full width and depth, bf16: the
+   forward and loss at 3 × 4096 (whisper: 3 × 1500 stub frames and 448
+   decoder tokens), one attention beside SDPA (zamba2's shared block,
+   whisper's encoder), the teacher-forced decode against the forward
+   over 256 tokens (rwkv6, zamba2: in float32, several chunks, controls
+   that reset the state, force the decay to 1 and drop the token shift
+   or the conv buffer; zamba2 also the attention controls) or 32
+   (whisper, bf16, with the cross K/V of the same frames), and a 16-step
+   ``[serve-full]`` at batch 32: rwkv6 from a random state (no cache, no
+   kernel), zamba2 at cache 32768 (its two shared-block applications'
+   17.2 GB of KV), whisper at its 448-token cap; ``flash_decode`` at
+   both G 1 shapes against plain, SDPA and its SIMT route, its launches
+   under ``configs`` and ``launches_by_path``.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
 power limit as nvidia-smi gives them. ``--quick`` stops after phase 4
@@ -2607,6 +2624,12 @@ FD_TOL = {"float32": 1e-5, "bfloat16": 8e-3}
 # the tensor-core route's at full width; dropping 512 rows is no larger
 # a fault than dropping a whole chunk of either route.
 FD_CHUNK = 512
+
+
+def _fd_chunk(S: int) -> int:
+    """The controls' chunk for a cache of S slots: FD_CHUNK, or half
+    the cache when it holds fewer than two (whisper-base's 448)."""
+    return FD_CHUNK if S >= 2 * FD_CHUNK else S // 2
 # q's scale in the checks: 1 leaves the softmax over N(0, 1) keys nearly
 # flat (outputs a mean of many V rows, ~1/√S); 8 peaks it as a trained
 # model's attention is peaked, so that the outputs are O(1) and a chunk
@@ -2624,7 +2647,8 @@ def phase_decode_small(torch, ops, ref):
     """flash_decode against its plain version at small shapes: the three
     of tests/test_kernels.py:46-50, G = 8 at hd = 64, a ragged S = 1000,
     G = 6, 7 and 16 at hd = 128 (the new dense and VLM configs' groups),
-    G = 16 at hd = 64 (qwen3-moe-235b-a22b's);
+    G = 16 at hd = 64 (qwen3-moe-235b-a22b's), G = 1 at hd = 64
+    (zamba2-1.2b's and whisper-base's);
     valid_len 0, 1, a partial chunk and S; a flat and a peaked softmax
     (FD_Q_SCALES); K/V past valid_len set to ±99 (nothing may change)
     and a rerun (bit-identical)."""
@@ -2637,7 +2661,10 @@ def phase_decode_small(torch, ops, ref):
               # CTA's 8 heads) and chatglm3 (G 16: two CTAs a KV head)
               (2, 12, 2, 300, 128), (1, 56, 8, 260, 128), (2, 32, 2, 512, 128),
               # qwen3-moe-235b-a22b's group: H 64 / KV 4 (G 16) at hd 64
-              (2, 64, 4, 600, 64))
+              (2, 64, 4, 600, 64),
+              # G 1 (MHA) at hd 64: zamba2-1.2b's shared block (32 heads)
+              # and whisper-base's decoder (8 heads, its 448-slot cap)
+              (2, 32, 32, 600, 64), (2, 8, 8, 448, 64))
     for dtype in (torch.float32, torch.bfloat16):
         tag = str(dtype).split(".")[1]
         worst, cases = 0.0, 0
@@ -2724,25 +2751,61 @@ def phase_serve_smoke(torch, ops):
 KEY_SCALE = 4.0
 
 
+def _kv_caches(state):
+    """A decode state's stacked KV caches (``LayerKVCache``, leading dim
+    the cache attentions), None where it keeps none (rwkv6)."""
+    for name in ("caches", "shared_cache", "self_cache"):
+        if hasattr(state, name):
+            return getattr(state, name)
+    return None
+
+
+def _recurrent(state) -> dict:
+    """A decode state's recurrent leaves, name → tensor: the hybrid's
+    mamba SSM and conv states, rwkv6's wkv states and token shifts."""
+    if hasattr(state, "ssm"):
+        return state.ssm._asdict()
+    return {n: getattr(state, n) for n in ("S", "x_prev_t", "x_prev_c")
+            if hasattr(state, n)}
+
+
+def _new_state(torch, model, params, batch, cache_len, gen):
+    """A zero decode state on gen's device; an encoder-decoder's holds
+    the cross K/V of stub frames N(0, 1) drawn from ``gen``."""
+    cfg = model.cfg
+    if cfg.is_encoder_decoder:
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=gen.device)
+        return model.init_decode_state(batch, cache_len, gen.device,
+                                       frames=frames.to(cfg.torch_dtype),
+                                       params=params)
+    return model.init_decode_state(batch, cache_len, gen.device)
+
+
 def _fill_cache(torch, state, gen):
-    """Seeded random K/V in every slot, layer by layer."""
-    for i in range(state.caches.k.shape[0]):
-        state.caches.k[i].normal_(std=KEY_SCALE, generator=gen)
-        state.caches.v[i].normal_(generator=gen)
+    """Seeded random K/V in every slot, layer by layer; recurrent
+    states N(0, 1) (the stated state the SSM families serve from)."""
+    kv = _kv_caches(state)
+    for i in range(0 if kv is None else kv.k.shape[0]):
+        kv.k[i].normal_(std=KEY_SCALE, generator=gen)
+        kv.v[i].normal_(generator=gen)
+    for t in _recurrent(state).values():
+        t.normal_(generator=gen)
 
 
 def _unrescaled_combine(torch, q, k, v):
-    """flash-decoding over FD_CHUNK chunks with the combine pass's
+    """flash-decoding over _fd_chunk(S) chunks with the combine pass's
     exp(m_c − m) factors left out (every position valid): a control."""
     B, H, hd = q.shape
     KV, S = k.shape[1], k.shape[2]
-    n = S // FD_CHUNK
+    chunk = _fd_chunk(S)
+    n = S // chunk
     qg = q.float().reshape(B, KV, H // KV, hd) * (1.0 / hd ** 0.5)
     s = torch.einsum("bkgh,bkth->bkgt", qg, k.float())
-    s = s.reshape(B, KV, H // KV, n, FD_CHUNK)
+    s = s.reshape(B, KV, H // KV, n, chunk)
     p = torch.exp(s - s.amax(-1, keepdim=True))
     acc = torch.einsum("bkgct,bkcth->bkgch", p,
-                       v.float().reshape(B, KV, n, FD_CHUNK, hd))
+                       v.float().reshape(B, KV, n, chunk, hd))
     out = acc.sum(3) / p.sum((3, 4))[..., None]
     return out.reshape(B, H, hd).to(q.dtype)
 
@@ -2770,7 +2833,8 @@ def time_flash_decode(torch, ops, ref, H, k, v, valid, gen):
         plain = ref.decode_attention_ref(q, k, v, valid)
         err = float((out.float() - plain.float()).abs().max())
         rel = _rel_max(out, plain)
-        dropped = _rel_max(ref.decode_attention_ref(q, k, v, valid - FD_CHUNK),
+        dropped = _rel_max(ref.decode_attention_ref(q, k, v,
+                                                    valid - _fd_chunk(S)),
                            plain)
         unres = _rel_max(_unrescaled_combine(torch, q, k, v), plain)
         lib_out = F.scaled_dot_product_attention(
@@ -2819,7 +2883,8 @@ def time_flash_decode(torch, ops, ref, H, k, v, valid, gen):
         f"{nbytes / ms / 1e6:.0f} GB/s achieved)")
     return dict(name="flash_decode", route="cuda", source=FD_SRC,
                 replaces=FD_TPU, max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bms, bound_by=by, library_ms=lib)
+                bound_ms=bms, bound_by=by, library_ms=lib, simt_ms=simt_ms,
+                shape=[B, H, KV, S, hd])
 
 
 # One full-width bf16 step, the logits' max |Δ| over their largest
@@ -2851,14 +2916,16 @@ SWAP_TOL = 0.15 / 22
 MOE_STEP_LAYERS = 3
 
 
-def _step_controls(torch, ops):
+def _step_controls(torch, ops, S: int):
     """Faults of the kernel or its wiring, as stand-ins for
-    ops.decode_attention: name → function of (q, k, v, valid_len)."""
+    ops.decode_attention: name → function of (q, k, v, valid_len); the
+    chunk cut short is _fd_chunk of the cache's S slots."""
     fd = ops.decode_attention
+    chunk = _fd_chunk(S)
     return {
         "attention zeroed": lambda q, k, v, n: torch.zeros_like(q),
         "valid_len one chunk short": lambda q, k, v, n: fd(q, k, v,
-                                                           n - FD_CHUNK),
+                                                           n - chunk),
         "KV heads rolled": lambda q, k, v, n: fd(q, k.roll(1, 1),
                                                  v.roll(1, 1), n),
     }
@@ -2945,10 +3012,24 @@ def _step_logits(torch, ops, model, params, state, tok, attend=None):
         ops.decode_attention = fd
 
 
+def _attn_layers(model) -> int:
+    """Cache attentions in one decode step: one a layer in the decoder
+    families (whisper's decoder self-attention), one an application of
+    the hybrid's shared block, none in the attention-free rwkv6."""
+    cfg = model.cfg
+    if cfg.attn_free:
+        return 0
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.attn_every
+    return cfg.num_layers
+
+
 def _step_checks(torch, ops, ref, model, params, state, tok):
     """One step from ``state``: the kernel route against the plain route
     and against itself with the kernel's plain version, each with
-    controls, over the rows routed alike."""
+    controls, over the rows routed alike. The limits scale with the
+    step's cache attentions (_attn_layers), where the two routes
+    differ."""
     from repro_torch.models import build_model
     cfg = model.cfg
     batch = tok.shape[0]
@@ -2959,10 +3040,17 @@ def _step_checks(torch, ops, ref, model, params, state, tok):
                          params, state, tok)
     swap = _step_logits(torch, ops, model, params, state, tok,
                         ref.decode_attention_ref)
+    S = _kv_caches(state).k.shape[3]
     controls = {name: _step_logits(torch, ops, model, params, state, tok, fn)
-                for name, fn in _step_controls(torch, ops).items()}
+                for name, fn in _step_controls(torch, ops, S).items()}
     scale = float(plain[0].abs().max())
-    L = cfg.num_layers * (MOE_STEP_LAYERS if cfg.is_moe else 1)
+    # the hybrid counts its two shared-block applications, one layer
+    # each: on the card (NVIDIA H100 80GB HBM3, 700 W) zamba2-1.2b's route
+    # check read 0.0117 of max |logit| (limit 0.0182) and its weakest
+    # control, valid_len one chunk short (512 of 32768 keys in 2 of its
+    # 40 blocks), 0.0207; counted 3× an application, as a MoE layer, the
+    # limit (0.0545) hid that control
+    L = _attn_layers(model) * (MOE_STEP_LAYERS if cfg.is_moe else 1)
     for what, (want, route_w), tol in (
             ("plain route", plain, ROUTE_TOL * L),
             ("kernel's plain version", swap, SWAP_TOL * L)):
@@ -3022,13 +3110,50 @@ def _drop_shares(torch, cfg, res, params, state, snap, start, cache_len):
     return shares, C
 
 
+def _step_bytes(model, params, state, batch, cache_len, steps):
+    """Bytes one decode step must move, averaged over the serve's steps:
+    every weight it reads (not the embedding table, B rows of it; not an
+    encoder-decoder's encoder nor its cross K/V projections, whose
+    outputs the state holds) once, the K/V rows up to its position (a
+    ring: its slots) of each cache attention, the encoder's cross K/V,
+    and the recurrent state read and written. → (bytes, weight elements
+    read)."""
+    from repro_torch.models.layers import tree_leaves
+    cfg = model.cfg
+    emb = params["embed"]["embedding"]
+    skip = [emb]
+    if cfg.is_encoder_decoder:
+        skip += tree_leaves(params["enc_layers"]) + tree_leaves(
+            params["enc_norm"]) + [params["dec_layers"]["cross_attn"][n]
+                                   for n in ("wk", "wv", "bk", "bv")
+                                   if n in params["dec_layers"]["cross_attn"]]
+    w_elems = sum(t.numel() for t in tree_leaves(params)) \
+        - sum(t.numel() for t in skip)
+    el = emb.element_size()
+    nbytes = w_elems * el + batch * cfg.d_model * el
+    kv = _kv_caches(state)
+    if kv is not None:
+        S_cache = kv.k.shape[3]
+        rows = min(S_cache, sum(cache_len - steps + i + 1
+                                for i in range(steps)) / steps)
+        nbytes += 2 * _attn_layers(model) * batch * kv.k.shape[2] * rows \
+            * cfg.hd * kv.k.element_size()
+    if cfg.is_encoder_decoder:
+        nbytes += 2 * state.cross_k.numel() * state.cross_k.element_size()
+    nbytes += 2 * sum(t.numel() * t.element_size()
+                      for t in _recurrent(state).values())
+    return nbytes, w_elems
+
+
 def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     """The LM serve path at ``cfg``'s width with ``params`` on the card: a
-    cache filled with seeded random K/V, 16 greedy tokens from position
-    cache_len − steps through serve_lm. A sliding-window config decodes
-    on the ring route, which launches no kernel: no flash_decode row (→
-    None) and no route checks. A MoE config's serve prints the share of
-    assignments past capacity per step."""
+    cache filled with seeded random K/V (the SSM families' recurrent
+    states N(0, 1); whisper's cross K/V from stub frames), 16 greedy
+    tokens from position cache_len − steps through serve_lm. A
+    sliding-window config decodes on the ring route, and rwkv6 keeps no
+    cache: neither launches a kernel (no flash_decode row → None, no
+    route checks). A MoE config's serve prints the share of assignments
+    past capacity per step."""
     from repro_torch.launch.serve import serve_lm
     from repro_torch.launch.steps import make_serve_step
     from repro_torch.models import build_model
@@ -3037,19 +3162,25 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     ring = bool(cfg.sliding_window)
     gen = torch.Generator(device=dev).manual_seed(0)
     t0 = time.perf_counter()
-    state = model.init_decode_state(batch, cache_len, dev)
+    state = _new_state(torch, model, params, batch, cache_len, gen)
     _fill_cache(torch, state, gen)
     start = torch.full((), cache_len - steps, dtype=torch.int32, device=dev)
     state = state._replace(pos=start)
     torch.cuda.synchronize()
     w_bytes = _nbytes(params)
-    kv_bytes = 2 * state.caches.k.numel() * state.caches.k.element_size()
-    S_cache = state.caches.k.shape[3]
+    kv = _kv_caches(state)
+    kv_bytes = 0 if kv is None else 2 * kv.k.numel() * kv.k.element_size()
+    S_cache = 0 if kv is None else kv.k.shape[3]
+    rec_bytes = sum(t.numel() * t.element_size()
+                    for t in _recurrent(state).values())
+    cross = (f", cross K/V {2 * state.cross_k.numel() * 2 / 1e9:.3f} GB "
+             f"({cfg.encoder_seq} frames)" if cfg.is_encoder_decoder else "")
     say(f"[serve-full] {cfg.name}: {cfg.num_layers} layers, d {cfg.d_model}, "
         f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, ff {cfg.d_ff}, "
         f"vocab {cfg.vocab_size}, {cfg.dtype}; weights {w_bytes / 1e9:.3f} GB, "
-        f"KV cache {kv_bytes / 1e9:.3f} GB (batch {batch}, cache "
-        f"{cache_len}, {S_cache} slots); set-up "
+        f"KV cache {kv_bytes / 1e9:.3f} GB over {_attn_layers(model)} cache "
+        f"attentions (batch {batch}, cache {cache_len}, {S_cache} slots), "
+        f"recurrent state {rec_bytes / 1e9:.3f} GB{cross}; set-up "
         f"{time.perf_counter() - t0:.1f} s")
 
     H, hd = cfg.num_heads, cfg.hd
@@ -3059,10 +3190,13 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
         say(f"[serve-full] {cfg.name}: sliding window {cfg.sliding_window}, "
             "the ring route (plain attention, as the reference's "
             "use_pallas and not sliding_window): no kernel on this path")
+    elif kv is None:
+        say(f"[serve-full] {cfg.name}: attention-free (an O(1) wkv state a "
+            "layer, no KV cache): no kernel on this path")
     else:
         full = torch.full((), cache_len, dtype=torch.int32, device=dev)
-        row = time_flash_decode(torch, ops, ref, H, state.caches.k[0],
-                                state.caches.v[0], full, gen)
+        row = time_flash_decode(torch, ops, ref, H, kv.k[0], kv.v[0], full,
+                                gen)
         _step_checks(torch, ops, ref, model, params, state, tok)
 
     # one step may not wait for the device
@@ -3082,19 +3216,16 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
                    device=dev, params=params, state=state)
     launches = ops.LAUNCHES["flash_decode"]
     step_ms = 1e3 * res.seconds / steps
-    # a step reads every weight but the embedding table (B rows of it),
-    # and the K/V rows up to its position (a ring: its slots); bytes
-    # bound it
-    rows = min(S_cache, sum(cache_len - steps + i + 1
-                            for i in range(steps)) / steps)
-    kv_read = 2 * cfg.num_layers * batch * cfg.num_kv_heads * rows * hd \
-        * state.caches.k.element_size()
-    emb = params["embed"]["embedding"]
-    step_bytes = w_bytes - emb.numel() * emb.element_size() \
-        + batch * cfg.d_model * emb.element_size() + kv_read
-    sbms, sby = bound_ms(step_bytes, _matmul_flops(cfg, batch),
-                         BF16_FLOP_PER_S)
-    want = 0 if ring else cfg.num_layers * steps
+    step_bytes, w_elems = _step_bytes(model, params, state, batch, cache_len,
+                                      steps)
+    rows = min(S_cache, cache_len - steps / 2)
+    # matmuls (a MoE layer's over the slots its dispatch fills) and the
+    # cache attentions' q·K and p·V
+    mm = _matmul_flops(cfg, batch) if cfg.family in ("dense", "moe", "vlm") \
+        else 2.0 * w_elems * batch
+    sbms, sby = bound_ms(step_bytes, mm + 4.0 * batch * H * rows * hd
+                         * _attn_layers(model), BF16_FLOP_PER_S)
+    want = 0 if ring else _attn_layers(model) * steps
     say(f"[serve-full] serve_lm: {steps} tokens × {batch} seqs from "
         f"position {cache_len - steps} in {1e3 * res.seconds:.1f} ms: "
         f"{step_ms:.3f} ms per step (bound {sbms:.3f} ms, {sby}: "
@@ -3104,7 +3235,7 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     toks = res.tokens
     check(launches == want,
           f"flash_decode launched {launches} times in the serve")
-    if not ring:
+    if want:
         route = ops.decode_route(cfg.torch_dtype, hd)
         check(ops.ROUTE_LAUNCHES[f"flash_decode/{route}"] == launches,
               f"the serve's flash_decode took the routes "
@@ -3112,6 +3243,9 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     check(tuple(toks.shape) == (steps, batch) and 0 <= int(toks.min())
           and int(toks.max()) < cfg.vocab_size, "serve tokens out of range")
     check(int(res.state.pos) == cache_len, f"pos {int(res.state.pos)}")
+    check(all(bool(torch.isfinite(t).all())
+              for t in _recurrent(res.state).values()),
+          "the recurrent state is not finite after the serve")
     if cfg.is_moe:
         shares, C = _drop_shares(torch, cfg, res, params, state, snap, start,
                                  cache_len)
@@ -3139,7 +3273,13 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
 MODEL_CELLS = (("tinyllama-1.1b", 32, 32768), ("qwen2-1.5b", 32, 32768),
                ("chatglm3-6b", 32, 32768), ("llama3-8b", 8, 32768),
                ("llava-next-34b", 4, 4096), ("mixtral-8x22b", 32, 32768),
-               ("qwen3-moe-235b-a22b", 32, 32768))
+               ("qwen3-moe-235b-a22b", 32, 32768),
+               # slice 19: rwkv6 serves from position 32752 of a stated
+               # (random) state, no cache; zamba2's two shared-block
+               # applications hold 17.2 GB of KV; whisper decodes up to
+               # its 448-token cap
+               ("rwkv6-7b", 32, 32768), ("zamba2-1.2b", 32, 32768),
+               ("whisper-base", 32, 448))
 # The MoE configs run at full width, every expert and the config's top-k,
 # full vocabulary, with the depth cut to MOE_LAYERS (a stated cut):
 # neither fits the card whole (261.9 and 431.6 GiB); 4 layers are ~20.8
@@ -3147,6 +3287,16 @@ MODEL_CELLS = (("tinyllama-1.1b", 32, 32768), ("qwen2-1.5b", 32, 32768),
 MOE_LAYERS = 4
 FWD_BATCH, FWD_SEQ = 3, 4096     # 3 × 4096 tokens: chunked_lm_loss chunks
 TF_STEPS = 32
+# the SSM families decode 256 tokens against the forward: rwkv6's forward
+# spans 8 chunks of 32, zamba2's 2 of 128. They do so in float32 (their
+# weights widened on the card for this check only): with random weights
+# a bf16 rounding difference grows through their 32 and 38 recurrent
+# layers and along the sequence, and a CPU probe (d 512, full depth, 256
+# tokens × 3) read decode vs forward at 0.33 (rwkv6) and 0.38 (zamba2)
+# of max |logit| in bf16, above zamba2's attention controls (0.26–0.48):
+# no limit would separate them. In float32 the same probe read ~1e-3
+# (8.6e-4 at 64 tokens), every control ≥ 0.25.
+SSM_TF_STEPS = 256
 # Teacher-forced decode against the forward, max |Δ| of the logits over
 # their largest magnitude: the forward rounds scores and probabilities to
 # bf16 where flash_decode keeps f32, and its matmuls see B·S rows where
@@ -3197,29 +3347,94 @@ def _matmul_flops(cfg, tokens: int, head_tokens=None) -> float:
     return flops
 
 
+def _forward_flops(cfg, B: int, S: int) -> float:
+    """Operations of the prefill at batch B: the matmuls of every weight
+    over the tokens it sees (the LM head over the last positions only),
+    the scores and PV products of the attentions (causal: half) and the
+    SSM families' chunk products. S is the positions of a decoder (an
+    encoder-decoder's decoder tokens; its encoder sees encoder_seq
+    frames)."""
+    D, F, L, V = cfg.d_model, cfg.d_ff, cfg.num_layers, cfg.vocab_size
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+    attn_w = D * H * hd + 2 * D * KV * hd + H * hd * D
+    head = 2.0 * V * D * B
+    if cfg.family in ("dense", "moe", "vlm"):
+        return _matmul_flops(cfg, B * S, B) + 2.0 * L * B * S ** 2 * H * hd
+    if cfg.attn_free:
+        from repro_torch.models import rwkv6
+        hr, Q = rwkv6.HEADDIM, rwkv6.CHUNK
+        w = 5 * D * D + 2 * D * 64 + 2 * D * F + D * D
+        # a chunk's r·kᵀ, A·v, q·S and state update, a token and head
+        wkv = (4 * Q * hr + 4 * hr * hr) * (D // hr)
+        return 2.0 * L * w * B * S + head + L * B * S * wkv
+    if cfg.family == "hybrid":
+        from repro_torch.models import mamba2
+        d_inner, nh, N = mamba2.ssm_dims(cfg)
+        P, Q = mamba2.HEADDIM, mamba2.CHUNK
+        n_seg = L // cfg.attn_every
+        w = D * (2 * d_inner + 2 * N + nh) + d_inner * D
+        # a chunk's C·Bᵀ (shared by the heads), W·x, the state read and
+        # the state update, a token
+        ssd = 2 * Q * N + nh * (2 * Q * P + 4 * P * N)
+        return (2.0 * L * w * B * S + L * B * S * ssd
+                + n_seg * (2.0 * (attn_w + 3 * D * F) * B * S
+                           + 2.0 * B * S ** 2 * H * hd) + head)
+    # the encoder-decoder: the encoder over the frames, the decoder's
+    # self-attention, cross-attention (K/V over the frames) and MLP
+    T_enc = cfg.encoder_seq
+    enc = cfg.encoder_layers * (2.0 * (attn_w + 2 * D * F) * B * T_enc
+                                + 4.0 * B * T_enc ** 2 * H * hd)
+    cross_kv = 2.0 * D * KV * hd
+    dec = L * (2.0 * (attn_w + (attn_w - cross_kv) + 2 * D * F) * B * S
+               + 2.0 * cross_kv * B * T_enc
+               + 2.0 * B * S ** 2 * H * hd + 4.0 * B * S * T_enc * H * hd)
+    return enc + dec + head
+
+
+def _attention_probe(cfg, params):
+    """One attention of the forward to time against the library: (layer
+    params, positions, causal), None for the attention-free rwkv6."""
+    from repro_torch.models.layers import tree_map
+    if cfg.attn_free:
+        return None
+    if cfg.family == "hybrid":
+        return params["shared"]["attn"], FWD_SEQ, True
+    if cfg.is_encoder_decoder:
+        return (tree_map(lambda w: w[0], params["enc_layers"])["attn"],
+                cfg.encoder_seq, False)
+    return tree_map(lambda w: w[0], params["layers"])["attn"], FWD_SEQ, True
+
+
 def _forward_full(torch, model, params, gen):
     """The prefill step (``launch.steps.build_prefill_step``:
-    hidden_states → last-position logits) and the loss at batch FWD_BATCH
-    and FWD_SEQ positions, a VLM's stub prefix embeddings included; one
-    layer's attention against the library's. → seconds."""
+    hidden_states → last-position logits; an encoder-decoder encodes its
+    frames first) and the loss at batch FWD_BATCH and FWD_SEQ positions,
+    a VLM's stub prefix embeddings included (an encoder-decoder: its
+    encoder_seq stub frames and min(FWD_SEQ, max_decoder_len) decoder
+    tokens); one attention against the library's. → seconds."""
     from repro_torch.launch.steps import InputShape, build_prefill_step
     from repro_torch.models import attention as attn_lib
-    from repro_torch.models.layers import apply_rope, tree_map
+    from repro_torch.models.layers import apply_rope
     F = torch.nn.functional
     cfg = model.cfg
     dev = gen.device
     P = cfg.num_prefix_tokens
-    S_text = FWD_SEQ - P
+    S_text = min(FWD_SEQ, cfg.max_decoder_len) if cfg.is_encoder_decoder \
+        else FWD_SEQ - P
 
     def ids():
         return torch.randint(0, cfg.vocab_size, (FWD_BATCH, S_text),
                              generator=gen, device=dev, dtype=torch.int32)
     tokens, labels = ids(), ids()
-    prefix = torch.randn((FWD_BATCH, P, cfg.d_model), generator=gen,
-                         device=dev).to(cfg.torch_dtype) if P else None
     batch = dict(tokens=tokens, labels=labels)
     if P:
-        batch["prefix_embeds"] = prefix
+        batch["prefix_embeds"] = torch.randn(
+            (FWD_BATCH, P, cfg.d_model), generator=gen,
+            device=dev).to(cfg.torch_dtype)
+    if cfg.is_encoder_decoder:
+        batch["frames"] = torch.randn(
+            (FWD_BATCH, cfg.encoder_seq, cfg.d_model), generator=gen,
+            device=dev).to(cfg.torch_dtype)
     prefill_step = build_prefill_step(
         cfg, None, InputShape("prefill-full", "prefill", FWD_SEQ,
                               FWD_BATCH)).fn
@@ -3248,21 +3463,18 @@ def _forward_full(torch, model, params, gen):
         fwd_ms = 1e3 * (time.perf_counter() - t0)
         fwd_peak = torch.cuda.max_memory_allocated() - base
     T = FWD_BATCH * S_text
-    # matmul FLOPs of the layers over every position (a MoE layer's experts
-    # over the dispatched E · C slots), the causal half of the scores and
-    # PV, the head over the last positions; every weight read
-    flops = _matmul_flops(cfg, FWD_BATCH * FWD_SEQ, FWD_BATCH) \
-        + 2.0 * cfg.num_layers * FWD_BATCH * FWD_SEQ ** 2 * cfg.num_heads \
-        * cfg.hd
+    flops = _forward_flops(cfg, FWD_BATCH, S_text + P)
     bms, by = bound_ms(_nbytes(params), flops, BF16_FLOP_PER_S)
-    say(f"[model-full] {cfg.name} forward: batch {FWD_BATCH} × {FWD_SEQ} "
-        f"positions ({P} prefix embeddings + {S_text} tokens): prefill to "
-        f"last-position logits {fwd_ms:.1f} ms (bound {bms:.1f} ms, {by}; "
-        f"{flops / 1e12:.2f} TFLOP; after the loss's forward; under "
-        f"no_implicit_host_sync), peak {fwd_peak / 1e9:.2f} GB above the "
-        f"weights; loss over {T} text tokens ({-(-T // 8192)} chunks of "
-        f"8192, the last padded; the first forward) {loss_ms:.1f} ms, peak "
-        f"{loss_peak / 1e9:.2f} GB: "
+    what = (f"{cfg.encoder_seq} stub frames + {S_text} decoder tokens"
+            if cfg.is_encoder_decoder else
+            f"{FWD_SEQ} positions ({P} prefix embeddings + {S_text} tokens)")
+    say(f"[model-full] {cfg.name} forward: batch {FWD_BATCH} × {what}: "
+        f"prefill to last-position logits {fwd_ms:.1f} ms (bound "
+        f"{bms:.1f} ms, {by}; {flops / 1e12:.2f} TFLOP; after the loss's "
+        f"forward; under no_implicit_host_sync), peak {fwd_peak / 1e9:.2f} "
+        f"GB above the weights; loss over {T} text tokens "
+        f"({-(-T // 8192)} chunks of 8192, the last padded; the first "
+        f"forward) {loss_ms:.1f} ms, peak {loss_peak / 1e9:.2f} GB: "
         f"ce {float(metrics['ce']):.4f} (ln V = "
         f"{math.log(cfg.vocab_size):.4f}), aux {aux:g}")
     check(tuple(last.shape) == (FWD_BATCH, 1, cfg.vocab_size)
@@ -3273,16 +3485,21 @@ def _forward_full(torch, model, params, gen):
     check(math.isfinite(aux) and (aux > 0) == cfg.is_moe,
           f"{cfg.name} aux {aux}")
 
-    # information: one layer's attention at this shape, the port's
-    # chunked masked softmax against scaled_dot_product_attention
-    lp = tree_map(lambda w: w[0], params["layers"])["attn"]
-    x = torch.randn((FWD_BATCH, FWD_SEQ, cfg.d_model), generator=gen,
+    # information: one attention at this shape, the port's chunked masked
+    # softmax against scaled_dot_product_attention
+    probe = _attention_probe(cfg, params)
+    if probe is None:
+        say(f"[model-full] {cfg.name}: attention-free, no attention to "
+            "time against the library")
+        return time.perf_counter() - t_all
+    lp, S_a, causal = probe
+    x = torch.randn((FWD_BATCH, S_a, cfg.d_model), generator=gen,
                     device=dev).to(cfg.torch_dtype)
-    pos = torch.arange(FWD_SEQ, device=dev)[None].expand(FWD_BATCH, -1)
+    pos = torch.arange(S_a, device=dev)[None].expand(FWD_BATCH, -1)
     H, hd = cfg.num_heads, cfg.hd
 
     def plain():
-        return attn_lib.attention(lp, x, cfg, positions=pos)
+        return attn_lib.attention(lp, x, cfg, positions=pos, causal=causal)
 
     def library():
         q, k, v = attn_lib._project_qkv(lp, x, x, cfg, 1)
@@ -3290,8 +3507,8 @@ def _forward_full(torch, model, params, gen):
         k = apply_rope(k, pos, cfg.rope_fraction, cfg.rope_theta)
         o = F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True)
-        return o.transpose(1, 2).reshape(FWD_BATCH, FWD_SEQ, H * hd) \
+            is_causal=causal, enable_gqa=True)
+        return o.transpose(1, 2).reshape(FWD_BATCH, S_a, H * hd) \
             @ lp["wo"].reshape(H * hd, -1)
     # the fused backends only: the math one would hold (B, H, S, S)
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -3305,23 +3522,33 @@ def _forward_full(torch, model, params, gen):
                 lib = f"{cuda_ms(torch, library, 3):.3f} ms"
         except RuntimeError as e:
             rel, lib = float("nan"), f"not measured ({str(e)[:80]})"
-    say(f"[model-full] {cfg.name} one layer's attention (B {FWD_BATCH}, S "
-        f"{FWD_SEQ}, H {H}, KV {cfg.num_kv_heads}, hd {hd}, projections "
-        f"included): the port's {a_ms:.3f} ms, scaled_dot_product_attention "
-        f"{lib} (information; library vs port {rel:.2e} of max)")
+    say(f"[model-full] {cfg.name} one {'causal' if causal else 'encoder'} "
+        f"attention (B {FWD_BATCH}, S {S_a}, H {H}, KV {cfg.num_kv_heads}, "
+        f"hd {hd}, projections included): the port's {a_ms:.3f} ms, "
+        f"scaled_dot_product_attention {lib} (information; library vs port "
+        f"{rel:.2e} of max)")
     return time.perf_counter() - t_all
 
 
 def _teacher_forced(torch, ops, model, params, tokens, start=0, attend=None,
-                    step_attn=None):
+                    step_attn=None, frames=None, each_step=None,
+                    step_params=None):
     """Logits (B, T, V) f32 of decode_step fed ``tokens`` one at a time
-    from a zero cache at position ``start``, and the routing by layer
-    (``_by_layer``); ``attend`` stands in for ops.decode_attention,
-    ``step_attn`` for the layers' attention_decode_step, when given."""
+    from a zero cache (and recurrent state) at position ``start``, and
+    the routing by layer (``_by_layer``); an encoder-decoder's state
+    holds the cross K/V of ``frames`` under ``params``. ``attend`` stands
+    in for ops.decode_attention, ``step_attn`` for the layers'
+    attention_decode_step, ``each_step`` maps the state before every
+    step and ``step_params`` stand in for the params of the steps, when
+    given."""
     from repro_torch.models import attention as attn_lib
     B, steps = tokens.shape
     dev = tokens.device
-    state = model.init_decode_state(B, steps + start, dev)
+    if frames is not None:
+        state = model.init_decode_state(B, steps + start, dev, frames=frames,
+                                        params=params)
+    else:
+        state = model.init_decode_state(B, steps + start, dev)
     state = state._replace(pos=torch.full((), start, dtype=torch.int32,
                                           device=dev))
     fd, sa = ops.decode_attention, attn_lib.attention_decode_step
@@ -3333,12 +3560,57 @@ def _teacher_forced(torch, ops, model, params, tokens, start=0, attend=None,
         outs = []
         with _routing([]) as log:
             for t in range(steps):
-                logits, state = model.decode_step(params, state,
-                                                  tokens[:, t:t + 1])
+                if each_step is not None:
+                    state = each_step(state)
+                logits, state = model.decode_step(
+                    params if step_params is None else step_params, state,
+                    tokens[:, t:t + 1])
                 outs.append(logits[:, 0].float())
     finally:
         ops.decode_attention, attn_lib.attention_decode_step = fd, sa
     return torch.stack(outs, 1), _by_layer(torch, log, model.cfg.num_layers)
+
+
+def _ssm_controls(torch, model, params) -> dict:
+    """The SSM families' decode faults, name → ``_teacher_forced``
+    keywords: the recurrent state reset every step; the decay forced to
+    1 (rwkv6: the decay base at −inf, so log w = −1e-4 after the clamp;
+    mamba: a_log at −inf, so A = 0); the token shift (rwkv6) or the conv
+    buffer (mamba) dropped every step."""
+    from repro_torch.models.layers import tree_map
+    cfg = model.cfg
+    if not (cfg.attn_free or cfg.family == "hybrid"):
+        return {}
+
+    def zeroed(*names):
+        def fn(state):
+            rec = _recurrent(state)
+            for n in names:
+                rec[n] = torch.zeros_like(rec[n])
+            if hasattr(state, "ssm"):
+                return state._replace(ssm=type(state.ssm)(**rec))
+            return state._replace(**rec)
+        return fn
+
+    def decay_off(p):
+        p = tree_map(lambda w: w, p)         # a new tree, the same leaves
+        if cfg.attn_free:
+            t = dict(p["layers"]["time"])
+            t["dec_base"] = torch.full_like(t["dec_base"], -math.inf)
+            p["layers"] = dict(p["layers"], time=t)
+        else:
+            m = dict(p["mamba_layers"]["mamba"])
+            m["a_log"] = torch.full_like(m["a_log"], -math.inf)
+            p["mamba_layers"] = dict(p["mamba_layers"], mamba=m)
+        return p
+    if cfg.attn_free:
+        return {"state reset every step": dict(each_step=zeroed("S")),
+                "decay forced to 1": dict(step_params=decay_off(params)),
+                "token shift dropped": dict(
+                    each_step=zeroed("x_prev_t", "x_prev_c"))}
+    return {"state reset every step": dict(each_step=zeroed("h")),
+            "decay forced to 1": dict(step_params=decay_off(params)),
+            "conv buffer dropped": dict(each_step=zeroed("conv_buf"))}
 
 
 def _decode_controls(torch, ops, ring: bool) -> dict:
@@ -3371,31 +3643,49 @@ def _decode_controls(torch, ops, ring: bool) -> dict:
             "KV heads rolled": dict(step_attn=rolled)}
 
 
+def _tf_steps(cfg) -> int:
+    """Teacher-forced decode length: TF_STEPS; the SSM families
+    SSM_TF_STEPS, so that the forward spans several chunks."""
+    return SSM_TF_STEPS if cfg.attn_free or cfg.family == "hybrid" \
+        else TF_STEPS
+
+
 def _decode_vs_forward(torch, ops, model, params, gen) -> int:
-    """TF_STEPS tokens teacher-forced through decode_step (the kernel
+    """_tf_steps tokens teacher-forced through decode_step (the kernel
     route; a sliding-window config's ring route) against forward's
-    logits over the same tokens, over the positions routed alike, with
-    controls. → the decode's flash_decode launches."""
+    logits over the same tokens (an encoder-decoder's over the same stub
+    frames), over the positions routed alike, with controls. → the
+    decode's flash_decode launches."""
     cfg = model.cfg
     ring = bool(cfg.sliding_window)
-    tokens = torch.randint(0, cfg.vocab_size, (FWD_BATCH, TF_STEPS),
+    steps = _tf_steps(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (FWD_BATCH, steps),
                            generator=gen, device=gen.device,
                            dtype=torch.int32)
+    frames = None
+    if cfg.is_encoder_decoder:
+        frames = torch.randn((FWD_BATCH, cfg.encoder_seq, cfg.d_model),
+                             generator=gen, device=gen.device
+                             ).to(cfg.torch_dtype)
     L = cfg.num_layers
     with torch.no_grad():
         with _routing([]) as log:
-            want = model.forward(params, tokens)[0].float()
+            want = (model.forward(params, tokens, frames) if frames is not None
+                    else model.forward(params, tokens))[0].float()
         route_w = _by_layer(torch, log, L)
         ops.reset_launches()
-        got, route_g = _teacher_forced(torch, ops, model, params, tokens)
+        got, route_g = _teacher_forced(torch, ops, model, params, tokens,
+                                       frames=frames)
         launches = ops.LAUNCHES["flash_decode"]
         routes = _routes(ops, "flash_decode")
         first = tokens[:, :CONTROL_STEPS]
-        controls = {"positions shifted by one": _teacher_forced(
-            torch, ops, model, params, first, start=1)}
-        for name, kw in _decode_controls(torch, ops, ring).items():
-            controls[name] = _teacher_forced(torch, ops, model, params,
-                                             first, **kw)
+        kws = dict(_ssm_controls(torch, model, params))
+        if not cfg.attn_free:       # rwkv6 reads no position
+            kws["positions shifted by one"] = dict(start=1)
+            kws.update(_decode_controls(torch, ops, ring))
+        controls = {name: _teacher_forced(torch, ops, model, params, first,
+                                          frames=frames, **kw)
+                    for name, kw in kws.items()}
     scale = float(want.abs().max())
     shape = tokens.shape
     alike = _alike(torch, route_g, route_w, shape)
@@ -3412,9 +3702,10 @@ def _decode_vs_forward(torch, ops, model, params, gen) -> int:
     clear = ((top2[..., 0] - top2[..., 1]) > diff) & alike
     agree = got.argmax(-1) == want.argmax(-1)
     every = float((got - want).abs().max()) / scale
-    want_l = 0 if ring else L * TF_STEPS
-    say(f"[model-full] {cfg.name} decode of {TF_STEPS} teacher-forced tokens "
-        f"× {FWD_BATCH} from a zero cache vs forward: logits max|Δ| "
+    want_l = 0 if ring else _attn_layers(model) * steps
+    say(f"[model-full] {cfg.name} decode of {steps} teacher-forced tokens "
+        f"× {FWD_BATCH} in {cfg.dtype} from a zero cache vs forward: logits "
+        f"max|Δ| "
         f"{rel:.2e} of max |logit| {scale:.3f} over the {share:.0%} of "
         f"positions routed alike in every layer (tol {DECODE_FWD_TOL:g}, "
         f"at least {MIN_ALIKE:.0%}; {every:.2e} over all); controls: "
@@ -3434,6 +3725,7 @@ def _decode_vs_forward(torch, ops, model, params, gen) -> int:
     check(launches == want_l and routes[route] == launches,
           f"{cfg.name} decode launched flash_decode {launches} times, "
           f"routes {routes}")
+    check(len(ctl) >= 3, f"{cfg.name}: only {len(ctl)} controls")
     return launches
 
 
@@ -3524,6 +3816,16 @@ def phase_model_full(torch, T, ops, ref, arch, batch, cache_len):
     init_s = time.perf_counter() - t0
     w_bytes = _nbytes(params)
     transient = torch.cuda.max_memory_allocated() - before - w_bytes
+    if cfg.family == "hybrid":
+        cut += (f"; {cfg.num_layers} mamba2 layers (d_state "
+                f"{cfg.ssm_state}) in {cfg.num_layers // cfg.attn_every} "
+                f"segments, the shared attention block after each")
+    elif cfg.attn_free:
+        cut += "; attention-free (rwkv6 time and channel mixes)"
+    elif cfg.is_encoder_decoder:
+        cut += (f"; {cfg.encoder_layers} encoder layers over "
+                f"{cfg.encoder_seq} stub frames, {cfg.num_layers} decoder "
+                f"layers up to {cfg.max_decoder_len} tokens")
     say(f"[model-full] {arch} ({cfg.family}): {cfg.num_layers} layers, d "
         f"{cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV (G "
         f"{cfg.num_heads // cfg.num_kv_heads}), hd {cfg.hd}, ff {cfg.d_ff}, "
@@ -3532,13 +3834,18 @@ def phase_model_full(torch, T, ops, ref, arch, batch, cache_len):
         f"transient {transient / 1e9:.3f} GB{cut}")
     fwd_s = _forward_full(torch, model, params, gen)
     t0 = time.perf_counter()
-    tf_model = model
+    tf_model, tf_params = model, params
     if cfg.is_moe:
         tf_model = build_model(dataclasses.replace(
             cfg, moe_capacity_factor=cfg.num_experts
             / cfg.experts_per_token))
+    if cfg.attn_free or cfg.family == "hybrid":
+        from repro_torch.models.layers import tree_map
+        tf_model = build_model(dataclasses.replace(cfg, dtype="float32"))
+        tf_params = tree_map(lambda w: w.float(), params)
     paths = {f"decode-vs-forward:{arch}": _decode_vs_forward(
-        torch, ops, tf_model, params, gen)}
+        torch, ops, tf_model, tf_params, gen)}
+    del tf_params
     tf_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -6968,7 +7275,8 @@ def main() -> int:
             kernels.append(fd_row)
         else:
             by_config[arch] = {k: fd_row[k] for k in (
-                "ms", "plain_ms", "bound_ms", "library_ms", "launches")}
+                "ms", "plain_ms", "bound_ms", "library_ms", "simt_ms",
+                "launches", "shape")}
     kernels[-1]["configs"] = by_config
     say(f"[model-full] {len(MODEL_CELLS)} configs in "
         f"{time.perf_counter() - t_models:.1f} s")

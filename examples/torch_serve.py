@@ -31,10 +31,13 @@ def main(arch: str = "tinyllama-1.1b", batch: int = 4, prompt_len: int = 16,
                             generator=torch.Generator(device=dev).manual_seed(1),
                             device=dev, dtype=torch.int32)
     if cfg.family == "audio":
-        raise NotImplementedError(
-            "encoder frames (the audio family) are not ported to repro_torch "
-            "yet (ROADMAP Queue 1 item 13f)")
-    state = model.init_decode_state(B, cache_len, dev)
+        frames = torch.randn((B, cfg.encoder_seq, cfg.d_model),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(2), device=dev)
+        state = model.init_decode_state(B, cache_len, dev, frames=frames,
+                                        params=params)
+    else:
+        state = model.init_decode_state(B, cache_len, dev)
 
     # teacher-forced prefill through the decode path, as the reference
     for t in range(prompt_len):

@@ -13,11 +13,13 @@ served by the port. Blocked-CSR feature rows travel as the triple
 (scalars, or a sweep's (S,) arrays) and gives the port's, so that both
 packages run the same grid.
 
-:func:`lm_params_from_jax` takes the parameters of the reference's
-``TransformerModel`` (a nested dict of arrays, stacked ``layers``) and
-gives the port's, under the same names and layout, so that both
-packages compute the same model; :func:`opt_state_from_jax` does the
-same for the reference's AdamW state.
+:func:`lm_params_from_jax` takes the parameters of any of the
+reference's LM families (a nested dict of arrays: stacked ``layers``,
+the hybrid's twice-stacked ``mamba_layers``, the encoder-decoder's
+``enc_layers`` / ``dec_layers``) and gives the port's, under the same
+names and layout, so that both packages compute the same model;
+:func:`opt_state_from_jax` does the same for the reference's AdamW
+state, :func:`decode_state_from_jax` for a decode state.
 
 bfloat16 numpy arrays (the ``ml_dtypes`` type JAX hands out) are read
 by their bits. :func:`to_numpy` widens bfloat16 to float32, which is
@@ -101,6 +103,19 @@ def lm_params_from_jax(params: Mapping, device: DeviceLike = "cpu"):
     """The reference LM's parameters (nested dict of arrays, e.g.
     ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``."""
     return tree_map(lambda a: tensor_from_numpy(a, device), dict(params))
+
+
+def decode_state_from_jax(state, like):
+    """The reference's decode state (``DecodeState``, ``RWKVDecodeState``,
+    ``HybridDecodeState`` with its nested ``Mamba2State`` and
+    ``LayerKVCache``, ``EncDecDecodeState``; arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``) → the port's, of ``like``'s
+    type field by field, on ``like``'s devices."""
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(decode_state_from_jax(getattr(state, f),
+                                                  getattr(like, f))
+                            for f in like._fields))
+    return tensor_from_numpy(np.asarray(state), like.device)
 
 
 def opt_state_from_jax(state, device: DeviceLike = "cpu") -> OptState:

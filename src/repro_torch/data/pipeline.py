@@ -61,19 +61,22 @@ def lm_batches(cfg: DataConfig, model_cfg: ModelConfig,
 def lm_batch_at(cfg: DataConfig, model_cfg: ModelConfig,
                 step: int) -> Dict[str, np.ndarray]:
     """The batch of ``step`` as numpy arrays: tokens and next-token
-    labels (B, S) int32, and a VLM's stub ``prefix_embeds`` (B, P, D)
-    float32, its text then S − P tokens. The encoder-decoder branch
-    (``frames``) waits for its family."""
-    if model_cfg.frontend == "audio":
-        raise NotImplementedError(
-            "encoder frames (the encoder-decoder family) are not ported "
-            "to repro_torch yet (ROADMAP Queue 1 item 13f)")
+    labels (B, S) int32; an encoder-decoder's stub ``frames`` (B,
+    encoder_seq, D) float32; a VLM's stub ``prefix_embeds`` (B, P, D)
+    float32, its text then S − P tokens."""
     rng = np.random.default_rng((cfg.seed, step, 1))
     S = cfg.seq_len
     P = model_cfg.num_prefix_tokens if model_cfg.frontend == "vision" else 0
     toks = _tokens_for_step(cfg, model_cfg.vocab_size, step)
     batch: Dict[str, np.ndarray] = {}
-    if P > 0:
+    if model_cfg.is_encoder_decoder:
+        batch["frames"] = rng.normal(
+            0, 1, (cfg.batch_size, model_cfg.encoder_seq,
+                   model_cfg.d_model)).astype(np.float32)
+        batch["tokens"] = toks[:, :S]
+        batch["labels"] = np.concatenate(
+            [toks[:, 1:S], toks[:, :1]], axis=1).astype(np.int32)
+    elif P > 0:
         batch["prefix_embeds"] = rng.normal(
             0, 1, (cfg.batch_size, P, model_cfg.d_model)).astype(np.float32)
         text = toks[:, :S - P]

@@ -11,10 +11,11 @@ family's streaming polarization service.
         --smoke --streams 4 --waves 3                      # on the card
 
 LM (tinyllama-1.1b, llama3-8b, qwen2-1.5b, chatglm3-6b, llava-next-34b,
-mixtral-8x22b, qwen3-moe-235b-a22b):
-the loop starts from a zero cache and token 0 and feeds each step's
-argmax back in, as ``repro/launch/serve.py:188-218``; llava decodes its
-text from token 0 with no prefix, as the reference's does. Every step stays
+mixtral-8x22b, qwen3-moe-235b-a22b, rwkv6-7b, zamba2-1.2b, whisper-base):
+the loop starts from a zero cache (or recurrent state) and token 0 and
+feeds each step's argmax back in, as ``repro/launch/serve.py:188-218``;
+llava decodes its text from token 0 with no prefix, as the reference's
+does, and whisper against the cross K/V of seeded stub frames. Every step stays
 on the device: the tokens are copied to the host once, after the loop.
 
 svm: micro-batches of drifting messages fold into each tenant's
@@ -45,7 +46,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Callable, List, NamedTuple, Optional, Sequence
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -59,31 +60,41 @@ from repro_torch.launch.cluster import (add_cluster_flags,
                                         init_cluster)
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.config import ModelConfig, smoke_variant
-from repro_torch.models.transformer import DecodeState, build_model
+from repro_torch.models.transformer import build_model
 
 
 class ServeResult(NamedTuple):
     tokens: torch.Tensor      # (steps, B) int32 on the CPU
     seconds: float            # host clock over the loop, to the last token
     tok_per_s: float          # steps · B / seconds
-    state: DecodeState        # after the last step (caches on the device)
+    state: Any                # after the last step (caches on the device)
 
 
 def serve_lm(cfg: ModelConfig, *, batch: int, cache_len: int, tokens: int,
              device: DeviceLike = None, params=None,
-             state: Optional[DecodeState] = None) -> ServeResult:
+             state=None) -> ServeResult:
     """Greedy decode of ``tokens`` steps for ``batch`` sequences.
 
     ``params`` default to random ones from ``torch.Generator`` seed 0 on
-    the device, ``state`` to a zero cache of ``cache_len`` at position 0
-    (a given state is advanced and its caches written in place). Runs on
-    ``cuda`` unless ``device`` says otherwise; raises without a card.
+    the device, ``state`` to a zero cache (or recurrent state) of
+    ``cache_len`` at position 0; an encoder-decoder's state holds the
+    cross K/V of stub frames N(0, 1) drawn from seed 1 (the reference's
+    serve draws them from ``PRNGKey(1)``). A given state is advanced
+    (its caches written in place). Runs on ``cuda`` unless ``device``
+    says otherwise; raises without a card.
     """
     dev = resolve_device(device)
     model = build_model(cfg)
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
-    if state is None:
+    if state is None and cfg.is_encoder_decoder:
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+        state = model.init_decode_state(batch, cache_len, dev,
+                                        frames=frames.to(cfg.torch_dtype),
+                                        params=params)
+    elif state is None:
         state = model.init_decode_state(batch, cache_len, dev)
     step = make_serve_step(model)
     tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)

@@ -1,5 +1,6 @@
 """Step builders, ported from ``repro/launch/steps.py``: the training,
-prefill and decode steps of the dense, MoE and VLM decoders, with their
+prefill and decode steps of every LM family (dense, MoE, VLM, the
+attention-free ssm, the hybrid and the encoder-decoder), with their
 abstract inputs as ``meta`` tensors.
 
 Input-shape suite (the reference's):
@@ -26,8 +27,7 @@ from repro_torch import optim
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (lm_logits, tree_leaves,
                                        tree_unflatten, tree_map)
-from repro_torch.models.transformer import (DecodeState, TransformerModel,
-                                            build_model)
+from repro_torch.models.transformer import build_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,13 +47,11 @@ INPUT_SHAPES: Dict[str, InputShape] = {
 
 
 def applicability(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
-    """None if the (arch, shape) pair runs; else a skip reason. The
-    reference's ``attn_free`` is the ssm family here, its
-    ``is_encoder_decoder`` the audio family."""
+    """None if the (arch, shape) pair runs; else a skip reason."""
     if shape.name == "long_500k":
-        sub_quadratic = (cfg.family in ("ssm", "hybrid")
+        sub_quadratic = (cfg.attn_free or cfg.family == "hybrid"
                          or cfg.sliding_window is not None)
-        if cfg.family == "audio":
+        if cfg.is_encoder_decoder:
             return ("SKIP: encoder-decoder with architecturally capped "
                     "decoder context (448) — long_500k out of family range")
         if not sub_quadratic:
@@ -77,10 +75,11 @@ def train_batch_abstract(cfg: ModelConfig, shape: InputShape):
     """The train batch of ``shape`` as ``meta`` tensors."""
     B, S = shape.global_batch, shape.seq_len
     i32 = lambda s: _meta(s, torch.int32)
-    if cfg.frontend == "audio":
-        raise NotImplementedError(
-            "encoder frames (the encoder-decoder family) are not ported "
-            "to repro_torch yet (ROADMAP Queue 1 item 13f)")
+    if cfg.is_encoder_decoder:
+        S_dec = min(S, cfg.max_decoder_len)
+        return {"frames": _meta((B, cfg.encoder_seq, cfg.d_model),
+                                cfg.torch_dtype),
+                "tokens": i32((B, S_dec)), "labels": i32((B, S_dec))}
     if cfg.frontend == "vision":
         P = cfg.num_prefix_tokens
         return {"prefix_embeds": _meta((B, P, cfg.d_model), cfg.torch_dtype),
@@ -144,8 +143,12 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        h, _ = model.hidden_states(params, batch["tokens"],
-                                   batch.get("prefix_embeds"))
+        if cfg.is_encoder_decoder:
+            enc = model.encode(params, batch["frames"])
+            h, _ = model.hidden_states(params, batch["tokens"], enc)
+        else:
+            h, _ = model.hidden_states(params, batch["tokens"],
+                                       batch.get("prefix_embeds"))
         return lm_logits(params["embed"], h[:, -1:, :], cfg.tie_embeddings)
 
     batch_abs = train_batch_abstract(cfg, shape)
@@ -156,13 +159,12 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
         model=model)
 
 
-def make_serve_step(model: TransformerModel) -> Callable[
-        ..., Tuple[torch.Tensor, DecodeState]]:
+def make_serve_step(model) -> Callable[..., Tuple[torch.Tensor, Any]]:
     """→ ``serve_step(params, state, tokens (B, 1))`` of ``model``
     returning the next tokens (B,) int32 (argmax of the last logits; ties
     go to the first index, as ``jnp.argmax``) and the new state; the
     caches are written in place."""
-    def serve_step(params, state: DecodeState, tokens: torch.Tensor):
+    def serve_step(params, state, tokens: torch.Tensor):
         logits, state = model.decode_step(params, state, tokens)
         next_tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         return next_tok, state

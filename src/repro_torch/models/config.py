@@ -1,13 +1,11 @@
-"""Architecture configuration of the dense decoder family, the MoE
-family (the decoder with a routed expert layer in place of its MLP) and
-the VLM family (the dense decoder behind stub prefix embeddings).
-
-The fields of the reference's ``repro/models/config.py`` that these
-paths and ``param_count`` read, with ``torch_dtype`` in place of
-``jdtype``. The MoE fields (``num_experts``, ``experts_per_token``,
-``router_aux_coef``, ``moe_capacity_factor``) are read by
-:mod:`repro_torch.models.moe`. The SSM, hybrid and encoder-decoder
-fields come with ROADMAP Queue 1 items 13e and 13f.
+"""Architecture configuration: one schema for every family of the
+reference's ``repro/models/config.py`` (dense / moe / vlm decoders, the
+attention-free ssm family, the mamba2 + shared attention hybrid and the
+audio encoder-decoder), field for field, with ``torch_dtype`` in place
+of ``jdtype``. The MoE fields are read by :mod:`repro_torch.models.moe`,
+the SSM ones by :mod:`~repro_torch.models.mamba2` and
+:mod:`~repro_torch.models.rwkv6`, the encoder-decoder ones by
+:mod:`~repro_torch.models.encdec`.
 """
 from __future__ import annotations
 
@@ -20,7 +18,7 @@ import torch
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
-    family: str                            # 'dense' | 'moe' | 'vlm' are ported
+    family: str        # 'dense' | 'moe' | 'ssm' | 'hybrid' | 'vlm' | 'audio'
     num_layers: int
     d_model: int
     num_heads: int
@@ -43,7 +41,19 @@ class ModelConfig:
     mlp_style: str = "swiglu"              # 'swiglu' | 'gelu' (whisper)
     norm_style: str = "rmsnorm"            # 'rmsnorm' | 'layernorm'
 
-    # modality frontend STUB (vlm): prefix embeddings provided
+    # SSM / RWKV
+    attn_free: bool = False                # rwkv6
+    ssm_state: int = 0                     # mamba2 d_state (zamba2: 64)
+    ssm_conv: int = 4
+    attn_every: int = 0                    # hybrid: shared attn block period
+
+    # encoder-decoder (whisper)
+    is_encoder_decoder: bool = False
+    encoder_layers: int = 0
+    encoder_seq: int = 1500                # whisper-base 30 s → 1500 frames
+    max_decoder_len: int = 448             # whisper model-card cap
+
+    # modality frontend STUB (vlm/audio): prefix embeddings provided
     frontend: Optional[str] = None         # 'vision' | 'audio'
     num_prefix_tokens: int = 0             # llava anyres patch tokens
 
@@ -66,16 +76,31 @@ class ModelConfig:
         return self.num_experts > 0
 
     def param_count(self) -> int:
-        """Total parameters N of the decoder stack (analytic)."""
+        """Total parameters N (analytic; the reference's count, which
+        leaves out norms, biases and small per-head vectors)."""
         D, F, V, L = self.d_model, self.d_ff, self.vocab_size, self.num_layers
         H, KV, hd = self.num_heads, self.num_kv_heads, self.hd
         emb = V * D * (1 if self.tie_embeddings else 2)
         attn = D * H * hd + 2 * D * KV * hd + H * hd * D
-        if self.is_moe:
-            mlp = self.num_experts * 3 * D * F
+        if self.attn_free:                        # rwkv6: timemix + channelmix
+            # time: r,k,v,g,o (5·D²) + low-rank decay; channel: k,v,r
+            per_layer = 5 * D * D + 2 * D * 64 + 2 * D * F + D * D
+        elif self.family in ("ssm", "hybrid"):
+            dssm = 2 * D                              # mamba2 d_inner = 2*D
+            per_layer = D * (2 * dssm + 2 * self.ssm_state +
+                             self.num_heads) + dssm * D
+        elif self.is_moe:
+            per_layer = attn + self.num_experts * 3 * D * F
         else:
-            mlp = 3 * D * F if self.mlp_style == "swiglu" else 2 * D * F
-        return int(emb + L * (attn + mlp))
+            per_layer = attn + (3 * D * F if self.mlp_style == "swiglu"
+                                else 2 * D * F)
+        total = emb + L * per_layer
+        if self.family == "hybrid" and self.attn_every:
+            total += attn + 3 * D * F                 # the shared block
+        if self.is_encoder_decoder:
+            total += self.encoder_layers * (attn + 2 * D * F)
+            total += L * attn                         # cross-attention
+        return int(total)
 
     def active_param_count(self) -> int:
         """N_active: the parameters one token passes through."""
@@ -89,8 +114,9 @@ class ModelConfig:
 
 def smoke_variant(cfg: ModelConfig) -> ModelConfig:
     """Reduced config for CPU smoke tests: ≤2 layers, d_model≤256, ≤4
-    experts at capacity factor 8 (no token dropped), 4 prefix tokens for
-    a frontend."""
+    experts at capacity factor 8 (no token dropped), d_state ≤ 16, a
+    shared block every 2 layers, 2 encoder layers over 16 frames, 4
+    prefix tokens for a frontend."""
     d = min(cfg.d_model, 256)
     heads = min(cfg.num_heads, 4)
     kv = max(1, min(cfg.num_kv_heads, heads))
@@ -109,6 +135,10 @@ def smoke_variant(cfg: ModelConfig) -> ModelConfig:
         experts_per_token=min(cfg.experts_per_token, 2) if cfg.is_moe else 0,
         moe_capacity_factor=8.0 if cfg.is_moe else cfg.moe_capacity_factor,
         sliding_window=min(cfg.sliding_window, 64) if cfg.sliding_window else None,
+        ssm_state=min(cfg.ssm_state, 16) if cfg.ssm_state else 0,
+        attn_every=2 if cfg.attn_every else 0,
+        encoder_layers=2 if cfg.is_encoder_decoder else 0,
+        encoder_seq=16 if cfg.is_encoder_decoder else cfg.encoder_seq,
         num_prefix_tokens=4 if cfg.frontend else 0,
         dtype="float32",
     )

@@ -142,6 +142,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, fraction: float,
     return torch.cat([rotated.to(x.dtype), x[..., rot:]], dim=-1)
 
 
+def chunk_step(fn: Callable, *args):
+    """``fn(*args)`` of one chunk of a scan; checkpointed (the
+    reference's ``jax.checkpoint`` of its scan body) when autograd
+    records it, so that the backward recomputes the chunk's transients
+    instead of keeping them for every chunk."""
+    if torch.is_grad_enabled() and any(
+            isinstance(a, torch.Tensor) and a.requires_grad for a in args):
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+# ---------------------------------------------------------------------------
+# Activations rounded as XLA rounds them
+# ---------------------------------------------------------------------------
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it, x · 1/(1 + e^(−x)), each step
+    rounded to x's dtype (``F.silu`` rounds once: 61 % of bf16 outputs
+    equal)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, log(1 + eˣ) as ``logaddexp(x, 0)``: no
+    threshold past which it returns x (``F.softplus`` has one at 20)."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
 # ---------------------------------------------------------------------------
 # MLPs (torch.matmul: the reference leaves these to XLA, outside Pallas)
 # ---------------------------------------------------------------------------

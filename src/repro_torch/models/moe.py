@@ -56,7 +56,7 @@ import torch
 
 from repro_torch import compat
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import PSpec
+from repro_torch.models.layers import PSpec, silu
 
 
 def moe_template(cfg: ModelConfig) -> Dict[str, PSpec]:
@@ -105,13 +105,6 @@ def load_balance_loss(probs: torch.Tensor, expert_idx: torch.Tensor,
                                    device=probs.device))
     assign_frac = counts / (T * K) * K
     return cfg.router_aux_coef * E * (assign_frac * probs.mean(0)).sum()
-
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as XLA computes it, x · 1/(1 + e^(−x)), each step
-    rounded to x's dtype (``F.silu`` rounds once: 61 % of bf16 outputs
-    equal)."""
-    return x * (1 / (1 + torch.exp(-x)))
 
 
 class DispatchPlan(NamedTuple):
@@ -166,7 +159,7 @@ def _experts(xf: torch.Tensor, plan: DispatchPlan, wg: torch.Tensor,
     dt, dev = xf.dtype, xf.device
     xin = torch.where(plan.slot_used[:, None], xf[plan.token[plan.slot_src]],
                       0).reshape(e_count, C, D)
-    h = _silu(torch.bmm(xin, wg)) * torch.bmm(xin, wu)
+    h = silu(torch.bmm(xin, wg)) * torch.bmm(xin, wu)
     yout = torch.bmm(h, wd).reshape(e_count * C, D)
     # a token's K contributions, added in ascending sorted position
     sorted_pos = torch.empty_like(plan.order).scatter_(

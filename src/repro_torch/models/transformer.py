@@ -22,8 +22,9 @@ step (``repro_torch.launch.steps.build_train_step``) differentiates
 ``loss`` with autograd. A MoE layer's load-balance loss is summed over
 the layers into ``aux``, which ``loss`` adds to the CE; the decode step
 routes each token as the forward does, at the config's capacity factor
-over the step's B tokens. The SSM, hybrid and audio families raise
-(items 13e, 13f).
+over the step's B tokens. :func:`build_model` also builds the other
+families' models (``rwkv6_model``, ``hybrid``, ``encdec``), which keep
+this API.
 """
 from __future__ import annotations
 
@@ -59,7 +60,31 @@ class DecodeState(NamedTuple):
     pos: torch.Tensor               # () int32 on the device — next write position
 
 
-class TransformerModel:
+class TemplateModel:
+    """What every family's model shares: the parameters its
+    ``template()`` declares, and its layers' checkpointing."""
+
+    cfg: ModelConfig
+
+    def init(self, gen: torch.Generator):
+        """Random parameters on ``gen``'s device, in the config's dtype."""
+        return template_init(self.template(), gen, self.cfg.torch_dtype)
+
+    def abstract(self):
+        """The parameters' shapes and dtype as ``meta`` tensors."""
+        return tree_map(lambda p: torch.empty(p.shape,
+                                              dtype=self.cfg.torch_dtype,
+                                              device="meta"),
+                        self.template())
+
+    def _run(self, fn, *args):
+        """``fn(*args)``, one layer; checkpointed under ``cfg.remat``."""
+        if self.cfg.remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+
+class TransformerModel(TemplateModel):
     """Decoder (dense, moe and vlm families). ``decode_kernel`` routes each layer's cache
     attention through the ``flash_decode`` kernel when the cache is full
     (the reference's ``use_pallas``); False keeps the plain route."""
@@ -89,17 +114,6 @@ class TransformerModel:
             "layers": stack_template(self.layer_template(), cfg.num_layers),
             "final_norm": norm_template(cfg.d_model, cfg.norm_style),
         }
-
-    def init(self, gen: torch.Generator):
-        """Random parameters on ``gen``'s device, in the config's dtype."""
-        return template_init(self.template(), gen, self.cfg.torch_dtype)
-
-    def abstract(self):
-        """The parameters' shapes and dtype as ``meta`` tensors."""
-        return tree_map(lambda p: torch.empty(p.shape,
-                                              dtype=self.cfg.torch_dtype,
-                                              device="meta"),
-                        self.template())
 
     # -- forward ----------------------------------------------------------
     def _mlp(self, lp, m_in: torch.Tensor):
@@ -132,11 +146,7 @@ class TransformerModel:
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=h.device)
         for lp in unstack_layers(params["layers"], cfg.num_layers):
-            if cfg.remat:
-                h, a = checkpoint(self._layer_fwd, lp, h, positions,
-                                  use_reentrant=False)
-            else:
-                h, a = self._layer_fwd(lp, h, positions)
+            h, a = self._run(self._layer_fwd, lp, h, positions)
             if a is not None:
                 aux = aux + a
         h = apply_norm(h, params["final_norm"], cfg.norm_style, cfg.norm_eps)
@@ -201,16 +211,21 @@ class TransformerModel:
         return logits, DecodeState(caches=state.caches, pos=pos + 1)
 
 
-#: the roadmap item that ports each family not ported yet
-UNPORTED_FAMILIES = {"ssm": "13e", "hybrid": "13e", "audio": "13f"}
-
-
 def build_model(cfg: ModelConfig, kv_repeat: int = 1,
-                decode_kernel: bool = True) -> TransformerModel:
-    """The dense, moe and vlm families; every other family raises."""
+                decode_kernel: bool = True):
+    """Family dispatcher, as ``repro/models/transformer.py:202-215``
+    (deferred imports avoid the cycle). ``decode_kernel`` routes the
+    cache attention of the families that have one through
+    ``ops.decode_attention``."""
     if cfg.family in ("dense", "moe", "vlm"):
         return TransformerModel(cfg, kv_repeat, decode_kernel)
-    item = UNPORTED_FAMILIES.get(cfg.family, "13")
-    raise NotImplementedError(
-        f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch "
-        f"yet (ROADMAP Queue 1 item {item})")
+    if cfg.family == "ssm" and cfg.attn_free:
+        from repro_torch.models.rwkv6_model import RWKV6Model
+        return RWKV6Model(cfg)
+    if cfg.family == "hybrid":
+        from repro_torch.models.hybrid import HybridModel
+        return HybridModel(cfg, kv_repeat, decode_kernel)
+    if cfg.family == "audio" and cfg.is_encoder_decoder:
+        from repro_torch.models.encdec import EncDecModel
+        return EncDecModel(cfg, kv_repeat, decode_kernel)
+    raise ValueError(f"unknown family {cfg.family!r} for {cfg.name}")

@@ -56,17 +56,17 @@ class WaveStats:
 class BatchScheduler:
     """Drives ``model.decode_step`` over a queue of requests on
     ``device`` (default ``cuda``; raises without a card). ``params``
-    are moved there if they are elsewhere."""
+    are moved there if they are elsewhere. An encoder-decoder's
+    ``frames`` (batch_size, encoder_seq, D) are encoded into each wave's
+    cross K/V, as the reference's."""
 
     def __init__(self, model, params, batch_size: int, cache_len: int,
-                 pad_id: int = 0, frames=None, device: DeviceLike = None):
-        if frames is not None:
-            raise NotImplementedError(
-                "encoder frames (the encoder-decoder family) are not ported "
-                "to repro_torch yet (ROADMAP Queue 1 item 13f)")
+                 pad_id: int = 0, frames: Optional[torch.Tensor] = None,
+                 device: DeviceLike = None):
         self.device = resolve_device(device)
         self.model = model
         self.params = tree_map(lambda w: w.to(self.device), params)
+        self.frames = None if frames is None else frames.to(self.device)
         self.B = batch_size
         self.cache_len = cache_len
         self.pad_id = pad_id
@@ -107,7 +107,13 @@ class BatchScheduler:
             toks[j, max_prompt - len(r.prompt):] = r.prompt
         toks = torch.from_numpy(toks).to(self.device)
 
-        state = self.model.init_decode_state(B, self.cache_len, self.device)
+        if self.frames is not None:
+            state = self.model.init_decode_state(
+                B, self.cache_len, self.device, frames=self.frames,
+                params=self.params)
+        else:
+            state = self.model.init_decode_state(B, self.cache_len,
+                                                 self.device)
         # prefill (teacher forced through the decode path)
         logits = None
         for t in range(max_prompt):

@@ -117,7 +117,8 @@ def test_incremental_update_twin_matches_the_reference(monkeypatch, capsys):
 def test_serve_twin_runs_each_ported_lm_at_smoke_size():
     mod = _load("torch_serve")
     ops.reset_launches()
-    for arch in ("llama3-8b", "llava-next-34b", "mixtral-8x22b"):
+    for arch in ("llama3-8b", "llava-next-34b", "mixtral-8x22b",
+                 "whisper-base"):
         res = mod.main(arch, batch=2, prompt_len=4, tokens=4, cache_len=16,
                        device="cpu")
         toks = res["tokens"]
@@ -137,11 +138,13 @@ def test_embed_twin_fits_the_svm_on_backbone_embeddings():
 
 @pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-1.5b", "chatglm3-6b",
                                   "llava-next-34b", "mixtral-8x22b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "rwkv6-7b",
+                                  "zamba2-1.2b", "whisper-base"])
 def test_serve_cli_runs_each_new_architecture(arch):
     """``python -m repro_torch.launch.serve --arch …`` on each new config
     (smoke width, plain versions): llava decodes from token 0 with no
-    prefix, as the reference's serve."""
+    prefix, as the reference's serve, whisper against the cross K/V of
+    seeded stub frames."""
     res = serve_main(["--arch", arch, "--smoke", "--batch", "2",
                       "--cache-len", "16", "--tokens", "3", "--device",
                       "cpu"])

@@ -1,6 +1,8 @@
-"""The port's dense, MoE and VLM forward pass against the JAX reference,
-on the CPU: full-sequence ``attention``, the LM losses, ``hidden_states``,
-``forward`` and ``loss`` of every ported LM config's smoke variant, on
+"""The port's forward pass against the JAX reference, on the CPU:
+full-sequence ``attention``, the LM losses, ``hidden_states``,
+``forward`` and ``loss`` of every decoder-only LM config's smoke variant
+(the dense, MoE, VLM, rwkv6 and hybrid families; whisper's in
+``tests/test_torch_encdec.py``), on
 the same numpy inputs and the same parameters (JAX-initialised, carried
 across with ``convert.lm_params_from_jax``); the port's twins of
 ``tests/test_models_smoke.py`` and of the RoPE, rmsnorm and
@@ -33,9 +35,12 @@ from repro_torch.models.config import ModelConfig, smoke_variant
 from repro_torch.models.transformer import build_model
 
 T = convert.tensor_from_numpy
-NEW_ARCHS = ("llama3-8b", "qwen2-1.5b", "chatglm3-6b", "llava-next-34b")
+NEW_ARCHS = ("llama3-8b", "qwen2-1.5b", "chatglm3-6b", "llava-next-34b",
+             "rwkv6-7b", "zamba2-1.2b")
 MOE_ARCHS = ("mixtral-8x22b", "qwen3-moe-235b-a22b")
-LM_ARCHS = ("tinyllama-1.1b",) + NEW_ARCHS + MOE_ARCHS
+# the encoder-decoder: its forward needs frames (tests/test_torch_encdec.py)
+ENCDEC_ARCHS = ("whisper-base",)
+LM_ARCHS = ("tinyllama-1.1b",) + NEW_ARCHS + MOE_ARCHS + ENCDEC_ARCHS
 TOL = dict(rtol=1e-5, atol=1e-5)
 B, S = 2, 32
 
@@ -187,7 +192,7 @@ def _models(arch, seed=0):
     rng = np.random.default_rng(seed)
     np_params = jax.tree.map(np.asarray, pj)
     for n in ("bq", "bk", "bv"):
-        if n in np_params["layers"]["attn"]:
+        if n in np_params.get("layers", {}).get("attn", {}):
             a = np_params["layers"]["attn"][n]
             np_params["layers"]["attn"][n] = (
                 0.1 * rng.normal(size=a.shape)).astype(np.float32)
@@ -288,7 +293,22 @@ def _smoke_batch(cfg):
         batch["labels"] = torch.ones((B, S - P), dtype=torch.int32)
         batch["prefix_embeds"] = torch.ones((B, P, cfg.d_model),
                                             dtype=cfg.torch_dtype)
+    if cfg.family == "audio":
+        batch["frames"] = _frames(cfg)
     return batch
+
+
+def _frames(cfg):
+    return torch.ones((B, cfg.encoder_seq, cfg.d_model), dtype=cfg.torch_dtype)
+
+
+def _decode_state(model, params, cache_len):
+    """A zero decode state; an encoder-decoder's holds the cross K/V of
+    stub frames, as the reference's smoke decode test."""
+    if model.cfg.is_encoder_decoder:
+        return model.init_decode_state(B, cache_len, frames=_frames(model.cfg),
+                                       params=params)
+    return model.init_decode_state(B, cache_len)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -309,7 +329,7 @@ def test_smoke_decode_step(arch):
     cfg = smoke_variant(get_config(arch))
     model = build_model(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    state = model.init_decode_state(B, 64)
+    state = _decode_state(model, params, 64)
     tok = torch.zeros((B, 1), dtype=torch.int32)
     for _ in range(3):
         logits, state = model.decode_step(params, state, tok)
@@ -320,14 +340,15 @@ def test_smoke_decode_step(arch):
 
 
 @pytest.mark.parametrize("arch", ("tinyllama-1.1b", "llama3-8b", "qwen2-1.5b",
-                                  "chatglm3-6b") + MOE_ARCHS)
+                                  "chatglm3-6b") + MOE_ARCHS
+                         + ("rwkv6-7b", "zamba2-1.2b") + ENCDEC_ARCHS)
 @pytest.mark.parametrize("kernel", [True, False])
 def test_decode_matches_forward(arch, kernel):
     """Teacher-forced decode reproduces the forward's logits, on both
     decode routes (the kernel's plain version here), at the reference's
     rtol 2e-2, atol 2e-3 (the MoE configs at the smoke variants'
     capacity factor 8, where neither drops a token, as the reference's
-    mixtral case)."""
+    mixtral case; whisper over the same stub frames)."""
     cfg = dataclasses.replace(smoke_variant(get_config(arch)),
                               sliding_window=None)
     model = build_model(cfg, decode_kernel=kernel)
@@ -335,8 +356,11 @@ def test_decode_matches_forward(arch, kernel):
     steps = 8
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, size=(B, steps)).astype(np.int32))
-    full_logits, _ = model.forward(params, tokens)
-    state = model.init_decode_state(B, steps)
+    if cfg.is_encoder_decoder:
+        full_logits, _ = model.forward(params, tokens, _frames(cfg))
+    else:
+        full_logits, _ = model.forward(params, tokens)
+    state = _decode_state(model, params, steps)
     outs = []
     for t in range(steps):
         logits, state = model.decode_step(params, state, tokens[:, t:t + 1])
@@ -384,12 +408,19 @@ def test_configs_are_the_reference_configs_field_for_field(arch):
     assert get_config(alias) is cfg
 
 
-@pytest.mark.parametrize("family,item", [("ssm", "13e"), ("hybrid", "13e"),
-                                         ("audio", "13f")])
-def test_unported_families_raise_naming_their_item(family, item):
-    cfg = ModelConfig(**dict(ATTN, family=family))
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        build_model(cfg)
+@pytest.mark.parametrize("family,fields", [
+    ("ssm", {}), ("hybrid", {"attn_every": 3}), ("audio", {}),
+    ("retnet", {})])
+def test_unported_families_raise_naming_their_item(family, fields):
+    """Every family of the reference is ported; the configs it refuses
+    the port refuses with its ValueError: an ssm without attn_free, a
+    hybrid whose attn_every does not divide its layers, an audio config
+    that is not an encoder-decoder, an unknown family."""
+    cfg = ModelConfig(**dict(ATTN, family=family, **fields))
+    jcfg = JModelConfig(**dict(ATTN, family=family, **fields))
+    for build in (build_model, j_build_model):
+        with pytest.raises(ValueError, match="family|attn_every"):
+            build(jcfg if build is j_build_model else cfg)
 
 
 # ---------------------------------------------------------------------------

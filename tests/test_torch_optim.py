@@ -257,11 +257,27 @@ def test_lm_batches_match_reference(arch):
 
 
 def test_lm_batch_frames_wait_for_their_family():
+    """The encoder-decoder's batch branches on is_encoder_decoder, as the
+    reference's: whisper's smoke variant (no ``frontend`` set) gets stub
+    ``frames`` (B, encoder_seq, D) from the batch's rng, then its tokens
+    and labels, byte for byte the reference's; a config that sets
+    ``frontend="audio"`` without being an encoder-decoder gets none."""
+    mcfg = smoke_variant(get_config("whisper-base"))
+    jmcfg = j_smoke_variant(j_get_config("whisper-base"))
+    assert mcfg.frontend is None and mcfg.is_encoder_decoder
+    kw = dict(batch_size=3, seq_len=40, seed=5)
+    for step in (0, 3):
+        got = lm_batch_at(DataConfig(**kw), mcfg, step)
+        want = j_lm_batch_at(JDataConfig(**kw), jmcfg, step)
+        assert sorted(got) == sorted(want) == ["frames", "labels", "tokens"]
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            assert got[k].tobytes() == want[k].tobytes(), (step, k)
+    assert got["frames"].shape == (3, mcfg.encoder_seq, mcfg.d_model)
     audio = ModelConfig(name="a", family="audio", num_layers=1, d_model=8,
                         num_heads=1, num_kv_heads=1, d_ff=8, vocab_size=16,
                         frontend="audio")
-    with pytest.raises(NotImplementedError, match="13f"):
-        lm_batch_at(DataConfig(), audio, 0)
+    assert sorted(lm_batch_at(DataConfig(), audio, 0)) == ["labels", "tokens"]
 
 
 # ---------------------------------------------------------------------------

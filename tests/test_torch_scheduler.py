@@ -1,8 +1,10 @@
 """The port's decode batch scheduler (``repro_torch.serving.scheduler``)
 against the JAX scheduler on the CPU: the reference's ``smoke_variant``
-of tinyllama-1.1b (and of mixtral-8x22b), its weights carried across by
-``convert.lm_params_from_jax``, the requests of ``tests/test_serving.py``.
-Greedy tokens must be equal, token for token."""
+of tinyllama-1.1b (and of mixtral-8x22b, rwkv6-7b, zamba2-1.2b and
+whisper-base, its stub frames encoded into each wave's cross K/V), its
+weights carried across by ``convert.lm_params_from_jax``, the requests of
+``tests/test_serving.py``. Greedy tokens must be equal, token for
+token."""
 import jax
 import numpy as np
 import pytest
@@ -128,8 +130,56 @@ def test_per_slot_latency_and_cache_bound(models):
              [Request(uid=2, prompt=[1, 2, 3], max_new_tokens=6)])
 
 
-def test_encoder_frames_raise_naming_the_roadmap(models):
-    _, _, tmodel, params = models
-    with pytest.raises(NotImplementedError, match="item 13"):
-        BatchScheduler(tmodel, params, batch_size=1, cache_len=8,
-                       frames=object(), device="cpu")
+def _smoke_pair(arch):
+    jmodel = j_build_model(j_smoke_variant(j_get_config(arch)))
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tmodel = build_model(smoke_variant(get_config(arch)))
+    return jmodel, jparams, tmodel, convert.lm_params_from_jax(
+        jax.tree.map(np.asarray, jparams))
+
+
+SPEC = [(i, [1 + i, 2, 3], 3 + (i % 3)) for i in range(6)]
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-1.2b"])
+def test_ssm_configs_match_the_reference_token_for_token(arch):
+    """6 requests in waves of 4 on rwkv6-7b's and zamba2-1.2b's smoke
+    variants: each wave from a zero recurrent state (and, for the
+    hybrid, zero KV caches), greedy tokens equal."""
+    jmodel, jparams, tmodel, params = _smoke_pair(arch)
+    jdone = _run(JScheduler(jmodel, jparams, batch_size=4, cache_len=32),
+                 [JRequest(uid=u, prompt=p, max_new_tokens=m)
+                  for u, p, m in SPEC])
+    done = _run(BatchScheduler(tmodel, params, batch_size=4, cache_len=32,
+                               device="cpu"),
+                [Request(uid=u, prompt=p, max_new_tokens=m)
+                 for u, p, m in SPEC])
+    assert len(done) == 6
+    for u, _, m in SPEC:
+        assert done[u].output == jdone[u].output, u
+        assert len(done[u].output) == m
+
+
+def test_encoder_frames_raise_naming_the_roadmap():
+    """whisper-base's smoke variant with stub frames (batch_size, 16, D):
+    each wave's decode state holds their cross K/V, as the reference's
+    scheduler builds it; greedy tokens equal, token for token."""
+    jmodel, jparams, tmodel, params = _smoke_pair("whisper-base")
+    cfg = tmodel.cfg
+    frames = np.random.default_rng(0).normal(
+        size=(4, cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    jdone = _run(JScheduler(jmodel, jparams, batch_size=4, cache_len=32,
+                            frames=jax.numpy.asarray(frames)),
+                 [JRequest(uid=u, prompt=p, max_new_tokens=m)
+                  for u, p, m in SPEC])
+    ops.reset_launches()
+    sched = BatchScheduler(tmodel, params, batch_size=4, cache_len=32,
+                           frames=convert.tensor_from_numpy(frames),
+                           device="cpu")
+    done = _run(sched, [Request(uid=u, prompt=p, max_new_tokens=m)
+                        for u, p, m in SPEC])
+    assert not any(ops.LAUNCHES.values())
+    assert [s.batch for s in sched.stats] == [4, 2]
+    for u, _, m in SPEC:
+        assert done[u].output == jdone[u].output, u
+        assert len(done[u].output) == m
