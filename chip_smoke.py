@@ -10,6 +10,7 @@
     python3 chip_smoke.py --cluster       # the cluster phases; no result
     python3 chip_smoke.py --models        # flash_decode's small shapes and
                                           # the LM configs; no result
+    python3 chip_smoke.py --tp            # [tp-serve-full] only; no result
 
 Phases, one line or block each; any failure exits non-zero:
 
@@ -281,6 +282,33 @@ Phases, one line or block each; any failure exits non-zero:
    17.2 GB of KV), whisper at its 448-token cap; ``flash_decode`` at
    both G 1 shapes against plain, SDPA and its SIMT route, its launches
    under ``configs`` and ``launches_by_path``.
+
+18. slice 20, tensor- and data-parallel LM serving on ranks: after
+   ``[model-full]``, ``[tp-serve-full]``: chatglm3-6b at full width and
+   depth, bf16, seeded random weights, on a 1 × 4 mesh of ranks over
+   gloo on this card (kv_repeat 2: a rank decodes 8 query heads over 1
+   cache head, G 8, hd 128), batch 32, cache 8192 (a stated cut), 16
+   greedy steps from seeded distinct first tokens through
+   ``serve_lm(mesh=)``, held to the one-rank kernel-route ``serve_lm``
+   of the same weights, cache and tokens run first here and freed
+   (teacher-forced logits within the serve step's swap limit a layer,
+   with two controls: one rank's heads alone in the attention sum,
+   valid_len a chunk short; tokens equal where the margin exceeds the
+   difference); one rank step under ``no_implicit_host_sync``; then, on
+   the same ranks, the same weights in float32 with seeded q/k/v biases,
+   4 teacher-forced steps at batch 4 over a 16-slot cache against the
+   one-rank float32 run within 1e-4 of max |logit|, with three controls
+   each on one rank (two heads swapped in wo, the q bias shard dropped,
+   the new K/V cut from the next rank's block); ms a step
+   per rank against the one-rank step and the per-rank bytes bound
+   (``launch.costs`` beside it), peak memory a rank, ``flash_decode``
+   launches by route over the ranks (the flash_decode row's
+   ``configs`` and ``launches_by_path``), and ``flash_decode`` at a
+   rank's shape (B 32, H 8, KV 1, S 8192, hd 128) against plain, SDPA
+   and its SIMT route. In the same spawn, first, the data axis at smoke
+   width: chatglm3's smoke variant on 2 × 2 ranks (FSDP gathers, the
+   batch split) against its one-rank run on the CPU, token for token.
+   ``--tp`` runs only this phase after the build.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
@@ -3864,6 +3892,460 @@ def phase_model_full(torch, T, ops, ref, arch, batch, cache_len):
     return row, paths, embed
 
 
+# --- slice 20: tensor- and data-parallel LM serving on ranks ---------------
+
+# [tp-serve-full]: chatglm3-6b at full width and depth on a 1 × 4 mesh of
+# ranks sharing the card over gloo. kv_repeat is 2 (2 KV heads → 4), so a
+# rank decodes its 8 of the 32 query heads over 1 of the 4 cache heads (G
+# 8, hd 128). The cache of 8192 is a stated cut: r = 2 doubles the KV
+# cache, 60 GB at 32768 over the four ranks of one card.
+TP_ARCH = "chatglm3-6b"
+TP_GRID = (1, 4)
+TP_BATCH, TP_CACHE, TP_STEPS = 32, 8192, 16
+# The data axis (FSDP gathers, the batch split) at smoke width only: its
+# weight gathers through gloo's host staging would take seconds a step at
+# full width.
+TP_SMOKE_GRID, TP_SMOKE_BATCH, TP_SMOKE_CACHE = (2, 2), 4, 256
+# A float32 check of the same weights on the same 1 × 4 ranks, tight
+# enough to see one head's fault: 4 teacher-forced steps at batch 4 over
+# a 16-slot cache, with seeded random q/k/v biases (the template's are
+# zeros, which would hide a dropped bias shard), against the one-rank
+# float32 run. The bf16 limit above is ~0.19 of max |logit|, wider than
+# one head's fault; float32 differs only by the order of the sums (the
+# CPU tests hold the sharded step to JAX's at 1e-5 of max |logit|).
+# Three controls, each on one rank only, one step each (a step of the
+# four ranks over gloo takes 0.5–0.8 s): two of its heads' output rows
+# swapped in every layer, its shard of the q bias dropped, and the new
+# K/V cut from the next rank's block of the KV·r heads (a wrong kv_repeat
+# slice: it reaches only the new slot, hence the short cache).
+TP32_BATCH, TP32_CACHE, TP32_STEPS = 4, 16, 4
+TP32_BIAS_STD = 0.5
+TP32_TOL = 1e-4
+
+
+def _tp_prompts(torch, vocab: int, batch: int):
+    """Seeded, distinct first tokens (batch, 1) int32 on the host."""
+    gen = torch.Generator().manual_seed(11)
+    return torch.randperm(vocab, generator=gen)[:batch, None].to(torch.int32)
+
+
+def _tp_logits(torch, model, params, state, start, tokens):
+    """Last logits (steps, B, V) f32 on the host of decode_step fed
+    ``tokens`` (B, steps) one at a time from ``state`` at position
+    ``start`` (slots from ``start`` on are written before they are
+    read)."""
+    st = state._replace(pos=start)
+    outs = []
+    for t in range(tokens.shape[1]):
+        logits, st = model.decode_step(params, st, tokens[:, t:t + 1])
+        outs.append(logits[:, -1].float().cpu())
+    return torch.stack(outs)
+
+
+def _tp_build(cfg, mesh, batch: int, cache: int):
+    """The serve bundle's model of ``cfg`` on ``mesh`` and (params', state's)
+    placements (``launch.steps.build_serve_step``)."""
+    from repro_torch.launch.steps import InputShape, build_serve_step
+    bundle = build_serve_step(cfg, mesh, InputShape("tp", "decode", cache,
+                                                    batch))
+    return bundle.model, bundle.in_shardings[:2]
+
+
+def _tp_fill(torch, cfg, params, state, gen, kv_repeat=1, place=None,
+             mesh=None, biases=False):
+    """Seeded random q/k/v biases (``biases``) and K/V in every slot,
+    each drawn whole as the one-rank run draws it (the cache layer by
+    layer), repeated ``kv_repeat``× and cut to this rank's slice under
+    ``place`` (the params' and state's placements) on ``mesh``."""
+    from repro_torch.models.layers import local_shard, shard_count
+
+    def cut(t, pl):
+        return t if mesh is None else local_shard(t, pl, mesh)
+    attn = params["layers"]["attn"]
+    for b in ("bq", "bk", "bv") if biases else ():
+        lead = (cfg.num_layers,)
+        heads = cfg.num_heads if b == "bq" else cfg.num_kv_heads
+        whole = torch.empty(lead + (heads, cfg.hd), dtype=attn[b].dtype,
+                            device=attn[b].device)
+        whole.normal_(std=TP32_BIAS_STD, generator=gen)
+        attn[b].copy_(cut(whole, None if mesh is None else place[0][
+            "layers"]["attn"][b]))
+    B, S = state.caches.k.shape[1], state.caches.k.shape[3]
+    if mesh is not None:
+        B *= shard_count(place[1].caches.k[1], mesh)
+    whole = torch.empty((B, cfg.num_kv_heads, S, cfg.hd),
+                        dtype=state.caches.k.dtype,
+                        device=state.caches.k.device)
+    for i in range(cfg.num_layers):
+        for dst, std in ((state.caches.k[i], KEY_SCALE),
+                         (state.caches.v[i], 1.0)):
+            whole.normal_(std=std, generator=gen)
+            dst.copy_(cut(whole.repeat_interleave(kv_repeat, 1),
+                          None if mesh is None else place[1].caches.k[1:]))
+
+
+def _tp_serve_rank(rank, sprompts, prompts, tf_in) -> dict:
+    """This rank's part of [tp-serve-full]: the smoke serve on the 2 × 2
+    mesh, then chatglm3-6b on the 1 × 4 mesh: its shards of seed 0's
+    weights and of the seed-1 cache (each layer's K/V drawn whole as the
+    one-rank run draws them, repeated r× and cut), the main path (one
+    serve_lm, its flash_decode launches counted from 0), the
+    teacher-forced logits on the one-rank tokens, the two controls and
+    one step under no_implicit_host_sync; then the float32 check and its
+    three controls. → rank 0's logits and the rank's tokens, launches,
+    ms, bytes and peak."""
+    import dataclasses
+    import torch
+    from repro_torch.analysis import no_implicit_host_sync
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import attention as attn_lib
+    from repro_torch.models import layers, smoke_variant
+    t_part = time.perf_counter()
+    dev = torch.device(rank.device)
+    out = {}
+    ops.reset_launches()
+    smoke = serve_lm(smoke_variant(get_config(TP_ARCH)), batch=TP_SMOKE_BATCH,
+                     cache_len=TP_SMOKE_CACHE, tokens=TP_STEPS, device=dev,
+                     mesh=make_host_mesh(*TP_SMOKE_GRID), first=sprompts)
+    out["smoke_tokens"] = smoke.tokens.numpy()
+    out["smoke_launches"] = ops.LAUNCHES["flash_decode"]
+    del smoke
+    cfg = get_config(TP_ARCH)
+    mesh = make_host_mesh(*TP_GRID)
+    model, place = _tp_build(cfg, mesh, TP_BATCH, TP_CACHE)
+    r = model.kv_repeat
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = model.init_decode_state(TP_BATCH, TP_CACHE, dev, place=place[1])
+    _tp_fill(torch, cfg, params, state,
+             torch.Generator(device=dev).manual_seed(1), r, place, mesh)
+    start = torch.full((), TP_CACHE - TP_STEPS, dtype=torch.int32,
+                       device=dev)
+    tf = tf_in.to(dev)
+    torch.cuda.synchronize()
+    out["setup_s"] = time.perf_counter() - t0
+    # a warm step (its slot is written again before it is read)
+    model.decode_step(params, state._replace(pos=start), tf[:, :1])
+    # --- the main path: counts from 0, one serve_lm, counts read ---------
+    ops.reset_launches()
+    res = serve_lm(cfg, batch=TP_BATCH, cache_len=TP_CACHE, tokens=TP_STEPS,
+                   device=dev, params=params, state=state._replace(pos=start),
+                   mesh=mesh, first=prompts)
+    out["launches"] = ops.LAUNCHES["flash_decode"]
+    out["routes"] = {k: v for k, v in ops.ROUTE_LAUNCHES.items()
+                     if k.startswith("flash_decode") and v}
+    out["tokens"] = res.tokens.numpy()
+    out["step_ms"] = 1e3 * res.seconds / TP_STEPS
+    out["kv_repeat"] = r
+    out["heads"] = (params["layers"]["attn"]["wq"].shape[2],
+                    state.caches.k.shape[2])
+    out["bytes"] = _step_bytes(model, params, state, TP_BATCH, TP_CACHE,
+                               TP_STEPS)[0]
+    out["shard_bytes"] = _nbytes(params)
+    # one all-reduce of the residual stream (B × d f32) over the model
+    # group, as a layer sums its partial products: its round trip
+    x = torch.zeros((TP_BATCH, cfg.d_model), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(10):
+        x = layers.model_sum(x, mesh)
+    torch.cuda.synchronize()
+    out["sum_ms"] = 1e3 * (time.perf_counter() - t0) / 10
+    got = _tp_logits(torch, model, params, state, start, tf)
+    # the controls, one step each from the same cache and position
+    fd, sm = ops.decode_attention, attn_lib.sharded_matmul
+
+    def heads_alone(x, w, place, mesh, *, nk=1, x_split=False):
+        summed = layers.model_sum
+        layers.model_sum = lambda y, mesh: y
+        try:
+            return sm(x, w, place, mesh, nk=nk, x_split=x_split)
+        finally:
+            layers.model_sum = summed
+    controls = {}
+    for name, patch in (
+            ("one rank's heads alone in the attention sum",
+             lambda: setattr(attn_lib, "sharded_matmul", heads_alone)),
+            ("valid_len one chunk short",
+             lambda: setattr(ops, "decode_attention", lambda q, k, v, n: fd(
+                 q, k, v, n - _fd_chunk(TP_CACHE))))):
+        patch()
+        try:
+            controls[name] = _tp_logits(torch, model, params, state, start,
+                                        tf[:, :1])[0]
+        finally:
+            ops.decode_attention, attn_lib.sharded_matmul = fd, sm
+    torch.cuda.synchronize()
+    with no_implicit_host_sync():
+        model.decode_step(params, state._replace(pos=start), tf[:, :1])
+    torch.cuda.synchronize()
+    out["peak"] = torch.cuda.max_memory_allocated()
+    if rank.rank == 0:
+        out["logits"], out["controls"] = got.numpy(), {
+            k: v.numpy() for k, v in controls.items()}
+    del params, state, res, model
+    torch.cuda.empty_cache()
+    # --- float32: the same weights, tight enough to see one head's fault
+    t0 = time.perf_counter()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model, place = _tp_build(cfg32, mesh, TP32_BATCH, TP32_CACHE)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = model.init_decode_state(TP32_BATCH, TP32_CACHE, dev,
+                                    place=place[1])
+    _tp_fill(torch, cfg32, params, state,
+             torch.Generator(device=dev).manual_seed(2), r, place, mesh,
+             biases=True)
+    start = torch.full((), TP32_CACHE - TP32_STEPS, dtype=torch.int32,
+                       device=dev)
+    tf = tf_in[:TP32_BATCH, :TP32_STEPS].to(dev)
+    got = _tp_logits(torch, model, params, state, start, tf)
+    attn, m, ms = params["layers"]["attn"], mesh.shape["model"], \
+        attn_lib.model_shard
+    bq = attn["bq"].clone()
+
+    def swap_heads():                     # an involution: undoes itself
+        attn["wo"][:, [0, 1]] = attn["wo"][:, [1, 0]]
+
+    def next_block(t, dim, mesh):
+        size = t.shape[dim] // m
+        return t.narrow(dim, (mesh.index("model") + 1) % m * size, size)
+    controls = {}
+    for name, who, patch, undo in (
+            ("rank 2's heads 0 and 1 swapped in wo", 2, swap_heads,
+             swap_heads),
+            ("rank 3's shard of the q bias dropped", 3,
+             lambda: attn["bq"].zero_(), lambda: attn["bq"].copy_(bq)),
+            ("rank 1's new K/V cut from the next rank's block", 1,
+             lambda: setattr(attn_lib, "model_shard", next_block),
+             lambda: setattr(attn_lib, "model_shard", ms))):
+        if rank.rank == who:
+            patch()
+        try:
+            controls[name] = _tp_logits(torch, model, params, state, start,
+                                        tf[:, :1])[0]
+        finally:
+            if rank.rank == who:
+                undo()
+    if rank.rank == 0:
+        out["logits32"], out["controls32"] = got.numpy(), {
+            k: v.numpy() for k, v in controls.items()}
+    out["f32_s"] = time.perf_counter() - t0
+    del params, state
+    torch.cuda.empty_cache()
+    out["s"] = time.perf_counter() - t_part
+    return out
+
+
+def _tp_token_checks(torch, got, want, tokens, one_tokens, tag):
+    """Tokens (steps, B) of a sharded run against the one-rank run's:
+    the teacher-forced argmax equal where the one-rank top-2 margin
+    exceeds the step's max |Δ| of the logits; the free-running serve's
+    rows equal up to their first difference, which must come at such a
+    near tie. → (steps × rows equal, rows that ran apart)."""
+    diff = (got - want).abs().amax(-1)                       # (steps, B)
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[..., 0] - top2[..., 1]) > diff
+    agree = got.argmax(-1) == one_tokens.long()
+    check(bool(agree[clear].all()), f"[{tag}] teacher-forced tokens differ "
+          "where the margin exceeds the ranks' difference")
+    same = torch.from_numpy(tokens).long() == one_tokens.long()
+    apart = 0
+    for b in range(same.shape[1]):
+        if bool(same[:, b].all()):
+            continue
+        t = int((~same[:, b]).nonzero()[0, 0])
+        apart += 1
+        check(not bool(clear[t, b]), f"[{tag}] row {b} ran apart at step "
+              f"{t}, where the one-rank margin exceeds the difference")
+    return int(agree.sum()), apart
+
+
+def phase_tp_serve(torch, ops, ref):
+    """``[tp-serve-full]`` (the module's docstring, phase 18). → (the
+    flash_decode entry of a rank's shape for the row's ``configs``, the
+    main path's launches over the ranks)."""
+    import dataclasses
+    from repro_torch import compat
+    from repro_torch.configs import get_config
+    from repro_torch.launch import costs
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.launch.steps import InputShape
+    from repro_torch.models import build_model, smoke_variant
+    from repro_torch.models.layers import tree_map
+    import numpy as np
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    scfg = smoke_variant(get_config(TP_ARCH))
+    sprompts = _tp_prompts(torch, scfg.vocab_size, TP_SMOKE_BATCH)
+    sparams = build_model(scfg).init(torch.Generator(device=dev)
+                                     .manual_seed(0))
+    cpu = serve_lm(scfg, batch=TP_SMOKE_BATCH, cache_len=TP_SMOKE_CACHE,
+                   tokens=TP_STEPS, device="cpu", first=sprompts,
+                   params=tree_map(lambda w: w.cpu(), sparams))
+    del sparams
+    # the one-rank reference at full width: seed 0's weights, seed 1's
+    # cache, the kernel route
+    cfg = get_config(TP_ARCH)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = model.init_decode_state(TP_BATCH, TP_CACHE, dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    _fill_cache(torch, state, gen)
+    prompts = _tp_prompts(torch, cfg.vocab_size, TP_BATCH)
+    start = torch.full((), TP_CACHE - TP_STEPS, dtype=torch.int32,
+                       device=dev)
+    model.decode_step(params, state._replace(pos=start),
+                      prompts.to(dev))                    # a warm step
+    torch.cuda.synchronize()
+    one = serve_lm(cfg, batch=TP_BATCH, cache_len=TP_CACHE, tokens=TP_STEPS,
+                   device=dev, params=params, state=state._replace(pos=start),
+                   first=prompts)
+    tf_in = torch.cat([prompts, one.tokens[:-1].T], 1)      # (B, steps)
+    want = _tp_logits(torch, model, params, state, start, tf_in.to(dev))
+    check(torch.equal(want.argmax(-1).to(torch.int32), one.tokens),
+          "[tp-serve-full] the one-rank teacher-forced argmax is not its "
+          "serve's tokens")
+    one_bytes = _step_bytes(model, params, state, TP_BATCH, TP_CACHE,
+                            TP_STEPS)[0]
+    m = TP_GRID[1]
+    H = cfg.num_heads // m
+    k = state.caches.k[0][:, :1].contiguous()    # rank 0's cache head
+    v = state.caches.v[0][:, :1].contiguous()
+    full = torch.full((), TP_CACHE, dtype=torch.int32, device=dev)
+    fd_row = time_flash_decode(torch, ops, ref, H, k, v, full, gen)
+    del params, state, model, k, v
+    torch.cuda.empty_cache()
+    # the one-rank float32 reference of the float32 check
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = build_model(cfg32)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    state = model.init_decode_state(TP32_BATCH, TP32_CACHE, dev)
+    _tp_fill(torch, cfg32, params, state,
+             torch.Generator(device=dev).manual_seed(2), biases=True)
+    start = torch.full((), TP32_CACHE - TP32_STEPS, dtype=torch.int32,
+                       device=dev)
+    want32 = _tp_logits(torch, model, params, state, start,
+                        tf_in[:TP32_BATCH, :TP32_STEPS].to(dev))
+    del params, state, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    per_rank = compat.spawn(_tp_serve_rank, m * TP_GRID[0],
+                            (sprompts, prompts, tf_in), device="cuda",
+                            timeout_s=300.0, join_timeout_s=600.0)
+    spawn_s = time.perf_counter() - t0
+    # the data axis at smoke width: every rank the whole batch's tokens
+    for r, res in enumerate(per_rank):
+        check(torch.equal(torch.from_numpy(res["smoke_tokens"]), cpu.tokens),
+              f"[tp-serve-full] smoke rank {r}: {TP_SMOKE_GRID} ranks' "
+              "tokens differ from the one-rank CPU run")
+    slaunch = sum(r["smoke_launches"] for r in per_rank)
+    say(f"[tp-serve-full] {scfg.name} smoke variant on {TP_SMOKE_GRID[0]} "
+        f"data × {TP_SMOKE_GRID[1]} model ranks (FSDP gathers, batch "
+        f"{TP_SMOKE_BATCH} split): {TP_STEPS} tokens ≡ the one-rank CPU run "
+        f"(plain versions) on every rank; flash_decode launches "
+        f"{slaunch} over the ranks")
+    check(slaunch == scfg.num_layers * TP_STEPS * len(per_rank),
+          f"[tp-serve-full] the smoke serve launched {slaunch} flash_decode")
+    # full width: the teacher-forced logits against the one-rank run's
+    r0 = per_rank[0]
+    got = torch.from_numpy(r0["logits"])
+    scale = float(want.abs().max())
+    tol = SWAP_TOL * cfg.num_layers
+    rel = [float((got[t] - want[t]).abs().max()) / scale
+           for t in range(TP_STEPS)]
+    ctl = {n: float((torch.from_numpy(c) - want[0]).abs().max()) / scale
+           for n, c in r0["controls"].items()}
+    agree, apart = _tp_token_checks(torch, got, want, r0["tokens"],
+                                    one.tokens, "tp-serve-full")
+    for r, res in enumerate(per_rank):
+        check(np.array_equal(res["tokens"], r0["tokens"]),
+              f"[tp-serve-full] rank {r}'s tokens are not rank 0's")
+    launches = sum(r["launches"] for r in per_rank)
+    routes = {}
+    for res in per_rank:
+        for key, n in res["routes"].items():
+            routes[key] = routes.get(key, 0) + n
+    want_launches = cfg.num_layers * TP_STEPS * len(per_rank)
+    bytes_rank = max(r["bytes"] for r in per_rank)
+    bms_rank = bytes_rank / HBM_BYTES_PER_S * 1e3
+    card_ms = sum(r["bytes"] for r in per_rank) / HBM_BYTES_PER_S * 1e3
+    analytic = costs.step_hbm_bytes(cfg, InputShape(
+        "tp", "decode", TP_CACHE, TP_BATCH))
+    one_ms = 1e3 * one.seconds / TP_STEPS
+    say(f"[tp-serve-full] {TP_ARCH} at full width: {cfg.num_layers} layers, "
+        f"d {cfg.d_model}, {cfg.num_heads} heads / {cfg.num_kv_heads} KV, "
+        f"kv_repeat {r0['kv_repeat']} → a rank's {r0['heads'][0]} query heads "
+        f"over {r0['heads'][1]} cache head (G "
+        f"{r0['heads'][0] // r0['heads'][1]}), on {TP_GRID[0]} × {m} ranks "
+        f"over gloo on this card; batch {TP_BATCH}, cache {TP_CACHE} (a "
+        f"stated cut), {TP_STEPS} steps from position "
+        f"{TP_CACHE - TP_STEPS}")
+    say(f"[tp-serve-full] teacher-forced logits vs the one-rank kernel "
+        f"route, by step: max|Δ| / max|logit| {scale:.3f} = "
+        f"{[f'{x:.2e}' for x in rel]} (tol {tol:.3g} = {SWAP_TOL:.4g} a "
+        f"layer × {cfg.num_layers}); controls at step 0: "
+        + ", ".join(f"{n} {x:.2e}" for n, x in ctl.items())
+        + f"; greedy tokens: teacher-forced {agree} of "
+        f"{TP_STEPS * TP_BATCH} equal, the serve's rows run apart in "
+        f"{apart} of {TP_BATCH}, each at a near tie")
+    check(max(rel) <= tol, f"[tp-serve-full] logits differ by {max(rel):.2e}")
+    check(min(ctl.values()) > tol, "[tp-serve-full] the check cannot see a "
+          f"control: {ctl}")
+    got32 = torch.from_numpy(r0["logits32"])
+    scale32 = float(want32.abs().max())
+    rel32 = [float((got32[t] - want32[t]).abs().max()) / scale32
+             for t in range(TP32_STEPS)]
+    ctl32 = {n: float((torch.from_numpy(c) - want32[0]).abs().max())
+             / scale32 for n, c in r0["controls32"].items()}
+    say(f"[tp-serve-full] float32, the same weights with q/k/v biases "
+        f"N(0, {TP32_BIAS_STD}), batch {TP32_BATCH}, cache {TP32_CACHE}, "
+        f"{TP32_STEPS} teacher-forced steps on the {TP_GRID[0]} × {m} ranks "
+        f"vs the one-rank float32 run: max|Δ| / max|logit| {scale32:.3f} = "
+        f"{[f'{x:.2e}' for x in rel32]} (tol {TP32_TOL:.0e}); controls "
+        "at step 0, each on one rank: "
+        + ", ".join(f"{n} {x:.2e}" for n, x in ctl32.items())
+        + f" ({max(x['f32_s'] for x in per_rank):.1f} s a rank)")
+    check(max(rel32) <= TP32_TOL, "[tp-serve-full] float32 logits differ "
+          f"by {max(rel32):.2e}")
+    check(min(ctl32.values()) > TP32_TOL, "[tp-serve-full] the float32 "
+          f"check cannot see a control: {ctl32}")
+    say(f"[tp-serve-full] serve_lm on the ranks: ms a step by rank "
+        f"{[round(x['step_ms'], 3) for x in per_rank]} against "
+        f"{one_ms:.3f} on one rank (a step's {2 * cfg.num_layers + 1} "
+        f"all-reduces and a gather: one all-reduce of {TP_BATCH} × "
+        f"{cfg.d_model} f32 over the model group "
+        f"{[round(x['sum_ms'], 3) for x in per_rank]} ms by rank); a rank's "
+        f"bytes bound {bms_rank:.3f} ms "
+        f"({bytes_rank / 1e9:.3f} GB a step: its weight shards "
+        f"{r0['shard_bytes'] / 1e9:.3f} GB, its cache head's rows), the "
+        f"four ranks on one card {card_ms:.3f} ms (one rank: "
+        f"{one_bytes / HBM_BYTES_PER_S * 1e3:.3f}; launch.costs' whole "
+        f"step {analytic / 1e9:.2f} GB, a quarter "
+        f"{analytic / 4 / HBM_BYTES_PER_S * 1e3:.3f} ms); peak memory by "
+        f"rank (GB) {[round(x['peak'] / 1e9, 2) for x in per_rank]}; "
+        f"flash_decode launches {launches} over the ranks (want "
+        f"{want_launches}), routes {routes}; one step a rank under "
+        f"no_implicit_host_sync")
+    check(launches == want_launches and routes.get(
+        "flash_decode/tensor_core", 0) == launches,
+        f"[tp-serve-full] flash_decode launched {launches}, routes {routes}")
+    say(f"[tp-serve-full] done in {time.perf_counter() - t_phase:.1f} s (the "
+        f"one-rank reference and flash_decode {one_s:.1f}, the spawn "
+        f"{spawn_s:.1f}: a rank's setup {r0['setup_s']:.1f}, its part "
+        f"{max(x['s'] for x in per_rank):.1f})")
+    entry = {key: fd_row[key] for key in (
+        "ms", "plain_ms", "bound_ms", "library_ms", "simt_ms", "shape")}
+    entry["launches"] = launches
+    return entry, launches
+
+
 # --- slice 17: LM training on one process at full width --------------------
 
 # [train-full]: full width and depth, bf16, one config at a time (an untied
@@ -5203,13 +5685,17 @@ def phase_stream_ckpt(torch, T, ops):
     max_rounds 3, the streams submitting one after another to the
     background scheduler) with ``checkpoint_dir`` (a temporary directory,
     removed at the end), ``checkpoint_every_waves=1`` and
-    ``checkpoint_keep=2``. Register (each register checkpoints), waves 1
-    and 2, each checkpointed; restore on the card; wave 3 on the original
-    service (checkpointing, under an armed ``ckpt_corrupt``) and on the
-    restored one (not checkpointing): every tenant bit for bit the same
-    in both, versions and uids continuing from the manifest; then a
-    restore falls back past the corrupted generation to wave 2's, bit
-    for bit. Each checkpoint's ms by part, restore ms, bytes on disk."""
+    ``checkpoint_keep=2``. Register (each register checkpoints), wave 1,
+    checkpointed; restore on the card; wave 2 on the original service
+    (checkpointing) and on the restored one (not checkpointing): every
+    tenant bit for bit the same in both, versions and uids continuing
+    from the manifest; then one more checkpoint, its medium corrupted,
+    and a restore falls back past it to wave 2's generation, bit for
+    bit. Each checkpoint's ms by part, restore ms, bytes on disk. A
+    second checkpointed wave before the restore (~18 s on a fast host,
+    22.4 s on a slow one) went with [tp-serve-full]'s coming, to keep the
+    whole run within 1000 s: the run with it took 1204.7 s on an NVIDIA
+    H100 80GB HBM3 at 700 W whose host built the kernels in 46.2 s."""
     import shutil
     import tempfile
     from repro_torch import faults
@@ -5266,11 +5752,10 @@ def phase_stream_ckpt(torch, T, ops):
                 f"{s + 1} stream(s) {split(svc.last_checkpoint_ms)} ms")
         del X0, y0, model
         svc.start()
-        for w in (1, 2):
-            folded, done, walls = wave(svc, w)
-            say(f"[stream-full-ckpt] wave {w}: folded {folded:.1f} ms (folds "
-                f"{walls}), with its checkpoint {done:.1f} ms; checkpoint "
-                f"{split(svc.last_checkpoint_ms)} ms")
+        folded, done, walls = wave(svc, 1)
+        say(f"[stream-full-ckpt] wave 1: folded {folded:.1f} ms (folds "
+            f"{walls}), with its checkpoint {done:.1f} ms; checkpoint "
+            f"{split(svc.last_checkpoint_ms)} ms")
         files = [os.path.join(ck_dir, f) for f in os.listdir(ck_dir)]
         on_disk = sum(os.path.getsize(f) for f in files)
         man = json.load(open(os.path.join(ck_dir, "service_manifest.json")))
@@ -5296,18 +5781,18 @@ def phase_stream_ckpt(torch, T, ops):
         check(same and r1._uid == svc._uid and r1._wave == svc._wave,
               "[stream-full-ckpt] restore is not the saved state")
 
-        folded, done, walls = wave(svc, 3)
-        say(f"[stream-full-ckpt] wave 3, original service: folded "
+        folded, done, walls = wave(svc, 2)
+        say(f"[stream-full-ckpt] wave 2, original service: folded "
             f"{folded:.1f} ms (folds {walls}), with its checkpoints "
             f"{done:.1f} ms")
         svc.stop()
         r1.start()
-        folded, done, walls = wave(r1, 3)
+        folded, done, walls = wave(r1, 2)
         r1.stop()
         same = all(_same_snapshot(torch, r1.snapshot(s), svc.snapshot(s))
                    for s in names)
         uids = sorted(mb.uid for mb in r1.done)
-        say(f"[stream-full-ckpt] wave 3, restored service (no checkpoint): "
+        say(f"[stream-full-ckpt] wave 2, restored service (no checkpoint): "
             f"folded {folded:.1f} ms (folds {walls}); every tenant bit for "
             f"bit the original's {same}, versions "
             f"{[r1.snapshot(s).version for s in names]}, uids {uids}")
@@ -5316,7 +5801,7 @@ def phase_stream_ckpt(torch, T, ops):
         del r1, after2
 
         # one more checkpoint, its medium corrupted: restore falls back to
-        # the generation before it, wave 3's last, bit for bit
+        # the generation before it, wave 2's last, bit for bit
         plan = faults.FaultPlan.single("ckpt_corrupt", 0)
         with faults.inject(plan) as armed:
             svc.checkpoint()
@@ -7144,6 +7629,9 @@ def main() -> int:
                     help="run only the cluster launch's phases "
                     "([cluster-small], [cluster-full]) after the kernel "
                     "build; print no result")
+    ap.add_argument("--tp", action="store_true",
+                    help="run only [tp-serve-full] after the kernel build; "
+                    "print no result")
     ap.add_argument("--models", action="store_true",
                     help="run only flash_decode's small shapes and the LM "
                     "configs at full width ([model-full], [serve-full], "
@@ -7179,6 +7667,11 @@ def main() -> int:
         say(f"[sharded-sweep-full] launches by kernel row "
             f"{phase_sharded_sweep_full(torch, T)}")
         say(f"[sharded] done in {time.perf_counter() - t_all:.1f} s; "
+            f"{nvidia_smi()}; no result")
+        return 0
+    if args.tp:
+        phase_tp_serve(torch, ops, ref)
+        say(f"[tp] done in {time.perf_counter() - t_all:.1f} s; "
             f"{nvidia_smi()}; no result")
         return 0
     if args.models:
@@ -7277,9 +7770,13 @@ def main() -> int:
             by_config[arch] = {k: fd_row[k] for k in (
                 "ms", "plain_ms", "bound_ms", "library_ms", "simt_ms",
                 "launches", "shape")}
-    kernels[-1]["configs"] = by_config
     say(f"[model-full] {len(MODEL_CELLS)} configs in "
         f"{time.perf_counter() - t_models:.1f} s")
+    torch.cuda.empty_cache()
+    # slice 20: chatglm3-6b served on a 1 × 4 mesh of ranks
+    by_config[f"tp-serve-full:{TP_ARCH}"], fd_paths[
+        f"tp-serve-full:{TP_ARCH}"] = phase_tp_serve(torch, ops, ref)
+    kernels[-1]["configs"] = by_config
     # slice 17: LM training at full width; no kernel on its path
     phase_train(torch, ops)
     # `launches` stays the row's main path's own count (the fit, or the

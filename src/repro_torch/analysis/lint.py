@@ -31,7 +31,7 @@ Modes:
     python -m repro_torch.analysis.lint --self-test  # seed one violation
         per rule and require the rule to fire naming op and program
     python -m repro_torch.analysis.lint --artifacts D  # the reference's
-        dry-run artifacts: not ported (ROADMAP Queue 1 item 13)
+        dry-run artifacts: not ported (ROADMAP Queue 1 item 13g-b)
 
 ``--device cuda`` runs the matrix, the dynamic rules and the self-test
 on the card (where the runtime host-sync guard can fire); the default is
@@ -460,7 +460,7 @@ def run_self_test(device: str = "cpu") -> int:
 def run_artifacts(art_dir: str) -> int:
     raise NotImplementedError(
         "--artifacts re-compiles the reference's JAX dry-run artifacts for "
-        "TPU meshes; the port has no dry-run (ROADMAP Queue 1 item 13, "
+        "TPU meshes; the port has no dry-run (ROADMAP Queue 1 item 13g-b, "
         f"launch/dryrun), so {art_dir!r} cannot be checked")
 
 

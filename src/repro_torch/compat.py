@@ -8,6 +8,10 @@ place of mesh axes. One process is one rank, and a rank holds one
 partition, as one device of the reference's mesh does. ``group=None``
 is the default (world) group.
 
+:class:`Mesh` (:func:`rank_mesh`) lays the ranks out on a grid of named
+axes, as ``jax.make_mesh`` lays out devices, with this rank's
+coordinates and a subgroup partition (:class:`Groups`) an axis.
+
 Backends. NCCL runs every op on device tensors. gloo reads host memory,
 so on a gloo group every op here stages a CUDA tensor through a pinned
 host buffer (one copy to the host before the op, one back after it);
@@ -39,6 +43,7 @@ import contextlib
 import dataclasses
 import datetime
 import itertools
+import math
 import os
 import pickle
 import queue as queue_mod
@@ -47,8 +52,10 @@ import signal
 import tempfile
 import time
 import traceback
-from typing import Any, Callable, List, NamedTuple, Optional, Sequence
+from typing import (Any, Callable, Dict, List, NamedTuple, Optional,
+                    Sequence, Tuple)
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -185,8 +192,14 @@ def _note(kind: str, x: Optional[torch.Tensor], group=None, *,
 
 
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum of ``x`` over the ranks (an all-reduce); a new tensor."""
-    _note("psum", x, group)
+    """Sum of ``x`` over the ranks (an all-reduce); a new tensor.
+    ``group`` may be a :class:`Groups` partition: each rank then sums
+    over its own group of it."""
+    if isinstance(group, Groups):
+        group, replica = group.handles[group.mine], group.groups
+    else:
+        replica = None
+    _note("psum", x, group, replica_groups=replica)
     if _staged(x, group):
         h = _to_host(x)
         dist.all_reduce(h, group=group)
@@ -269,6 +282,66 @@ def all_gather_groups(x: torch.Tensor, groups: Groups, *,
     _note("all_gather_groups", x, handle, replica_groups=groups.groups)
     parts = _gather_list(x, handle)
     return torch.cat(parts) if tiled else torch.stack(parts)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class Mesh:
+    """A mesh: its axes' names and sizes; on a rank mesh also this
+    rank's coordinates and, for each axis, the subgroups of the ranks
+    that differ only along it (:class:`Groups`, this rank's group at
+    ``mine``). A shape-only mesh (``coords`` None) reckons placements;
+    nothing runs on it."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    coords: Optional[Tuple[int, ...]] = None
+    groups: Optional[Tuple[Optional[Groups], ...]] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.sizes)
+
+    def _need_ranks(self, what: str) -> None:
+        if self.coords is None:
+            raise ValueError(f"a shape-only mesh has no {what}: it reckons "
+                             "placements; running needs a rank mesh "
+                             "(rank_mesh)")
+
+    def index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        self._need_ranks("rank coordinates")
+        return self.coords[self.axis_names.index(axis)]
+
+    def groups_of(self, axis: str) -> Groups:
+        """The partition of the ranks along ``axis``."""
+        self._need_ranks("process groups")
+        return self.groups[self.axis_names.index(axis)]
+
+
+def rank_mesh(axis_names: Sequence[str], sizes: Sequence[int]) -> Mesh:
+    """A mesh over the default group's ranks, row-major: rank r's
+    coordinates are r's digits in the sizes' mixed radix (two axes:
+    r = d · model + m, the order of ``jax.make_mesh``). Every rank calls
+    it, in the same order (it makes the subgroups). One process without
+    a process group makes a 1 × … × 1 mesh without groups."""
+    axis_names, sizes = tuple(axis_names), tuple(int(s) for s in sizes)
+    world = axis_size() if dist.is_initialized() else 1
+    if math.prod(sizes) != world:
+        raise ValueError(f"a {' × '.join(map(str, sizes))} mesh needs "
+                         f"{math.prod(sizes)} ranks, not {world}")
+    me = axis_index() if dist.is_initialized() else 0
+    coords = tuple(int(c) for c in np.unravel_index(me, sizes))
+    if not dist.is_initialized():
+        return Mesh(axis_names, sizes, coords, (None,) * len(sizes))
+    grid = np.arange(world).reshape(sizes)
+    groups = tuple(
+        new_groups([list(map(int, g))
+                    for g in np.moveaxis(grid, a, -1).reshape(-1, sizes[a])])
+        for a in range(len(sizes)))
+    return Mesh(axis_names, sizes, coords, groups)
 
 
 class Pending:

@@ -19,7 +19,11 @@ the hybrid's twice-stacked ``mamba_layers``, the encoder-decoder's
 ``enc_layers`` / ``dec_layers``) and gives the port's, under the same
 names and layout, so that both packages compute the same model;
 :func:`opt_state_from_jax` does the same for the reference's AdamW
-state, :func:`decode_state_from_jax` for a decode state.
+state, :func:`decode_state_from_jax` for a decode state. Given a rank
+mesh and the placements (``launch.sharding.param_pspecs``,
+``decode_state_pspecs``), each gives this rank's shards instead, as the
+reference's ``device_put`` at a step's ``in_shardings`` places them;
+:func:`shard_params` cuts the port's own full parameters so.
 
 bfloat16 numpy arrays (the ``ml_dtypes`` type JAX hands out) are read
 by their bits. :func:`to_numpy` widens bfloat16 to float32, which is
@@ -36,7 +40,7 @@ from repro_torch import sparse as sparse_rows
 from repro_torch.core.mapreduce_svm import MapReduceSVM, SVBuffer
 from repro_torch.core.svm import BinarySVM, SolverParams
 from repro_torch.device import DeviceLike
-from repro_torch.models.layers import tree_map
+from repro_torch.models.layers import local_shard, tree_map, tree_map2
 from repro_torch.optim import OptState
 
 
@@ -99,23 +103,44 @@ def solver_params_from_numpy(params, device: DeviceLike = "cpu"
                           else tensor_from_numpy(f, device) for f in fields))
 
 
-def lm_params_from_jax(params: Mapping, device: DeviceLike = "cpu"):
+def _shard(t: torch.Tensor, placement, mesh) -> torch.Tensor:
+    return t if mesh is None else local_shard(t, placement, mesh)
+
+
+def shard_params(params, placements, mesh):
+    """Full parameters (the port's nested dict) → this rank's shards under
+    ``placements`` (their tree, ``launch.sharding.param_pspecs``)."""
+    return tree_map2(lambda t, pl: _shard(t, pl, mesh), params, placements)
+
+
+def lm_params_from_jax(params: Mapping, device: DeviceLike = "cpu", *,
+                       mesh=None, placements=None):
     """The reference LM's parameters (nested dict of arrays, e.g.
-    ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``."""
-    return tree_map(lambda a: tensor_from_numpy(a, device), dict(params))
+    ``jax.tree.map(np.asarray, params)``) → the port's, on ``device``;
+    with a rank ``mesh`` and the ``placements`` tree, this rank's shards
+    (each leaf cut before it moves to the device)."""
+    if mesh is None:
+        return tree_map(lambda a: tensor_from_numpy(a, device), dict(params))
+    return tree_map2(lambda a, pl: _shard(tensor_from_numpy(a), pl,
+                                          mesh).to(device),
+                     dict(params), placements)
 
 
-def decode_state_from_jax(state, like):
+def decode_state_from_jax(state, like, placements=None, mesh=None):
     """The reference's decode state (``DecodeState``, ``RWKVDecodeState``,
     ``HybridDecodeState`` with its nested ``Mamba2State`` and
     ``LayerKVCache``, ``EncDecDecodeState``; arrays, e.g.
     ``jax.tree.map(np.asarray, state)``) → the port's, of ``like``'s
-    type field by field, on ``like``'s devices."""
+    type field by field, on ``like``'s devices; with a rank ``mesh`` and
+    the state's ``placements`` (``launch.sharding.decode_state_pspecs``),
+    this rank's slice of each leaf."""
     if isinstance(like, tuple) and hasattr(like, "_fields"):
-        return type(like)(*(decode_state_from_jax(getattr(state, f),
-                                                  getattr(like, f))
-                            for f in like._fields))
-    return tensor_from_numpy(np.asarray(state), like.device)
+        return type(like)(*(decode_state_from_jax(
+            getattr(state, f), getattr(like, f),
+            None if placements is None else getattr(placements, f), mesh)
+            for f in like._fields))
+    return _shard(tensor_from_numpy(np.asarray(state)), placements,
+                  mesh).to(like.device)
 
 
 def opt_state_from_jax(state, device: DeviceLike = "cpu") -> OptState:

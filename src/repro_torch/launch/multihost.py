@@ -20,8 +20,9 @@ its global rank) and runs the legs, in this order:
   state saved by global rank 0 after each round
   (:func:`repro_torch.core.save_sweep_state`); rounds from 1 on run under
   :class:`repro_torch.faults.CollectiveWatchdog` (a heartbeat file a
-  rank). Process 1's first rank SIGKILLs its own process after round
-  ``--kill-round`` − 1, and that process's ranks die with it; the
+  rank). Process 1's first rank SIGKILLs its own process and itself
+  after round ``--kill-round`` − 1, and that process's ranks die with it
+  (a round needs every rank: none after that one completes); the
   stranded ranks of process 0 exit with code 17 (the watchdog, or the
   peer loss surfacing as an error, with a typed heartbeat), and so does
   process 0;
@@ -152,6 +153,12 @@ class _Sweep:
                     and self.rank.local_rank == 0:
                 time.sleep(0.5)       # let process 0 finish round t and save
                 os.kill(os.getppid(), signal.SIGKILL)
+                # and this rank with it, now: the others of its process die
+                # once the launcher is torn down (PR_SET_PDEATHSIG), which
+                # for a process holding a CUDA context can take longer than
+                # a round; alive meanwhile, the process would run round t +
+                # 1 with process 0, which would save it
+                os.kill(os.getpid(), signal.SIGKILL)
             out = (risks, ws, bs)
         return state, out
 

@@ -18,6 +18,17 @@ llava decodes its text from token 0 with no prefix, as the reference's
 does, and whisper against the cross K/V of seeded stub frames. Every step stays
 on the device: the tokens are copied to the host once, after the loop.
 
+``--data-par D --model-par M`` (D · M > 1) serves a dense or VLM arch on
+a (data × model) mesh of D · M ranks (``compat.spawn``: gloo where they
+share a card or run on the CPU), as the reference's
+``make_host_mesh(data_par, model_par)``: each rank holds its shards of
+the weights and the cache (``launch.sharding``), and rank 0 prints the
+line. The other families under such a mesh raise (ROADMAP Queue 1 item
+13g-c).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3-6b \
+        --smoke --device cpu --data-par 2 --model-par 2
+
 svm: micro-batches of drifting messages fold into each tenant's
 SV_global behind the service's background scheduler
 (:mod:`repro_torch.serving.svm_stream`), as ``repro/launch/serve.py:
@@ -50,6 +61,7 @@ from typing import Any, Callable, List, NamedTuple, Optional, Sequence
 
 import torch
 
+from repro_torch import compat
 from repro_torch.configs import get_config
 from repro_torch.core.mapreduce_svm import (SHUFFLE_IMPLS, MRSVMConfig,
                                             fit_mapreduce)
@@ -58,8 +70,10 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.launch.cluster import (add_cluster_flags,
                                         cluster_config_from_args,
                                         init_cluster)
-from repro_torch.launch.steps import make_serve_step
+from repro_torch.launch.steps import (InputShape, build_serve_step,
+                                      make_serve_step)
 from repro_torch.models.config import ModelConfig, smoke_variant
+from repro_torch.models.layers import local_shard, shard_count
 from repro_torch.models.transformer import build_model
 
 
@@ -72,7 +86,8 @@ class ServeResult(NamedTuple):
 
 def serve_lm(cfg: ModelConfig, *, batch: int, cache_len: int, tokens: int,
              device: DeviceLike = None, params=None,
-             state=None) -> ServeResult:
+             state=None, mesh=None,
+             first: Optional[torch.Tensor] = None) -> ServeResult:
     """Greedy decode of ``tokens`` steps for ``batch`` sequences.
 
     ``params`` default to random ones from ``torch.Generator`` seed 0 on
@@ -80,11 +95,27 @@ def serve_lm(cfg: ModelConfig, *, batch: int, cache_len: int, tokens: int,
     ``cache_len`` at position 0; an encoder-decoder's state holds the
     cross K/V of stub frames N(0, 1) drawn from seed 1 (the reference's
     serve draws them from ``PRNGKey(1)``). A given state is advanced
-    (its caches written in place). Runs on ``cuda`` unless ``device``
-    says otherwise; raises without a card.
+    (its caches written in place). The first tokens are ``first`` ((batch,
+    1) int32), else 0 as the reference's. Runs on ``cuda`` unless
+    ``device`` says otherwise; raises without a card.
+
+    ``mesh`` (a rank ``compat.Mesh``) serves on this rank's shards, as
+    ``launch.steps.build_serve_step(cfg, mesh)`` places them (the default
+    placement rules): the model repeats its KV heads
+    ``kv_repeat_for(cfg, mesh)`` times, default ``params`` are this
+    rank's shards of seed 0's weights (``params`` and ``state``, when
+    given, this rank's shards), and the rank decodes its batch rows of
+    ``first``. The result's tokens are every row's (gathered over the
+    data ranks after the timed loop).
     """
     dev = resolve_device(device)
-    model = build_model(cfg)
+    if mesh is None:
+        model, state_place, tok_place = build_model(cfg), None, ()
+    else:
+        bundle = build_serve_step(cfg, mesh, InputShape(
+            "serve", "decode", cache_len, batch))
+        model = bundle.model
+        _, state_place, tok_place = bundle.in_shardings
     if params is None:
         params = model.init(torch.Generator(device=dev).manual_seed(0))
     if state is None and cfg.is_encoder_decoder:
@@ -94,19 +125,45 @@ def serve_lm(cfg: ModelConfig, *, batch: int, cache_len: int, tokens: int,
         state = model.init_decode_state(batch, cache_len, dev,
                                         frames=frames.to(cfg.torch_dtype),
                                         params=params)
-    elif state is None:
+    elif state is None and mesh is None:
         state = model.init_decode_state(batch, cache_len, dev)
+    elif state is None:
+        state = model.init_decode_state(batch, cache_len, dev,
+                                        place=state_place)
     step = make_serve_step(model)
-    tok = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
-    out = torch.empty((tokens, batch), dtype=torch.int32, device=dev)
+    tok = (torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+           if first is None else first.to(dev, torch.int32))
+    if mesh is not None:
+        tok = local_shard(tok, tok_place, mesh)
+    out = torch.empty((tokens, tok.shape[0]), dtype=torch.int32, device=dev)
     t0 = time.perf_counter()
     for i in range(tokens):
         nxt, state = step(params, state, tok)
         out[i] = nxt
         tok = nxt[:, None]
-    out = out.cpu()                    # waits for the last step
+    host = out.cpu()                   # waits for the last step
     dt = time.perf_counter() - t0
-    return ServeResult(out, dt, tokens * batch / dt, state)
+    if tok_place and shard_count(tok_place[0], mesh) > 1:
+        parts = compat.all_gather_groups(out, mesh.groups_of("data"))
+        host = torch.cat(parts.unbind(0), dim=1).cpu()
+    return ServeResult(host, dt, tokens * batch / dt, state)
+
+
+def serve_rank(rank, cfg: ModelConfig, data: int, model: int, batch: int,
+               cache_len: int, tokens: int) -> ServeResult:
+    """A rank of the CLI's sharded serve (``compat.spawn`` target): the
+    (data × model) mesh of :func:`repro_torch.launch.mesh.make_host_mesh`,
+    one :func:`serve_lm` on it; rank 0 prints the reference's line. →
+    the result without its state, the tokens as numpy (a tensor would
+    leave the rank through shared memory, which ends with it)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    res = serve_lm(cfg, batch=batch, cache_len=cache_len, tokens=tokens,
+                   device=rank.device, mesh=make_host_mesh(data, model))
+    if rank.rank == 0:
+        print(f"{cfg.name}: {tokens} tokens × {batch} seqs in "
+              f"{res.seconds:.2f}s → {res.tok_per_s:,.1f} tok/s "
+              f"({data} × {model} ranks)", flush=True)
+    return res._replace(tokens=res.tokens.numpy(), state=None)
 
 
 def stream_batch(stream: int, wave: int, rows: int, d: int,
@@ -287,7 +344,11 @@ def main(argv: Optional[Sequence[str]] = None):
                     help="torch device (default cuda; 'cpu' runs the "
                          "plain versions of the kernels)")
     ap.add_argument("--data-par", type=int, default=1,
-                    help="svm family: partitions (default 8)")
+                    help="svm family: partitions (default 8); LM: the data "
+                         "axis of the (data × model) mesh of ranks")
+    ap.add_argument("--model-par", type=int, default=1,
+                    help="LM: the model axis of the (data × model) mesh of "
+                         "ranks (dense and VLM archs)")
     ap.add_argument("--streams", type=int, default=4,
                     help="svm family: tenant streams served")
     ap.add_argument("--shuffle", default=None, choices=SHUFFLE_IMPLS,
@@ -323,6 +384,8 @@ def main(argv: Optional[Sequence[str]] = None):
     cluster = init_cluster(cluster_config_from_args(args))
     cfg = get_config(args.arch)
     if getattr(cfg, "family", None) == "svm":
+        if args.model_par > 1:
+            raise SystemExit("--model-par applies to the LM archs")
         return serve_svm(cfg, streams=args.streams, waves=args.waves,
                          smoke=args.smoke,
                          partitions=args.data_par if args.data_par > 1
@@ -341,6 +404,18 @@ def main(argv: Optional[Sequence[str]] = None):
             "multi-process launch currently covers the svm family")
     if args.smoke:
         cfg = smoke_variant(cfg)
+    ranks = args.data_par * args.model_par
+    if ranks > 1:
+        if cfg.family not in ("dense", "vlm"):
+            raise NotImplementedError(
+                f"--data-par / --model-par above 1 for the {cfg.family} "
+                "family is not ported to repro_torch yet (ROADMAP Queue 1 "
+                "item 13g-c)")
+        on = "cpu" if resolve_device(args.device).type == "cpu" else "cuda"
+        res = compat.spawn(serve_rank, ranks,
+                           (cfg, args.data_par, args.model_par, args.batch,
+                            args.cache_len, args.tokens), device=on)[0]
+        return res._replace(tokens=torch.from_numpy(res.tokens))
     res = serve_lm(cfg, batch=args.batch, cache_len=args.cache_len,
                    tokens=args.tokens, device=args.device)
     print(f"{cfg.name}: {args.tokens} tokens × {args.batch} seqs "

@@ -25,7 +25,10 @@ against a reference. They import neither JAX nor any test module.
   shard;
 * :func:`run_moe_cases` runs expert layers (:class:`MoECase`) through
   :func:`repro_torch.models.moe.apply_moe_sharded` on a (data × model)
-  grid of the ranks, each rank on its shards of the weights and tokens.
+  grid of the ranks, each rank on its shards of the weights and tokens;
+* :func:`run_lm_cases` serves dense and VLM decoders (:class:`LMCase`)
+  through the sharded decode step of :func:`repro_torch.launch.steps.
+  build_serve_step` on a (data × model) mesh of the ranks.
 
     from repro_torch import compat
     from repro_torch.launch.sharded import fit_sharded
@@ -44,7 +47,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch import faults
+from repro_torch import compat, faults
 from repro_torch import sparse as sparse_rows
 from repro_torch.analysis.hostsync import no_implicit_host_sync
 from repro_torch.convert import rows_from_numpy, tensor_from_numpy, to_numpy
@@ -393,4 +396,69 @@ def run_moe_cases(rank, cases: Sequence[MoECase]) -> list:
         x = moe.shard_tokens(tensor_from_numpy(c.x, rank.device), mesh)
         y, aux = moe.apply_moe_sharded(p, x, c.cfg, mesh, c.capacity_factor)
         out.append((to_numpy(y), float(aux)))
+    return out
+
+
+@dataclasses.dataclass
+class LMCase:
+    """A dense or VLM decoder served on a (data × model) ``grid`` of the
+    spawn's ranks: the config, the full weights (numpy, the reference's
+    nested dict) and the first tokens ``prompts`` (B, 1), greedy for
+    ``steps`` steps from a zero cache of ``cache_len``."""
+    cfg: ModelConfig
+    params: dict
+    prompts: np.ndarray
+    grid: Tuple[int, int] = (1, 2)
+    steps: int = 4
+    cache_len: int = 16
+
+
+def run_lm_cases(rank, cases: Sequence[LMCase]) -> list:
+    """Each case on ``make_host_mesh(*grid)``: the rank's shards of the
+    weights (``convert.lm_params_from_jax`` at the bundle's
+    ``in_shardings``), its slice of a zero cache and its rows of the
+    prompts; ``steps`` greedy decode steps, recording the collectives,
+    then the bundle's ``fn`` as many steps from a new cache. → per case
+    {"logits": (steps, B_rank, V) f32 numpy, "tokens": (steps, B_rank),
+    "fn_tokens": the bundle's, "schedule": the collectives'
+    signatures, "kv_repeat", "heads": (query, cache) heads of the rank}."""
+    from repro_torch.analysis.schedule import collective_schedule
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import InputShape, build_serve_step
+    from repro_torch.models.layers import local_shard
+    out = []
+    for c in cases:
+        mesh = make_host_mesh(*c.grid)
+        B = c.prompts.shape[0]
+        bundle = build_serve_step(c.cfg, mesh,
+                                  InputShape("case", "decode", c.cache_len, B))
+        model = bundle.model
+        params = lm_params_from_jax(c.params, rank.device, mesh=mesh,
+                                    placements=bundle.in_shardings[0])
+        first = local_shard(tensor_from_numpy(c.prompts.astype(np.int32)),
+                            bundle.in_shardings[2], mesh).to(rank.device)
+        place = bundle.in_shardings[1]
+        state = model.init_decode_state(B, c.cache_len, rank.device,
+                                        place=place)
+        logits, tokens, tok = [], [], first
+        with compat.record_collectives() as rec:
+            for _ in range(c.steps):
+                lg, state = model.decode_step(params, state, tok)
+                tok = torch.argmax(lg[:, -1], -1).to(torch.int32)[:, None]
+                logits.append(to_numpy(lg[:, -1].float()))
+                tokens.append(to_numpy(tok[:, 0]))
+        state = model.init_decode_state(B, c.cache_len, rank.device,
+                                        place=place)
+        fn_tokens, tok = [], first
+        for _ in range(c.steps):
+            nxt, state = bundle.fn(params, state, tok)
+            fn_tokens.append(to_numpy(nxt))
+            tok = nxt[:, None]
+        out.append({"logits": np.stack(logits), "tokens": np.stack(tokens),
+                    "fn_tokens": np.stack(fn_tokens),
+                    "schedule": collective_schedule(rec),
+                    "kv_repeat": model.kv_repeat,
+                    "heads": (params["layers"]["attn"]["wq"].shape[2],
+                              state.caches.k.shape[2])})
     return out

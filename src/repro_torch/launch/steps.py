@@ -9,12 +9,17 @@ Input-shape suite (the reference's):
     decode_32k   seq=32768   global_batch=128   (decode: 1 token, KV=seq)
     long_500k    seq=524288  global_batch=1     (long-context decode)
 
-A step runs on whatever device its tensors are on. The steps are for one
-process: ``mesh`` must be ``None`` and ``rules`` too (sharded steps,
-their shardings and the svm-tfidf steps are ROADMAP Queue 1 item 13g),
-so ``in_shardings`` and ``out_shardings`` are ``None``. The train step
-updates the params and the optimizer state in place, the serve step the
-caches: ``donate_argnums`` names them, as the reference's.
+A step runs on whatever device its tensors are on. The serve step also
+runs on a mesh of ranks (:func:`build_serve_step` with a
+``launch.mesh.Mesh``; dense and VLM decoders): each rank then holds the
+shards that the bundle's ``in_shardings`` place on it, as the
+reference's ``build_serve_step(cfg, mesh)`` under SPMD. The train and
+prefill steps are for one process: ``mesh`` and ``rules`` must be
+``None`` (their sharded forms are ROADMAP Queue 1 item 13g-c; the
+svm-tfidf steps item 13g-b), and their ``in_shardings`` and
+``out_shardings`` are ``None``. The train step updates the params and
+the optimizer state in place, the serve step the caches:
+``donate_argnums`` names them, as the reference's.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import optim
+from repro_torch.launch import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (lm_logits, tree_leaves,
                                        tree_unflatten, tree_map)
@@ -63,8 +69,9 @@ def applicability(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
 def _single_process(mesh, rules) -> None:
     if mesh is not None or rules is not None:
         raise NotImplementedError(
-            "sharded steps (mesh=, rules=) are not ported to repro_torch "
-            "yet (ROADMAP Queue 1 item 13g); pass mesh=None")
+            "sharded train and prefill steps (mesh=, rules=) are not "
+            "ported to repro_torch yet (ROADMAP Queue 1 item 13g-c); pass "
+            "mesh=None")
 
 
 def _meta(shape, dtype) -> torch.Tensor:
@@ -174,17 +181,39 @@ def make_serve_step(model) -> Callable[..., Tuple[torch.Tensor, Any]]:
 def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
                      rules: Optional[dict] = None) -> StepBundle:
     """One decode step (:func:`make_serve_step` of ``cfg``'s model) for
-    a seq_len-deep cache of global_batch sequences."""
-    _single_process(mesh, rules)
-    model = build_model(cfg)
+    a seq_len-deep cache of global_batch sequences.
+
+    With a ``mesh`` the bundle is the reference's: the model's KV heads
+    repeated ``kv_repeat_for(cfg, mesh)`` times, ``in_shardings`` = (the
+    params' placements under ``rules``, the state's, the tokens'),
+    ``out_shardings`` = (the next tokens', the state's); on a rank mesh
+    its ``fn`` runs on this rank's shards (a shape-only mesh reckons the
+    placements only). ``args`` are the whole (global) inputs as ``meta``
+    tensors."""
+    if mesh is None:
+        if rules is not None:
+            raise ValueError("rules place a step on a mesh; pass mesh=")
+        model = build_model(cfg)
+    else:
+        r = shd.kv_repeat_for(cfg, mesh)
+        pspecs = shd.param_pspecs(build_model(cfg, r), mesh, rules)
+        model = build_model(cfg, r, mesh=mesh, place=pspecs)
     B = shape.global_batch
+    state_abs = model.decode_state_abstract(B, shape.seq_len)
+    args = (model.abstract(), state_abs, _meta((B, 1), torch.int32))
+    if mesh is None:
+        return StepBundle(fn=make_serve_step(model), args=args,
+                          in_shardings=None, out_shardings=None,
+                          donate_argnums=(1,), model=model)
+    state_specs = shd.decode_state_pspecs(model, state_abs, mesh, B)
+    bp = shd.batch_pspec(mesh, B)
+    tok_spec = bp + (None,) if bp != (None,) else ()
+    out_tok_spec = bp if bp != (None,) else ()
     return StepBundle(
-        fn=make_serve_step(model),
-        args=(model.abstract(),
-              model.init_decode_state(B, shape.seq_len, device="meta"),
-              _meta((B, 1), torch.int32)),
-        in_shardings=None, out_shardings=None, donate_argnums=(1,),
-        model=model)
+        fn=make_serve_step(model), args=args,
+        in_shardings=(pspecs, state_specs, tok_spec),
+        out_shardings=(out_tok_spec, state_specs),
+        donate_argnums=(1,), model=model)
 
 
 def build_step(cfg: ModelConfig, mesh, shape: InputShape,

@@ -35,7 +35,7 @@ without remat, a line every 10 steps and ``--ckpt PATH`` saving
         tinyllama-1.1b --smoke --steps 2 --batch 2 --seq 64 --device cpu
 
 ``--data-par`` and ``--model-par`` above 1 raise (ROADMAP Queue 1 item
-13g); a multi-process LM launch exits, as the reference's.
+13g-c); a multi-process LM launch exits, as the reference's.
 """
 from __future__ import annotations
 
@@ -302,7 +302,7 @@ def train_lm(cfg, args) -> List[float]:
     if args.data_par > 1 or args.model_par > 1:
         raise NotImplementedError(
             "--data-par and --model-par above 1 (a sharded train step) are "
-            "not ported to repro_torch yet (ROADMAP Queue 1 item 13g)")
+            "not ported to repro_torch yet (ROADMAP Queue 1 item 13g-c)")
     dev = resolve_device(args.device)
     if args.smoke:
         cfg = smoke_variant(cfg)

@@ -19,7 +19,8 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import PSpec, apply_rope
+from repro_torch.models.layers import (PSpec, apply_rope, local_like,
+                                       model_shard, sharded_matmul)
 
 _NEG_INF = -1e30
 _Q_CHUNK = 512
@@ -160,11 +161,50 @@ def cache_slot_positions(cfg: ModelConfig, cache_len: int,
                        pos - cur + slots - W)
 
 
+def _project_qkv_sharded(p, place, x, cfg: ModelConfig, kv_repeat: int,
+                         mesh, cache_heads: int):
+    """The decode step's projections on a rank's shards (see
+    :mod:`repro_torch.models.layers`' mesh section): q over this rank's
+    query heads (all of them where the fallback replicated the heads),
+    K and V for every KV head (``kv_heads`` → replicated), repeated r×
+    and cut to the rank's ``cache_heads`` of the KV·r. → (q, k, v, q
+    split over model)."""
+    q, qs = sharded_matmul(x, p["wq"], place["wq"], mesh)
+    k, ks = sharded_matmul(x, p["wk"], place["wk"], mesh)
+    v, vs = sharded_matmul(x, p["wv"], place["wv"], mesh)
+    if ks is not None or vs is not None:
+        raise NotImplementedError(
+            f"KV projections placed over model ({place['wk']}): the rules "
+            "replicate kv_heads and repeat them for the cache instead")
+    if cfg.qkv_bias:
+        q = q + local_like(p["bq"], place["bq"], mesh, qs)
+        k = k + local_like(p["bk"], place["bk"], mesh, None)
+        v = v + local_like(p["bv"], place["bv"], mesh, None)
+    if kv_repeat > 1:
+        k = torch.repeat_interleave(k, kv_repeat, dim=2)
+        v = torch.repeat_interleave(v, kv_repeat, dim=2)
+    kv_split = cache_heads != k.shape[2]
+    if kv_split:
+        if cache_heads * mesh.shape["model"] != k.shape[2]:
+            raise ValueError(f"a cache of {cache_heads} heads is no model "
+                             f"block of {k.shape[2]}")
+        k, v = model_shard(k, 2, mesh), model_shard(v, 2, mesh)
+    q_split = qs == 0
+    if q_split != kv_split or q.shape[2] % cache_heads:
+        raise NotImplementedError(
+            f"this rank's {q.shape[2]} query heads do not map onto its "
+            f"{cache_heads} cache heads (query heads "
+            f"{'split' if q_split else 'whole'}, cache "
+            f"{'split' if kv_split else 'whole'} over model); the cache "
+            "is not gathered")
+    return q, k, v, q_split
+
+
 def attention_decode_step(p, x: torch.Tensor, cache: LayerKVCache,
                           pos: torch.Tensor, cfg: ModelConfig,
                           kv_repeat: int = 1,
-                          use_kernel: bool = False) -> Tuple[torch.Tensor,
-                                                             LayerKVCache]:
+                          use_kernel: bool = False, mesh=None,
+                          place=None) -> Tuple[torch.Tensor, LayerKVCache]:
     """x: (B, 1, D); pos: () int32 tensor on x's device, the current
     absolute position. → (y (B, 1, D), cache).
 
@@ -176,10 +216,22 @@ def attention_decode_step(p, x: torch.Tensor, cache: LayerKVCache,
     ``use_pallas``; it needs a full (non-ring) cache, and a
     sliding-window config keeps the ring route. Nothing here waits for
     the device.
+
+    On a rank ``mesh`` (``p`` the rank's shards, ``place`` their
+    placements, x and the cache the rank's batch rows): the rank attends
+    with its query heads over its cache heads (the KV·r heads split over
+    model, or all of them), and the output projection's partial products
+    over its heads are summed over the model group.
     """
     B = x.shape[0]
-    H, hd = cfg.num_heads, cfg.hd
-    q, k, v = _project_qkv(p, x, x, cfg, kv_repeat)      # (B,1,·,hd)
+    hd = cfg.hd
+    if mesh is None:
+        q, k, v = _project_qkv(p, x, x, cfg, kv_repeat)  # (B,1,·,hd)
+        q_split = False
+    else:
+        q, k, v, q_split = _project_qkv_sharded(p, place, x, cfg, kv_repeat,
+                                                mesh, cache.k.shape[1])
+    H = q.shape[2]
     posb = pos.expand(B)[:, None]                         # (B,1)
     if cfg.rope_fraction > 0:
         q = apply_rope(q, posb, cfg.rope_fraction, cfg.rope_theta)
@@ -206,5 +258,9 @@ def attention_decode_step(p, x: torch.Tensor, cache: LayerKVCache,
         probs = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bkgt,bkth->bkgh", probs, cache.v)
         out = out.reshape(B, 1, H, hd)
-    y = out.reshape(B, 1, H * hd) @ p["wo"].reshape(H * hd, -1)
+    if mesh is None:
+        y = out.reshape(B, 1, H * hd) @ p["wo"].reshape(H * hd, -1)
+    else:
+        y, _ = sharded_matmul(out, p["wo"], place["wo"], mesh, nk=2,
+                              x_split=q_split)
     return y, cache

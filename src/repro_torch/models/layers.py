@@ -13,11 +13,14 @@ differentiable: the train step takes their gradients with autograd.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch import compat
 
 
 class PSpec(NamedTuple):
@@ -50,7 +53,8 @@ def tree_unflatten(like: Any, leaves) -> Any:
     return tree_map(lambda _: next(it), like)
 
 
-def template_init(tpl, gen: torch.Generator, dtype: torch.dtype) -> Any:
+def template_init(tpl, gen: torch.Generator, dtype: torch.dtype,
+                  placements=None, mesh=None) -> Any:
     """Template → parameters on ``gen``'s device (fan-in scaled normal
     init; ``embed`` rows 1/√d_model), drawn leaf by leaf in sorted key
     order from the one generator. A stacked leaf (leading "layers" axis)
@@ -58,12 +62,19 @@ def template_init(tpl, gen: torch.Generator, dtype: torch.dtype) -> Any:
     the transient is one slice, not two float32 copies of the whole leaf
     (llava-next-34b's ``w_gate`` is 8.8 G values). The reference's
     ``jax.random`` gives other numbers from the same seed: tests hand
-    both packages the same arrays instead."""
-    def init(p: PSpec) -> torch.Tensor:
+    both packages the same arrays instead.
+
+    With ``placements`` (the template's tree of them) and a rank
+    ``mesh``, each leaf is this rank's shard: every slice is drawn whole,
+    as above, and only the rank's part of it kept, so that every rank
+    holds the slices of the same weights as one process, with a
+    transient of one slice's float32 draw."""
+    def init(p: PSpec, place: tuple = ()) -> torch.Tensor:
+        shape = local_shape(p.shape, place, mesh) if place else p.shape
         if p.init == "zeros":
-            return torch.zeros(p.shape, dtype=dtype, device=gen.device)
+            return torch.zeros(shape, dtype=dtype, device=gen.device)
         if p.init == "ones":
-            return torch.ones(p.shape, dtype=dtype, device=gen.device)
+            return torch.ones(shape, dtype=dtype, device=gen.device)
         if p.init == "embed":
             # 1/√d_model rows (not fan-in = vocab): with the × √D of
             # embed_tokens the residual stream starts at unit rms.
@@ -72,13 +83,28 @@ def template_init(tpl, gen: torch.Generator, dtype: torch.dtype) -> Any:
             fan_in = p.fan_in or (p.shape[-2] if len(p.shape) >= 2
                                   else p.shape[-1])
             std = 1.0 / math.sqrt(max(fan_in, 1))
-        out = torch.empty(p.shape, dtype=dtype, device=gen.device)
-        slices = out if p.axes[:1] == ("layers",) else out[None]
+        out = torch.empty(shape, dtype=dtype, device=gen.device)
+        stacked = p.axes[:1] == ("layers",)
+        slices = out if stacked else out[None]
+        part_place = place[1:] if stacked else place
+        part_shape = p.shape[1:] if stacked else p.shape
         for part in slices:
-            part.copy_(torch.randn(part.shape, generator=gen,
-                                   device=gen.device).mul_(std))
+            draw = torch.randn(part_shape, generator=gen,
+                               device=gen.device).mul_(std)
+            part.copy_(local_shard(draw, part_place, mesh) if part_place
+                       else draw)
         return out
-    return tree_map(init, tpl)
+    if placements is None:
+        return tree_map(init, tpl)
+    return tree_map2(init, tpl, placements)
+
+
+def tree_map2(fn: Callable, tree: Any, other: Any) -> Any:
+    """``fn(leaf, other_leaf)`` over two nested dicts of one structure,
+    in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return {k: tree_map2(fn, tree[k], other[k]) for k in sorted(tree)}
+    return fn(tree, other)
 
 
 # ---------------------------------------------------------------------------
@@ -220,6 +246,203 @@ def lm_logits(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
     if tie:
         return x @ p["embedding"].T
     return x @ p["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# The layers on a mesh of ranks (the sharded decode step)
+# ---------------------------------------------------------------------------
+#
+# Each rank holds the shard of every leaf that its placement gives it: a
+# tuple with a mesh-axis name (or a tuple of them, or None) a dim, which
+# launch.sharding reckons and hands to the model. The collectives follow
+# the placements: a dim split over "data" (FSDP) is gathered over the
+# data group just before the layer uses the leaf, and freed after; a
+# product that contracts a dim split over "model" sums its partial
+# products over the model group (an all-reduce, in float32); a dim that
+# the fallback replicated is contracted whole on every rank, no
+# all-reduce. An axis of size 1 splits nothing.
+
+
+def _axes(entry) -> tuple:
+    return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def shard_count(entry, mesh) -> int:
+    """Ranks a dim placed as ``entry`` is split over."""
+    return math.prod(mesh.shape[a] for a in _axes(entry))
+
+
+def local_shape(shape: Sequence[int], placement: tuple, mesh) -> tuple:
+    """The shape of one rank's shard of a tensor of ``shape``."""
+    out = list(shape)
+    for dim, entry in enumerate(placement):
+        n = shard_count(entry, mesh)
+        if out[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(shape)} does not split "
+                             f"over {n} ranks")
+        out[dim] //= n
+    return tuple(out)
+
+
+def local_shard(t: torch.Tensor, placement: tuple, mesh) -> torch.Tensor:
+    """The slice of the full tensor ``t`` that this rank of ``mesh`` holds
+    under ``placement``: along each placed dim, block i of n, i this
+    rank's index over the dim's axes (row-major, in the order named). A
+    contiguous tensor of its own storage (``t`` itself when nothing is
+    split)."""
+    out = t
+    for dim, entry in enumerate(placement):
+        axes = _axes(entry)
+        if not axes:
+            continue
+        n, i = 1, 0
+        for a in axes:
+            n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.index(a)
+        if n > 1:
+            size = t.shape[dim] // n
+            out = out.narrow(dim, i * size, size)
+    return t if out is t else out.clone(memory_format=torch.contiguous_format)
+
+
+def split_dim(place: tuple, axis: str, mesh) -> Optional[int]:
+    """The dim ``place`` splits over ``axis`` when it has more than one
+    rank, else None."""
+    if mesh is None or mesh.shape.get(axis, 1) == 1 or axis not in place:
+        return None
+    return place.index(axis)
+
+
+def gather_data(w: torch.Tensor, place: tuple, mesh) -> torch.Tensor:
+    """``w`` whole along the dim its placement splits over ``data``: the
+    shards all-gathered over the data group, in rank order."""
+    dim = split_dim(place, "data", mesh)
+    if dim is None:
+        return w
+    parts = compat.all_gather_groups(w, mesh.groups_of("data"))
+    return torch.cat(parts.unbind(0), dim=dim)
+
+
+def model_sum(y: torch.Tensor, mesh) -> torch.Tensor:
+    """The partial products ``y`` summed over the model group, in
+    float32, rounded once to y's dtype."""
+    return compat.psum(y.float(), mesh.groups_of("model")).to(y.dtype)
+
+
+def model_shard(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """This rank's block of ``t`` along ``dim`` over the model ranks."""
+    n = mesh.shape["model"]
+    size = t.shape[dim] // n
+    return t.narrow(dim, mesh.index("model") * size, size)
+
+
+def sharded_matmul(x: torch.Tensor, w: torch.Tensor, place: tuple, mesh, *,
+                   nk: int = 1, x_split: bool = False):
+    """x (..., K₁, …, K_nk) · w (K₁, …, K_nk, N…) over w's first ``nk``
+    dims, w a rank's shard placed as ``place``: its data dim gathered
+    first. ``x_split``: x holds this rank's model block of K₁. Where x and
+    w hold the same block of K₁ the partial products are summed over the
+    model group; where one of them is whole, it is cut to the other's
+    block first; where both are whole, no all-reduce. → (y (..., N…) in
+    x's dtype, the dim of N… split over model or None)."""
+    w = gather_data(w, place, mesh)
+    mdim = split_dim(place, "model", mesh)
+    if mdim is not None and 0 < mdim < nk:
+        raise NotImplementedError(
+            f"a contracted dim {mdim} placed over model ({place})")
+    w_split = mdim == 0
+    if x_split and not w_split:
+        w = model_shard(w, 0, mesh)
+    elif w_split and not x_split:
+        x = model_shard(x, x.dim() - nk, mesh)
+    lead = x.shape[:x.dim() - nk]
+    K = math.prod(w.shape[:nk])
+    y = (x.reshape(*lead, K) @ w.reshape(K, -1)).reshape(*lead,
+                                                         *w.shape[nk:])
+    if x_split or w_split:
+        y = model_sum(y, mesh)
+    return y, (mdim - nk if mdim is not None and mdim >= nk else None)
+
+
+def local_like(t: torch.Tensor, place: tuple, mesh,
+               want: Optional[int]) -> torch.Tensor:
+    """A leaf (a bias) laid out as an activation whose dim ``want`` is
+    split over model (None: whole): its data dim gathered, cut to this
+    rank's block where the activation is split and the leaf is not."""
+    t = gather_data(t, place, mesh)
+    have = split_dim(place, "model", mesh)
+    if have == want:
+        return t
+    if have is None:
+        return model_shard(t, want, mesh)
+    raise NotImplementedError(
+        f"a leaf placed {place} beside an activation split on dim {want}")
+
+
+def apply_norm_sharded(x, p, place, style: str, eps: float, mesh):
+    """:func:`apply_norm` with the scale (and bias) gathered over data."""
+    return apply_norm(x, {k: gather_data(v, place[k], mesh)
+                          for k, v in p.items()}, style, eps)
+
+
+def apply_mlp_sharded(x: torch.Tensor, p, place, style: str,
+                      mesh) -> torch.Tensor:
+    """:func:`apply_mlp` on a rank's shards: the ffn dim as the leaves
+    place it (over model: each rank its block of the hidden units, the
+    down product summed over the model group)."""
+    if style == "swiglu":
+        g, gs = sharded_matmul(x, p["w_gate"], place["w_gate"], mesh)
+        u, us = sharded_matmul(x, p["w_up"], place["w_up"], mesh)
+        if gs != us:
+            raise NotImplementedError("w_gate and w_up placed apart")
+        y, _ = sharded_matmul(F.silu(g) * u, p["w_down"], place["w_down"],
+                              mesh, x_split=gs == 0)
+        return y
+    h, hs = sharded_matmul(x, p["w_in"], place["w_in"], mesh)
+    h = F.gelu(h + local_like(p["b_in"], place["b_in"], mesh, hs),
+               approximate="tanh")
+    y, _ = sharded_matmul(h, p["w_out"], place["w_out"], mesh,
+                          x_split=hs == 0)
+    return y + local_like(p["b_out"], place["b_out"], mesh, None)
+
+
+def embed_tokens_sharded(p, place, tokens: torch.Tensor,
+                         mesh) -> torch.Tensor:
+    """:func:`embed_tokens` on a rank's shard of the table: over a
+    vocabulary split over model, each rank looks up the tokens in its
+    block of rows (zeros for the others), and the rows are summed over
+    the model group (one rank holds each token: the sum is exact)."""
+    E = gather_data(p["embedding"], place["embedding"], mesh)
+    vdim = split_dim(place["embedding"], "model", mesh)
+    root = torch.tensor(math.sqrt(E.shape[-1]), dtype=E.dtype).item()
+    if vdim is None:
+        return F.embedding(tokens, E) * root
+    if vdim != 0:
+        raise NotImplementedError(
+            f"an embedding placed {place['embedding']}")
+    rows = E.shape[0]
+    local = tokens - mesh.index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = F.embedding(local.clamp(0, rows - 1), E) * root
+    return model_sum(torch.where(inside[..., None], x, 0), mesh)
+
+
+def lm_logits_sharded(p, place, x: torch.Tensor, tie: bool,
+                      mesh) -> torch.Tensor:
+    """:func:`lm_logits` on a rank's shard of the head: a vocabulary
+    split over model gives each rank its block of the logits, gathered
+    over the model group in rank order (the argmax then sees the whole
+    vocabulary, ties to the first index)."""
+    if tie:
+        w = p["embedding"].transpose(0, 1)
+        wp = tuple(reversed(place["embedding"]
+                            + (None,) * (2 - len(place["embedding"]))))
+    else:
+        w, wp = p["lm_head"], place["lm_head"]
+    logits, vs = sharded_matmul(x, w, wp, mesh)
+    if vs is None:
+        return logits
+    parts = compat.all_gather_groups(logits, mesh.groups_of("model"))
+    return torch.cat(parts.unbind(0), dim=-1)
 
 
 # ---------------------------------------------------------------------------

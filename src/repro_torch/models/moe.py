@@ -49,14 +49,13 @@ each shard's loss.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from repro_torch import compat
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import PSpec, silu
+from repro_torch.models.layers import PSpec, local_shard, silu
 
 
 def moe_template(cfg: ModelConfig) -> Dict[str, PSpec]:
@@ -194,34 +193,13 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig,
 # Expert parallelism over a (data × model) grid of ranks
 # ---------------------------------------------------------------------------
 
-@dataclasses.dataclass(frozen=True)
-class MoEMesh:
-    """A (data × model) grid of the world's ranks, laid out as
-    ``jax.make_mesh((data, model), ("data", "model"))`` lays out its
-    devices: rank r at data index r // model, model index r % model.
-    ``data`` groups the ranks that share a model index, ``model`` those
-    that share a data index."""
-    data: compat.Groups
-    model: compat.Groups
-    data_size: int
-    model_size: int
-    data_index: int
-    model_index: int
-
-
-def moe_mesh(data: int, model: int) -> MoEMesh:
-    """The grid over the default group's data · model ranks; every rank
-    calls it, in the same order (it makes the subgroups)."""
-    if compat.axis_size() != data * model:
-        raise ValueError(f"a {data} × {model} grid needs {data * model} "
-                         f"ranks, not {compat.axis_size()}")
-    data_groups = [[d * model + m for d in range(data)] for m in range(model)]
-    model_groups = [[d * model + m for m in range(model)]
-                    for d in range(data)]
-    me = compat.axis_index()
-    return MoEMesh(compat.new_groups(data_groups),
-                   compat.new_groups(model_groups), data, model,
-                   me // model, me % model)
+def moe_mesh(data: int, model: int) -> compat.Mesh:
+    """The (data × model) grid over the default group's data · model
+    ranks (``compat.rank_mesh``): rank r at data index r // model, model
+    index r % model, as ``jax.make_mesh((data, model), ("data",
+    "model"))`` lays out its devices. Every rank calls it, in the same
+    order (it makes the subgroups)."""
+    return compat.rank_mesh(("data", "model"), (data, model))
 
 
 def expert_parallel(cfg: ModelConfig, model_size: int) -> bool:
@@ -245,27 +223,17 @@ def sharded_param_specs(cfg: ModelConfig, model_size: int
             "w_down": (None, "model", "data")}
 
 
-def shard_moe_params(p, cfg: ModelConfig, mesh: MoEMesh) -> dict:
+def shard_moe_params(p, cfg: ModelConfig, mesh: compat.Mesh) -> dict:
     """This rank's shard (contiguous copies) of the full weights ``p``
     (any of its leaves), by :func:`sharded_param_specs`."""
-    specs = sharded_param_specs(cfg, mesh.model_size)
-    place = {"data": (mesh.data_size, mesh.data_index),
-             "model": (mesh.model_size, mesh.model_index)}
-    out = {}
-    for name, t in p.items():
-        for dim, axis in enumerate(specs[name]):
-            if axis is not None:
-                n, i = place[axis]
-                size = t.shape[dim] // n
-                t = t.narrow(dim, i * size, size)
-        out[name] = t.contiguous()
-    return out
+    specs = sharded_param_specs(cfg, mesh.shape["model"])
+    return {name: local_shard(t, specs[name], mesh).contiguous()
+            for name, t in p.items()}
 
 
-def shard_tokens(x: torch.Tensor, mesh: MoEMesh) -> torch.Tensor:
+def shard_tokens(x: torch.Tensor, mesh: compat.Mesh) -> torch.Tensor:
     """This rank's data shard of x (B, S, D): the batch split over data."""
-    b = x.shape[0] // mesh.data_size
-    return x.narrow(0, mesh.data_index * b, b)
+    return local_shard(x, ("data",), mesh)
 
 
 def _gather(t: torch.Tensor, groups: compat.Groups, dim: int) -> torch.Tensor:
@@ -273,7 +241,7 @@ def _gather(t: torch.Tensor, groups: compat.Groups, dim: int) -> torch.Tensor:
     return torch.cat(compat.all_gather_groups(t, groups).unbind(0), dim=dim)
 
 
-def apply_moe_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh: MoEMesh,
+def apply_moe_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh: compat.Mesh,
                       capacity_factor: Optional[float] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """On each rank of ``mesh``: ``p`` its weight shard
@@ -282,29 +250,27 @@ def apply_moe_sharded(p, x: torch.Tensor, cfg: ModelConfig, mesh: MoEMesh,
     own T tokens; ``aux`` is each data shard's load-balance loss,
     averaged over the data ranks (the reference's ``pmean``)."""
     E = cfg.num_experts
-    m = mesh.model_size
+    m = mesh.shape["model"]
+    data, model = mesh.groups_of("data"), mesh.groups_of("model")
     ep = expert_parallel(cfg, m)
-    router = _gather(p["router"], mesh.data, 0)
+    router = _gather(p["router"], data, 0)
     if ep:
-        router = _gather(router, mesh.model, 1)
-    wg, wu = _gather(p["w_gate"], mesh.data, 1), _gather(p["w_up"],
-                                                         mesh.data, 1)
+        router = _gather(router, model, 1)
+    wg, wu = _gather(p["w_gate"], data, 1), _gather(p["w_up"], data, 1)
     if ep:
-        wd = _gather(p["w_down"], mesh.data, 1)         # (E / m, F, D)
+        wd = _gather(p["w_down"], data, 1)              # (E / m, F, D)
         e_count = E // m
-        e_base = mesh.model_index * e_count
+        e_base = mesh.index("model") * e_count
     else:
-        wd = _gather(p["w_down"], mesh.data, 2)         # (E, F / m, D)
+        wd = _gather(p["w_down"], data, 2)              # (E, F / m, D)
         e_base, e_count = 0, E
     Bl, S, D = x.shape
     T = Bl * S
     xf = x.reshape(T, D)
     probs, gates, expert_idx = route(xf, router, cfg)
     aux = load_balance_loss(probs, expert_idx, cfg).reshape(1)
-    aux = compat.psum(aux, mesh.data.handles[mesh.data.mine])[0] \
-        / mesh.data_size
+    aux = compat.psum(aux, data)[0] / mesh.shape["data"]
     C = capacity(T, cfg, capacity_factor or None)
     plan = dispatch_plan(gates, expert_idx, C, e_base, e_count, x.dtype)
-    y = compat.psum(_experts(xf, plan, wg, wu, wd, C),
-                    mesh.model.handles[mesh.model.mine])
+    y = compat.psum(_experts(xf, plan, wg, wu, wd, C), model)
     return y.reshape(Bl, S, D), aux

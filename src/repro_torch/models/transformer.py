@@ -25,6 +25,22 @@ routes each token as the forward does, at the config's capacity factor
 over the step's B tokens. :func:`build_model` also builds the other
 families' models (``rwkv6_model``, ``hybrid``, ``encdec``), which keep
 this API.
+
+On a mesh of ranks (``build_model(cfg, kv_repeat, mesh=, place=)``, a
+``compat.Mesh`` of more than one rank and the placements of the
+parameters, which ``launch.sharding.param_pspecs`` reckons and
+``launch.steps.build_serve_step`` hands over) the dense and VLM decoders decode sharded, as the reference's
+``build_serve_step(cfg, mesh)`` under SPMD: each rank holds the shard of
+every weight that its placement gives it and its slice of the cache
+(``init_decode_state(..., place=)``, the placements that
+``launch.sharding.decode_state_pspecs`` gives: the batch over data, the
+KV·r heads over model); ``init`` draws the same weights as one process
+and keeps the rank's shards, ``init_decode_state`` takes the global batch
+and makes the rank's slice, ``decode_step`` takes the rank's tokens and
+gives its rows' logits over the whole vocabulary. The collectives follow
+the placements (``models/layers.py``, the mesh section). The forward,
+the loss and the other families under such a mesh are not ported
+(ROADMAP Queue 1 item 13g-c) and raise.
 """
 from __future__ import annotations
 
@@ -36,11 +52,29 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (PSpec, apply_mlp, apply_norm,
+from repro_torch.models.layers import (PSpec, apply_mlp, apply_mlp_sharded,
+                                       apply_norm, apply_norm_sharded,
                                        chunked_lm_loss, embed_template,
-                                       embed_tokens, lm_logits,
-                                       mlp_template, norm_template,
-                                       template_init, tree_map)
+                                       embed_tokens, embed_tokens_sharded,
+                                       lm_logits, lm_logits_sharded,
+                                       local_shape, mlp_template,
+                                       norm_template, template_init,
+                                       tree_map)
+
+MESH_ITEM = "ROADMAP Queue 1 item 13g-c"
+
+
+def sharded(mesh) -> bool:
+    """Whether ``mesh`` spans more than one rank."""
+    return mesh is not None and mesh.size > 1
+
+
+def no_mesh_yet(what: str, mesh) -> None:
+    """Raise for ``what`` under a mesh of more than one rank."""
+    if sharded(mesh):
+        raise NotImplementedError(
+            f"{what} under a mesh of {mesh.size} ranks is not ported to "
+            f"repro_torch yet ({MESH_ITEM})")
 
 
 def stack_template(tpl, n: int):
@@ -65,10 +99,14 @@ class TemplateModel:
     ``template()`` declares, and its layers' checkpointing."""
 
     cfg: ModelConfig
+    mesh = None
+    place = None
 
     def init(self, gen: torch.Generator):
-        """Random parameters on ``gen``'s device, in the config's dtype."""
-        return template_init(self.template(), gen, self.cfg.torch_dtype)
+        """Random parameters on ``gen``'s device, in the config's dtype;
+        on a mesh, this rank's shards of them."""
+        return template_init(self.template(), gen, self.cfg.torch_dtype,
+                             self.place, self.mesh)
 
     def abstract(self):
         """The parameters' shapes and dtype as ``meta`` tensors."""
@@ -76,6 +114,11 @@ class TemplateModel:
                                               dtype=self.cfg.torch_dtype,
                                               device="meta"),
                         self.template())
+
+    def decode_state_abstract(self, batch: int, cache_len: int):
+        """The whole (global) decode state of ``batch`` sequences as
+        ``meta`` tensors."""
+        return self.init_decode_state(batch, cache_len, device="meta")
 
     def _run(self, fn, *args):
         """``fn(*args)``, one layer; checkpointed under ``cfg.remat``."""
@@ -87,13 +130,23 @@ class TemplateModel:
 class TransformerModel(TemplateModel):
     """Decoder (dense, moe and vlm families). ``decode_kernel`` routes each layer's cache
     attention through the ``flash_decode`` kernel when the cache is full
-    (the reference's ``use_pallas``); False keeps the plain route."""
+    (the reference's ``use_pallas``); False keeps the plain route.
+    ``mesh`` (more than one rank: dense and vlm only) and ``place`` (the
+    parameters' placements, a tree of the template's structure) make it
+    decode sharded (the module's docstring)."""
 
     def __init__(self, cfg: ModelConfig, kv_repeat: int = 1,
-                 decode_kernel: bool = True):
+                 decode_kernel: bool = True, mesh=None, place=None):
         self.cfg = cfg
         self.kv_repeat = kv_repeat
         self.decode_kernel = decode_kernel
+        if sharded(mesh):
+            if cfg.is_moe:
+                no_mesh_yet("the MoE family", mesh)
+            if place is None:
+                raise ValueError("a model on a mesh needs its parameters' "
+                                 "placements (launch.sharding.param_pspecs)")
+            self.mesh, self.place = mesh, place
 
     # -- parameters -----------------------------------------------------
     def layer_template(self) -> Dict[str, Any]:
@@ -138,6 +191,7 @@ class TransformerModel(TemplateModel):
         = P + S_text with ``prefix_embeds`` (B, P, D) in front; aux () f32
         on the device is the layers' load-balance losses summed (zero
         without experts)."""
+        no_mesh_yet("the forward pass", self.mesh)
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
         if prefix_embeds is not None:
@@ -173,11 +227,16 @@ class TransformerModel(TemplateModel):
 
     # -- decode -----------------------------------------------------------
     def init_decode_state(self, batch: int, cache_len: int,
-                          device=None) -> DecodeState:
+                          device=None, place=None) -> DecodeState:
+        """Zero caches of ``batch`` sequences at position 0; with
+        ``place`` (the whole state's placements, a ``DecodeState`` of
+        them) this rank's slice of them."""
         cfg = self.cfg
         one = attn_lib.init_layer_cache(cfg, batch, cache_len, self.kv_repeat,
                                         cfg.torch_dtype, device="meta")
         shape = (cfg.num_layers,) + tuple(one.k.shape)
+        if place is not None:
+            shape = local_shape(shape, place.caches.k, self.mesh)
         caches = attn_lib.LayerKVCache(
             *(torch.zeros(shape, dtype=cfg.torch_dtype, device=device)
               for _ in range(2)))
@@ -189,8 +248,11 @@ class TransformerModel(TemplateModel):
         """tokens: (B, 1) → (logits (B, 1, V), new state).
 
         The caches are updated in place: the returned state holds the
-        same cache tensors as ``state`` and a new ``pos``.
+        same cache tensors as ``state`` and a new ``pos``. On a mesh, B
+        is this rank's batch rows and V the whole vocabulary.
         """
+        if self.mesh is not None:
+            return self._decode_step_sharded(params, state, tokens)
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
         pos = state.pos
@@ -210,15 +272,60 @@ class TransformerModel(TemplateModel):
         logits = lm_logits(params["embed"], h, cfg.tie_embeddings)
         return logits, DecodeState(caches=state.caches, pos=pos + 1)
 
+    def _decode_step_sharded(self, params, state: DecodeState,
+                             tokens: torch.Tensor):
+        """:meth:`decode_step` on a rank's shards: a layer's leaves
+        gathered over data as it runs, its products summed over model
+        where they contract a split dim, the logits gathered over
+        model."""
+        cfg, mesh, place = self.cfg, self.mesh, self.place
+        mesh.index("model")               # a shape-only mesh runs nothing
+        lplace = place["layers"]
+        h = embed_tokens_sharded(params["embed"], place["embed"], tokens,
+                                 mesh)
+        pos = state.pos
+        for i, lp in enumerate(unstack_layers(params["layers"],
+                                              cfg.num_layers)):
+            cache = attn_lib.LayerKVCache(state.caches.k[i],
+                                          state.caches.v[i])
+            a_in = apply_norm_sharded(h, lp["attn_norm"],
+                                      _inner(lplace["attn_norm"]),
+                                      cfg.norm_style, cfg.norm_eps, mesh)
+            a_out, _ = attn_lib.attention_decode_step(
+                lp["attn"], a_in, cache, pos, cfg, self.kv_repeat,
+                use_kernel=self.decode_kernel, mesh=mesh,
+                place=_inner(lplace["attn"]))
+            h = h + a_out
+            m_in = apply_norm_sharded(h, lp["mlp_norm"],
+                                      _inner(lplace["mlp_norm"]),
+                                      cfg.norm_style, cfg.norm_eps, mesh)
+            h = h + apply_mlp_sharded(m_in, lp["mlp"], _inner(lplace["mlp"]),
+                                      cfg.mlp_style, mesh)
+        h = apply_norm_sharded(h, params["final_norm"], place["final_norm"],
+                               cfg.norm_style, cfg.norm_eps, mesh)
+        logits = lm_logits_sharded(params["embed"], place["embed"], h,
+                                   cfg.tie_embeddings, mesh)
+        return logits, DecodeState(caches=state.caches, pos=pos + 1)
+
+
+def _inner(place_tree):
+    """The placements of one layer's slices: a stacked tree's without
+    its leading "layers" entry (never split)."""
+    return tree_map(lambda pl: pl[1:], place_tree)
+
 
 def build_model(cfg: ModelConfig, kv_repeat: int = 1,
-                decode_kernel: bool = True):
+                decode_kernel: bool = True, mesh=None, place=None):
     """Family dispatcher, as ``repro/models/transformer.py:202-215``
     (deferred imports avoid the cycle). ``decode_kernel`` routes the
     cache attention of the families that have one through
-    ``ops.decode_attention``."""
+    ``ops.decode_attention``. ``mesh`` (a ``compat.Mesh``) and ``place``
+    (the parameters' placements) put a dense or VLM decoder on ranks;
+    the other families under a mesh of more than one rank raise (ROADMAP
+    Queue 1 item 13g-c)."""
     if cfg.family in ("dense", "moe", "vlm"):
-        return TransformerModel(cfg, kv_repeat, decode_kernel)
+        return TransformerModel(cfg, kv_repeat, decode_kernel, mesh, place)
+    no_mesh_yet(f"the {cfg.family} family", mesh)
     if cfg.family == "ssm" and cfg.attn_free:
         from repro_torch.models.rwkv6_model import RWKV6Model
         return RWKV6Model(cfg)

@@ -15,6 +15,7 @@ import torch
 
 from repro.kernels import decode_attention as j_decode_attention
 from repro_torch.kernels import ops, ref, svm_step
+from torch_threads import one_thread  # noqa: F401
 
 # the module, not the package's ``decode_attention`` wrapper function
 fd = importlib.import_module("repro_torch.kernels.decode_attention")

@@ -30,20 +30,11 @@ from repro_torch.launch import steps
 from repro_torch.models import encdec as tencdec
 from repro_torch.models.config import smoke_variant
 from repro_torch.models.transformer import build_model
+from torch_threads import one_thread  # noqa: F401
 
 T = convert.tensor_from_numpy
 TOL = 1e-5
 B, S = 2, 12
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The scans, decode loops and small layers here are loops of small
-    ops, which run fastest on one intra-op thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(x):

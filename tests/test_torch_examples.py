@@ -25,21 +25,12 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.models import smoke_variant
+from torch_threads import one_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 SCALE, FEATURES = 4, 1024
 # one cell of a 500-message matrix is 0.2 points a message
 CM_TOL, ACC_TOL = 0.81, 0.0081
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The plain solves on the CPU are loops of small ops, which run
-    fastest on one intra-op thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _load(name: str):

@@ -29,6 +29,7 @@ from repro_torch.faults import chaos
 from repro_torch.faults import plan as plan_mod
 from repro_torch.kernels import ref
 from repro_torch.serving import StreamingSVMService
+from torch_threads import one_thread  # noqa: F401
 
 L = 8
 

@@ -18,6 +18,7 @@ from repro.data import pipeline as jpipe
 from repro_torch import convert
 from repro_torch import text as ttext
 from repro_torch.data import pipeline as tpipe
+from torch_threads import one_thread  # noqa: F401
 
 N_MSG, N_FEAT, N_TRAIN = 1024, 1024, 768
 CLASSES = {2: (-1, 1), 3: (-1, 0, 1)}

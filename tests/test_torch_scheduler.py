@@ -20,6 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import smoke_variant
 from repro_torch.models.transformer import build_model
 from repro_torch.serving import BatchScheduler, Request
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from repro_torch.models import rwkv6 as trwkv
 from repro_torch.models.config import ModelConfig, smoke_variant
 from repro_torch.models.layers import tree_leaves, tree_map
 from repro_torch.models.transformer import build_model
+from torch_threads import one_thread  # noqa: F401
 
 T = convert.tensor_from_numpy
 TOL = 1e-5
@@ -44,16 +45,6 @@ MAMBA = dict(name="m", family="hybrid", num_layers=1, d_model=64,
 RWKV = dict(name="r", family="ssm", attn_free=True, num_layers=1,
             d_model=128, num_heads=2, num_kv_heads=2, d_ff=256,
             vocab_size=64, norm_style="layernorm")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_thread():
-    """The scans, decode loops and small layers here are loops of small
-    ops, which run fastest on one intra-op thread."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _np(x):

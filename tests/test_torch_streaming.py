@@ -33,6 +33,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.cluster import Cluster
 from repro_torch.serving import StreamingSVMService
 from repro_torch.serving import svm_stream
+from torch_threads import one_thread  # noqa: F401
 
 RTOL = ATOL = 1e-4
 L = 4

@@ -24,6 +24,7 @@ from repro.data import svm_rows
 from repro_torch import convert
 from repro_torch import sparse as tsp
 from repro_torch.kernels import ops, ref
+from torch_threads import one_thread  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 
