@@ -30,8 +30,12 @@ Modes:
     python -m repro_torch.analysis.lint              # the matrix
     python -m repro_torch.analysis.lint --self-test  # seed one violation
         per rule and require the rule to fire naming op and program
-    python -m repro_torch.analysis.lint --artifacts D  # the reference's
-        dry-run artifacts: not ported (ROADMAP Queue 1 item 13g-b)
+    python -m repro_torch.analysis.lint --artifacts D  # the port's
+        dry-run artifacts: run each recorded svm (shape, mesh, transport,
+        format) shape-only again (``launch.dryrun``) and fail when its
+        collectives' counts or ordered signatures changed (the staleness
+        gate; the reference's own artifacts, counted from HLO, are
+        skipped)
 
 ``--device cuda`` runs the matrix, the dynamic rules and the self-test
 on the card (where the runtime host-sync guard can fire); the default is
@@ -458,17 +462,76 @@ def run_self_test(device: str = "cpu") -> int:
 
 
 def run_artifacts(art_dir: str) -> int:
-    raise NotImplementedError(
-        "--artifacts re-compiles the reference's JAX dry-run artifacts for "
-        "TPU meshes; the port has no dry-run (ROADMAP Queue 1 item 13g-b, "
-        f"launch/dryrun), so {art_dir!r} cannot be checked")
+    """The staleness gate over the dry-run artifacts in ``art_dir``: each
+    ``status: "ok"`` svm-tfidf record of the port's dry run is run again
+    shape-only on a fake group of its mesh, and its rank 0's schedule
+    must be valid, with the recorded count of each collective kind and
+    the recorded ordered signatures (``schedule_digest``). Records of
+    other archs, of other statuses and the reference's own records
+    (counted from HLO: no ``schedule_digest``) are skipped. Must run in
+    a process without a process group (the dry run opens its own).
+    → failures (a stale record raises ``LintViolation``)."""
+    import glob
+    import os
+
+    from repro_torch import analysis, compat
+    from repro_torch.analysis.base import LintViolation
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.hlo_analysis import collective_stats
+    from repro_torch.launch.mesh import make_production_mesh
+
+    paths = sorted(glob.glob(os.path.join(art_dir, "dryrun_*.json")))
+    if not paths:
+        print(f"no dryrun artifacts under {art_dir}")
+        return 0
+    todo = []
+    for path in paths:
+        with open(path) as f:
+            record = json.load(f)
+        name = os.path.basename(path)
+        if record.get("status") != "ok":
+            print(f"skip {name}: status={record.get('status')}")
+        elif record.get("arch") != "svm_tfidf":
+            print(f"skip {name}: non-svm arch (the schedule gate covers "
+                  "the paper workload)")
+        elif "schedule_digest" not in record:
+            print(f"skip {name}: not a record of the port's dry run (no "
+                  "recorded schedule: the reference's, counted from HLO)")
+        else:
+            todo.append((name, record))
+    for multi_pod in sorted({r["mesh"] == "2x16x16" for _, r in todo}):
+        shape_mesh = make_production_mesh(multi_pod=multi_pod)
+        with dryrun.fake_group(shape_mesh.size):
+            mesh = compat.rank_mesh(shape_mesh.axis_names, shape_mesh.sizes)
+            for name, record in todo:
+                if (record["mesh"] == "2x16x16") != multi_pod:
+                    continue
+                cfg = dryrun.arch_config(record["arch"],
+                                      record.get("row_format"),
+                                      record.get("nnz_cap"))
+                bundle = dryrun.build_bundle(cfg, record["shape"], mesh,
+                                             shuffle=record.get("shuffle"))
+                fresh = dryrun.lower(bundle, mesh)["record"]
+                analysis.check_schedule(fresh, program=name)
+                analysis.compare_collective_counts(
+                    record.get("collectives", {}), collective_stats(fresh),
+                    program=name)
+                if dryrun.schedule_digest(fresh) != record["schedule_digest"]:
+                    raise LintViolation(
+                        "collective-schedule", name, "schedule_digest",
+                        "the recorded collectives' signatures differ from "
+                        "a fresh run's: the record is stale")
+                print(f"OK {name}: schedule valid, collective counts and "
+                      "signatures current")
+    return 0
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         description="the port's invariant linter")
     ap.add_argument("--artifacts", default=None, metavar="DIR",
-                    help="the reference's dry-run artifacts (not ported)")
+                    help="check the port's dry-run artifacts in DIR against "
+                         "a fresh shape-only run of each")
     ap.add_argument("--self-test", action="store_true",
                     help="seed one violation per rule; each must fire "
                          "naming the offending op and program")

@@ -274,6 +274,12 @@ def new_groups(groups: Sequence[Sequence[int]], group=None) -> Groups:
     return Groups(_GROUPS[key][1], mine, tuple(map(tuple, groups)))
 
 
+def forget_groups() -> None:
+    """Drop the subgroups :func:`new_groups` made and keeps: for a
+    process that destroys its default group and may start another."""
+    _GROUPS.clear()
+
+
 def all_gather_groups(x: torch.Tensor, groups: Groups, *,
                       tiled: bool = False) -> torch.Tensor:
     """Grouped all-gather: each rank gathers within its own group of

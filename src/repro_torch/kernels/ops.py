@@ -24,6 +24,19 @@ call of a signature in the process is a compile event of the retrace
 rule. Recording counts no launch. The linter's rules read a plain
 version as one op (:func:`repro_torch.analysis.base.run_plain`).
 
+Shape-only tensors (``meta`` tensors, and the fake tensors of
+``FakeTensorMode`` that the dry run traces a rank's step with,
+:mod:`repro_torch.launch.dryrun`) take a wrapper's shape rule
+(:func:`shape_only`), the counterpart of ``pallas_call(out_shape=...)``:
+the kernel's outputs, and its workspaces for as long as the launch holds
+them, as empty tensors of the kernel's shapes and dtypes on the inputs'
+device, and, under :func:`record_kernel_work`, its FLOPs and bytes by
+the formulas of its bound in PERF.md §6. A real tensor never takes it:
+a CUDA tensor still launches the kernel or raises, a CPU tensor runs
+the plain version. A rule counts no launch. The rules cover the
+kernels of the dry run's steps: ``cd_solve`` and ``hinge_scores`` on
+dense and ``SparseRows`` rows, and ``decode_attention``.
+
 The solve and Gram wrappers take their hyper-parameters (C, tol and
 the epoch cutoff; γ and coef0) as a number for every job or as a
 (jobs,) tensor, one value a job (:func:`job_values`), and run a sweep's
@@ -34,7 +47,8 @@ jobs_per_shared = jobs / B (:func:`job_layout`).
 """
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, List, NamedTuple, Optional
 
 import torch
 
@@ -67,6 +81,196 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, ROUTE_LAUNCHES):
         for k in counts:
             counts[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# Shape rules: a kernel's outputs and work on shape-only tensors
+# ---------------------------------------------------------------------------
+
+class KernelWork(NamedTuple):
+    """A kernel launch's work as its shape rule reckons it (one a launch
+    the wrapper would count, under the route it would count): FLOPs and
+    bytes (each input read once, each output written once) by the
+    formulas of its bound in PERF.md §6. The solves' are an epoch's,
+    ``epochs`` the call's epoch cutoff (None when the cutoff is a
+    tensor, whose value a shape-only run cannot read); the others'
+    ``epochs`` is 1. Work that depends on the data (rows whose α moves,
+    live slots, valid cache positions) is counted at its most."""
+    name: str
+    route: str
+    flops: float
+    nbytes: float
+    epochs: Optional[int]
+
+
+_WORK: Optional[List[KernelWork]] = None
+
+
+@contextlib.contextmanager
+def record_kernel_work():
+    """Record the :class:`KernelWork` of every shape rule run inside the
+    block; yields the list, in call order."""
+    global _WORK
+    prev, _WORK = _WORK, []
+    try:
+        yield _WORK
+    finally:
+        _WORK = prev
+
+
+def _note_work(name: str, route: str, flops: float, nbytes: float,
+               epochs: Optional[int] = 1) -> None:
+    if _WORK is not None:
+        _WORK.append(KernelWork(name, route, float(flops), float(nbytes),
+                                epochs))
+
+
+def _is_shape_only(t) -> bool:
+    if sparse_rows.is_sparse(t):
+        return _is_shape_only(t.values) or _is_shape_only(t.indices)
+    if not isinstance(t, torch.Tensor):
+        return False
+    if t.is_meta:
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t)
+
+
+def shape_only(*ts) -> bool:
+    """Whether any of ``ts`` (tensors or ``SparseRows``) is shape-only:
+    a ``meta`` tensor or a fake tensor. A mix of shape-only and real
+    tensors raises."""
+    flags = [_is_shape_only(t) for t in ts
+             if isinstance(t, torch.Tensor) or sparse_rows.is_sparse(t)]
+    _check(all(flags) or not any(flags),
+           "a kernel call mixes shape-only and real tensors")
+    return bool(flags) and flags[0]
+
+
+def _empty(like: torch.Tensor, shape, dtype) -> torch.Tensor:
+    return torch.empty(tuple(shape), dtype=dtype, device=like.device)
+
+
+def _epochs_of(max_epochs) -> Optional[int]:
+    """The epoch cutoff as a number when it is one (a tensor's value is
+    not readable on shape-only inputs)."""
+    return None if isinstance(max_epochs, torch.Tensor) else int(max_epochs)
+
+
+def _solve_outputs(like, L: int, n: int, d: int, w=None):
+    f32 = torch.float32
+    return (_empty(like, (L, n), f32),
+            _empty(like, (L, d), f32) if w is None else w,
+            _empty(like, (L,), f32), _empty(like, (L,), torch.int32),
+            _empty(like, (L,), f32))
+
+
+def _rule_cd_solve(xh, xs, y, m, max_epochs):
+    """``cd_solve``'s outputs on dense rows; an epoch's work: the home
+    and shared rows, y and m read, α, w, b, epochs and viol written;
+    2·L·n·d FLOPs for w·x and 2·L·n·d for the updates of rows whose α
+    moves (every row, at most)."""
+    L, n = y.shape
+    d = xh.shape[-1]
+    rows = (xh.numel() + xs.numel()) * xh.element_size()
+    route = "cluster" if cd_solve_cluster_size(n, d, xh.dtype) > 1 \
+        else "single"
+    _note_work("cd_solve", route, 4.0 * L * n * d,
+               rows + 2 * L * n * 4 + L * n * 4 + L * d * 4 + 3 * L * 4,
+               _epochs_of(max_epochs))
+    return _solve_outputs(y, L, n, d)
+
+
+#: ``csrc/cd_solve_sparse.cu``'s row-block bytes for nnz_cap slots
+#: (``block_bytes``): the prep kernel's staged copy of every row of
+#: every job, which the launch holds
+def sparse_block_bytes(cap: int) -> int:
+    return cap * 16 + 16
+
+
+def _rule_cd_solve_sparse(xh, xs, y, m, max_epochs):
+    """``cd_solve/sparse``'s outputs, w as the (L, d) view of a (d,
+    8⌈L/8⌉) array, and the prep kernel's row blocks held for the
+    launch; an epoch's work as the dense rule's over the slots (every
+    slot live, at most)."""
+    L, n = y.shape
+    d, cap = xh.shape[-1], xh.nnz_cap
+    blocks = _empty(y, (n * L * sparse_block_bytes(cap),), torch.uint8)
+    w = torch.zeros((d, -(-L // 8) * 8), dtype=torch.float32,
+                    device=y.device)
+    slots = (xh.values.numel() + xs.values.numel()) \
+        * (4 + xh.values.element_size())
+    _note_work("cd_solve", "sparse", 4.0 * L * n * cap,
+               slots + 2 * L * n * 4 + L * n * 4 + L * d * 4 + 3 * L * 4,
+               _epochs_of(max_epochs))
+    out = _solve_outputs(y, L, n, d, w[:, :L].T)
+    del blocks
+    return out
+
+
+def _rule_hinge_scores(X, W, b, y, m):
+    """``hinge_scores``' outputs, launched in chunks of
+    ``MAX_HYPOTHESES`` as the kernel is, each chunk's workspace held for
+    its launch (bf16 rows: the W planes and the slab partials; f32
+    rows: the tile partials; blocked-CSR rows: W packed and the tile
+    partials, 64 rows a tile); a launch's work: X, its W, b, y and m
+    read, its sums written, 2·n·d·L FLOPs (2·n·nnz_cap·L on blocked-CSR
+    rows)."""
+    from repro_torch.kernels.hinge_score import (MAX_HYPOTHESES, PLANES,
+                                                 SLAB_COLS)
+    n, d = X.shape
+    f32 = torch.float32
+    sparse = sparse_rows.is_sparse(X)
+    if sparse:
+        route, rows = "sparse", X.values.numel() * (
+            4 + X.values.element_size())
+        width = X.nnz_cap
+    else:
+        route = "tensor_core" if X.dtype == torch.bfloat16 else "simt"
+        rows, width = X.numel() * X.element_size(), d
+    losses = []
+    for l0 in range(0, W.shape[0], MAX_HYPOTHESES):
+        L = min(MAX_HYPOTHESES, W.shape[0] - l0)
+        if sparse:
+            work = [_empty(W, (d, MAX_HYPOTHESES), f32),
+                    _empty(W, (max(1, -(-n // 64)), MAX_HYPOTHESES + 1),
+                           f32)]
+        elif route == "tensor_core":
+            dp = max(1, -(-d // SLAB_COLS)) * SLAB_COLS
+            work = [_empty(W, (PLANES, MAX_HYPOTHESES, dp), torch.bfloat16),
+                    _empty(W, (dp // SLAB_COLS, n, MAX_HYPOTHESES), f32)]
+        else:
+            work = [_empty(W, (-(-n // 64), L), f32)]
+        losses.append(_empty(W, (L,), f32))
+        del work
+        _note_work("hinge_scores", route, 2.0 * n * width * L,
+                   rows + L * d * 4 + L * 4 + 2 * n * 4 + L * 4 + 4)
+    return (losses[0] if len(losses) == 1 else torch.cat(losses)), \
+        _empty(W, (), f32)
+
+
+#: ``csrc/flash_decode.cu``'s cache positions a CTA on the SIMT route
+#: (``kChunk``); the tensor-core route picks its chunk from the card's
+#: SMs at run time, so the rule reckons the workspace at this one
+FLASH_DECODE_CHUNK = 512
+
+
+def _rule_decode_attention(q, k, v):
+    """``flash_decode``'s output and its split partials; the work: K and
+    V read (every position: valid_len is not readable), q read, the
+    output written, 4·B·H·S·hd FLOPs at the bf16 tensor-core rate."""
+    B, H, hd = q.shape
+    KV, S = k.shape[1], k.shape[2]
+    splits = -(-S // FLASH_DECODE_CHUNK)
+    work = [_empty(q, (B, H, splits), torch.float32) for _ in range(2)] \
+        + [_empty(q, (B, H, splits, hd), torch.float32)]
+    out = _empty(q, q.shape, q.dtype)
+    del work
+    _note_work("flash_decode", decode_route(q.dtype, hd),
+               4.0 * B * H * S * hd,
+               2 * B * KV * S * hd * k.element_size()
+               + 2 * B * H * hd * q.element_size() + 4)
+    return out
 
 
 def _plain(fn, *args, **kwargs):
@@ -216,9 +420,11 @@ def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C, tol,
     kw = dict(C=job_values(C, L, y.device), tol=job_values(tol, L, y.device),
               max_epochs=_epoch_cutoffs(max_epochs, L, y.device))
     if sparse_rows.is_sparse(xh) or sparse_rows.is_sparse(xs):
-        return _cd_solve_sparse(xh, xs, y, m, layout, **kw)
+        return _cd_solve_sparse(xh, xs, y, m, layout, max_epochs, **kw)
     _check(xh.dtype in _ROW_DTYPES and xs.dtype == xh.dtype,
            f"rows must be one of {_ROW_DTYPES}, got {xh.dtype}/{xs.dtype}")
+    if shape_only(xh, xs, y, m):
+        return _rule_cd_solve(xh, xs, y, m, max_epochs)
     if not _on_card(xh, xs, y, m):
         return _plain(ref.cd_solve_ref, xh, xs, y, m, **kw)
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
@@ -233,14 +439,18 @@ def cd_solve(xh, xs, y: torch.Tensor, m: torch.Tensor, *, C, tol,
     return out
 
 
-def _cd_solve_sparse(xh, xs, y, m, layout, *, C: torch.Tensor,
+def _cd_solve_sparse(xh, xs, y, m, layout, cutoff, *, C: torch.Tensor,
                      tol: torch.Tensor, max_epochs: torch.Tensor):
     """:func:`cd_solve` on blocked-CSR rows (see
-    :func:`ref.cd_solve_sparse_ref`). A call of the route launches two
-    kernels, the prep of the row blocks and the solve, and counts one."""
+    :func:`ref.cd_solve_sparse_ref`); ``cutoff`` the epoch cutoff as the
+    caller gave it (for the shape rule). A call of the route launches
+    two kernels, the prep of the row blocks and the solve, and counts
+    one."""
     parts, leaves = _sparse_parts((xh, xs), "cd_solve on SparseRows")
     check_column_ids(*parts)
     kw = dict(C=C, tol=tol, max_epochs=max_epochs)
+    if shape_only(*leaves, y, m):
+        return _rule_cd_solve_sparse(xh, xs, y, m, cutoff)
     if not _on_card(*leaves, y, m):
         return _plain(ref.cd_solve_sparse_ref, xh, xs, y, m, **kw)
     _check(y.dtype == torch.float32 and m.dtype == torch.float32,
@@ -277,6 +487,8 @@ def hinge_scores(X, W: torch.Tensor, b: torch.Tensor, y: torch.Tensor,
     else:
         _check(X.dtype in _ROW_DTYPES, f"X must be one of {_ROW_DTYPES}")
         rows = [X]
+    if shape_only(*rows, W, b, y, m):
+        return _rule_hinge_scores(X, W, b, y, m)
     if not _on_card(*rows, W, b, y, m):
         return _plain(ref.hinge_scores_ref, X, W, b, y, m)
     _check(all(t.dtype == torch.float32 for t in (W, b, y, m)),
@@ -429,7 +641,9 @@ def check_column_ids(*parts) -> None:
     others are checked together in one device round trip and marked, so
     a batch of rows costs one round trip however many kernels it meets."""
     todo = [t for t in parts if not t.ids_in_range]
-    live = [t for t in todo if t.indices.numel()]
+    # shape-only rows hold no ids to check (their kernels run as rules)
+    live = [t for t in todo if t.indices.numel()
+            and not _is_shape_only(t.indices)]
     if live:
         lo_hi = torch.stack([torch.stack([t.indices.min(), t.indices.max()])
                              for t in live]).tolist()
@@ -624,6 +838,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            f"q, k and v must share one dtype of {_ROW_DTYPES}")
     _check(valid_len.dim() == 0 and valid_len.dtype == torch.int32,
            "valid_len must be an int32 scalar tensor")
+    if shape_only(q, k, v, valid_len):
+        return _rule_decode_attention(q, k, v)
     if not _on_card(q, k, v, valid_len):
         return _plain(ref.decode_attention_ref, q, k, v, valid_len)
     _check_cuda_layout({"q": q, "k": k, "v": v})

@@ -14,10 +14,15 @@ take its place (:mod:`repro_torch.compat`).
   subgroup an axis; :func:`make_host_mesh` (the reference's clamping),
   :func:`make_production_mesh` (a shape-only mesh: the 16 × 16 and
   2 × 16 × 16 grids, no ranks, for reckoning placements),
-  :func:`batch_axes`, :func:`data_parallel_size` and
-  :func:`model_parallel_size`.
+  :func:`batch_axes`, :func:`data_parallel_size`,
+  :func:`model_parallel_size` and :func:`batch_group` (the group of a
+  rank's ranks along the batch axes).
 
-No counterpart: the TPU v5e roofline constants.
+The roofline constants are the port's card's, in place of the
+reference's TPU v5e ones (``PEAK_FLOPS_BF16``, ``HBM_BW``; ``LINK_BW``
+in place of ``ICI_BW``): NVIDIA H100 SXM5 data sheet, dense bf16 on the
+tensor cores, HBM3, and NVLink 4 (18 links, 900 GB/s both directions
+together). No TPU number carries over.
 """
 from __future__ import annotations
 
@@ -97,5 +102,35 @@ def data_parallel_size(mesh) -> int:
     return math.prod(mesh.shape[a] for a in batch_axes(mesh))
 
 
+def batch_group(mesh):
+    """The process group of this rank's ranks along the batch axes of a
+    rank ``mesh`` (those that differ from it only in their ("pod",)
+    "data" coordinates, in row-major order): the group a data-parallel
+    program such as the sharded svm round runs on, as the reference's
+    ``shard_map`` over those axes. Made on first use, for every batch
+    group at once (every rank of the world calls it alike)."""
+    axes = batch_axes(mesh)
+    if len(axes) == 1:
+        g = mesh.groups_of(axes[0])
+    else:
+        mesh._need_ranks("process groups")
+        dims = [mesh.axis_names.index(a) for a in axes]
+        rest = [i for i in range(len(mesh.sizes)) if i not in dims]
+        grid = np.arange(mesh.size).reshape(mesh.sizes)
+        parts = np.transpose(grid, rest + dims).reshape(
+            -1, data_parallel_size(mesh))
+        g = compat.new_groups([list(map(int, r)) for r in parts])
+    return g.handles[g.mine]
+
+
 def model_parallel_size(mesh) -> int:
     return mesh.shape.get("model", 1)
+
+
+# Roofline constants of one NVIDIA H100 SXM5 (data sheet).
+PEAK_FLOPS_BF16 = 989.4e12      # FLOP/s, dense bf16 on the tensor cores
+HBM_BW = 3.35e12                # B/s, HBM3
+# B/s a direction of one card's NVLink 4: the collective term of the
+# roofline assumes a rank's collective bytes leave at this rate through
+# the NVSwitch fabric, every link busy, nothing overlapped with compute
+LINK_BW = 450e9

@@ -15,11 +15,18 @@ runs on a mesh of ranks (:func:`build_serve_step` with a
 shards that the bundle's ``in_shardings`` place on it, as the
 reference's ``build_serve_step(cfg, mesh)`` under SPMD. The train and
 prefill steps are for one process: ``mesh`` and ``rules`` must be
-``None`` (their sharded forms are ROADMAP Queue 1 item 13g-c; the
-svm-tfidf steps item 13g-b), and their ``in_shardings`` and
-``out_shardings`` are ``None``. The train step updates the params and
-the optimizer state in place, the serve step the caches:
-``donate_argnums`` names them, as the reference's.
+``None`` (their sharded forms are ROADMAP Queue 1 item 13g-c), and
+their ``in_shardings`` and ``out_shardings`` are ``None``. The train
+step updates the params and the optimizer state in place, the serve
+step the caches: ``donate_argnums`` names them, as the reference's.
+
+The paper's own workload, svm-tfidf, as steps on a mesh
+(:func:`build_svm_round_step`, :func:`build_svm_sweep_step`,
+:func:`build_svm_serve_step`): the sharded round, sweep round and
+streaming wave over the mesh's batch axes, the reference's
+``shard_map`` programs as the per-rank bodies of ``core.mapreduce_svm``
+and ``core.sweep``. :func:`per_host_abstract` gives the inputs each of
+N processes makes; :func:`local_abstract` a rank's own shards.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import optim
+from repro_torch import sparse as sparse_rows
 from repro_torch.launch import sharding as shd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (lm_logits, tree_leaves,
@@ -223,3 +231,224 @@ def build_step(cfg: ModelConfig, mesh, shape: InputShape,
     if shape.kind == "prefill":
         return build_prefill_step(cfg, mesh, shape, rules=rules)
     return build_serve_step(cfg, mesh, shape, rules=rules)
+
+
+# ---------------------------------------------------------------------------
+# Placed inputs: per process, per rank
+# ---------------------------------------------------------------------------
+
+def _is_placement(spec) -> bool:
+    """A placement (a tuple of mesh-axis names, tuples of them or None),
+    as opposed to a tree of placements."""
+    return (isinstance(spec, tuple) and not hasattr(spec, "_fields")
+            and all(e is None or isinstance(e, str)
+                    or (isinstance(e, tuple)
+                        and all(isinstance(a, str) for a in e))
+                    for e in spec))
+
+
+def _map_placed(args, specs, fn):
+    """``fn(tensor, placement)`` over every tensor of ``args``, the
+    placements taken from ``specs``. A placement may sit above the args'
+    structure (one placement for a whole ``SparseRows`` or state tuple,
+    the reference's ``shard_map`` prefix semantics): it then applies to
+    every tensor below it, over their leading dims."""
+    if isinstance(args, torch.Tensor):
+        return fn(args, specs)
+    if sparse_rows.is_sparse(args):
+        return sparse_rows.SparseRows(
+            _map_placed(args.indices, specs, fn),
+            _map_placed(args.values, specs, fn), args.d)
+    if isinstance(args, dict):          # in sorted key order, as jax's
+        out = {k: _map_placed(args[k], specs if _is_placement(specs)
+                              else specs[k], fn) for k in sorted(args)}
+        return {k: out[k] for k in args}
+    if isinstance(args, tuple):
+        sub = [specs] * len(args) if _is_placement(specs) else list(specs)
+        out = [_map_placed(a, s, fn) for a, s in zip(args, sub)]
+        return type(args)(*out) if hasattr(args, "_fields") \
+            else tuple(out)
+    return args
+
+
+def per_host_abstract(args, in_shardings, mesh, num_processes: int):
+    """The inputs each of ``num_processes`` processes makes of a bundle's
+    global ``args`` (``meta`` tensors): every dim placed on a batch axis
+    ("pod"/"data") divided by the process count, as the reference's
+    (its data axes span the processes, each process holding a
+    contiguous block of rows); ``meta`` tensors again. Raises
+    ``ValueError`` when such a dim does not divide."""
+    from repro_torch.launch.mesh import batch_axes
+    data_ax = set(batch_axes(mesh))
+
+    def one(a, spec):
+        shape = list(a.shape)
+        for i, entry in enumerate(spec or ()):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            if set(axes) & data_ax:
+                if shape[i] % num_processes:
+                    raise ValueError(
+                        f"dim {i} of {tuple(a.shape)} does not split "
+                        f"over {num_processes} processes")
+                shape[i] //= num_processes
+        return _meta(tuple(shape), a.dtype)
+    return _map_placed(args, in_shardings, one)
+
+
+def local_abstract(args, in_shardings, mesh):
+    """One rank's shards of a bundle's global ``args`` as ``meta``
+    tensors: every placed dim divided by the ranks it is split over."""
+    from repro_torch.models.layers import local_shape
+    return _map_placed(args, in_shardings, lambda a, spec: _meta(
+        local_shape(a.shape, spec or (), mesh), a.dtype))
+
+
+# ---------------------------------------------------------------------------
+# The paper's own workload as steps on a mesh (svm-tfidf "arch")
+# ---------------------------------------------------------------------------
+
+def _svm_shuffle(svm_cfg, shuffle_impl: Optional[str]) -> str:
+    """Merge-transport choice: explicit override > config default."""
+    return shuffle_impl if shuffle_impl is not None \
+        else getattr(svm_cfg, "shuffle_impl", "allgather")
+
+
+def _svm_mr_cfg(svm_cfg, shuffle_impl: Optional[str], ndev: int):
+    """The ``MRSVMConfig`` of a launch step; for the two-level hier
+    transport the host count of ``simulated_hier_hosts`` (None on a
+    multi-process launch: the launched processes)."""
+    from repro_torch.core.mapreduce_svm import MRSVMConfig
+    from repro_torch.launch.mesh import simulated_hier_hosts
+    shuffle = _svm_shuffle(svm_cfg, shuffle_impl)
+    return MRSVMConfig(
+        sv_capacity=svm_cfg.sv_capacity, shuffle_impl=shuffle,
+        hier_num_hosts=simulated_hier_hosts(ndev) if shuffle == "hier"
+        else None,
+        svm=_svm_solver_cfg(svm_cfg))
+
+
+def _svm_solver_cfg(svm_cfg):
+    """The reducer ``SVMConfig`` of the workload config, carrying its row
+    format, so that the whole sharded program keys off one switch."""
+    from repro_torch.core.svm import SVMConfig
+    rf = getattr(svm_cfg, "row_format", "dense")
+    return SVMConfig(
+        C=svm_cfg.C, max_epochs=svm_cfg.max_epochs, row_format=rf,
+        nnz_cap=getattr(svm_cfg, "nnz_cap", 0) if rf == "sparse_csr"
+        else 0)
+
+
+def _svm_rows_abstract(svm_cfg, shape, dt):
+    """A row batch of the workload's row format as ``meta`` tensors:
+    dense, or ``SparseRows`` of ``nnz_cap`` slots a row."""
+    if getattr(svm_cfg, "row_format", "dense") != "sparse_csr":
+        return _meta(tuple(shape), dt)
+    lead = tuple(shape[:-1]) + (svm_cfg.nnz_cap,)
+    return sparse_rows.SparseRows(_meta(lead, torch.int32), _meta(lead, dt),
+                                  shape[-1])
+
+
+def _svm_axes(mesh):
+    """(the batch axes' ranks, the rows' placement over them)."""
+    from repro_torch.launch.mesh import batch_axes, data_parallel_size
+    axes = batch_axes(mesh)
+    return data_parallel_size(mesh), (axes if len(axes) > 1 else axes[0],)
+
+
+def _on_ranks(mesh, make):
+    """The step of this rank of a rank ``mesh`` (``make(group)`` with
+    the rank's batch group); on a shape-only mesh a function that
+    raises: it reckons the inputs only."""
+    if mesh.coords is None:
+        def fn(*args, **kw):
+            mesh._need_ranks("step to run")
+        return fn
+    from repro_torch.launch.mesh import batch_group
+    return make(batch_group(mesh))
+
+
+def build_svm_round_step(svm_cfg, mesh,
+                         shuffle_impl: Optional[str] = None) -> StepBundle:
+    """One MapReduce-SVM round on ``mesh``: rows over the (pod,) data
+    axes, the SV buffer replicated; the merge is the transport
+    ``shuffle_impl`` names (default the config's). On a rank mesh
+    ``fn(Xl, yl, ml, sv)`` runs this rank's shard
+    (``core.mapreduce_svm.make_sharded_round`` over the rank's batch
+    group) and returns (sv', risks, w, b). With more than one model
+    rank, the hier transport's host groups are made within this rank's
+    batch group only: a world of real ranks must make every group on
+    every rank, so there it takes a mesh of one model rank."""
+    from repro_torch.core.mapreduce_svm import SVBuffer, make_sharded_round
+    ndev, row_spec = _svm_axes(mesh)
+    per = svm_cfg.rows_per_device
+    n, d = ndev * per, svm_cfg.num_features
+    mr_cfg = _svm_mr_cfg(svm_cfg, shuffle_impl, ndev)
+    rep = SVBuffer(x=(), y=(), alpha=(), ids=(), mask=())
+    dt = getattr(torch, svm_cfg.dtype)
+    cap = svm_cfg.sv_capacity
+    args = (_svm_rows_abstract(svm_cfg, (n, d), dt), _meta((n,), dt),
+            _meta((n,), dt),
+            SVBuffer(x=_svm_rows_abstract(svm_cfg, (cap, d), dt),
+                     y=_meta((cap,), dt), alpha=_meta((cap,), dt),
+                     ids=_meta((cap,), torch.int32), mask=_meta((cap,), dt)))
+    fn = _on_ranks(mesh, lambda g: make_sharded_round(mr_cfg, g, ndev, per))
+    return StepBundle(fn=fn, args=args,
+                      in_shardings=(row_spec, row_spec, row_spec, rep),
+                      out_shardings=(rep, (), (), ()),
+                      donate_argnums=(), model=None)
+
+
+def _svm_sweep_bundle(svm_cfg, mesh, S: int, shuffle_impl, per: int,
+                      per_config_data: bool) -> StepBundle:
+    from repro_torch.core.svm import SolverParams
+    from repro_torch.core.sweep import (DedupChunk, init_sharded_sweep_sv,
+                                        make_sharded_sweep_round,
+                                        uses_dedup_state)
+    from repro_torch.core.mapreduce_svm import SVBuffer
+    ndev, row_spec = _svm_axes(mesh)
+    n, d = ndev * per, svm_cfg.num_features
+    mr_cfg = _svm_mr_cfg(svm_cfg, shuffle_impl, ndev)
+    dt = getattr(torch, svm_cfg.dtype)
+    lead = (S, n) if per_config_data else (n,)
+    data_spec = (None,) + row_spec if per_config_data else row_spec
+    state = init_sharded_sweep_sv(mr_cfg, S, d, ndev, per, dt,
+                                  per_config_data=per_config_data,
+                                  device="meta")
+    rep = (DedupChunk if uses_dedup_state(mr_cfg, per_config_data)
+           else SVBuffer)(*(() for _ in state))
+    rep_par = SolverParams(*(() for _ in SolverParams._fields))
+    args = (_svm_rows_abstract(svm_cfg, lead + (d,), dt), _meta(lead, dt),
+            _meta(lead, dt), state,
+            SolverParams(*(_meta((S,), torch.float32)
+                           for _ in SolverParams._fields)))
+    fn = _on_ranks(mesh, lambda g: make_sharded_sweep_round(
+        mr_cfg, g, ndev, per, per_config_data=per_config_data))
+    return StepBundle(fn=fn, args=args,
+                      in_shardings=(data_spec,) * 3 + (rep, rep_par),
+                      out_shardings=(rep, (), (), ()),
+                      donate_argnums=(), model=None)
+
+
+def build_svm_sweep_step(svm_cfg, mesh, num_configs: int,
+                         shuffle_impl: Optional[str] = None) -> StepBundle:
+    """S = ``num_configs`` MapReduce-SVM jobs a round on ``mesh``: the
+    sharded sweep round (``core.sweep.make_sharded_sweep_round``), a
+    rank's S reducers one solve launch; on the packed transports the
+    round state is the shared-row dedup format. On a rank mesh ``fn(Xl,
+    yl, ml, state, params)`` runs this rank's shard (hier as in
+    :func:`build_svm_round_step`)."""
+    return _svm_sweep_bundle(svm_cfg, mesh, num_configs, shuffle_impl,
+                             svm_cfg.rows_per_device, False)
+
+
+def build_svm_serve_step(svm_cfg, mesh, num_streams: int = 4,
+                         shuffle_impl: Optional[str] = None) -> StepBundle:
+    """One streaming update wave on ``mesh``: S = ``num_streams`` tenant
+    streams each fold (new rows ∪ carried SVs) at once, the sweep round
+    with per-stream rows (``per_config_data``): ``stream_rows_per_wave
+    + sv_capacity`` rows a stream over the batch axes, rounded up to
+    whole ranks."""
+    ndev, _ = _svm_axes(mesh)
+    wave_rows = svm_cfg.stream_rows_per_wave + svm_cfg.sv_capacity
+    return _svm_sweep_bundle(svm_cfg, mesh, num_streams, shuffle_impl,
+                             -(-wave_rows // ndev), True)

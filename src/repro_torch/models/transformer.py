@@ -280,7 +280,7 @@ class TransformerModel(TemplateModel):
         model."""
         cfg, mesh, place = self.cfg, self.mesh, self.place
         mesh.index("model")               # a shape-only mesh runs nothing
-        lplace = place["layers"]
+        lplace = _inner(place["layers"])
         h = embed_tokens_sharded(params["embed"], place["embed"], tokens,
                                  mesh)
         pos = state.pos
@@ -288,24 +288,31 @@ class TransformerModel(TemplateModel):
                                               cfg.num_layers)):
             cache = attn_lib.LayerKVCache(state.caches.k[i],
                                           state.caches.v[i])
-            a_in = apply_norm_sharded(h, lp["attn_norm"],
-                                      _inner(lplace["attn_norm"]),
-                                      cfg.norm_style, cfg.norm_eps, mesh)
-            a_out, _ = attn_lib.attention_decode_step(
-                lp["attn"], a_in, cache, pos, cfg, self.kv_repeat,
-                use_kernel=self.decode_kernel, mesh=mesh,
-                place=_inner(lplace["attn"]))
-            h = h + a_out
-            m_in = apply_norm_sharded(h, lp["mlp_norm"],
-                                      _inner(lplace["mlp_norm"]),
-                                      cfg.norm_style, cfg.norm_eps, mesh)
-            h = h + apply_mlp_sharded(m_in, lp["mlp"], _inner(lplace["mlp"]),
-                                      cfg.mlp_style, mesh)
+            h = self.layer_decode_sharded(lp, lplace, h, cache, pos)
         h = apply_norm_sharded(h, params["final_norm"], place["final_norm"],
                                cfg.norm_style, cfg.norm_eps, mesh)
         logits = lm_logits_sharded(params["embed"], place["embed"], h,
                                    cfg.tie_embeddings, mesh)
         return logits, DecodeState(caches=state.caches, pos=pos + 1)
+
+
+    def layer_decode_sharded(self, lp, lplace, h: torch.Tensor, cache,
+                             pos: torch.Tensor) -> torch.Tensor:
+        """One layer of :meth:`decode_step` on a rank's shards: ``lp`` the
+        layer's leaves, ``lplace`` their placements (a layer's, without
+        the stacked "layers" entry), ``cache`` its ``LayerKVCache``,
+        written in place. → the new hidden state."""
+        cfg, mesh = self.cfg, self.mesh
+        a_in = apply_norm_sharded(h, lp["attn_norm"], lplace["attn_norm"],
+                                  cfg.norm_style, cfg.norm_eps, mesh)
+        a_out, _ = attn_lib.attention_decode_step(
+            lp["attn"], a_in, cache, pos, cfg, self.kv_repeat,
+            use_kernel=self.decode_kernel, mesh=mesh, place=lplace["attn"])
+        h = h + a_out
+        m_in = apply_norm_sharded(h, lp["mlp_norm"], lplace["mlp_norm"],
+                                  cfg.norm_style, cfg.norm_eps, mesh)
+        return h + apply_mlp_sharded(m_in, lp["mlp"], lplace["mlp"],
+                                     cfg.mlp_style, mesh)
 
 
 def _inner(place_tree):

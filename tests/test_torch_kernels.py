@@ -134,8 +134,11 @@ def test_wrappers_check_inputs():
                      torch.zeros((2, 3)), torch.zeros((2, 3)), C=1.0,
                      tol=1e-3, max_epochs=1)
     with pytest.raises(ValueError, match="no kernel for device"):
-        ops.hinge_scores(*(torch.zeros(s, device="meta") for s in
-                           ((4, 8), (2, 8), (2,), (4,), (4,))))
+        ops.gram(*(torch.zeros((4, 8), device="meta") for _ in range(2)))
+    # meta tensors take the shape rule where a wrapper has one
+    loss, cnt = ops.hinge_scores(*(torch.zeros(s, device="meta") for s in
+                                   ((4, 8), (2, 8), (2,), (4,), (4,))))
+    assert loss.is_meta and tuple(loss.shape) == (2,) and cnt.dim() == 0
 
 
 def test_wrappers_count_no_launch_on_cpu():
