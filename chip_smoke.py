@@ -323,12 +323,14 @@ Phases, one line or block each; any failure exits non-zero:
    the ring serve wave (4 × 640 rows), the ring ``sparse256`` sweep and
    llama3-8b's decode_32k (its (32, 8, 1, 32768, 128) cache slice and
    weight shards); each step's launches by route equal twice its shape
-   rules' count, its first ``cd_solve`` (one epoch) and
+   rules' count, job 0 of its first ``cd_solve`` (every epoch the step
+   ran; not the round's, ``DRYRUN_SOLVE_CHECKED``) and its first
    ``hinge_scores`` against plain, ``flash_decode`` at llama3-8b's rank
    (B 8, H 2, KV 1, S 32768, hd 128) against plain, SDPA and its SIMT
-   route; each measured peak within 0.8–1.25 of its reckoning, with two
-   controls (the arguments alone; the reckoning at 8 × 16 ranks, which
-   must fail for the decode step, whose batch a rank then doubles); last
+   route; each measured peak within 0.8–1.25 of its reckoning, with a
+   control that must fall outside: the arguments alone for the svm
+   steps, the reckoning at 8 × 16 ranks for the decode step (whose batch
+   a rank then doubles; an svm rank's rows do not move with it); last
    ``lint --artifacts`` over the phase's svm records. The launches go
    into ``launches_by_path["dryrun"]``, the decode shape into the
    flash_decode row's ``configs``. ``--dryrun`` runs only this phase
@@ -3197,6 +3199,50 @@ def _step_bytes(model, params, state, batch, cache_len, steps):
     return nbytes, w_elems
 
 
+# the serve step with the MLP activation as shipped against the fused one
+# it replaced (tinyllama-1.1b's shape; chatglm3-6b's, the model that
+# [tp-serve-full] splits over 4 ranks)
+ACTIVATION_AB_ARCHS = ("tinyllama-1.1b", "chatglm3-6b")
+ACTIVATION_AB_STEPS = 8
+
+
+def _activation_ab(torch, cfg, step, params, state, tok):
+    """One decode step (``make_serve_step``) with the MLP activation as
+    shipped (``layers.mlp_activation``: silu or the tanh gelu with each
+    step rounded to bf16, as XLA rounds them) against the fused
+    ``F.silu`` / ``F.gelu`` it replaced, in turns A B B A of
+    ``ACTIVATION_AB_STEPS`` steps each, wall time over the steps after a
+    sync (the steps are host-bound): the activation's share of a serve
+    step, on this host, in one process."""
+    import torch.nn.functional as F
+    from repro_torch.models import layers
+    shipped = layers.mlp_activation
+
+    def fused(h, style):
+        return F.silu(h) if style == "swiglu" \
+            else F.gelu(h, approximate="tanh")
+    ms = {"stepwise": [], "fused": []}
+    for name in ("stepwise", "fused", "fused", "stepwise"):
+        layers.mlp_activation = shipped if name == "stepwise" else fused
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ACTIVATION_AB_STEPS):
+                step(params, state, tok)
+            torch.cuda.synchronize()
+        finally:
+            layers.mlp_activation = shipped
+        ms[name].append(1e3 * (time.perf_counter() - t0)
+                        / ACTIVATION_AB_STEPS)
+    a, b = (sum(v) / len(v) for v in ms.values())
+    say(f"[serve-full] {cfg.name} MLP activation A/B, ms a decode step "
+        f"(turns A B B A of {ACTIVATION_AB_STEPS}): stepwise "
+        f"{[round(v, 3) for v in ms['stepwise']]}, fused "
+        f"{[round(v, 3) for v in ms['fused']]}; the stepwise activation "
+        f"costs {a - b:+.3f} ms a step ({(a - b) / b:+.1%}, "
+        f"{cfg.num_layers} layers)")
+
+
 def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
     """The LM serve path at ``cfg``'s width with ``params`` on the card: a
     cache filled with seeded random K/V (the SSM families' recurrent
@@ -3259,6 +3305,8 @@ def phase_serve_full(torch, ops, ref, cfg, params, batch, cache_len, steps):
         step(params, state, tok)
     torch.cuda.synchronize()
     say("[serve-full] one decode step ran under no_implicit_host_sync")
+    if cfg.name in ACTIVATION_AB_ARCHS:
+        _activation_ab(torch, cfg, step, params, state, tok)
 
     snap = (state.caches.k.clone(), state.caches.v.clone()) \
         if cfg.is_moe else None
@@ -3339,8 +3387,10 @@ MODEL_CELLS = (("tinyllama-1.1b", 32, 32768), ("qwen2-1.5b", 32, 32768),
 MOE_LAYERS = 4
 FWD_BATCH, FWD_SEQ = 3, 4096     # 3 × 4096 tokens: chunked_lm_loss chunks
 TF_STEPS = 32
-# the SSM families decode 256 tokens against the forward: rwkv6's forward
-# spans 8 chunks of 32, zamba2's 2 of 128. They do so in float32 (their
+# the SSM families decode against the forward over several of its chunks:
+# rwkv6 128 tokens (4 chunks of 32; 256 until a whole run took 1073.4 s
+# of its 1200 on an H100 host), zamba2 256 (2 chunks of 128). They
+# do so in float32 (their
 # weights widened on the card for this check only): with random weights
 # a bf16 rounding difference grows through their 32 and 38 recurrent
 # layers and along the sequence, and a CPU probe (d 512, full depth, 256
@@ -3348,7 +3398,7 @@ TF_STEPS = 32
 # of max |logit| in bf16, above zamba2's attention controls (0.26–0.48):
 # no limit would separate them. In float32 the same probe read ~1e-3
 # (8.6e-4 at 64 tokens), every control ≥ 0.25.
-SSM_TF_STEPS = 256
+SSM_TF_STEPS = {"ssm": 128, "hybrid": 256}
 # Teacher-forced decode against the forward, max |Δ| of the logits over
 # their largest magnitude: the forward rounds scores and probabilities to
 # bf16 where flash_decode keeps f32, and its matmuls see B·S rows where
@@ -3696,10 +3746,11 @@ def _decode_controls(torch, ops, ring: bool) -> dict:
 
 
 def _tf_steps(cfg) -> int:
-    """Teacher-forced decode length: TF_STEPS; the SSM families
+    """Teacher-forced decode length: TF_STEPS; the SSM families their
     SSM_TF_STEPS, so that the forward spans several chunks."""
-    return SSM_TF_STEPS if cfg.attn_free or cfg.family == "hybrid" \
-        else TF_STEPS
+    if cfg.attn_free:
+        return SSM_TF_STEPS["ssm"]
+    return SSM_TF_STEPS["hybrid"] if cfg.family == "hybrid" else TF_STEPS
 
 
 def _decode_vs_forward(torch, ops, model, params, gen) -> int:
@@ -3784,10 +3835,15 @@ def _decode_vs_forward(torch, ops, model, params, gen) -> int:
 @contextlib.contextmanager
 def plain_kernels(ops, ref):
     """The solve and eq. 7 wrappers replaced by their plain versions, on
-    the card's tensors."""
+    the card's tensors; the plain solve's epochs replayed from CUDA
+    graphs (:func:`_plain_solve`, checked bit for bit against the plain
+    solve as shipped first)."""
+    import torch
+    from repro_torch import sparse as sp
+    _check_graphed_plain(torch, ref, sp)
     solve, hinge = ops.cd_solve, ops.hinge_scores
-    ops.cd_solve = lambda xh, xs, y, m, **kw: ref.cd_solve_ref(xh, xs, y, m,
-                                                               **kw)
+    ops.cd_solve = lambda xh, xs, y, m, **kw: _plain_solve(torch, ref, xh,
+                                                           xs, y, m, kw)
     ops.hinge_scores = ref.hinge_scores_ref
     try:
         yield
@@ -4395,11 +4451,20 @@ def _dryrun_tag(arch, shape, kw) -> str:
     return " ".join([arch, shape] + [f"{k}={v}" for k, v in kw.items()])
 
 
-def _dryrun_inspect(torch, ops, ref, sp, tag, got):
+# the steps whose first solve call [dryrun] holds against the plain solve:
+# the round's (one job of 8192 + 2048 rows on the dense ring, the shape
+# and program of [sharded-full]'s rank 0 check) is not held again, a
+# stated cut since a whole run took 1073.4 s of its 1200 on an H100
+# host; the 8-job sweeps and the serve wave's 640-row blocks are
+DRYRUN_SOLVE_CHECKED = ("svm_sweep", "svm_serve")
+
+
+def _dryrun_inspect(torch, ops, ref, sp, tag, got, solve_check=True):
     """``run_on_card``'s inspection of a step: the launches of its two
-    measured runs read first; then a third run records the step's first
-    ``cd_solve`` and ``hinge_scores`` calls, each held against its plain
-    version; for the LM step ``flash_decode`` at its layer's shape (its
+    measured runs read first; then a third run records job 0 of the
+    step's first ``cd_solve`` call (every epoch it ran) and its first
+    ``hinge_scores`` call, each held against its plain version (the
+    solve only with ``solve_check``); for the LM step ``flash_decode`` at its layer's shape (its
     cache slice, keys N(0, KEY_SCALE²)) checked and timed."""
     def inspect(fn, args):
         got["routes"] = {k: v for k, v in ops.ROUTE_LAUNCHES.items() if v}
@@ -4420,12 +4485,13 @@ def _dryrun_inspect(torch, ops, ref, sp, tag, got):
             if calls[name]:
                 return None
             if name == "cd_solve":
-                return (a[:4], kw, out)
+                return _job_slice(torch, sp, a, kw, out, slice(0, 1))
             return _hinge_call(a, out)
         with recording(ops, ("cd_solve", "hinge_scores"), keep) as calls:
             fn(*args)
-        _solve_vs_plain(torch, ref, sp, calls["cd_solve"][0],
-                        f"dryrun {tag}")
+        if solve_check:
+            _solve_vs_plain(torch, ref, sp, calls["cd_solve"][0],
+                            f"dryrun {tag}")
         _hinge_vs_plain(torch, ref, calls["hinge_scores"][0],
                         f"dryrun {tag}")
     return inspect
@@ -4475,7 +4541,8 @@ def phase_dryrun(torch, ops, ref):
         ops.reset_launches()
         rec = dryrun.run_one(arch, shape, False, out_dir=out, verbose=False,
                              device=DEV, inspect=_dryrun_inspect(
-                                 torch, ops, ref, sp, tag, got), **kw)
+                                 torch, ops, ref, sp, tag, got,
+                                 shape in DRYRUN_SOLVE_CHECKED), **kw)
         check(rec["status"] == "ok", f"[dryrun] {tag}: {rec.get('error')}"
               f"\n{rec.get('traceback')}")
         card, peak = rec["card"], rec["peak_bytes"]
@@ -4486,10 +4553,13 @@ def phase_dryrun(torch, ops, ref):
             launches[r] = launches.get(r, 0) + n
         lo, hi = DRYRUN_PEAK_LIMITS
         ratio = card["peak_ratio"]
-        half = dryrun.reckon(arch, shape, (8, 16), **kw)["peak_bytes"]
         controls = {"the arguments alone": card["peak_bytes"]
-                    / rec["argument_size_in_bytes"],
-                    "8 × 16 ranks' reckoning": card["peak_bytes"] / half}
+                    / rec["argument_size_in_bytes"]}
+        if shape == "decode_32k":
+            # an svm rank's rows are fixed by rows_per_device: only the
+            # decode step's reckoning moves with the data ranks
+            half = dryrun.reckon(arch, shape, (8, 16), **kw)["peak_bytes"]
+            controls["8 × 16 ranks' reckoning"] = card["peak_bytes"] / half
         say(f"[dryrun] {tag}: rank 0 on the card {card['step_ms']:.1f} ms a "
             f"step (first {card['first_ms']:.1f}); peak "
             f"{card['peak_bytes'] / 1e9:.3f} GB against {peak / 1e9:.3f} "
@@ -5054,51 +5124,130 @@ def _hinge_call(a, out):
         tuple(t.clone() for t in out)
 
 
+def _graphed_epochs(torch, epoch):
+    """``epoch(α, w, b, y, m, active)`` of the plain solve's loop
+    (``ref._solve``) captured in a CUDA graph on its first call and
+    replayed on every call, its first included: the same kernels on the
+    same tensors in the same order, without the host's dispatch of some
+    25 small launches a row each epoch. The loop updates α, w and b in
+    place, so each replay reads and writes the captured tensors; only
+    ``active`` is new each epoch and is copied into the captured one."""
+    g = {}
+
+    def run(*args):
+        *state, active = args
+        if not g:
+            g["state"], g["active"] = state, active.clone()
+            g["graph"] = torch.cuda.CUDAGraph()
+            torch.cuda.synchronize()
+            # other threads (a service's scheduler) may use the card
+            with torch.cuda.graph(g["graph"],
+                                  capture_error_mode="thread_local"):
+                g["viol"] = epoch(*state, g["active"])
+        check(all(a is b for a, b in zip(state, g["state"])),
+              "the plain solve's state moved between epochs")
+        g["active"].copy_(active)
+        g["graph"].replay()
+        return g["viol"].clone()
+    return run
+
+
+def _plain_solve(torch, ref, xh, xs, y, m, kw, graphed=True):
+    """The plain solve of a recorded call's inputs and keywords
+    (``ref.cd_solve_ref`` or ``ref.cd_solve_sparse_ref``, every epoch
+    and the stop rule as shipped), each epoch replayed from a CUDA graph
+    (:func:`_graphed_epochs`) unless ``graphed`` is False. C goes in as
+    a (jobs,) tensor on the card (a capture may not copy a number
+    there), which the plain solve reads as it reads the number."""
+    from repro_torch import sparse as sp
+    from repro_torch.kernels import ops
+    kw = dict(kw, C=ops.job_values(kw["C"], y.shape[0], y.device))
+    solve = ref.cd_solve_sparse_ref if sp.is_sparse(xh) else ref.cd_solve_ref
+    if not graphed:
+        return solve(xh, xs, y, m, **kw)
+    shipped = ref._solve
+    ref._solve = lambda d, y, m, tol, max_epochs, epoch: shipped(
+        d, y, m, tol, max_epochs, _graphed_epochs(torch, epoch))
+    try:
+        return solve(xh, xs, y, m, **kw)
+    finally:
+        ref._solve = shipped
+
+
+_GRAPHED_PLAIN_CHECKED = []
+
+
+def _check_graphed_plain(torch, ref, sp):
+    """Once a process: :func:`_plain_solve` replayed from graphs against
+    the plain solve as shipped, bit for bit, on small dense and
+    blocked-CSR bf16 rows (2 home blocks, 3 jobs, 16 shared rows half
+    masked; job 0 runs 4 epochs, job 1 is cut at 2, job 2 stops by its
+    tol after 1)."""
+    if _GRAPHED_PLAIN_CHECKED:
+        return
+    gen = torch.Generator(device=DEV).manual_seed(11)
+    L, per, S, d, cap = 3, 48, 16, 4096, 32
+    y = (torch.randint(0, 2, (L, per + S), generator=gen, device=DEV)
+         * 2 - 1).float()
+    m = torch.ones_like(y)
+    m[:, per + S // 2:] = 0
+    kw = dict(C=1.0, tol=torch.tensor([0.0, 0.0, 1e9], device=DEV),
+              max_epochs=torch.tensor([4, 2, 4], dtype=torch.int32,
+                                      device=DEV))
+    dense = torch.randn((2, per + S, d), generator=gen, device=DEV) / 16
+    ids = torch.stack([torch.randperm(d, generator=gen, device=DEV)[:cap]
+                       for _ in range(2 * (per + S))]).reshape(2, per + S, cap)
+    vals = torch.randn((2, per + S, cap), generator=gen, device=DEV)
+    rows = sp.SparseRows(ids.int(), vals.to(torch.bfloat16), d, True)
+    for name, xh, xs in (
+            ("dense", dense[:, :per].to(torch.bfloat16),
+             dense[0, per:].to(torch.bfloat16)),
+            ("blocked-CSR", rows[:, :per], rows[0, per:])):
+        got = _plain_solve(torch, ref, xh, xs, y, m, kw)
+        want = _plain_solve(torch, ref, xh, xs, y, m, kw, graphed=False)
+        check(all(torch.equal(a, b) for a, b in zip(got, want)),
+              f"the graph-replayed plain solve ({name}) differs from the "
+              f"plain solve")
+    _GRAPHED_PLAIN_CHECKED.append(True)
+
+
 def _solve_vs_plain(torch, ref, sp, call, tag):
-    """A recorded solve (:func:`_job_slice`: its inputs, keywords and
-    outputs) held against the plain solve of the same inputs, both for
-    one epoch, as ``[kernels] cd_solve`` holds one epoch at full width:
-    each job's hinge risk over its home rows within 1e-4 (an update or a
-    mask gone wrong moves it by far more); max |Δα| printed. The kernel
-    runs through its launcher, so no launch is counted. One epoch is a
-    stated cut: the recorded ten epochs against the plain's took 54–75 s
-    of a rank in ``[sharded-full]`` and ``[sharded-sweep-full]`` on an
-    H100 host whose whole run then took 1168.0 s of its 1200."""
-    from repro_torch.kernels import ops, svm_step
-    (xh, xs, y, m), kw, _ = call
+    """A recorded solve of the path (:func:`_job_slice`: its inputs,
+    keywords and outputs, as many epochs as the path ran) against the
+    plain solve of the same inputs and keywords, each plain epoch
+    replayed from a CUDA graph (:func:`_plain_solve`, checked bit for
+    bit against the plain solve as shipped once a process): the hinge
+    risk of each job's w, b over its home rows within 1e-4, as
+    ``[kernels] cd_solve`` at full width holds one epoch (an update or
+    mask gone wrong moves it by far more); max |Δα| and the epochs
+    printed."""
+    (xh, xs, y, m), kw, out = call
     L, per = y.shape[0], xh.shape[1]
-    dev = y.device
     sparse = sp.is_sparse(xh)
-    kw1 = dict(C=ops.job_values(kw["C"], L, dev),
-               tol=ops.job_values(kw["tol"], L, dev),
-               max_epochs=ops.job_values(1, L, dev, torch.int32))
-    layout = ops.job_layout(xh, xs, L)
-    if sparse:
-        out = svm_step.launch_cd_solve_sparse(xh, xs, y, m, *kw1.values(),
-                                              layout)
-    else:
-        c = ops.cd_solve_cluster_size(y.shape[1], xh.shape[-1], xh.dtype)
-        out = svm_step.launch_cd_solve(xh, xs, y, m, *kw1.values(), c,
-                                       layout)
+    _check_graphed_plain(torch, ref, sp)
     t0 = time.perf_counter()
-    plain = (ref.cd_solve_sparse_ref if sparse else ref.cd_solve_ref)(
-        xh, xs, y, m, **kw1)
+    plain = _plain_solve(torch, ref, xh, xs, y, m, kw)
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
-    worst = 0.0
+    rerr = 0.0
     for j in range(L):
         X = xh[j % xh.shape[0]]
         yj, mj = y[j, :per], m[j, :per]
         r = [ref.hinge_scores_ref(X, o[1][j:j + 1], o[2][j:j + 1], yj,
                                   mj)[0] / mj.sum() for o in (out, plain)]
-        worst = max(worst, float((r[0] - r[1]).abs().max()))
+        rerr = max(rerr, float((r[0] - r[1]).abs().max()))
+    same = all(torch.equal(k, p) for k, p in zip(out[:3], plain[:3]))
     say(f"[{tag}] {'cd_solve/sparse' if sparse else 'cd_solve/cluster'} "
-        f"of the path's inputs ({L} jobs of {per} + {xs.shape[-2]} rows, "
-        f"one epoch) against plain ({plain_s:.1f} s): hinge risk max|Δ| "
-        f"{worst:.2e} (atol 1e-4), max|Δα| "
-        f"{float((out[0] - plain[0]).abs().max()):.2e}")
-    check(worst <= 1e-4, f"{tag}: the solve's risk differs from plain by "
-          f"{worst:.2e}")
+        f"of the path ({L} jobs of {per} + {xs.shape[-2]} rows, mask "
+        f"{float(m[:, :per].sum()):.0f} of {L * per} home rows) against "
+        f"plain ({plain_s:.1f} s): hinge risk max|Δ| {rerr:.2e} (atol "
+        f"1e-4), max|Δα| {float((out[0] - plain[0]).abs().max()):.2e}, "
+        f"α, w, b bit for bit {same}; epochs {out[3].tolist()} vs "
+        f"{plain[3].tolist()}")
+    check(rerr <= 1e-4, f"{tag}: the solve's risk differs from plain by "
+          f"{rerr:.2e}")
+    check(torch.equal(out[3], plain[3]), f"{tag}: the solve ran epochs "
+          f"{out[3].tolist()}, plain {plain[3].tolist()}")
 
 
 def _hinge_vs_plain(torch, ref, call, tag):
@@ -7846,7 +7995,15 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     t_all = time.perf_counter()
+    laps = [t_all]
+
+    def lap(label):
+        """Seconds since the previous lap, and since the start."""
+        now = time.perf_counter()
+        say(f"[time] {label}: {now - laps[-1]:.1f} s (at {now - t_all:.1f} s)")
+        laps.append(now)
     phase_environment(torch, build)
+    lap("[env] and the kernel build")
     if args.variants is not None:
         chosen = args.variants or VARIANT_PHASES
         if {"flash_decode", "cd_solve"} & set(chosen):
@@ -7901,6 +8058,7 @@ def main() -> int:
     check(not bad, f"[nan-small] routes differ from plain on NaN: {bad}")
     phase_decode_small(torch, ops, ref)
     torch.cuda.synchronize()
+    lap("the small kernel phases")
     phase_pipeline(torch, T, text)
     phase_sparse_pipeline(torch, T, text, sp)
     gram_launches = phase_kernel_pipeline(torch, T, text)
@@ -7908,35 +8066,47 @@ def main() -> int:
     phase_serve_smoke(torch, ops)
     phase_stream_smoke(torch, T, ops)
     phase_sched_smoke(torch, ops)
+    lap("the pipelines and smokes")
     phase_chaos(torch)
+    lap("[chaos]")
     phase_lint(torch)
+    lap("[lint]")
     phase_sharded_small(torch, T, text)
     torch.cuda.synchronize()
+    lap("[sharded-small]")
     phase_cluster_small(torch, T)
+    lap("[cluster-small]")
     if args.quick:
         say(f"[quick] done in {time.perf_counter() - t_all:.1f} s; "
             "full-width phases skipped, no result")
         return 0
     kernels = phase_full_width(torch, T, ops, ref)
     torch.cuda.synchronize()
+    lap("[full] and [full-sweep]")
     gram = time_gram_full(torch, T, ops, ref)
     # gram is not on the blocked-CSR main path: its count is the dense
     # golden Gram-path run's (phase 4)
     gram["launches"] = gram_launches["gram"]
     kernels.append(gram)
+    lap("the Gram at full width")
     kernels += phase_full_kernel(torch, T, ops, ref)
     torch.cuda.synchronize()
+    lap("[full-kernel]")
     kernels += phase_full_sparse(torch, T, ops, ref, sp)
     torch.cuda.synchronize()
+    lap("[full-sparse]")
     torch.cuda.empty_cache()
     # slice 12: the sharded round at full width, 8 ranks on this card
     sharded = phase_sharded_full(torch, T)
+    lap("[sharded-full]")
     torch.cuda.empty_cache()
     # slice 13: the sharded sweep at full width, 8 ranks on this card
     sweep_full = phase_sharded_sweep_full(torch, T)
+    lap("[sharded-sweep-full]")
     torch.cuda.empty_cache()
     # slice 14: the train launch as 2 processes × 4 ranks on this card
     cluster = phase_cluster_full(torch, T)
+    lap("[cluster-full]")
     torch.cuda.empty_cache()
     # slice 10's full-width paths: their launches join the kernels' rows
     stream, res = phase_stream_full(torch, T, ops, ref)
@@ -7946,11 +8116,14 @@ def main() -> int:
         res.cfg)
     phase_nan_stream(torch, T, ops, [res.service.snapshot(
         f"stream{s}").model for s in range(STREAMS)], res.cfg)
+    lap("[stream-full] and [stream-full-mixed]")
     del res
     torch.cuda.empty_cache()
     phase_stream_ckpt(torch, T, ops)
+    lap("[stream-full-ckpt]")
     torch.cuda.empty_cache()
     sched = phase_sched_full(torch, ops, ref)
+    lap("[sched-full]")
     say(f"[stream] launches by kernel row: [stream-full] {stream}, "
         f"[stream-full-mixed] {mixed}, [sched-full] {sched}")
     torch.cuda.synchronize()
@@ -7974,16 +8147,20 @@ def main() -> int:
                 "launches", "shape")}
     say(f"[model-full] {len(MODEL_CELLS)} configs in "
         f"{time.perf_counter() - t_models:.1f} s")
+    lap("[model-full]")
     torch.cuda.empty_cache()
     # slice 20: chatglm3-6b served on a 1 × 4 mesh of ranks
     by_config[f"tp-serve-full:{TP_ARCH}"], fd_paths[
         f"tp-serve-full:{TP_ARCH}"] = phase_tp_serve(torch, ops, ref)
+    lap("[tp-serve-full]")
     torch.cuda.empty_cache()
     # slice 21: the dry run; rank 0 of five steps run on this card
     by_config["dryrun:llama3-8b"], dry = phase_dryrun(torch, ops, ref)
+    lap("[dryrun]")
     kernels[-1]["configs"] = by_config
     # slice 17: LM training at full width; no kernel on its path
     phase_train(torch, ops)
+    lap("[train-full]")
     # `launches` stays the row's main path's own count (the fit, or the
     # LM serve for flash_decode); the other paths are counted beside it
     for row in kernels:

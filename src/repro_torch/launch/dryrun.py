@@ -39,7 +39,9 @@ reference's XLA numbers × chips; the LM steps: ``launch.costs``),
 ``collectives`` (the reference's kinds, ``launch.hlo_analysis``),
 ``roofline``, ``collective_s_wire``, ``dominant``,
 ``argument_size_in_bytes`` (rank 0's shards), ``probes``,
-``probe_error``, ``model_flops_analytic`` and ``useful_flops_ratio``.
+``model_flops_analytic`` and ``useful_flops_ratio``. The reference's
+``probe_error`` has no counterpart: a probe that fails fails the
+record.
 New keys where it does not:
 
 * ``lower_s`` → ``trace_s``: seconds of the shape-only run;
@@ -496,17 +498,16 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
             low = lower(bundle, mesh)
             coll = collective_stats(low["record"])
             if measure_layers and not svm:
-                try:
-                    from repro_torch.launch.probes import (build_probes,
-                                                           measure_probes)
-                    pm = measure_probes(build_probes(
-                        cfg, mesh, shape, bundle=bundle), mesh)
-                    record["probes"] = {
-                        k: {"extra_trips": v["extra_trips"],
-                            "collectives": v["collectives"]}
-                        for k, v in pm.items()}
-                except Exception as e:          # probes are best-effort
-                    record["probe_error"] = f"{type(e).__name__}: {e}"
+                # a probe that fails fails the record (the reference
+                # keeps its probes best-effort, under "probe_error")
+                from repro_torch.launch.probes import (build_probes,
+                                                       measure_probes)
+                pm = measure_probes(build_probes(
+                    cfg, mesh, shape, bundle=bundle), mesh)
+                record["probes"] = {
+                    k: {"extra_trips": v["extra_trips"],
+                        "collectives": v["collectives"]}
+                    for k, v in pm.items()}
             epochs = cfg.max_epochs if svm else 1
             kernels = kernel_totals(low["work"], epochs)
             flops_rank = low["flops"] + sum(k["flops"]
