@@ -12,6 +12,7 @@
                                           # the LM configs; no result
     python3 chip_smoke.py --tp            # [tp-serve-full] only; no result
     python3 chip_smoke.py --dryrun        # [dryrun] only; no result
+    python3 chip_smoke.py --tp-train      # [tp-train-full] only; no result
 
 Phases, one line or block each; any failure exits non-zero:
 
@@ -247,7 +248,7 @@ Phases, one line or block each; any failure exits non-zero:
    (losses falling, no kernel launched), with step ms, tokens/s, the
    optimizer's ms, peak memory and the bf16 operations bound. Last,
    ``[train-backbone]``: ``examples/torch_train_backbone.py --preset
-   100m`` for 20 steps, then ``--resume`` for 80 more.
+   100m`` for 20 steps, then ``--resume`` for 40 more.
 
 16. slice 18, the MoE family: ``flash_decode``'s small shapes add G 16
    at hd 64 (qwen3-moe's group); ``[model-full]`` adds mixtral-8x22b
@@ -334,7 +335,31 @@ Phases, one line or block each; any failure exits non-zero:
    ``lint --artifacts`` over the phase's svm records. The launches go
    into ``launches_by_path["dryrun"]``, the decode shape into the
    flash_decode row's ``configs``. ``--dryrun`` runs only this phase
-   after the build.
+   after the build. Slice 22 adds llama3-8b's prefill_32k, shape-only,
+   and tinyllama-1.1b's train_4k, shape-only and rank 0 run for real
+   (the sharded train step: no kernel; its peak against the reckoning).
+
+20. slice 22, the sharded train and prefill steps (``launch.steps.
+   build_train_step`` / ``build_prefill_step`` on a mesh: the
+   differentiable collectives, the vocabulary-parallel CE, the residual
+   split over the sequence, the AdamW clip over shards): after
+   ``[train-full]``, ``[tp-train-full]``: qwen2-1.5b at full width cut
+   to 4 layers, bf16, remat, on 2 data × 2 model gloo ranks on this
+   card, global batch 4 × 4096, seed-0 weights, one batch
+   (``launch.sharded.run_train_case`` on each rank, one spawn for every
+   check). Held to one process's ``build_train_step`` on the same
+   weights and batch: step 1's gathered gradients at cosine ≥ 0.99 a
+   leaf and whole (one process's gradients of another batch, the
+   control, below on the whole), the losses of a warm step and 3 steps
+   within 1e-2; the prefill step's last-position logits within 0.05 of
+   max |logit| (another batch's logits, the control, above); in float32
+   at 2 layers (batch 4 × 1024) step 1's gradients within 1e-4 of each
+   leaf's largest entry, the data ranks' gradients of the leaves
+   replicated over data left unsummed (a fault) above. Printed: a rank's
+   step ms (median of 3) beside one process's, tokens/s, peak memory a
+   rank, a step's collectives by kind and bytes and their share of the
+   step, launches (none: no kernel on this path). ``--tp-train`` runs
+   only this phase after the build.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``; before them, the card's name and
@@ -4437,14 +4462,20 @@ DRYRUN_SHAPE_ONLY = tuple(
     for shape in ("svm", "svm_sweep", "svm_serve")
     for t in ("allgather", "hier")) + (
     ("svm-tfidf", "svm_sweep", dict(shuffle="ring", processes=2)),
-    ("tinyllama-1.1b", "decode_32k", dict(multi_pod=True)))
+    ("tinyllama-1.1b", "decode_32k", dict(multi_pod=True)),
+    # slice 22: the sharded prefill step at 32768 positions (2 of the 32
+    # sequences a data rank), shape-only
+    ("llama3-8b", "prefill_32k", {}))
 # shape-only and rank 0 run for real on the card, 16 × 16
 DRYRUN_ON_CARD = (
     ("svm-tfidf", "svm", dict(shuffle="ring")),
     ("svm-tfidf", "svm_sweep", dict(shuffle="ring")),
     ("svm-tfidf", "svm_serve", dict(shuffle="ring")),
     ("svm-tfidf", "svm_sweep", SPARSE_RING),
-    ("llama3-8b", "decode_32k", {}))
+    ("llama3-8b", "decode_32k", {}),
+    # slice 22: the sharded train step (16 of the 256 sequences of 4096
+    # positions a data rank, the residual split over the sequence)
+    ("tinyllama-1.1b", "train_4k", {}))
 
 
 def _dryrun_tag(arch, shape, kw) -> str:
@@ -4464,10 +4495,14 @@ def _dryrun_inspect(torch, ops, ref, sp, tag, got, solve_check=True):
     measured runs read first; then a third run records job 0 of the
     step's first ``cd_solve`` call (every epoch it ran) and its first
     ``hinge_scores`` call, each held against its plain version (the
-    solve only with ``solve_check``); for the LM step ``flash_decode`` at its layer's shape (its
-    cache slice, keys N(0, KEY_SCALE²)) checked and timed."""
+    solve only with ``solve_check``); for the LM decode step
+    ``flash_decode`` at its layer's shape (its cache slice, keys N(0,
+    KEY_SCALE²)) checked and timed; the LM train step, which launches no
+    kernel, its launches only."""
     def inspect(fn, args):
         got["routes"] = {k: v for k, v in ops.ROUTE_LAUNCHES.items() if v}
+        if "train" in tag:                  # no kernel on its path
+            return
         if "decode" in tag:
             params, state, tokens = args
             k = torch.empty_like(state.caches.k[0])
@@ -4620,14 +4655,17 @@ TRAIN_OPT = dict()
 # scale's read 0.993: those gradients share a part from batch to batch).
 GRAD_COS_TOL = 0.99
 # [train-backbone]: examples/torch_train_backbone.py --preset 100m for 20
-# steps, then --resume for 80. The example checks that its last logged
+# steps, then --resume for 40. The example checks that its last logged
 # loss is below its first; 150 then 150 more failed that check on an
 # NVIDIA H100 80GB HBM3 at 700 W (the resumed run, at the schedule's floor
 # of 3e-5 on the loss's plateau, logged 4.027 at step 160 and 4.113 at
 # 299), so the
 # resumed run starts before the plateau; 80, not 150, to keep the whole
-# run within 1000 s.
-BACKBONE_STEPS = (20, 80)
+# run within 1000 s; 40, not 80, since the whole run with the sharded
+# train phase took 992.3 s on an H100 host whose PR 31 runs were the
+# fastest (a 40-step resume saves ~8 s; slower hosts ran PR 31 4–8 %
+# longer, against the 1050 s limit)
+BACKBONE_STEPS = (20, 40)
 
 
 def _leaf_index(tree, leaf) -> int:
@@ -4942,6 +4980,360 @@ def phase_train(torch, ops):
         + ", ".join(f"{r['arch']} {r['step_ms']:.1f} ms a step "
                     f"({r['seconds']:.1f} s)" for r in rows)
         + f", train-backbone {bb['seconds']:.1f} s")
+
+
+# --- slice 22: the sharded train and prefill steps on 2 × 2 ranks ---------
+
+# [tp-train-full]: qwen2-1.5b at full width (d 1536, 12 heads over 2 KV
+# heads, ffn 8960, vocab 151936 tied, QKV biases: the dense family's
+# hardest placement) on 2 data × 2 model gloo ranks on this card. Depth is
+# cut to 4 of 28 layers (a stated cut): the four ranks time-share the card
+# and every sequence and weight gather goes through gloo's host staging,
+# and the phase has ~75 s of the run's 1200. Global batch 4 × 4096 (a
+# stated cut of train_4k's 256), bf16, remat, seed-0 weights, one batch.
+TPT_ARCH = "qwen2-1.5b"
+TPT_GRID = (2, 2)
+TPT_LAYERS = 4
+TPT_BATCH, TPT_SEQ = 4, 4096
+TPT_STEPS = 3                 # after a warm step
+# the bf16 gradients' cosines against one process's, per leaf and whole:
+# sound runs read 0.999994 least leaf, 0.999995 whole (NVIDIA H100 80GB
+# HBM3, 700 W); batch 1's gradients against batch 0's read 0.9893 whole,
+# so [train-full]'s 0.99 could not tell a half batch's gradients from the
+# whole's. 0.9999 is ~20 times the sound gap; the control (batch 1) and
+# the fault (one data rank's part left out of the bf16 reduce-scatters
+# over data) must both fall below it.
+TPT_GRAD_COS_TOL = 0.9999
+# the losses of the warm step and the 3 against one process's, relative
+TPT_LOSS_RTOL = 1e-2
+# the float32 check: 2 layers, batch 4 × 1024, step 1's gradients within
+# 1e-4 of each leaf's largest |entry| of one process's (the CPU tests hold
+# the sharded step to JAX at 1e-5; PR 30's float32 serve check read
+# 4.25e-6–4.82e-6 against this limit)
+TPT32_LAYERS, TPT32_BATCH, TPT32_SEQ = 2, 4, 1024
+TPT32_TOL = 1e-4
+# the prefill's last-position logits against one process's, over max
+# |logit|: bf16 products summed in another order (f32 reduce-scatters of
+# bf16 partials) through 4 layers; PR 30's sharded serve read 0.085–0.115
+# at 28 layers, ~0.004 a layer, so ~0.016 here: the limit is 3× that.
+# The control: one process's logits of another batch (_tpt_other).
+TPT_LOGIT_TOL = 0.05
+
+
+def _tpt_cfg(layers: int, dtype=None):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(TPT_ARCH), num_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def _tpt_batch(cfg, batch: int, seq: int, step: int) -> dict:
+    from repro_torch.data import DataConfig, lm_batch_at
+    return lm_batch_at(DataConfig(batch, seq, seed=0), cfg, step)
+
+
+def _tpt_other(cfg) -> dict:
+    """The controls' batch: the stream's next batch (step 1)."""
+    return _tpt_batch(cfg, TPT_BATCH, TPT_SEQ, 1)
+
+
+def _drop_last_data_rank(compat, data):
+    """A broken ``compat.psum_scatter_bytes``: over the ``data`` groups
+    the last data rank sends zeros, so that every block lacks its part
+    (the bf16 fault); any other group's sums as they are."""
+    sound = compat.psum_scatter_bytes
+    last = len(data.groups[0]) - 1
+
+    def faulty(x, group=None, *, dim=0):
+        if group is data and compat.axis_index(
+                data.handles[data.mine]) == last:
+            x = x.new_zeros(x.shape)
+        return sound(x, group, dim=dim)
+    return faulty
+
+
+def _tp_train_rank(rank, tmp: str) -> dict:
+    """This rank's part of [tp-train-full]: ``launch.sharded.
+    run_train_case`` of the bf16 model (the prefill, step 1's gradients
+    gathered, a warm step and TPT_STEPS steps, the collectives timed and
+    the first step's recorded), step 1's bf16 gradients again with the
+    last data rank's part left out of the bf16 reduce-scatters over data
+    (the bf16 fault), then the float32 model's (step 1's gradients, and
+    again with the data ranks' gradients of the leaves replicated over
+    data left unsummed: the float32 fault). Rank 0 saves the gathered
+    gradients under ``tmp``. → the rank's logits, losses, step
+    and collective seconds, peak memory, launches, schedule."""
+    import torch
+    from repro_torch import compat, optim
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.hlo_analysis import collective_stats
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharded import TrainCase, run_train_case
+    from repro_torch.models.layers import (gather_full, split_axes,
+                                           tree_leaves, tree_map,
+                                           tree_unflatten)
+    t_part = time.perf_counter()
+    dev = torch.device(rank.device)
+    ops.reset_launches()
+    cfg = _tpt_cfg(TPT_LAYERS)
+    case = TrainCase(cfg, None, _tpt_batch(cfg, TPT_BATCH, TPT_SEQ, 0),
+                     TPT_GRID, 1 + TPT_STEPS, optim.OptConfig(**TRAIN_OPT),
+                     remat=True, gather=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with compat.timed_collectives():
+        r = run_train_case(rank, case)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"logits": r["logits"].float().cpu().numpy(),
+           "losses": [m["loss"] for m in r["metrics"]],
+           "gnorm": [m["grad_norm"] for m in r["metrics"]],
+           "step_s": r["step_s"], "coll_s": r["coll_s"], "peak": peak,
+           "stats": collective_stats(r["record"]),
+           "schedule": [e.signature() for e in r["record"]],
+           "seq_parallel": r["seq_parallel"], "loss0": r["loss0"],
+           "launches": {k: v for k, v in ops.LAUNCHES.items() if v}}
+    if rank.rank == 0:
+        torch.save([g.cpu() for g in r["grads"]], os.path.join(tmp, "g16.pt"))
+    # the bf16 fault: step 1's gradients on the same weights and rows,
+    # the last data rank's part missing from every bf16 reduce-scatter
+    # over data (the FSDP gathers' backward)
+    model, mesh = r["model"], r["model"].mesh
+    place, batch = r["bundle"].in_shardings[0], r["batch"]
+    del r
+    torch.cuda.empty_cache()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    sound = compat.psum_scatter_bytes
+    compat.psum_scatter_bytes = _drop_last_data_rank(
+        compat, mesh.groups_of("data"))
+    try:
+        _, _, bad = steps.loss_and_grads(model, params, batch)
+    finally:
+        compat.psum_scatter_bytes = sound
+    bad = tree_leaves(steps.gather_tree(tree_unflatten(params, bad),
+                                        place, mesh))
+    if rank.rank == 0:
+        torch.save([g.cpu() for g in bad], os.path.join(tmp, "g16f.pt"))
+    del params, bad, batch, model
+    torch.cuda.empty_cache()
+    # float32: one backward gives both the gradients and the fault (the
+    # leaves replicated over data before their sum over the data ranks)
+    t32 = time.perf_counter()
+    cfg32 = _tpt_cfg(TPT32_LAYERS, "float32")
+    mesh = make_host_mesh(*TPT_GRID)
+    bundle = steps.build_train_step(cfg32, mesh, steps.InputShape(
+        "tp-train", "train", TPT32_SEQ, TPT32_BATCH))
+    model, place = bundle.model, bundle.in_shardings[0]
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    batch = steps.local_batch(_tpt_batch(cfg32, TPT32_BATCH, TPT32_SEQ, 0),
+                              bundle.in_shardings[2], mesh, dev)
+    # the rank's gradients before the leaves replicated over data are
+    # summed over the data ranks (steps.loss_and_grads' sum)
+    with torch.enable_grad():
+        wrt = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, _ = model.loss(wrt, batch)
+        raw = list(torch.autograd.grad(loss, tree_leaves(wrt)))
+    del wrt, loss
+    places = tree_leaves(place)
+    fault = {i: gather_full(raw[i], pl, mesh).cpu()
+             for i, pl in enumerate(places)
+             if "data" not in split_axes(pl, mesh)}
+    grads = tree_leaves(steps.gather_tree(tree_unflatten(
+        params, steps.sum_batch_replicated(model, raw)), place, mesh))
+    if rank.rank == 0:
+        torch.save({"grads": [g.cpu() for g in grads], "fault": fault,
+                    "names": _tpt_names(place)},
+                   os.path.join(tmp, "g32.pt"))
+    out["f32_s"] = time.perf_counter() - t32
+    out["s"] = time.perf_counter() - t_part
+    del params, raw, grads, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tpt_names(tree) -> list:
+    names = []
+
+    def walk(t, pre):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], pre + (k,))
+        else:
+            names.append(".".join(pre))
+    walk(tree, ())
+    return names
+
+
+def _leaf_err(torch, got, want) -> float:
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+def phase_tp_train(torch, ops):
+    """``[tp-train-full]`` (the module's docstring, phase 20): one
+    process's bf16 and float32 references on the card, then one spawn of
+    the 2 × 2 ranks for every check."""
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import compat, optim
+    from repro_torch.launch.steps import (InputShape, build_prefill_step,
+                                          build_train_step, loss_and_grads)
+    from repro_torch.models.layers import tree_leaves
+    t_phase = time.perf_counter()
+    dev = torch.device(DEV)
+    cfg = _tpt_cfg(TPT_LAYERS)
+    ocfg = optim.OptConfig(**TRAIN_OPT)
+    T = TPT_BATCH * TPT_SEQ
+    to_dev = lambda b: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+    batch = to_dev(_tpt_batch(cfg, TPT_BATCH, TPT_SEQ, 0))
+    other = to_dev(_tpt_other(cfg))
+    bundle = build_train_step(cfg, None, InputShape(
+        "tp-train", "train", TPT_SEQ, TPT_BATCH), opt_cfg=ocfg)
+    model = bundle.model
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    pre = build_prefill_step(cfg, None, InputShape(
+        "tp-train", "prefill", TPT_SEQ, TPT_BATCH))
+    strip = lambda b: {k: v for k, v in b.items() if k != "labels"}
+    want_logits = pre.fn(params, strip(batch)).float().cpu()
+    ctl_logits = pre.fn(params, strip(other)).float().cpu()
+    _, _, g_one = loss_and_grads(model, params, batch)
+    _, _, g_ctl = loss_and_grads(model, params, other)
+    state = optim.init(params)
+    losses, step_ms = [], []
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(1 + TPT_STEPS):
+        ev[0].record()
+        params, state, m = bundle.fn(params, state, batch)
+        ev[1].record()
+        losses.append(float(m["loss"]))
+        step_ms.append(ev[0].elapsed_time(ev[1]))
+    one_ms = sorted(step_ms[1:])[len(step_ms[1:]) // 2]
+    del params, state, bundle, model, pre
+    cfg32 = _tpt_cfg(TPT32_LAYERS, "float32")
+    model32 = build_train_step(cfg32, None, InputShape(
+        "tp-train", "train", TPT32_SEQ, TPT32_BATCH)).model
+    p32 = model32.init(torch.Generator(device=dev).manual_seed(0))
+    _, _, g32 = loss_and_grads(model32, p32,
+                               to_dev(_tpt_batch(cfg32, TPT32_BATCH,
+                                                 TPT32_SEQ, 0)))
+    g32 = [g.cpu() for g in g32]
+    del model32, p32
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    one_s = time.perf_counter() - t_phase
+    tmp = tempfile.mkdtemp(prefix="tp_train_")
+    try:
+        t0 = time.perf_counter()
+        per_rank = compat.spawn(_tp_train_rank, TPT_GRID[0] * TPT_GRID[1],
+                                (tmp,), device="cuda", timeout_s=300.0,
+                                join_timeout_s=600.0)
+        spawn_s = time.perf_counter() - t0
+        g16 = [g.to(dev) for g in torch.load(os.path.join(tmp, "g16.pt"))]
+        g16f = [g.to(dev) for g in torch.load(os.path.join(tmp, "g16f.pt"))]
+        got32 = torch.load(os.path.join(tmp, "g32.pt"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0 = per_rank[0]
+    names = got32["names"]
+    # bf16: step 1's gradients (cosines), the losses, the prefill
+    each, whole = _cosines(torch, g16, g_one)
+    ctl_each, ctl_whole = _cosines(torch, g16, g_ctl)
+    bad_each, bad_whole = _cosines(torch, g16f, g_one)
+    worst = min(range(len(each)), key=lambda i: each[i])
+    del g16, g16f, g_one, g_ctl
+    torch.cuda.empty_cache()
+    rel_loss = max(abs(a - b) / abs(b) for a, b in zip(r0["losses"], losses))
+    d, m = TPT_GRID
+    got_logits = torch.from_numpy(np.concatenate(
+        [per_rank[i * m]["logits"] for i in range(d)]))
+    scale = float(want_logits.abs().max())
+    rel_logit = float((got_logits - want_logits).abs().max()) / scale
+    ctl_logit = float((got_logits - ctl_logits).abs().max()) / scale
+    for r, res in enumerate(per_rank):
+        check(res["losses"] == r0["losses"] and res["schedule"]
+              == r0["schedule"] and np.array_equal(
+                  res["logits"], per_rank[r - r % m]["logits"]),
+              f"[tp-train-full] rank {r}'s losses, collectives or logits "
+              "are not its peers'")
+    say(f"[tp-train-full] {TPT_ARCH} at full width (d {cfg.d_model}, "
+        f"{cfg.num_heads} heads / {cfg.num_kv_heads} KV, ffn {cfg.d_ff}, "
+        f"vocab {cfg.vocab_size} tied, QKV bias), {TPT_LAYERS} of 28 layers "
+        f"(a stated cut), bf16, remat, on {d} data × {m} model ranks over "
+        f"gloo on this card, batch {TPT_BATCH} × {TPT_SEQ} (the residual "
+        f"split over the sequence: {r0['seq_parallel']})")
+    say(f"[tp-train-full] step 1's gradients (gathered) vs one process's: "
+        f"cosine whole {whole:.6f}, least leaf {min(each):.6f} "
+        f"({names[worst]}) (tol {TPT_GRAD_COS_TOL}); control (one "
+        f"process's of the next batch): whole {ctl_whole:.6f}, most leaf "
+        f"{max(ctl_each):.6f}; fault (the last data rank's part left out of "
+        f"the bf16 reduce-scatters over data): whole {bad_whole:.6f}, least "
+        f"leaf {min(bad_each):.6f}; losses (warm step, then {TPT_STEPS}) "
+        f"{[round(x, 4) for x in r0['losses']]} vs one process's "
+        f"{[round(x, 4) for x in losses]}: {rel_loss:.2e} (tol "
+        f"{TPT_LOSS_RTOL:g}); prefill last-position logits max|Δ| / "
+        f"max|logit| {scale:.3f} = {rel_logit:.3e} (tol {TPT_LOGIT_TOL}), "
+        f"control (another batch's) {ctl_logit:.3e}")
+    check(min(each) >= TPT_GRAD_COS_TOL and whole >= TPT_GRAD_COS_TOL,
+          f"[tp-train-full] gradients differ: cosines {each}, {whole}")
+    check(ctl_whole < TPT_GRAD_COS_TOL, "[tp-train-full] the gradient "
+          f"check cannot see its control ({ctl_whole})")
+    check(min(bad_each) < TPT_GRAD_COS_TOL or bad_whole < TPT_GRAD_COS_TOL,
+          "[tp-train-full] the gradient check cannot see its bf16 fault "
+          f"({min(bad_each)}, {bad_whole})")
+    check(rel_loss <= TPT_LOSS_RTOL, f"[tp-train-full] losses differ by "
+          f"{rel_loss:.2e}")
+    check(rel_logit <= TPT_LOGIT_TOL < ctl_logit, "[tp-train-full] prefill "
+          f"logits {rel_logit:.3e}, control {ctl_logit:.3e}")
+    # float32: each leaf within TPT32_TOL of its largest entry; the fault
+    errs = [_leaf_err(torch, a, b) for a, b in zip(got32["grads"], g32)]
+    bad = list(got32["grads"])
+    for i, g in got32["fault"].items():
+        bad[i] = g
+    fault = max(_leaf_err(torch, a, b) for a, b in zip(bad, g32))
+    worst32 = max(range(len(errs)), key=lambda i: errs[i])
+    say(f"[tp-train-full] float32, {TPT32_LAYERS} layers, batch "
+        f"{TPT32_BATCH} × {TPT32_SEQ}, on the same ranks: step 1's "
+        f"gradients vs one process's, max|Δ| over the leaf's largest "
+        f"|entry| {max(errs):.2e} ({names[worst32]}; tol {TPT32_TOL:.0e}); "
+        f"fault (the data ranks' gradients of the "
+        f"{len(got32['fault'])} leaves replicated over data left unsummed: "
+        f"{', '.join(names[i] for i in got32['fault'])}) {fault:.2e}; "
+        f"{max(x['f32_s'] for x in per_rank):.1f} s a rank")
+    check(max(errs) <= TPT32_TOL, f"[tp-train-full] float32 gradients "
+          f"differ by {max(errs):.2e} ({names[worst32]})")
+    check(fault > TPT32_TOL, f"[tp-train-full] the float32 check cannot "
+          f"see its fault ({fault:.2e})")
+    # time, memory, collectives, launches
+    steps_s = [x["step_s"][1:] for x in per_rank]
+    rank_ms = [1e3 * sorted(s)[len(s) // 2] for s in steps_s]
+    share = [sum(x["coll_s"][1:]) / sum(x["step_s"][1:]) for x in per_rank]
+    launches = {}
+    for x in per_rank:
+        for k, v in x["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    stats = r0["stats"]
+    say(f"[tp-train-full] build_train_step on the ranks: ms a step (median "
+        f"of {TPT_STEPS} after the warm step, host clock to a sync) by rank "
+        f"{[round(x, 1) for x in rank_ms]} against one process's "
+        f"{one_ms:.1f} (CUDA events; {[round(x, 1) for x in step_ms]}); "
+        f"{T / max(rank_ms) * 1e3:,.0f} tokens/s on the ranks, "
+        f"{T / one_ms * 1e3:,.0f} on one process; the collectives' share of "
+        f"a rank's step {[round(x, 3) for x in share]}; a step's "
+        f"collectives on rank 0 (the warm step's record): "
+        + ", ".join(f"{k} {int(v['count'])} × ({v['operand_bytes'] / 1e6:.1f} "
+                    f"MB in, {v['wire_bytes'] / 1e6:.1f} MB on the wire)"
+                    for k, v in sorted(stats.items()))
+        + f"; peak memory by rank (GB) "
+        f"{[round(x['peak'] / 1e9, 2) for x in per_rank]}; launches "
+        f"{launches or 'none'}; {nvidia_smi()}")
+    check(not launches, f"[tp-train-full] the train step launched kernels "
+          f"{launches}")
+    say(f"[tp-train-full] done in {time.perf_counter() - t_phase:.1f} s (one "
+        f"process {one_s:.1f}, the spawn {spawn_s:.1f}: a rank's part "
+        f"{max(x['s'] for x in per_rank):.1f})")
+    return {"rank_ms": rank_ms, "one_ms": one_ms, "share": share}
 
 
 # --- slice 10: the streaming service and the decode batch scheduler --------
@@ -7978,6 +8370,9 @@ def main() -> int:
     ap.add_argument("--dryrun", action="store_true",
                     help="run only [dryrun] after the kernel build; print "
                     "no result")
+    ap.add_argument("--tp-train", action="store_true",
+                    help="run only [tp-train-full] after the kernel build; "
+                    "print no result")
     ap.add_argument("--models", action="store_true",
                     help="run only flash_decode's small shapes and the LM "
                     "configs at full width ([model-full], [serve-full], "
@@ -8026,6 +8421,11 @@ def main() -> int:
     if args.dryrun:
         phase_dryrun(torch, ops, ref)
         say(f"[dryrun-only] done in {time.perf_counter() - t_all:.1f} s; "
+            f"{nvidia_smi()}; no result")
+        return 0
+    if args.tp_train:
+        phase_tp_train(torch, ops)
+        say(f"[tp-train] done in {time.perf_counter() - t_all:.1f} s; "
             f"{nvidia_smi()}; no result")
         return 0
     if args.tp:
@@ -8161,6 +8561,10 @@ def main() -> int:
     # slice 17: LM training at full width; no kernel on its path
     phase_train(torch, ops)
     lap("[train-full]")
+    torch.cuda.empty_cache()
+    # slice 22: the sharded train and prefill steps on 2 × 2 ranks
+    phase_tp_train(torch, ops)
+    lap("[tp-train-full]")
     # `launches` stays the row's main path's own count (the fit, or the
     # LM serve for flash_decode); the other paths are counted beside it
     for row in kernels:

@@ -13,8 +13,9 @@ that ``launch.hlo_analysis`` does the reference's byte arithmetic and
 the dry run's records keep the reference's kind names.
 
 The port's kinds and the reference's (:data:`KIND_OF`): ``psum`` and
-``pmax`` ↔ all-reduce, ``all_gather`` and ``all_gather_groups`` ↔
-all-gather, ``ppermute_start`` ↔ collective-permute (its
+``pmax`` ↔ all-reduce, ``psum_scatter`` ↔ reduce-scatter,
+``all_gather`` and ``all_gather_groups`` ↔ all-gather,
+``ppermute_start`` ↔ collective-permute (its
 ``ppermute_wait`` ↔ the ``-done`` half). A ``CollectiveEntry``'s shapes
 and dtypes are its INPUT's, so an all-gather's output is reckoned from
 them and the group size (:attr:`CollectiveOp.max_nbytes`).
@@ -49,6 +50,7 @@ _warned_dtypes = set()
 
 #: the port's collective kinds → the reference's HLO kinds
 KIND_OF = {"psum": "all-reduce", "pmax": "all-reduce",
+           "psum_scatter": "reduce-scatter",
            "all_gather": "all-gather", "all_gather_groups": "all-gather",
            "ppermute_start": "collective-permute",
            "ppermute_wait": "collective-permute"}

@@ -8,8 +8,8 @@ counterpart here); the port records it as it runs: while
 :func:`repro_torch.compat.record_collectives` is armed, every collective
 a rank issues appends one :class:`repro_torch.compat.CollectiveEntry`
 (kind, the group's ranks, the replica groups, the source → target
-pairs, shapes and dtypes). Kinds: ``psum``, ``all_gather``, ``pmax``,
-``all_gather_groups``, ``ppermute_start`` and ``ppermute_wait`` (the
+pairs, shapes and dtypes). Kinds: ``psum``, ``psum_scatter``,
+``all_gather``, ``pmax``, ``all_gather_groups``, ``ppermute_start`` and ``ppermute_wait`` (the
 wait of its ``Pending``, as an async ``-done``).
 
 * :func:`check_schedule`: structural validity of one rank's record:

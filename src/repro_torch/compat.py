@@ -1,10 +1,10 @@
 """Collectives of the sharded mode over a ``torch.distributed`` group.
 
 The counterpart of the collective half of ``repro/compat.py``: the same
-names (:func:`axis_index`, :func:`psum`, :func:`pmax`,
-:func:`all_gather`, :func:`all_gather_groups`, :func:`ppermute`,
-:func:`ring_shift`, :func:`process_count`) over a ``ProcessGroup`` in
-place of mesh axes. One process is one rank, and a rank holds one
+names (:func:`axis_index`, :func:`psum`, :func:`psum_scatter` (and
+:func:`psum_scatter_bytes`), :func:`pmax`, :func:`all_gather`, :func:`all_gather_groups`,
+:func:`ppermute`, :func:`ring_shift`, :func:`process_count`) over a
+``ProcessGroup`` in place of mesh axes. One process is one rank, and a rank holds one
 partition, as one device of the reference's mesh does. ``group=None``
 is the default (world) group.
 
@@ -35,7 +35,14 @@ reference's.
 
 :func:`record_collectives` records, while it is armed, every collective
 this process issues (:class:`CollectiveEntry`): the schedule the
-invariant linter checks (:mod:`repro_torch.analysis.schedule`).
+invariant linter checks (:mod:`repro_torch.analysis.schedule`);
+:func:`timed_collectives` adds up their host seconds.
+
+The sharded train step differentiates through them: the autograd
+functions of the last section (:func:`sum_replicated`,
+:func:`copy_to_parallel`, :func:`gather_shards`, :func:`scatter_sum`,
+:func:`take_block`) pair each forward collective with its transpose,
+what ``jax.grad`` derives for the reference under SPMD.
 """
 from __future__ import annotations
 
@@ -191,6 +198,54 @@ def _note(kind: str, x: Optional[torch.Tensor], group=None, *,
     return serial
 
 
+_CLOCK: Optional[list] = None
+
+
+@contextlib.contextmanager
+def timed_collectives():
+    """Add up, while armed, the host seconds this process spends inside
+    :func:`psum`, :func:`psum_scatter`, :func:`pmax` and the all-gathers;
+    yields a one-item list holding the sum. Each op first waits for the
+    device (``torch.cuda.synchronize``), so that its clock holds its own
+    staging, wire and copy back, not the work queued before it: a gloo
+    op on a CUDA tensor waits there anyway, in its staging copy."""
+    global _CLOCK
+    prev, _CLOCK = _CLOCK, [0.0]
+    try:
+        yield _CLOCK
+    finally:
+        if prev is not None:
+            prev[0] += _CLOCK[0]
+        _CLOCK = prev
+
+
+def collective_clock() -> float:
+    """The seconds :func:`timed_collectives` has added up so far (0 when
+    it is not armed)."""
+    return 0.0 if _CLOCK is None else _CLOCK[0]
+
+
+def _timed(fn):
+    """``fn`` (a collective of this module) on :func:`timed_collectives`'
+    clock while it is armed."""
+    def run(x, *args, **kwargs):
+        if _CLOCK is None:
+            return fn(x, *args, **kwargs)
+        clock = _CLOCK
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        out = fn(x, *args, **kwargs)
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        clock[0] += time.perf_counter() - t0
+        return out
+    run.__name__, run.__doc__ = fn.__name__, fn.__doc__
+    run.__wrapped__ = fn
+    return run
+
+
+@_timed
 def psum(x: torch.Tensor, group=None) -> torch.Tensor:
     """Sum of ``x`` over the ranks (an all-reduce); a new tensor.
     ``group`` may be a :class:`Groups` partition: each rank then sums
@@ -210,17 +265,23 @@ def psum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 
 def _gather_list(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``x`` in group order: one ``all_gather_into_tensor``
+    into one buffer, moved back in one copy."""
     n = axis_size(group)
-    w = _wire(x)
-    if _staged(x, group):
+    w = _wire(x).reshape(-1)
+    staged = _staged(x, group)
+    if staged:
         w = _to_host(w)
-        outs = [_host_like(w) for _ in range(n)]
-    else:
-        outs = [torch.empty_like(w) for _ in range(n)]
-    dist.all_gather(outs, w, group=group)
-    return [_back(o, x) for o in outs]
+    out = (torch.empty(n * w.numel(), dtype=w.dtype, pin_memory=True)
+           if staged else w.new_empty(n * w.numel()))
+    dist.all_gather_into_tensor(out, w, group=group)
+    out = out.to(x.device, non_blocking=True)
+    if out.dtype != x.dtype:
+        out = out.view(x.dtype)
+    return list(out.reshape(n, *x.shape).unbind(0))
 
 
+@_timed
 def all_gather(x: torch.Tensor, group=None, *, tiled: bool = False
                ) -> torch.Tensor:
     """Every rank's ``x`` in rank order: stacked on a new leading axis,
@@ -230,10 +291,216 @@ def all_gather(x: torch.Tensor, group=None, *, tiled: bool = False
     return torch.cat(parts) if tiled else torch.stack(parts)
 
 
+@_timed
 def pmax(x: torch.Tensor, group=None) -> torch.Tensor:
-    """Elementwise max over the ranks; NaN passes on (``lax.pmax``)."""
-    _note("pmax", x, group)
+    """Elementwise max over the ranks; NaN passes on (``lax.pmax``).
+    ``group`` may be a :class:`Groups` partition, as :func:`psum`'s."""
+    if isinstance(group, Groups):
+        group, replica = group.handles[group.mine], group.groups
+    else:
+        replica = None
+    _note("pmax", x, group, replica_groups=replica)
     return torch.stack(_gather_list(x, group)).amax(0)
+
+
+@_timed
+def psum_scatter(x: torch.Tensor, group=None, *, dim: int = 0
+                 ) -> torch.Tensor:
+    """``lax.psum_scatter(..., tiled=True)``: the sum of ``x`` over the
+    ranks, of which each rank keeps its block along ``dim`` (block i of
+    n, i its index in the group); a new tensor, by one
+    ``reduce_scatter_tensor``. ``group`` may be a :class:`Groups`
+    partition."""
+    if isinstance(group, Groups):
+        group, replica = group.handles[group.mine], group.groups
+    else:
+        replica = None
+    _note("psum_scatter", x, group, replica_groups=replica)
+    n = axis_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    xs = x.movedim(dim, 0).contiguous()
+    staged = _staged(x, group)
+    if staged:
+        xs = _to_host(xs)
+    k = xs.shape[0] // n
+    out = _host_like(xs[:k]) if staged else torch.empty_like(xs[:k])
+    dist.reduce_scatter_tensor(out, xs, group=group)
+    return out.to(x.device, non_blocking=True).movedim(0, dim).contiguous()
+
+
+@_timed
+def psum_scatter_bytes(x: torch.Tensor, group=None, *, dim: int = 0
+                       ) -> torch.Tensor:
+    """:func:`psum_scatter` of a 2-byte ``x`` with its bytes on the wire:
+    each rank's block j goes to rank j (one ``all_to_all_single`` of a
+    uint8 view: gloo has no 2-byte sums), which adds the blocks it gets
+    in float32 in rank order and rounds once to x's dtype, as
+    ``psum_scatter(x.float())`` would (with two ranks exactly so).
+    Recorded as the ``psum_scatter`` it is, of x's dtype."""
+    if isinstance(group, Groups):
+        group, replica = group.handles[group.mine], group.groups
+    else:
+        replica = None
+    _note("psum_scatter", x, group, replica_groups=replica)
+    n = axis_size(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                         f"over {n} ranks")
+    xs = x.movedim(dim, 0).contiguous()
+    w = _wire(xs)
+    staged = _staged(x, group)
+    if staged:
+        w = _to_host(w)
+    out = (torch.empty(w.shape, dtype=w.dtype, pin_memory=True) if staged
+           else torch.empty_like(w))
+    dist.all_to_all_single(out, w, group=group)
+    out = out.to(x.device, non_blocking=True).view(x.dtype).reshape(
+        n, xs.shape[0] // n, *xs.shape[1:])
+    total = out[0].float()
+    for j in range(1, n):
+        total += out[j].float()
+    return total.to(x.dtype).movedim(0, dim).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# Differentiable collectives (the sharded train step's): each forward is one
+# of the ops above on a Groups partition, each backward its transpose.
+# Convention: a tensor replicated over a group holds the whole gradient on
+# every rank of it; a tensor split over it holds its own block's.
+# ---------------------------------------------------------------------------
+
+def _gather_dim(x: torch.Tensor, groups: "Groups", dim: int) -> torch.Tensor:
+    return torch.cat(all_gather_groups(x, groups).unbind(0), dim=dim)
+
+
+def _block(x: torch.Tensor, groups: "Groups", dim: int) -> torch.Tensor:
+    handle = groups.handles[groups.mine]
+    k = x.shape[dim] // axis_size(handle)
+    return x.narrow(dim, axis_index(handle) * k, k)
+
+
+def _sum_f32(x: torch.Tensor, groups: "Groups", dim: Optional[int] = None
+             ) -> torch.Tensor:
+    """:func:`psum` (``dim`` None) or :func:`psum_scatter` along ``dim``,
+    in float32, rounded once to x's dtype. A 2-byte ``x`` scattered goes
+    as its bytes (:func:`psum_scatter_bytes`): half a float32 message."""
+    if dim is not None and x.element_size() == 2:
+        return psum_scatter_bytes(x, groups, dim=dim)
+    xf = x.float()
+    out = psum(xf, groups) if dim is None else psum_scatter(xf, groups,
+                                                            dim=dim)
+    return out.to(x.dtype)
+
+
+class _SumReplicated(torch.autograd.Function):
+    """Partial sums → their sum on every rank (an all-reduce); the
+    gradient of the sum reaches each partial as it is."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        return _sum_f32(x, groups)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToParallel(torch.autograd.Function):
+    """A replicated tensor entering ops whose gradients are partial
+    (products with a rank's block of a weight): the same tensor forward,
+    the partial gradients summed over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, groups):
+        ctx.groups = groups
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_f32(g, ctx.groups), None
+
+
+class _GatherShards(torch.autograd.Function):
+    """Each rank's block along ``dim`` → the whole tensor on every rank
+    (an all-gather). ``partial``: the consumers' gradients are partial
+    and the backward sums them and keeps the rank's block (a
+    reduce-scatter); else they are whole and it keeps the block."""
+
+    @staticmethod
+    def forward(ctx, x, groups, dim, partial):
+        ctx.groups, ctx.dim, ctx.partial = groups, dim, partial
+        return _gather_dim(x, groups, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return _sum_f32(g, ctx.groups, ctx.dim), None, None, None
+        return _block(g, ctx.groups, ctx.dim).contiguous(), None, None, None
+
+
+class _ScatterSum(torch.autograd.Function):
+    """Partial sums → the rank's block along ``dim`` of their sum (a
+    reduce-scatter); backward, the blocks' gradients gathered whole."""
+
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        return _sum_f32(x, groups, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.groups, ctx.dim), None, None
+
+
+class _TakeBlock(torch.autograd.Function):
+    """A replicated tensor → the rank's block along ``dim`` (no
+    message); backward, the blocks' gradients gathered whole."""
+
+    @staticmethod
+    def forward(ctx, x, groups, dim):
+        ctx.groups, ctx.dim = groups, dim
+        return _block(x, groups, dim).contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_dim(g, ctx.groups, ctx.dim), None, None
+
+
+def sum_replicated(x: torch.Tensor, groups: "Groups") -> torch.Tensor:
+    """Forward all-reduce (float32), backward identity: the sum after a
+    row-parallel product."""
+    return _SumReplicated.apply(x, groups)
+
+
+def copy_to_parallel(x: torch.Tensor, groups: "Groups") -> torch.Tensor:
+    """Forward identity, backward all-reduce: a replicated tensor before
+    column-parallel products (or a replicated weight used on a rank's
+    block of the rows)."""
+    return _CopyToParallel.apply(x, groups)
+
+
+def gather_shards(x: torch.Tensor, groups: "Groups", dim: int, *,
+                  partial: bool = True) -> torch.Tensor:
+    """Forward all-gather along ``dim``; backward reduce-scatter
+    (``partial``) or the rank's block: an FSDP gather of a leaf, or the
+    sequence gather entering a layer's products."""
+    return _GatherShards.apply(x, groups, dim, partial)
+
+
+def scatter_sum(x: torch.Tensor, groups: "Groups", dim: int
+                ) -> torch.Tensor:
+    """Forward reduce-scatter along ``dim`` (float32), backward
+    all-gather: the row-parallel sum leaving a layer's products onto the
+    sequence-split residual."""
+    return _ScatterSum.apply(x, groups, dim)
+
+
+def take_block(x: torch.Tensor, groups: "Groups", dim: int
+               ) -> torch.Tensor:
+    """Forward the rank's block along ``dim``, backward all-gather."""
+    return _TakeBlock.apply(x, groups, dim)
 
 
 @dataclasses.dataclass
@@ -280,6 +547,7 @@ def forget_groups() -> None:
     _GROUPS.clear()
 
 
+@_timed
 def all_gather_groups(x: torch.Tensor, groups: Groups, *,
                       tiled: bool = False) -> torch.Tensor:
     """Grouped all-gather: each rank gathers within its own group of

@@ -24,9 +24,9 @@ builds rank 0's step on it (``launch.steps``). Then:
 
 A rank whose reckoned peak does not fit one card records
 ``status: "error"`` stating its bytes. Entries still open record the
-``NotImplementedError`` that names their item: the train and prefill
-steps under a mesh and the MoE, SSM, hybrid and encoder-decoder
-families under one (ROADMAP Queue 1 item 13g-c).
+``NotImplementedError`` that names their item: the MoE, SSM, hybrid and
+encoder-decoder families under a mesh (ROADMAP Queue 1 item 13g-c); the
+dense and VLM train, prefill and decode steps run.
 
 The record (``_write``, the reference's artifact names) keeps the
 reference's keys where their meaning carries over: ``arch``, ``shape``,
@@ -322,10 +322,13 @@ def real_inputs(kind: str, cfg, bundle, mesh, shuffle, gen, dev,
     """Rank 0's inputs of its step, on ``dev``: svm rows of the repo's
     synthetic TF×IDF distribution from ``seed`` (:func:`_rows_real`),
     their labels, a full mask, the round-0 SV state, and for the sweep
-    and serve steps C over logspace(-2, 1, S); an LM decode step's shards
-    of weights drawn from ``gen`` (``layers.template_init``), its cache
-    slice of N(0, 1) keys and values at position S − 1 (every slot
-    attended) and random tokens."""
+    and serve steps C over logspace(-2, 1, S); an LM step's shards of
+    weights drawn from ``gen`` (``layers.template_init``), and for the
+    decode step (``kind`` "decode") its cache slice of N(0, 1) keys and
+    values at position S − 1 (every slot attended) and random tokens, for
+    the train step ("train") zero AdamW moments and its rows of random
+    tokens and labels (and N(0, 1) prefix embeddings), for the prefill
+    step ("prefill") its rows of random tokens (and prefix embeddings)."""
     from repro_torch.launch import steps as steps_lib
     from repro_torch.launch.mesh import data_parallel_size
     from repro_torch.launch.steps import local_abstract
@@ -355,9 +358,23 @@ def real_inputs(kind: str, cfg, bundle, mesh, shuffle, gen, dev,
         return X, y, m, state, params
     from repro_torch.models.layers import template_init
     model = bundle.model
-    pspecs, state_specs, _ = bundle.in_shardings
+    pspecs, state_specs = bundle.in_shardings[:2]
     params = template_init(model.template(), gen, model.cfg.torch_dtype,
                            placements=pspecs, mesh=mesh)
+    if kind in ("train", "prefill"):
+        from repro_torch import optim
+        batch = {}
+        for k, t in local[-1].items():
+            if t.dtype == torch.int32:
+                batch[k] = torch.randint(0, model.cfg.vocab_size,
+                                         tuple(t.shape), generator=gen,
+                                         device=dev, dtype=torch.int32)
+            else:
+                batch[k] = torch.randn(tuple(t.shape), generator=gen,
+                                       device=dev).to(t.dtype)
+        if kind == "prefill":
+            return params, batch
+        return params, optim.init(params), batch
     B = local[2].shape[0]                     # the rank's sequences
     S = local[1].caches.k.shape[3]
     state = model.init_decode_state(bundle.args[2].shape[0], S, device=dev,
@@ -550,8 +567,8 @@ def run_one(arch: str, shape_name: str, multi_pod: bool,
                     f"rank 0's step does not fit one card: reckoned peak "
                     f"{peak} bytes ({low['arg_bytes']} of shards) > {room}")
             if dev.type == "cuda":
-                card = run_on_card(shape_name if svm else "lm", cfg, bundle,
-                                   mesh, shuffle, inspect=inspect)
+                card = run_on_card(shape_name if svm else shape.kind, cfg,
+                                   bundle, mesh, shuffle, inspect=inspect)
                 card["peak_ratio"] = card["peak_bytes"] / peak
                 record["card"] = card
         except Exception as e:

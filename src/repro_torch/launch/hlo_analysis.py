@@ -23,6 +23,8 @@ input:
                                            wire = x·(g-1): the port gathers
                                            every rank's x and takes the max
                                            locally (gloo's MAX drops NaN)
+    psum_scatter       reduce-scatter      operand = x, out = x/g
+                                           wire = x·(g-1)/g
     all_gather,        all-gather          operand = x, out = g·x
     all_gather_groups                      wire = out·(g-1)/g
     ppermute_start     collective-permute  operand = out = x, wire = x
@@ -62,6 +64,9 @@ def collective_stats(record) -> Dict[str, Dict[str, float]]:
         g = max(op.group_size, 1)
         if op.kind == "all-gather":
             operand, wire = biggest / g, biggest * (g - 1) / g
+        elif op.kind == "reduce-scatter":
+            operand, wire = float(biggest), biggest * (g - 1) / g
+            biggest = biggest / g
         elif op.port_kind == "pmax":
             operand, wire = float(biggest), float(biggest) * (g - 1)
         elif op.kind == "all-reduce":

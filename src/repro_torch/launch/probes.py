@@ -12,10 +12,11 @@ run reports the probes and adds nothing through ``combine_with_layer``.
 The probe then checks that arithmetic instead: the full step's count of
 each kind is the probe's × trips plus what runs outside the layers.
 
-Probes exist where a step runs on a mesh: the decode layer of the dense
-and VLM families. The others (train and prefill layers, the MoE, SSM,
-hybrid and encoder-decoder layers under a mesh) raise with the step
-itself (ROADMAP Queue 1 item 13g-c).
+Probes exist where a step runs on a mesh: the dense and VLM families'
+decode layer, and their full-sequence layer (the reference's "layer"
+probe: the forward for prefill, its gradients by autograd for train).
+The MoE, SSM, hybrid and encoder-decoder layers under a mesh raise with
+the step itself (ROADMAP Queue 1 item 13g-c).
 """
 from __future__ import annotations
 
@@ -49,13 +50,16 @@ def build_probes(cfg: ModelConfig, mesh, shape: InputShape,
     (``TransformerModel.layer_decode_sharded``) over its slice of the
     cache; ``bundle`` is the step's (built here when not given), whose
     model and placements the probe shares."""
-    from repro_torch.launch.steps import build_serve_step
+    from repro_torch.launch.steps import build_serve_step, build_step
     from repro_torch.models import attention as attn_lib
     from repro_torch.models.transformer import MESH_ITEM, _inner
-    if shape.kind != "decode" or cfg.family not in ("dense", "vlm"):
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(
             f"the {shape.kind} layer of the {cfg.family} family under a "
             f"mesh is not ported to repro_torch yet ({MESH_ITEM})")
+    if shape.kind != "decode":
+        return [_layer_probe(cfg, mesh, shape,
+                             bundle or build_step(cfg, mesh, shape, rules))]
     bundle = bundle or build_serve_step(cfg, mesh, shape, rules)
     model = bundle.model
     params_abs, state_abs, _ = bundle.args
@@ -79,6 +83,44 @@ def build_probes(cfg: ModelConfig, mesh, shape: InputShape,
                   (h_spec, layer_spec,
                    attn_lib.LayerKVCache(kv_spec, kv_spec), ()),
                   cfg.num_layers - 1)]
+
+
+def _layer_probe(cfg: ModelConfig, mesh, shape: InputShape,
+                 bundle: StepBundle) -> Probe:
+    """One full-sequence layer of the train or prefill step on the
+    rank's shards (``TransformerModel._layer_fwd_sharded``), its input
+    the residual as the step holds it between layers (the rank's block
+    of the sequence where ``seq_parallel``); for train the gradients of
+    the output's sum with respect to the input and the layer's leaves,
+    as the reference's probe takes them."""
+    from repro_torch.models.layers import tree_leaves
+    from repro_torch.models.transformer import _inner
+    model = bundle.model
+    B, S = shape.global_batch, shape.seq_len
+    if cfg.is_encoder_decoder:
+        S = min(S, cfg.max_decoder_len)
+    sp = model.seq_parallel(S)
+    layer_abs = tree_map(lambda a: _meta(a.shape[1:], a.dtype),
+                         bundle.args[0]["layers"])
+    layer_spec = _inner(bundle.in_shardings[0]["layers"])
+    bp = shd.batch_pspec(mesh, B)
+    h_spec = (bp if bp != (None,) else (None,)) + (
+        "model" if sp else None, None)
+    h_abs = _meta((B, S, cfg.d_model), cfg.torch_dtype)
+    grad = shape.kind == "train"
+
+    def fn(h, lp):
+        pos = torch.arange(S, device=h.device)[None].expand(h.shape[0], S)
+        if not grad:
+            return model._layer_fwd_sharded(lp, h, pos, sp)
+        with torch.enable_grad():
+            h = h.detach().requires_grad_()
+            lp = tree_map(lambda w: w.detach().requires_grad_(), lp)
+            out = model._layer_fwd_sharded(lp, h, pos, sp)
+            return torch.autograd.grad(out.sum().float(),
+                                       [h] + tree_leaves(lp))
+    return Probe("layer", fn, (h_abs, layer_abs), (h_spec, layer_spec),
+                 cfg.num_layers - 1)
 
 
 def measure_probes(probes: List[Probe], mesh) -> Dict[str, dict]:

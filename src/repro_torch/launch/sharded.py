@@ -28,7 +28,11 @@ against a reference. They import neither JAX nor any test module.
   grid of the ranks, each rank on its shards of the weights and tokens;
 * :func:`run_lm_cases` serves dense and VLM decoders (:class:`LMCase`)
   through the sharded decode step of :func:`repro_torch.launch.steps.
-  build_serve_step` on a (data × model) mesh of the ranks.
+  build_serve_step` on a (data × model) mesh of the ranks;
+* :func:`run_train_cases` trains them (:class:`TrainCase`) through the
+  sharded :func:`repro_torch.launch.steps.build_train_step` and runs
+  the sharded prefill step, each rank on its shards and batch rows
+  (:func:`run_train_case` gives the tensors, for a caller on the rank).
 
     from repro_torch import compat
     from repro_torch.launch.sharded import fit_sharded
@@ -461,4 +465,145 @@ def run_lm_cases(rank, cases: Sequence[LMCase]) -> list:
                     "kv_repeat": model.kv_repeat,
                     "heads": (params["layers"]["attn"]["wq"].shape[2],
                               state.caches.k.shape[2])})
+    return out
+
+
+@dataclasses.dataclass
+class TrainCase:
+    """A dense or VLM decoder trained on a (data × model) ``grid`` of the
+    spawn's ranks: the config, the full weights (numpy, the reference's
+    nested dict; None: ``model.init`` from ``seed`` on the rank's device,
+    the same weights as one process draws), the global batch (numpy,
+    ``data.lm_batch_at``'s keys), ``steps`` train steps of
+    ``build_train_step`` at ``opt`` (None: ``OptConfig()``) and
+    ``remat``; with ``prefill`` the prefill step first, on the initial
+    weights; with ``forward`` the forward's logits before it; with
+    ``gather`` the final weights gathered whole. A batch without labels
+    runs no train step and takes no gradient."""
+    cfg: ModelConfig
+    params: Optional[dict]
+    batch: dict
+    grid: Tuple[int, int] = (1, 2)
+    steps: int = 2
+    opt: Optional[object] = None
+    remat: bool = True
+    prefill: bool = True
+    seed: int = 0
+    forward: bool = False
+    gather: bool = True
+
+
+def run_train_case(rank, c: TrainCase) -> dict:
+    """One :class:`TrainCase` on this rank of ``make_host_mesh(*grid)``:
+    the rank's shards (``convert.lm_params_from_jax`` at the bundle's
+    placements, or ``model.init``) and batch rows (``steps.local_batch``);
+    the prefill step's logits; ``steps`` train steps, the first taken as
+    the bundle's step in its two halves (``steps.loss_and_grads``, whose
+    gradients at the initial weights are kept and gathered whole, then
+    ``optim.apply_updates``), its collectives recorded; the final
+    weights gathered. With ``steps`` 0 the gradients only. → a
+    dict of tensors and numbers: ``logits`` (the rank's rows (B_rank, 1,
+    V)), ``loss0``, ``grads`` (whole, ``tree_leaves`` order),
+    ``metrics`` (a dict of floats a step), ``step_s`` (host seconds a
+    step, to a device sync), ``coll_s`` (a step's seconds inside the
+    collectives, where ``compat.timed_collectives`` is armed, else 0),
+    ``params`` (whole, with ``gather``), ``record`` (the first step's
+    ``CollectiveEntry`` s), ``seq_parallel``, ``bundle``, and the rank's
+    ``model``, ``local_params`` (after the steps) and ``batch``."""
+    from repro_torch import optim
+    from repro_torch.convert import lm_params_from_jax
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import tree_leaves, tree_unflatten
+    mesh = make_host_mesh(*c.grid)
+    B, S = c.batch["tokens"].shape
+    S += c.cfg.num_prefix_tokens if c.cfg.frontend == "vision" else 0
+    shape = steps.InputShape("case", "train", S, B)
+    bundle = steps.build_train_step(c.cfg, mesh, shape, opt_cfg=c.opt,
+                                    remat=c.remat)
+    model, place = bundle.model, bundle.in_shardings[0]
+    dev = torch.device(rank.device)
+    if c.params is None:
+        params = model.init(torch.Generator(device=dev).manual_seed(c.seed))
+    else:
+        params = lm_params_from_jax(c.params, dev, mesh=mesh,
+                                    placements=place)
+    batch = steps.local_batch(c.batch, bundle.in_shardings[2], mesh, dev)
+    out = {"seq_parallel": model.seq_parallel(S), "bundle": bundle,
+           "model": model, "batch": batch}
+    if c.forward:
+        with torch.no_grad():
+            out["forward"] = model.forward(params, batch["tokens"],
+                                           batch.get("prefix_embeds"))[0]
+    if c.prefill:
+        pre = steps.build_prefill_step(
+            c.cfg, mesh, steps.InputShape("case", "prefill", S, B))
+        out["logits"] = pre.fn(params, {k: v for k, v in batch.items()
+                                        if k != "labels"})
+    if "labels" not in batch:
+        return {**out, "local_params": params}
+    state = optim.init(params)
+    metrics, secs, coll, record = [], [], [], []
+    for i in range(max(c.steps, 1)):
+        _sync(dev)
+        c0 = compat.collective_clock()
+        t0 = time.perf_counter()
+        with (compat.record_collectives() if i == 0
+              else contextlib.nullcontext()) as rec:
+            if i == 0:
+                # step 1 is the bundle's train step in its two halves:
+                # the gradients, kept, then the update
+                loss, m, grads = steps.loss_and_grads(model, params, batch)
+                out["loss0"] = float(loss)
+                out["grads"] = grads
+                if c.steps:
+                    params, state, om = optim.apply_updates(
+                        params, tree_unflatten(params, grads), state,
+                        c.opt or optim.OptConfig(), place=place,
+                        mesh=mesh)
+                    m = {"loss": loss, **m, **om}
+            else:
+                params, state, m = bundle.fn(params, state, batch)
+            if c.steps:
+                metrics.append({k: float(v) for k, v in m.items()})
+        _sync(dev)
+        secs.append(time.perf_counter() - t0)
+        coll.append(compat.collective_clock() - c0)
+        if i == 0:
+            record = list(rec)
+    out["grads"] = tree_leaves(steps.gather_tree(
+        tree_unflatten(params, out["grads"]), place, mesh))
+    out.update(metrics=metrics, step_s=secs, coll_s=coll, record=record,
+               local_params=params)
+    if c.gather:
+        out["params"] = tree_leaves(steps.gather_tree(params, place, mesh))
+    return out
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def run_train_cases(rank, cases: Sequence[TrainCase]) -> list:
+    """Each case through :func:`run_train_case` on this rank. → per case
+    numpy: ``logits``, ``forward``, ``loss0``, ``grads`` and ``params``
+    (whole, leaf order), ``metrics``, ``schedule`` (the first step's
+    collective signatures), ``kinds`` (its collectives' kinds),
+    ``seq_parallel``, as far as the case ran them."""
+    from repro_torch.analysis.schedule import collective_schedule
+    out = []
+    for c in cases:
+        r = run_train_case(rank, c)
+        out.append({
+            "seq_parallel": r["seq_parallel"],
+            **{k: to_numpy(r[k].float()) for k in ("logits", "forward")
+               if k in r},
+            **({"loss0": r["loss0"],
+                "grads": [to_numpy(g.float()) for g in r["grads"]],
+                "params": [to_numpy(p.float()) for p in r["params"]],
+                "metrics": r["metrics"],
+                "schedule": collective_schedule(r["record"]),
+                "kinds": [e.kind for e in r["record"]]}
+               if "grads" in r else {})})
     return out

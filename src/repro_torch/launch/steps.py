@@ -9,14 +9,18 @@ Input-shape suite (the reference's):
     decode_32k   seq=32768   global_batch=128   (decode: 1 token, KV=seq)
     long_500k    seq=524288  global_batch=1     (long-context decode)
 
-A step runs on whatever device its tensors are on. The serve step also
-runs on a mesh of ranks (:func:`build_serve_step` with a
-``launch.mesh.Mesh``; dense and VLM decoders): each rank then holds the
-shards that the bundle's ``in_shardings`` place on it, as the
-reference's ``build_serve_step(cfg, mesh)`` under SPMD. The train and
-prefill steps are for one process: ``mesh`` and ``rules`` must be
-``None`` (their sharded forms are ROADMAP Queue 1 item 13g-c), and
-their ``in_shardings`` and ``out_shardings`` are ``None``. The train
+A step runs on whatever device its tensors are on. The train, prefill
+and serve steps of the dense and VLM decoders also run on a mesh of
+ranks (a ``compat.Mesh``, e.g. ``launch.mesh.make_host_mesh``): each
+rank then holds the shards that the bundle's ``in_shardings`` place on
+it and its rows of the batch (:func:`local_batch`), as the reference's
+builders under SPMD; the train step's loss is the global batch's mean,
+its gradients the rank's shards of the global ones, through the
+differentiable collectives of ``models/layers.py``' mesh section (the
+FSDP gathers, the vocabulary-parallel CE, the sequence-parallel
+residual). The MoE, SSM, hybrid and encoder-decoder families under a
+mesh of more than one rank raise (ROADMAP Queue 1 item 13g-c). Without
+a mesh ``in_shardings`` and ``out_shardings`` are ``None``. The train
 step updates the params and the optimizer state in place, the serve
 step the caches: ``donate_argnums`` names them, as the reference's.
 
@@ -39,8 +43,8 @@ from repro_torch import optim
 from repro_torch import sparse as sparse_rows
 from repro_torch.launch import sharding as shd
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (lm_logits, tree_leaves,
-                                       tree_unflatten, tree_map)
+from repro_torch.models.layers import (lm_logits, lm_logits_sharded,
+                                       tree_leaves, tree_map, tree_unflatten)
 from repro_torch.models.transformer import build_model
 
 
@@ -74,14 +78,6 @@ def applicability(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
     return None
 
 
-def _single_process(mesh, rules) -> None:
-    if mesh is not None or rules is not None:
-        raise NotImplementedError(
-            "sharded train and prefill steps (mesh=, rules=) are not "
-            "ported to repro_torch yet (ROADMAP Queue 1 item 13g-c); pass "
-            "mesh=None")
-
-
 def _meta(shape, dtype) -> torch.Tensor:
     return torch.empty(shape, dtype=dtype, device="meta")
 
@@ -111,40 +107,113 @@ class StepBundle(NamedTuple):
     model: Any
 
 
+def _placed_model(cfg: ModelConfig, mesh, rules: Optional[dict]):
+    """(the model of a step on ``mesh``, its parameters' placements):
+    KV heads repeated ``kv_repeat_for(cfg, mesh)`` times and the model
+    on the mesh's ranks, as the reference's builders make it; with no
+    mesh the one-process model and None."""
+    if mesh is None:
+        if rules is not None:
+            raise ValueError("rules place a step on a mesh; pass mesh=")
+        return build_model(cfg), None
+    r = shd.kv_repeat_for(cfg, mesh)
+    pspecs = shd.param_pspecs(build_model(cfg, r), mesh, rules)
+    return build_model(cfg, r, mesh=mesh, place=pspecs), pspecs
+
+
+def sum_batch_replicated(model, grads: list) -> list:
+    """A rank's gradients (``tree_leaves`` order) with each leaf that is
+    replicated over a batch axis summed over that axis (one all-reduce
+    an axis, of those leaves flattened, in float32); the rest as they
+    are. Without a mesh, ``grads``."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None:
+        return grads
+    from repro_torch import compat
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models.layers import split_axes
+    grads = list(grads)
+    places = tree_leaves(model.place)
+    for a in batch_axes(mesh):
+        if mesh.shape[a] == 1:
+            continue
+        idx = [i for i, pl in enumerate(places)
+               if a not in split_axes(pl, mesh)]
+        if not idx:
+            continue
+        flat = compat.psum(torch.cat([grads[i].float().reshape(-1)
+                                      for i in idx]), mesh.groups_of(a))
+        for i, part in zip(idx, flat.split([grads[i].numel()
+                                            for i in idx])):
+            grads[i] = part.reshape(grads[i].shape).to(grads[i].dtype)
+    return grads
+
+
+def loss_and_grads(model, params, batch):
+    """(loss, metrics, the gradients in ``tree_leaves`` order) of
+    ``model.loss`` by autograd over detached aliases of ``params``. On a
+    mesh (``model.mesh``, the params a rank's shards) each gradient is
+    the rank's shard of the global batch's: a leaf replicated over a
+    batch axis has its gradient summed over that axis here
+    (:func:`sum_batch_replicated`); a leaf split over it had its data
+    ranks' gradients summed by its FSDP gather's reduce-scatter."""
+    with torch.enable_grad():
+        # aliases of the params' storage that autograd may track
+        wrt = tree_map(lambda p: p.detach().requires_grad_(), params)
+        loss, metrics = model.loss(wrt, batch)
+        grads = list(torch.autograd.grad(loss, tree_leaves(wrt)))
+    grads = sum_batch_replicated(model, grads)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
 def build_train_step(cfg: ModelConfig, mesh, shape: InputShape,
                      opt_cfg: Optional[optim.OptConfig] = None,
                      rules: Optional[dict] = None,
                      remat: bool = True) -> StepBundle:
     """→ ``train_step(params, opt_state, batch)`` returning ``(params,
     opt_state, {"loss", "ce", "aux", "lr", "grad_norm"})``: the loss and
-    its gradients by autograd (each layer checkpointed when ``remat``),
-    then one AdamW step written into ``params`` and ``opt_state`` in
-    place. The metrics are 0-d tensors on the device: nothing in the step
-    waits for it."""
-    _single_process(mesh, rules)
+    its gradients by autograd (:func:`loss_and_grads`; each layer
+    checkpointed when ``remat``), then one AdamW step written into
+    ``params`` and ``opt_state`` in place. The metrics are 0-d tensors
+    on the device: nothing in the step waits for it.
+
+    With a ``mesh`` (dense and VLM decoders) the bundle is the
+    reference's: ``in_shardings`` = (the params' placements under
+    ``rules``, ``OptState(mu=…, nu=…, step=())``, the batch's leading
+    dims over the batch axes), ``out_shardings`` = (the params', the
+    state's, ``()`` for each metric); on a rank mesh ``fn`` runs on this
+    rank's shards and rows (:func:`local_batch`), the loss the global
+    batch's mean, the clip's norm over the shards, and every metric the
+    same on every rank."""
     if remat and not cfg.remat:
         cfg = dataclasses.replace(cfg, remat=True)
-    model = build_model(cfg)
+    model, pspecs = _placed_model(cfg, mesh, rules)
     opt_cfg = opt_cfg or optim.OptConfig()
+    on_ranks = getattr(model, "mesh", None) is not None
 
     def train_step(params, opt_state, batch):
-        with torch.enable_grad():
-            # aliases of the params' storage that autograd may track
-            wrt = tree_map(lambda p: p.detach().requires_grad_(), params)
-            loss, metrics = model.loss(wrt, batch)
-            grads = torch.autograd.grad(loss, tree_leaves(wrt))
+        loss, metrics, grads = loss_and_grads(model, params, batch)
         params, opt_state, om = optim.apply_updates(
-            params, tree_unflatten(params, grads), opt_state, opt_cfg)
-        return params, opt_state, {
-            "loss": loss.detach(),
-            **{k: v.detach() for k, v in metrics.items()}, **om}
+            params, tree_unflatten(params, grads), opt_state, opt_cfg,
+            place=pspecs if on_ranks else None,
+            mesh=mesh if on_ranks else None)
+        return params, opt_state, {"loss": loss, **metrics, **om}
 
     params_abs = model.abstract()
+    batch_abs = train_batch_abstract(cfg, shape)
+    args = (params_abs, optim.abstract_state(params_abs), batch_abs)
+    if mesh is None:
+        return StepBundle(fn=train_step, args=args, in_shardings=None,
+                          out_shardings=None, donate_argnums=(0, 1),
+                          model=model)
+    opt_specs = optim.OptState(mu=pspecs, nu=pspecs, step=())
+    batch_specs = shd.leading_batch_specs(batch_abs, mesh,
+                                          shape.global_batch)
+    metric_specs = {k: () for k in ("loss", "ce", "aux", "lr", "grad_norm")}
     return StepBundle(
-        fn=train_step,
-        args=(params_abs, optim.abstract_state(params_abs),
-              train_batch_abstract(cfg, shape)),
-        in_shardings=None, out_shardings=None,
+        fn=train_step, args=args,
+        in_shardings=(pspecs, opt_specs, batch_specs),
+        out_shardings=(pspecs, opt_specs, metric_specs),
         donate_argnums=(0, 1), model=model)
 
 
@@ -152,26 +221,67 @@ def build_prefill_step(cfg: ModelConfig, mesh, shape: InputShape,
                        rules: Optional[dict] = None) -> StepBundle:
     """→ ``prefill_step(params, batch)``: the full-context forward, then
     the last position's logits (B, 1, V) only (the production prefill
-    result; full logits would be B·S·V)."""
-    _single_process(mesh, rules)
-    model = build_model(cfg)
+    result; full logits would be B·S·V). With a ``mesh`` (dense and VLM
+    decoders) the bundle is the reference's: ``in_shardings`` = (the
+    params' placements, the batch's), ``out_shardings`` the logits'
+    rows over the batch axes; on a rank mesh ``fn`` gives the rank's
+    rows over the whole vocabulary."""
+    model, pspecs = _placed_model(cfg, mesh, rules)
+    on_ranks = getattr(model, "mesh", None) is not None
 
     @torch.no_grad()
     def prefill_step(params, batch):
         if cfg.is_encoder_decoder:
             enc = model.encode(params, batch["frames"])
             h, _ = model.hidden_states(params, batch["tokens"], enc)
-        else:
-            h, _ = model.hidden_states(params, batch["tokens"],
-                                       batch.get("prefix_embeds"))
+            return lm_logits(params["embed"], h[:, -1:, :],
+                             cfg.tie_embeddings)
+        if on_ranks:
+            last = model.last_hidden(params, batch["tokens"],
+                                     batch.get("prefix_embeds"))
+            return lm_logits_sharded(params["embed"], pspecs["embed"], last,
+                                     cfg.tie_embeddings, model.mesh)
+        h, _ = model.hidden_states(params, batch["tokens"],
+                                   batch.get("prefix_embeds"))
         return lm_logits(params["embed"], h[:, -1:, :], cfg.tie_embeddings)
 
     batch_abs = train_batch_abstract(cfg, shape)
     batch_abs.pop("labels")
+    args = (model.abstract(), batch_abs)
+    if mesh is None:
+        return StepBundle(fn=prefill_step, args=args, in_shardings=None,
+                          out_shardings=None, donate_argnums=(),
+                          model=model)
+    bp = shd.batch_pspec(mesh, shape.global_batch)
     return StepBundle(
-        fn=prefill_step, args=(model.abstract(), batch_abs),
-        in_shardings=None, out_shardings=None, donate_argnums=(),
-        model=model)
+        fn=prefill_step, args=args,
+        in_shardings=(pspecs, shd.leading_batch_specs(
+            batch_abs, mesh, shape.global_batch)),
+        out_shardings=bp + (None, None) if bp != (None,) else (),
+        donate_argnums=(), model=model)
+
+
+def local_batch(batch, specs, mesh, device=None):
+    """This rank's rows of a global batch (a dict of numpy arrays or
+    tensors, e.g. ``data.lm_batch_at``'s) under the bundle's batch
+    placements ``specs``: each data rank its contiguous block of rows,
+    as :func:`per_host_abstract` splits them over processes; the model
+    ranks of a data row the same rows; a batch that does not divide the
+    batch axes whole on every rank. → tensors on ``device``."""
+    from repro_torch.models.layers import local_shard
+    out = {}
+    for k, v in batch.items():
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(v)
+        out[k] = local_shard(t, specs[k], mesh).to(device)
+    return out
+
+
+def gather_tree(tree, place, mesh):
+    """The whole tensors of a tree of this rank's shards (``place`` its
+    placements): every leaf all-gathered over the axes that split it
+    (``layers.gather_full``); every rank calls it."""
+    from repro_torch.models.layers import gather_full, tree_map2
+    return tree_map2(lambda t, pl: gather_full(t, pl, mesh), tree, place)
 
 
 def make_serve_step(model) -> Callable[..., Tuple[torch.Tensor, Any]]:
@@ -198,14 +308,7 @@ def build_serve_step(cfg: ModelConfig, mesh, shape: InputShape,
     its ``fn`` runs on this rank's shards (a shape-only mesh reckons the
     placements only). ``args`` are the whole (global) inputs as ``meta``
     tensors."""
-    if mesh is None:
-        if rules is not None:
-            raise ValueError("rules place a step on a mesh; pass mesh=")
-        model = build_model(cfg)
-    else:
-        r = shd.kv_repeat_for(cfg, mesh)
-        pspecs = shd.param_pspecs(build_model(cfg, r), mesh, rules)
-        model = build_model(cfg, r, mesh=mesh, place=pspecs)
+    model, pspecs = _placed_model(cfg, mesh, rules)
     B = shape.global_batch
     state_abs = model.decode_state_abstract(B, shape.seq_len)
     args = (model.abstract(), state_abs, _meta((B, 1), torch.int32))

@@ -25,17 +25,28 @@ of the run: every rank's times, each round's SV ids and α, launches by
 route, peak memory. ``--split-ms`` times each round's solve and eq. 7
 between device syncs (the rest is the merge).
 
-The LM mode (``--arch`` of a dense or VLM config) trains on one process,
-as the reference's: random weights (``torch.Generator`` seed 0), the
-synthetic token stream (``data.lm_batch_at``), ``build_train_step``
-without remat, a line every 10 steps and ``--ckpt PATH`` saving
-``{"params": params}`` in the reference's file format:
+The LM mode (``--arch`` of an LM config) trains as the reference's:
+random weights (``torch.Generator`` seed 0), the synthetic token stream
+(``data.lm_batch_at``), ``build_train_step`` without remat, a line every
+10 steps and ``--ckpt PATH`` saving ``{"params": params}`` in the
+reference's file format:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch \
         tinyllama-1.1b --smoke --steps 2 --batch 2 --seq 64 --device cpu
 
-``--data-par`` and ``--model-par`` above 1 raise (ROADMAP Queue 1 item
-13g-c); a multi-process LM launch exits, as the reference's.
+``--data-par D --model-par M`` (a dense or VLM arch) trains on a (D × M)
+mesh of D·M ranks (``compat.spawn``; gloo on the CPU or on one card):
+each rank its shards of the same seed-0 weights and its rows of each
+batch, rank 0 printing the same lines (the one process's losses, to
+rounding) and saving the gathered weights:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-1.5b \
+        --smoke --steps 2 --batch 4 --seq 64 --data-par 2 --model-par 2 \
+        --device cpu
+
+The MoE, SSM, hybrid and encoder-decoder archs on more than one rank
+raise (ROADMAP Queue 1 item 13g-c); a multi-process LM launch exits, as
+the reference's.
 """
 from __future__ import annotations
 
@@ -291,41 +302,72 @@ def train_svm(svm_cfg, args, cluster) -> Optional[dict]:
 
 
 def train_lm(cfg, args) -> List[float]:
-    """The LM train mode (``repro/launch/train.py:155-194``) on one
-    process, on ``args.device`` (default cuda). → the losses printed."""
+    """The LM train mode (``repro/launch/train.py:155-194``) on
+    ``args.device`` (default cuda): one process, or with ``--data-par D
+    --model-par M`` above 1 a (D × M) mesh of ``compat.spawn`` ranks
+    (dense and VLM archs), rank 0 printing. → the losses printed."""
+    from repro_torch.device import resolve_device
+    from repro_torch.models.config import smoke_variant
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    job = (cfg, args.data_par, args.model_par, args.steps, args.batch,
+           args.seq, args.ckpt)
+    if args.data_par * args.model_par > 1:
+        if cfg.family not in ("dense", "vlm"):
+            raise NotImplementedError(
+                f"--data-par / --model-par above 1 for the {cfg.family} "
+                "family is not ported to repro_torch yet (ROADMAP Queue 1 "
+                "item 13g-c)")
+        on = "cpu" if resolve_device(args.device).type == "cpu" else "cuda"
+        return compat.spawn(train_lm_rank, args.data_par * args.model_par,
+                            job, device=on, join_timeout_s=3600.0)[0]
+    return _train_lm_loop(resolve_device(args.device), None, *job)
+
+
+def train_lm_rank(rank, *job) -> List[float]:
+    """A rank of the LM train mode on a mesh (``compat.spawn`` target):
+    ``make_host_mesh(data, model)``, its shards of the seed-0 weights
+    and its rows of each batch; rank 0 prints the lines and saves the
+    checkpoint. → the losses (every rank's the same)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    return _train_lm_loop(torch.device(rank.device),
+                          make_host_mesh(*job[1:3]), *job, say=rank.rank == 0)
+
+
+def _train_lm_loop(dev, mesh, cfg, data, model, steps, batch, seq, ckpt,
+                   say: bool = True) -> List[float]:
     from repro_torch import optim
     from repro_torch.ckpt import save
     from repro_torch.data import DataConfig, lm_batch_at
-    from repro_torch.device import resolve_device
-    from repro_torch.launch.steps import InputShape, build_train_step
-    from repro_torch.models.config import smoke_variant
-    if args.data_par > 1 or args.model_par > 1:
-        raise NotImplementedError(
-            "--data-par and --model-par above 1 (a sharded train step) are "
-            "not ported to repro_torch yet (ROADMAP Queue 1 item 13g-c)")
-    dev = resolve_device(args.device)
-    if args.smoke:
-        cfg = smoke_variant(cfg)
-    shape = InputShape("cli", "train", args.seq, args.batch)
-    bundle = build_train_step(cfg, None, shape, remat=False)
+    from repro_torch.launch.steps import (InputShape, build_train_step,
+                                          gather_tree, local_batch)
+    shape = InputShape("cli", "train", seq, batch)
+    bundle = build_train_step(cfg, mesh, shape, remat=False)
     params = bundle.model.init(torch.Generator(device=dev).manual_seed(0))
     opt_state = optim.init(params)
-    dcfg = DataConfig(batch_size=args.batch, seq_len=args.seq)
+    dcfg = DataConfig(batch_size=batch, seq_len=seq)
     losses = []
     t0 = time.time()
-    for step in range(args.steps):
-        batch = {k: torch.from_numpy(v).to(dev)
-                 for k, v in lm_batch_at(dcfg, cfg, step).items()}
-        params, opt_state, m = bundle.fn(params, opt_state, batch)
-        if step % 10 == 0 or step == args.steps - 1:
+    for step in range(steps):
+        b = lm_batch_at(dcfg, cfg, step)
+        b = (local_batch(b, bundle.in_shardings[2], mesh, dev)
+             if mesh is not None else
+             {k: torch.from_numpy(v).to(dev) for k, v in b.items()})
+        params, opt_state, m = bundle.fn(params, opt_state, b)
+        if step % 10 == 0 or step == steps - 1:
             losses.append(float(m["loss"]))
-            print(f"step {step:4d} loss {losses[-1]:.4f} "
-                  f"gnorm {float(m['grad_norm']):.2f} "
-                  f"{(step + 1) * args.batch * args.seq / (time.time() - t0):,.0f} tok/s",
-                  flush=True)
-    if args.ckpt:
-        save(args.ckpt, {"params": params}, step=args.steps)
-        print(f"saved {args.ckpt}")
+            if say:
+                print(f"step {step:4d} loss {losses[-1]:.4f} "
+                      f"gnorm {float(m['grad_norm']):.2f} "
+                      f"{(step + 1) * batch * seq / (time.time() - t0):,.0f} "
+                      "tok/s" + (f" ({data} × {model} ranks)"
+                                 if mesh is not None else ""), flush=True)
+    if ckpt:
+        if mesh is not None:
+            params = gather_tree(params, bundle.in_shardings[0], mesh)
+        if say:
+            save(ckpt, {"params": params}, step=steps)
+            print(f"saved {ckpt}")
     return losses
 
 

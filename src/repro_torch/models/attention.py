@@ -12,15 +12,19 @@ reference rounds.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import ops
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (PSpec, apply_rope, local_like,
-                                       model_shard, sharded_matmul)
+from repro_torch.models.layers import (PSpec, apply_rope, gather_data,
+                                       local_like, model_shard,
+                                       parallel_input, row_sum,
+                                       sharded_matmul, split_dim)
 
 _NEG_INF = -1e30
 _Q_CHUNK = 512
@@ -64,23 +68,52 @@ def _project_qkv(p, x, kv_x, cfg: ModelConfig, kv_repeat: int):
     return q, k, v
 
 
-def _grouped_scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """q (B, Sq, H, hd), k (B, Sk, KVr, hd) → scores (B, KVr, G, Sq, Sk)
-    in the activation dtype, over √hd rounded to it (the reference's
-    ``jnp.sqrt(hd).astype(q.dtype)``)."""
+@functools.lru_cache(maxsize=None)
+def _root(hd: int, dtype: torch.dtype) -> float:
+    """√hd rounded to ``dtype``, as a host number (a device constant would
+    be a host→device copy a call)."""
+    return torch.tensor(math.sqrt(hd), dtype=dtype).item()
+
+
+def _keys_t(k: torch.Tensor) -> torch.Tensor:
+    """k (B, Sk, KVr, hd) → (B·KVr, hd, Sk), contiguous: the right-hand
+    side of :func:`_grouped_scores`, made once for every query block."""
+    B, Sk, KVr, hd = k.shape
+    return k.permute(0, 2, 3, 1).reshape(B * KVr, hd, Sk)
+
+
+def _grouped_scores(q: torch.Tensor, kt: torch.Tensor) -> torch.Tensor:
+    """q (B, Sq, H, hd), kt (B·KVr, hd, Sk) (:func:`_keys_t`) → scores
+    (B, KVr, G, Sq, Sk) in the activation dtype, over √hd rounded to it
+    (the reference's ``jnp.sqrt(hd).astype(q.dtype)``). One batched
+    product over (B, KVr) of the group's G·Sq query rows, the layout
+    ``einsum`` gives it (einsum itself costs ~10× the ops to trace in
+    the dry run)."""
     B, Sq, H, hd = q.shape
-    KVr = k.shape[2]
-    qg = q.reshape(B, Sq, KVr, H // KVr, hd)
-    # a host number: a device constant would be a host→device copy a call
-    root = torch.tensor(math.sqrt(hd), dtype=q.dtype).item()
-    return torch.einsum("bskgh,btkh->bkgst", qg, k) / root
+    KVr, Sk = kt.shape[0] // B, kt.shape[2]
+    G = H // KVr
+    qg = q.reshape(B, Sq, KVr, G, hd).permute(0, 2, 3, 1, 4).reshape(
+        B * KVr, G * Sq, hd)
+    return torch.bmm(qg, kt).view(B, KVr, G, Sq, Sk) / _root(hd, q.dtype)
 
 
-def _grouped_out(probs: torch.Tensor, v: torch.Tensor, H: int) -> torch.Tensor:
-    """probs (B, KVr, G, Sq, Sk), v (B, Sk, KVr, hd) → (B, Sq, H, hd)."""
+def _values_t(v: torch.Tensor) -> torch.Tensor:
+    """v (B, Sk, KVr, hd) → (B·KVr, Sk, hd), contiguous: the right-hand
+    side of :func:`_grouped_out`, made once for every query block."""
+    B, Sk, KVr, hd = v.shape
+    return v.permute(0, 2, 1, 3).reshape(B * KVr, Sk, hd)
+
+
+def _grouped_out(probs: torch.Tensor, vt: torch.Tensor, H: int) -> torch.Tensor:
+    """probs (B, KVr, G, Sq, Sk), vt (B·KVr, Sk, hd) (:func:`_values_t`)
+    → (B, Sq, H, hd). The rows in (Sq, G) order, as ``einsum`` lays them
+    out: v's gradient then sums them in its order (the (G, Sq) order
+    moved a float32 training trajectory held to JAX's at 1e-5)."""
     B, KVr, G, Sq, Sk = probs.shape
-    out = torch.einsum("bkgst,btkh->bskgh", probs, v)
-    return out.reshape(B, Sq, KVr * G, out.shape[-1])
+    rows = probs.permute(0, 1, 3, 2, 4).reshape(B * KVr, Sq * G, Sk)
+    out = torch.bmm(rows, vt)
+    return out.view(B, KVr, Sq, G, -1).permute(0, 2, 1, 3, 4).reshape(
+        B, Sq, KVr * G, out.shape[-1])
 
 
 def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
@@ -104,30 +137,106 @@ def attention(p, x: torch.Tensor, cfg: ModelConfig, *,
     kv_x = x if self_attn else kv_x
     kv_pos = positions if self_attn else kv_positions
     q, k, v = _project_qkv(p, x, kv_x, cfg, kv_repeat)
-    if self_attn and cfg.rope_fraction > 0:
+    out = _attend(q, k, v, cfg, positions, kv_pos, causal,
+                  rope=self_attn)
+    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+
+
+def _attend(q, k, v, cfg: ModelConfig, positions, kv_pos, causal: bool,
+            rope: bool = True) -> torch.Tensor:
+    """RoPE (``rope`` and a rotary config), then the query-chunked masked
+    softmax of :func:`attention`: q (B, S, H, hd), k and v (B, Sk, KVr,
+    hd) → (B, S, H, hd)."""
+    B, S, H, _ = q.shape
+    if rope and cfg.rope_fraction > 0:
         q = apply_rope(q, positions, cfg.rope_fraction, cfg.rope_theta)
         k = apply_rope(k, kv_pos, cfg.rope_fraction, cfg.rope_theta)
     window = cfg.sliding_window
+    kt, vt = _keys_t(k), _values_t(v)
 
     def block_attend(q_blk, qpos_blk):
-        scores = _grouped_scores(q_blk, k).float()
-        mask = torch.ones((B, q_blk.shape[1], k.shape[1]), dtype=torch.bool,
-                          device=x.device)
+        scores = _grouped_scores(q_blk, kt).float()
+        mask = None
         if causal:
-            mask &= qpos_blk[:, :, None] >= kv_pos[:, None, :]
+            mask = qpos_blk[:, :, None] >= kv_pos[:, None, :]
         if window is not None:
-            mask &= qpos_blk[:, :, None] - kv_pos[:, None, :] < window
-        scores = torch.where(mask[:, None, None], scores, _NEG_INF)
-        probs = torch.softmax(scores, dim=-1).to(x.dtype)
-        return _grouped_out(probs, v, H)
+            near = qpos_blk[:, :, None] - kv_pos[:, None, :] < window
+            mask = near if mask is None else mask & near
+        if mask is not None:
+            scores = torch.where(mask[:, None, None], scores, _NEG_INF)
+        probs = torch.softmax(scores, dim=-1).to(q.dtype)
+        return _grouped_out(probs, vt, H)
 
     if S > _Q_CHUNK and S % _Q_CHUNK == 0:
-        out = torch.cat([block_attend(q[:, c:c + _Q_CHUNK],
-                                      positions[:, c:c + _Q_CHUNK])
-                         for c in range(0, S, _Q_CHUNK)], dim=1)
-    else:
-        out = block_attend(q, positions)
-    return out.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, -1)
+        return torch.cat([block_attend(q[:, c:c + _Q_CHUNK],
+                                       positions[:, c:c + _Q_CHUNK])
+                          for c in range(0, S, _Q_CHUNK)], dim=1)
+    return block_attend(q, positions)
+
+
+def heads_split(place) -> bool:
+    """Whether an attention's query heads are split over model."""
+    return place["wq"][1:2] == ("model",)
+
+
+def _kv_block(w: torch.Tensor, place: tuple, kv_repeat: int, dim: int,
+              mesh) -> torch.Tensor:
+    """A K or V projection (or bias) of every KV head (``kv_heads`` are
+    replicated), its data dim gathered, its heads (dim ``dim``) repeated
+    r× and cut to this rank's block of the KV·r."""
+    if split_dim(place, "model", mesh) is not None:
+        raise NotImplementedError(
+            f"KV projections placed over model ({place}): the rules "
+            "replicate kv_heads and repeat them instead")
+    w = gather_data(w, place, mesh)
+    if kv_repeat > 1:
+        w = torch.repeat_interleave(w, kv_repeat, dim=dim)
+    if w.shape[dim] % mesh.shape["model"]:
+        raise NotImplementedError(
+            f"{w.shape[dim]} KV heads (repeated {kv_repeat}×) do not split "
+            f"over {mesh.shape['model']} model ranks beside split query "
+            "heads")
+    return model_shard(w, dim, mesh)
+
+
+def attention_sharded(p, place, x: torch.Tensor, cfg: ModelConfig, *,
+                      positions: torch.Tensor, kv_repeat: int, mesh,
+                      seq_split: bool = False) -> torch.Tensor:
+    """:func:`attention` (causal self-attention) on a rank's shards: with
+    the query heads split over model each rank attends with its heads
+    over its block of the KV·r heads (the K and V projections of every
+    KV head repeated r× and cut, as ``kv_repeat_for`` makes them divide)
+    and the output projection's partial products are summed over the
+    model group; heads that the fallback replicated attend whole on
+    every rank. x: (B, S, D), or with ``seq_split`` the rank's block of
+    the sequence, gathered whole before the projections (the sum, or
+    the replicated heads' output, then cut back to the block);
+    positions: (B, S), the whole sequence's."""
+    if not heads_split(place):
+        if seq_split:
+            x = compat.gather_shards(x, mesh.groups_of("model"), 1,
+                                     partial=False)
+        whole = {k: gather_data(w, place[k], mesh) for k, w in p.items()}
+        y = attention(whole, x, cfg, positions=positions,
+                      kv_repeat=kv_repeat)
+        return model_shard(y, 1, mesh) if seq_split else y
+    x = parallel_input(x, mesh, seq_split)
+    B, S, _ = x.shape
+    q, _ = sharded_matmul(x, p["wq"], place["wq"], mesh)
+    k = _proj(x, _kv_block(p["wk"], place["wk"], kv_repeat, 1, mesh))
+    v = _proj(x, _kv_block(p["wv"], place["wv"], kv_repeat, 1, mesh))
+    if cfg.qkv_bias:
+        q = q + local_like(p["bq"], place["bq"], mesh, 0)
+        k = k + _kv_block(p["bk"], place["bk"], kv_repeat, 0, mesh)
+        v = v + _kv_block(p["bv"], place["bv"], kv_repeat, 0, mesh)
+    if q.shape[2] % k.shape[2]:
+        raise NotImplementedError(
+            f"this rank's {q.shape[2]} query heads do not group over its "
+            f"{k.shape[2]} KV heads")
+    out = _attend(q, k, v, cfg, positions, positions, True)
+    y, _ = sharded_matmul(out, p["wo"], place["wo"], mesh, nk=2,
+                          x_split=True, reduce=row_sum(mesh, seq_split))
+    return y
 
 
 class LayerKVCache(NamedTuple):

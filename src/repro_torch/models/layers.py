@@ -283,7 +283,7 @@ def lm_logits(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# The layers on a mesh of ranks (the sharded decode step)
+# The layers on a mesh of ranks (the sharded decode, forward and train steps)
 # ---------------------------------------------------------------------------
 #
 # Each rank holds the shard of every leaf that its placement gives it: a
@@ -295,10 +295,33 @@ def lm_logits(p, x: torch.Tensor, tie: bool) -> torch.Tensor:
 # products over the model group (an all-reduce, in float32); a dim that
 # the fallback replicated is contracted whole on every rank, no
 # all-reduce. An axis of size 1 splits nothing.
+#
+# Under autograd the collectives are compat's differentiable ones, and a
+# gradient follows one convention: a tensor replicated over the model
+# ranks holds its whole gradient on each of them, a tensor split over
+# them its own block's. The FSDP gather's backward sums the data ranks'
+# gradients and keeps the rank's block (a reduce-scatter); the model
+# sum's backward is the identity; a replicated tensor entering
+# column-parallel products goes through ``copy_to_parallel`` (the
+# partial gradients summed backward), or, with the residual split over
+# the sequence (``seq_split``: Megatron's sequence parallelism), through
+# the sequence all-gather, whose backward is a reduce-scatter; the
+# row-parallel sum then leaves as a reduce-scatter onto the rank's
+# sequence block, whose backward is an all-gather. A replicated weight
+# used on a rank's sequence block (a norm's scale, a bias added there)
+# goes through ``copy_to_parallel`` too; a replicated tensor cut to the
+# rank's block (``model_shard``) gathers its gradient back whole.
 
 
 def _axes(entry) -> tuple:
     return (entry,) if isinstance(entry, str) else tuple(entry or ())
+
+
+def split_axes(place: tuple, mesh) -> frozenset:
+    """The axes of ``mesh`` (of more than one rank) that split a leaf
+    placed as ``place``; empty for a leaf replicated on every rank."""
+    return frozenset(a for e in place for a in _axes(e)
+                     if mesh.shape[a] > 1)
 
 
 def shard_count(entry, mesh) -> int:
@@ -338,6 +361,19 @@ def local_shard(t: torch.Tensor, placement: tuple, mesh) -> torch.Tensor:
     return t if out is t else out.clone(memory_format=torch.contiguous_format)
 
 
+def gather_full(t: torch.Tensor, placement: tuple, mesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's shard under
+    ``placement`` (the inverse of :func:`local_shard`): each placed dim
+    all-gathered over its axes, the innermost axis first. Every rank of
+    the mesh calls it, in the same order."""
+    for dim, entry in enumerate(placement):
+        for a in reversed(_axes(entry)):
+            if mesh.shape[a] > 1:
+                parts = compat.all_gather_groups(t, mesh.groups_of(a))
+                t = torch.cat(parts.unbind(0), dim=dim)
+    return t
+
+
 def split_dim(place: tuple, axis: str, mesh) -> Optional[int]:
     """The dim ``place`` splits over ``axis`` when it has more than one
     rank, else None."""
@@ -348,36 +384,86 @@ def split_dim(place: tuple, axis: str, mesh) -> Optional[int]:
 
 def gather_data(w: torch.Tensor, place: tuple, mesh) -> torch.Tensor:
     """``w`` whole along the dim its placement splits over ``data``: the
-    shards all-gathered over the data group, in rank order."""
+    shards all-gathered over the data group, in rank order (under
+    autograd its gradient summed over the data ranks and cut back to
+    the rank's block)."""
     dim = split_dim(place, "data", mesh)
     if dim is None:
         return w
+    if w.requires_grad:
+        return compat.gather_shards(w, mesh.groups_of("data"), dim)
     parts = compat.all_gather_groups(w, mesh.groups_of("data"))
     return torch.cat(parts.unbind(0), dim=dim)
+
+
+def gather_data_tree(p, place, mesh):
+    """Each leaf of ``p`` gathered over data (:func:`gather_data`) → (the
+    leaves, their placements without the data axis): a leaf used twice
+    in a step (the tied embedding) gathered once, its gradient
+    reduce-scattered once."""
+    return ({k: gather_data(v, place[k], mesh) for k, v in p.items()},
+            {k: tuple(None if e == "data" else e for e in pl)
+             for k, pl in place.items()})
 
 
 def model_sum(y: torch.Tensor, mesh) -> torch.Tensor:
     """The partial products ``y`` summed over the model group, in
     float32, rounded once to y's dtype."""
+    if y.requires_grad:
+        return compat.sum_replicated(y, mesh.groups_of("model"))
     return compat.psum(y.float(), mesh.groups_of("model")).to(y.dtype)
 
 
 def model_shard(t: torch.Tensor, dim: int, mesh) -> torch.Tensor:
     """This rank's block of ``t`` along ``dim`` over the model ranks."""
+    if t.requires_grad:
+        return compat.take_block(t, mesh.groups_of("model"), dim)
     n = mesh.shape["model"]
     size = t.shape[dim] // n
     return t.narrow(dim, mesh.index("model") * size, size)
 
 
+def parallel_input(x: torch.Tensor, mesh,
+                   seq_split: bool = False) -> torch.Tensor:
+    """A layer's input to its column-parallel products: the sequence
+    blocks gathered whole (``seq_split``), or the replicated input as it
+    is, its partial gradients summed over model backward."""
+    if seq_split:
+        return compat.gather_shards(x, mesh.groups_of("model"), 1)
+    if x.requires_grad:
+        return compat.copy_to_parallel(x, mesh.groups_of("model"))
+    return x
+
+
+def row_sum(mesh, seq_split: bool = False) -> Callable:
+    """How a row-parallel product's partial sums leave a layer: summed
+    over model (:func:`model_sum`), or with ``seq_split`` summed and cut
+    to the rank's sequence block (a reduce-scatter over dim 1)."""
+    if seq_split:
+        return lambda y: compat.scatter_sum(y, mesh.groups_of("model"), 1)
+    return lambda y: model_sum(y, mesh)
+
+
+def replicated_on_block(w: torch.Tensor, mesh,
+                        seq_split: bool) -> torch.Tensor:
+    """A model-replicated weight used on the rank's sequence block: its
+    gradient summed over model backward."""
+    if seq_split and w.requires_grad:
+        return compat.copy_to_parallel(w, mesh.groups_of("model"))
+    return w
+
+
 def sharded_matmul(x: torch.Tensor, w: torch.Tensor, place: tuple, mesh, *,
-                   nk: int = 1, x_split: bool = False):
+                   nk: int = 1, x_split: bool = False,
+                   reduce: Optional[Callable] = None):
     """x (..., K₁, …, K_nk) · w (K₁, …, K_nk, N…) over w's first ``nk``
     dims, w a rank's shard placed as ``place``: its data dim gathered
     first. ``x_split``: x holds this rank's model block of K₁. Where x and
     w hold the same block of K₁ the partial products are summed over the
-    model group; where one of them is whole, it is cut to the other's
-    block first; where both are whole, no all-reduce. → (y (..., N…) in
-    x's dtype, the dim of N… split over model or None)."""
+    model group (``reduce``, default :func:`model_sum`); where one of
+    them is whole, it is cut to the other's block first; where both are
+    whole, no all-reduce. → (y (..., N…) in x's dtype, the dim of N…
+    split over model or None)."""
     w = gather_data(w, place, mesh)
     mdim = split_dim(place, "model", mesh)
     if mdim is not None and 0 < mdim < nk:
@@ -393,7 +479,7 @@ def sharded_matmul(x: torch.Tensor, w: torch.Tensor, place: tuple, mesh, *,
     y = (x.reshape(*lead, K) @ w.reshape(K, -1)).reshape(*lead,
                                                          *w.shape[nk:])
     if x_split or w_split:
-        y = model_sum(y, mesh)
+        y = (reduce or (lambda t: model_sum(t, mesh)))(y)
     return y, (mdim - nk if mdim is not None and mdim >= nk else None)
 
 
@@ -412,39 +498,71 @@ def local_like(t: torch.Tensor, place: tuple, mesh,
         f"a leaf placed {place} beside an activation split on dim {want}")
 
 
-def apply_norm_sharded(x, p, place, style: str, eps: float, mesh):
-    """:func:`apply_norm` with the scale (and bias) gathered over data."""
-    return apply_norm(x, {k: gather_data(v, place[k], mesh)
-                          for k, v in p.items()}, style, eps)
+def apply_norm_sharded(x, p, place, style: str, eps: float, mesh,
+                       seq_split: bool = False):
+    """:func:`apply_norm` with the scale (and bias) gathered over data;
+    on a sequence block (``seq_split``) their gradients summed over
+    model."""
+    return apply_norm(x, {k: replicated_on_block(
+        gather_data(v, place[k], mesh), mesh, seq_split)
+        for k, v in p.items()}, style, eps)
+
+
+def mlp_split(place) -> bool:
+    """Whether a MLP's hidden units are split over model."""
+    w = place["w_gate"] if "w_gate" in place else place["w_in"]
+    return len(w) > 1 and w[-1] == "model"
 
 
 def apply_mlp_sharded(x: torch.Tensor, p, place, style: str,
-                      mesh) -> torch.Tensor:
+                      mesh, seq_split: bool = False) -> torch.Tensor:
     """:func:`apply_mlp` on a rank's shards: the ffn dim as the leaves
     place it (over model: each rank its block of the hidden units, the
-    down product summed over the model group)."""
+    down product summed over the model group). ``seq_split``: x is the
+    rank's sequence block, gathered whole before the products, the sum
+    (or the whole MLP's output, where the hidden units are whole on
+    every rank) cut back to the block."""
+    if not mlp_split(place) and seq_split:
+        # hidden units whole on every rank: the MLP of the whole sequence,
+        # cut back to the rank's block
+        x = compat.gather_shards(x, mesh.groups_of("model"), 1,
+                                 partial=False)
+        return model_shard(apply_mlp_sharded(x, p, place, style, mesh), 1,
+                           mesh)
+    if mlp_split(place):
+        x = parallel_input(x, mesh, seq_split)
+    out = row_sum(mesh, seq_split)
     if style == "swiglu":
         g, gs = sharded_matmul(x, p["w_gate"], place["w_gate"], mesh)
         u, us = sharded_matmul(x, p["w_up"], place["w_up"], mesh)
         if gs != us:
             raise NotImplementedError("w_gate and w_up placed apart")
         y, _ = sharded_matmul(mlp_activation(g, style) * u, p["w_down"],
-                              place["w_down"], mesh, x_split=gs == 0)
+                              place["w_down"], mesh, x_split=gs == 0,
+                              reduce=out)
         return y
     h, hs = sharded_matmul(x, p["w_in"], place["w_in"], mesh)
     h = mlp_activation(h + local_like(p["b_in"], place["b_in"], mesh, hs),
                        style)
     y, _ = sharded_matmul(h, p["w_out"], place["w_out"], mesh,
-                          x_split=hs == 0)
-    return y + local_like(p["b_out"], place["b_out"], mesh, None)
+                          x_split=hs == 0, reduce=out)
+    return y + replicated_on_block(
+        local_like(p["b_out"], place["b_out"], mesh, None), mesh, seq_split)
 
 
-def embed_tokens_sharded(p, place, tokens: torch.Tensor,
-                         mesh) -> torch.Tensor:
+def vocab_split(place) -> bool:
+    """Whether the embedding's vocabulary is split over model."""
+    return place["embedding"][:1] == ("model",)
+
+
+def embed_tokens_sharded(p, place, tokens: torch.Tensor, mesh,
+                         partial: bool = False) -> torch.Tensor:
     """:func:`embed_tokens` on a rank's shard of the table: over a
     vocabulary split over model, each rank looks up the tokens in its
     block of rows (zeros for the others), and the rows are summed over
-    the model group (one rank holds each token: the sum is exact)."""
+    the model group (one rank holds each token: the sum is exact).
+    ``partial``: the rank's rows before that sum (the caller sums them,
+    e.g. by a reduce-scatter onto its sequence block)."""
     E = gather_data(p["embedding"], place["embedding"], mesh)
     vdim = split_dim(place["embedding"], "model", mesh)
     root = torch.tensor(math.sqrt(E.shape[-1]), dtype=E.dtype).item()
@@ -457,7 +575,17 @@ def embed_tokens_sharded(p, place, tokens: torch.Tensor,
     local = tokens - mesh.index("model") * rows
     inside = (local >= 0) & (local < rows)
     x = F.embedding(local.clamp(0, rows - 1), E) * root
-    return model_sum(torch.where(inside[..., None], x, 0), mesh)
+    x = torch.where(inside[..., None], x, 0)
+    return x if partial else model_sum(x, mesh)
+
+
+def _head_weight(p, place, tie: bool, mesh):
+    """The LM head as (w (D, V or the rank's V block), its placement)."""
+    if tie:
+        return (p["embedding"].transpose(0, 1),
+                tuple(reversed(place["embedding"]
+                               + (None,) * (2 - len(place["embedding"])))))
+    return p["lm_head"], place["lm_head"]
 
 
 def lm_logits_sharded(p, place, x: torch.Tensor, tie: bool,
@@ -466,15 +594,16 @@ def lm_logits_sharded(p, place, x: torch.Tensor, tie: bool,
     split over model gives each rank its block of the logits, gathered
     over the model group in rank order (the argmax then sees the whole
     vocabulary, ties to the first index)."""
-    if tie:
-        w = p["embedding"].transpose(0, 1)
-        wp = tuple(reversed(place["embedding"]
-                            + (None,) * (2 - len(place["embedding"]))))
-    else:
-        w, wp = p["lm_head"], place["lm_head"]
+    w, wp = _head_weight(p, place, tie, mesh)
+    split = split_dim(wp, "model", mesh) == 1
+    if split:
+        x = parallel_input(x, mesh)
     logits, vs = sharded_matmul(x, w, wp, mesh)
     if vs is None:
         return logits
+    if logits.requires_grad:
+        return compat.gather_shards(logits, mesh.groups_of("model"),
+                                    logits.dim() - 1, partial=False)
     parts = compat.all_gather_groups(logits, mesh.groups_of("model"))
     return torch.cat(parts.unbind(0), dim=-1)
 
@@ -519,6 +648,70 @@ def chunked_lm_loss(embed_params, h: torch.Tensor, labels: torch.Tensor,
         tot = tot + checkpoint(_chunk_nll, embed_params, hf[sl], lf[sl],
                                mf[sl], tie, use_reentrant=False)
         cnt = cnt + mf[sl].sum()
+    return tot / cnt.clamp(min=1.0)
+
+
+def _chunk_nll_sharded(w: torch.Tensor, hc: torch.Tensor, lc: torch.Tensor,
+                       mc: torch.Tensor, mesh, split: bool) -> torch.Tensor:
+    """:func:`_chunk_nll` with the head ``w`` (D, V or the rank's block
+    of V): over a split vocabulary each rank's block of the logits, the
+    rows' max and exp-sum over the model group, and the gold logit from
+    the rank that holds it (only (rows,) floats cross the wire)."""
+    logits = (hc @ w).float()
+    if not split:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, lc[:, None].long())[:, 0]
+        return ((lse - gold) * mc).sum()
+    g = mesh.groups_of("model")
+    top = compat.pmax(logits.detach().amax(-1), g)
+    lse = torch.log(compat.sum_replicated(
+        torch.exp(logits - top[:, None]).sum(-1), g)) + top
+    V = logits.shape[-1]
+    local = lc.long() - mesh.index("model") * V
+    inside = (local >= 0) & (local < V)
+    gold = logits.gather(-1, local.clamp(0, V - 1)[:, None])[:, 0]
+    gold = compat.sum_replicated(torch.where(inside, gold, 0.0), g)
+    return ((lse - gold) * mc).sum()
+
+
+def chunked_lm_loss_sharded(embed_params, place, h: torch.Tensor,
+                            labels: torch.Tensor, tie: bool, mesh,
+                            mask: Optional[torch.Tensor] = None,
+                            chunk: int = 8192,
+                            batch_axes: Sequence[str] = ("pod", "data")
+                            ) -> torch.Tensor:
+    """:func:`chunked_lm_loss` on a rank: h (B, S, D) its batch rows,
+    whole along the sequence, the head its shard (a vocabulary split
+    over model: :func:`_chunk_nll_sharded`; ``h`` then holds partial
+    gradients, as :func:`parallel_input` gives it), labels and mask its
+    rows. The mean is global: the rank's masked NLL sum is summed over
+    the batch axes (its gradient reaching each rank as it is) and
+    divided by the mask's sum over them (no gradient through the
+    count); the FSDP gathers' reduce-scatters then sum the data ranks'
+    gradients."""
+    w, wp = _head_weight(embed_params, place, tie, mesh)
+    w = gather_data(w, wp, mesh)
+    split = split_dim(wp, "model", mesh) == 1
+    B, S, D = h.shape
+    T = B * S
+    pad = (-T) % chunk if T > chunk else 0
+    hf = F.pad(h.reshape(T, D), (0, 0, 0, pad))
+    lf = F.pad(labels.reshape(T), (0, pad))
+    mf = F.pad(torch.ones((T,), dtype=torch.float32, device=h.device)
+               if mask is None else mask.reshape(T).float(), (0, pad))
+    if T <= chunk:
+        tot = _chunk_nll_sharded(w, hf, lf, mf, mesh, split)
+    else:
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, T + pad, chunk):
+            sl = slice(c0, c0 + chunk)
+            tot = tot + checkpoint(_chunk_nll_sharded, w, hf[sl], lf[sl],
+                                   mf[sl], mesh, split, use_reentrant=False)
+    cnt = mf.sum()
+    for a in batch_axes:
+        if mesh.shape.get(a, 1) > 1:
+            tot = compat.sum_replicated(tot, mesh.groups_of(a))
+            cnt = compat.psum(cnt, mesh.groups_of(a))
     return tot / cnt.clamp(min=1.0)
 
 

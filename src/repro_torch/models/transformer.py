@@ -28,19 +28,25 @@ this API.
 
 On a mesh of ranks (``build_model(cfg, kv_repeat, mesh=, place=)``, a
 ``compat.Mesh`` of more than one rank and the placements of the
-parameters, which ``launch.sharding.param_pspecs`` reckons and
-``launch.steps.build_serve_step`` hands over) the dense and VLM decoders decode sharded, as the reference's
-``build_serve_step(cfg, mesh)`` under SPMD: each rank holds the shard of
-every weight that its placement gives it and its slice of the cache
-(``init_decode_state(..., place=)``, the placements that
-``launch.sharding.decode_state_pspecs`` gives: the batch over data, the
-KV·r heads over model); ``init`` draws the same weights as one process
-and keeps the rank's shards, ``init_decode_state`` takes the global batch
-and makes the rank's slice, ``decode_step`` takes the rank's tokens and
-gives its rows' logits over the whole vocabulary. The collectives follow
-the placements (``models/layers.py``, the mesh section). The forward,
-the loss and the other families under such a mesh are not ported
-(ROADMAP Queue 1 item 13g-c) and raise.
+parameters, which ``launch.sharding.param_pspecs`` reckons and the
+``launch.steps`` builders hand over) the dense and VLM decoders run
+sharded, as the reference's steps under SPMD: each rank holds the shard
+of every weight that its placement gives it, its rows of the batch and
+its slice of the cache (``init_decode_state(..., place=)``, the
+placements that ``launch.sharding.decode_state_pspecs`` gives: the batch
+over data, the KV·r heads over model); ``init`` draws the same weights
+as one process and keeps the rank's shards. ``decode_step`` takes the
+rank's tokens and gives its rows' logits over the whole vocabulary;
+``hidden_states``, ``forward`` and ``loss`` take its rows (``loss`` is
+the global batch's mean, differentiable: the train step's gradients are
+the rank's shards of the global ones), ``last_hidden`` the prefill's
+last position. Between layers the residual is split over model along
+the sequence when the sequence divides the model ranks
+(:meth:`TransformerModel.seq_parallel`, the reference's
+``constrain_seq_parallel``), else whole on every model rank. The
+collectives follow the placements (``models/layers.py``, the mesh
+section). The MoE family and the other families under such a mesh are
+not ported (ROADMAP Queue 1 item 13g-c) and raise.
 """
 from __future__ import annotations
 
@@ -49,17 +55,21 @@ from typing import Any, Dict, List, NamedTuple, Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import compat
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import moe as moe_lib
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (PSpec, apply_mlp, apply_mlp_sharded,
                                        apply_norm, apply_norm_sharded,
-                                       chunked_lm_loss, embed_template,
-                                       embed_tokens, embed_tokens_sharded,
-                                       lm_logits, lm_logits_sharded,
-                                       local_shape, mlp_template,
-                                       norm_template, template_init,
-                                       tree_map)
+                                       chunked_lm_loss,
+                                       chunked_lm_loss_sharded,
+                                       embed_template, embed_tokens,
+                                       embed_tokens_sharded,
+                                       gather_data_tree, lm_logits,
+                                       lm_logits_sharded, local_shape,
+                                       mlp_template, model_shard,
+                                       norm_template, parallel_input,
+                                       template_init, tree_map, vocab_split)
 
 MESH_ITEM = "ROADMAP Queue 1 item 13g-c"
 
@@ -190,15 +200,21 @@ class TransformerModel(TemplateModel):
         """tokens (B, S_text) → (hidden (B, S_total, D), aux ()). S_total
         = P + S_text with ``prefix_embeds`` (B, P, D) in front; aux () f32
         on the device is the layers' load-balance losses summed (zero
-        without experts)."""
-        no_mesh_yet("the forward pass", self.mesh)
+        without experts). On a mesh, B is the rank's batch rows and the
+        hidden states are whole along the sequence."""
+        if self.mesh is not None:
+            h, sp = self._hidden_sharded(params, tokens, prefix_embeds)
+            if sp:
+                h = compat.gather_shards(h, self.mesh.groups_of("model"), 1,
+                                         partial=False)
+            return h, self._no_aux(h)
         cfg = self.cfg
         h = embed_tokens(params["embed"], tokens)
         if prefix_embeds is not None:
             h = torch.cat([prefix_embeds.to(h.dtype), h], dim=1)
         B, S, _ = h.shape
         positions = torch.arange(S, device=h.device)[None].expand(B, S)
-        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+        aux = self._no_aux(h)
         for lp in unstack_layers(params["layers"], cfg.num_layers):
             h, a = self._run(self._layer_fwd, lp, h, positions)
             if a is not None:
@@ -206,16 +222,29 @@ class TransformerModel(TemplateModel):
         h = apply_norm(h, params["final_norm"], cfg.norm_style, cfg.norm_eps)
         return h, aux
 
+    @staticmethod
+    def _no_aux(h: torch.Tensor) -> torch.Tensor:
+        return torch.zeros((), dtype=torch.float32, device=h.device)
+
     def forward(self, params, tokens: torch.Tensor,
                 prefix_embeds: Optional[torch.Tensor] = None):
-        """→ (logits (B, S_total, V) in the activation dtype, aux)."""
+        """→ (logits (B, S_total, V) in the activation dtype, aux); on a
+        mesh the rank's batch rows over the whole vocabulary."""
         h, aux = self.hidden_states(params, tokens, prefix_embeds)
+        if self.mesh is not None:
+            return lm_logits_sharded(params["embed"], self.place["embed"], h,
+                                     self.cfg.tie_embeddings, self.mesh), aux
         return lm_logits(params["embed"], h, self.cfg.tie_embeddings), aux
 
     def loss(self, params, batch: Dict[str, torch.Tensor]):
         """batch: tokens, labels (B, S_text), optional prefix_embeds and
         loss_mask → (ce + aux, {"ce", "aux"}); the CE covers the text
-        positions only."""
+        positions only. On a mesh the batch is the rank's rows and the
+        CE the global batch's mean (``layers.chunked_lm_loss_sharded``:
+        the vocabulary-parallel CE, the NLL and the count summed over the
+        batch axes)."""
+        if self.mesh is not None:
+            return self._loss_sharded(params, batch)
         h, aux = self.hidden_states(params, batch["tokens"],
                                     batch.get("prefix_embeds"))
         P = h.shape[1] - batch["labels"].shape[1]
@@ -223,6 +252,100 @@ class TransformerModel(TemplateModel):
             h = h[:, P:, :]
         ce = chunked_lm_loss(params["embed"], h, batch["labels"],
                              self.cfg.tie_embeddings, batch.get("loss_mask"))
+        return ce + aux, {"ce": ce, "aux": aux}
+
+    def last_hidden(self, params, tokens: torch.Tensor,
+                    prefix_embeds: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+        """The last position's hidden state (B, 1, D), as the prefill step
+        takes it; on a mesh the rank's rows (with the sequence split, the
+        last rank's block's last row, gathered)."""
+        if self.mesh is None:
+            return self.hidden_states(params, tokens, prefix_embeds)[0][
+                :, -1:, :]
+        h, sp = self._hidden_sharded(params, tokens, prefix_embeds)
+        last = h[:, -1:, :].contiguous()
+        if sp:
+            last = compat.gather_shards(last, self.mesh.groups_of("model"),
+                                        1, partial=False)[:, -1:, :]
+        return last
+
+    # -- on a mesh ---------------------------------------------------------
+    def seq_parallel(self, seq_len: int) -> bool:
+        """Whether the residual stream is split over model along the
+        sequence between layers (the reference's ``constrain_seq_parallel``
+        as Megatron's sequence parallelism): when ``seq_len`` divides the
+        model ranks; else the PR-30 layout (the residual whole on every
+        model rank, all-reduces after the row-parallel products), as the
+        reference skips the constraint."""
+        m = self.mesh.shape.get("model", 1)
+        return m > 1 and seq_len % m == 0
+
+    def _hidden_sharded(self, params, tokens: torch.Tensor,
+                        prefix_embeds: Optional[torch.Tensor], embed=None):
+        """The rank's final-normed hidden states and whether they are
+        its block of the sequence (:meth:`seq_parallel`). ``embed``:
+        (the embedding leaves, their placements) to use in place of
+        ``params["embed"]`` (gathered already)."""
+        cfg, mesh, place = self.cfg, self.mesh, self.place
+        mesh.index("model")               # a shape-only mesh runs nothing
+        P = 0 if prefix_embeds is None else prefix_embeds.shape[1]
+        B, S = tokens.shape[0], P + tokens.shape[1]
+        sp = self.seq_parallel(S)
+        partial = sp and vocab_split(place["embed"])
+        ep, eplace = embed or (params["embed"], place["embed"])
+        h = embed_tokens_sharded(ep, eplace, tokens, mesh, partial=partial)
+        if prefix_embeds is not None:
+            pre = prefix_embeds.to(h.dtype)
+            if partial:                   # summed once over the model ranks
+                pre = pre * (mesh.index("model") == 0)
+            h = torch.cat([pre, h], dim=1)
+        if partial:
+            h = compat.scatter_sum(h, mesh.groups_of("model"), 1)
+        elif sp:
+            h = model_shard(h, 1, mesh)
+        positions = torch.arange(S, device=h.device)[None].expand(B, S)
+        for lp in unstack_layers(params["layers"], cfg.num_layers):
+            h = self._run(self._layer_fwd_sharded, lp, h, positions, sp)
+        h = apply_norm_sharded(h, params["final_norm"], place["final_norm"],
+                               cfg.norm_style, cfg.norm_eps, mesh, sp)
+        return h, sp
+
+    def _layer_fwd_sharded(self, lp, h: torch.Tensor, positions, sp: bool):
+        """One layer of the forward on a rank's shards: ``h`` the rank's
+        rows (with ``sp`` its block of the sequence)."""
+        cfg, mesh = self.cfg, self.mesh
+        lplace = _inner(self.place["layers"])
+        a_in = apply_norm_sharded(h, lp["attn_norm"], lplace["attn_norm"],
+                                  cfg.norm_style, cfg.norm_eps, mesh, sp)
+        h = h + attn_lib.attention_sharded(
+            lp["attn"], lplace["attn"], a_in, cfg, positions=positions,
+            kv_repeat=self.kv_repeat, mesh=mesh, seq_split=sp)
+        m_in = apply_norm_sharded(h, lp["mlp_norm"], lplace["mlp_norm"],
+                                  cfg.norm_style, cfg.norm_eps, mesh, sp)
+        return h + apply_mlp_sharded(m_in, lp["mlp"], lplace["mlp"],
+                                     cfg.mlp_style, mesh, sp)
+
+    def _loss_sharded(self, params, batch):
+        mesh, place = self.mesh, self.place
+        embed = (params["embed"], place["embed"])
+        if self.cfg.tie_embeddings:       # the lookup and the head: one gather
+            embed = gather_data_tree(*embed, mesh)
+        h, sp = self._hidden_sharded(params, batch["tokens"],
+                                     batch.get("prefix_embeds"), embed)
+        vs = vocab_split(place["embed"])
+        if sp:
+            h = compat.gather_shards(h, mesh.groups_of("model"), 1,
+                                     partial=vs)
+        elif vs:
+            h = parallel_input(h, mesh)
+        P = h.shape[1] - batch["labels"].shape[1]
+        if P > 0:
+            h = h[:, P:, :]
+        ce = chunked_lm_loss_sharded(*embed, h, batch["labels"],
+                                     self.cfg.tie_embeddings, mesh,
+                                     batch.get("loss_mask"))
+        aux = self._no_aux(h)
         return ce + aux, {"ce": ce, "aux": aux}
 
     # -- decode -----------------------------------------------------------

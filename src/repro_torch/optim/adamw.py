@@ -64,30 +64,58 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(s < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(l.float().square().sum()
-                          for l in tree_leaves(tree)))
+def global_norm(tree, place=None, mesh=None) -> torch.Tensor:
+    """√(Σ leaf²) over every leaf. With ``place`` (the leaves'
+    placements) and a rank ``mesh`` the leaves are this rank's shards:
+    each leaf's squares are summed over the ranks of the axes it is split
+    over (one all-reduce an axis, of the (axis sets,) partial sums), a
+    replicated leaf counted once; every rank gets the same norm."""
+    leaves = tree_leaves(tree)
+    if place is None or mesh is None or mesh.size == 1:
+        return torch.sqrt(sum(l.float().square().sum() for l in leaves))
+    from repro_torch import compat
+    from repro_torch.models.layers import split_axes
+    live = [a for a in mesh.axis_names if mesh.shape[a] > 1]
+    sets: dict = {}
+    for l, pl in zip(leaves, tree_leaves(place)):
+        key = split_axes(pl, mesh)
+        sq = l.float().square().sum()
+        sets[key] = sets[key] + sq if key in sets else sq
+    keys = list(sets)
+    v = torch.stack([sets[k] for k in keys])
+    for a in live:
+        mask = [a in k for k in keys]
+        if any(mask):
+            on = torch.tensor(mask, device=v.device)
+            v = torch.where(on, compat.psum(torch.where(on, v, 0.0),
+                                            mesh.groups_of(a)), v)
+    return torch.sqrt(v.sum())
 
 
 def _clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
     return (max_norm / norm.clamp(min=1e-9)).clamp(max=1.0)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, place=None, mesh=None):
     """→ (grads scaled to a global norm ≤ max_norm, the norm before). The
-    scale is cast to each grad's dtype first, as the reference's."""
-    norm = global_norm(grads)
+    scale is cast to each grad's dtype first, as the reference's. With
+    ``place`` and a rank ``mesh``, the norm is over the shards
+    (:func:`global_norm`)."""
+    norm = global_norm(grads, place, mesh)
     scale = _clip_scale(norm, max_norm)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state: OptState,
-                  cfg: OptConfig) -> Tuple[Any, OptState, dict]:
+def apply_updates(params, grads, state: OptState, cfg: OptConfig,
+                  place=None, mesh=None) -> Tuple[Any, OptState, dict]:
     """One AdamW step → (params, state, {"lr", "grad_norm"}). The params
     and the moments are written in place (the returned trees hold the
-    same tensors); ``grads`` are left as they are."""
-    gnorm = global_norm(grads)
+    same tensors); ``grads`` are left as they are. With ``place`` and a
+    rank ``mesh`` every tree holds this rank's shards: the clip's norm is
+    the global one (:func:`global_norm`), the update elementwise on the
+    shards, the step counter replicated."""
+    gnorm = global_norm(grads, place, mesh)
     scale = _clip_scale(gnorm, cfg.clip_norm) \
         if cfg.clip_norm is not None else None
     step = state.step + 1

@@ -144,7 +144,10 @@ for key, argv in (("decode", ["--arch", "qwen2-1.5b", "--shape",
                   ("skip", ["--arch", "llama3-8b", "--shape", "long_500k"]),
                   ("multipod", ["--arch", "tinyllama-1.1b", "--shape",
                                 "decode_32k", "--multi-pod"]),
-                  ("train", ["--arch", "llama3-8b", "--shape", "train_4k"])):
+                  ("train", ["--arch", "mixtral-8x22b", "--shape",
+                             "train_4k"]),
+                  ("train_ok", ["--arch", "tinyllama-1.1b", "--shape",
+                                "train_4k"])):
     d = os.path.join(tmp, key)
     rc = dryrun.main(argv + ["--device", "cpu", "--out", d])
     (name,) = os.listdir(d)
@@ -292,10 +295,31 @@ def test_dryrun_multipod_mesh(port_child):
 
 
 def test_open_entries_record_the_item_that_names_them(port_child):
+    """A MoE train step under the mesh is still open (13g-c)."""
     got = port_child["train"]
     assert got["rc"] == 1
     assert got["record"]["status"] == "error"
     assert "13g-c" in got["record"]["error"]
+
+
+def test_dense_train_entry_is_ok(port_child):
+    """tinyllama-1.1b's train_4k on 16 × 16 runs shape-only: rank 0's
+    sharded train step (16 of the 256 sequences, 2 of 32 heads, the
+    residual split over the sequence) fits the card, its collectives are
+    the sharded step's kinds (the FSDP gathers and their reduce-scatters,
+    the sequence gathers and reduce-scatters, the CE's all-reduces), and
+    the layer probe (forward and backward) recorded its own."""
+    got = port_child["train_ok"]
+    rec = got["record"]
+    assert got["rc"] == 0, rec.get("error")
+    assert rec["status"] == "ok"
+    assert sorted(rec["collectives"]) == ["all-gather", "all-reduce",
+                                          "reduce-scatter"]
+    assert 0 < rec["peak_bytes"] < dryrun.CARD_BYTES
+    assert rec["argument_size_in_bytes"] < rec["peak_bytes"]
+    probe = rec["probes"]["layer"]
+    assert probe["extra_trips"] == 21
+    assert {"all-gather", "reduce-scatter"} <= set(probe["collectives"])
 
 
 # ---------------------------------------------------------------------------

@@ -231,8 +231,10 @@ def test_train_step_trajectory_matches_reference(arch):
 def test_step_bundles_and_abstract_inputs():
     """The bundles' abstract inputs mirror the reference's (shapes and
     dtypes, meta tensors; the decode state too, for every family),
-    build_step dispatches on the shape's kind, and a mesh or rules raise
-    naming 13g."""
+    build_step dispatches on the shape's kind, and a mesh of more than
+    one rank raises naming 13g for the families whose steps stay open
+    there (a MoE train step, an rwkv6 prefill step); rules without a mesh
+    raise."""
     for arch in ("qwen2-1.5b", "llava-next-34b", "rwkv6-7b", "zamba2-1.2b",
                  "whisper-base"):
         cfg, jcfg = _cfgs(arch)
@@ -260,9 +262,15 @@ def test_step_bundles_and_abstract_inputs():
                      for a in jax.tree.leaves(jb.args[1])], arch
         assert steps.applicability(cfg, steps.INPUT_SHAPES["long_500k"]) \
             == jsteps.applicability(jcfg, jsteps.INPUT_SHAPES["long_500k"])
+    from repro_torch.launch.mesh import Mesh
+    grid = Mesh(("data", "model"), (1, 2))            # shape-only, 2 ranks
     with pytest.raises(NotImplementedError, match="13g"):
-        steps.build_train_step(cfg, object(), steps.INPUT_SHAPES["train_4k"])
+        steps.build_train_step(_cfgs("mixtral-8x22b")[0], grid,
+                               steps.INPUT_SHAPES["train_4k"])
     with pytest.raises(NotImplementedError, match="13g"):
+        steps.build_prefill_step(_cfgs("rwkv6-7b")[0], grid,
+                                 steps.INPUT_SHAPES["prefill_32k"])
+    with pytest.raises(ValueError, match="mesh"):
         steps.build_prefill_step(cfg, None, steps.INPUT_SHAPES["train_4k"],
                                  rules={})
 
@@ -330,7 +338,8 @@ def test_train_cli_lm_mode_saves_the_reference_keys(tmp_path, capsys):
     """``--smoke --steps 2 --batch 2 --seq 32 --device cpu --ckpt``: two
     steps, the reference's lines, and a checkpoint whose keys are those
     the reference's CLI writes ({"params": params} of the smoke model);
-    --data-par 2 raises naming 13g."""
+    --data-par 2 on a MoE arch raises naming 13g (the dense and VLM
+    archs train on ranks: tests/test_torch_tp_train.py)."""
     path = str(tmp_path / "lm.npz")
     losses = train.main(["--arch", "tinyllama-1.1b", "--smoke", "--steps",
                          "2", "--batch", "2", "--seq", "32", "--device",
@@ -345,7 +354,7 @@ def test_train_cli_lm_mode_saves_the_reference_keys(tmp_path, capsys):
     with np.load(path) as f:
         assert sorted(f.files) == sorted(want)
     with pytest.raises(NotImplementedError, match="13g"):
-        train.main(["--arch", "tinyllama-1.1b", "--smoke", "--data-par",
+        train.main(["--arch", "mixtral-8x22b", "--smoke", "--data-par",
                     "2", "--device", "cpu"])
 
 
